@@ -7,14 +7,26 @@ Phases; any failure exits non-zero and prints no result line:
   1. device and build: versions, the card's name and power limit, the
      CUDA kernels built from ecrad_tpu_torch/csrc for sm_90a (the
      compiler's register/shared-memory/spill report is printed);
-  2. every kernel of the main path (B1 taumol_lw, B2 taumol_sw, B3
-     sw_adding and lw_noscat) against its plain PyTorch version on the
-     card, at the shapes the main path gives it;
-  3. the main path: setup_radiation + radiation on 2048 x 137 columns of
-     ecrad_tpu_torch.inputs (seed 0), with launch counts, physical checks
-     and the first 32 columns against tests/goldens/torch_port_cloudless.npz;
+  2. every kernel of the paths (B1 taumol_lw, B2 taumol_sw, B3 sw_adding
+     and lw_noscat, B3' lw_adding, B4 mcica_sw_optics and
+     mcica_lw_optics) against its plain PyTorch version on the card, at
+     the shapes the paths give it;
+  3. the paths, each run once with the launch counts set to 0 just
+     before it and read just after, through setup_radiation + radiation:
+     a. Cloudless on 2048 x 137 columns of ecrad_tpu_torch.inputs (seed
+        0): physical checks, the first 32 columns against
+        tests/goldens/torch_port_cloudless.npz;
+     b. McICA (mcica_slice_config: Exp-Exp, LW cloud scattering) on the
+        same columns with make_clouds' clouds and the SYNTHETIC LUTs of
+        write_synthetic_luts (seed 0, written into the git-ignored
+        ecrad_tpu_torch/_build/): the first 32 columns' subcolumn masks,
+        cloud covers and fluxes against tests/goldens/torch_port_mcica.npz
+        (a parity check on synthetic tables, not an ecRad LUT result);
+     c. McICA on 256 columns without LW cloud or aerosol scattering and
+        with Exp-Ran overlap, the path of B4's LW kernel;
   4. times (information only): each kernel and its plain version with
-     CUDA events, and the slice's columns/s over 10 back-to-back calls.
+     CUDA events, and each 2048-column path's columns/s over 10
+     back-to-back calls.
 The line before last is the card's name and power limit, the one before
 that a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. There is no CPU fallback: without a GPU
@@ -34,14 +46,33 @@ sys.path.insert(0, REPO)
 
 NCOL, NLEV, SEED = 2048, 137, 0
 GOLDEN = os.path.join(REPO, "tests", "goldens", "torch_port_cloudless.npz")
+GOLDEN_MCICA = os.path.join(REPO, "tests", "goldens", "torch_port_mcica.npz")
+LUT_DIR = os.path.join(REPO, "ecrad_tpu_torch", "_build", "synthetic_luts")
 # golden bounds (W/m2): the clear-sky float32-vs-float64 contract of
-# tests/test_f64_validation.py
+# tests/test_f64_validation.py, and the total-sky one of the
+# deterministic solvers (lw 0.02, sw 0.30) for McICA's total sky on the
+# columns whose subcolumns match the golden's (float32 only: float64
+# draws other random numbers)
 BOUNDS = {"lw_up": 0.01, "lw_dn": 0.01, "sw_up": 0.2, "sw_dn": 0.2,
           "sw_dn_direct": 0.02}
+TOTAL_BOUNDS = {"lw_up": 0.02, "lw_dn": 0.02, "sw_up": 0.3, "sw_dn": 0.3,
+                "sw_dn_direct": 0.3}
+MAX_MASK_FLIPS, COVER_ATOL = 2, 1e-5
 # kernel vs plain tolerances: the JAX package's own bounds for the fused
-# taumol (tests/test_taumol_fused.py) and the adding sweeps
-# (tests/test_adding_fused.py)
+# taumol (tests/test_taumol_fused.py), the adding sweeps
+# (tests/test_adding_fused.py) and the McICA optics
+# (tests/test_mcica_optics.py: SW 2e-3, LW 1e-4 of the range)
 TAU_REL, PF_ATOL, SWEEP_REL = 1e-5, 1e-6, 2e-6
+OPTICS_REL = {"mcica_sw_optics": 2e-3, "mcica_lw_optics": 1e-4}
+# the kernels each path must launch
+PATH_KERNELS = {
+    "cloudless": ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat"),
+    "mcica": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
+              "mcica_sw_optics"),
+    "mcica_noscat": ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat",
+                     "mcica_sw_optics", "mcica_lw_optics"),
+}
+NCOL_NOSCAT = 256
 
 
 def log(msg=""):
@@ -74,6 +105,59 @@ def rel_to_max(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
+def reset_counts(counters):
+    for m in counters[:2]:
+        m.launches = 0
+    for d in counters[2:]:
+        for k in d:
+            d[k] = 0
+
+
+def read_counts(counters):
+    return {"taumol_lw": counters[0].launches,
+            "taumol_sw": counters[1].launches, **counters[2],
+            **counters[3]}
+
+
+def check_fluxes(f, cols, ncol):
+    """Finite, right shapes, and physical: TOA downwelling SW = S0 mu0,
+    no SW at night, sw_dn_direct never grows downwards."""
+    for k, v in f.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"{k} has non-finite values")
+        if v.shape[0] != ncol:
+            raise AssertionError(f"{k} has shape {v.shape}")
+    if f["lw_up"].shape != (ncol, NLEV + 1):
+        raise AssertionError(f"lw_up shape {f['lw_up'].shape}")
+    mu0 = cols["cos_sza"]
+    toa_err = np.abs(f["sw_dn"][:, 0] - cols["solar_irradiance"]
+                     * np.maximum(mu0, 0.0)).max()
+    night = mu0 <= 0.0
+    night_max = max(np.abs(f[k][night]).max() for k in ("sw_up", "sw_dn",
+                                                          "sw_dn_direct"))
+    rise = np.diff(f["sw_dn_direct"][~night], axis=1).max()
+    log(f"physical: TOA sw_dn - S0 cos_sza max abs {toa_err:.3e} W/m2; "
+        f"{night.sum()} night columns, max |SW| there {night_max}; max "
+        f"downward step of sw_dn_direct {rise:.3e} W/m2")
+    if not (toa_err <= 1e-5 * cols["solar_irradiance"]
+            and night_max == 0.0 and rise <= 1e-3):
+        raise AssertionError("fluxes are not physical")
+
+
+def check_golden(f, golden, fields, bounds, rows=slice(None), f64=True,
+                 what=""):
+    for k in fields:
+        bound = bounds[k.replace("_clear", "")]
+        e32 = float(np.abs(f[k][:32][rows] - golden[k][rows]).max())
+        e64 = (float(np.abs(f[k][:32][rows] - golden[k + "_f64"][rows])
+                     .max()) if f64 else None)
+        log(f"golden{what} {k}: vs JAX float32 {e32:.3e}"
+            + (f", vs JAX float64 {e64:.3e}" if f64 else "")
+            + f" W/m2 (bound {bound}, {e32 / bound:.1%} used)")
+        if not (e32 <= bound and (e64 is None or e64 <= bound)):
+            raise AssertionError(f"{k} outside its golden bound")
+
+
 def main():
     if not torch.cuda.is_available():
         log("no CUDA device: this script runs the port on a GPU only")
@@ -82,15 +166,20 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
-    from ecrad_tpu_torch.config import cloudless_slice_config
+    from ecrad_tpu_torch.config import (Overlap, cloudless_slice_config,
+                                        mcica_slice_config)
     from ecrad_tpu_torch.convert import columns_to_inputs
-    from ecrad_tpu_torch.inputs import make_columns
-    from ecrad_tpu_torch.interface import radiation, setup_radiation
-    from ecrad_tpu_torch.ops import _cuda, adding_fused
+    from ecrad_tpu_torch.inputs import (make_clouds, make_columns,
+                                        slice_columns, write_synthetic_luts)
+    from ecrad_tpu_torch.interface import (_cloud_stage, get_albedos,
+                                           radiation, setup_radiation)
+    from ecrad_tpu_torch.ops import _cuda, adding_fused, mcica_optics
     from ecrad_tpu_torch.optics.rrtmg import taumol_lw, taumol_sw
+    from ecrad_tpu_torch.optics.rrtmg.gas_optics import gas_optics
     from ecrad_tpu_torch.optics.rrtmg.setcoef import prepare_gases, setcoef
     from ecrad_tpu_torch.solvers import adding, cloudless
     from ecrad_tpu_torch.solvers import two_stream as ts
+    from ecrad_tpu_torch.solvers.cloud_generator import cloud_generator
 
     dev = torch.device("cuda", 0)
     gpu = card()
@@ -112,8 +201,12 @@ def main():
     setup = setup_radiation(cloudless_slice_config(), device=dev)
     cols = make_columns(NCOL, NLEV, SEED)
     sl, th, gas = columns_to_inputs(cols, device=dev)
+    luts = write_synthetic_luts(LUT_DIR, SEED)
+    setup_m = setup_radiation(mcica_slice_config(**luts), device=dev)
+    cols_m = make_clouds(cols, SEED)
+    inputs_m = columns_to_inputs(cols_m, device=dev)
 
-    # ---- 2. kernels against their plain versions, main-path shapes ----
+    # ---- 2. kernels against their plain versions, the paths' shapes ----
     t = setup.tables
     phl, thl = th.pressure_hl, th.temperature_hl
     gc = prepare_gases(phl, 0.5 * (phl[:, :-1] + phl[:, 1:]),
@@ -150,9 +243,8 @@ def main():
                  taumol_sw.taumol_sw_plain, fc_sw, ic_sw, setup.gas.sw,
                  "taur")
 
-    # the sweeps' operands as the main path makes them
-    from ecrad_tpu_torch.interface import get_albedos
-    from ecrad_tpu_torch.optics.rrtmg.gas_optics import gas_optics
+    # the operands as the paths make them: gas optics of the columns,
+    # and for McICA the cloud stage and the cloud generator
     sw_d, sw_dir, lw_alb = get_albedos(setup, sl)
     go = gas_optics(phl, thl, gas.mixing_ratio, sl.skin_temperature,
                     sl.cos_sza, sl.solar_irradiance, setup.spec, setup.gas,
@@ -167,68 +259,123 @@ def main():
     sw_args = ts.sw_reftrans(mu0[None], od_g, ssa_g, g1, g2, g3) + (
         go.incoming_sw.T.contiguous(), sw_d.T.contiguous(),
         sw_dir.T.contiguous(), mu0.contiguous())
-    for name, kern, plain, args in (
+
+    cfg_m = setup_m.config
+    cast = lambda x: None if x is None else x.to(dev, torch.float32)
+    cloud_m, props = _cloud_stage(setup_m, th, inputs_m[3], cast)
+
+    def od_scaling(ng, offset):
+        return cloud_generator(
+            ng, inputs_m[0].iseed + offset, cfg_m.i_overlap_scheme,
+            cfg_m.cloud_fraction_threshold, cloud_m.fraction,
+            cloud_m.overlap_param, cfg_m.cloud_inhom_decorr_scaling,
+            cloud_m.fractional_std, setup_m.pdf_sampler,
+            cheb=setup_m.pdf_cheb)[0]
+
+    frac_mask = cloud_m.fraction >= cfg_m.cloud_fraction_threshold
+    zeros_sw = torch.zeros_like(go.od_sw)
+    b4_sw_args = (go.od_sw.contiguous(), go.ssa_sw.contiguous(), zeros_sw,
+                  *props[3:], setup.spec.band_from_g_sw, od_scaling(112, 0),
+                  frac_mask, sl.cos_sza, False)
+    osc_lw = od_scaling(140, 997)
+    b4_lw_args = (go.od_lw.contiguous(), props[0],
+                  setup.spec.band_from_g_lw, osc_lw, frac_mask,
+                  go.planck_hl.contiguous())
+    # B3' on the McICA total sky's layers: clear values outside clouds
+    from ecrad_tpu_torch.optics.combine import combine_cloud_gas_lw
+    zeros_lw = torch.zeros_like(go.od_lw)
+    od_t, ssa_t, g_t = combine_cloud_gas_lw(
+        go.od_lw, zeros_lw, zeros_lw, *props[:3], setup.spec.band_from_g_lw,
+        True, od_scaling=osc_lw, cloud_mask=frac_mask[..., None])
+    lwadd_args = ts.lw_reftrans(
+        cloudless._gf(od_t), *ts.lw_gammas(cloudless._gf(ssa_t),
+                                           cloudless._gf(g_t)),
+        planck[:-1], planck[1:]) + lw_args[3:]
+
+    for name, kern, plain, args, bound in (
             ("sw_adding", adding_fused.adding_sw_fused,
-             adding.adding_sw_plain, sw_args),
+             adding.adding_sw_plain, sw_args, SWEEP_REL),
             ("lw_noscat", adding_fused.lw_noscat_fused,
-             adding.lw_no_scattering_fluxes_plain, lw_args)):
+             adding.lw_no_scattering_fluxes_plain, lw_args, SWEEP_REL),
+            ("lw_adding", adding_fused.adding_lw_fused,
+             adding.adding_lw_plain, lwadd_args, SWEEP_REL),
+            ("mcica_sw_optics", mcica_optics.mcica_sw_optics_fused,
+             mcica_optics.sw_clear_total_reftrans_plain, b4_sw_args,
+             OPTICS_REL["mcica_sw_optics"]),
+            ("mcica_lw_optics", mcica_optics.mcica_lw_optics_fused,
+             mcica_optics.lw_clear_total_noscat_plain, b4_lw_args,
+             OPTICS_REL["mcica_lw_optics"])):
         a = kern(*args)
         torch.cuda.synchronize()
         b = plain(*args)
         rel = max(rel_to_max(x, y) for x, y in zip(a, b))
         errs[name] = max(float((x - y).abs().max()) for x, y in zip(a, b))
         log(f"{name}: shape {tuple(args[0].shape)} worst |diff|/max|plain| "
-            f"{rel:.3e} (bound {SWEEP_REL}), worst abs {errs[name]:.3e}")
-        if not rel <= SWEEP_REL:
+            f"{rel:.3e} (bound {bound}), worst abs {errs[name]:.3e}")
+        if not rel <= bound:
             raise AssertionError(f"{name} disagrees with its plain version")
 
-    # ---- 3. the main path, counted ----
-    counters = (taumol_lw, taumol_sw)
-    for m in counters:
-        m.launches = 0
-    for k in adding_fused.launches:
-        adding_fused.launches[k] = 0
-    flux = radiation(setup, sl, th, gas)
-    torch.cuda.synchronize()
-    launches = {"taumol_lw": taumol_lw.launches,
-                "taumol_sw": taumol_sw.launches, **adding_fused.launches}
-    log(f"main path {NCOL} x {NLEV}: kernel launches {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError("a kernel of the main path was not launched")
+    # ---- 3. the paths, counted ----
+    counters = (taumol_lw, taumol_sw, adding_fused.launches,
+                mcica_optics.launches)
+    launches = {}
 
-    f = {k: v.double().cpu().numpy() for k, v in flux.fields()}
-    for k, v in f.items():
-        if not np.isfinite(v).all():
-            raise AssertionError(f"{k} has non-finite values")
-        if v.shape[0] != NCOL:
-            raise AssertionError(f"{k} has shape {v.shape}")
-    if f["lw_up"].shape != (NCOL, NLEV + 1):
-        raise AssertionError(f"lw_up shape {f['lw_up'].shape}")
-    mu0 = cols["cos_sza"]
-    toa_err = np.abs(f["sw_dn"][:, 0] - cols["solar_irradiance"]
-                     * np.maximum(mu0, 0.0)).max()
-    night = mu0 <= 0.0
-    night_max = max(np.abs(f[k][night]).max() for k in ("sw_up", "sw_dn",
-                                                          "sw_dn_direct"))
-    rise = np.diff(f["sw_dn_direct"][~night], axis=1).max()
-    log(f"physical: TOA sw_dn - S0 cos_sza max abs {toa_err:.3e} W/m2; "
-        f"{night.sum()} night columns, max |SW| there {night_max}; max "
-        f"downward step of sw_dn_direct {rise:.3e} W/m2")
-    if not (toa_err <= 1e-5 * cols["solar_irradiance"]
-            and night_max == 0.0 and rise <= 1e-3):
-        raise AssertionError("main-path fluxes are not physical")
+    def counted(name, fn):
+        reset_counts(counters)
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = read_counts(counters)
+        log(f"path {name}: kernel launches {launches[name]}")
+        missing = [k for k in PATH_KERNELS[name] if launches[name][k] < 1]
+        if missing:
+            raise AssertionError(f"{missing} not launched on path {name}")
+        return {k: v.double().cpu().numpy() for k, v in out.fields()}
 
+    # a. Cloudless
+    f = counted("cloudless", lambda: radiation(setup, sl, th, gas))
+    check_fluxes(f, cols, NCOL)
     with np.load(GOLDEN) as z:
         golden = {k: z[k] for k in z.files}
-    worst = {}
-    for k, bound in BOUNDS.items():
-        e32 = float(np.abs(f[k][:32] - golden[k]).max())
-        e64 = float(np.abs(f[k][:32] - golden[k + "_f64"]).max())
-        worst[k] = e32
-        log(f"golden {k}: vs JAX float32 {e32:.3e}, vs JAX float64 "
-            f"{e64:.3e} W/m2 (bound {bound}, {e32 / bound:.1%} used)")
-        if not (e32 <= bound and e64 <= bound):
+    check_golden(f, golden, BOUNDS, BOUNDS)
+
+    # b. McICA at full width
+    f = counted("mcica", lambda: radiation(setup_m, *inputs_m))
+    check_fluxes(f, cols_m, NCOL)
+    with np.load(GOLDEN_MCICA) as z:
+        golden = {k: z[k] for k in z.files}
+    flips = np.zeros(32, bool)
+    for key, ng, offset in (("mask_sw", 112, 0), ("mask_lw", 140, 997)):
+        got = (od_scaling(ng, offset)[:32] > 0).cpu().numpy()
+        ref = np.unpackbits(golden[key])[:got.size].reshape(got.shape)
+        flips |= (got != ref).any(axis=(1, 2))
+    log(f"golden mcica subcolumn masks: {int(flips.sum())} of 32 columns "
+        f"differ (at most {MAX_MASK_FLIPS}): {np.flatnonzero(flips)}")
+    if flips.sum() > MAX_MASK_FLIPS:
+        raise AssertionError("too many subcolumn masks differ")
+    for k in ("cloud_cover_sw", "cloud_cover_lw"):
+        e = float(np.abs(f[k][:32] - golden[k]).max())
+        log(f"golden mcica {k}: vs JAX float32 {e:.3e} (bound {COVER_ATOL})")
+        if not e <= COVER_ATOL:
             raise AssertionError(f"{k} outside its golden bound")
+    check_golden(f, golden, [k + "_clear" for k in BOUNDS], BOUNDS,
+                 what=" mcica clear")
+    check_golden(f, golden, list(TOTAL_BOUNDS), TOTAL_BOUNDS, rows=~flips,
+                 f64=False, what=" mcica total")
+    cloudy = (f["cloud_cover_sw"] > 0.5).sum()
+    log(f"mcica: {cloudy} of {NCOL} columns with SW cloud cover > 0.5; "
+        f"TOA sw_up total - clear mean "
+        f"{(f['sw_up'][:, 0] - f['sw_up_clear'][:, 0]).mean():.3f} W/m2, "
+        f"lw_up {(f['lw_up'][:, 0] - f['lw_up_clear'][:, 0]).mean():.3f}")
+
+    # c. McICA without LW scattering (B4's LW kernel)
+    setup_n = setup_radiation(mcica_slice_config(
+        **luts, do_lw_cloud_scattering=False,
+        do_lw_aerosol_scattering=False,
+        i_overlap_scheme=Overlap.EXPONENTIAL_RANDOM), device=dev)
+    cols_n = slice_columns(cols_m, slice(0, NCOL_NOSCAT))
+    f = counted("mcica_noscat", lambda: radiation(
+        setup_n, *columns_to_inputs(cols_n, device=dev)))
+    check_fluxes(f, cols_n, NCOL_NOSCAT)
 
     # ---- 4. times (information only) ----
     timing = {
@@ -245,36 +392,54 @@ def main():
         "lw_noscat": (lambda: adding_fused.lw_noscat_fused(*lw_args),
                       lambda: adding.lw_no_scattering_fluxes_plain(
                           *lw_args)),
+        "lw_adding": (lambda: adding_fused.adding_lw_fused(*lwadd_args),
+                      lambda: adding.adding_lw_plain(*lwadd_args)),
+        "mcica_sw_optics": (
+            lambda: mcica_optics.mcica_sw_optics_fused(*b4_sw_args),
+            lambda: mcica_optics.sw_clear_total_reftrans_plain(
+                *b4_sw_args)),
+        "mcica_lw_optics": (
+            lambda: mcica_optics.mcica_lw_optics_fused(*b4_lw_args),
+            lambda: mcica_optics.lw_clear_total_noscat_plain(*b4_lw_args)),
     }
     ms = {}
     for name, (kern, plain) in timing.items():
         ms[name] = (time_ms(kern, 20), time_ms(plain, 3))
         log(f"time {name}: kernel {ms[name][0]:.4f} ms, plain "
             f"{ms[name][1]:.4f} ms [{gpu}]")
-    best = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            out = radiation(setup, sl, th, gas)
-        torch.cuda.synchronize()
-        best.append((time.perf_counter() - t0) / 10)
-    del out
-    log(f"slice: {min(best) * 1e3:.3f} ms per {NCOL}-column call, "
-        f"{NCOL / min(best):.1f} columns/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{gpu}]")
+    for name, run in (("cloudless", lambda: radiation(setup, sl, th, gas)),
+                      ("mcica", lambda: radiation(setup_m, *inputs_m))):
+        torch.cuda.reset_peak_memory_stats()
+        best = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                out = run()
+            torch.cuda.synchronize()
+            best.append((time.perf_counter() - t0) / 10)
+        del out
+        log(f"path {name}: {min(best) * 1e3:.3f} ms per {NCOL}-column call, "
+            f"{NCOL / min(best):.1f} columns/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{gpu}]")
 
+    level_sweep = ("ecrad_tpu_torch/csrc/level_sweep.cu",
+                   "ecrad_tpu/ops/adding_fused.py:125")
     src = {"taumol_lw": ("ecrad_tpu_torch/csrc/taumol_lw.cu",
                          "ecrad_tpu/optics/rrtmg/taumol_lw_fused.py:896"),
            "taumol_sw": ("ecrad_tpu_torch/csrc/taumol_sw.cu",
                          "ecrad_tpu/optics/rrtmg/taumol_sw_fused.py:400"),
-           "sw_adding": ("ecrad_tpu_torch/csrc/level_sweep.cu",
-                         "ecrad_tpu/ops/adding_fused.py:125"),
-           "lw_noscat": ("ecrad_tpu_torch/csrc/level_sweep.cu",
-                         "ecrad_tpu/ops/adding_fused.py:125")}
+           "sw_adding": level_sweep, "lw_noscat": level_sweep,
+           "lw_adding": level_sweep,
+           "mcica_sw_optics": ("ecrad_tpu_torch/csrc/mcica_optics.cu",
+                               "ecrad_tpu/ops/mcica_optics.py:181"),
+           "mcica_lw_optics": ("ecrad_tpu_torch/csrc/mcica_optics.cu",
+                               "ecrad_tpu/ops/mcica_optics.py:269")}
+    # launches: the sum over the three counted path runs (per path above)
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src[n][0],
-         "replaces": src[n][1], "launches": launches[n],
+         "replaces": src[n][1],
+         "launches": sum(p[n] for p in launches.values()),
          "max_abs_err": errs[n], "ms": ms[n][0], "plain_ms": ms[n][1]}
         for n in src]}))
     log(gpu)

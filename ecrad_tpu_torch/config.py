@@ -463,9 +463,9 @@ def load_config_from_namelist(path_or_text: str,
     return RadiationConfig(**kwargs).consolidated()
 
 
-#: Options of the Cloudless clear-sky slice besides the solvers (the
-#: configuration of tests/test_e2e_cloudless.py and bench.py without
-#: directory_name); the golden script, the tests and chip_smoke.py use it.
+#: Options of the port's paths besides the solvers (the configuration of
+#: tests/test_e2e_cloudless.py and bench.py without directory_name); the
+#: golden script, the tests and chip_smoke.py use it.
 SLICE_OPTIONS = dict(
     use_aerosols=False,
     do_nearest_spectral_sw_albedo=False,
@@ -479,29 +479,43 @@ SLICE_OPTIONS = dict(
 
 
 def cloudless_slice_config(**overrides) -> RadiationConfig:
-    """The configuration the port's slice runs: Cloudless SW and LW."""
+    """The configuration of the port's Cloudless path."""
     return RadiationConfig(**{**SLICE_OPTIONS,
                               "i_solver_sw": Solver.CLOUDLESS,
                               "i_solver_lw": Solver.CLOUDLESS, **overrides})
 
 
+def mcica_slice_config(**overrides) -> RadiationConfig:
+    """The McICA path as bench.py:49-68 sets it: McICA in SW and LW,
+    Exp-Exp overlap, LW cloud scattering on, SOCRATES liquid and Baran
+    ice (the defaults), no aerosols. The LUT files come from `overrides`
+    (directory_name and the *_override_file_name fields, for instance
+    those of inputs.write_synthetic_luts)."""
+    return RadiationConfig(**{**SLICE_OPTIONS,
+                              "i_solver_sw": Solver.MCICA,
+                              "i_solver_lw": Solver.MCICA,
+                              "i_overlap_scheme":
+                                  Overlap.EXPONENTIAL_EXPONENTIAL,
+                              **overrides})
+
+
+#: the ROADMAP Queue A slice of each cloudy solver not ported yet
+SOLVER_SLICE = {Solver.HOMOGENEOUS: "5 (Homogeneous)",
+                 Solver.TRIPLECLOUDS: "6 (Tripleclouds)",
+                 Solver.SPARTACUS: "7 (SPARTACUS)"}
+
+
 # (setting, ROADMAP Queue A slice that brings it) for everything the
-# Cloudless clear-sky slice does not cover
+# Cloudless and McICA paths do not cover
 def _unsupported(cfg: RadiationConfig):
     if cfg.i_gas_model != GasModel.RRTMG_IFS:
         yield "the monochromatic gas model", "8 (periphery)"
     for name, solver in (("i_solver_sw", cfg.i_solver_sw),
                          ("i_solver_lw", cfg.i_solver_lw)):
-        if solver != Solver.CLOUDLESS:
-            slice_ = {Solver.MCICA: "3 (McICA)",
-                      Solver.HOMOGENEOUS: "5 (Homogeneous)",
-                      Solver.TRIPLECLOUDS: "6 (Tripleclouds)",
-                      Solver.SPARTACUS: "7 (SPARTACUS)"}[solver]
-            yield f"{name}={solver.name}", slice_
+        if solver in SOLVER_SLICE:
+            yield f"{name}={solver.name}", SOLVER_SLICE[solver]
     if cfg.use_aerosols:
         yield "use_aerosols", "4 (aerosol optics)"
-    if cfg.do_lw_derivatives:
-        yield "do_lw_derivatives", "3 (McICA, ICA LW derivatives)"
     if cfg.do_save_spectral_flux or cfg.do_save_gpoint_flux:
         yield "do_save_spectral_flux/do_save_gpoint_flux", "8 (periphery)"
     if cfg.do_canopy_fluxes_sw or cfg.do_canopy_fluxes_lw:
@@ -521,5 +535,5 @@ def check_supported(cfg: RadiationConfig) -> None:
     for what, where in _unsupported(cfg):
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP.md Queue A, slice "
-            f"{where}); the PyTorch port runs the Cloudless clear-sky "
-            f"slice only")
+            f"{where}); the PyTorch port runs the Cloudless and McICA "
+            f"solvers")

@@ -13,18 +13,33 @@ import numpy as np
 import torch
 
 from .config import RadiationConfig, check_supported
+from .inputs import CLOUD_KEYS
 from .interface import RadiationSetup, make_setup
+from .optics.cloud import CloudOpticsTables
 from .optics.rrtmg.gas_optics import GasOpticsSpec
+from .solvers.pdf_sampler import PdfSampler
 from .types import Aerosol, Cloud, GasConcs, SingleLevel, Thermodynamics
+
+
+def _copy(cls, obj):
+    """An instance of dataclass `cls` from any object with its fields
+    (numpy arrays copied, scalars as they are), or None."""
+    if obj is None:
+        return None
+    return cls(**{f.name: (np.array(v) if isinstance(v, np.ndarray) else v)
+                  for f in dataclasses.fields(cls)
+                  for v in [getattr(obj, f.name)]})
 
 
 def setup_from_numpy(config: RadiationConfig, tables: Mapping,
                      spec_arrays, sw_albedo_map, sw_albedo_weights,
-                     lw_emiss_map, lw_emiss_weights,
-                     device="cpu") -> RadiationSetup:
+                     lw_emiss_map, lw_emiss_weights, device="cpu",
+                     cloud_optics=None, pdf_sampler=None) -> RadiationSetup:
     """The port's setup from a JAX RadiationSetup's numpy content:
     `tables` its `setup.tables`, `spec_arrays` its `setup.spec` (any
-    object with the GasOpticsSpec fields) and the four interval maps."""
+    object with the GasOpticsSpec fields), the four interval maps, and
+    its `cloud_optics` (the five coefficient arrays) and `pdf_sampler`
+    (val, fsd1, inv_fsd_interval, cheb, z0, z1), for a McICA setup."""
     config = config.consolidated()
     check_supported(config)
     band_lw = np.asarray(spec_arrays.band_from_g_lw)
@@ -41,7 +56,9 @@ def setup_from_numpy(config: RadiationConfig, tables: Mapping,
         config, {k: np.asarray(v) for k, v in tables.items()},
         GasOpticsSpec(band_from_g_lw=band_lw, band_from_g_sw=band_sw),
         opt(sw_albedo_map), opt(sw_albedo_weights), opt(lw_emiss_map),
-        opt(lw_emiss_weights), device)
+        opt(lw_emiss_weights), device,
+        _copy(CloudOpticsTables, cloud_optics), _copy(PdfSampler,
+                                                      pdf_sampler))
 
 
 def _build(cls, values: Optional[Mapping], device, dtype):
@@ -75,11 +92,16 @@ def inputs_from_numpy(single_level: Mapping, thermodynamics: Mapping,
 
 
 def columns_to_inputs(cols: Mapping, device="cpu", dtype=torch.float32):
-    """(SingleLevel, Thermodynamics, GasConcs) from inputs.make_columns."""
-    sl, th, gas, _, _ = inputs_from_numpy(
+    """(SingleLevel, Thermodynamics, GasConcs) from inputs.make_columns,
+    and the Cloud as a fourth item when `cols` holds cloud fields
+    (inputs.make_clouds)."""
+    cloudy = "fraction" in cols
+    sl, th, gas, cloud, _ = inputs_from_numpy(
         {k: cols[k] for k in ("cos_sza", "skin_temperature", "sw_albedo",
-                              "lw_emissivity")}
+                              "lw_emissivity") + (("iseed",) * cloudy)}
         | {"solar_irradiance": float(cols["solar_irradiance"])},
         {k: cols[k] for k in ("pressure_hl", "temperature_hl")},
-        {"mixing_ratio": cols["mixing_ratio"]}, device=device, dtype=dtype)
-    return sl, th, gas
+        {"mixing_ratio": cols["mixing_ratio"]},
+        {k: cols[k] for k in CLOUD_KEYS} if cloudy else None,
+        device=device, dtype=dtype)
+    return (sl, th, gas, cloud) if cloudy else (sl, th, gas)

@@ -1,0 +1,254 @@
+// Kernel B4: McICA clear- and total-sky layer optics in one pass.
+//
+// Replaces the TPU kernels ecrad_tpu/ops/mcica_optics.py::
+// sw_clear_total_reftrans (:74; pallas_call :175 clear family, :181 total
+// family) and ::lw_clear_total_noscat (:196; pallas_call :269). For each
+// (column, level, g) cell: expand the cloud band properties to g, scale
+// the cloud optical depth by the subcolumn scaling, combine with the gas,
+// and compute the clear-sky and the total-sky layer properties; the total
+// family takes the clear values where the layer is not cloudy.
+//
+// On the TPU the band->g expansion was a one-hot MXU product and the clear
+// chain was recomputed in a second kernel to stay under the VMEM limit.
+// Here the expansion is a direct index band_from_g[g] and one thread
+// computes both families of its cell.
+//
+// What bounds it: device-memory bandwidth. SW reads 4 (ncol, nlev, 112)
+// fields and writes 10 (nlev, 112, ncol) ones (about 14 x 4 bytes per
+// cell); LW reads 2 fields and two Planck half levels and writes 6. The
+// inputs are g-innermost and the outputs column-innermost, so a block
+// owns one level, 32 columns and 32 g-points: threads load and compute
+// along g, park the results in a shared-memory tile, and store along
+// columns, so that both sides are coalesced.
+//
+// Semantics: ops/mcica_optics.py sw_clear_total_reftrans_plain and
+// lw_clear_total_noscat_plain, operation for operation in the order of
+// the PyTorch expressions (solvers/two_stream.py, optics/combine.py,
+// optics/cloud.py delta_eddington). Built with -fmad=false and the exact
+// expf/sqrtf, so only libm's last bit separates the two; the SW resonance
+// nudge |k mu0 - 1| < 1e-6 is kept exactly, since it amplifies such
+// differences about 1e6-fold.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ecrad {
+
+constexpr int TILE = 32;      // columns and g-points per block
+constexpr int ROWS = 8;       // blockDim.y
+
+struct SwOut {
+  float r, t, rd, tdd, tdir;
+};
+
+__device__ __forceinline__ SwOut sw_chain(float mu0, float od, float ssa,
+                                          float g, int delta_all) {
+  if (delta_all) {                    // optics/cloud.py delta_eddington
+    const float f = g * g;
+    const float od_new = od * (1.0f - ssa * f);
+    const float ssa_new = ssa * (1.0f - f) / (1.0f - ssa * f);
+    g = g / (1.0f + g);
+    od = od_new;
+    ssa = ssa_new;
+  }
+  // solvers/two_stream.py sw_gammas, then sw_reftrans
+  const float factor = 0.75f * g;
+  const float gamma1 = 2.0f - ssa * (1.25f + factor);
+  const float gamma2 = ssa * (0.75f - factor);
+  const float gamma3 = 0.5f - mu0 * factor;
+  const float od_over_mu0 = fmaxf(od / mu0, 0.0f);
+  const float gamma4 = 1.0f - gamma3;
+  const float alpha1 = gamma1 * gamma4 + gamma2 * gamma3;
+  const float alpha2 = gamma1 * gamma3 + gamma2 * gamma4;
+  const float k = sqrtf(fmaxf((gamma1 - gamma2) * (gamma1 + gamma2), 1.0e-4f));
+  float k_mu0 = k * mu0;
+  if (fabsf(k_mu0 - 1.0f) < 1.0e-6f) k_mu0 = (float)(1.0 - 1e-6);
+  const float k_gamma3 = k * gamma3;
+  const float k_gamma4 = k * gamma4;
+  const float e0 = expf(-od_over_mu0);
+  const float expo = expf(-k * od);
+  const float expo2 = expo * expo;
+  const float k2e = 2.0f * k * expo;
+  const float rt = 1.0f / (k + gamma1 + (k - gamma1) * expo2);
+  SwOut o;
+  o.r = gamma2 * (1.0f - expo2) * rt;
+  o.t = k2e * rt;
+  const float rt_dir = mu0 * ssa * rt / (1.0f - k_mu0 * k_mu0);
+  o.rd = rt_dir * ((1.0f - k_mu0) * (alpha2 + k_gamma3)
+                   - (1.0f + k_mu0) * (alpha2 - k_gamma3) * expo2
+                   - k2e * (gamma3 - alpha2 * mu0) * e0);
+  o.tdd = rt_dir * (k2e * (gamma4 + alpha1 * mu0)
+                    - e0 * ((1.0f + k_mu0) * (alpha1 + k_gamma4)
+                            - (1.0f - k_mu0) * (alpha1 - k_gamma4) * expo2));
+  o.tdir = e0;
+  return o;
+}
+
+__device__ __forceinline__ void lw_noscat(float od, float pt, float pb,
+                                          float* t, float* su, float* sd) {
+  // solvers/two_stream.py lw_no_scattering_transmittance
+  const float coeff0 = 1.66f * od;
+  const float trans_full = expf(-coeff0);
+  const float coeff = (pb - pt) / fmaxf(coeff0, 1.0e-30f);
+  if (od <= 1.0e-3f) {
+    *t = 1.0f - coeff0;
+    *su = *sd = coeff0 * 0.5f * (pt + pb);
+  } else {
+    *t = trans_full;
+    *su = (coeff + pt) - trans_full * (coeff + pb);
+    *sd = (-coeff + pb) - trans_full * (-coeff + pt);
+  }
+}
+
+// grid (ceil(ng/TILE), ceil(ncol/TILE), nlev), block (TILE, ROWS)
+__global__ void __launch_bounds__(TILE * ROWS)
+mcica_sw_optics_kernel(const float* __restrict__ od,
+                       const float* __restrict__ ssa,
+                       const float* __restrict__ g,
+                       const float* __restrict__ od_scaling,
+                       const float* __restrict__ od_cloud,
+                       const float* __restrict__ ssa_cloud,
+                       const float* __restrict__ g_cloud,
+                       const uint8_t* __restrict__ mask,
+                       const float* __restrict__ cos_sza,
+                       const int* __restrict__ band_from_g, int ncol,
+                       int nlev, int ng, int nb, int delta_all,
+                       float* __restrict__ out) {
+  __shared__ float tile[10][TILE][TILE + 1];
+  const int g0 = blockIdx.x * TILE, c0 = blockIdx.y * TILE;
+  const int l = blockIdx.z;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  // load and compute along g: thread (tx, ty) owns g0 + tx of columns
+  // c0 + ty, c0 + ty + ROWS, ...
+  const int gi = g0 + tx;
+  if (gi < ng) {
+    const int band = band_from_g[gi];
+    for (int cc = ty; cc < TILE; cc += ROWS) {
+      const int c = c0 + cc;
+      if (c >= ncol) break;
+      const size_t cl = (size_t)c * nlev + l;
+      const size_t j = cl * ng + gi;
+      const float mu0 = fmaxf(cos_sza[c], 1.0e-10f);
+      const float od_g = od[j], ssa_g = ssa[j], g_g = g[j];
+      const SwOut cl_o = sw_chain(mu0, od_g, ssa_g, g_g, delta_all);
+      SwOut to = cl_o;
+      if (mask[cl]) {                 // optics/combine.py _mix
+        const size_t jb = cl * nb + band;
+        const float odc = od_cloud[jb] * od_scaling[j];
+        const float od_t = od_g + odc;
+        const float scat_gas = ssa_g * od_g;
+        const float scat_cld = ssa_cloud[jb] * odc;
+        const float scat_od = scat_gas + scat_cld;
+        const float ssa_t = od_t > 0.0f
+            ? scat_od / fmaxf(od_t, 1.0e-30f) : 0.0f;
+        const float g_t = scat_od > 0.0f
+            ? (g_g * scat_gas + g_cloud[jb] * scat_cld)
+              / fmaxf(scat_od, 1.0e-30f)
+            : 0.0f;
+        to = sw_chain(mu0, od_t, ssa_t, g_t, delta_all);
+      }
+      const float v[10] = {cl_o.r, cl_o.t, cl_o.rd, cl_o.tdd, cl_o.tdir,
+                           to.r, to.t, to.rd, to.tdd, to.tdir};
+#pragma unroll
+      for (int q = 0; q < 10; ++q) tile[q][cc][tx] = v[q];
+    }
+  }
+  __syncthreads();
+  // store along columns: thread (tx, ty) writes column c0 + tx of
+  // g-points g0 + ty, g0 + ty + ROWS, ...
+  const int c = c0 + tx;
+  if (c >= ncol) return;
+  const size_t plane = (size_t)nlev * ng * ncol;
+  for (int gg = ty; gg < TILE; gg += ROWS) {
+    const int go = g0 + gg;
+    if (go >= ng) break;
+    const size_t o = ((size_t)l * ng + go) * ncol + c;
+#pragma unroll
+    for (int q = 0; q < 10; ++q) out[q * plane + o] = tile[q][tx][gg];
+  }
+}
+
+__global__ void __launch_bounds__(TILE * ROWS)
+mcica_lw_optics_kernel(const float* __restrict__ od,
+                       const float* __restrict__ od_scaling,
+                       const float* __restrict__ od_cloud,
+                       const uint8_t* __restrict__ mask,
+                       const float* __restrict__ planck_hl,
+                       const int* __restrict__ band_from_g, int ncol,
+                       int nlev, int ng, int nb, float* __restrict__ out) {
+  __shared__ float tile[6][TILE][TILE + 1];
+  const int g0 = blockIdx.x * TILE, c0 = blockIdx.y * TILE;
+  const int l = blockIdx.z;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int gi = g0 + tx;
+  if (gi < ng) {
+    const int band = band_from_g[gi];
+    for (int cc = ty; cc < TILE; cc += ROWS) {
+      const int c = c0 + cc;
+      if (c >= ncol) break;
+      const size_t cl = (size_t)c * nlev + l;
+      const size_t j = cl * ng + gi;
+      const size_t jp = ((size_t)c * (nlev + 1) + l) * ng + gi;
+      const float pt = planck_hl[jp], pb = planck_hl[jp + ng];
+      const float od_g = od[j];
+      float v[6];
+      lw_noscat(od_g, pt, pb, &v[0], &v[1], &v[2]);
+      if (mask[cl]) {
+        const float od_t = od_g + od_cloud[cl * nb + band] * od_scaling[j];
+        lw_noscat(od_t, pt, pb, &v[3], &v[4], &v[5]);
+      } else {
+        v[3] = v[0];
+        v[4] = v[1];
+        v[5] = v[2];
+      }
+#pragma unroll
+      for (int q = 0; q < 6; ++q) tile[q][cc][tx] = v[q];
+    }
+  }
+  __syncthreads();
+  const int c = c0 + tx;
+  if (c >= ncol) return;
+  const size_t plane = (size_t)nlev * ng * ncol;
+  for (int gg = ty; gg < TILE; gg += ROWS) {
+    const int go = g0 + gg;
+    if (go >= ng) break;
+    const size_t o = ((size_t)l * ng + go) * ncol + c;
+#pragma unroll
+    for (int q = 0; q < 6; ++q) out[q * plane + o] = tile[q][tx][gg];
+  }
+}
+
+}  // namespace ecrad
+
+extern "C" int mcica_sw_optics(const float* od, const float* ssa,
+                               const float* g, const float* od_scaling,
+                               const float* od_cloud, const float* ssa_cloud,
+                               const float* g_cloud, const uint8_t* mask,
+                               const float* cos_sza, const int* band_from_g,
+                               int ncol, int nlev, int ng, int nb,
+                               int delta_all, float* out, void* stream) {
+  if ((size_t)ncol * nlev * ng > 0) {
+    const dim3 grid((ng + ecrad::TILE - 1) / ecrad::TILE,
+                    (ncol + ecrad::TILE - 1) / ecrad::TILE, nlev);
+    const dim3 block(ecrad::TILE, ecrad::ROWS);
+    ecrad::mcica_sw_optics_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        od, ssa, g, od_scaling, od_cloud, ssa_cloud, g_cloud, mask, cos_sza,
+        band_from_g, ncol, nlev, ng, nb, delta_all, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mcica_lw_optics(const float* od, const float* od_scaling,
+                               const float* od_cloud, const uint8_t* mask,
+                               const float* planck_hl, const int* band_from_g,
+                               int ncol, int nlev, int ng, int nb,
+                               float* out, void* stream) {
+  if ((size_t)ncol * nlev * ng > 0) {
+    const dim3 grid((ng + ecrad::TILE - 1) / ecrad::TILE,
+                    (ncol + ecrad::TILE - 1) / ecrad::TILE, nlev);
+    const dim3 block(ecrad::TILE, ecrad::ROWS);
+    ecrad::mcica_lw_optics_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        od, od_scaling, od_cloud, mask, planck_hl, band_from_g, ncol, nlev,
+        ng, nb, out);
+  }
+  return (int)cudaGetLastError();
+}

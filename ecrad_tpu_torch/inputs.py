@@ -91,6 +91,184 @@ def make_columns(ncol: int, nlev: int = 137, seed: int = 0
     }
 
 
+#: cloud fields on levels, (ncol, nlev)
+CLOUD_KEYS = ("fraction", "q_liq", "q_ice", "re_liq", "re_ice",
+              "fractional_std")
+LEVEL_KEYS = ("pressure_hl", "temperature_hl", "mixing_ratio") + CLOUD_KEYS
+
+
+def make_clouds(cols: Dict[str, np.ndarray], seed: int = 0
+                ) -> Dict[str, np.ndarray]:
+    """`cols` (of make_columns) plus cloud fields, drawn from their own
+    RandomState so the clear-sky keys stay as make_columns made them.
+
+    Each column holds up to four cloud decks placed in pressure between
+    150 and 950 hPa. A deck's fraction rises to a peak and falls again,
+    some decks have a second peak (a rise after a descent: a new Exp-Exp
+    object), and peaks above 1 are cut to 1, so some layers are overcast;
+    15 % of the columns are cloud-free. The in-cloud water content is
+    liquid where the layer is warmer than 253 K and ice where it is
+    colder; q_liq/q_ice are grid-box means (fraction x in-cloud).
+    Adds fraction, q_liq, q_ice (kg/kg), re_liq (5-20 um), re_ice
+    (20-80 um), fractional_std (0.75-1.25) and iseed = arange(ncol);
+    overlap_param is left for radiation() to derive."""
+    ncol, nlev = cols["pressure_hl"].shape[0], cols["pressure_hl"].shape[1] - 1
+    rng = np.random.RandomState(seed + 7919)
+    u = lambda lo, hi, *shape: rng.uniform(lo, hi, shape or (ncol,))
+    p_fl = 0.5 * (cols["pressure_hl"][:, :-1] + cols["pressure_hl"][:, 1:])
+    t_fl = 0.5 * (cols["temperature_hl"][:, :-1]
+                  + cols["temperature_hl"][:, 1:])
+    frac = np.zeros((ncol, nlev))
+    ndeck = rng.randint(1, 5, ncol)
+    for d in range(4):
+        centre = u(15000.0, 95000.0)[:, None]
+        width = u(2000.0, 12000.0)[:, None]
+        peak = np.where(ndeck > d, u(0.15, 1.5), 0.0)[:, None]
+        shape = np.maximum(0.0, 1.0 - np.abs(p_fl - centre) / width)
+        # a second peak on the deck's lower flank in a third of them
+        dip = np.where(u(0.0, 1.0) < 0.33, 0.5, 0.0)[:, None]
+        shape = shape * (1.0 - dip * np.exp(-((p_fl - centre - 0.5 * width)
+                                             / (0.15 * width)) ** 2))
+        frac = np.maximum(frac, np.minimum(peak * shape, 1.0))
+    frac[u(0.0, 1.0) < 0.15] = 0.0
+    frac[frac < 0.01] = 0.0
+    incloud = u(0.5, 2.0)[:, None] * np.where(t_fl > 253.0, 2.0e-4, 2.0e-5)
+    q = frac * incloud
+    liquid = t_fl > 253.0
+    out = dict(cols)
+    out.update(
+        fraction=frac,
+        q_liq=np.where(liquid, q, 0.0),
+        q_ice=np.where(liquid, 0.0, q),
+        re_liq=u(5.0e-6, 20.0e-6, ncol, nlev),
+        re_ice=u(20.0e-6, 80.0e-6, ncol, nlev),
+        fractional_std=u(0.75, 1.25, ncol, nlev),
+        iseed=np.arange(ncol, dtype=np.int32))
+    return out
+
+
+def _write_nc(path, variables):
+    from scipy.io import netcdf_file
+    with netcdf_file(path, "w", version=2) as f:
+        for name, (dims, data) in variables.items():
+            for dname, n in zip(dims, data.shape):
+                if dname not in f.dimensions:
+                    f.createDimension(dname, n)
+            f.createVariable(name, "d", dims)[...] = np.asarray(data,
+                                                                np.float64)
+
+
+def write_synthetic_luts(directory: str, seed: int = 0) -> dict:
+    """Write SYNTHETIC cloud-optics and cloud-PDF lookup tables into
+    `directory` and return the RadiationConfig overrides that name them
+    (directory_name and the *_override_file_name fields).
+
+    These are NOT the ecRad data files. They hold coefficient arrays of
+    the published functional forms (radiation_liquid_optics_socrates.F90,
+    _slingo.F90, radiation_ice_optics_fu.F90, _baran*.F90, _yi.F90) with
+    plausible magnitudes, made from `seed`, so that two programs reading
+    the same files can be held to each other (parity); fluxes computed
+    with them are not ecRad's. Magnitudes: liquid od ~ 1.5e-3 LWP/re, ice
+    od ~ 40-80 m2/kg x IWP, SW single-scattering albedo 0.99999 down to
+    ~0.95 across the bands, LW 0.2-0.6, asymmetry factor 0.75-0.9.
+
+    Files (classic NetCDF, coeff_lw (16, n), coeff_sw (14, n)):
+    synthetic_{socrates,slingo}_liquid.nc, synthetic_{fu,baran,
+    baran2016,baran2017,yi}_ice.nc (baran2017 also coeff_gen (5,)), and
+    synthetic_mcica_{gamma,lognormal}.nc (fsd (160,) from 0.025 to 4 and
+    the quantile table x (1000, 160) on the cdf grid i/999, its end points
+    clipped to 1e-4 and 1 - 1e-4)."""
+    import os
+
+    from scipy.special import gammaincinv, ndtri
+
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.RandomState(seed + 104729)
+    nb = {"lw": 16, "sw": 14}
+    # per-band magnitudes: extinction multiplier, co-albedo, asymmetry
+    mult = {s: rng.uniform(0.85, 1.15, n) for s, n in nb.items()}
+    coalb = {"sw": np.geomspace(1e-5, 0.05, 14) * rng.uniform(0.8, 1.2, 14),
+             "lw": rng.uniform(0.4, 0.8, 16)}
+    asym = {s: rng.uniform(0.76, 0.86, n) for s, n in nb.items()}
+
+    def per_band(fill):
+        """coeff_lw/coeff_sw (nband, ncoeff) from fill(region, extinction
+        multiplier, co-albedo, asymmetry) of one band."""
+        return {f"coeff_{s}": (("band_" + s, "n_coeff_" + s), np.array(
+            [fill(s, mult[s][b], coalb[s][b], asym[s][b])
+             for b in range(n)])) for s, n in nb.items()}
+
+    def socrates(s, m, ca, g):       # re in m
+        return [1.5e4 * m, 0, 0, 1e7, 0, 0, ca, ca * 1e4, 0, 0, 0,
+                g, 2e3, 0, 0, 0]
+
+    def slingo(s, m, ca, g):         # SW Slingo (6) / LW Lindner-Li (13)
+        if s == "sw":
+            return [0.02 * m, 1.5 * m, 0.8 * ca, 0.02 * ca, g - 0.02, 0.002]
+        return [0.02 * m, 0, 1.5 * m, 0, 0, ca, 0, 0, 0, g - 0.02, 0,
+                0.002, 0]
+
+    def fu(s, m, ca, g):             # de in um
+        if s == "sw":
+            return [0.02 * m, 1.5 * m, ca, ca * 0.005, 0, 0, g, 3e-4, 0, 0]
+        return [0.02 * m, 1.5 * m, 0, ca * 1.5 * m, ca * 0.02 * m, 0, 0,
+                g, 3e-4, 0, 0]
+
+    def baran(s, m, ca, g):          # iwp in kg/m2, qi in kg/kg
+        return [40 * m, 40 * m, 1e4, 1 - 1.2 * ca, 0.2 * ca, 1e4,
+                g + 0.03, -0.03, 1e4]
+
+    def baran2016(s, m, ca, g):      # od = iwp c1 / T^4
+        return [1.2e11 * m, 1 - ca, -ca, g, 5.0]
+
+    def baran2017(s, m, ca, g):
+        return [40 * m, 40 * m, 1e5, 1 - 1.2 * ca, 0.2 * ca, 300,
+                g + 0.03, -0.03, 300]
+
+    de = np.arange(10.0, 125.0, 5.0)   # the 23 diameter bins (um)
+
+    def yi(s, m, ca, g):               # extinction, ssa, g per bin
+        return np.concatenate([2800.0 * m / de, 1 - ca * (1 + 0.002 * de),
+                               np.minimum(g + 0.0005 * de, 0.9)])
+
+    files = {
+        "synthetic_socrates_liquid.nc": per_band(socrates),
+        "synthetic_slingo_liquid.nc": per_band(slingo),
+        "synthetic_fu_ice.nc": per_band(fu),
+        "synthetic_baran_ice.nc": per_band(baran),
+        "synthetic_baran2016_ice.nc": per_band(baran2016),
+        "synthetic_baran2017_ice.nc": per_band(baran2017) | {
+            "coeff_gen": (("n_gen",), np.array([0.03, 240.0, 1.0, 0.5,
+                                                0.5]))},
+        "synthetic_yi_ice.nc": per_band(yi),
+    }
+    for name, variables in files.items():
+        _write_nc(os.path.join(directory, name), variables)
+
+    fsd = np.linspace(0.025, 4.0, 160)
+    cdf = np.clip(np.linspace(0.0, 1.0, 1000), 1e-4, 1.0 - 1e-4)
+    var = fsd ** 2
+    gamma = gammaincinv(1.0 / var[None, :], cdf[:, None]) * var[None, :]
+    sigma2 = np.log1p(var)
+    lognormal = np.exp(-0.5 * sigma2[None, :]
+                       + np.sqrt(sigma2)[None, :] * ndtri(cdf)[:, None])
+    for name, x in (("gamma", gamma), ("lognormal", lognormal)):
+        _write_nc(os.path.join(directory, f"synthetic_mcica_{name}.nc"),
+                  {"fsd": (("n_fsd",), fsd), "x": (("n_cdf", "n_fsd"), x)})
+    return {"directory_name": directory, **synthetic_lut_names()}
+
+
+def synthetic_lut_names(liquid: str = "socrates", ice: str = "baran",
+                        pdf: str = "gamma") -> dict:
+    """The override file names of write_synthetic_luts's tables for one
+    liquid model (socrates, slingo), ice model (fu, baran, baran2016,
+    baran2017, yi) and PDF shape (gamma, lognormal)."""
+    return {"liq_optics_override_file_name":
+            f"synthetic_{liquid}_liquid.nc",
+            "ice_optics_override_file_name": f"synthetic_{ice}_ice.nc",
+            "cloud_pdf_override_file_name": f"synthetic_mcica_{pdf}.nc"}
+
+
 def slice_columns(cols: Dict[str, np.ndarray], sl: slice
                   ) -> Dict[str, np.ndarray]:
     """The same dict restricted to the columns `sl`."""
@@ -101,6 +279,7 @@ def slice_columns(cols: Dict[str, np.ndarray], sl: slice
 def reverse_levels(cols: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """The same columns with the level axis flipped (surface first)."""
     out = dict(cols)
-    for k in ("pressure_hl", "temperature_hl", "mixing_ratio"):
-        out[k] = cols[k][:, ::-1].copy()
+    for k in LEVEL_KEYS:
+        if k in cols:
+            out[k] = cols[k][:, ::-1].copy()
     return out

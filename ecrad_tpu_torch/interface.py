@@ -1,12 +1,15 @@
 """Top level: setup_radiation and the radiation() entry point.
 
-Port of ecrad_tpu/interface.py:32-134, :197-264 and the Cloudless part
-of :267-510 (radiation/radiation_interface.F90): setup loads the tables
-and spectral mappings onto one device; radiation() runs gas optics, the
-Cloudless solvers and the flux assembly. Inputs whose pressure increases
-upwards are flipped, run TOA first, and their flux profiles flipped back.
-On CUDA tensors the path runs kernels B1 (LW taumol), B2 (SW taumol) and
-B3 (adding sweeps); on CPU tensors their plain versions.
+Port of ecrad_tpu/interface.py:32-134, :197-510 (radiation/
+radiation_interface.F90) for the Cloudless and McICA solvers: setup loads
+the tables, spectral mappings, and for a cloudy solver the cloud-optics
+LUTs and the cloud-PDF sampler, onto one device; radiation() runs gas
+optics, the cloud stage (default fractional_std, overlap parameter from a
+2 km decorrelation length, cropping, cloud optics), the solvers and the
+flux assembly. Inputs whose pressure increases upwards are flipped, run
+TOA first, and their flux profiles flipped back. On CUDA tensors the path
+runs kernels B1 (LW taumol), B2 (SW taumol), B3/B3' (adding sweeps) and
+B4 (McICA layer optics); on CPU tensors their plain versions.
 """
 from __future__ import annotations
 
@@ -16,13 +19,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import RadiationConfig, check_supported
+from .config import RadiationConfig, Solver, check_supported
+from .optics.cloud import (CloudOpticsTables, cloud_optics,
+                           coefficient_tensors, setup_cloud_optics)
 from .optics.rrtmg.gas_optics import (
     WAVENUM1_LW, WAVENUM1_SW, WAVENUM2_LW, WAVENUM2_SW, GasOpticsSpec,
     GasTables, gas_optics, gas_tables, make_spec)
 from .optics.rrtmg.tables import load_tables
 from .optics.spectral_mapping import expand_to_g, interval_mapping
 from .solvers.cloudless import solver_cloudless_lw, solver_cloudless_sw
+from .solvers.dispatch import solve_lw, solve_sw
+from .solvers.lw_derivatives import lw_derivatives_ica
+from .solvers.pdf_sampler import PdfSampler, setup_pdf_sampler
 from .types import (LEVEL_FLUX_FIELDS, Aerosol, Cloud, Flux, GasConcs,
                     SingleLevel, Thermodynamics)
 
@@ -43,13 +51,19 @@ class RadiationSetup:
     device: torch.device
     dtype: torch.dtype
     gas: GasTables                     # tables on the device
+    cloud_optics: Optional[CloudOpticsTables] = None   # numpy, as read
+    pdf_sampler: Optional[PdfSampler] = None
+    cloud_coeffs: Optional[dict] = None   # cloud_optics on the device
+    pdf_cheb: Optional[torch.Tensor] = None   # pdf_sampler.cheb, device
 
 
 def setup_radiation(config: RadiationConfig,
                     device="cpu") -> RadiationSetup:
     """Load the tables and precompute the spectral mappings
-    (radiation_interface.F90:37-134). Raises NotImplementedError for a
-    configuration outside the Cloudless slice."""
+    (radiation_interface.F90:37-134); for a cloudy solver also the cloud
+    optics LUTs, and for McICA the cloud-PDF sampler (both NetCDF files
+    named by the config). Raises NotImplementedError for a configuration
+    the port does not cover."""
     config = config.consolidated()
     check_supported(config)
     tables = load_tables()
@@ -59,12 +73,17 @@ def setup_radiation(config: RadiationConfig,
     lw_map, lw_weights = interval_mapping(
         config.lw_emiss_wavelength_bound, config.i_lw_emiss_index,
         WAVENUM1_LW, WAVENUM2_LW, config.do_nearest_spectral_lw_emiss)
+    solvers = (config.i_solver_sw, config.i_solver_lw)
+    cloud = (setup_cloud_optics(config)
+             if any(s != Solver.CLOUDLESS for s in solvers) else None)
+    pdf = (setup_pdf_sampler(config) if Solver.MCICA in solvers else None)
     return make_setup(config, tables, make_spec(tables), sw_map, sw_weights,
-                      lw_map, lw_weights, device)
+                      lw_map, lw_weights, device, cloud, pdf)
 
 
 def make_setup(config, tables, spec, sw_map, sw_weights, lw_map,
-               lw_weights, device) -> RadiationSetup:
+               lw_weights, device, cloud_optics=None,
+               pdf_sampler=None) -> RadiationSetup:
     device = torch.device(device)
     dtype = DTYPES[config.dtype]
     return RadiationSetup(
@@ -72,7 +91,12 @@ def make_setup(config, tables, spec, sw_map, sw_weights, lw_map,
         sw_albedo_map=sw_map, sw_albedo_weights=sw_weights,
         lw_emiss_map=lw_map, lw_emiss_weights=lw_weights,
         device=device, dtype=dtype,
-        gas=gas_tables(tables, dtype, device))
+        gas=gas_tables(tables, dtype, device),
+        cloud_optics=cloud_optics, pdf_sampler=pdf_sampler,
+        cloud_coeffs=(None if cloud_optics is None
+                      else coefficient_tensors(cloud_optics, device)),
+        pdf_cheb=(None if pdf_sampler is None or pdf_sampler.cheb is None
+                  else torch.as_tensor(pdf_sampler.cheb, device=device)))
 
 
 def get_albedos(setup: RadiationSetup, single_level: SingleLevel):
@@ -110,29 +134,59 @@ def _surf_g(x):
     return x[-1].T
 
 
+def _flip_fields(obj, names):
+    return obj.replace(**{n: getattr(obj, n).flip(1) for n in names
+                          if getattr(obj, n) is not None})
+
+
 def radiation(setup: RadiationSetup, single_level: SingleLevel,
               thermodynamics: Thermodynamics, gas: GasConcs,
               cloud: Optional[Cloud] = None,
               aerosol: Optional[Aerosol] = None) -> Flux:
-    """Radiative fluxes (radiation_interface.F90:175-473). `cloud` and
-    `aerosol` are accepted and unused on the Cloudless path."""
+    """Radiative fluxes (radiation_interface.F90:175-473). `cloud` is
+    used by the McICA solvers and ignored by Cloudless; `aerosol` is
+    ignored (use_aerosols is not ported)."""
     phl = thermodynamics.pressure_hl
     if not bool(phl[0, 1] < phl[0, 0]):
         return _radiation_oriented(setup, single_level, thermodynamics,
-                                   gas)
-    thermodynamics = thermodynamics.replace(
-        pressure_hl=phl.flip(1),
-        temperature_hl=thermodynamics.temperature_hl.flip(1))
-    gas = gas.replace(mixing_ratio=gas.mixing_ratio.flip(1))
-    flux = _radiation_oriented(setup, single_level, thermodynamics, gas)
-    return flux.replace(**{name: getattr(flux, name).flip(1)
-                           for name in LEVEL_FLUX_FIELDS
-                           if getattr(flux, name) is not None})
+                                   gas, cloud)
+    thermodynamics = _flip_fields(thermodynamics, (
+        "pressure_hl", "temperature_hl", "h2o_sat_liq"))
+    gas = _flip_fields(gas, ("mixing_ratio",))
+    if cloud is not None:
+        cloud = _flip_fields(cloud, (
+            "q_liq", "q_ice", "re_liq", "re_ice", "fraction",
+            "fractional_std", "overlap_param", "inv_cloud_effective_size",
+            "inv_inhom_effective_size"))
+    flux = _radiation_oriented(setup, single_level, thermodynamics, gas,
+                               cloud)
+    return _flip_fields(flux, LEVEL_FLUX_FIELDS)
+
+
+def _cloud_stage(setup, thermodynamics, cloud, cast):
+    """Default fractional_std and overlap parameter, crop, cloud optics
+    (ecrad_tpu/interface.py:338-359). Returns (cloud, six band-resolved
+    optical properties)."""
+    cfg = setup.config
+    cloud = cloud.replace(**{f: cast(getattr(cloud, f)) for f in (
+        "q_liq", "q_ice", "re_liq", "re_ice", "fraction", "fractional_std",
+        "overlap_param", "inv_cloud_effective_size",
+        "inv_inhom_effective_size")})
+    if cloud.fractional_std is None:
+        cloud = cloud.replace(fractional_std=torch.zeros_like(
+            cloud.fraction))
+    if cloud.overlap_param is None:
+        cloud = cloud.set_overlap_param(thermodynamics, 2000.0)
+    cloud = cloud.crop_cloud_fraction(cfg.cloud_fraction_threshold,
+                                      cfg.cloud_mixing_ratio_threshold)
+    return cloud, cloud_optics(cfg, setup.cloud_optics, setup.cloud_coeffs,
+                               thermodynamics.pressure_hl,
+                               thermodynamics.temperature_hl, cloud)
 
 
 def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
-                        thermodynamics: Thermodynamics,
-                        gas: GasConcs) -> Flux:
+                        thermodynamics: Thermodynamics, gas: GasConcs,
+                        cloud: Optional[Cloud]) -> Flux:
     cfg = setup.config
     cast = lambda x: None if x is None else x.to(setup.device, setup.dtype)
     single_level = single_level.replace(
@@ -141,10 +195,15 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
         sw_albedo=cast(single_level.sw_albedo),
         sw_albedo_direct=cast(single_level.sw_albedo_direct),
         lw_emissivity=cast(single_level.lw_emissivity),
-        lw_emission=cast(single_level.lw_emission))
+        lw_emission=cast(single_level.lw_emission),
+        iseed=(None if single_level.iseed is None
+               else single_level.iseed.to(setup.device)))
+    thermodynamics = thermodynamics.replace(
+        pressure_hl=cast(thermodynamics.pressure_hl),
+        temperature_hl=cast(thermodynamics.temperature_hl))
     sw_alb_diff, sw_alb_dir, lw_albedo = get_albedos(setup, single_level)
     go = gas_optics(
-        cast(thermodynamics.pressure_hl), cast(thermodynamics.temperature_hl),
+        thermodynamics.pressure_hl, thermodynamics.temperature_hl,
         cast(gas.mixing_ratio), single_level.skin_temperature,
         single_level.cos_sza, single_level.solar_irradiance, setup.spec,
         setup.gas, lw_albedo=lw_albedo, min_gas_od_lw=cfg.min_gas_od_lw,
@@ -162,44 +221,96 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
             emission = emission[:, torch.as_tensor(idx,
                                                    device=emission.device)]
 
+    cloud_props = None
+    if cfg.do_clouds and cloud is not None:
+        if single_level.iseed is None:
+            raise ValueError("the McICA cloud generator needs "
+                             "single_level.iseed (one seed per column)")
+        cloud, cloud_props = _cloud_stage(setup, thermodynamics, cloud,
+                                          cast)
+
     flux = Flux()
     if cfg.do_lw:
-        lw = solver_cloudless_lw(go.od_lw, go.planck_hl, emission,
-                                 lw_albedo)
-        band_lw = setup.spec.band_from_g_lw
-        lw_up, lw_dn, lw_dn_surf_g = _gsum(lw.up), _gsum(lw.dn), \
-            _surf_g(lw.dn)
-        lw_dn_surf_band = _band_sum(lw_dn_surf_g, band_lw, 16)
-        flux = flux.replace(lw_up=lw_up, lw_dn=lw_dn,
-                            lw_dn_surf_g=lw_dn_surf_g,
-                            lw_dn_surf_band=lw_dn_surf_band)
-        if cfg.do_clear:
-            flux = flux.replace(lw_up_clear=lw_up, lw_dn_clear=lw_dn,
-                                lw_dn_surf_clear_band=lw_dn_surf_band)
+        extras = {}
+        if cfg.i_solver_lw == Solver.CLOUDLESS or cloud_props is None:
+            lw, t_clear = solver_cloudless_lw(go.od_lw, go.planck_hl,
+                                              emission, lw_albedo,
+                                              want_trans=True)
+            lw_clear = lw
+            if cfg.do_lw_derivatives:
+                # ICA form on the clear transmittance
+                # (radiation_cloudless_lw.F90:166-171)
+                extras["lw_derivatives"] = lw_derivatives_ica(
+                    t_clear, lw.up[-1].T)
+        else:
+            zeros = torch.zeros_like(go.od_lw)
+            lw, lw_clear, extras = solve_lw(
+                setup, single_level, cloud, cloud_props, go.od_lw, zeros,
+                zeros, go.planck_hl, emission, lw_albedo)
+        flux = flux.replace(**_lw_fields(setup, lw, lw_clear, cfg.do_clear),
+                            **extras)
 
     if cfg.do_sw:
-        sw = solver_cloudless_sw(go.od_sw, go.ssa_sw, go.incoming_sw,
-                                 single_level.cos_sza, sw_alb_diff,
-                                 sw_alb_dir)
-        band_sw = setup.spec.band_from_g_sw
-        sw_up = _gsum(sw.up)
-        sw_dn = _gsum(sw.dn_diffuse + sw.dn_direct)
-        surf_dif, surf_dir = _surf_g(sw.dn_diffuse), _surf_g(sw.dn_direct)
-        flux = flux.replace(sw_up=sw_up, sw_dn=sw_dn,
-                            sw_dn_diffuse_surf_g=surf_dif,
-                            sw_dn_direct_surf_g=surf_dir)
-        sw_dn_direct = _gsum(sw.dn_direct) if cfg.do_sw_direct else None
-        flux = flux.replace(sw_dn_direct=sw_dn_direct)
-        if cfg.do_clear:
-            flux = flux.replace(sw_up_clear=sw_up, sw_dn_clear=sw_dn,
-                                sw_dn_direct_clear=sw_dn_direct)
-        if cfg.do_surface_sw_spectral_flux:
-            surf_band = _band_sum(surf_dif + surf_dir, band_sw, 14)
-            direct_band = _band_sum(surf_dir, band_sw, 14)
-            flux = flux.replace(sw_dn_surf_band=surf_band,
-                                sw_dn_direct_surf_band=direct_band)
-            if cfg.do_clear:
-                flux = flux.replace(
-                    sw_dn_surf_clear_band=surf_band,
-                    sw_dn_direct_surf_clear_band=direct_band)
+        extras = {}
+        if cfg.i_solver_sw == Solver.CLOUDLESS or cloud_props is None:
+            sw = solver_cloudless_sw(go.od_sw, go.ssa_sw, go.incoming_sw,
+                                     single_level.cos_sza, sw_alb_diff,
+                                     sw_alb_dir)
+            sw_clear = sw
+        else:
+            sw, sw_clear, extras = solve_sw(
+                setup, single_level, cloud, cloud_props, go.od_sw,
+                go.ssa_sw, torch.zeros_like(go.od_sw), go.incoming_sw,
+                sw_alb_diff, sw_alb_dir)
+        flux = flux.replace(**_sw_fields(setup, sw, sw_clear), **extras)
     return flux
+
+
+def _lw_fields(setup, lw, lw_clear, do_clear) -> dict:
+    band_lw = setup.spec.band_from_g_lw
+    up, dn, surf_g = _gsum(lw.up), _gsum(lw.dn), _surf_g(lw.dn)
+    out = dict(lw_up=up, lw_dn=dn, lw_dn_surf_g=surf_g,
+               lw_dn_surf_band=_band_sum(surf_g, band_lw, 16))
+    if do_clear:
+        if lw_clear is not lw:
+            up, dn = _gsum(lw_clear.up), _gsum(lw_clear.dn)
+            out["lw_dn_surf_clear_band"] = _band_sum(_surf_g(lw_clear.dn),
+                                                     band_lw, 16)
+        else:
+            out["lw_dn_surf_clear_band"] = out["lw_dn_surf_band"]
+        out.update(lw_up_clear=up, lw_dn_clear=dn)
+    return out
+
+
+def _sw_fields(setup, sw, sw_clear) -> dict:
+    cfg = setup.config
+    band_sw = setup.spec.band_from_g_sw
+
+    def fields(s):
+        surf_dif, surf_dir = _surf_g(s.dn_diffuse), _surf_g(s.dn_direct)
+        return {"up": _gsum(s.up), "dn": _gsum(s.dn_diffuse + s.dn_direct),
+                "direct": _gsum(s.dn_direct) if cfg.do_sw_direct else None,
+                "surf_dif": surf_dif, "surf_dir": surf_dir,
+                "surf_band": (_band_sum(surf_dif + surf_dir, band_sw, 14)
+                              if cfg.do_surface_sw_spectral_flux else None),
+                "direct_band": (_band_sum(surf_dir, band_sw, 14)
+                                if cfg.do_surface_sw_spectral_flux
+                                else None)}
+
+    tot = fields(sw)
+    out = dict(sw_up=tot["up"], sw_dn=tot["dn"],
+               sw_dn_diffuse_surf_g=tot["surf_dif"],
+               sw_dn_direct_surf_g=tot["surf_dir"],
+               sw_dn_direct=tot["direct"])
+    clr = None
+    if cfg.do_clear:
+        clr = tot if sw_clear is sw else fields(sw_clear)
+        out.update(sw_up_clear=clr["up"], sw_dn_clear=clr["dn"],
+                   sw_dn_direct_clear=clr["direct"])
+    if cfg.do_surface_sw_spectral_flux:
+        out.update(sw_dn_surf_band=tot["surf_band"],
+                   sw_dn_direct_surf_band=tot["direct_band"])
+        if clr is not None:
+            out.update(sw_dn_surf_clear_band=clr["surf_band"],
+                       sw_dn_direct_surf_clear_band=clr["direct_band"])
+    return out

@@ -40,6 +40,9 @@ _SIGS = {
     "taumol_sw": "pppppipp",
     "sw_adding": "pppppppppiiipppp",
     "lw_noscat": "pppppiiipp",
+    "lw_adding": "ppppppiiippp",
+    "mcica_sw_optics": "ppppppppppiiiiip",
+    "mcica_lw_optics": "ppppppiiiip",
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,10 +1,13 @@
-"""Kernel B3: the adding level sweeps as CUDA kernels (csrc/level_sweep.cu).
+"""Kernels B3 and B3': the adding level sweeps as CUDA kernels
+(csrc/level_sweep.cu).
 
 Replaces ecrad_tpu/ops/adding_fused.py::level_sweep (:38, pallas_call
-:125) in its two Cloudless uses: `adding_sw_fused` (:144, three sweeps)
-and `affine_fused` (:247) as the down and up sweeps of the LW
-no-scattering fluxes (solvers/adding.py:240-261). The plain versions are
-solvers/adding.py `adding_sw_plain` and `lw_no_scattering_fluxes_plain`.
+:125) in its three uses: `adding_sw_fused` (:144, three sweeps),
+`affine_fused` (:247) as the down and up sweeps of the LW no-scattering
+fluxes (solvers/adding.py:240-261) and, as B3', `adding_lw_fused` (:210,
+LW adding with scattering). The plain versions are solvers/adding.py
+`adding_sw_plain`, `lw_no_scattering_fluxes_plain` and
+`adding_lw_plain`.
 
 On the H100 each sweep is a recurrence over ~137 levels that is
 independent per (g, column): one thread owns one (g, column) pair and
@@ -22,7 +25,7 @@ import torch
 from . import _cuda
 
 #: launches of each CUDA kernel (incremented only where it is launched)
-launches = {"sw_adding": 0, "lw_noscat": 0}
+launches = {"sw_adding": 0, "lw_noscat": 0, "lw_adding": 0}
 
 
 def adding_sw_fused(ref, trans, ref_dir, trans_dir_diff, trans_dir_dir,
@@ -71,4 +74,28 @@ def lw_noscat_fused(trans, source_up, source_dn, emission_surf,
     _cuda.launch("lw_noscat", trans, source_up, source_dn, emission_surf,
                  albedo_surf, nlev, ng, ncol, out[0], out[1])
     launches["lw_noscat"] += 1
+    return out[0], out[1]
+
+
+def adding_lw_fused(ref, trans, source_up, source_dn, emission_surf,
+                    albedo_surf):
+    """Kernel B3': LW adding with scattering
+    (radiation_adding_ica_lw.F90:32-131) in one kernel: albedo/source
+    ascent into wrapper-allocated scratch, then the flux descent. Layer
+    inputs (nlev, ng, ncol), emission/albedo (ng, ncol). Returns
+    (flux_up, flux_dn), (nlev+1, ng, ncol)."""
+    nlev, ng, ncol = ref.shape
+    f32 = torch.float32
+    for name, x in (("ref", ref), ("trans", trans),
+                    ("source_up", source_up), ("source_dn", source_dn)):
+        _cuda.check(x, f32, (nlev, ng, ncol), name)
+    _cuda.check(emission_surf, f32, (ng, ncol), "emission_surf")
+    _cuda.check(albedo_surf, f32, (ng, ncol), "albedo_surf")
+    out = torch.empty((2, nlev + 1, ng, ncol), dtype=f32, device=ref.device)
+    scratch = torch.empty((2, nlev + 1, ng, ncol), dtype=f32,
+                          device=ref.device)
+    _cuda.launch("lw_adding", ref, trans, source_up, source_dn,
+                 emission_surf, albedo_surf, nlev, ng, ncol, scratch,
+                 out[0], out[1])
+    launches["lw_adding"] += 1
     return out[0], out[1]

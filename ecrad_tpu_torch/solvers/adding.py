@@ -1,11 +1,12 @@
 """Adding method for independent-column radiative transfer, g-first.
 
-Port of the sequential forms of ecrad_tpu/solvers/adding.py:212-387
-(radiation_adding_ica_sw.F90:24-147, radiation_adding_ica_lw.F90:272-324)
-as Python loops over levels. Layer quantities are (nlev, ng, ncol),
-boundary values (ng, ncol), fluxes (nlev+1, ng, ncol), TOA first.
-`adding_sw` and `lw_no_scattering_fluxes` run the plain loops on CPU
-tensors and kernel B3 (ops/adding_fused.py) on CUDA tensors.
+Port of the sequential forms of ecrad_tpu/solvers/adding.py:165-387
+(radiation_adding_ica_sw.F90:24-147, radiation_adding_ica_lw.F90:32-131,
+:272-324) as Python loops over levels. Layer quantities are (nlev, ng,
+ncol), boundary values (ng, ncol), fluxes (nlev+1, ng, ncol), TOA first.
+`adding_sw`, `lw_no_scattering_fluxes` and `adding_lw` run the plain
+loops on CPU tensors and kernels B3/B3' (ops/adding_fused.py) on CUDA
+tensors.
 """
 from __future__ import annotations
 
@@ -62,6 +63,29 @@ def lw_no_scattering_fluxes_plain(trans, source_up, source_dn,
     return torch.stack(fu), torch.stack(fd)
 
 
+def adding_lw_plain(ref, trans, source_up, source_dn, emission_surf,
+                    albedo_surf):
+    """LW adding with scattering: albedo/source ascent from the surface,
+    then the flux descent. Returns (flux_up, flux_dn)."""
+    nlev = ref.shape[0]
+    albedo = [None] * nlev + [albedo_surf]
+    source = [None] * nlev + [emission_surf]
+    inv_denom = [None] * nlev
+    for l in range(nlev - 1, -1, -1):
+        r, t, alb_below = ref[l], trans[l], albedo[l + 1]
+        inv_denom[l] = 1.0 / (1.0 - alb_below * r)
+        albedo[l] = r + t * t * alb_below * inv_denom[l]
+        source[l] = (source_up[l] + t * (source[l + 1]
+                                         + alb_below * source_dn[l])
+                     * inv_denom[l])
+    fd = [torch.zeros_like(emission_surf)]
+    for l in range(nlev):
+        fd.append((trans[l] * fd[l] + ref[l] * source[l + 1] + source_dn[l])
+                  * inv_denom[l])
+    flux_dn = torch.stack(fd)
+    return torch.stack(albedo) * flux_dn + torch.stack(source), flux_dn
+
+
 def adding_sw(*args):
     """SW adding: the plain loops on CPU tensors, kernel B3 on any
     other (which raises unless it is CUDA float32)."""
@@ -76,3 +100,11 @@ def lw_no_scattering_fluxes(*args):
     if args[0].device.type == "cpu":
         return lw_no_scattering_fluxes_plain(*args)
     return adding_fused.lw_noscat_fused(*args)
+
+
+def adding_lw(*args):
+    """LW adding with scattering: the plain loops on CPU tensors, kernel
+    B3' on any other (which raises unless it is CUDA float32)."""
+    if args[0].device.type == "cpu":
+        return adding_lw_plain(*args)
+    return adding_fused.adding_lw_fused(*args)

@@ -34,15 +34,20 @@ def _gf(x):
     return x.permute(1, 2, 0).contiguous()
 
 
-def solver_cloudless_lw(od, planck_hl, emission, albedo) -> LwFluxes:
+def solver_cloudless_lw(od, planck_hl, emission, albedo,
+                        want_trans: bool = False):
     """od (ncol, nlev, ng); planck_hl (ncol, nlev+1, ng); emission and
-    albedo (ncol, ng). LW scattering is off (no aerosols)."""
+    albedo (ncol, ng). LW scattering is off (no aerosols). With
+    want_trans also returns the layer transmittance, g-first (for the
+    ICA LW derivatives, radiation_cloudless_lw.F90:169)."""
     planck_g = _gf(planck_hl)
     trans, src_up, src_dn = ts.lw_no_scattering_transmittance(
         _gf(od), planck_g[:-1], planck_g[1:])
     up, dn = lw_no_scattering_fluxes(trans, src_up, src_dn,
                                      emission.T.contiguous(),
                                      albedo.T.contiguous())
+    if want_trans:
+        return LwFluxes(up=up, dn=dn), trans
     return LwFluxes(up=up, dn=dn)
 
 

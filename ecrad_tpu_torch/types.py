@@ -3,8 +3,8 @@
 Field names and shapes follow ecrad_tpu/types.py (columns first, levels
 next, spectral innermost), so inputs convert one-to-one
 (convert.inputs_from_numpy) and tests compare like with like. `Cloud`
-and `Aerosol` are accepted by `radiation()` and ignored on the Cloudless
-path, as the JAX package ignores them when `config.do_clouds` is false.
+is used by the McICA path; `Aerosol` is accepted by `radiation()` and
+ignored while `use_aerosols` is off.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from .constants import GAS_INDEX
+from .constants import ACCEL_DUE_TO_GRAVITY, GAS_INDEX
 
 
 class _Replace:
@@ -65,16 +65,43 @@ class GasConcs(_Replace):
 
 @dataclass
 class Cloud(_Replace):
-    """Cloud fields (radiation_cloud.F90); unused by the Cloudless path."""
-    q_liq: torch.Tensor
-    q_ice: torch.Tensor
-    re_liq: torch.Tensor
+    """Cloud fields (radiation_cloud.F90), (ncol, nlev) unless noted."""
+    q_liq: torch.Tensor                 # liquid mass mixing ratio
+    q_ice: torch.Tensor                 # ice mass mixing ratio
+    re_liq: torch.Tensor                # effective radii (m)
     re_ice: torch.Tensor
     fraction: torch.Tensor
     fractional_std: Optional[torch.Tensor] = None
-    overlap_param: Optional[torch.Tensor] = None
+    overlap_param: Optional[torch.Tensor] = None        # (ncol, nlev-1)
     inv_cloud_effective_size: Optional[torch.Tensor] = None
     inv_inhom_effective_size: Optional[torch.Tensor] = None
+
+    def set_overlap_param(self, thermodynamics: "Thermodynamics",
+                          decorrelation_length: float) -> "Cloud":
+        """alpha = exp(-dz / L), dz the hydrostatic separation of adjacent
+        layer midpoints (radiation_cloud.F90:166-252;
+        ecrad_tpu/types.py:176-195)."""
+        p = torch.clamp(thermodynamics.pressure_hl, min=1.0)
+        t = thermodynamics.temperature_hl
+        r_over_g = 287.0 / ACCEL_DUE_TO_GRAVITY
+        dz = r_over_g * 0.5 * (t[:, :-1] + t[:, 1:]) * torch.log(
+            p[:, 1:] / p[:, :-1])
+        sep = 0.5 * (dz[:, :-1] + dz[:, 1:])
+        return self.replace(overlap_param=torch.exp(
+            -torch.abs(sep) / decorrelation_length))
+
+    def crop_cloud_fraction(self, cloud_fraction_threshold: float = 1.0e-6,
+                            cloud_mixing_ratio_threshold: float = 1.0e-9
+                            ) -> "Cloud":
+        """Zero negligible clouds (radiation_cloud.F90:560+;
+        ecrad_tpu/types.py:232-243)."""
+        keep = ((self.fraction > cloud_fraction_threshold)
+                & (self.q_liq + self.q_ice > cloud_mixing_ratio_threshold))
+        zero = torch.zeros((), dtype=self.fraction.dtype,
+                           device=self.fraction.device)
+        return self.replace(fraction=torch.where(keep, self.fraction, zero),
+                            q_liq=torch.where(keep, self.q_liq, zero),
+                            q_ice=torch.where(keep, self.q_ice, zero))
 
 
 @dataclass
@@ -109,6 +136,10 @@ class Flux(_Replace):
     lw_dn_surf_g: Optional[torch.Tensor] = None
     sw_dn_diffuse_surf_g: Optional[torch.Tensor] = None
     sw_dn_direct_surf_g: Optional[torch.Tensor] = None
+    # diagnostics
+    cloud_cover_lw: Optional[torch.Tensor] = None    # (ncol,)
+    cloud_cover_sw: Optional[torch.Tensor] = None    # (ncol,)
+    lw_derivatives: Optional[torch.Tensor] = None    # (ncol, nlev+1)
 
     def fields(self):
         """(name, tensor) for every field that is set."""
@@ -122,5 +153,5 @@ class Flux(_Replace):
 LEVEL_FLUX_FIELDS = (
     "lw_up", "lw_dn", "sw_up", "sw_dn", "sw_dn_direct",
     "lw_up_clear", "lw_dn_clear", "sw_up_clear", "sw_dn_clear",
-    "sw_dn_direct_clear",
+    "sw_dn_direct_clear", "lw_derivatives",
 )

@@ -1,5 +1,5 @@
-"""PyTorch port: two-stream layer optics and the plain versions of kernel
-B3 (the adding level sweeps) against the JAX package.
+"""PyTorch port: two-stream layer optics and the plain versions of kernels
+B3 and B3' (the adding level sweeps) against the JAX package.
 
 B3 is held to the JAX package's own bound for its fused sweeps against
 the scan (tests/test_adding_fused.py): |diff| / max|ref| <= 2e-6. The JAX
@@ -92,9 +92,35 @@ def test_b3_lw_plain_matches_jax_interpret_kernel():
     _cmp([g.numpy() for g in got], (fu, fd), 2e-6)
 
 
+def _lw_adding_args(seed, nlev=17, ng=12, ncol=67):
+    """R, T, Su, Sd (nlev, ng, ncol), emission and albedo (ng, ncol), in
+    the ranges LW layers with scattering clouds give them."""
+    rng = np.random.RandomState(seed)
+    return (_rand(rng, nlev, ng, ncol, hi=0.3),
+            _rand(rng, nlev, ng, ncol, lo=0.2, hi=0.7),
+            _rand(rng, nlev, ng, ncol, hi=50.0),
+            _rand(rng, nlev, ng, ncol, hi=50.0),
+            _rand(rng, ng, ncol, hi=400.0),
+            _rand(rng, ng, ncol, hi=0.2))
+
+
+@pytest.mark.parametrize("mode", ["scan", "interpret"])
+@pytest.mark.parametrize("seed", [3, 4])
+def test_b3prime_lw_adding_plain_matches_jax(monkeypatch, mode, seed):
+    """adding_lw_plain against the JAX package's adding_lw(gfirst=True),
+    as its lax.scan sweeps (ECRAD_ADDING=scan) and as its Pallas
+    level-sweep kernel in interpret mode."""
+    args = _lw_adding_args(seed)
+    got = adding.adding_lw(*map(torch.as_tensor, args))
+    monkeypatch.setenv("ECRAD_ADDING", mode)
+    ref = jax_adding.adding_lw(*map(jnp.asarray, args), gfirst=True)
+    _cmp([g.numpy() for g in got], ref, 2e-6)
+
+
 @pytest.mark.parametrize("fn, args", [
     (adding_fused.adding_sw_fused, _sw_args(7, 3, 2, 5)),
-    (adding_fused.lw_noscat_fused, _lw_args(7, 3, 2, 5))])
+    (adding_fused.lw_noscat_fused, _lw_args(7, 3, 2, 5)),
+    (adding_fused.adding_lw_fused, _lw_adding_args(7, 3, 2, 5))])
 def test_b3_kernel_wrappers_refuse_cpu_tensors(fn, args):
     before = dict(adding_fused.launches)
     with pytest.raises(ValueError, match="CUDA"):

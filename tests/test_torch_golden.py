@@ -1,12 +1,15 @@
-"""PyTorch port: its golden file stays current, and the package runs where
+"""PyTorch port: its golden files stay current, and the package runs where
 jax is not installed.
 
-tests/goldens/torch_port_cloudless.npz holds the JAX package's fluxes (at
-float32 and float64) for the first 32 of the 2048 seed-0 columns that
-chip_smoke.py runs on the GPU; tools/make_torch_port_golden.py --check
-regenerates them from JAX and compares. The port package must import
-neither jax nor flax nor the JAX package (the GPU machine has none of
-them): a subprocess blocks all three and runs the slice.
+tests/goldens/torch_port_cloudless.npz and torch_port_mcica.npz hold the
+JAX package's fluxes (at float32 and float64) for the first 32 of the
+2048 seed-0 columns that chip_smoke.py runs on the GPU, the McICA one
+also the cloud covers and the cloudy-subcolumn masks (on the synthetic
+LUTs of inputs.write_synthetic_luts); tools/make_torch_port_golden.py
+--check regenerates both from JAX and compares. The port package must
+import neither jax nor flax nor the JAX package (the GPU machine has none
+of them): a subprocess blocks all three, imports every module of the
+port and runs both paths.
 """
 import os
 import subprocess
@@ -18,6 +21,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "goldens", "torch_port_cloudless.npz")
+GOLDEN_MCICA = os.path.join(REPO, "tests", "goldens", "torch_port_mcica.npz")
 
 
 def _env():
@@ -57,6 +61,53 @@ def test_golden_meets_the_port_on_the_cpu():
             assert np.abs(got - z[k + "_f64"][:2]).max() <= bound, k
 
 
+def test_mcica_golden_meets_the_port_on_the_cpu(tmp_path):
+    """The first two McICA golden columns against the port's plain path:
+    the bounds chip_smoke.py applies on the GPU (clear sky against JAX
+    float32 and float64; total sky and cloud covers against JAX float32;
+    identical subcolumn masks) hold on the CPU as well."""
+    from ecrad_tpu_torch.config import mcica_slice_config
+    from ecrad_tpu_torch.convert import columns_to_inputs
+    from ecrad_tpu_torch.inputs import (make_clouds, make_columns,
+                                        slice_columns, write_synthetic_luts)
+    from ecrad_tpu_torch.interface import (_cloud_stage, radiation,
+                                           setup_radiation)
+    from ecrad_tpu_torch.solvers.cloud_generator import cloud_generator
+
+    cols = slice_columns(make_clouds(make_columns(2048, 137, 0), 0),
+                         slice(0, 2))
+    setup = setup_radiation(mcica_slice_config(
+        **write_synthetic_luts(str(tmp_path), 0)))
+    inputs = columns_to_inputs(cols)
+    flux = radiation(setup, *inputs)
+    clear = {"lw_up": 0.01, "lw_dn": 0.01, "sw_up": 0.2, "sw_dn": 0.2,
+             "sw_dn_direct": 0.02}
+    total = {"lw_up": 0.02, "lw_dn": 0.02, "sw_up": 0.3, "sw_dn": 0.3,
+             "sw_dn_direct": 0.3}
+    with np.load(GOLDEN_MCICA) as z:
+        for k, bound in clear.items():
+            got = getattr(flux, k + "_clear").double().numpy()
+            assert z[k + "_clear"].shape == (32, 138)
+            assert np.abs(got - z[k + "_clear"][:2]).max() <= bound, k
+            assert np.abs(got - z[k + "_clear_f64"][:2]).max() <= bound, k
+        for k, bound in total.items():
+            got = getattr(flux, k).double().numpy()
+            assert np.abs(got - z[k][:2]).max() <= bound, k
+        for k in ("cloud_cover_sw", "cloud_cover_lw"):
+            assert np.abs(getattr(flux, k).numpy() - z[k][:2]).max() <= 1e-5
+        cfg = setup.config
+        cloud, _ = _cloud_stage(setup, inputs[1], inputs[3], lambda x: x)
+        for key, ng, offset in (("mask_sw", 112, 0), ("mask_lw", 140, 997)):
+            od_scaling, _ = cloud_generator(
+                ng, inputs[0].iseed + offset, cfg.i_overlap_scheme,
+                cfg.cloud_fraction_threshold, cloud.fraction,
+                cloud.overlap_param, cfg.cloud_inhom_decorr_scaling,
+                cloud.fractional_std, setup.pdf_sampler)
+            ref = np.unpackbits(z[key])[:32 * 137 * ng].reshape(32, 137, ng)
+            np.testing.assert_array_equal((od_scaling > 0).numpy(),
+                                          ref[:2], err_msg=key)
+
+
 NO_JAX = r"""
 import sys
 for name in ("jax", "jaxlib", "flax", "ecrad_tpu"):
@@ -66,14 +117,19 @@ import importlib, pkgutil
 import ecrad_tpu_torch
 for m in pkgutil.walk_packages(ecrad_tpu_torch.__path__, "ecrad_tpu_torch."):
     importlib.import_module(m.name)
+import tempfile
 import torch
-from ecrad_tpu_torch.config import cloudless_slice_config
+from ecrad_tpu_torch.config import cloudless_slice_config, mcica_slice_config
 from ecrad_tpu_torch.convert import columns_to_inputs
-from ecrad_tpu_torch.inputs import make_columns
+from ecrad_tpu_torch.inputs import make_clouds, make_columns, write_synthetic_luts
 from ecrad_tpu_torch.interface import radiation, setup_radiation
 flux = radiation(setup_radiation(cloudless_slice_config()),
                  *columns_to_inputs(make_columns(2, 10, 0)))
 assert flux.lw_up.shape == (2, 11) and bool(torch.isfinite(flux.sw_dn).all())
+with tempfile.TemporaryDirectory() as luts:
+    setup = setup_radiation(mcica_slice_config(**write_synthetic_luts(luts)))
+flux = radiation(setup, *columns_to_inputs(make_clouds(make_columns(3, 10, 0))))
+assert flux.cloud_cover_sw.shape == (3,) and bool(torch.isfinite(flux.lw_dn).all())
 loaded = [m for m in sys.modules if m.split(".")[0] in
           ("jax", "jaxlib", "flax", "ecrad_tpu") and sys.modules[m]]
 assert not loaded, loaded

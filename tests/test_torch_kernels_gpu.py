@@ -1,6 +1,6 @@
 """PyTorch port on a CUDA GPU: each hand-written kernel against its plain
-PyTorch version on the card, the wrappers' refusals, and the slice's
-launch counts.
+PyTorch version on the card, the wrappers' refusals, and the launch
+counts of the Cloudless and McICA paths.
 
 Marked `gpu`; every test decides inside itself whether there is a card
 and skips without one. The file imports no jax, so it runs on a machine
@@ -10,19 +10,23 @@ imports jax):
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 Bounds: B1/B2 the JAX package's fused-taumol bound (rel 1e-5 where
-tau > 1e-6, pfrac atol 1e-6), B3 its fused-sweep bound (2e-6 of the
-range). The kernels build with -fmad=false, so only summation order
-separates them from the plain versions.
+tau > 1e-6, pfrac atol 1e-6), B3/B3' its fused-sweep bound (2e-6 of the
+range), B4 its McICA-optics bounds (tests/test_mcica_optics.py: SW 2e-3,
+LW 1e-4 of the range). The kernels build with -fmad=false, so only
+summation order separates them from the plain versions.
 """
 import numpy as np
 import pytest
 import torch
 
-from ecrad_tpu_torch.config import cloudless_slice_config
+from ecrad_tpu_torch.config import (Overlap, cloudless_slice_config,
+                                    mcica_slice_config)
 from ecrad_tpu_torch.convert import columns_to_inputs
-from ecrad_tpu_torch.inputs import make_columns
-from ecrad_tpu_torch.interface import radiation, setup_radiation
-from ecrad_tpu_torch.ops import adding_fused
+from ecrad_tpu_torch.inputs import (make_clouds, make_columns,
+                                    write_synthetic_luts)
+from ecrad_tpu_torch.interface import (_cloud_stage, radiation,
+                                       setup_radiation)
+from ecrad_tpu_torch.ops import adding_fused, mcica_optics
 from ecrad_tpu_torch.optics.rrtmg import taumol_lw, taumol_sw
 from ecrad_tpu_torch.optics.rrtmg.setcoef import prepare_gases, setcoef
 from ecrad_tpu_torch.solvers import adding
@@ -119,6 +123,95 @@ def test_b3_lw_kernel_matches_plain(cuda, nlev, ng, ncol):
         assert float((x - y).abs().max() / y.abs().max()) <= 2e-6
 
 
+@pytest.mark.parametrize("nlev, ng, ncol", [(17, 12, 67), (137, 140, 300)])
+def test_b3prime_lw_adding_kernel_matches_plain(cuda, nlev, ng, ncol):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    r = lambda *s, lo=0.0, hi=1.0: _rand(gen, *s, lo=lo, hi=hi, device=cuda)
+    args = (r(nlev, ng, ncol, hi=0.3), r(nlev, ng, ncol, lo=0.2, hi=0.7),
+            r(nlev, ng, ncol, hi=50.0), r(nlev, ng, ncol, hi=50.0),
+            r(ng, ncol, hi=400.0), r(ng, ncol, hi=0.2))
+    n0 = adding_fused.launches["lw_adding"]
+    got = adding.adding_lw(*args)
+    torch.cuda.synchronize()
+    assert adding_fused.launches["lw_adding"] == n0 + 1
+    ref = adding.adding_lw_plain(*args)
+    for x, y in zip(got, ref):
+        assert float((x - y).abs().max() / y.abs().max()) <= 2e-6
+
+
+def _b4_args(cuda, ncol, nlev, ng, nb, seed):
+    """Random layer optics in the ranges of tests/test_mcica_optics.py."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *s, lo=0.0, hi=1.0: _rand(gen, *s, lo=lo, hi=hi, device=cuda)
+    band_from_g = np.sort(np.random.RandomState(seed).randint(0, nb, ng))
+    return dict(od=r(ncol, nlev, ng, hi=3.0), ssa=r(ncol, nlev, ng, lo=0.1,
+                                                    hi=0.999),
+                g=r(ncol, nlev, ng, hi=0.9), odc=r(ncol, nlev, nb, hi=8.0),
+                ssac=r(ncol, nlev, nb, lo=0.3, hi=0.999),
+                gc=r(ncol, nlev, nb, lo=0.5, hi=0.9),
+                osc=r(ncol, nlev, ng, hi=3.0),
+                mask=r(ncol, nlev) > 0.5, mu0=r(ncol, lo=-0.1),
+                band=band_from_g, planck=r(ncol, nlev + 1, ng, lo=1.0,
+                                           hi=30.0))
+
+
+def _rel_all(got, ref):
+    return max(float((x - y).abs().max() / y.abs().max().clamp(min=1e-30))
+               for x, y in zip(got, ref))
+
+
+@pytest.mark.parametrize("shape", [(37, 11, 112), (300, 137, 112)])
+@pytest.mark.parametrize("delta_all", [False, True])
+def test_b4_sw_kernel_matches_plain(cuda, shape, delta_all):
+    a = _b4_args(cuda, *shape, 14, 6)
+    args = (a["od"], a["ssa"], a["g"], a["odc"], a["ssac"], a["gc"],
+            a["band"], a["osc"], a["mask"], a["mu0"], delta_all)
+    n0 = mcica_optics.launches["mcica_sw_optics"]
+    got = mcica_optics.sw_clear_total_reftrans(*args)
+    torch.cuda.synchronize()
+    assert mcica_optics.launches["mcica_sw_optics"] == n0 + 1
+    assert _rel_all(got, mcica_optics.sw_clear_total_reftrans_plain(
+        *args)) <= 2e-3
+
+
+@pytest.mark.parametrize("shape", [(37, 11, 140), (300, 137, 140)])
+def test_b4_lw_kernel_matches_plain(cuda, shape):
+    a = _b4_args(cuda, *shape, 16, 7)
+    args = (a["od"], a["odc"], a["band"], a["osc"], a["mask"], a["planck"])
+    n0 = mcica_optics.launches["mcica_lw_optics"]
+    got = mcica_optics.lw_clear_total_noscat(*args)
+    torch.cuda.synchronize()
+    assert mcica_optics.launches["mcica_lw_optics"] == n0 + 1
+    assert _rel_all(got, mcica_optics.lw_clear_total_noscat_plain(
+        *args)) <= 1e-4
+
+
+def test_new_kernels_refuse_float64_and_strided_tensors(cuda):
+    a = _b4_args(cuda, 5, 4, 12, 3, 8)
+    x = torch.rand(3, 4, 10, device=cuda)
+    e = torch.rand(4, 10, device=cuda)
+    strided = x.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        adding_fused.adding_lw_fused(x, x, x, strided, e, e)
+    with pytest.raises(TypeError):
+        adding_fused.adding_lw_fused(*(t.double() for t in (x, x, x, x, e,
+                                                            e)))
+    sw = lambda **kw: mcica_optics.mcica_sw_optics_fused(
+        *(kw.get(k, a[k]) for k in ("od", "ssa", "g", "odc", "ssac", "gc")),
+        a["band"], a["osc"], a["mask"], a["mu0"], False)
+    lw = lambda **kw: mcica_optics.mcica_lw_optics_fused(
+        kw.get("od", a["od"]), a["odc"], a["band"], a["osc"], a["mask"],
+        kw.get("planck", a["planck"]))
+    od_strided = a["od"].transpose(0, 1).contiguous().transpose(0, 1)
+    for fn in (sw, lw):
+        with pytest.raises(TypeError):
+            fn(od=a["od"].double())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(od=od_strided)
+    with pytest.raises(TypeError):
+        lw(planck=a["planck"].double())
+
+
 def test_kernels_refuse_float64_and_strided_tensors(cuda, slice_state):
     setup, _, c = slice_state
     fc, ic = taumol_lw.pack_coeffs(c, setup.tables["chi_mls"])
@@ -134,26 +227,103 @@ def test_kernels_refuse_float64_and_strided_tensors(cuda, slice_state):
                                      e.double(), e.double())
 
 
+def _reset_counts():
+    taumol_lw.launches = taumol_sw.launches = 0
+    for d in (adding_fused.launches, mcica_optics.launches):
+        for k in d:
+            d[k] = 0
+
+
+def _to_cpu(inputs):
+    return [x.replace(**{f: getattr(x, f).cpu() for f in
+                         x.__dataclass_fields__
+                         if isinstance(getattr(x, f), torch.Tensor)})
+            for x in inputs]
+
+
 def test_slice_launches_every_kernel(slice_state):
     setup, inputs, _ = slice_state
-    taumol_lw.launches = taumol_sw.launches = 0
-    for k in adding_fused.launches:
-        adding_fused.launches[k] = 0
+    _reset_counts()
     flux = radiation(setup, *inputs)
     torch.cuda.synchronize()
     assert taumol_lw.launches == 1 and taumol_sw.launches == 1
-    assert adding_fused.launches == {"sw_adding": 1, "lw_noscat": 1}
+    assert adding_fused.launches == {"sw_adding": 1, "lw_noscat": 1,
+                                     "lw_adding": 0}
+    assert mcica_optics.launches == {"mcica_sw_optics": 0,
+                                     "mcica_lw_optics": 0}
     for k, v in flux.fields():
         assert bool(torch.isfinite(v).all()), k
     # the same columns through the plain path on the CPU
     cpu = radiation(setup_radiation(cloudless_slice_config()),
-                    *(x.replace(**{f: getattr(x, f).cpu() for f in
-                                   x.__dataclass_fields__
-                                   if isinstance(getattr(x, f),
-                                                 torch.Tensor)})
-                      for x in inputs))
+                    *_to_cpu(inputs))
     # the clear-sky float32 contract (tests/test_f64_validation.py):
     # 0.01 W/m2 for LW fields, 0.2 W/m2 for SW ones
     for k, v in flux.fields():
         bound = 0.01 if k.startswith("lw") else 0.2
         assert float((v.cpu() - getattr(cpu, k)).abs().max()) <= bound, k
+
+
+def _masks(setup, inputs):
+    """Cloudy-subcolumn masks of the SW and LW generators per column."""
+    from ecrad_tpu_torch.solvers.cloud_generator import cloud_generator
+    cfg = setup.config
+    sl, th, _, cloud = inputs
+    cloud, _ = _cloud_stage(setup, th, cloud, lambda x: x)
+    return [(cloud_generator(
+        ng, sl.iseed + offset, cfg.i_overlap_scheme,
+        cfg.cloud_fraction_threshold, cloud.fraction, cloud.overlap_param,
+        cfg.cloud_inhom_decorr_scaling, cloud.fractional_std,
+        setup.pdf_sampler, cheb=setup.pdf_cheb)[0] > 0).cpu()
+        for ng, offset in ((112, 0), (140, 997))]
+
+
+@pytest.mark.parametrize("variant", ["mcica", "mcica_noscat"])
+def test_mcica_path_launches_its_kernels(cuda, tmp_path, variant):
+    """The McICA path on the card: bench.py's configuration (B3 SW, B3'
+    and B4 SW), and without LW scattering on Exp-Ran (B3 LW and B4 LW);
+    its fluxes against the plain path on the CPU on every column whose
+    subcolumns came out the same (a float32 cover can straddle a
+    random number on one device and not the other)."""
+    kw = {} if variant == "mcica" else dict(
+        do_lw_cloud_scattering=False, do_lw_aerosol_scattering=False,
+        i_overlap_scheme=Overlap.EXPONENTIAL_RANDOM)
+    cfg = mcica_slice_config(**write_synthetic_luts(str(tmp_path)), **kw)
+    setup = setup_radiation(cfg, device=cuda)
+    inputs = columns_to_inputs(make_clouds(make_columns(96, 137, 0)),
+                               device=cuda)
+    _reset_counts()
+    flux = radiation(setup, *inputs)
+    torch.cuda.synchronize()
+    assert taumol_lw.launches == 1 and taumol_sw.launches == 1
+    if variant == "mcica":
+        assert adding_fused.launches == {"sw_adding": 2, "lw_noscat": 0,
+                                         "lw_adding": 2}
+        assert mcica_optics.launches == {"mcica_sw_optics": 1,
+                                         "mcica_lw_optics": 0}
+    else:
+        assert adding_fused.launches == {"sw_adding": 2, "lw_noscat": 2,
+                                         "lw_adding": 0}
+        assert mcica_optics.launches == {"mcica_sw_optics": 1,
+                                         "mcica_lw_optics": 1}
+    for k, v in flux.fields():
+        assert bool(torch.isfinite(v).all()), k
+    setup_cpu = setup_radiation(cfg)
+    cpu_inputs = _to_cpu(inputs)
+    cpu = radiation(setup_cpu, *cpu_inputs)
+    same = torch.ones(96, dtype=torch.bool)
+    for a, b in zip(_masks(setup, inputs), _masks(setup_cpu, cpu_inputs)):
+        same &= (a == b).flatten(1).all(1)
+    assert int((~same).sum()) <= 3
+    # the clear-sky float32 contract for clear fields (0.01 LW, 0.2 SW)
+    # and the deterministic solvers' total-sky one (0.02 LW, 0.3 SW)
+    for k, v in flux.fields():
+        ref = getattr(cpu, k)
+        if k.startswith("cloud_cover"):
+            bound = 1e-5
+        elif k == "lw_derivatives":
+            bound = 1e-5
+        else:
+            bound = {(True, True): 0.01, (True, False): 0.2,
+                     (False, True): 0.02, (False, False): 0.3}[
+                ("clear" in k, k.startswith("lw"))]
+        assert float((v.cpu() - ref)[same].abs().max()) <= bound, k

@@ -168,11 +168,11 @@ def test_inputs_from_numpy_round_trip():
 # ---- configuration ----
 
 @pytest.mark.parametrize("overrides, slice_no", [
-    (dict(i_solver_sw=pconfig.Solver.MCICA), "3"),
+    (dict(i_solver_sw=pconfig.Solver.HOMOGENEOUS), "5"),
     (dict(i_solver_lw=pconfig.Solver.SPARTACUS), "7"),
     (dict(i_solver_lw=pconfig.Solver.TRIPLECLOUDS), "6"),
     (dict(use_aerosols=True), "4"),
-    (dict(do_lw_derivatives=True), "3"),
+    (dict(use_canopy_full_spectrum_lw=True), "8"),
     (dict(do_save_spectral_flux=True), "8"),
     (dict(do_canopy_fluxes_sw=True), "8"),
     (dict(use_spectral_solar_scaling=True), "8"),

@@ -1,19 +1,30 @@
 #!/usr/bin/env python
-"""Golden fluxes for the PyTorch port's Cloudless slice, from the JAX
-package on the CPU.
+"""Golden fluxes for the PyTorch port, from the JAX package on the CPU.
 
-The columns are ecrad_tpu_torch.inputs.make_columns(2048, 137, seed=0),
-the batch chip_smoke.py runs; the golden keeps the first 32 of them, so
-the card's run and the golden see identical columns. Each flux field is
-stored twice: `<field>` from the JAX package at float32 and
-`<field>_f64` at float64 (each precision in its own process, because
+Two goldens, each for the first 32 of the 2048 seed-0 columns of
+ecrad_tpu_torch.inputs that chip_smoke.py runs (so the card's run and the
+golden see identical columns):
+
+- tests/goldens/torch_port_cloudless.npz: the Cloudless path
+  (cloudless_slice_config) on make_columns(2048, 137, seed=0);
+- tests/goldens/torch_port_mcica.npz: the McICA path (mcica_slice_config)
+  on make_clouds(make_columns(2048, 137, 0), 0) with the SYNTHETIC LUTs of
+  inputs.write_synthetic_luts(seed=0), written to a temporary directory.
+  Besides the total- and clear-sky fluxes it holds both cloud covers and
+  the cloudy-subcolumn masks of the SW and LW cloud generators
+  (np.packbits of od_scaling > 0, (32, 137, ng) bits each).
+
+Each flux field is stored twice: `<field>` from the JAX package at float32
+and `<field>_f64` at float64 (each precision in its own process, because
 jax_enable_x64 is process-global).
 
-    python tools/make_torch_port_golden.py            # write the golden
+    python tools/make_torch_port_golden.py            # rewrite the stale
+                                                      # or missing ones
     python tools/make_torch_port_golden.py --check    # compare, exit 1
-                                                      # if it went stale
+                                                      # if one went stale
 """
 import argparse
+import dataclasses
 import os
 import subprocess
 import sys
@@ -22,39 +33,69 @@ import tempfile
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GOLDEN = os.path.join(REPO, "tests", "goldens", "torch_port_cloudless.npz")
+GOLDENS = {name: os.path.join(REPO, "tests", "goldens",
+                              f"torch_port_{name}.npz")
+           for name in ("cloudless", "mcica")}
 NCOL_BATCH, NCOL, NLEV, SEED = 2048, 32, 137, 0
 FIELDS = ("lw_up", "lw_dn", "sw_up", "sw_dn", "sw_dn_direct")
+CLEAR_FIELDS = tuple(f + "_clear" for f in FIELDS)
+MCICA_FIELDS = FIELDS + CLEAR_FIELDS + ("cloud_cover_sw", "cloud_cover_lw")
 
 
-def jax_fluxes(dtype: str, *col_sets, fields=FIELDS) -> list:
-    """The JAX package's Cloudless fluxes at `dtype`, one dict per set of
-    numpy columns (dicts of ecrad_tpu_torch.inputs.make_columns); one
-    jitted function serves every set. `fields=None` returns every flux
-    field the run sets."""
-    import jax
+def jax_config(config, dtype: str):
+    """The JAX package's RadiationConfig with the fields of the port's
+    `config` (enums matched by class and value) at `dtype`."""
+    from ecrad_tpu import config as jconfig
+    kw = {}
+    for f in dataclasses.fields(config):
+        v = getattr(config, f.name)
+        if hasattr(jconfig, type(v).__name__) and type(v).__module__ \
+                == type(config).__module__:
+            v = getattr(jconfig, type(v).__name__)(int(v))
+        kw[f.name] = v
+    return jconfig.RadiationConfig(**{**kw, "dtype": dtype})
+
+
+def jax_inputs(cols, dtype: str):
+    """(SingleLevel, Thermodynamics, GasConcs, Cloud or None) of the JAX
+    package from numpy columns (inputs.make_columns / make_clouds)."""
     import jax.numpy as jnp
-    from ecrad_tpu.config import RadiationConfig, Solver
-    from ecrad_tpu.interface import radiation, setup_radiation
-    from ecrad_tpu.types import GasConcs, SingleLevel, Thermodynamics
-    from ecrad_tpu_torch.config import SLICE_OPTIONS
-
+    from ecrad_tpu.types import Cloud, GasConcs, SingleLevel, Thermodynamics
     dt = jnp.float32 if dtype == "float32" else jnp.float64
-    setup = setup_radiation(RadiationConfig(
-        i_solver_sw=Solver.CLOUDLESS, i_solver_lw=Solver.CLOUDLESS,
-        dtype=dtype, **SLICE_OPTIONS))
+    a = lambda k: jnp.asarray(cols[k], dt)
+    cloudy = "fraction" in cols
+    sl = SingleLevel(cos_sza=a("cos_sza"),
+                     skin_temperature=a("skin_temperature"),
+                     sw_albedo=a("sw_albedo"),
+                     lw_emissivity=a("lw_emissivity"),
+                     solar_irradiance=float(cols["solar_irradiance"]),
+                     iseed=(jnp.asarray(cols["iseed"], jnp.int32)
+                            if cloudy else None))
+    th = Thermodynamics(pressure_hl=a("pressure_hl"),
+                        temperature_hl=a("temperature_hl"))
+    cloud = None
+    if cloudy:
+        cloud = Cloud(**{k: a(k) for k in ("q_liq", "q_ice", "re_liq",
+                                           "re_ice", "fraction",
+                                           "fractional_std")})
+    return sl, th, GasConcs(mixing_ratio=a("mixing_ratio")), cloud
+
+
+def jax_fluxes(dtype: str, *col_sets, fields=FIELDS, config=None) -> list:
+    """The JAX package's fluxes at `dtype`, one dict per set of numpy
+    columns; one jitted function serves every set. `config` is a port
+    RadiationConfig (default: the Cloudless path); `fields=None` returns
+    every flux field the run sets."""
+    import jax
+    from ecrad_tpu.interface import radiation, setup_radiation
+    from ecrad_tpu_torch.config import cloudless_slice_config
+
+    setup = setup_radiation(jax_config(config or cloudless_slice_config(),
+                                       dtype))
     fn = jax.jit(lambda *a: radiation(setup, *a))
     out = []
     for cols in col_sets:
-        a = lambda k: jnp.asarray(cols[k], dt)
-        sl = SingleLevel(cos_sza=a("cos_sza"),
-                         skin_temperature=a("skin_temperature"),
-                         sw_albedo=a("sw_albedo"),
-                         lw_emissivity=a("lw_emissivity"),
-                         solar_irradiance=float(cols["solar_irradiance"]))
-        th = Thermodynamics(pressure_hl=a("pressure_hl"),
-                            temperature_hl=a("temperature_hl"))
-        flux = fn(sl, th, GasConcs(mixing_ratio=a("mixing_ratio")))
+        flux = fn(*jax_inputs(cols, dtype))
         names = fields or [k for k in flux.__dataclass_fields__
                            if getattr(flux, k) is not None]
         out.append({k: np.asarray(getattr(flux, k), np.float64)
@@ -62,69 +103,130 @@ def jax_fluxes(dtype: str, *col_sets, fields=FIELDS) -> list:
     return out
 
 
-def _child(dtype: str, out: str) -> None:
+def jax_subcolumn_masks(cols, config, dtype: str = "float32") -> dict:
+    """od_scaling > 0 of the JAX package's SW and LW cloud generators on
+    the cloud the McICA path makes of `cols` (fractional_std as given,
+    overlap parameter from a 2 km decorrelation length, cropped), as
+    {"mask_sw": (ncol, nlev, 112), "mask_lw": (ncol, nlev, 140)} bools."""
+    import jax
+    from ecrad_tpu.interface import setup_radiation
+    from ecrad_tpu.solvers.cloud_generator import cloud_generator
+
+    cfg = jax_config(config, dtype)
+    setup = setup_radiation(cfg)
+    _, th, _, cloud = jax_inputs(cols, dtype)
+    cloud = cloud.set_overlap_param(th, 2000.0).crop_cloud_fraction(
+        cfg.cloud_fraction_threshold, cfg.cloud_mixing_ratio_threshold)
+    iseed = np.asarray(cols["iseed"], np.int32)
+    out = {}
+    for name, ng, offset in (("mask_sw", 112, 0), ("mask_lw", 140, 997)):
+        gen = jax.jit(lambda c, s, ng=ng: cloud_generator(
+            ng, s, cfg.i_overlap_scheme, cfg.cloud_fraction_threshold,
+            c.fraction, c.overlap_param, cfg.cloud_inhom_decorr_scaling,
+            c.fractional_std, setup.pdf_sampler,
+            is_beta_overlap=cfg.use_beta_overlap))
+        od_scaling, _ = gen(cloud, iseed + offset)
+        out[name] = np.asarray(od_scaling) > 0.0
+    return out
+
+
+def mcica_columns():
+    from ecrad_tpu_torch.inputs import make_clouds, make_columns, \
+        slice_columns
+    return slice_columns(make_clouds(make_columns(NCOL_BATCH, NLEV, SEED),
+                                     SEED), slice(0, NCOL))
+
+
+def _child(name: str, dtype: str, out: str) -> None:
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
     jax.config.update("jax_platforms", "cpu")
     if dtype == "float64":
         jax.config.update("jax_enable_x64", True)
-    from ecrad_tpu_torch.inputs import make_columns, slice_columns
-    cols = slice_columns(make_columns(NCOL_BATCH, NLEV, SEED),
-                         slice(0, NCOL))
-    np.savez(out, **jax_fluxes(dtype, cols)[0])
+    from ecrad_tpu_torch.config import mcica_slice_config
+    from ecrad_tpu_torch.inputs import (make_columns, slice_columns,
+                                        write_synthetic_luts)
+    if name == "cloudless":
+        cols = slice_columns(make_columns(NCOL_BATCH, NLEV, SEED),
+                             slice(0, NCOL))
+        np.savez(out, **jax_fluxes(dtype, cols)[0])
+        return
+    with tempfile.TemporaryDirectory() as luts:
+        config = mcica_slice_config(**write_synthetic_luts(luts, SEED))
+        cols = mcica_columns()
+        res = jax_fluxes(dtype, cols, fields=MCICA_FIELDS, config=config)[0]
+        if dtype == "float32":
+            masks = jax_subcolumn_masks(cols, config)
+            res.update({k: np.packbits(v) for k, v in masks.items()})
+    np.savez(out, **res)
 
 
 def generate() -> dict:
-    """Both precisions, each in its own process, run side by side."""
-    golden = {}
+    """Both goldens at both precisions, each (golden, precision) in its
+    own process, all run side by side. Returns {golden: {key: array}}."""
+    golden = {name: {} for name in GOLDENS}
     env = dict(os.environ, PYTHONPATH=REPO)
     env.pop("XLA_FLAGS", None)
     with tempfile.TemporaryDirectory() as tmp:
         runs = []
-        for dtype, suffix in (("float32", ""), ("float64", "_f64")):
-            out = os.path.join(tmp, f"{dtype}.npz")
-            runs.append((subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--child", dtype,
-                 out], env=env), out, suffix))
-        for proc, out, suffix in runs:
+        for name in GOLDENS:
+            for dtype, suffix in (("float32", ""), ("float64", "_f64")):
+                out = os.path.join(tmp, f"{name}_{dtype}.npz")
+                runs.append((subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--child",
+                     name, dtype, out], env=env), name, out, suffix))
+        for proc, name, out, suffix in runs:
             if proc.wait(timeout=900) != 0:
                 raise RuntimeError(f"golden child failed: {proc.args}")
             with np.load(out) as z:
-                golden.update({k + suffix: z[k] for k in z.files})
+                golden[name].update({
+                    k + ("" if k.startswith("mask") else suffix): z[k]
+                    for k in z.files})
     return golden
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--check", action="store_true",
-                    help="regenerate and compare with the stored golden")
-    ap.add_argument("--child", nargs=2, metavar=("DTYPE", "OUT"),
+                    help="regenerate and compare with the stored goldens")
+    ap.add_argument("--child", nargs=3, metavar=("NAME", "DTYPE", "OUT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         _child(*args.child)
         return 0
-    golden = generate()
-    if args.check:
-        with np.load(GOLDEN) as z:
-            stored = {k: z[k] for k in z.files}
+    goldens = generate()
+    stale = {}
+    for name, golden in goldens.items():
+        stored = {}
+        if os.path.exists(GOLDENS[name]):
+            with np.load(GOLDENS[name]) as z:
+                stored = {k: z[k] for k in z.files}
         # float32 results may move by XLA codegen (CPU vector width) at
-        # the 1e-4 W/m2 level; float64 ones only by roundoff
-        atol = lambda k: 1e-8 if k.endswith("_f64") else 1e-3
+        # the 1e-4 W/m2 level; float64 ones only by roundoff; the
+        # subcolumn masks not at all
+        atol = lambda k: (0 if k.startswith("mask")
+                          else 1e-8 if k.endswith("_f64") else 1e-3)
         bad = [k for k in golden
                if k not in stored
                or not np.allclose(stored[k], golden[k], rtol=0,
                                   atol=atol(k))]
         if bad or set(stored) != set(golden):
-            print(f"golden is stale: {bad or sorted(set(stored) ^ set(golden))}")
+            stale[name] = bad or sorted(set(stored) ^ set(golden))
+    if args.check:
+        if stale:
+            print(f"golden is stale: {stale}")
             return 1
         print("golden matches")
         return 0
-    np.savez_compressed(GOLDEN, **golden)
-    for k in FIELDS:
-        err = np.abs(golden[k] - golden[k + "_f64"]).max()
-        print(f"{k}: JAX float32 vs float64 max abs {err:.3e} W/m2")
-    print(f"wrote {GOLDEN}")
+    # a golden that still matches is left as it is, byte for byte
+    for name in stale:
+        golden = goldens[name]
+        np.savez_compressed(GOLDENS[name], **golden)
+        for k in (FIELDS if name == "cloudless" else MCICA_FIELDS):
+            err = np.abs(golden[k] - golden[k + "_f64"]).max()
+            print(f"{name} {k}: JAX float32 vs float64 max abs {err:.3e}")
+        print(f"wrote {GOLDENS[name]}")
     return 0
 
 

@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's Cloudless slice goes, on one GPU.
+"""Where the time of the PyTorch port's Cloudless or McICA path goes, on
+one GPU.
 
-    python3 tools/profile_torch_port.py [--ncol 2048] [--nlev 137] [--calls 3]
-                                        [--out-dir profile_out]
+    python3 tools/profile_torch_port.py [--solver cloudless|mcica]
+        [--ncol 2048] [--nlev 137] [--calls 3] [--out-dir profile_out]
 
 Runs setup_radiation + radiation on the columns of
-ecrad_tpu_torch.inputs (seed 0) on cuda:0, warms up, then traces
-`--calls` back-to-back calls with torch.profiler. Prints the device time
-by kernel name, the device-busy share of the traced window (union of
-kernel and copy intervals over the window's wall time) and the wall time
-per call; writes the full table and a Chrome trace into --out-dir.
-Exits 1 without a GPU.
+ecrad_tpu_torch.inputs (seed 0; for McICA with make_clouds' clouds and
+the SYNTHETIC LUTs of write_synthetic_luts, written into --out-dir) on
+cuda:0, warms up, then traces `--calls` back-to-back calls with
+torch.profiler. Prints the device time by kernel name, the device-busy
+share of the traced window (union of kernel and copy intervals over the
+window's wall time) and the wall time per call; for each stage span
+(gas optics, the cloud stage, each solver, and inside the McICA solvers
+the cloud generator with its threefry draws and its cumulative cloud
+cover) its host time and the device time of the kernels it launched.
+Writes the full table and a gzipped Chrome trace into --out-dir (file
+names carry the solver). Exits 1 without a GPU.
 """
 import argparse
 import json
@@ -42,8 +48,42 @@ def busy_share(events, t0, t1):
     return busy / max(t1 - t0, 1e-9)
 
 
+def add_spans(solver):
+    """Wrap the stages in torch.profiler.record_function spans by
+    replacing the module attributes the path calls them through.
+    Returns the span names."""
+    from torch.profiler import record_function
+
+    from ecrad_tpu_torch import interface
+    from ecrad_tpu_torch.solvers import cloud_generator, mcica
+
+    def span(module, attr, name):
+        fn = getattr(module, attr)
+
+        def wrapped(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        setattr(module, attr, wrapped)
+        return name
+
+    names = [span(interface, "gas_optics", "gas_optics")]
+    if solver == "cloudless":
+        return names + [span(interface, "solver_cloudless_lw", "solver_lw"),
+                        span(interface, "solver_cloudless_sw", "solver_sw")]
+    return names + [
+        span(interface, "_cloud_stage", "cloud_stage"),
+        span(interface, "solve_lw", "solver_lw"),
+        span(interface, "solve_sw", "solver_sw"),
+        span(mcica, "_generate", "cloud_generator"),
+        span(cloud_generator, "random_fields", "threefry"),
+        *{span(cloud_generator, f"cum_cloud_cover_{o}", "cloud_cover")
+          for o in ("exp_exp", "exp_ran", "max_ran")}]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--solver", choices=("cloudless", "mcica"),
+                    default="cloudless")
     ap.add_argument("--ncol", type=int, default=2048)
     ap.add_argument("--nlev", type=int, default=137)
     ap.add_argument("--calls", type=int, default=3)
@@ -54,9 +94,11 @@ def main():
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from ecrad_tpu_torch.config import cloudless_slice_config
+    from ecrad_tpu_torch.config import (cloudless_slice_config,
+                                        mcica_slice_config)
     from ecrad_tpu_torch.convert import columns_to_inputs
-    from ecrad_tpu_torch.inputs import make_columns
+    from ecrad_tpu_torch.inputs import (make_clouds, make_columns,
+                                        write_synthetic_luts)
     from ecrad_tpu_torch.interface import radiation, setup_radiation
 
     gpu = subprocess.run(
@@ -64,9 +106,18 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    setup = setup_radiation(cloudless_slice_config(), device=dev)
-    inputs = columns_to_inputs(make_columns(args.ncol, args.nlev, 0),
-                               device=dev)
+    out_dir = args.out_dir
+    os.makedirs(out_dir, exist_ok=True)
+    cols = make_columns(args.ncol, args.nlev, 0)
+    if args.solver == "cloudless":
+        config = cloudless_slice_config()
+    else:
+        config = mcica_slice_config(**write_synthetic_luts(
+            os.path.join(out_dir, "synthetic_luts"), 0))
+        cols = make_clouds(cols, 0)
+    setup = setup_radiation(config, device=dev)
+    inputs = columns_to_inputs(cols, device=dev)
+    span_names = add_spans(args.solver)
     for _ in range(2):
         radiation(setup, *inputs)
     torch.cuda.synchronize()
@@ -78,13 +129,16 @@ def main():
             radiation(setup, *inputs)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / args.calls
-    out_dir = args.out_dir
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "torch_port_trace.json"))
+    tag = "" if args.solver == "cloudless" else "_" + args.solver
+    prof.export_chrome_trace(os.path.join(out_dir,
+                                          f"torch_port_trace{tag}.json.gz"))
 
     events = list(prof.events())
+    # device work only: the spans' own device-side annotations are not
     dev_events = [e for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and e.name not in span_names]
     spans = [(e.time_range.start, e.time_range.end) for e in dev_events]
     share = busy_share(spans, min(e.time_range.start for e in events),
                        max(e.time_range.end for e in events))
@@ -98,19 +152,40 @@ def main():
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=60)
-    with open(os.path.join(out_dir, "torch_port_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"torch_port_profile{tag}.txt"),
+              "w") as f:
         f.write(table)
+    # the spans' host-side events; their device time is that of the
+    # kernels launched inside them
+    avg = {e.key: e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU}
+    dev_us = lambda e: getattr(e, "device_time_total",
+                               getattr(e, "cuda_time_total", 0.0))
     print(f"card: {gpu}")
-    print(f"{args.ncol} x {args.nlev}, {args.calls} traced calls: wall "
+    print(f"{args.solver} {args.ncol} x {args.nlev}, {args.calls} traced "
+          f"calls: wall "
           f"{wall * 1e3:.3f} ms per call, device time {total_us / 1e3 / args.calls:.3f} ms per call, "
           f"device busy {share:.1%} of the traced window [{gpu}]")
     print(f"device kernels: {len(dev_events) // args.calls} per call")
     for name, (n, us) in rows[:25]:
         print(f"  {us / 1e3 / args.calls:9.4f} ms/call {n // args.calls:5d}x "
               f"{us / total_us:6.1%}  {name[:90]}")
-    print(json.dumps({"wall_ms": wall * 1e3,
+    stages = {}
+    for name in span_names:
+        e = avg.get(name)
+        if e is None:
+            continue
+        host, devt = e.cpu_time_total / 1e3 / args.calls, \
+            dev_us(e) / 1e3 / args.calls
+        stages[name] = {"host_ms": host, "device_ms": devt}
+        print(f"  span {name:16s} host {host:9.3f} ms/call "
+              f"({host / (wall * 1e3):6.1%} of wall), device {devt:9.4f} "
+              f"ms/call ({devt * 1e3 * args.calls / max(total_us, 1e-9):6.1%}"
+              f" of device time), {e.count // args.calls} per call")
+    print(json.dumps({"solver": args.solver, "wall_ms": wall * 1e3,
                       "device_ms": total_us / 1e3 / args.calls,
-                      "device_busy": share, "card": gpu}))
+                      "device_busy": share, "stages": stages,
+                      "card": gpu}))
     return 0
 
 
