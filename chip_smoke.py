@@ -9,8 +9,9 @@ Phases; any failure exits non-zero and prints no result line:
      compiler's register/shared-memory/spill report is printed);
   2. every kernel of the paths (B1 taumol_lw, B2 taumol_sw, B3 sw_adding
      and lw_noscat, B3' lw_adding, B4 mcica_sw_optics and
-     mcica_lw_optics) against its plain PyTorch version on the card, at
-     the shapes the paths give it;
+     mcica_lw_optics, B5 tc_sw_sweeps and tc_lw_sweeps) against its plain
+     PyTorch version on the card, at the shapes the paths give it (B5 on
+     the operands the Tripleclouds path hands it);
   3. the paths, each run once with the launch counts set to 0 just
      before it and read just after, through setup_radiation + radiation:
      a. Cloudless on 2048 x 137 columns of ecrad_tpu_torch.inputs (seed
@@ -24,14 +25,27 @@ Phases; any failure exits non-zero and prints no result line:
         (a parity check on synthetic tables, not an ecRad LUT result);
      c. McICA on 256 columns without LW cloud or aerosol scattering and
         with Exp-Ran overlap, the path of B4's LW kernel;
+     d. Tripleclouds (tripleclouds_slice_config: 3 regions, gamma PDF,
+        Exp-Ran, Fu ice, 12 aerosol types, LW derivatives) on the
+        2048 x 137 columns with make_clouds' clouds, make_aerosols'
+        aerosols and the synthetic LUTs (Fu ice, synthetic aerosol table):
+        the first 32 columns' fluxes, cloud covers and LW derivatives
+        against tests/goldens/torch_port_tripleclouds.npz, JAX float32
+        and float64;
+     e. Tripleclouds on 256 columns with 2 regions, lognormal PDF, beta
+        overlap, LW cloud scattering and no aerosols (B5 at NREG=2, B3
+        lw_noscat);
+     f. Homogeneous on 256 columns with aerosols;
   4. times (information only): each kernel and its plain version with
-     CUDA events, and each 2048-column path's columns/s over 10
-     back-to-back calls.
+     CUDA events, and each 2048-column path's columns/s and peak memory
+     over 10 back-to-back calls, best of 2.
 The line before last is the card's name and power limit, the one before
-that a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}. There is no CPU fallback: without a GPU
-the script exits 1.
+that a JSON summary of the kernels (with each kernel's least time on the
+card, bound_ms, from this run's operand bytes and operation count); the
+last line is {"ok": true, "device": {...}}. There is no CPU fallback:
+without a GPU the script exits 1.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -47,6 +61,8 @@ sys.path.insert(0, REPO)
 NCOL, NLEV, SEED = 2048, 137, 0
 GOLDEN = os.path.join(REPO, "tests", "goldens", "torch_port_cloudless.npz")
 GOLDEN_MCICA = os.path.join(REPO, "tests", "goldens", "torch_port_mcica.npz")
+GOLDEN_TC = os.path.join(REPO, "tests", "goldens",
+                         "torch_port_tripleclouds.npz")
 LUT_DIR = os.path.join(REPO, "ecrad_tpu_torch", "_build", "synthetic_luts")
 # golden bounds (W/m2): the clear-sky float32-vs-float64 contract of
 # tests/test_f64_validation.py, and the total-sky one of the
@@ -58,6 +74,11 @@ BOUNDS = {"lw_up": 0.01, "lw_dn": 0.01, "sw_up": 0.2, "sw_dn": 0.2,
 TOTAL_BOUNDS = {"lw_up": 0.02, "lw_dn": 0.02, "sw_up": 0.3, "sw_dn": 0.3,
                 "sw_dn_direct": 0.3}
 MAX_MASK_FLIPS, COVER_ATOL = 2, 1e-5
+# Tripleclouds golden: deterministic, so total and clear sky against JAX
+# float32 and float64
+TC_BOUNDS = {**{k + "_clear": v for k, v in BOUNDS.items()},
+             **TOTAL_BOUNDS, "cloud_cover_sw": COVER_ATOL,
+             "cloud_cover_lw": COVER_ATOL, "lw_derivatives": 1e-4}
 # kernel vs plain tolerances: the JAX package's own bounds for the fused
 # taumol (tests/test_taumol_fused.py), the adding sweeps
 # (tests/test_adding_fused.py) and the McICA optics
@@ -71,8 +92,26 @@ PATH_KERNELS = {
               "mcica_sw_optics"),
     "mcica_noscat": ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat",
                      "mcica_sw_optics", "mcica_lw_optics"),
+    "tripleclouds": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
+                     "tc_sw_sweeps", "tc_lw_sweeps"),
+    "tripleclouds_2reg": ("taumol_lw", "taumol_sw", "sw_adding",
+                          "lw_noscat", "tc_sw_sweeps", "tc_lw_sweeps"),
+    "homogeneous": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding"),
 }
 NCOL_NOSCAT = 256
+# the least time of a kernel: its operand bytes (each input read once,
+# each output written once) over the H100 SXM's device-memory rate, or
+# its operations over the float32 rate outside the tensor cores, the
+# larger (published H100 SXM peak rates)
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# floating-point operations per output value, counted from each kernel's
+# source (exp, sqrt and division count one each): per (cell, g) for the
+# taumol and McICA-optics kernels, per (level, g, column) for the adding
+# sweeps, per (level, region, g, column) for the Tripleclouds sweeps
+OPS_PER_VALUE = {"taumol_lw": 60, "taumol_sw": 30, "sw_adding": 40,
+                 "lw_noscat": 6, "lw_adding": 25, "mcica_sw_optics": 120,
+                 "mcica_lw_optics": 40, "tc_sw_sweeps": 60,
+                 "tc_lw_sweeps": 45}
 
 
 def log(msg=""):
@@ -99,6 +138,37 @@ def time_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def tensors(obj):
+    """The tensors in obj: a tensor, or tuples, lists and dataclasses of
+    them (each storage once)."""
+    seen, out = set(), []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            key = (x.data_ptr(), x.numel())
+            if key not in seen:
+                seen.add(key)
+                out.append(x)
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                walk(y)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+    walk(obj)
+    return out
+
+
+def least_time(name, args, outs, values):
+    """(bound_ms, bound_by, bytes, operations) of one launch: `values`
+    output values of OPS_PER_VALUE[name] operations each."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors((args, outs)))
+    ops = values * OPS_PER_VALUE[name]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
 def rel_to_max(a, b):
@@ -145,17 +215,35 @@ def check_fluxes(f, cols, ncol):
 
 
 def check_golden(f, golden, fields, bounds, rows=slice(None), f64=True,
-                 what=""):
+                 what="", jax_slack=False):
+    """Each field's first 32 columns within its bound of the golden's JAX
+    float32 and float64 values. With jax_slack the float32 bound also
+    holds the JAX package's own float32 error on those columns (its
+    distance from its float64 value): the bound is a float32-vs-float64
+    contract, and a float32 program can only be held to another one
+    within the sum of their errors."""
     for k in fields:
-        bound = bounds[k.replace("_clear", "")]
+        bound = bounds.get(k, bounds.get(k.replace("_clear", "")))
+        slack = (float(np.abs(golden[k] - golden[k + "_f64"])[rows].max())
+                 if jax_slack else 0.0)
         e32 = float(np.abs(f[k][:32][rows] - golden[k][rows]).max())
         e64 = (float(np.abs(f[k][:32][rows] - golden[k + "_f64"][rows])
                      .max()) if f64 else None)
         log(f"golden{what} {k}: vs JAX float32 {e32:.3e}"
+            + (f" (JAX float32 vs float64 {slack:.3e})" if jax_slack else "")
             + (f", vs JAX float64 {e64:.3e}" if f64 else "")
-            + f" W/m2 (bound {bound}, {e32 / bound:.1%} used)")
-        if not (e32 <= bound and (e64 is None or e64 <= bound)):
+            + f" (bound {bound}, {max(e32 - slack, e64 or 0.0) / bound:.1%}"
+            f" used)")
+        if not (e32 <= bound + slack and (e64 is None or e64 <= bound)):
             raise AssertionError(f"{k} outside its golden bound")
+
+
+def cloud_effect(f, name):
+    cloudy = (f["cloud_cover_lw"] > 0.5).sum()
+    log(f"{name}: {cloudy} of {len(f['lw_up'])} columns with LW cloud "
+        f"cover > 0.5; TOA sw_up total - clear mean "
+        f"{(f['sw_up'][:, 0] - f['sw_up_clear'][:, 0]).mean():.3f} W/m2, "
+        f"lw_up {(f['lw_up'][:, 0] - f['lw_up_clear'][:, 0]).mean():.3f}")
 
 
 def main():
@@ -166,18 +254,21 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
-    from ecrad_tpu_torch.config import (Overlap, cloudless_slice_config,
-                                        mcica_slice_config)
+    from ecrad_tpu_torch.config import (Overlap, PdfShape, Solver,
+                                        cloudless_slice_config,
+                                        mcica_slice_config,
+                                        tripleclouds_slice_config)
     from ecrad_tpu_torch.convert import columns_to_inputs
-    from ecrad_tpu_torch.inputs import (make_clouds, make_columns,
-                                        slice_columns, write_synthetic_luts)
+    from ecrad_tpu_torch.inputs import (make_aerosols, make_clouds,
+                                        make_columns, slice_columns,
+                                        write_synthetic_luts)
     from ecrad_tpu_torch.interface import (_cloud_stage, get_albedos,
                                            radiation, setup_radiation)
     from ecrad_tpu_torch.ops import _cuda, adding_fused, mcica_optics
     from ecrad_tpu_torch.optics.rrtmg import taumol_lw, taumol_sw
     from ecrad_tpu_torch.optics.rrtmg.gas_optics import gas_optics
     from ecrad_tpu_torch.optics.rrtmg.setcoef import prepare_gases, setcoef
-    from ecrad_tpu_torch.solvers import adding, cloudless
+    from ecrad_tpu_torch.solvers import adding, cloudless, tripleclouds
     from ecrad_tpu_torch.solvers import two_stream as ts
     from ecrad_tpu_torch.solvers.cloud_generator import cloud_generator
 
@@ -205,6 +296,11 @@ def main():
     setup_m = setup_radiation(mcica_slice_config(**luts), device=dev)
     cols_m = make_clouds(cols, SEED)
     inputs_m = columns_to_inputs(cols_m, device=dev)
+    luts_fu = write_synthetic_luts(LUT_DIR, SEED, ice="fu")
+    setup_t = setup_radiation(tripleclouds_slice_config(**luts_fu),
+                              device=dev)
+    cols_t = make_aerosols(cols_m, SEED)
+    inputs_t = columns_to_inputs(cols_t, device=dev)
 
     # ---- 2. kernels against their plain versions, the paths' shapes ----
     t = setup.tables
@@ -217,7 +313,7 @@ def main():
     c = setcoef(gc, t["preflog"], t["tref"], t["chi_mls"]).flip_levels()
     fc_lw, ic_lw = taumol_lw.pack_coeffs(c, t["chi_mls"])
     fc_sw, ic_sw = taumol_sw.pack_coeffs(c)
-    errs = {}
+    errs, bounds = {}, {}
 
     def taumol_check(name, kern, plain, fc, ic, tables, second):
         a1, a2 = kern(fc, ic, tables)
@@ -235,6 +331,8 @@ def main():
         if not (rel <= TAU_REL and ok2):
             raise AssertionError(f"{name} disagrees with its plain version")
         errs[name] = max(float((a1 - b1).abs().max()), err2)
+        bounds[name] = least_time(name, (fc, ic, tables), (a1, a2),
+                                  a1.numel())
 
     taumol_check("taumol_lw", taumol_lw.taumol_lw_kernel,
                  taumol_lw.taumol_lw_plain, fc_lw, ic_lw, setup.gas.lw,
@@ -292,6 +390,21 @@ def main():
                                            cloudless._gf(g_t)),
         planck[:-1], planck[1:]) + lw_args[3:]
 
+    # B5 on the operands the Tripleclouds path hands it: one run with the
+    # sweeps' arguments kept (its launches are not counted, see phase 3)
+    tc_args = {}
+
+    def keep(name, fn):
+        def wrapped(*args):
+            tc_args[name] = args
+            return fn(*args)
+        return wrapped
+    sweeps = tripleclouds.tc_sw_sweeps, tripleclouds.tc_lw_sweeps
+    tripleclouds.tc_sw_sweeps = keep("tc_sw_sweeps", sweeps[0])
+    tripleclouds.tc_lw_sweeps = keep("tc_lw_sweeps", sweeps[1])
+    radiation(setup_t, *inputs_t)
+    tripleclouds.tc_sw_sweeps, tripleclouds.tc_lw_sweeps = sweeps
+
     for name, kern, plain, args, bound in (
             ("sw_adding", adding_fused.adding_sw_fused,
              adding.adding_sw_plain, sw_args, SWEEP_REL),
@@ -304,12 +417,21 @@ def main():
              OPTICS_REL["mcica_sw_optics"]),
             ("mcica_lw_optics", mcica_optics.mcica_lw_optics_fused,
              mcica_optics.lw_clear_total_noscat_plain, b4_lw_args,
-             OPTICS_REL["mcica_lw_optics"])):
+             OPTICS_REL["mcica_lw_optics"]),
+            ("tc_sw_sweeps", adding_fused.tc_sw_sweeps_fused,
+             tripleclouds.tc_sw_sweeps_plain, tc_args["tc_sw_sweeps"],
+             SWEEP_REL),
+            ("tc_lw_sweeps", adding_fused.tc_lw_sweeps_fused,
+             tripleclouds.tc_lw_sweeps_plain, tc_args["tc_lw_sweeps"],
+             SWEEP_REL)):
         a = kern(*args)
         torch.cuda.synchronize()
         b = plain(*args)
         rel = max(rel_to_max(x, y) for x, y in zip(a, b))
         errs[name] = max(float((x - y).abs().max()) for x, y in zip(a, b))
+        # output values: one per element of the first operand, (cell, g)
+        # for B4, (level, [region,] g, column) for the sweeps
+        bounds[name] = least_time(name, args, a, args[0].numel())
         log(f"{name}: shape {tuple(args[0].shape)} worst |diff|/max|plain| "
             f"{rel:.3e} (bound {bound}), worst abs {errs[name]:.3e}")
         if not rel <= bound:
@@ -361,11 +483,7 @@ def main():
                  what=" mcica clear")
     check_golden(f, golden, list(TOTAL_BOUNDS), TOTAL_BOUNDS, rows=~flips,
                  f64=False, what=" mcica total")
-    cloudy = (f["cloud_cover_sw"] > 0.5).sum()
-    log(f"mcica: {cloudy} of {NCOL} columns with SW cloud cover > 0.5; "
-        f"TOA sw_up total - clear mean "
-        f"{(f['sw_up'][:, 0] - f['sw_up_clear'][:, 0]).mean():.3f} W/m2, "
-        f"lw_up {(f['lw_up'][:, 0] - f['lw_up_clear'][:, 0]).mean():.3f}")
+    cloud_effect(f, "mcica")
 
     # c. McICA without LW scattering (B4's LW kernel)
     setup_n = setup_radiation(mcica_slice_config(
@@ -376,6 +494,31 @@ def main():
     f = counted("mcica_noscat", lambda: radiation(
         setup_n, *columns_to_inputs(cols_n, device=dev)))
     check_fluxes(f, cols_n, NCOL_NOSCAT)
+
+    # d. Tripleclouds at full width, against its golden
+    f = counted("tripleclouds", lambda: radiation(setup_t, *inputs_t))
+    check_fluxes(f, cols_t, NCOL)
+    with np.load(GOLDEN_TC) as z:
+        golden = {k: z[k] for k in z.files}
+    check_golden(f, golden, list(TC_BOUNDS), TC_BOUNDS,
+                 what=" tripleclouds", jax_slack=True)
+    cloud_effect(f, "tripleclouds")
+
+    # e. Tripleclouds with two regions; f. Homogeneous with aerosols
+    cols_s = slice_columns(cols_t, slice(0, NCOL_NOSCAT))
+    for name, kw in (
+            ("tripleclouds_2reg", dict(
+                nregions=2, i_cloud_pdf_shape=PdfShape.LOGNORMAL,
+                use_beta_overlap=True, do_lw_cloud_scattering=True,
+                do_lw_aerosol_scattering=False, use_aerosols=False)),
+            ("homogeneous", dict(i_solver_sw=Solver.HOMOGENEOUS,
+                                 i_solver_lw=Solver.HOMOGENEOUS))):
+        setup_s = setup_radiation(tripleclouds_slice_config(**luts_fu, **kw),
+                                  device=dev)
+        f = counted(name, lambda: radiation(
+            setup_s, *columns_to_inputs(cols_s, device=dev)))
+        check_fluxes(f, cols_s, NCOL_NOSCAT)
+        cloud_effect(f, name)
 
     # ---- 4. times (information only) ----
     timing = {
@@ -401,15 +544,35 @@ def main():
         "mcica_lw_optics": (
             lambda: mcica_optics.mcica_lw_optics_fused(*b4_lw_args),
             lambda: mcica_optics.lw_clear_total_noscat_plain(*b4_lw_args)),
+        "tc_sw_sweeps": (
+            lambda: adding_fused.tc_sw_sweeps_fused(*tc_args["tc_sw_sweeps"]),
+            lambda: tripleclouds.tc_sw_sweeps_plain(
+                *tc_args["tc_sw_sweeps"])),
+        "tc_lw_sweeps": (
+            lambda: adding_fused.tc_lw_sweeps_fused(*tc_args["tc_lw_sweeps"]),
+            lambda: tripleclouds.tc_lw_sweeps_plain(
+                *tc_args["tc_lw_sweeps"])),
     }
     ms = {}
     for name, (kern, plain) in timing.items():
         ms[name] = (time_ms(kern, 20), time_ms(plain, 3))
+        b_ms, b_by, nbytes, ops = bounds[name]
         log(f"time {name}: kernel {ms[name][0]:.4f} ms, plain "
-            f"{ms[name][1]:.4f} ms [{gpu}]")
+            f"{ms[name][1]:.4f} ms, least time {b_ms:.4f} ms by {b_by} "
+            f"({nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} Gop; "
+            f"{b_ms / ms[name][0]:.1%} of it reached) [{gpu}]")
+    # the kernels' operands are not needed any more: the paths' peak
+    # memory below is what a call adds to its inputs and setup
+    del timing, tc_args, sw_args, lw_args, lwadd_args, b4_sw_args, b4_lw_args
+    del go, planck, props, cloud_m, osc_lw, od_t, ssa_t, g_t, zeros_sw
+    del zeros_lw, frac_mask, fc_lw, ic_lw, fc_sw, ic_sw, c, gc, a, b, args
+    torch.cuda.empty_cache()
     for name, run in (("cloudless", lambda: radiation(setup, sl, th, gas)),
-                      ("mcica", lambda: radiation(setup_m, *inputs_m))):
+                      ("mcica", lambda: radiation(setup_m, *inputs_m)),
+                      ("tripleclouds",
+                       lambda: radiation(setup_t, *inputs_t))):
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         best = []
         for _ in range(2):
             torch.cuda.synchronize()
@@ -421,10 +584,12 @@ def main():
         del out
         log(f"path {name}: {min(best) * 1e3:.3f} ms per {NCOL}-column call, "
             f"{NCOL / min(best):.1f} columns/s, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{gpu}]")
+            f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB "
+            f"above the inputs and setups [{gpu}]")
 
     level_sweep = ("ecrad_tpu_torch/csrc/level_sweep.cu",
                    "ecrad_tpu/ops/adding_fused.py:125")
+    tc_sweeps = "ecrad_tpu_torch/csrc/tc_sweeps.cu"
     src = {"taumol_lw": ("ecrad_tpu_torch/csrc/taumol_lw.cu",
                          "ecrad_tpu/optics/rrtmg/taumol_lw_fused.py:896"),
            "taumol_sw": ("ecrad_tpu_torch/csrc/taumol_sw.cu",
@@ -434,13 +599,18 @@ def main():
            "mcica_sw_optics": ("ecrad_tpu_torch/csrc/mcica_optics.cu",
                                "ecrad_tpu/ops/mcica_optics.py:181"),
            "mcica_lw_optics": ("ecrad_tpu_torch/csrc/mcica_optics.cu",
-                               "ecrad_tpu/ops/mcica_optics.py:269")}
-    # launches: the sum over the three counted path runs (per path above)
+                               "ecrad_tpu/ops/mcica_optics.py:269"),
+           "tc_sw_sweeps": (tc_sweeps, "ecrad_tpu/ops/adding_fused.py:290"),
+           "tc_lw_sweeps": (tc_sweeps, "ecrad_tpu/ops/adding_fused.py:361")}
+    # launches: the sum over the counted path runs (per path above); no
+    # single PyTorch call computes any of these functions (library_ms)
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src[n][0],
          "replaces": src[n][1],
          "launches": sum(p[n] for p in launches.values()),
-         "max_abs_err": errs[n], "ms": ms[n][0], "plain_ms": ms[n][1]}
+         "max_abs_err": errs[n], "ms": ms[n][0], "plain_ms": ms[n][1],
+         "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
+         "library_ms": None}
         for n in src]}))
     log(gpu)
     log(json.dumps({"ok": True, "device": {

@@ -465,7 +465,8 @@ def load_config_from_namelist(path_or_text: str,
 
 #: Options of the port's paths besides the solvers (the configuration of
 #: tests/test_e2e_cloudless.py and bench.py without directory_name); the
-#: golden script, the tests and chip_smoke.py use it.
+#: golden script, the tests and chip_smoke.py use it. Aerosols are off
+#: except on the Tripleclouds path.
 SLICE_OPTIONS = dict(
     use_aerosols=False,
     do_nearest_spectral_sw_albedo=False,
@@ -499,14 +500,42 @@ def mcica_slice_config(**overrides) -> RadiationConfig:
                               **overrides})
 
 
+def tripleclouds_slice_config(**overrides) -> RadiationConfig:
+    """The Tripleclouds path: the tripleclouds variant of the reference's
+    CY47R1 test matrix (tests/ifs_variants.py:18-20): Tripleclouds in SW
+    and LW, Exp-Ran overlap, gamma PDF, 3 regions, Fu ice, LW cloud
+    scattering off (only the matrix's lwscat variant turns it on), LW
+    aerosol scattering on, the LW derivatives, and aerosols on with
+    TRIPLECLOUDS_AEROSOL_MAP (12 types). The LUT files come from
+    `overrides`, for instance those of inputs.write_synthetic_luts."""
+    return RadiationConfig(**{**SLICE_OPTIONS,
+                              "i_solver_sw": Solver.TRIPLECLOUDS,
+                              "i_solver_lw": Solver.TRIPLECLOUDS,
+                              "i_overlap_scheme": Overlap.EXPONENTIAL_RANDOM,
+                              "i_cloud_pdf_shape": PdfShape.GAMMA,
+                              "nregions": 3,
+                              "i_ice_model": IceModel.FU,
+                              "do_lw_cloud_scattering": False,
+                              "do_lw_aerosol_scattering": True,
+                              "do_lw_derivatives": True,
+                              "use_aerosols": True,
+                              "n_aerosol_types":
+                                  len(TRIPLECLOUDS_AEROSOL_MAP),
+                              "i_aerosol_type_map": TRIPLECLOUDS_AEROSOL_MAP,
+                              **overrides})
+
+
+#: 12 aerosol types as CY47R1 configures them: hydrophilic (negative)
+#: and hydrophobic (positive) entries of the aerosol LUT, and one type
+#: (0) left out
+TRIPLECLOUDS_AEROSOL_MAP = (-1, -2, -3, 1, 2, 3, -4, -5, 4, 5, 6, 0)
+
 #: the ROADMAP Queue A slice of each cloudy solver not ported yet
-SOLVER_SLICE = {Solver.HOMOGENEOUS: "5 (Homogeneous)",
-                 Solver.TRIPLECLOUDS: "6 (Tripleclouds)",
-                 Solver.SPARTACUS: "7 (SPARTACUS)"}
+SOLVER_SLICE = {Solver.SPARTACUS: "7 (SPARTACUS)"}
 
 
 # (setting, ROADMAP Queue A slice that brings it) for everything the
-# Cloudless and McICA paths do not cover
+# ported paths do not cover
 def _unsupported(cfg: RadiationConfig):
     if cfg.i_gas_model != GasModel.RRTMG_IFS:
         yield "the monochromatic gas model", "8 (periphery)"
@@ -514,8 +543,6 @@ def _unsupported(cfg: RadiationConfig):
                          ("i_solver_lw", cfg.i_solver_lw)):
         if solver in SOLVER_SLICE:
             yield f"{name}={solver.name}", SOLVER_SLICE[solver]
-    if cfg.use_aerosols:
-        yield "use_aerosols", "4 (aerosol optics)"
     if cfg.do_save_spectral_flux or cfg.do_save_gpoint_flux:
         yield "do_save_spectral_flux/do_save_gpoint_flux", "8 (periphery)"
     if cfg.do_canopy_fluxes_sw or cfg.do_canopy_fluxes_lw:
@@ -524,6 +551,10 @@ def _unsupported(cfg: RadiationConfig):
         yield "use_canopy_full_spectrum_sw/lw", "8 (periphery, surface)"
     if cfg.use_spectral_solar_scaling:
         yield "use_spectral_solar_scaling", "8 (periphery)"
+    if (Solver.TRIPLECLOUDS in (cfg.i_solver_sw, cfg.i_solver_lw)
+            and cfg.nregions not in (2, 3)):
+        raise ValueError(f"Tripleclouds takes 2 or 3 regions, not "
+                         f"{cfg.nregions}")
     if cfg.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be float32 or float64, not "
                          f"{cfg.dtype!r}")
@@ -535,5 +566,5 @@ def check_supported(cfg: RadiationConfig) -> None:
     for what, where in _unsupported(cfg):
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP.md Queue A, slice "
-            f"{where}); the PyTorch port runs the Cloudless and McICA "
-            f"solvers")
+            f"{where}); the PyTorch port runs the Cloudless, McICA, "
+            f"Homogeneous and Tripleclouds solvers")

@@ -14,7 +14,8 @@ import torch
 
 from .config import RadiationConfig, check_supported
 from .inputs import CLOUD_KEYS
-from .interface import RadiationSetup, make_setup
+from .interface import RadiationSetup, make_setup, resolve_device
+from .optics.aerosol import AerosolOpticsTables
 from .optics.cloud import CloudOpticsTables
 from .optics.rrtmg.gas_optics import GasOpticsSpec
 from .solvers.pdf_sampler import PdfSampler
@@ -33,13 +34,16 @@ def _copy(cls, obj):
 
 def setup_from_numpy(config: RadiationConfig, tables: Mapping,
                      spec_arrays, sw_albedo_map, sw_albedo_weights,
-                     lw_emiss_map, lw_emiss_weights, device="cpu",
-                     cloud_optics=None, pdf_sampler=None) -> RadiationSetup:
-    """The port's setup from a JAX RadiationSetup's numpy content:
-    `tables` its `setup.tables`, `spec_arrays` its `setup.spec` (any
-    object with the GasOpticsSpec fields), the four interval maps, and
-    its `cloud_optics` (the five coefficient arrays) and `pdf_sampler`
-    (val, fsd1, inv_fsd_interval, cheb, z0, z1), for a McICA setup."""
+                     lw_emiss_map, lw_emiss_weights, device="cuda",
+                     cloud_optics=None, pdf_sampler=None,
+                     aerosol_optics=None) -> RadiationSetup:
+    """The port's setup, on `device` (the GPU unless the caller asks for
+    another), from a JAX RadiationSetup's numpy content: `tables` its
+    `setup.tables`, `spec_arrays` its `setup.spec` (any object with the
+    GasOpticsSpec fields), the four interval maps, its `cloud_optics` (the
+    five coefficient arrays) for a cloudy setup, its `pdf_sampler` (val,
+    fsd1, inv_fsd_interval, cheb, z0, z1) for McICA, and its
+    `aerosol_optics` (the AerosolOpticsTables fields) with use_aerosols."""
     config = config.consolidated()
     check_supported(config)
     band_lw = np.asarray(spec_arrays.band_from_g_lw)
@@ -57,8 +61,9 @@ def setup_from_numpy(config: RadiationConfig, tables: Mapping,
         GasOpticsSpec(band_from_g_lw=band_lw, band_from_g_sw=band_sw),
         opt(sw_albedo_map), opt(sw_albedo_weights), opt(lw_emiss_map),
         opt(lw_emiss_weights), device,
-        _copy(CloudOpticsTables, cloud_optics), _copy(PdfSampler,
-                                                      pdf_sampler))
+        _copy(CloudOpticsTables, cloud_optics),
+        _copy(PdfSampler, pdf_sampler),
+        _copy(AerosolOpticsTables, aerosol_optics))
 
 
 def _build(cls, values: Optional[Mapping], device, dtype):
@@ -81,27 +86,36 @@ def _build(cls, values: Optional[Mapping], device, dtype):
 
 def inputs_from_numpy(single_level: Mapping, thermodynamics: Mapping,
                       gas: Mapping, cloud: Optional[Mapping] = None,
-                      aerosol: Optional[Mapping] = None, device="cpu",
+                      aerosol: Optional[Mapping] = None, device="cuda",
                       dtype=torch.float32):
     """(SingleLevel, Thermodynamics, GasConcs, Cloud, Aerosol) from dicts
     of numpy arrays keyed by field name (unknown keys are ignored, float
-    arrays take `dtype`)."""
+    arrays take `dtype`), on `device` (the GPU unless the caller asks for
+    another)."""
+    device = resolve_device(device)
     return tuple(_build(cls, v, device, dtype) for cls, v in (
         (SingleLevel, single_level), (Thermodynamics, thermodynamics),
         (GasConcs, gas), (Cloud, cloud), (Aerosol, aerosol)))
 
 
-def columns_to_inputs(cols: Mapping, device="cpu", dtype=torch.float32):
+def columns_to_inputs(cols: Mapping, device="cuda", dtype=torch.float32):
     """(SingleLevel, Thermodynamics, GasConcs) from inputs.make_columns,
-    and the Cloud as a fourth item when `cols` holds cloud fields
-    (inputs.make_clouds)."""
+    the Cloud as a fourth item when `cols` holds cloud fields
+    (inputs.make_clouds), and the Aerosol as a fifth when it holds
+    aerosol_mmr (inputs.make_aerosols; the Cloud is then None without
+    cloud fields). On `device`, the GPU unless the caller asks for
+    another."""
     cloudy = "fraction" in cols
-    sl, th, gas, cloud, _ = inputs_from_numpy(
+    aerosols = "aerosol_mmr" in cols
+    sl, th, gas, cloud, aer = inputs_from_numpy(
         {k: cols[k] for k in ("cos_sza", "skin_temperature", "sw_albedo",
                               "lw_emissivity") + (("iseed",) * cloudy)}
         | {"solar_irradiance": float(cols["solar_irradiance"])},
         {k: cols[k] for k in ("pressure_hl", "temperature_hl")},
         {"mixing_ratio": cols["mixing_ratio"]},
         {k: cols[k] for k in CLOUD_KEYS} if cloudy else None,
+        {"mixing_ratio": cols["aerosol_mmr"]} if aerosols else None,
         device=device, dtype=dtype)
+    if aerosols:
+        return sl, th, gas, cloud, aer
     return (sl, th, gas, cloud) if cloudy else (sl, th, gas)

@@ -25,9 +25,10 @@
 // lw_clear_total_noscat_plain, operation for operation in the order of
 // the PyTorch expressions (solvers/two_stream.py, optics/combine.py,
 // optics/cloud.py delta_eddington). Built with -fmad=false and the exact
-// expf/sqrtf, so only libm's last bit separates the two; the SW resonance
-// nudge |k mu0 - 1| < 1e-6 is kept exactly, since it amplifies such
-// differences about 1e6-fold.
+// exp/sqrt, so only libm's last bit separates the two; cells within
+// 0.03 of the SW resonance k mu0 = 1 take the Meador-Weaver terms in
+// double, as the plain version does (two_stream.RESONANCE_WINDOW), and
+// the nudge |k mu0 - 1| < 1e-6 is kept exactly.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -40,6 +41,40 @@ struct SwOut {
   float r, t, rd, tdd, tdir;
 };
 
+// solvers/two_stream.py _sw_reftrans at precision T, rounded to float
+template <typename T>
+__device__ __forceinline__ SwOut reftrans(T mu0, T od, T ssa, T gamma1,
+                                          T gamma2, T gamma3) {
+  const T one = T(1.0);
+  const T od_over_mu0 = fmax(od / mu0, T(0.0));
+  const T gamma4 = one - gamma3;
+  const T alpha1 = gamma1 * gamma4 + gamma2 * gamma3;
+  const T alpha2 = gamma1 * gamma3 + gamma2 * gamma4;
+  const T k = sqrt(fmax((gamma1 - gamma2) * (gamma1 + gamma2), T(1.0e-4)));
+  T k_mu0 = k * mu0;
+  if (fabs(k_mu0 - one) < T(1.0e-6)) k_mu0 = T(1.0 - 1e-6);
+  const T k_gamma3 = k * gamma3;
+  const T k_gamma4 = k * gamma4;
+  const T e0 = exp(-od_over_mu0);
+  const T expo = exp(-k * od);
+  const T expo2 = expo * expo;
+  const T k2e = T(2.0) * k * expo;
+  const T rt = one / (k + gamma1 + (k - gamma1) * expo2);
+  SwOut o;
+  o.r = (float)(gamma2 * (one - expo2) * rt);
+  o.t = (float)(k2e * rt);
+  const T rt_dir = mu0 * ssa * rt / (one - k_mu0 * k_mu0);
+  o.rd = (float)(rt_dir * ((one - k_mu0) * (alpha2 + k_gamma3)
+                           - (one + k_mu0) * (alpha2 - k_gamma3) * expo2
+                           - k2e * (gamma3 - alpha2 * mu0) * e0));
+  o.tdd = (float)(rt_dir * (k2e * (gamma4 + alpha1 * mu0)
+                            - e0 * ((one + k_mu0) * (alpha1 + k_gamma4)
+                                    - (one - k_mu0) * (alpha1 - k_gamma4)
+                                    * expo2)));
+  o.tdir = (float)e0;
+  return o;
+}
+
 __device__ __forceinline__ SwOut sw_chain(float mu0, float od, float ssa,
                                           float g, int delta_all) {
   if (delta_all) {                    // optics/cloud.py delta_eddington
@@ -50,37 +85,17 @@ __device__ __forceinline__ SwOut sw_chain(float mu0, float od, float ssa,
     od = od_new;
     ssa = ssa_new;
   }
-  // solvers/two_stream.py sw_gammas, then sw_reftrans
+  // solvers/two_stream.py sw_gammas, then sw_reftrans: in float, or in
+  // double within RESONANCE_WINDOW of k mu0 = 1, where float cancels
   const float factor = 0.75f * g;
   const float gamma1 = 2.0f - ssa * (1.25f + factor);
   const float gamma2 = ssa * (0.75f - factor);
   const float gamma3 = 0.5f - mu0 * factor;
-  const float od_over_mu0 = fmaxf(od / mu0, 0.0f);
-  const float gamma4 = 1.0f - gamma3;
-  const float alpha1 = gamma1 * gamma4 + gamma2 * gamma3;
-  const float alpha2 = gamma1 * gamma3 + gamma2 * gamma4;
   const float k = sqrtf(fmaxf((gamma1 - gamma2) * (gamma1 + gamma2), 1.0e-4f));
-  float k_mu0 = k * mu0;
-  if (fabsf(k_mu0 - 1.0f) < 1.0e-6f) k_mu0 = (float)(1.0 - 1e-6);
-  const float k_gamma3 = k * gamma3;
-  const float k_gamma4 = k * gamma4;
-  const float e0 = expf(-od_over_mu0);
-  const float expo = expf(-k * od);
-  const float expo2 = expo * expo;
-  const float k2e = 2.0f * k * expo;
-  const float rt = 1.0f / (k + gamma1 + (k - gamma1) * expo2);
-  SwOut o;
-  o.r = gamma2 * (1.0f - expo2) * rt;
-  o.t = k2e * rt;
-  const float rt_dir = mu0 * ssa * rt / (1.0f - k_mu0 * k_mu0);
-  o.rd = rt_dir * ((1.0f - k_mu0) * (alpha2 + k_gamma3)
-                   - (1.0f + k_mu0) * (alpha2 - k_gamma3) * expo2
-                   - k2e * (gamma3 - alpha2 * mu0) * e0);
-  o.tdd = rt_dir * (k2e * (gamma4 + alpha1 * mu0)
-                    - e0 * ((1.0f + k_mu0) * (alpha1 + k_gamma4)
-                            - (1.0f - k_mu0) * (alpha1 - k_gamma4) * expo2));
-  o.tdir = e0;
-  return o;
+  if (fabsf(k * mu0 - 1.0f) < 0.03f) {
+    return reftrans<double>(mu0, od, ssa, gamma1, gamma2, gamma3);
+  }
+  return reftrans<float>(mu0, od, ssa, gamma1, gamma2, gamma3);
 }
 
 __device__ __forceinline__ void lw_noscat(float od, float pt, float pb,

@@ -94,7 +94,8 @@ def make_columns(ncol: int, nlev: int = 137, seed: int = 0
 #: cloud fields on levels, (ncol, nlev)
 CLOUD_KEYS = ("fraction", "q_liq", "q_ice", "re_liq", "re_ice",
               "fractional_std")
-LEVEL_KEYS = ("pressure_hl", "temperature_hl", "mixing_ratio") + CLOUD_KEYS
+LEVEL_KEYS = ("pressure_hl", "temperature_hl", "mixing_ratio",
+              "aerosol_mmr") + CLOUD_KEYS
 
 
 def make_clouds(cols: Dict[str, np.ndarray], seed: int = 0
@@ -147,6 +148,33 @@ def make_clouds(cols: Dict[str, np.ndarray], seed: int = 0
     return out
 
 
+#: aerosol types of make_aerosols (config.TRIPLECLOUDS_AEROSOL_MAP's 12)
+N_AEROSOL_TYPES = 12
+
+
+def make_aerosols(cols: Dict[str, np.ndarray], seed: int = 0
+                  ) -> Dict[str, np.ndarray]:
+    """`cols` plus aerosol_mmr (ncol, nlev, N_AEROSOL_TYPES) in kg/kg,
+    drawn from their own RandomState so every other key stays as it was.
+    Each type's mixing ratio has a surface value of 1e-9 to 2e-8 and
+    decays with height as (p / p_surf)^k, k from 2 to 6 (scale heights of
+    about 1 to 3.5 km), within 1e-10 to 1e-7: with the synthetic aerosol
+    LUT of write_synthetic_luts that is a mid-visible optical depth of
+    order 0.1."""
+    p_hl = cols["pressure_hl"]
+    ncol, nlev = p_hl.shape[0], p_hl.shape[1] - 1
+    rng = np.random.RandomState(seed + 15485863)
+    p_fl = 0.5 * (p_hl[:, :-1] + p_hl[:, 1:])
+    p_surf = p_hl.max(1)[:, None, None]
+    surf = np.exp(rng.uniform(np.log(1e-9), np.log(2e-8),
+                              (ncol, 1, N_AEROSOL_TYPES)))
+    k = rng.uniform(2.0, 6.0, (ncol, 1, N_AEROSOL_TYPES))
+    mmr = np.clip(surf * (p_fl[:, :, None] / p_surf) ** k, 1e-10, 1e-7)
+    out = dict(cols)
+    out["aerosol_mmr"] = mmr
+    return out
+
+
 def _write_nc(path, variables):
     from scipy.io import netcdf_file
     with netcdf_file(path, "w", version=2) as f:
@@ -158,10 +186,13 @@ def _write_nc(path, variables):
                                                                 np.float64)
 
 
-def write_synthetic_luts(directory: str, seed: int = 0) -> dict:
-    """Write SYNTHETIC cloud-optics and cloud-PDF lookup tables into
-    `directory` and return the RadiationConfig overrides that name them
-    (directory_name and the *_override_file_name fields).
+def write_synthetic_luts(directory: str, seed: int = 0,
+                         ice: str = "baran") -> dict:
+    """Write SYNTHETIC cloud-optics, cloud-PDF and aerosol-optics lookup
+    tables into `directory` and return the RadiationConfig overrides that
+    name them (directory_name and the *_override_file_name fields), with
+    the SOCRATES liquid table, the `ice` model's table (baran for McICA,
+    fu for Tripleclouds) and the gamma PDF.
 
     These are NOT the ecRad data files. They hold coefficient arrays of
     the published functional forms (radiation_liquid_optics_socrates.F90,
@@ -177,7 +208,8 @@ def write_synthetic_luts(directory: str, seed: int = 0) -> dict:
     baran2016,baran2017,yi}_ice.nc (baran2017 also coeff_gen (5,)), and
     synthetic_mcica_{gamma,lognormal}.nc (fsd (160,) from 0.025 to 4 and
     the quantile table x (1000, 160) on the cdf grid i/999, its end points
-    clipped to 1e-4 and 1 - 1e-4)."""
+    clipped to 1e-4 and 1 - 1e-4), and synthetic_aerosol.nc (see
+    _synthetic_aerosol)."""
     import os
 
     from scipy.special import gammaincinv, ndtri
@@ -255,18 +287,63 @@ def write_synthetic_luts(directory: str, seed: int = 0) -> dict:
     for name, x in (("gamma", gamma), ("lognormal", lognormal)):
         _write_nc(os.path.join(directory, f"synthetic_mcica_{name}.nc"),
                   {"fsd": (("n_fsd",), fsd), "x": (("n_cdf", "n_fsd"), x)})
-    return {"directory_name": directory, **synthetic_lut_names()}
+    _write_nc(os.path.join(directory, "synthetic_aerosol.nc"),
+              _synthetic_aerosol(np.random.RandomState(seed + 1299709)))
+    return {"directory_name": directory, **synthetic_lut_names(ice=ice)}
+
+
+def _synthetic_aerosol(rng) -> dict:
+    """The 13 variables of an aerosol-optics file as
+    ecrad_tpu/optics/aerosol.py:44-57 reads them: for 8 hydrophobic types
+    (type, band) and 6 hydrophilic ones (type, humidity bin, band),
+    mass extinction (m2/kg; 1e2-1e4 in the SW, falling with wavelength,
+    1e2-1e3 in the LW), single-scattering albedo (SW 0.8-1.0, LW 0.1-0.6)
+    and asymmetry factor (0.5-0.8) for the 14 SW and 16 LW bands; and
+    relative_humidity1, the lower bounds of 12 humidity bins. Hydrophilic
+    extinction grows with humidity (x1 to ~x4 at 95 %), and so does its
+    single-scattering albedo a little."""
+    nb = {"sw": 14, "lw": 16}
+    nphob, nphil = 8, 6
+    rh = np.array([0.0, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.85, 0.9,
+                   0.95])
+    rh_mid = np.append(0.5 * (rh[:-1] + rh[1:]), 0.975)
+    growth = 1.0 + 3.0 * rh_mid ** 4            # (nrh,)
+    out = {"relative_humidity1": (("n_rh",), rh)}
+    for s, n in nb.items():
+        for kind, ntype in (("hydrophobic", nphob), ("hydrophilic", nphil)):
+            lo, hi = (2.0, 4.0) if s == "sw" else (2.0, 3.0)
+            # log10 extinction per type, falling across the SW bands
+            base = rng.uniform(lo, hi, (ntype, 1)) - (
+                np.linspace(0.0, 1.0, n)[None, :] if s == "sw" else 0.0)
+            ext = 10.0 ** np.clip(base + rng.uniform(-0.1, 0.1, (ntype, n)),
+                                  lo, hi)
+            ssa = (rng.uniform(0.8, 1.0, (ntype, n)) if s == "sw"
+                   else rng.uniform(0.1, 0.6, (ntype, n)))
+            g = rng.uniform(0.5, 0.8, (ntype, n))
+            dims = (f"n_{kind}", f"band_{s}")
+            if kind == "hydrophilic":
+                ext = ext[:, None, :] * growth[None, :, None]
+                ssa = np.minimum(ssa[:, None, :]
+                                 + 0.05 * rh_mid[None, :, None], 1.0)
+                g = np.repeat(g[:, None, :], len(rh), 1)
+                dims = (f"n_{kind}", "n_rh", f"band_{s}")
+            out[f"mass_ext_{s}_{kind}"] = (dims, ext)
+            out[f"ssa_{s}_{kind}"] = (dims, ssa)
+            out[f"asymmetry_{s}_{kind}"] = (dims, g)
+    return out
 
 
 def synthetic_lut_names(liquid: str = "socrates", ice: str = "baran",
                         pdf: str = "gamma") -> dict:
     """The override file names of write_synthetic_luts's tables for one
     liquid model (socrates, slingo), ice model (fu, baran, baran2016,
-    baran2017, yi) and PDF shape (gamma, lognormal)."""
+    baran2017, yi) and PDF shape (gamma, lognormal), and its aerosol
+    table."""
     return {"liq_optics_override_file_name":
             f"synthetic_{liquid}_liquid.nc",
             "ice_optics_override_file_name": f"synthetic_{ice}_ice.nc",
-            "cloud_pdf_override_file_name": f"synthetic_mcica_{pdf}.nc"}
+            "cloud_pdf_override_file_name": f"synthetic_mcica_{pdf}.nc",
+            "aerosol_optics_override_file_name": "synthetic_aerosol.nc"}
 
 
 def slice_columns(cols: Dict[str, np.ndarray], sl: slice

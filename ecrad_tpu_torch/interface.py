@@ -1,15 +1,18 @@
 """Top level: setup_radiation and the radiation() entry point.
 
 Port of ecrad_tpu/interface.py:32-134, :197-510 (radiation/
-radiation_interface.F90) for the Cloudless and McICA solvers: setup loads
-the tables, spectral mappings, and for a cloudy solver the cloud-optics
-LUTs and the cloud-PDF sampler, onto one device; radiation() runs gas
-optics, the cloud stage (default fractional_std, overlap parameter from a
-2 km decorrelation length, cropping, cloud optics), the solvers and the
-flux assembly. Inputs whose pressure increases upwards are flipped, run
-TOA first, and their flux profiles flipped back. On CUDA tensors the path
-runs kernels B1 (LW taumol), B2 (SW taumol), B3/B3' (adding sweeps) and
-B4 (McICA layer optics); on CPU tensors their plain versions.
+radiation_interface.F90) for the Cloudless, McICA, Homogeneous and
+Tripleclouds solvers: setup loads the tables, spectral mappings, for a
+cloudy solver the cloud-optics LUTs, for McICA the cloud-PDF sampler and
+with use_aerosols the aerosol LUT, onto one device (the GPU unless the
+caller asks for another); radiation() runs gas optics, the aerosol stage,
+the cloud stage (default fractional_std, overlap parameter from a 2 km
+decorrelation length, cropping, cloud optics), the solvers and the flux
+assembly. Inputs whose pressure increases upwards are flipped, run TOA
+first, and their flux profiles flipped back. On CUDA tensors the path
+runs kernels B1 (LW taumol), B2 (SW taumol), B3/B3' (adding sweeps), B4
+(McICA layer optics) and B5 (Tripleclouds region sweeps); on CPU tensors
+their plain versions.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import numpy as np
 import torch
 
 from .config import RadiationConfig, Solver, check_supported
+from .optics.aerosol import (AerosolOpticsTables, add_aerosol_optics,
+                             aerosol_tensors, setup_aerosol_optics)
 from .optics.cloud import (CloudOpticsTables, cloud_optics,
                            coefficient_tensors, setup_cloud_optics)
 from .optics.rrtmg.gas_optics import (
@@ -31,8 +36,8 @@ from .solvers.cloudless import solver_cloudless_lw, solver_cloudless_sw
 from .solvers.dispatch import solve_lw, solve_sw
 from .solvers.lw_derivatives import lw_derivatives_ica
 from .solvers.pdf_sampler import PdfSampler, setup_pdf_sampler
-from .types import (LEVEL_FLUX_FIELDS, Aerosol, Cloud, Flux, GasConcs,
-                    SingleLevel, Thermodynamics)
+from .types import (AEROSOL_FIELDS, LEVEL_FLUX_FIELDS, Aerosol, Cloud,
+                    Flux, GasConcs, SingleLevel, Thermodynamics)
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -55,15 +60,32 @@ class RadiationSetup:
     pdf_sampler: Optional[PdfSampler] = None
     cloud_coeffs: Optional[dict] = None   # cloud_optics on the device
     pdf_cheb: Optional[torch.Tensor] = None   # pdf_sampler.cheb, device
+    aerosol_optics: Optional[AerosolOpticsTables] = None   # numpy, as read
+    aerosol_coeffs: Optional[dict] = None     # aerosol_tensors, device
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. "cuda" (the default of every
+    entry point) needs a CUDA GPU and raises without one: the CPU, where
+    the kernels' plain versions run, has to be asked for (device="cpu")."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the PyTorch port runs on the GPU by default; "
+            "pass device='cpu' to run the kernels' plain versions on the "
+            "CPU")
+    return device
 
 
 def setup_radiation(config: RadiationConfig,
-                    device="cpu") -> RadiationSetup:
+                    device="cuda") -> RadiationSetup:
     """Load the tables and precompute the spectral mappings
     (radiation_interface.F90:37-134); for a cloudy solver also the cloud
-    optics LUTs, and for McICA the cloud-PDF sampler (both NetCDF files
-    named by the config). Raises NotImplementedError for a configuration
-    the port does not cover."""
+    optics LUTs, for McICA the cloud-PDF sampler and with use_aerosols
+    the aerosol LUT (NetCDF files named by the config). Runs on the GPU
+    unless `device` says otherwise; raises NotImplementedError for a
+    configuration the port does not cover."""
+    device = resolve_device(device)
     config = config.consolidated()
     check_supported(config)
     tables = load_tables()
@@ -77,14 +99,15 @@ def setup_radiation(config: RadiationConfig,
     cloud = (setup_cloud_optics(config)
              if any(s != Solver.CLOUDLESS for s in solvers) else None)
     pdf = (setup_pdf_sampler(config) if Solver.MCICA in solvers else None)
+    aerosol = setup_aerosol_optics(config) if config.use_aerosols else None
     return make_setup(config, tables, make_spec(tables), sw_map, sw_weights,
-                      lw_map, lw_weights, device, cloud, pdf)
+                      lw_map, lw_weights, device, cloud, pdf, aerosol)
 
 
 def make_setup(config, tables, spec, sw_map, sw_weights, lw_map,
-               lw_weights, device, cloud_optics=None,
-               pdf_sampler=None) -> RadiationSetup:
-    device = torch.device(device)
+               lw_weights, device, cloud_optics=None, pdf_sampler=None,
+               aerosol_optics=None) -> RadiationSetup:
+    device = resolve_device(device)
     dtype = DTYPES[config.dtype]
     return RadiationSetup(
         config=config, tables=tables, spec=spec,
@@ -96,7 +119,10 @@ def make_setup(config, tables, spec, sw_map, sw_weights, lw_map,
         cloud_coeffs=(None if cloud_optics is None
                       else coefficient_tensors(cloud_optics, device)),
         pdf_cheb=(None if pdf_sampler is None or pdf_sampler.cheb is None
-                  else torch.as_tensor(pdf_sampler.cheb, device=device)))
+                  else torch.as_tensor(pdf_sampler.cheb, device=device)),
+        aerosol_optics=aerosol_optics,
+        aerosol_coeffs=(None if aerosol_optics is None
+                        else aerosol_tensors(aerosol_optics, dtype, device)))
 
 
 def get_albedos(setup: RadiationSetup, single_level: SingleLevel):
@@ -144,12 +170,12 @@ def radiation(setup: RadiationSetup, single_level: SingleLevel,
               cloud: Optional[Cloud] = None,
               aerosol: Optional[Aerosol] = None) -> Flux:
     """Radiative fluxes (radiation_interface.F90:175-473). `cloud` is
-    used by the McICA solvers and ignored by Cloudless; `aerosol` is
-    ignored (use_aerosols is not ported)."""
+    used by the cloudy solvers and ignored by Cloudless; `aerosol` is
+    used when use_aerosols is on."""
     phl = thermodynamics.pressure_hl
     if not bool(phl[0, 1] < phl[0, 0]):
         return _radiation_oriented(setup, single_level, thermodynamics,
-                                   gas, cloud)
+                                   gas, cloud, aerosol)
     thermodynamics = _flip_fields(thermodynamics, (
         "pressure_hl", "temperature_hl", "h2o_sat_liq"))
     gas = _flip_fields(gas, ("mixing_ratio",))
@@ -158,8 +184,10 @@ def radiation(setup: RadiationSetup, single_level: SingleLevel,
             "q_liq", "q_ice", "re_liq", "re_ice", "fraction",
             "fractional_std", "overlap_param", "inv_cloud_effective_size",
             "inv_inhom_effective_size"))
+    if aerosol is not None:
+        aerosol = _flip_fields(aerosol, AEROSOL_FIELDS)
     flux = _radiation_oriented(setup, single_level, thermodynamics, gas,
-                               cloud)
+                               cloud, aerosol)
     return _flip_fields(flux, LEVEL_FLUX_FIELDS)
 
 
@@ -186,7 +214,8 @@ def _cloud_stage(setup, thermodynamics, cloud, cast):
 
 def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
                         thermodynamics: Thermodynamics, gas: GasConcs,
-                        cloud: Optional[Cloud]) -> Flux:
+                        cloud: Optional[Cloud],
+                        aerosol: Optional[Aerosol]) -> Flux:
     cfg = setup.config
     cast = lambda x: None if x is None else x.to(setup.device, setup.dtype)
     single_level = single_level.replace(
@@ -200,11 +229,13 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
                else single_level.iseed.to(setup.device)))
     thermodynamics = thermodynamics.replace(
         pressure_hl=cast(thermodynamics.pressure_hl),
-        temperature_hl=cast(thermodynamics.temperature_hl))
+        temperature_hl=cast(thermodynamics.temperature_hl),
+        h2o_sat_liq=cast(thermodynamics.h2o_sat_liq))
+    gas = gas.replace(mixing_ratio=cast(gas.mixing_ratio))
     sw_alb_diff, sw_alb_dir, lw_albedo = get_albedos(setup, single_level)
     go = gas_optics(
         thermodynamics.pressure_hl, thermodynamics.temperature_hl,
-        cast(gas.mixing_ratio), single_level.skin_temperature,
+        gas.mixing_ratio, single_level.skin_temperature,
         single_level.cos_sza, single_level.solar_irradiance, setup.spec,
         setup.gas, lw_albedo=lw_albedo, min_gas_od_lw=cfg.min_gas_od_lw,
         min_gas_od_sw=cfg.min_gas_od_sw)
@@ -221,9 +252,22 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
             emission = emission[:, torch.as_tensor(idx,
                                                    device=emission.device)]
 
+    # the aerosol stage: the clear sky includes the aerosols
+    zeros_lw = torch.zeros_like(go.od_lw)
+    od_lw, ssa_lw, g_lw = go.od_lw, zeros_lw, zeros_lw
+    od_sw, ssa_sw, g_sw = go.od_sw, go.ssa_sw, torch.zeros_like(go.od_sw)
+    if cfg.use_aerosols and aerosol is not None:
+        aerosol = aerosol.replace(**{f: cast(getattr(aerosol, f))
+                                     for f in AEROSOL_FIELDS})
+        od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw = add_aerosol_optics(
+            cfg, setup.aerosol_coeffs, setup.spec.band_from_g_sw,
+            setup.spec.band_from_g_lw, thermodynamics, gas, aerosol, od_lw,
+            ssa_lw, g_lw, od_sw, ssa_sw, g_sw)
+
     cloud_props = None
     if cfg.do_clouds and cloud is not None:
-        if single_level.iseed is None:
+        if (Solver.MCICA in (cfg.i_solver_sw, cfg.i_solver_lw)
+                and single_level.iseed is None):
             raise ValueError("the McICA cloud generator needs "
                              "single_level.iseed (one seed per column)")
         cloud, cloud_props = _cloud_stage(setup, thermodynamics, cloud,
@@ -233,9 +277,10 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
     if cfg.do_lw:
         extras = {}
         if cfg.i_solver_lw == Solver.CLOUDLESS or cloud_props is None:
-            lw, t_clear = solver_cloudless_lw(go.od_lw, go.planck_hl,
-                                              emission, lw_albedo,
-                                              want_trans=True)
+            lw, t_clear = solver_cloudless_lw(
+                od_lw, ssa_lw, g_lw, go.planck_hl, emission, lw_albedo,
+                do_scattering=(cfg.do_lw_aerosol_scattering
+                               and cfg.use_aerosols), want_trans=True)
             lw_clear = lw
             if cfg.do_lw_derivatives:
                 # ICA form on the clear transmittance
@@ -243,25 +288,23 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
                 extras["lw_derivatives"] = lw_derivatives_ica(
                     t_clear, lw.up[-1].T)
         else:
-            zeros = torch.zeros_like(go.od_lw)
             lw, lw_clear, extras = solve_lw(
-                setup, single_level, cloud, cloud_props, go.od_lw, zeros,
-                zeros, go.planck_hl, emission, lw_albedo)
+                setup, single_level, cloud, cloud_props, od_lw, ssa_lw, g_lw,
+                go.planck_hl, emission, lw_albedo)
         flux = flux.replace(**_lw_fields(setup, lw, lw_clear, cfg.do_clear),
                             **extras)
 
     if cfg.do_sw:
         extras = {}
         if cfg.i_solver_sw == Solver.CLOUDLESS or cloud_props is None:
-            sw = solver_cloudless_sw(go.od_sw, go.ssa_sw, go.incoming_sw,
+            sw = solver_cloudless_sw(od_sw, ssa_sw, g_sw, go.incoming_sw,
                                      single_level.cos_sza, sw_alb_diff,
                                      sw_alb_dir)
             sw_clear = sw
         else:
             sw, sw_clear, extras = solve_sw(
-                setup, single_level, cloud, cloud_props, go.od_sw,
-                go.ssa_sw, torch.zeros_like(go.od_sw), go.incoming_sw,
-                sw_alb_diff, sw_alb_dir)
+                setup, single_level, cloud, cloud_props, od_sw, ssa_sw,
+                g_sw, go.incoming_sw, sw_alb_diff, sw_alb_dir)
         flux = flux.replace(**_sw_fields(setup, sw, sw_clear), **extras)
     return flux
 

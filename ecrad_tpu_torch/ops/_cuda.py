@@ -43,6 +43,8 @@ _SIGS = {
     "lw_adding": "ppppppiiippp",
     "mcica_sw_optics": "ppppppppppiiiiip",
     "mcica_lw_optics": "ppppppiiiip",
+    "tc_sw_sweeps": "ppppppppppppiiiipppp",
+    "tc_lw_sweeps": "ppppppppppiiiippp",
 }
 
 _lib: Optional[ctypes.CDLL] = None

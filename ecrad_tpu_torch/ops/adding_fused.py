@@ -1,5 +1,6 @@
 """Kernels B3 and B3': the adding level sweeps as CUDA kernels
-(csrc/level_sweep.cu).
+(csrc/level_sweep.cu); kernel B5: the Tripleclouds region sweeps
+(csrc/tc_sweeps.cu, at the end of this module).
 
 Replaces ecrad_tpu/ops/adding_fused.py::level_sweep (:38, pallas_call
 :125) in its three uses: `adding_sw_fused` (:144, three sweeps),
@@ -25,7 +26,8 @@ import torch
 from . import _cuda
 
 #: launches of each CUDA kernel (incremented only where it is launched)
-launches = {"sw_adding": 0, "lw_noscat": 0, "lw_adding": 0}
+launches = {"sw_adding": 0, "lw_noscat": 0, "lw_adding": 0,
+            "tc_sw_sweeps": 0, "tc_lw_sweeps": 0}
 
 
 def adding_sw_fused(ref, trans, ref_dir, trans_dir_diff, trans_dir_dir,
@@ -98,4 +100,76 @@ def adding_lw_fused(ref, trans, source_up, source_dn, emission_surf,
                  emission_surf, albedo_surf, nlev, ng, ncol, scratch,
                  out[0], out[1])
     launches["lw_adding"] += 1
+    return out[0], out[1]
+
+
+# ---- kernel B5: the Tripleclouds region sweeps ----
+#
+# Replaces ecrad_tpu/ops/adding_fused.py::tc_sw_sweeps (:290) and
+# ::tc_lw_sweeps (:361). One thread per (g, column) runs the upward sweep
+# into scratch and the downward sweep from it; only the region-summed
+# profiles are written. The plain versions are solvers/tripleclouds.py
+# tc_sw_sweeps_plain and tc_lw_sweeps_plain.
+
+def tc_sw_sweeps_fused(ref, trans, ref_dir, tdd, tdir, v_mat, clear,
+                       albedo_diffuse, albedo_direct, mu0, incoming,
+                       frac_top):
+    """Kernel B5, SW: layer optics (nlev, nreg, ng, ncol) with nreg 2 or
+    3; v_mat (nlev+1, nreg, nreg, ncol); clear (nlev, ncol) bool; albedos
+    and incoming (ng, ncol); mu0 (ncol,); frac_top (nreg, ncol). Returns
+    (up, dn_diffuse, dn_direct), each (nlev+1, ng, ncol)."""
+    nlev, nreg, ng, ncol = ref.shape
+    if nreg not in (2, 3):
+        raise ValueError(f"the Tripleclouds sweeps take 2 or 3 regions, "
+                         f"not {nreg}")
+    for name, x in (("ref", ref), ("trans", trans), ("ref_dir", ref_dir),
+                    ("tdd", tdd), ("tdir", tdir)):
+        _cuda.check(x, torch.float32, (nlev, nreg, ng, ncol), name)
+    _cuda.check(v_mat, torch.float32, (nlev + 1, nreg, nreg, ncol), "v_mat")
+    _cuda.check(clear, torch.bool, (nlev, ncol), "clear")
+    for name, x in (("albedo_diffuse", albedo_diffuse),
+                    ("albedo_direct", albedo_direct),
+                    ("incoming", incoming)):
+        _cuda.check(x, torch.float32, (ng, ncol), name)
+    _cuda.check(mu0, torch.float32, (ncol,), "mu0")
+    _cuda.check(frac_top, torch.float32, (nreg, ncol), "frac_top")
+    out = torch.empty((3, nlev + 1, ng, ncol), dtype=torch.float32,
+                      device=ref.device)
+    scratch = torch.empty((nlev, 2, nreg, ng, ncol), dtype=torch.float32,
+                          device=ref.device)
+    _cuda.launch("tc_sw_sweeps", ref, trans, ref_dir, tdd, tdir, v_mat,
+                 clear, albedo_diffuse, albedo_direct, mu0, incoming,
+                 frac_top, nreg, nlev, ng, ncol, scratch, out[0], out[1],
+                 out[2])
+    launches["tc_sw_sweeps"] += 1
+    return out[0], out[1], out[2]
+
+
+def tc_lw_sweeps_fused(ref, trans, src_up, src_dn, v_mat, u_mat, clear,
+                       emission, albedo, frac_bot):
+    """Kernel B5, LW: layer optics and sources (nlev, nreg, ng, ncol);
+    v_mat (nlev+1, nreg, nreg, ncol); u_mat (nlev, nreg, nreg, ncol);
+    clear (nlev, ncol) bool; emission and albedo (ng, ncol); frac_bot
+    (nreg, ncol). Returns (up, dn), each (nlev+1, ng, ncol)."""
+    nlev, nreg, ng, ncol = ref.shape
+    if nreg not in (2, 3):
+        raise ValueError(f"the Tripleclouds sweeps take 2 or 3 regions, "
+                         f"not {nreg}")
+    for name, x in (("ref", ref), ("trans", trans), ("src_up", src_up),
+                    ("src_dn", src_dn)):
+        _cuda.check(x, torch.float32, (nlev, nreg, ng, ncol), name)
+    _cuda.check(v_mat, torch.float32, (nlev + 1, nreg, nreg, ncol), "v_mat")
+    _cuda.check(u_mat, torch.float32, (nlev, nreg, nreg, ncol), "u_mat")
+    _cuda.check(clear, torch.bool, (nlev, ncol), "clear")
+    _cuda.check(emission, torch.float32, (ng, ncol), "emission")
+    _cuda.check(albedo, torch.float32, (ng, ncol), "albedo")
+    _cuda.check(frac_bot, torch.float32, (nreg, ncol), "frac_bot")
+    out = torch.empty((2, nlev + 1, ng, ncol), dtype=torch.float32,
+                      device=ref.device)
+    scratch = torch.empty((nlev, 2, nreg, ng, ncol), dtype=torch.float32,
+                          device=ref.device)
+    _cuda.launch("tc_lw_sweeps", ref, trans, src_up, src_dn, v_mat, u_mat,
+                 clear, emission, albedo, frac_bot, nreg, nlev, ng, ncol,
+                 scratch, out[0], out[1])
+    launches["tc_lw_sweeps"] += 1
     return out[0], out[1]

@@ -1,15 +1,17 @@
 """Solver dispatch (radiation_interface.F90:384-455).
 
-Port of the McICA branches of ecrad_tpu/solvers/dispatch.py; the other
-cloudy solvers raise NotImplementedError naming their ROADMAP slice
-(config.check_supported already refuses them at setup). Returns
-(total_fluxes, clear_fluxes, extras) with extras the diagnostics
+Port of ecrad_tpu/solvers/dispatch.py: the McICA, Homogeneous and
+Tripleclouds branches; SPARTACUS raises NotImplementedError naming its
+ROADMAP slice (config.check_supported already refuses it at setup).
+Returns (total_fluxes, clear_fluxes, extras) with extras the diagnostics
 (cloud cover, LW derivatives).
 """
 from __future__ import annotations
 
 from ..config import SOLVER_SLICE, Solver
+from .homogeneous import solver_homogeneous_lw, solver_homogeneous_sw
 from .mcica import solver_mcica_lw, solver_mcica_sw
+from .tripleclouds import solver_tripleclouds_lw, solver_tripleclouds_sw
 
 
 def _refuse(solver):
@@ -18,26 +20,50 @@ def _refuse(solver):
         f"slice {SOLVER_SLICE.get(solver, '?')})")
 
 
+def _any_cloud(config, cloud, dtype):
+    """Homogeneous cloud cover: 1 where any layer holds cloud."""
+    return (cloud.fraction >= config.cloud_fraction_threshold).any(1).to(
+        dtype)
+
+
 def solve_lw(setup, single_level, cloud, cloud_props, od, ssa, g,
              planck_hl, emission, albedo):
     cfg = setup.config
-    if cfg.i_solver_lw != Solver.MCICA:
+    band = setup.spec.band_from_g_lw
+    args = (cloud, od, ssa, g, *cloud_props[:3], planck_hl, emission,
+            albedo)
+    if cfg.i_solver_lw == Solver.MCICA:
+        total, clear, tcc, extras = solver_mcica_lw(
+            cfg, setup.pdf_sampler, band, single_level.iseed, *args,
+            cheb=setup.pdf_cheb)
+    elif cfg.i_solver_lw == Solver.HOMOGENEOUS:
+        total, clear, extras = solver_homogeneous_lw(cfg, band, *args)
+        tcc = _any_cloud(cfg, cloud, od.dtype)
+    elif cfg.i_solver_lw == Solver.TRIPLECLOUDS:
+        total, clear, tcc, extras = solver_tripleclouds_lw(cfg, band, *args)
+    else:
         _refuse(cfg.i_solver_lw)
-    total, clear, tcc, extras = solver_mcica_lw(
-        cfg, setup.pdf_sampler, setup.spec.band_from_g_lw,
-        single_level.iseed, cloud, od, ssa, g, *cloud_props[:3],
-        planck_hl, emission, albedo, cheb=setup.pdf_cheb)
     return total, clear, {"cloud_cover_lw": tcc, **extras}
 
 
 def solve_sw(setup, single_level, cloud, cloud_props, od, ssa, g,
              incoming_sw, albedo_diffuse, albedo_direct):
     cfg = setup.config
-    if cfg.i_solver_sw != Solver.MCICA:
+    band = setup.spec.band_from_g_sw
+    props = (od, ssa, g, *cloud_props[3:], incoming_sw)
+    albedos = (albedo_diffuse, albedo_direct)
+    if cfg.i_solver_sw == Solver.MCICA:
+        total, clear, tcc = solver_mcica_sw(
+            cfg, setup.pdf_sampler, band, single_level.iseed,
+            single_level.cos_sza, cloud, *props, *albedos,
+            cheb=setup.pdf_cheb)
+    elif cfg.i_solver_sw == Solver.HOMOGENEOUS:
+        total, clear = solver_homogeneous_sw(
+            cfg, band, cloud, *props, single_level.cos_sza, *albedos)
+        tcc = _any_cloud(cfg, cloud, od.dtype)
+    elif cfg.i_solver_sw == Solver.TRIPLECLOUDS:
+        total, clear, tcc = solver_tripleclouds_sw(
+            cfg, band, cloud, single_level.cos_sza, *props, *albedos)
+    else:
         _refuse(cfg.i_solver_sw)
-    total, clear, tcc = solver_mcica_sw(
-        cfg, setup.pdf_sampler, setup.spec.band_from_g_sw,
-        single_level.iseed, single_level.cos_sza, cloud, od, ssa, g,
-        *cloud_props[3:], incoming_sw, albedo_diffuse, albedo_direct,
-        cheb=setup.pdf_cheb)
     return total, clear, {"cloud_cover_sw": tcc}

@@ -85,11 +85,39 @@ def lw_no_scattering_transmittance(od, planck_top, planck_bot):
             torch.where(thin, src_thin, src_dn_full))
 
 
+#: |k mu0 - 1| below which float32 SW terms are recomputed in float64
+RESONANCE_WINDOW = 0.03
+
+
 def sw_reftrans(mu0, od, ssa, gamma1, gamma2, gamma3):
     """SW Meador-Weaver and direct-beam terms (classic variant,
     radiation_two_stream.F90:461-560); mu0 broadcasts against od.
     Returns (ref_diff, trans_diff, ref_dir, trans_dir_diff,
-    trans_dir_dir)."""
+    trans_dir_dir).
+
+    The direct-beam terms have a removable singularity at k mu0 = 1, and
+    their float32 evaluation cancels next to it: its error grows as
+    1 / |k mu0 - 1|, to 16 % of trans_dir_diff at k mu0 = 1 - 5e-5 in a
+    layer with aerosols (0.35 W/m2 of clear-sky TOA upwelling SW on the
+    GPU; BASELINE.md: "irreducible without computing that stage in
+    f64"). So float32 cells within RESONANCE_WINDOW of it are recomputed
+    in float64 from the same inputs and rounded; outside the window the
+    float32 error is no larger than elsewhere (~5e-6 absolute)."""
+    out = _sw_reftrans(mu0, od, ssa, gamma1, gamma2, gamma3)
+    if od.dtype != torch.float32:
+        return out
+    near = torch.abs(_k_exponent(gamma1, gamma2) * mu0 - 1.0) \
+        < RESONANCE_WINDOW
+    idx = near.expand(out[0].shape).nonzero(as_tuple=True)
+    if idx[0].numel():
+        exact = _sw_reftrans(*(x.expand(out[0].shape)[idx].double() for x in
+                               (mu0, od, ssa, gamma1, gamma2, gamma3)))
+        for o, e in zip(out, exact):
+            o[idx] = e.float()
+    return out
+
+
+def _sw_reftrans(mu0, od, ssa, gamma1, gamma2, gamma3):
     od_over_mu0 = torch.clamp(od / mu0, min=0.0)
     gamma4 = 1.0 - gamma3
     alpha1 = gamma1 * gamma4 + gamma2 * gamma3

@@ -3,8 +3,9 @@
 Field names and shapes follow ecrad_tpu/types.py (columns first, levels
 next, spectral innermost), so inputs convert one-to-one
 (convert.inputs_from_numpy) and tests compare like with like. `Cloud`
-is used by the McICA path; `Aerosol` is accepted by `radiation()` and
-ignored while `use_aerosols` is off.
+feeds the cloudy solvers; `Aerosol` (mixing ratios, or per-band optical
+properties for the direct-input bypass) feeds the aerosol stage when
+`use_aerosols` is on.
 """
 from __future__ import annotations
 
@@ -52,6 +53,24 @@ class Thermodynamics(_Replace):
     @property
     def nlev(self) -> int:
         return self.pressure_hl.shape[1] - 1
+
+    def pressure_fl(self) -> torch.Tensor:
+        """Full-level pressure, the mean of the adjacent half levels."""
+        return 0.5 * (self.pressure_hl[:, :-1] + self.pressure_hl[:, 1:])
+
+    def temperature_fl(self) -> torch.Tensor:
+        return 0.5 * (self.temperature_hl[:, :-1]
+                      + self.temperature_hl[:, 1:])
+
+    def calc_saturation_wrt_liquid(self) -> "Thermodynamics":
+        """Clausius-Clapeyron saturation mass mixing ratio over liquid
+        water (radiation_thermodynamics.F90:118-161;
+        ecrad_tpu/types.py:87-96)."""
+        t = self.temperature_fl()
+        e_sat = 6.11e2 * torch.exp(17.269 * (t - 273.16) / (t - 35.86))
+        mmr = torch.clamp(0.622 * e_sat / torch.clamp(self.pressure_fl(),
+                                                      min=1.0), max=1.0)
+        return self.replace(h2o_sat_liq=mmr)
 
 
 @dataclass
@@ -106,9 +125,21 @@ class Cloud(_Replace):
 
 @dataclass
 class Aerosol(_Replace):
-    """Aerosol mixing ratios (radiation_aerosol.F90); unused while
-    use_aerosols is off."""
-    mixing_ratio: torch.Tensor
+    """Aerosol mass mixing ratios, (ncol, nlev, ntype)
+    (radiation_aerosol.F90:28-56), or per-band optical properties for the
+    direct-input bypass: od/ssa/g_sw (ncol, nlev, 14), od/ssa_lw (ncol,
+    nlev, 16). Unused while use_aerosols is off."""
+    mixing_ratio: Optional[torch.Tensor] = None
+    od_sw: Optional[torch.Tensor] = None
+    ssa_sw: Optional[torch.Tensor] = None
+    g_sw: Optional[torch.Tensor] = None
+    od_lw: Optional[torch.Tensor] = None
+    ssa_lw: Optional[torch.Tensor] = None
+
+
+#: Aerosol fields with a level axis (axis 1)
+AEROSOL_FIELDS = ("mixing_ratio", "od_sw", "ssa_sw", "g_sw", "od_lw",
+                  "ssa_lw")
 
 
 @dataclass

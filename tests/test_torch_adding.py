@@ -185,3 +185,48 @@ def test_two_stream_matches_jax_f32(name, tol):
         assert g.dtype == r.dtype == np.float32
         bound = max(tol * np.abs(e).max(), 2 * np.abs(r - e).max())
         assert np.abs(g - r).max() <= bound, (name, np.abs(g - r).max())
+
+
+def test_sw_reftrans_is_float64_accurate_near_the_resonance():
+    """float32 layers within RESONANCE_WINDOW of k mu0 = 1 take the
+    direct-beam terms from float64: on cells spread over the SW
+    parameter space, with a tenth of them within 1e-3 of the resonance,
+    every float32 term stays within 2e-5 of float64 (the plain float32
+    form is off by more than 1e-3 there), and the cells outside the
+    window are the float32 form's own. Cells within 1e-5 of the
+    resonance are left out of the comparison: within 1e-6 the reference
+    nudges k mu0 to 1 - 1e-6, and which side of that a cell falls on
+    depends on the rounding of its inputs."""
+    rng = np.random.RandomState(7)
+    n = 20000
+    mu0 = rng.uniform(0.05, 1.0, n)
+    ssa = rng.uniform(0.0, 1.0, n)
+    g = rng.uniform(0.0, 0.9, n)
+    od = 10.0 ** rng.uniform(-5, 1.5, n)
+    # move a tenth of the cells next to the resonance: mu0 = (1 + d) / k
+    g1, g2, _ = pts.sw_gammas(torch.as_tensor(mu0), torch.as_tensor(ssa),
+                              torch.as_tensor(g))
+    k = torch.sqrt(torch.clamp((g1 - g2) * (g1 + g2), min=pts.KMIN)).numpy()
+    near = slice(0, n // 10)
+    mu0[near] = np.clip((1.0 + rng.uniform(-1e-3, 1e-3, n // 10))
+                        / k[near], 1e-3, 1.0)
+    args = lambda dt: [torch.as_tensor(x, dtype=dt) for x in (mu0, od, ssa,
+                                                               g)]
+
+    def run(dt, fn):
+        m, o, s, gg = args(dt)
+        return fn(m, o, s, *pts.sw_gammas(m, s, gg))
+    exact = run(torch.float64, pts.sw_reftrans)
+    got = run(torch.float32, pts.sw_reftrans)
+    plain = run(torch.float32, pts._sw_reftrans)
+    m, _, s, gg = args(torch.float32)
+    g1, g2, _ = pts.sw_gammas(m, s, gg)
+    outside = (torch.abs(torch.sqrt(torch.clamp(
+        (g1 - g2) * (g1 + g2), min=pts.KMIN)) * m - 1.0)
+        >= pts.RESONANCE_WINDOW)
+    away = torch.as_tensor(np.abs(k * mu0 - 1.0) >= 1e-5)
+    for a, b, e in zip(got, plain, exact):
+        assert a.dtype == torch.float32
+        assert float((a.double() - e)[away].abs().max()) <= 2e-5
+        assert torch.equal(a[outside], b[outside])
+    assert float((plain[3].double() - exact[3])[away].abs().max()) > 1e-3

@@ -109,8 +109,10 @@ def test_slice_f64(jax64, orient):
     cols = make_columns(NCOL, NLEV, SEED)
     if orient == "surface_first":
         cols = reverse_levels(cols)
-    setup = setup_radiation(cloudless_slice_config(dtype="float64"))
-    flux = radiation(setup, *columns_to_inputs(cols, dtype=torch.float64))
+    setup = setup_radiation(cloudless_slice_config(dtype="float64"),
+                            device="cpu")
+    flux = radiation(setup, *columns_to_inputs(cols, device="cpu",
+                                               dtype=torch.float64))
     prefix = f"radiation_{orient}/"
     ref = {k[len(prefix):]: v for k, v in jax64.items()
            if k.startswith(prefix)}

@@ -1,19 +1,23 @@
 """PyTorch port: its golden files stay current, and the package runs where
 jax is not installed.
 
-tests/goldens/torch_port_cloudless.npz and torch_port_mcica.npz hold the
+tests/goldens/torch_port_{cloudless,mcica,tripleclouds}.npz hold the
 JAX package's fluxes (at float32 and float64) for the first 32 of the
-2048 seed-0 columns that chip_smoke.py runs on the GPU, the McICA one
-also the cloud covers and the cloudy-subcolumn masks (on the synthetic
-LUTs of inputs.write_synthetic_luts); tools/make_torch_port_golden.py
---check regenerates both from JAX and compares. The port package must
-import neither jax nor flax nor the JAX package (the GPU machine has none
-of them): a subprocess blocks all three, imports every module of the
-port and runs both paths.
+2048 seed-0 columns that chip_smoke.py runs on the GPU, the McICA and
+Tripleclouds ones also the cloud covers (McICA also its cloudy-subcolumn
+masks, Tripleclouds its LW derivatives), on the synthetic LUTs of
+inputs.write_synthetic_luts; tools/make_torch_port_golden.py --check
+regenerates all three from JAX and compares. The port package must import
+neither jax nor flax nor the JAX package (the GPU machine has none of
+them): a subprocess blocks all three, imports every module of the port
+and runs its paths (Cloudless, McICA, Tripleclouds, Homogeneous) on the
+CPU. Its entry points run on the GPU unless asked for the CPU: without a
+GPU they raise.
 """
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -22,6 +26,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "goldens", "torch_port_cloudless.npz")
 GOLDEN_MCICA = os.path.join(REPO, "tests", "goldens", "torch_port_mcica.npz")
+GOLDEN_TRIPLECLOUDS = os.path.join(REPO, "tests", "goldens",
+                                   "torch_port_tripleclouds.npz")
 
 
 def _env():
@@ -49,8 +55,8 @@ def test_golden_meets_the_port_on_the_cpu():
     from ecrad_tpu_torch.interface import radiation, setup_radiation
 
     cols = slice_columns(make_columns(2048, 137, 0), slice(0, 2))
-    flux = radiation(setup_radiation(cloudless_slice_config()),
-                     *columns_to_inputs(cols))
+    flux = radiation(setup_radiation(cloudless_slice_config(), device="cpu"),
+                     *columns_to_inputs(cols, device="cpu"))
     bounds = {"lw_up": 0.01, "lw_dn": 0.01, "sw_up": 0.2, "sw_dn": 0.2,
               "sw_dn_direct": 0.02}
     with np.load(GOLDEN) as z:
@@ -77,8 +83,8 @@ def test_mcica_golden_meets_the_port_on_the_cpu(tmp_path):
     cols = slice_columns(make_clouds(make_columns(2048, 137, 0), 0),
                          slice(0, 2))
     setup = setup_radiation(mcica_slice_config(
-        **write_synthetic_luts(str(tmp_path), 0)))
-    inputs = columns_to_inputs(cols)
+        **write_synthetic_luts(str(tmp_path), 0)), device="cpu")
+    inputs = columns_to_inputs(cols, device="cpu")
     flux = radiation(setup, *inputs)
     clear = {"lw_up": 0.01, "lw_dn": 0.01, "sw_up": 0.2, "sw_dn": 0.2,
              "sw_dn_direct": 0.02}
@@ -119,17 +125,28 @@ for m in pkgutil.walk_packages(ecrad_tpu_torch.__path__, "ecrad_tpu_torch."):
     importlib.import_module(m.name)
 import tempfile
 import torch
-from ecrad_tpu_torch.config import cloudless_slice_config, mcica_slice_config
+from ecrad_tpu_torch.config import (Solver, cloudless_slice_config,
+                                    mcica_slice_config,
+                                    tripleclouds_slice_config)
 from ecrad_tpu_torch.convert import columns_to_inputs
-from ecrad_tpu_torch.inputs import make_clouds, make_columns, write_synthetic_luts
+from ecrad_tpu_torch.inputs import (make_aerosols, make_clouds, make_columns,
+                                    write_synthetic_luts)
 from ecrad_tpu_torch.interface import radiation, setup_radiation
-flux = radiation(setup_radiation(cloudless_slice_config()),
-                 *columns_to_inputs(make_columns(2, 10, 0)))
+cpu = lambda cfg: setup_radiation(cfg, device="cpu")
+flux = radiation(cpu(cloudless_slice_config()),
+                 *columns_to_inputs(make_columns(2, 10, 0), device="cpu"))
 assert flux.lw_up.shape == (2, 11) and bool(torch.isfinite(flux.sw_dn).all())
+cols = make_aerosols(make_clouds(make_columns(3, 10, 0)))
 with tempfile.TemporaryDirectory() as luts:
-    setup = setup_radiation(mcica_slice_config(**write_synthetic_luts(luts)))
-flux = radiation(setup, *columns_to_inputs(make_clouds(make_columns(3, 10, 0))))
-assert flux.cloud_cover_sw.shape == (3,) and bool(torch.isfinite(flux.lw_dn).all())
+    setups = [cpu(mcica_slice_config(**write_synthetic_luts(luts)))] + [
+        cpu(tripleclouds_slice_config(**write_synthetic_luts(luts, ice="fu"),
+                                      **kw))
+        for kw in ({}, {"i_solver_sw": Solver.HOMOGENEOUS,
+                        "i_solver_lw": Solver.HOMOGENEOUS})]
+for setup in setups:
+    flux = radiation(setup, *columns_to_inputs(cols, device="cpu"))
+    assert flux.cloud_cover_sw.shape == (3,)
+    assert bool(torch.isfinite(flux.lw_dn).all())
 loaded = [m for m in sys.modules if m.split(".")[0] in
           ("jax", "jaxlib", "flax", "ecrad_tpu") and sys.modules[m]]
 assert not loaded, loaded
@@ -142,6 +159,77 @@ def test_port_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
     assert res.stdout.strip().endswith("ok")
+
+
+def test_tripleclouds_golden_meets_the_port_on_the_cpu(tmp_path):
+    """The first two Tripleclouds golden columns against the port's
+    plain path: the bounds chip_smoke.py applies on the GPU (clear sky
+    lw 0.01, sw 0.2, sw_dn_direct 0.02; total sky lw 0.02, sw 0.3;
+    cloud covers 1e-5; LW derivatives 1e-4; against JAX float32 and
+    float64: Tripleclouds is deterministic) hold on the CPU as well."""
+    from ecrad_tpu_torch.config import tripleclouds_slice_config
+    from ecrad_tpu_torch.convert import columns_to_inputs
+    from ecrad_tpu_torch.inputs import (make_aerosols, make_clouds,
+                                        make_columns, slice_columns,
+                                        write_synthetic_luts)
+    from ecrad_tpu_torch.interface import radiation, setup_radiation
+
+    cols = slice_columns(make_aerosols(make_clouds(
+        make_columns(2048, 137, 0), 0), 0), slice(0, 2))
+    setup = setup_radiation(tripleclouds_slice_config(
+        **write_synthetic_luts(str(tmp_path), 0, ice="fu")), device="cpu")
+    flux = radiation(setup, *columns_to_inputs(cols, device="cpu"))
+    bounds = {"lw_up": 0.02, "lw_dn": 0.02, "sw_up": 0.3, "sw_dn": 0.3,
+              "sw_dn_direct": 0.3, "lw_up_clear": 0.01, "lw_dn_clear": 0.01,
+              "sw_up_clear": 0.2, "sw_dn_clear": 0.2,
+              "sw_dn_direct_clear": 0.02, "cloud_cover_sw": 1e-5,
+              "cloud_cover_lw": 1e-5, "lw_derivatives": 1e-4}
+    with np.load(GOLDEN_TRIPLECLOUDS) as z:
+        for k, bound in bounds.items():
+            got = getattr(flux, k).double().numpy()
+            assert z[k].shape[0] == 32
+            assert np.abs(got - z[k][:2]).max() <= bound, k
+            assert np.abs(got - z[k + "_f64"][:2]).max() <= bound, k
+
+
+@pytest.mark.parametrize("entry", ["setup_radiation", "setup_from_numpy",
+                                   "inputs_from_numpy", "columns_to_inputs"])
+def test_entry_points_default_to_the_gpu(monkeypatch, entry):
+    """Without device= every entry point asks for CUDA; with no card it
+    raises instead of running on the CPU."""
+    from ecrad_tpu_torch import convert, interface
+    from ecrad_tpu_torch.config import cloudless_slice_config
+    from ecrad_tpu_torch.inputs import make_columns
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cols = make_columns(2, 5, 0)
+    calls = {
+        "setup_radiation": lambda: interface.setup_radiation(
+            cloudless_slice_config()),
+        "setup_from_numpy": lambda: convert.setup_from_numpy(
+            cloudless_slice_config(), {}, SimpleNamespace(
+                band_from_g_lw=np.zeros(140, int),
+                band_from_g_sw=np.zeros(112, int)), None, None, None, None),
+        "inputs_from_numpy": lambda: convert.inputs_from_numpy(
+            {}, {}, {"mixing_ratio": cols["mixing_ratio"]}),
+        "columns_to_inputs": lambda: convert.columns_to_inputs(cols)}
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+        calls[entry]()
+    assert interface.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py imports torch, numpy and the port, never jax or the
+    JAX package (the GPU machine has neither)."""
+    import ast
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    roots = {a.name.split(".")[0] for n in ast.walk(tree)
+             if isinstance(n, ast.Import) for a in n.names}
+    roots |= {n.module.split(".")[0] for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module}
+    assert "ecrad_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "ecrad_tpu"}, roots
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

@@ -1,6 +1,6 @@
 """PyTorch port on a CUDA GPU: each hand-written kernel against its plain
 PyTorch version on the card, the wrappers' refusals, and the launch
-counts of the Cloudless and McICA paths.
+counts of the Cloudless, McICA, Tripleclouds and Homogeneous paths.
 
 Marked `gpu`; every test decides inside itself whether there is a card
 and skips without one. The file imports no jax, so it runs on a machine
@@ -10,8 +10,8 @@ imports jax):
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 Bounds: B1/B2 the JAX package's fused-taumol bound (rel 1e-5 where
-tau > 1e-6, pfrac atol 1e-6), B3/B3' its fused-sweep bound (2e-6 of the
-range), B4 its McICA-optics bounds (tests/test_mcica_optics.py: SW 2e-3,
+tau > 1e-6, pfrac atol 1e-6), B3/B3'/B5 its fused-sweep bound (2e-6 of
+the range), B4 its McICA-optics bounds (tests/test_mcica_optics.py: SW 2e-3,
 LW 1e-4 of the range). The kernels build with -fmad=false, so only
 summation order separates them from the plain versions.
 """
@@ -19,17 +19,19 @@ import numpy as np
 import pytest
 import torch
 
-from ecrad_tpu_torch.config import (Overlap, cloudless_slice_config,
-                                    mcica_slice_config)
+from ecrad_tpu_torch.config import (Overlap, PdfShape, Solver,
+                                    cloudless_slice_config,
+                                    mcica_slice_config,
+                                    tripleclouds_slice_config)
 from ecrad_tpu_torch.convert import columns_to_inputs
-from ecrad_tpu_torch.inputs import (make_clouds, make_columns,
-                                    write_synthetic_luts)
+from ecrad_tpu_torch.inputs import (make_aerosols, make_clouds,
+                                    make_columns, write_synthetic_luts)
 from ecrad_tpu_torch.interface import (_cloud_stage, radiation,
                                        setup_radiation)
 from ecrad_tpu_torch.ops import adding_fused, mcica_optics
 from ecrad_tpu_torch.optics.rrtmg import taumol_lw, taumol_sw
 from ecrad_tpu_torch.optics.rrtmg.setcoef import prepare_gases, setcoef
-from ecrad_tpu_torch.solvers import adding
+from ecrad_tpu_torch.solvers import adding, tripleclouds
 
 pytestmark = pytest.mark.gpu
 
@@ -248,13 +250,14 @@ def test_slice_launches_every_kernel(slice_state):
     torch.cuda.synchronize()
     assert taumol_lw.launches == 1 and taumol_sw.launches == 1
     assert adding_fused.launches == {"sw_adding": 1, "lw_noscat": 1,
-                                     "lw_adding": 0}
+                                     "lw_adding": 0, "tc_sw_sweeps": 0,
+                                     "tc_lw_sweeps": 0}
     assert mcica_optics.launches == {"mcica_sw_optics": 0,
                                      "mcica_lw_optics": 0}
     for k, v in flux.fields():
         assert bool(torch.isfinite(v).all()), k
     # the same columns through the plain path on the CPU
-    cpu = radiation(setup_radiation(cloudless_slice_config()),
+    cpu = radiation(setup_radiation(cloudless_slice_config(), device="cpu"),
                     *_to_cpu(inputs))
     # the clear-sky float32 contract (tests/test_f64_validation.py):
     # 0.01 W/m2 for LW fields, 0.2 W/m2 for SW ones
@@ -297,17 +300,19 @@ def test_mcica_path_launches_its_kernels(cuda, tmp_path, variant):
     assert taumol_lw.launches == 1 and taumol_sw.launches == 1
     if variant == "mcica":
         assert adding_fused.launches == {"sw_adding": 2, "lw_noscat": 0,
-                                         "lw_adding": 2}
+                                         "lw_adding": 2, "tc_sw_sweeps": 0,
+                                         "tc_lw_sweeps": 0}
         assert mcica_optics.launches == {"mcica_sw_optics": 1,
                                          "mcica_lw_optics": 0}
     else:
         assert adding_fused.launches == {"sw_adding": 2, "lw_noscat": 2,
-                                         "lw_adding": 0}
+                                         "lw_adding": 0, "tc_sw_sweeps": 0,
+                                         "tc_lw_sweeps": 0}
         assert mcica_optics.launches == {"mcica_sw_optics": 1,
                                          "mcica_lw_optics": 1}
     for k, v in flux.fields():
         assert bool(torch.isfinite(v).all()), k
-    setup_cpu = setup_radiation(cfg)
+    setup_cpu = setup_radiation(cfg, device="cpu")
     cpu_inputs = _to_cpu(inputs)
     cpu = radiation(setup_cpu, *cpu_inputs)
     same = torch.ones(96, dtype=torch.bool)
@@ -327,3 +332,100 @@ def test_mcica_path_launches_its_kernels(cuda, tmp_path, variant):
                      (False, True): 0.02, (False, False): 0.3}[
                 ("clear" in k, k.startswith("lw"))]
         assert float((v.cpu() - ref)[same].abs().max()) <= bound, k
+
+
+def _b5_args(cuda, nreg, nlev, ng, ncol, seed):
+    """Random region optics (the ranges of tests/test_adding_fused.py),
+    overlap matrices and clear layers, as the sweeps take them."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *s, lo=0.0, hi=1.0: _rand(gen, *s, lo=lo, hi=hi, device=cuda)
+    lay = (nlev, nreg, ng, ncol)
+    clear = torch.rand(nlev, ncol, generator=gen, device=cuda) < 0.4
+    v, u = r(nlev + 1, nreg, nreg, ncol), r(nlev, nreg, nreg, ncol)
+    frac = r(nreg, ncol, lo=0.05, hi=0.6)
+    sw = (r(*lay, hi=0.4), r(*lay, lo=0.3, hi=0.6), r(*lay, hi=0.3),
+          r(*lay, hi=0.4), r(*lay, lo=0.2, hi=0.9), v, clear,
+          r(ng, ncol, hi=0.8), r(ng, ncol, hi=0.8), r(ncol, lo=0.05),
+          r(ng, ncol, hi=1300.0), frac)
+    lw = (r(*lay, hi=0.3), r(*lay, lo=0.3, hi=0.6), r(*lay, hi=20.0),
+          r(*lay, hi=20.0), v, u, clear, r(ng, ncol, hi=400.0),
+          r(ng, ncol, hi=0.2), frac)
+    return sw, lw
+
+
+@pytest.mark.parametrize("nreg, nlev, ng, ncol", [
+    (3, 17, 12, 67), (2, 17, 12, 67), (3, 137, 112, 300),
+    (2, 137, 140, 300)])
+def test_b5_kernels_match_plain(cuda, nreg, nlev, ng, ncol):
+    sw, lw = _b5_args(cuda, nreg, nlev, ng, ncol, 9)
+    for name, fn, plain, args in (
+            ("tc_sw_sweeps", tripleclouds.tc_sw_sweeps,
+             tripleclouds.tc_sw_sweeps_plain, sw),
+            ("tc_lw_sweeps", tripleclouds.tc_lw_sweeps,
+             tripleclouds.tc_lw_sweeps_plain, lw)):
+        n0 = adding_fused.launches[name]
+        got = fn(*args)                      # dispatches to the kernel
+        torch.cuda.synchronize()
+        assert adding_fused.launches[name] == n0 + 1
+        assert _rel_all(got, plain(*args)) <= 2e-6, name
+
+
+def test_b5_refuses_what_it_does_not_take(cuda):
+    sw, lw = _b5_args(cuda, 3, 5, 4, 10, 10)
+    strided = sw[0].transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        adding_fused.tc_sw_sweeps_fused(strided, *sw[1:])
+    with pytest.raises(TypeError):
+        adding_fused.tc_lw_sweeps_fused(lw[0].double(), *lw[1:])
+    with pytest.raises(TypeError):                  # clear must be bool
+        adding_fused.tc_lw_sweeps_fused(*lw[:6], lw[6].float(), *lw[7:])
+    sw4, _ = _b5_args(cuda, 4, 5, 4, 10, 10)
+    with pytest.raises(ValueError, match="2 or 3 regions"):
+        adding_fused.tc_sw_sweeps_fused(*sw4)
+
+
+TC_VARIANTS = {
+    # (config overrides, B3 sw_adding, lw_noscat, lw_adding, B5 per call)
+    "tripleclouds": ({}, 1, 0, 1, 1),
+    "tripleclouds_2reg": (dict(nregions=2, use_beta_overlap=True,
+                               i_cloud_pdf_shape=PdfShape.LOGNORMAL,
+                               do_lw_cloud_scattering=True,
+                               do_lw_aerosol_scattering=False,
+                               use_aerosols=False), 1, 1, 0, 1),
+    "homogeneous": (dict(i_solver_sw=Solver.HOMOGENEOUS,
+                         i_solver_lw=Solver.HOMOGENEOUS), 2, 1, 1, 0),
+}
+
+
+@pytest.mark.parametrize("variant", list(TC_VARIANTS))
+def test_tripleclouds_and_homogeneous_paths_launch_their_kernels(
+        cuda, tmp_path, variant):
+    """The Tripleclouds path on the card (B1, B2, B3 SW, B3' and both B5
+    kernels), its two-region variant (B5 at NREG=2, B3 LW) and
+    Homogeneous with aerosols (B3 SW and LW, B3'); their fluxes against the
+    plain path on the CPU within the float32 contracts (clear sky lw 0.01,
+    sw 0.2; total sky lw 0.02, sw 0.3; cloud covers and derivatives
+    1e-5). Neither solver draws random numbers, so every column counts."""
+    kw, n_sw, n_noscat, n_lw, n_tc = TC_VARIANTS[variant]
+    cfg = tripleclouds_slice_config(
+        **write_synthetic_luts(str(tmp_path), ice="fu"), **kw)
+    cols = make_aerosols(make_clouds(make_columns(96, 137, 0)))
+    inputs = columns_to_inputs(cols, device=cuda)
+    setup = setup_radiation(cfg, device=cuda)
+    _reset_counts()
+    flux = radiation(setup, *inputs)
+    torch.cuda.synchronize()
+    assert taumol_lw.launches == 1 and taumol_sw.launches == 1
+    assert adding_fused.launches == {
+        "sw_adding": n_sw, "lw_noscat": n_noscat, "lw_adding": n_lw,
+        "tc_sw_sweeps": n_tc, "tc_lw_sweeps": n_tc}
+    cpu = radiation(setup_radiation(cfg, device="cpu"), *_to_cpu(inputs))
+    for k, v in flux.fields():
+        assert bool(torch.isfinite(v).all()), k
+        if k.startswith("cloud_cover") or k == "lw_derivatives":
+            bound = 1e-5
+        else:
+            bound = {(True, True): 0.01, (True, False): 0.2,
+                     (False, True): 0.02, (False, False): 0.3}[
+                ("clear" in k, k.startswith("lw"))]
+        assert float((v.cpu() - getattr(cpu, k)).abs().max()) <= bound, k

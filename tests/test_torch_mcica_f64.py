@@ -44,8 +44,8 @@ def _rel(a, b):
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_mcica_f64_matches_jax(jax64, luts, name, orient):
     cfg = dataclasses.replace(CONFIGS[name](luts), dtype="float64")
-    flux = radiation(setup_radiation(cfg), *columns_to_inputs(
-        columns()[orient], dtype=torch.float64))
+    flux = radiation(setup_radiation(cfg, device="cpu"), *columns_to_inputs(
+        columns()[orient], device="cpu", dtype=torch.float64))
     ref = {k.split("/")[1]: v for k, v in jax64[name].items()
            if k.startswith(orient + "/")}
     got = dict(flux.fields())
@@ -60,10 +60,11 @@ def test_mcica_f64_subcolumns_are_jaxs(jax64, luts):
     """The port's SW and LW cloud generators at float64, on the cloud
     the McICA path makes, give the JAX package's cloudy subcolumns."""
     setup = setup_radiation(dataclasses.replace(CONFIGS["mcica"](luts),
-                                                dtype="float64"))
+                                                dtype="float64"),
+                            device="cpu")
     cfg = setup.config
     sl, th, _, cloud = columns_to_inputs(columns()["toa_first"],
-                                         dtype=torch.float64)
+                                         device="cpu", dtype=torch.float64)
     cloud, _ = _cloud_stage(setup, th, cloud, lambda x: x)
     for key, ng, offset in (("mask_sw", 112, 0), ("mask_lw", 140, 997)):
         od_scaling, _ = cloud_generator(

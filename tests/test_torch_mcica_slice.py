@@ -127,9 +127,10 @@ def fluxes(luts, tmp_path_factory):
             port = {}
             for dtype in ("float32", "float64"):
                 setup = setup_radiation(dataclasses.replace(cfg,
-                                                            dtype=dtype))
+                                                            dtype=dtype),
+                                        device="cpu")
                 flux = radiation(setup, *columns_to_inputs(
-                    cols, dtype=getattr(torch, dtype)))
+                    cols, device="cpu", dtype=getattr(torch, dtype)))
                 port[dtype] = {k: v.numpy() for k, v in flux.fields()}
             j = {k.split("/")[1]: v for k, v in jax32[name].items()
                  if k.startswith(orient + "/")}
@@ -176,9 +177,10 @@ def test_mcica_f32_subcolumns_are_jaxs(fluxes, luts, tmp_path_factory):
     with the JAX run of the fluxes fixture)."""
     from ecrad_tpu_torch.interface import _cloud_stage
     from ecrad_tpu_torch.solvers.cloud_generator import cloud_generator
-    setup = setup_radiation(CONFIGS["mcica"](luts))
+    setup = setup_radiation(CONFIGS["mcica"](luts), device="cpu")
     cfg = setup.config
-    sl, th, _, cloud = columns_to_inputs(columns()["toa_first"])
+    sl, th, _, cloud = columns_to_inputs(columns()["toa_first"],
+                                         device="cpu")
     cloud, _ = _cloud_stage(setup, th, cloud, lambda x: x)
     for key, ng, offset in (("mask_sw", 112, 0), ("mask_lw", 140, 997)):
         od_scaling, _ = cloud_generator(
@@ -225,9 +227,10 @@ def test_setup_from_numpy_equals_setup_radiation(luts):
                                                               "float32"))
     got = setup_from_numpy(cfg, js.tables, js.spec, js.sw_albedo_map,
                            js.sw_albedo_weights, js.lw_emiss_map,
-                           js.lw_emiss_weights, cloud_optics=js.cloud_optics,
+                           js.lw_emiss_weights, device="cpu",
+                           cloud_optics=js.cloud_optics,
                            pdf_sampler=js.pdf_sampler)
-    ref = setup_radiation(cfg)
+    ref = setup_radiation(cfg, device="cpu")
     for f in ("liq_coeff_lw", "liq_coeff_sw", "ice_coeff_lw", "ice_coeff_sw",
               "ice_coeff_gen"):
         x, y = getattr(got.cloud_optics, f), getattr(ref.cloud_optics, f)
@@ -244,19 +247,34 @@ def test_setup_from_numpy_equals_setup_radiation(luts):
     assert torch.equal(got.pdf_cheb, ref.pdf_cheb)
 
 
-@pytest.mark.parametrize("solver, slice_no", [
-    (pconfig.Solver.HOMOGENEOUS, "5"), (pconfig.Solver.TRIPLECLOUDS, "6"),
-    (pconfig.Solver.SPARTACUS, "7")])
+@pytest.mark.parametrize("solver, slice_no", [(pconfig.Solver.SPARTACUS,
+                                               "7")])
 @pytest.mark.parametrize("region", ["sw", "lw"])
 def test_other_cloudy_solvers_raise(luts, solver, slice_no, region):
     cfg = pconfig.mcica_slice_config(**luts, **{f"i_solver_{region}":
                                                 solver})
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-        setup_radiation(cfg)
+        setup_radiation(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("solver", [pconfig.Solver.HOMOGENEOUS,
+                                    pconfig.Solver.TRIPLECLOUDS])
+@pytest.mark.parametrize("region", ["sw", "lw"])
+def test_homogeneous_and_tripleclouds_beside_mcica(luts, solver, region):
+    """Either region may run Homogeneous or Tripleclouds beside McICA in
+    the other."""
+    cfg = pconfig.mcica_slice_config(**luts, **{f"i_solver_{region}":
+                                                solver})
+    flux = radiation(setup_radiation(cfg, device="cpu"), *columns_to_inputs(
+        columns()["toa_first"], device="cpu"))
+    for k, v in flux.fields():
+        assert bool(torch.isfinite(v).all()), k
+    assert {"cloud_cover_sw", "cloud_cover_lw"} <= set(dict(flux.fields()))
 
 
 def test_mcica_needs_a_seed_per_column(luts):
-    setup = setup_radiation(pconfig.mcica_slice_config(**luts))
-    sl, th, gas, cloud = columns_to_inputs(columns()["toa_first"])
+    setup = setup_radiation(pconfig.mcica_slice_config(**luts), device="cpu")
+    sl, th, gas, cloud = columns_to_inputs(columns()["toa_first"],
+                                           device="cpu")
     with pytest.raises(ValueError, match="iseed"):
         radiation(setup, sl.replace(iseed=None), th, gas, cloud)

@@ -53,9 +53,9 @@ def fluxes():
         port = {}
         for dtype in ("float32", "float64"):
             setup = setup_radiation(
-                pconfig.cloudless_slice_config(dtype=dtype))
+                pconfig.cloudless_slice_config(dtype=dtype), device="cpu")
             flux = radiation(setup, *columns_to_inputs(
-                c, dtype=getattr(torch, dtype)))
+                c, device="cpu", dtype=getattr(torch, dtype)))
             port[dtype] = {k: v.numpy() for k, v in flux.fields()}
         out[orient] = (port["float32"], j, port["float64"])
     return out
@@ -128,8 +128,8 @@ def test_setup_from_numpy_equals_setup_radiation(dtype):
     cfg = pconfig.cloudless_slice_config(dtype=dtype)
     got = setup_from_numpy(cfg, js.tables, js.spec, js.sw_albedo_map,
                            js.sw_albedo_weights, js.lw_emiss_map,
-                           js.lw_emiss_weights)
-    _assert_setups_equal(got, setup_radiation(cfg))
+                           js.lw_emiss_weights, device="cpu")
+    _assert_setups_equal(got, setup_radiation(cfg, device="cpu"))
 
 
 @pytest.mark.parametrize("nearest", [True, False])
@@ -138,7 +138,7 @@ def test_interval_mappings_match_jax(nearest):
     kw = dict(do_nearest_spectral_sw_albedo=nearest,
               do_nearest_spectral_lw_emiss=nearest)
     js = _jax_setup(**kw)
-    ps = setup_radiation(pconfig.cloudless_slice_config(**kw))
+    ps = setup_radiation(pconfig.cloudless_slice_config(**kw), device="cpu")
     for name in ("sw_albedo_map", "sw_albedo_weights", "lw_emiss_map",
                  "lw_emiss_weights"):
         x, y = getattr(ps, name), getattr(js, name)
@@ -157,7 +157,8 @@ def test_inputs_from_numpy_round_trip():
         {"pressure_hl": cols["pressure_hl"],
          "temperature_hl": cols["temperature_hl"]},
         {"mixing_ratio": cols["mixing_ratio"]}, None,
-        {"mixing_ratio": np.zeros((3, 7, 2))}, dtype=torch.float64)
+        {"mixing_ratio": np.zeros((3, 7, 2))}, device="cpu",
+        dtype=torch.float64)
     assert sl.solar_irradiance == 1361.0 and sl.iseed.dtype == torch.int32
     assert th.pressure_hl.dtype == torch.float64 and cloud is None
     np.testing.assert_array_equal(gas.mixing_ratio.numpy(),
@@ -168,10 +169,10 @@ def test_inputs_from_numpy_round_trip():
 # ---- configuration ----
 
 @pytest.mark.parametrize("overrides, slice_no", [
-    (dict(i_solver_sw=pconfig.Solver.HOMOGENEOUS), "5"),
+    (dict(i_solver_sw=pconfig.Solver.SPARTACUS), "7"),
     (dict(i_solver_lw=pconfig.Solver.SPARTACUS), "7"),
-    (dict(i_solver_lw=pconfig.Solver.TRIPLECLOUDS), "6"),
-    (dict(use_aerosols=True), "4"),
+    (dict(do_save_gpoint_flux=True), "8"),
+    (dict(do_canopy_fluxes_lw=True), "8"),
     (dict(use_canopy_full_spectrum_lw=True), "8"),
     (dict(do_save_spectral_flux=True), "8"),
     (dict(do_canopy_fluxes_sw=True), "8"),
@@ -181,7 +182,7 @@ def test_inputs_from_numpy_round_trip():
 def test_unported_settings_raise(overrides, slice_no):
     cfg = pconfig.cloudless_slice_config(**overrides)
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-        setup_radiation(cfg)
+        setup_radiation(cfg, device="cpu")
 
 
 NAMELIST = """
@@ -207,7 +208,7 @@ def test_namelist_reads_as_in_the_jax_package():
         assert getattr(a, f.name) == getattr(b, f.name), f.name
     assert a.i_solver_sw == pconfig.Solver.CLOUDLESS
     assert a.i_sw_albedo_index == (1, 2, 3, 4, 5, 6)
-    setup_radiation(a)          # the slice accepts its own namelist
+    setup_radiation(a, device="cpu")   # the slice accepts its namelist
 
 
 # ---- flux assembly switches (port only; the field sets follow
@@ -235,7 +236,8 @@ def test_namelist_reads_as_in_the_jax_package():
 def test_output_switches_drop_their_fields(fluxes, overrides, absent):
     full = fluxes["toa_first"][0]
     flux = radiation(setup_radiation(pconfig.cloudless_slice_config(
-        **overrides)), *columns_to_inputs(make_columns(NCOL, NLEV, SEED)))
+        **overrides), device="cpu"), *columns_to_inputs(
+            make_columns(NCOL, NLEV, SEED), device="cpu"))
     got = dict(flux.fields())
     assert set(got) == set(full) - absent
     for k, v in got.items():      # the rest is unchanged
@@ -247,8 +249,8 @@ def test_supplied_surface_emission_overrides_planck():
     albedo): given per g it is used as is, given per emissivity interval
     it is mapped to g like the emissivity."""
     cols = make_columns(NCOL, NLEV, SEED)
-    setup = setup_radiation(pconfig.cloudless_slice_config())
-    sl, th, gas = columns_to_inputs(cols)
+    setup = setup_radiation(pconfig.cloudless_slice_config(), device="cpu")
+    sl, th, gas = columns_to_inputs(cols, device="cpu")
     base = radiation(setup, sl, th, gas)
     per_interval = torch.tensor([[100.0, 20.0, 5.0]]).repeat(NCOL, 1)
     per_g = per_interval[:, setup.lw_emiss_map[setup.spec.band_from_g_lw]]

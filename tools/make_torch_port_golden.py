@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Golden fluxes for the PyTorch port, from the JAX package on the CPU.
 
-Two goldens, each for the first 32 of the 2048 seed-0 columns of
+Three goldens, each for the first 32 of the 2048 seed-0 columns of
 ecrad_tpu_torch.inputs that chip_smoke.py runs (so the card's run and the
 golden see identical columns):
 
@@ -12,7 +12,13 @@ golden see identical columns):
   inputs.write_synthetic_luts(seed=0), written to a temporary directory.
   Besides the total- and clear-sky fluxes it holds both cloud covers and
   the cloudy-subcolumn masks of the SW and LW cloud generators
-  (np.packbits of od_scaling > 0, (32, 137, ng) bits each).
+  (np.packbits of od_scaling > 0, (32, 137, ng) bits each);
+- tests/goldens/torch_port_tripleclouds.npz: the Tripleclouds path
+  (tripleclouds_slice_config: Exp-Ran, gamma PDF, 3 regions, Fu ice, 12
+  aerosol types, LW derivatives) on make_aerosols(make_clouds(
+  make_columns(2048, 137, 0), 0), 0) with the same synthetic LUTs (Fu
+  ice) and synthetic aerosol table: total- and clear-sky fluxes, both
+  cloud covers and the LW derivatives.
 
 Each flux field is stored twice: `<field>` from the JAX package at float32
 and `<field>_f64` at float64 (each precision in its own process, because
@@ -35,11 +41,12 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = {name: os.path.join(REPO, "tests", "goldens",
                               f"torch_port_{name}.npz")
-           for name in ("cloudless", "mcica")}
+           for name in ("cloudless", "mcica", "tripleclouds")}
 NCOL_BATCH, NCOL, NLEV, SEED = 2048, 32, 137, 0
 FIELDS = ("lw_up", "lw_dn", "sw_up", "sw_dn", "sw_dn_direct")
 CLEAR_FIELDS = tuple(f + "_clear" for f in FIELDS)
 MCICA_FIELDS = FIELDS + CLEAR_FIELDS + ("cloud_cover_sw", "cloud_cover_lw")
+TRIPLECLOUDS_FIELDS = MCICA_FIELDS + ("lw_derivatives",)
 
 
 def jax_config(config, dtype: str):
@@ -57,10 +64,12 @@ def jax_config(config, dtype: str):
 
 
 def jax_inputs(cols, dtype: str):
-    """(SingleLevel, Thermodynamics, GasConcs, Cloud or None) of the JAX
-    package from numpy columns (inputs.make_columns / make_clouds)."""
+    """(SingleLevel, Thermodynamics, GasConcs, Cloud or None, Aerosol or
+    None) of the JAX package from numpy columns (inputs.make_columns /
+    make_clouds / make_aerosols)."""
     import jax.numpy as jnp
-    from ecrad_tpu.types import Cloud, GasConcs, SingleLevel, Thermodynamics
+    from ecrad_tpu.types import (Aerosol, Cloud, GasConcs, SingleLevel,
+                                 Thermodynamics)
     dt = jnp.float32 if dtype == "float32" else jnp.float64
     a = lambda k: jnp.asarray(cols[k], dt)
     cloudy = "fraction" in cols
@@ -78,7 +87,9 @@ def jax_inputs(cols, dtype: str):
         cloud = Cloud(**{k: a(k) for k in ("q_liq", "q_ice", "re_liq",
                                            "re_ice", "fraction",
                                            "fractional_std")})
-    return sl, th, GasConcs(mixing_ratio=a("mixing_ratio")), cloud
+    aerosol = (Aerosol(mixing_ratio=a("aerosol_mmr"))
+               if "aerosol_mmr" in cols else None)
+    return sl, th, GasConcs(mixing_ratio=a("mixing_ratio")), cloud, aerosol
 
 
 def jax_fluxes(dtype: str, *col_sets, fields=FIELDS, config=None) -> list:
@@ -114,7 +125,7 @@ def jax_subcolumn_masks(cols, config, dtype: str = "float32") -> dict:
 
     cfg = jax_config(config, dtype)
     setup = setup_radiation(cfg)
-    _, th, _, cloud = jax_inputs(cols, dtype)
+    _, th, _, cloud, _ = jax_inputs(cols, dtype)
     cloud = cloud.set_overlap_param(th, 2000.0).crop_cloud_fraction(
         cfg.cloud_fraction_threshold, cfg.cloud_mixing_ratio_threshold)
     iseed = np.asarray(cols["iseed"], np.int32)
@@ -130,11 +141,16 @@ def jax_subcolumn_masks(cols, config, dtype: str = "float32") -> dict:
     return out
 
 
-def mcica_columns():
-    from ecrad_tpu_torch.inputs import make_clouds, make_columns, \
-        slice_columns
-    return slice_columns(make_clouds(make_columns(NCOL_BATCH, NLEV, SEED),
-                                     SEED), slice(0, NCOL))
+def mcica_columns(aerosols=False):
+    """The golden's columns of the 2048: with clouds, and with aerosols
+    for Tripleclouds (drawn for all 2048 columns, as chip_smoke.py
+    does)."""
+    from ecrad_tpu_torch.inputs import (make_aerosols, make_clouds,
+                                        make_columns, slice_columns)
+    cols = make_clouds(make_columns(NCOL_BATCH, NLEV, SEED), SEED)
+    if aerosols:
+        cols = make_aerosols(cols, SEED)
+    return slice_columns(cols, slice(0, NCOL))
 
 
 def _child(name: str, dtype: str, out: str) -> None:
@@ -143,13 +159,22 @@ def _child(name: str, dtype: str, out: str) -> None:
     jax.config.update("jax_platforms", "cpu")
     if dtype == "float64":
         jax.config.update("jax_enable_x64", True)
-    from ecrad_tpu_torch.config import mcica_slice_config
+    from ecrad_tpu_torch.config import (mcica_slice_config,
+                                        tripleclouds_slice_config)
     from ecrad_tpu_torch.inputs import (make_columns, slice_columns,
                                         write_synthetic_luts)
     if name == "cloudless":
         cols = slice_columns(make_columns(NCOL_BATCH, NLEV, SEED),
                              slice(0, NCOL))
         np.savez(out, **jax_fluxes(dtype, cols)[0])
+        return
+    if name == "tripleclouds":
+        with tempfile.TemporaryDirectory() as luts:
+            config = tripleclouds_slice_config(**write_synthetic_luts(
+                luts, SEED, ice="fu"))
+            np.savez(out, **jax_fluxes(dtype, mcica_columns(aerosols=True),
+                                       fields=TRIPLECLOUDS_FIELDS,
+                                       config=config)[0])
         return
     with tempfile.TemporaryDirectory() as luts:
         config = mcica_slice_config(**write_synthetic_luts(luts, SEED))
@@ -223,7 +248,8 @@ def main() -> int:
     for name in stale:
         golden = goldens[name]
         np.savez_compressed(GOLDENS[name], **golden)
-        for k in (FIELDS if name == "cloudless" else MCICA_FIELDS):
+        for k in {"cloudless": FIELDS, "mcica": MCICA_FIELDS,
+                  "tripleclouds": TRIPLECLOUDS_FIELDS}[name]:
             err = np.abs(golden[k] - golden[k + "_f64"]).max()
             print(f"{name} {k}: JAX float32 vs float64 max abs {err:.3e}")
         print(f"wrote {GOLDENS[name]}")

@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's Cloudless or McICA path goes, on
-one GPU.
+"""Where the time of the PyTorch port's Cloudless, McICA or Tripleclouds
+path goes, on one GPU.
 
-    python3 tools/profile_torch_port.py [--solver cloudless|mcica]
-        [--ncol 2048] [--nlev 137] [--calls 3] [--out-dir profile_out]
+    python3 tools/profile_torch_port.py
+        [--solver cloudless|mcica|tripleclouds] [--ncol 2048] [--nlev 137]
+        [--calls 3] [--out-dir profile_out]
 
 Runs setup_radiation + radiation on the columns of
-ecrad_tpu_torch.inputs (seed 0; for McICA with make_clouds' clouds and
-the SYNTHETIC LUTs of write_synthetic_luts, written into --out-dir) on
+ecrad_tpu_torch.inputs (seed 0; for McICA and Tripleclouds with
+make_clouds' clouds and the SYNTHETIC LUTs of write_synthetic_luts,
+written into --out-dir; for Tripleclouds also make_aerosols' aerosols) on
 cuda:0, warms up, then traces `--calls` back-to-back calls with
 torch.profiler. Prints the device time by kernel name, the device-busy
 share of the traced window (union of kernel and copy intervals over the
 window's wall time) and the wall time per call; for each stage span
-(gas optics, the cloud stage, each solver, and inside the McICA solvers
-the cloud generator with its threefry draws and its cumulative cloud
-cover) its host time and the device time of the kernels it launched.
+(gas optics, the cloud stage, each solver; inside the McICA solvers the
+cloud generator with its threefry draws and its cumulative cloud cover;
+for Tripleclouds the aerosol stage, the region properties and overlap
+matrices, every two-stream reflectance/transmittance call, the two B5
+sweeps and the LW derivatives) its host time and the device time of the
+kernels it launched.
 Writes the full table and a gzipped Chrome trace into --out-dir (file
 names carry the solver). Exits 1 without a GPU.
 """
@@ -55,7 +60,8 @@ def add_spans(solver):
     from torch.profiler import record_function
 
     from ecrad_tpu_torch import interface
-    from ecrad_tpu_torch.solvers import cloud_generator, mcica
+    from ecrad_tpu_torch.solvers import (cloud_generator, mcica,
+                                         tripleclouds, two_stream)
 
     def span(module, attr, name):
         fn = getattr(module, attr)
@@ -70,6 +76,19 @@ def add_spans(solver):
     if solver == "cloudless":
         return names + [span(interface, "solver_cloudless_lw", "solver_lw"),
                         span(interface, "solver_cloudless_sw", "solver_sw")]
+    if solver == "tripleclouds":
+        return names + [
+            span(interface, "add_aerosol_optics", "aerosol"),
+            span(interface, "_cloud_stage", "cloud_stage"),
+            span(interface, "solve_lw", "solver_lw"),
+            span(interface, "solve_sw", "solver_sw"),
+            span(tripleclouds, "_regions", "region_props"),
+            *{span(two_stream, f, "reftrans") for f in (
+                "sw_reftrans", "lw_reftrans",
+                "lw_no_scattering_transmittance")},
+            *{span(tripleclouds, f, "tc_sweeps")
+              for f in ("tc_sw_sweeps", "tc_lw_sweeps")},
+            span(tripleclouds, "lw_derivatives_region", "lw_derivatives")]
     return names + [
         span(interface, "_cloud_stage", "cloud_stage"),
         span(interface, "solve_lw", "solver_lw"),
@@ -82,7 +101,8 @@ def add_spans(solver):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--solver", choices=("cloudless", "mcica"),
+    ap.add_argument("--solver", choices=("cloudless", "mcica",
+                                         "tripleclouds"),
                     default="cloudless")
     ap.add_argument("--ncol", type=int, default=2048)
     ap.add_argument("--nlev", type=int, default=137)
@@ -95,10 +115,11 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     from ecrad_tpu_torch.config import (cloudless_slice_config,
-                                        mcica_slice_config)
+                                        mcica_slice_config,
+                                        tripleclouds_slice_config)
     from ecrad_tpu_torch.convert import columns_to_inputs
-    from ecrad_tpu_torch.inputs import (make_clouds, make_columns,
-                                        write_synthetic_luts)
+    from ecrad_tpu_torch.inputs import (make_aerosols, make_clouds,
+                                        make_columns, write_synthetic_luts)
     from ecrad_tpu_torch.interface import radiation, setup_radiation
 
     gpu = subprocess.run(
@@ -109,12 +130,16 @@ def main():
     out_dir = args.out_dir
     os.makedirs(out_dir, exist_ok=True)
     cols = make_columns(args.ncol, args.nlev, 0)
+    lut_dir = os.path.join(out_dir, "synthetic_luts")
     if args.solver == "cloudless":
         config = cloudless_slice_config()
-    else:
-        config = mcica_slice_config(**write_synthetic_luts(
-            os.path.join(out_dir, "synthetic_luts"), 0))
+    elif args.solver == "mcica":
+        config = mcica_slice_config(**write_synthetic_luts(lut_dir, 0))
         cols = make_clouds(cols, 0)
+    else:
+        config = tripleclouds_slice_config(**write_synthetic_luts(
+            lut_dir, 0, ice="fu"))
+        cols = make_aerosols(make_clouds(cols, 0), 0)
     setup = setup_radiation(config, device=dev)
     inputs = columns_to_inputs(cols, device=dev)
     span_names = add_spans(args.solver)
