@@ -9,9 +9,16 @@ Phases; any failure exits non-zero and prints no result line:
      compiler's register/shared-memory/spill report is printed);
   2. every kernel of the paths (B1 taumol_lw, B2 taumol_sw, B3 sw_adding
      and lw_noscat, B3' lw_adding, B4 mcica_sw_optics and
-     mcica_lw_optics, B5 tc_sw_sweeps and tc_lw_sweeps) against its plain
-     PyTorch version on the card, at the shapes the paths give it (B5 on
-     the operands the Tripleclouds path hands it);
+     mcica_lw_optics, B5 tc_sw_sweeps and tc_lw_sweeps, B6
+     spartacus_sw_reftrans, B7 spartacus_lw_reftrans, B8
+     spartacus_sw_adding, B9 spartacus_lw_adding) against its plain
+     PyTorch version on the card, at the shapes the paths give it (B5-B9
+     on the operands the Tripleclouds and SPARTACUS paths hand them; B6
+     and B7 also on a random case built like
+     tools/check_kernel_equivalence.py's, at 3 and 2 regions; B8 under all
+     five entrapment treatments on 256 columns of the path's operands);
+     the SPARTACUS path's share of cells with the 3D treatment and the
+     histogram of their doubling counts;
   3. the paths, each run once with the launch counts set to 0 just
      before it and read just after, through setup_radiation + radiation:
      a. Cloudless on 2048 x 137 columns of ecrad_tpu_torch.inputs (seed
@@ -36,6 +43,15 @@ Phases; any failure exits non-zero and prints no result line:
         overlap, LW cloud scattering and no aerosols (B5 at NREG=2, B3
         lw_noscat);
      f. Homogeneous on 256 columns with aerosols;
+     g. SPARTACUS (spartacus_slice_config: 3D effects, Explicit
+        entrapment, 3 regions, the Tripleclouds path's other settings) on
+        the 2048 x 137 columns with the effective sizes of
+        inputs.add_effective_sizes: the first 32 columns against
+        tests/goldens/torch_port_spartacus.npz (bench.py's
+        SPARTACUS_F64_BOUNDS against JAX float64);
+     h. SPARTACUS on 256 columns with Maximum entrapment, and with 2
+        regions, lognormal PDF, Zero entrapment, LW cloud scattering and
+        no aerosols (B6-B9 at NREG=2, B3 lw_noscat);
   4. times (information only): each kernel and its plain version with
      CUDA events, and each 2048-column path's columns/s and peak memory
      over 10 back-to-back calls, best of 2.
@@ -63,6 +79,7 @@ GOLDEN = os.path.join(REPO, "tests", "goldens", "torch_port_cloudless.npz")
 GOLDEN_MCICA = os.path.join(REPO, "tests", "goldens", "torch_port_mcica.npz")
 GOLDEN_TC = os.path.join(REPO, "tests", "goldens",
                          "torch_port_tripleclouds.npz")
+GOLDEN_SP = os.path.join(REPO, "tests", "goldens", "torch_port_spartacus.npz")
 LUT_DIR = os.path.join(REPO, "ecrad_tpu_torch", "_build", "synthetic_luts")
 # golden bounds (W/m2): the clear-sky float32-vs-float64 contract of
 # tests/test_f64_validation.py, and the total-sky one of the
@@ -79,11 +96,23 @@ MAX_MASK_FLIPS, COVER_ATOL = 2, 1e-5
 TC_BOUNDS = {**{k + "_clear": v for k, v in BOUNDS.items()},
              **TOTAL_BOUNDS, "cloud_cover_sw": COVER_ATOL,
              "cloud_cover_lw": COVER_ATOL, "lw_derivatives": 1e-4}
+# SPARTACUS golden: bench.py's SPARTACUS_F64_BOUNDS (W/m2), the JAX
+# package's float32-vs-float64 gate for this solver
+SP_BOUNDS = {"lw_up": 0.01, "lw_dn": 0.01, "sw_up": 0.20, "sw_dn": 0.20,
+             "sw_dn_direct": 0.01, "lw_up_clear": 0.01, "lw_dn_clear": 0.01,
+             "sw_up_clear": 0.20, "sw_dn_clear": 0.20,
+             "cloud_cover_sw": COVER_ATOL, "cloud_cover_lw": COVER_ATOL,
+             "lw_derivatives": 1e-4}
 # kernel vs plain tolerances: the JAX package's own bounds for the fused
 # taumol (tests/test_taumol_fused.py), the adding sweeps
 # (tests/test_adding_fused.py) and the McICA optics
 # (tests/test_mcica_optics.py: SW 2e-3, LW 1e-4 of the range)
 TAU_REL, PF_ATOL, SWEEP_REL = 1e-5, 1e-6, 2e-6
+# SPARTACUS kernels: the JAX package's kernel-vs-fallback bound
+# (tools/check_kernel_equivalence.py:209,221); beyond it B6 and B7 must
+# be no farther from the float64 plain version than twice the float32
+# plain version is (:186-196)
+SPARTACUS_REL = 2e-5
 OPTICS_REL = {"mcica_sw_optics": 2e-3, "mcica_lw_optics": 1e-4}
 # the kernels each path must launch
 PATH_KERNELS = {
@@ -97,6 +126,16 @@ PATH_KERNELS = {
     "tripleclouds_2reg": ("taumol_lw", "taumol_sw", "sw_adding",
                           "lw_noscat", "tc_sw_sweeps", "tc_lw_sweeps"),
     "homogeneous": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding"),
+    "spartacus": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
+                  "spartacus_sw_reftrans", "spartacus_lw_reftrans",
+                  "spartacus_sw_adding", "spartacus_lw_adding"),
+    "spartacus_maxentr": ("taumol_lw", "taumol_sw", "sw_adding",
+                          "lw_adding", "spartacus_sw_reftrans",
+                          "spartacus_lw_reftrans", "spartacus_sw_adding",
+                          "spartacus_lw_adding"),
+    "spartacus_2reg": ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat",
+                       "spartacus_sw_reftrans", "spartacus_lw_reftrans",
+                       "spartacus_sw_adding", "spartacus_lw_adding"),
 }
 NCOL_NOSCAT = 256
 # the least time of a kernel: its operand bytes (each input read once,
@@ -112,6 +151,16 @@ OPS_PER_VALUE = {"taumol_lw": 60, "taumol_sw": 30, "sw_adding": 40,
                  "lw_noscat": 6, "lw_adding": 25, "mcica_sw_optics": 120,
                  "mcica_lw_optics": 40, "tc_sw_sweeps": 60,
                  "tc_lw_sweeps": 45}
+# the SPARTACUS kernels' work depends on the data; operations counted
+# from csrc/spartacus_reftrans.cu and spartacus_adding.cu for 3 regions
+# (a matrix product M x K x N counts M N (2K - 1)): B6/B7 per fallback
+# cell, per 3D cell before the doubling, per doubling step (the run's
+# own counts); B8/B9 per (level, g, column) and per mixed interface
+# (where the layer or its neighbour is cloudy)
+SPARTACUS_OPS = {"spartacus_sw_reftrans": (180, 3900, 650),
+                 "spartacus_lw_reftrans": (120, 2200, 240),
+                 "spartacus_sw_adding": (600, 1200),
+                 "spartacus_lw_adding": (420, 45)}
 
 
 def log(msg=""):
@@ -161,11 +210,11 @@ def tensors(obj):
     return out
 
 
-def least_time(name, args, outs, values):
+def least_time(name, args, outs, values=None, ops=None):
     """(bound_ms, bound_by, bytes, operations) of one launch: `values`
-    output values of OPS_PER_VALUE[name] operations each."""
+    output values of OPS_PER_VALUE[name] operations each, or `ops`."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors((args, outs)))
-    ops = values * OPS_PER_VALUE[name]
+    ops = values * OPS_PER_VALUE[name] if ops is None else ops
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
@@ -184,9 +233,38 @@ def reset_counts(counters):
 
 
 def read_counts(counters):
-    return {"taumol_lw": counters[0].launches,
-            "taumol_sw": counters[1].launches, **counters[2],
-            **counters[3]}
+    out = {"taumol_lw": counters[0].launches,
+           "taumol_sw": counters[1].launches}
+    for d in counters[2:]:
+        out.update(d)
+    return out
+
+
+def doubling_ops(name, counts):
+    """Operations of a B6/B7 launch from its per-cell doubling counts."""
+    per_fallback, per_3d, per_step = SPARTACUS_OPS[name]
+    c = counts.long()
+    n3 = int((c >= 0).sum())
+    return ((c.numel() - n3) * per_fallback + n3 * per_3d
+            + int(c.clamp(min=0).sum()) * per_step)
+
+
+def sweep_ops(name, cols, ng, clear_rows):
+    """Operations of a B8/B9 launch: per (level, g, column), and per
+    interface that mixes (the layer or the one above is cloudy)."""
+    per_cell, per_mix = SPARTACUS_OPS[name]
+    nlev, _, ncol = cols.shape
+    mixed = ~((cols[:, clear_rows[0]] > 0.5) & (cols[:, clear_rows[1]] > 0.5))
+    return ng * (nlev * ncol * per_cell + int(mixed.sum()) * per_mix)
+
+
+def histogram(counts):
+    """'share of 3D cells; doubling count: cells' of an int8 count
+    tensor (-1 where the cell took the 1D fallback)."""
+    c = counts.long().flatten()
+    hist = torch.bincount(c + 1).tolist()
+    share = float((c >= 0).float().mean())
+    return share, {k - 1: n for k, n in enumerate(hist) if n}
 
 
 def check_fluxes(f, cols, ncol):
@@ -246,6 +324,35 @@ def cloud_effect(f, name):
         f"lw_up {(f['lw_up'][:, 0] - f['lw_up_clear'][:, 0]).mean():.3f}")
 
 
+def random_reftrans_case(nreg, dev, nlev=7, ng=16, ncol=133, seed=7):
+    """B6 and B7's arguments on random inputs built like
+    tools/check_kernel_equivalence.py:143-163: mu0 at the 1e-10 clamp in
+    every 17th column, a level with no 3D cell, clear layers."""
+    rng = np.random.RandomState(seed)
+    r = lambda *s, lo=0.0, hi=1.0: torch.as_tensor(
+        (lo + (hi - lo) * rng.rand(*s)).astype(np.float32), device=dev)
+    od, ssa = r(nlev, nreg, ng, ncol, hi=6.0), r(nlev, nreg, ng, ncol,
+                                                   lo=0.05, hi=0.999)
+    g = r(nlev, nreg, ng, ncol, hi=0.8)
+    trd, trf = r(nlev, nreg, nreg, ncol, hi=0.5), r(nlev, nreg, nreg, ncol,
+                                                    hi=0.5)
+    mu0 = (0.05 + 0.95 * rng.rand(ncol)).astype(np.float32)
+    mu0[::17] = 1e-10
+    use3d = rng.rand(nlev, ng, ncol) > 0.4
+    use3d[0] = False
+    use3d = torch.as_tensor(use3d, device=dev)
+    clear = torch.as_tensor(rng.rand(nlev, ncol) > 0.7, device=dev)
+    se, pt, pb = (r(nlev, ng, ncol, lo=0.5, hi=1.0), r(nlev, ng, ncol,
+                                                       hi=40.0),
+                  r(nlev, ng, ncol, hi=40.0))
+    fr = r(nlev, nreg, ncol)
+    return {"sw": (8.0, od, ssa, g, trd, trf, torch.as_tensor(mu0,
+                                                              device=dev),
+                   use3d, clear),
+            "lw": (8.0, True, od, ssa, g, trd, se, pt, pb, fr, use3d,
+                   clear)}
+
+
 def main():
     if not torch.cuda.is_available():
         log("no CUDA device: this script runs the port on a GPU only")
@@ -254,21 +361,25 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
-    from ecrad_tpu_torch.config import (Overlap, PdfShape, Solver,
-                                        cloudless_slice_config,
+    from ecrad_tpu_torch.config import (Entrapment, Overlap, PdfShape,
+                                        Solver, cloudless_slice_config,
                                         mcica_slice_config,
+                                        spartacus_slice_config,
                                         tripleclouds_slice_config)
     from ecrad_tpu_torch.convert import columns_to_inputs
-    from ecrad_tpu_torch.inputs import (make_aerosols, make_clouds,
-                                        make_columns, slice_columns,
-                                        write_synthetic_luts)
+    from ecrad_tpu_torch.inputs import (add_effective_sizes, make_aerosols,
+                                        make_clouds, make_columns,
+                                        slice_columns, write_synthetic_luts)
     from ecrad_tpu_torch.interface import (_cloud_stage, get_albedos,
                                            radiation, setup_radiation)
     from ecrad_tpu_torch.ops import _cuda, adding_fused, mcica_optics
+    from ecrad_tpu_torch.ops import spartacus_adding as sa
+    from ecrad_tpu_torch.ops import spartacus_reftrans as sr
     from ecrad_tpu_torch.optics.rrtmg import taumol_lw, taumol_sw
     from ecrad_tpu_torch.optics.rrtmg.gas_optics import gas_optics
     from ecrad_tpu_torch.optics.rrtmg.setcoef import prepare_gases, setcoef
-    from ecrad_tpu_torch.solvers import adding, cloudless, tripleclouds
+    from ecrad_tpu_torch.solvers import (adding, cloudless, spartacus_lw,
+                                         spartacus_sw, tripleclouds)
     from ecrad_tpu_torch.solvers import two_stream as ts
     from ecrad_tpu_torch.solvers.cloud_generator import cloud_generator
 
@@ -301,6 +412,9 @@ def main():
                               device=dev)
     cols_t = make_aerosols(cols_m, SEED)
     inputs_t = columns_to_inputs(cols_t, device=dev)
+    setup_sp = setup_radiation(spartacus_slice_config(**luts_fu), device=dev)
+    cols_sp = add_effective_sizes(cols_t)
+    inputs_sp = columns_to_inputs(cols_sp, device=dev)
 
     # ---- 2. kernels against their plain versions, the paths' shapes ----
     t = setup.tables
@@ -391,12 +505,13 @@ def main():
         planck[:-1], planck[1:]) + lw_args[3:]
 
     # B5 on the operands the Tripleclouds path hands it: one run with the
-    # sweeps' arguments kept (its launches are not counted, see phase 3)
-    tc_args = {}
+    # sweeps' arguments kept (its launches are not counted, see phase 3);
+    # B6-B9 below likewise on the SPARTACUS path's
+    path_args = {}
 
     def keep(name, fn):
         def wrapped(*args):
-            tc_args[name] = args
+            path_args[name] = args
             return fn(*args)
         return wrapped
     sweeps = tripleclouds.tc_sw_sweeps, tripleclouds.tc_lw_sweeps
@@ -404,6 +519,16 @@ def main():
     tripleclouds.tc_lw_sweeps = keep("tc_lw_sweeps", sweeps[1])
     radiation(setup_t, *inputs_t)
     tripleclouds.tc_sw_sweeps, tripleclouds.tc_lw_sweeps = sweeps
+    sp_fns = [(mod, name, getattr(mod, name)) for mod, name in (
+        (spartacus_sw, "sw_reftrans_levels"),
+        (spartacus_sw, "sw_adding_sweeps"),
+        (spartacus_lw, "lw_reftrans_levels"),
+        (spartacus_lw, "lw_adding_sweeps"))]
+    for mod, name, fn in sp_fns:
+        setattr(mod, name, keep(name, fn))
+    radiation(setup_sp, *inputs_sp)
+    for mod, name, fn in sp_fns:
+        setattr(mod, name, fn)
 
     for name, kern, plain, args, bound in (
             ("sw_adding", adding_fused.adding_sw_fused,
@@ -419,10 +544,10 @@ def main():
              mcica_optics.lw_clear_total_noscat_plain, b4_lw_args,
              OPTICS_REL["mcica_lw_optics"]),
             ("tc_sw_sweeps", adding_fused.tc_sw_sweeps_fused,
-             tripleclouds.tc_sw_sweeps_plain, tc_args["tc_sw_sweeps"],
+             tripleclouds.tc_sw_sweeps_plain, path_args["tc_sw_sweeps"],
              SWEEP_REL),
             ("tc_lw_sweeps", adding_fused.tc_lw_sweeps_fused,
-             tripleclouds.tc_lw_sweeps_plain, tc_args["tc_lw_sweeps"],
+             tripleclouds.tc_lw_sweeps_plain, path_args["tc_lw_sweeps"],
              SWEEP_REL)):
         a = kern(*args)
         torch.cuda.synchronize()
@@ -437,9 +562,116 @@ def main():
         if not rel <= bound:
             raise AssertionError(f"{name} disagrees with its plain version")
 
+    # B6 and B7 on the SPARTACUS path's operands, with the doubling counts
+    sp_counts = {}
+    for name, kern, plain, args, escape in (
+            ("spartacus_sw_reftrans", sr.sw_reftrans_levels_fused,
+             sr.sw_reftrans_levels_plain, path_args["sw_reftrans_levels"],
+             "RD/TD"),
+            ("spartacus_lw_reftrans", sr.lw_reftrans_levels_fused,
+             sr.lw_reftrans_levels_plain, path_args["lw_reftrans_levels"],
+             "SU/SD")):
+        use3d = args[7] if name == "spartacus_sw_reftrans" else args[10]
+        counts = torch.empty(use3d.shape, dtype=torch.int8, device=dev)
+        a = kern(*args, counts=counts)
+        torch.cuda.synchronize()
+        b = plain(*args)
+        rel = rel_to_max(a, b)
+        errs[name] = float((a - b).abs().max())
+        ok = rel <= SPARTACUS_REL
+        if not ok:
+            # the float64 escape: no farther from the float64 plain
+            # version than twice the float32 plain version is
+            t = plain(*(x.double() if isinstance(x, torch.Tensor)
+                        and x.is_floating_point() else x for x in args))
+            scale = float(t.abs().max())
+            k_err = float((a.double() - t).abs().max()) / scale
+            p_err = float((b.double() - t).abs().max()) / scale
+            ok = k_err <= max(SPARTACUS_REL, 2.0 * p_err)
+            log(f"{name}: float64 escape ({escape}): kernel vs float64 "
+                f"{k_err:.3e}, plain vs float64 {p_err:.3e}")
+            del t
+        sp_counts[name] = counts
+        bounds[name] = least_time(name, args, (a,),
+                                  ops=doubling_ops(name, counts))
+        share, hist = histogram(counts)
+        log(f"{name}: shape {tuple(a.shape)} worst |diff|/max|plain| "
+            f"{rel:.3e} (bound {SPARTACUS_REL}), worst abs {errs[name]:.3e}"
+            f"; 3D share {share:.4f} of the (level, g, column) cells; "
+            f"doubling counts (-1 = fallback) {hist}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        if share <= 0.0:
+            raise AssertionError(f"{name}: no cell took the 3D treatment")
+        cap = (sr.sw_fixed_squarings if name == "spartacus_sw_reftrans"
+               else sr.lw_fixed_squarings)(setup_sp.config)
+        if int(counts.max()) > cap:
+            raise AssertionError(f"{name}: a cell doubled {int(counts.max())}"
+                                 f" times, beyond the capped bound {cap}")
+        del a, b
+    # B8 and B9 on the SPARTACUS path's operands
+    for name, kern, plain, args, clear_rows in (
+            ("spartacus_sw_adding", sa.sw_adding_sweeps_fused,
+             sa.sw_adding_sweeps_plain, path_args["sw_adding_sweeps"],
+             (sa._CLEAR, sa._CLEARP)),
+            ("spartacus_lw_adding", sa.lw_adding_sweeps_fused,
+             sa.lw_adding_sweeps_plain, path_args["lw_adding_sweeps"],
+             (sa._LCLEAR, sa._LCLEARP))):
+        a = kern(*args)
+        torch.cuda.synchronize()
+        b = plain(*args)
+        rel = max(rel_to_max(x, y) for x, y in zip(a, b))
+        errs[name] = max(float((x - y).abs().max()) for x, y in zip(a, b))
+        hist = args[1] if name == "spartacus_sw_adding" else args[2]
+        bounds[name] = least_time(name, args, a, ops=sweep_ops(
+            name, args[-3 if name == "spartacus_sw_adding" else -2],
+            hist.shape[2], clear_rows))
+        log(f"{name}: hist {tuple(hist.shape)} worst |diff|/max|plain| "
+            f"{rel:.3e} (bound {SPARTACUS_REL}), worst abs {errs[name]:.3e}")
+        if not rel <= SPARTACUS_REL:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        del a, b
+    # B8 under every entrapment treatment on 256 of the path's columns
+    cfg_sp, hist, cols_rows, init_up, direct0 = path_args["sw_adding_sweeps"]
+    cut = [x[..., :NCOL_NOSCAT].contiguous() for x in (hist, cols_rows,
+                                                       init_up, direct0)]
+    for entrap in Entrapment:
+        for do_3d in (True, False):
+            cfg_e = dataclasses.replace(cfg_sp, i_3d_sw_entrapment=entrap,
+                                        do_3d_effects=do_3d)
+            a = sa.sw_adding_sweeps_fused(cfg_e, *cut)
+            torch.cuda.synchronize()
+            rel = max(rel_to_max(x, y) for x, y in zip(
+                a, sa.sw_adding_sweeps_plain(cfg_e, *cut)))
+            log(f"spartacus_sw_adding {entrap.name} do_3d_effects={do_3d}: "
+                f"{NCOL_NOSCAT} columns, worst |diff|/max|plain| {rel:.3e}")
+            if not rel <= SPARTACUS_REL:
+                raise AssertionError(f"spartacus_sw_adding disagrees with "
+                                     f"its plain version ({entrap.name})")
+    del cut, hist, cols_rows, init_up, direct0
+    # B6 and B7 on random cases (check_kernel_equivalence.py's build)
+    for nreg in (3, 2):
+        rc = random_reftrans_case(nreg, dev)
+        for name, kern, plain, args in (
+                ("spartacus_sw_reftrans", sr.sw_reftrans_levels_fused,
+                 sr.sw_reftrans_levels_plain, rc["sw"]),
+                ("spartacus_lw_reftrans", sr.lw_reftrans_levels_fused,
+                 sr.lw_reftrans_levels_plain, rc["lw"]),
+                ("spartacus_lw_reftrans (no scattering)",
+                 sr.lw_reftrans_levels_fused, sr.lw_reftrans_levels_plain,
+                 (rc["lw"][0], False) + rc["lw"][2:])):
+            a = kern(*args)
+            torch.cuda.synchronize()
+            rel = rel_to_max(a, plain(*args))
+            log(f"{name} random case, {nreg} regions: worst |diff|/max|plain|"
+                f" {rel:.3e}")
+            if not rel <= SPARTACUS_REL:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version on the random case")
+
     # ---- 3. the paths, counted ----
     counters = (taumol_lw, taumol_sw, adding_fused.launches,
-                mcica_optics.launches)
+                mcica_optics.launches, sr.launches, sa.launches)
     launches = {}
 
     def counted(name, fn):
@@ -520,6 +752,35 @@ def main():
         check_fluxes(f, cols_s, NCOL_NOSCAT)
         cloud_effect(f, name)
 
+    # g. SPARTACUS at full width, against its golden
+    f = counted("spartacus", lambda: radiation(setup_sp, *inputs_sp))
+    check_fluxes(f, cols_sp, NCOL)
+    with np.load(GOLDEN_SP) as z:
+        golden = {k: z[k] for k in z.files}
+    check_golden(f, golden, list(SP_BOUNDS), SP_BOUNDS, what=" spartacus",
+                 jax_slack=True)
+    cloud_effect(f, "spartacus")
+    for name, counts in sp_counts.items():
+        share, hist = histogram(counts)
+        log(f"spartacus {name}: 3D share {share:.4f}, doubling counts "
+            f"{hist}")
+
+    # h. SPARTACUS with Maximum entrapment; with two regions
+    cols_h = slice_columns(cols_sp, slice(0, NCOL_NOSCAT))
+    for name, kw in (
+            ("spartacus_maxentr", dict(i_3d_sw_entrapment=Entrapment.MAXIMUM)),
+            ("spartacus_2reg", dict(
+                nregions=2, i_cloud_pdf_shape=PdfShape.LOGNORMAL,
+                i_3d_sw_entrapment=Entrapment.ZERO,
+                do_lw_cloud_scattering=True, do_lw_aerosol_scattering=False,
+                use_aerosols=False))):
+        setup_h = setup_radiation(spartacus_slice_config(**luts_fu, **kw),
+                                  device=dev)
+        f = counted(name, lambda: radiation(
+            setup_h, *columns_to_inputs(cols_h, device=dev)))
+        check_fluxes(f, cols_h, NCOL_NOSCAT)
+        cloud_effect(f, name)
+
     # ---- 4. times (information only) ----
     timing = {
         "taumol_lw": (lambda: taumol_lw.taumol_lw_kernel(fc_lw, ic_lw,
@@ -545,17 +806,37 @@ def main():
             lambda: mcica_optics.mcica_lw_optics_fused(*b4_lw_args),
             lambda: mcica_optics.lw_clear_total_noscat_plain(*b4_lw_args)),
         "tc_sw_sweeps": (
-            lambda: adding_fused.tc_sw_sweeps_fused(*tc_args["tc_sw_sweeps"]),
+            lambda: adding_fused.tc_sw_sweeps_fused(
+                *path_args["tc_sw_sweeps"]),
             lambda: tripleclouds.tc_sw_sweeps_plain(
-                *tc_args["tc_sw_sweeps"])),
+                *path_args["tc_sw_sweeps"])),
         "tc_lw_sweeps": (
-            lambda: adding_fused.tc_lw_sweeps_fused(*tc_args["tc_lw_sweeps"]),
+            lambda: adding_fused.tc_lw_sweeps_fused(
+                *path_args["tc_lw_sweeps"]),
             lambda: tripleclouds.tc_lw_sweeps_plain(
-                *tc_args["tc_lw_sweeps"])),
+                *path_args["tc_lw_sweeps"])),
+        "spartacus_sw_reftrans": (
+            lambda: sr.sw_reftrans_levels_fused(
+                *path_args["sw_reftrans_levels"]),
+            lambda: sr.sw_reftrans_levels_plain(
+                *path_args["sw_reftrans_levels"])),
+        "spartacus_lw_reftrans": (
+            lambda: sr.lw_reftrans_levels_fused(
+                *path_args["lw_reftrans_levels"]),
+            lambda: sr.lw_reftrans_levels_plain(
+                *path_args["lw_reftrans_levels"])),
+        "spartacus_sw_adding": (
+            lambda: sa.sw_adding_sweeps_fused(*path_args["sw_adding_sweeps"]),
+            lambda: sa.sw_adding_sweeps_plain(*path_args["sw_adding_sweeps"])),
+        "spartacus_lw_adding": (
+            lambda: sa.lw_adding_sweeps_fused(*path_args["lw_adding_sweeps"]),
+            lambda: sa.lw_adding_sweeps_plain(*path_args["lw_adding_sweeps"])),
     }
     ms = {}
     for name, (kern, plain) in timing.items():
-        ms[name] = (time_ms(kern, 20), time_ms(plain, 3))
+        # the SPARTACUS plain versions take seconds per call: one timed
+        ms[name] = (time_ms(kern, 20),
+                    time_ms(plain, 1 if name.startswith("spartacus") else 3))
         b_ms, b_by, nbytes, ops = bounds[name]
         log(f"time {name}: kernel {ms[name][0]:.4f} ms, plain "
             f"{ms[name][1]:.4f} ms, least time {b_ms:.4f} ms by {b_by} "
@@ -563,14 +844,16 @@ def main():
             f"{b_ms / ms[name][0]:.1%} of it reached) [{gpu}]")
     # the kernels' operands are not needed any more: the paths' peak
     # memory below is what a call adds to its inputs and setup
-    del timing, tc_args, sw_args, lw_args, lwadd_args, b4_sw_args, b4_lw_args
+    del timing, path_args, sw_args, lw_args, lwadd_args, b4_sw_args, b4_lw_args
     del go, planck, props, cloud_m, osc_lw, od_t, ssa_t, g_t, zeros_sw
-    del zeros_lw, frac_mask, fc_lw, ic_lw, fc_sw, ic_sw, c, gc, a, b, args
+    del zeros_lw, frac_mask, fc_lw, ic_lw, fc_sw, ic_sw, c, gc, args, rc
     torch.cuda.empty_cache()
     for name, run in (("cloudless", lambda: radiation(setup, sl, th, gas)),
                       ("mcica", lambda: radiation(setup_m, *inputs_m)),
                       ("tripleclouds",
-                       lambda: radiation(setup_t, *inputs_t))):
+                       lambda: radiation(setup_t, *inputs_t)),
+                      ("spartacus",
+                       lambda: radiation(setup_sp, *inputs_sp))):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         best = []
@@ -590,6 +873,10 @@ def main():
     level_sweep = ("ecrad_tpu_torch/csrc/level_sweep.cu",
                    "ecrad_tpu/ops/adding_fused.py:125")
     tc_sweeps = "ecrad_tpu_torch/csrc/tc_sweeps.cu"
+    sp_rt = "ecrad_tpu_torch/csrc/spartacus_reftrans.cu"
+    sp_add = "ecrad_tpu_torch/csrc/spartacus_adding.cu"
+    jrt, jadd = "ecrad_tpu/ops/spartacus_reftrans.py", \
+        "ecrad_tpu/ops/spartacus_adding.py"
     src = {"taumol_lw": ("ecrad_tpu_torch/csrc/taumol_lw.cu",
                          "ecrad_tpu/optics/rrtmg/taumol_lw_fused.py:896"),
            "taumol_sw": ("ecrad_tpu_torch/csrc/taumol_sw.cu",
@@ -601,7 +888,11 @@ def main():
            "mcica_lw_optics": ("ecrad_tpu_torch/csrc/mcica_optics.cu",
                                "ecrad_tpu/ops/mcica_optics.py:269"),
            "tc_sw_sweeps": (tc_sweeps, "ecrad_tpu/ops/adding_fused.py:290"),
-           "tc_lw_sweeps": (tc_sweeps, "ecrad_tpu/ops/adding_fused.py:361")}
+           "tc_lw_sweeps": (tc_sweeps, "ecrad_tpu/ops/adding_fused.py:361"),
+           "spartacus_sw_reftrans": (sp_rt, f"{jrt}:350"),
+           "spartacus_lw_reftrans": (sp_rt, f"{jrt}:676"),
+           "spartacus_sw_adding": (sp_add, f"{jadd}:399"),
+           "spartacus_lw_adding": (sp_add, f"{jadd}:614")}
     # launches: the sum over the counted path runs (per path above); no
     # single PyTorch call computes any of these functions (library_ms)
     log(json.dumps({"kernels": [

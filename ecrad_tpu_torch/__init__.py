@@ -4,6 +4,7 @@ A second package beside the JAX reference `ecrad_tpu`: the same config,
 namelists, inputs and flux fields, with every Pallas kernel on the
 ported path replaced by a CUDA kernel written for sm_90a (csrc/), each
 beside a plain PyTorch version of the same function. It imports torch
-and numpy, never jax. This slice covers the Cloudless clear-sky path on
-RRTMG-IFS gas optics; see ROADMAP.md for what follows.
+and numpy, never jax. It runs the Cloudless, McICA, Homogeneous,
+Tripleclouds and SPARTACUS solvers on RRTMG-IFS gas optics, with
+aerosols; see ROADMAP.md for what follows.
 """

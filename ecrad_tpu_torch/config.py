@@ -530,8 +530,26 @@ def tripleclouds_slice_config(**overrides) -> RadiationConfig:
 #: (0) left out
 TRIPLECLOUDS_AEROSOL_MAP = (-1, -2, -3, 1, 2, 3, -4, -5, 4, 5, 6, 0)
 
-#: the ROADMAP Queue A slice of each cloudy solver not ported yet
-SOLVER_SLICE = {Solver.SPARTACUS: "7 (SPARTACUS)"}
+def spartacus_slice_config(**overrides) -> RadiationConfig:
+    """The SPARTACUS path: the spartacus variant of the reference's CY47R1
+    test matrix (tests/ifs_variants.py:22-26) on what
+    tripleclouds_slice_config sets: SPARTACUS in SW and LW with 3D effects,
+    Exp-Ran overlap, no delta scaling of the gas-cloud mix, 3 regions,
+    gamma PDF, Fu ice, LW cloud scattering off, LW aerosol scattering on,
+    12 aerosol types, the LW derivatives, and the 3D defaults of
+    ecrad_tpu/config.py:170-181 (Explicit entrapment, LW side emissivity,
+    max_gas_od_3d 8, max_cloud_od 16, max_3d_transfer_rate 10,
+    min_cloud_effective_size 100 m). Its 3D terms need the cloud's inverse
+    effective sizes (inputs.add_effective_sizes). The LUT files come from
+    `overrides`; with inputs.write_synthetic_luts they are SYNTHETIC, so
+    this is a parity configuration, not an ecRad result."""
+    return tripleclouds_slice_config(**{
+        "i_solver_sw": Solver.SPARTACUS, "i_solver_lw": Solver.SPARTACUS,
+        "do_3d_effects": True, "do_sw_delta_scaling_with_gases": False,
+        "i_3d_sw_entrapment": Entrapment.EXPLICIT,
+        "do_lw_side_emissivity": True, "max_gas_od_3d": 8.0,
+        "max_cloud_od": 16.0, "max_3d_transfer_rate": 10.0,
+        "min_cloud_effective_size": 100.0, **overrides})
 
 
 # (setting, ROADMAP Queue A slice that brings it) for everything the
@@ -539,10 +557,8 @@ SOLVER_SLICE = {Solver.SPARTACUS: "7 (SPARTACUS)"}
 def _unsupported(cfg: RadiationConfig):
     if cfg.i_gas_model != GasModel.RRTMG_IFS:
         yield "the monochromatic gas model", "8 (periphery)"
-    for name, solver in (("i_solver_sw", cfg.i_solver_sw),
-                         ("i_solver_lw", cfg.i_solver_lw)):
-        if solver in SOLVER_SLICE:
-            yield f"{name}={solver.name}", SOLVER_SLICE[solver]
+    if cfg.do_print_entrapment_data:
+        yield "do_print_entrapment_data", "8 (periphery)"
     if cfg.do_save_spectral_flux or cfg.do_save_gpoint_flux:
         yield "do_save_spectral_flux/do_save_gpoint_flux", "8 (periphery)"
     if cfg.do_canopy_fluxes_sw or cfg.do_canopy_fluxes_lw:
@@ -551,10 +567,11 @@ def _unsupported(cfg: RadiationConfig):
         yield "use_canopy_full_spectrum_sw/lw", "8 (periphery, surface)"
     if cfg.use_spectral_solar_scaling:
         yield "use_spectral_solar_scaling", "8 (periphery)"
-    if (Solver.TRIPLECLOUDS in (cfg.i_solver_sw, cfg.i_solver_lw)
-            and cfg.nregions not in (2, 3)):
-        raise ValueError(f"Tripleclouds takes 2 or 3 regions, not "
-                         f"{cfg.nregions}")
+    solvers = (cfg.i_solver_sw, cfg.i_solver_lw)
+    for solver in (Solver.TRIPLECLOUDS, Solver.SPARTACUS):
+        if solver in solvers and cfg.nregions not in (2, 3):
+            raise ValueError(f"{solver.name} takes 2 or 3 regions, not "
+                             f"{cfg.nregions}")
     if cfg.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be float32 or float64, not "
                          f"{cfg.dtype!r}")
@@ -567,4 +584,4 @@ def check_supported(cfg: RadiationConfig) -> None:
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP.md Queue A, slice "
             f"{where}); the PyTorch port runs the Cloudless, McICA, "
-            f"Homogeneous and Tripleclouds solvers")
+            f"Homogeneous, Tripleclouds and SPARTACUS solvers")

@@ -13,11 +13,11 @@ import numpy as np
 import torch
 
 from .config import RadiationConfig, check_supported
-from .inputs import CLOUD_KEYS
+from .inputs import CLOUD_KEYS, EFFECTIVE_SIZE_KEYS
 from .interface import RadiationSetup, make_setup, resolve_device
 from .optics.aerosol import AerosolOpticsTables
 from .optics.cloud import CloudOpticsTables
-from .optics.rrtmg.gas_optics import GasOpticsSpec
+from .optics.rrtmg.gas_optics import spec_from_arrays
 from .solvers.pdf_sampler import PdfSampler
 from .types import Aerosol, Cloud, GasConcs, SingleLevel, Thermodynamics
 
@@ -40,25 +40,21 @@ def setup_from_numpy(config: RadiationConfig, tables: Mapping,
     """The port's setup, on `device` (the GPU unless the caller asks for
     another), from a JAX RadiationSetup's numpy content: `tables` its
     `setup.tables`, `spec_arrays` its `setup.spec` (any object with the
-    GasOpticsSpec fields), the four interval maps, its `cloud_optics` (the
-    five coefficient arrays) for a cloudy setup, its `pdf_sampler` (val,
-    fsd1, inv_fsd_interval, cheb, z0, z1) for McICA, and its
-    `aerosol_optics` (the AerosolOpticsTables fields) with use_aerosols."""
+    GasOpticsSpec fields; without g_from_reordered_g_* the g order is the
+    identity, with them the SPARTACUS order carries over), the four
+    interval maps, its `cloud_optics` (the five coefficient arrays) for a
+    cloudy setup, its `pdf_sampler` (val, fsd1, inv_fsd_interval, cheb,
+    z0, z1) for McICA, and its `aerosol_optics` (the AerosolOpticsTables
+    fields) with use_aerosols."""
     config = config.consolidated()
     check_supported(config)
-    band_lw = np.asarray(spec_arrays.band_from_g_lw)
-    band_sw = np.asarray(spec_arrays.band_from_g_sw)
-    for name, n in (("g_from_reordered_g_lw", len(band_lw)),
-                    ("g_from_reordered_g_sw", len(band_sw))):
-        order = getattr(spec_arrays, name, None)
-        if order is not None and not np.array_equal(order, np.arange(n)):
-            raise NotImplementedError(
-                "g-point reordering is SPARTACUS's (ROADMAP.md Queue A, "
-                "slice 7)")
     opt = lambda x: None if x is None else np.asarray(x)
+    spec = spec_from_arrays(
+        spec_arrays.band_from_g_lw, spec_arrays.band_from_g_sw,
+        opt(getattr(spec_arrays, "g_from_reordered_g_lw", None)),
+        opt(getattr(spec_arrays, "g_from_reordered_g_sw", None)))
     return make_setup(
-        config, {k: np.asarray(v) for k, v in tables.items()},
-        GasOpticsSpec(band_from_g_lw=band_lw, band_from_g_sw=band_sw),
+        config, {k: np.asarray(v) for k, v in tables.items()}, spec,
         opt(sw_albedo_map), opt(sw_albedo_weights), opt(lw_emiss_map),
         opt(lw_emiss_weights), device,
         _copy(CloudOpticsTables, cloud_optics),
@@ -101,10 +97,11 @@ def inputs_from_numpy(single_level: Mapping, thermodynamics: Mapping,
 def columns_to_inputs(cols: Mapping, device="cuda", dtype=torch.float32):
     """(SingleLevel, Thermodynamics, GasConcs) from inputs.make_columns,
     the Cloud as a fourth item when `cols` holds cloud fields
-    (inputs.make_clouds), and the Aerosol as a fifth when it holds
-    aerosol_mmr (inputs.make_aerosols; the Cloud is then None without
-    cloud fields). On `device`, the GPU unless the caller asks for
-    another."""
+    (inputs.make_clouds; with the effective sizes of
+    inputs.add_effective_sizes where `cols` holds them), and the Aerosol
+    as a fifth when it holds aerosol_mmr (inputs.make_aerosols; the Cloud
+    is then None without cloud fields). On `device`, the GPU unless the
+    caller asks for another."""
     cloudy = "fraction" in cols
     aerosols = "aerosol_mmr" in cols
     sl, th, gas, cloud, aer = inputs_from_numpy(
@@ -113,7 +110,8 @@ def columns_to_inputs(cols: Mapping, device="cuda", dtype=torch.float32):
         | {"solar_irradiance": float(cols["solar_irradiance"])},
         {k: cols[k] for k in ("pressure_hl", "temperature_hl")},
         {"mixing_ratio": cols["mixing_ratio"]},
-        {k: cols[k] for k in CLOUD_KEYS} if cloudy else None,
+        {k: cols[k] for k in CLOUD_KEYS + EFFECTIVE_SIZE_KEYS if k in cols}
+        if cloudy else None,
         {"mixing_ratio": cols["aerosol_mmr"]} if aerosols else None,
         device=device, dtype=dtype)
     if aerosols:

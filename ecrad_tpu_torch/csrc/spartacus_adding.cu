@@ -1,0 +1,756 @@
+// Kernels B8 and B9: the SPARTACUS adding sweeps.
+//
+// Replace the TPU kernels ecrad_tpu/ops/spartacus_adding.py::
+// sw_adding_sweeps (:366; pallas_calls :399 up, :441 down) and
+// ::lw_adding_sweeps (:583; :614 up, :655 down). There each sweep was a
+// pallas_call over (column tiles, levels) with the carry resident in VMEM
+// and the upward history written to HBM between the two. Here one thread
+// owns one (g, column) pair for both sweeps, in one launch: it keeps the
+// carry in registers (SW 2 NREG^2 + 2 NREG floats: the total albedos and
+// the migration distances; LW NREG^2 + NREG), writes the albedos below
+// each layer to wrapper-allocated scratch on the way up and reads them
+// back on the way down, and writes only what the solvers read (SW the
+// albedos at the top and [fup | fdn | ddn] per level and region; LW the
+// source at the top and [fup | fdn]). NREG (2 or 3) is a template
+// parameter, so the two-region setting runs here too; the entrapment
+// treatment, do_3d_effects and the LW matrix/multilayer switches are
+// uniform runtime switches.
+//
+// What bounds it: device-memory bandwidth. Each level's history rows
+// (SW 5 NREG^2, LW 2 NREG (NREG+1)) are read twice (up and down), the
+// scratch written and read once, the fluxes written once; the per-column
+// rows ((nlev, 47|30, ncol), the JAX package's layout with 3 x 3-padded
+// matrices) are read by 32 neighbouring columns of a warp, coalesced.
+//
+// Semantics: ops/spartacus_adding.py sw_up_step / sw_dn_step /
+// lw_up_step / lw_dn_step, expression for expression (built with
+// -fmad=false; products and mixings add left to right as mm_gu, the
+// elimination is solve_g's).
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ecrad {
+namespace spadd {
+
+constexpr int THREADS = 128;
+// per-column SW rows (ops/spartacus_adding.py)
+constexpr int UM = 0, VM = 9, VMN = 18, CF = 27, XLD = 29, XLDIR = 30,
+              EDGE = 31, INVEFF = 34, OVP = 35, RF = 36, RFP = 39, CLEAR = 42,
+              CLEARP = 43, CLEARN = 44, NOTTOP = 45, NCOLROWS = 47;
+// per-column LW rows
+constexpr int LUM = 0, LVM = 9, LVMN = 18, LCLEAR = 27, LCLEARP = 28,
+              LCLEARN = 29, LW_NCOLROWS = 30;
+// config.Entrapment
+constexpr int ZERO = 0, EDGE_ONLY = 1, EXPLICIT = 2, NON_FRACTAL = 3,
+              MAXIMUM = 4;
+
+template <int M, int K, int N>
+__device__ __forceinline__ void mm(const float (&a)[M][K],
+                                   const float (&b)[K][N], float (&o)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float s = a[i][0] * b[0][j];
+#pragma unroll
+      for (int k = 1; k < K; ++k) s = s + a[i][k] * b[k][j];
+      o[i][j] = s;
+    }
+}
+
+template <int M, int K>
+__device__ __forceinline__ void mv(const float (&a)[M][K], const float (&x)[K],
+                                   float (&o)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    float s = a[i][0] * x[0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) s = s + a[i][k] * x[k];
+    o[i] = s;
+  }
+}
+
+// o[i] = sum_k a[k][i] x[k] (the transpose), left to right
+template <int N>
+__device__ __forceinline__ void mvt(const float (&a)[N][N],
+                                    const float (&x)[N], float (&o)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float s = a[0][i] * x[0];
+#pragma unroll
+    for (int k = 1; k < N; ++k) s = s + a[k][i] * x[k];
+    o[i] = s;
+  }
+}
+
+template <int M, int N>
+__device__ __forceinline__ void solve(float (&a)[M][M], float (&b)[M][N]) {
+#pragma unroll
+  for (int col = 0; col < M; ++col) {
+    const float inv = 1.0f / a[col][col];
+#pragma unroll
+    for (int j = col + 1; j < M; ++j) a[col][j] = a[col][j] * inv;
+#pragma unroll
+    for (int j = 0; j < N; ++j) b[col][j] = b[col][j] * inv;
+#pragma unroll
+    for (int row = col + 1; row < M; ++row) {
+      const float f = a[row][col];
+#pragma unroll
+      for (int j = col + 1; j < M; ++j) a[row][j] = a[row][j] - f * a[col][j];
+#pragma unroll
+      for (int j = 0; j < N; ++j) b[row][j] = b[row][j] - f * b[col][j];
+    }
+  }
+#pragma unroll
+  for (int col = M - 1; col >= 0; --col)
+#pragma unroll
+    for (int row = 0; row < col; ++row) {
+      const float f = a[row][col];
+#pragma unroll
+      for (int j = 0; j < N; ++j) b[row][j] = b[row][j] - f * b[col][j];
+    }
+}
+
+// d = I - a b
+template <int N>
+__device__ __forceinline__ void one_minus(const float (&a)[N][N],
+                                          const float (&b)[N][N],
+                                          float (&d)[N][N]) {
+  mm<N, N, N>(a, b, d);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) d[i][j] = -d[i][j];
+    d[i][i] = d[i][i] + 1.0f;
+  }
+}
+
+// a 3 x 3-padded per-column matrix at row `base` of one level's rows
+template <int N>
+__device__ __forceinline__ void col_mat(const float* __restrict__ rows,
+                                        size_t ncol, int base,
+                                        float (&o)[N][N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      o[i][j] = rows[(size_t)(base + 3 * i + j) * ncol];
+}
+
+template <int N>
+__device__ __forceinline__ void zero_offdiag(float (&a)[N][N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (i > 0 || j > 0) a[i][j] = 0.0f;
+}
+
+// exp of [[-a, b], [a, -b]] (solvers/matrix.py fast_expm_exchange_2_g)
+__device__ __forceinline__ void exchange2(float a, float b, float (&p)[2][2]) {
+  const float factor = (1.0f - expf(-(a + b))) / fmaxf(a + b, 1e-12f);
+  p[0][0] = 1.0f - factor * a;
+  p[0][1] = factor * b;
+  p[1][0] = factor * a;
+  p[1][1] = 1.0f - factor * b;
+}
+
+__device__ __forceinline__ float safe_div(float num, float den) {
+  const float eps = 1e-12f;
+  return num / (fabsf(den) < eps ? (den >= 0.0f ? eps : -eps) : den);
+}
+
+// exp of [[-a, b, 0], [a, -b-c, d], [0, c, -d]]
+// (solvers/matrix.py fast_expm_exchange_3_g)
+__device__ __forceinline__ void exchange3(float a, float b, float c, float d,
+                                          float (&p)[3][3]) {
+  const float eps = 1e-12f, one = 1.0f, zero = 0.0f;
+  const float y2 = 0.5f * (a + b + c + d);
+  const float y3 = sqrtf(fmaxf(y2 * y2 - (a * c + a * d + b * d), 0.0f));
+  const float lam1 = -y2 + y3, lam2 = -y2 - y3;
+  const float v11 = safe_div(fmaxf(b, eps), a + lam1);
+  const float v12 = safe_div(b, a + lam2);
+  const float v13 = b / fmaxf(a, eps);
+  const float v31 = safe_div(c, d + lam1);
+  const float v32 = safe_div(c, d + lam2);
+  const float v33 = fmaxf(c, eps) / fmaxf(d, eps);
+  const float d1 = expf(lam1), d2 = expf(lam2);
+  const float L21 = v12 / v11, L31 = v13 / v11;
+  const float U22 = one - L21 * one;
+  const float U23 = v32 - L21 * v31;
+  const float L32 = (one - L31 * one) / U22;
+  const float U33 = v33 - L31 * v31 - L32 * U23;
+  float X[3][3];
+  const float rhs[3][3] = {{d1, zero, zero}, {zero, d2, zero},
+                           {zero, zero, one}};
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const float r1 = rhs[q][0], r2 = rhs[q][1], r3 = rhs[q][2];
+    const float y2c = r2 - L21 * r1;
+    const float y3c = r3 - L31 * r1 - L32 * y2c;
+    const float x3 = y3c / U33;
+    const float x2 = (y2c - U23 * x3) / U22;
+    X[q][0] = (r1 - one * x2 - v31 * x3) / v11;
+    X[q][1] = x2;
+    X[q][2] = x3;
+  }
+  const float V[3][3] = {{v11, v12, v13}, {one, one, one}, {v31, v32, v33}};
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      p[i][j] = V[i][0] * X[0][j] + V[i][1] * X[1][j] + V[i][2] * X[2][j];
+}
+
+struct SwParams {
+  int entrap, do_3d;
+  float max_cloud_od, inv_min_size, one_minus_overhang, frac_threshold;
+};
+
+// the explicit / non-fractal entrapment term, added to `mixed`
+// (ops/spartacus_adding.py _explicit_entrapment_k)
+template <int N>
+__device__ __forceinline__ void explicit_entrapment(
+    const SwParams& p, const float* __restrict__ c, size_t ncol,
+    const float (&alb_below)[N][N], const float (&x)[N],
+    const float (&um)[N][N], const float (&vm)[N][N], float (&mixed)[N][N]) {
+  auto row = [&](int k) { return c[(size_t)k * ncol]; };
+  const float inv_eff = fminf(row(INVEFF), p.inv_min_size);
+  const bool not_top = row(NOTTOP) > 0.5f;
+  const float overlap = row(OVP);
+  float total[N][N];
+#pragma unroll
+  for (int j2 = 0; j2 < N; ++j2) {
+    const float f_this = row(RF + j2), f_prev = row(RFP + j2);
+    float scaling = 1.0f - p.one_minus_overhang * overlap
+        * fminf(f_this, f_prev) / fmaxf(f_this, p.frac_threshold);
+    if (!not_top) scaling = 0.0f;
+    float fwd[N - 1], bwd[N - 1];
+#pragma unroll
+    for (int j = 0; j < N - 1; ++j) {
+      fwd[j] = scaling * row(EDGE + j) / fmaxf(um[j][j2], 1e-5f);
+      bwd[j] = scaling * row(EDGE + j) / fmaxf(um[j + 1][j2], 1e-5f);
+    }
+    const float x2 = x[j2];
+    const float fractal = p.entrap == EXPLICIT
+        ? 1.0f / sqrtf(fmaxf(2.5f * x2 * inv_eff, 1.0f)) : 1.0f;
+    const float a = fwd[0] * x2 * fractal, b = bwd[0] * x2 * fractal;
+    float P[N][N];
+    if constexpr (N == 3) {
+      const float cc = fwd[1] * x2 * fractal, d = bwd[1] * x2 * fractal;
+      const float max_entr = fmaxf(a, b + cc);
+      const float s = max_entr > p.max_cloud_od
+          ? p.max_cloud_od / fmaxf(max_entr, 1e-12f) : 1.0f;
+      exchange3(a * s, b * s, cc * s, d * s, P);
+    } else {
+      const float max_entr = fmaxf(a, b);
+      const float s = max_entr > p.max_cloud_od
+          ? p.max_cloud_od / fmaxf(max_entr, 1e-12f) : 1.0f;
+      exchange2(a * s, b * s, P);
+    }
+    const float ad = alb_below[j2][j2];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float v = P[i][j] * vm[j2][j] * ad;
+        total[i][j] = j2 == 0 ? v : total[i][j] + v;
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) mixed[i][j] = mixed[i][j] + total[i][j];
+}
+
+// mixing of a below-interface albedo into the layer above
+template <int N>
+__device__ __forceinline__ void sw_mix(const SwParams& p,
+                                       const float* __restrict__ c,
+                                       size_t ncol, const float (&ab)[N][N],
+                                       const float (&x)[N],
+                                       const float (&um)[N][N],
+                                       const float (&vm)[N][N],
+                                       float (&mixed)[N][N]) {
+  if (p.entrap == MAXIMUM) {
+    float t[N][N];
+    mm<N, N, N>(um, ab, t);
+    mm<N, N, N>(t, vm, mixed);
+    return;
+  }
+  if (p.entrap == ZERO) {
+    float cs[N], d[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      cs[j] = ab[0][j];
+#pragma unroll
+      for (int i = 1; i < N; ++i) cs[j] = cs[j] + ab[i][j];
+    }
+    mvt<N>(vm, cs, d);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) mixed[i][j] = i == j ? d[i] : 0.0f;
+    return;
+  }
+  float off[N][N], t[N][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) off[i][j] = i == j ? 0.0f : ab[i][j];
+  mm<N, N, N>(um, off, t);
+  mm<N, N, N>(t, vm, mixed);
+  if (p.entrap == EDGE_ONLY || !p.do_3d) {
+    float dg[N], d[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) dg[i] = ab[i][i];
+    mvt<N>(vm, dg, d);
+#pragma unroll
+    for (int i = 0; i < N; ++i) mixed[i][i] = mixed[i][i] + d[i];
+  } else {
+    explicit_entrapment<N>(p, c, ncol, ab, x, um, vm, mixed);
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(THREADS)
+sw_adding_kernel(const float* __restrict__ hist,
+                 const float* __restrict__ cols,
+                 const float* __restrict__ init_up,
+                 const float* __restrict__ direct0, int nlev, int ng,
+                 int ncol, SwParams p, float* __restrict__ scratch,
+                 float* __restrict__ alb_top, float* __restrict__ albdir_top,
+                 float* __restrict__ out) {
+  constexpr int NN = N * N, NH = 5 * NN;
+  const size_t m = (size_t)ng * ncol;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const size_t nc = (size_t)ncol;
+  const size_t cix = i % nc;
+  auto H = [&](int l, int k) { return hist[((size_t)l * NH + k) * m + i]; };
+  auto S = [&](int l, int k) -> float& {
+    return scratch[((size_t)l * 2 * NN + k) * m + i];
+  };
+  const bool explicit_x = p.entrap == EXPLICIT || p.entrap == NON_FRACTAL;
+
+  float alb[N][N], albdir[N][N], xd[N], xr[N];
+#pragma unroll
+  for (int a = 0; a < N; ++a) {
+#pragma unroll
+    for (int b = 0; b < N; ++b) {
+      alb[a][b] = init_up[(size_t)(a * N + b) * m + i];
+      albdir[a][b] = init_up[(size_t)(NN + a * N + b) * m + i];
+    }
+    xd[a] = xr[a] = 0.0f;
+  }
+
+  // ---- upward: the total albedos below each layer ----
+  for (int l = nlev - 1; l >= 0; --l) {
+    const float* c = cols + (size_t)l * NCOLROWS * nc + cix;
+    auto row = [&](int k) { return c[(size_t)k * nc]; };
+    float R[N][N], T[N][N], RD[N][N], TD[N][N], TDD[N][N];
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int b = 0; b < N; ++b) {
+        const int k = a * N + b;
+        S(l, k) = alb[a][b];
+        S(l, NN + k) = albdir[a][b];
+        R[a][b] = H(l, k);
+        T[a][b] = H(l, NN + k);
+        RD[a][b] = H(l, 2 * NN + k);
+        TD[a][b] = H(l, 3 * NN + k);
+        TDD[a][b] = H(l, 4 * NN + k);
+      }
+    float um[N][N], vm[N][N];
+    col_mat<N>(c, nc, UM, um);
+    col_mat<N>(c, nc, VM, vm);
+    const bool is_clear = row(CLEAR) > 0.5f;
+    const bool both_clear = is_clear && row(CLEARP) > 0.5f;
+    if (explicit_x) {
+      // horizontal migration distances (_step_migrations_k)
+      const float cf = row(CF), xl_diff = row(XLD), xl_dir = row(XLDIR);
+#pragma unroll
+      for (int r = 0; r < N; ++r) {
+        const float Rd = R[r][r], Td = T[r][r], RDd = RD[r][r],
+                    TDDd = TDD[r][r], TDd = TD[r][r], Ad = alb[r][r],
+                    ADd = albdir[r][r];
+        const float ms = Td / fmaxf(1.0f - Rd * Ad, 1e-12f);
+        const float x_enh = powf(fmaxf(1.0f - Rd * Ad, 1e-12f), -1.5f);
+        const float top_alb_dir = fmaxf(RDd + ms * (TDd * Ad + TDDd * ADd),
+                                        1e-8f);
+        const float x_dir_new = fmaxf(xl_dir + ((TDd * Ad * x_enh
+            + TDDd * ADd * (x_enh - 1.0f)) * (xd[r] + xl_diff)
+            + TDDd * ADd * (xr[r] + xl_dir)) * Td / top_alb_dir, 0.0f);
+        const float top_alb = fmaxf(Rd + ms * Td * Ad, 1e-8f);
+        const float x_diff_new = xl_diff + x_enh * Ad * Td * Td
+            * (xd[r] + xl_diff) / top_alb;
+        const bool act = r == 0 ? cf < 1.0f : cf > 0.0f;
+        xd[r] = act ? x_diff_new : 0.0f;
+        xr[r] = act ? x_dir_new : 0.0f;
+      }
+    }
+    // [alb_below | albdir_below] = [R | RD] + T (I - alb R)^-1
+    //                              [alb T | albdir TDD + alb TD]
+    float den[N][N], rhs[N][2 * N], t1[N][N], t2[N][N], t3[N][N];
+    one_minus<N>(alb, R, den);
+    mm<N, N, N>(alb, T, t1);
+    mm<N, N, N>(albdir, TDD, t2);
+    mm<N, N, N>(alb, TD, t3);
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int b = 0; b < N; ++b) {
+        rhs[a][b] = t1[a][b];
+        rhs[a][N + b] = t2[a][b] + t3[a][b];
+      }
+    solve<N, 2 * N>(den, rhs);
+    float X[N][2 * N], ab[N][N], adb[N][N];
+    mm<N, N, 2 * N>(T, rhs, X);
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int b = 0; b < N; ++b) {
+        ab[a][b] = R[a][b] + X[a][b];
+        adb[a][b] = RD[a][b] + X[a][N + b];
+      }
+    if (is_clear) {
+      zero_offdiag<N>(ab);
+      zero_offdiag<N>(adb);
+    }
+    if (both_clear) {
+#pragma unroll
+      for (int a = 0; a < N; ++a)
+#pragma unroll
+        for (int b = 0; b < N; ++b) {
+          alb[a][b] = ab[a][b];
+          albdir[a][b] = adb[a][b];
+        }
+    } else {
+      sw_mix<N>(p, c, nc, ab, xd, um, vm, alb);
+      sw_mix<N>(p, c, nc, adb, xr, um, vm, albdir);
+      if (explicit_x) {
+        float y[N];
+        mvt<N>(vm, xd, y);
+#pragma unroll
+        for (int r = 0; r < N; ++r) xd[r] = y[r];
+        mvt<N>(vm, xr, y);
+#pragma unroll
+        for (int r = 0; r < N; ++r) xr[r] = y[r];
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < N; ++a)
+#pragma unroll
+    for (int b = 0; b < N; ++b) {
+      alb_top[(size_t)(a * N + b) * m + i] = alb[a][b];
+      albdir_top[(size_t)(a * N + b) * m + i] = albdir[a][b];
+    }
+
+  // ---- downward: the fluxes at the top of each layer ----
+  float fdn[N], dir[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    fdn[r] = 0.0f;
+    dir[r] = direct0[(size_t)r * m + i];
+  }
+  for (int l = 0; l < nlev; ++l) {
+    const float* c = cols + (size_t)l * NCOLROWS * nc + cix;
+    float R[N][N], T[N][N], TD[N][N], TDD[N][N], ab[N][N], adb[N][N];
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int b = 0; b < N; ++b) {
+        const int k = a * N + b;
+        R[a][b] = H(l, k);
+        T[a][b] = H(l, NN + k);
+        TD[a][b] = H(l, 3 * NN + k);
+        TDD[a][b] = H(l, 4 * NN + k);
+        ab[a][b] = S(l, k);
+        adb[a][b] = S(l, NN + k);
+      }
+    const bool is_clear = c[(size_t)CLEAR * nc] > 0.5f;
+    const bool both_clear = is_clear && c[(size_t)CLEARN * nc] > 0.5f;
+    float src[N], dab[N], tot[N], v1[N], v2[N], den[N][N], rhs[N][1];
+    mv<N, N>(TD, dir, src);
+    mv<N, N>(TDD, dir, dab);
+    one_minus<N>(R, ab, den);
+    mv<N, N>(adb, dab, tot);
+    mv<N, N>(T, fdn, v1);
+    mv<N, N>(R, tot, v2);
+#pragma unroll
+    for (int r = 0; r < N; ++r) rhs[r][0] = v1[r] + v2[r] + src[r];
+    solve<N, 1>(den, rhs);
+    float fa[N], fu[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r) fa[r] = rhs[r][0];
+    mv<N, N>(ab, fa, fu);
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      fu[r] = fu[r] + tot[r];
+      if (is_clear && r > 0) fa[r] = fu[r] = dab[r] = 0.0f;
+    }
+    const size_t o = (size_t)l * 3 * N * m + i;
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      out[o + (size_t)r * m] = fu[r];
+      out[o + (size_t)(N + r) * m] = fa[r];
+      out[o + (size_t)(2 * N + r) * m] = dab[r];
+    }
+    if (both_clear) {
+#pragma unroll
+      for (int r = 0; r < N; ++r) {
+        fdn[r] = fa[r];
+        dir[r] = dab[r];
+      }
+    } else {
+      float vn[N][N];
+      col_mat<N>(c, nc, VMN, vn);
+      mv<N, N>(vn, fa, fdn);
+      mv<N, N>(vn, dab, dir);
+    }
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(THREADS)
+lw_adding_kernel(const float* __restrict__ hist,
+                 const float* __restrict__ cols,
+                 const float* __restrict__ init_up, int nlev, int ng,
+                 int ncol, int use_matrix, int multilayer,
+                 float* __restrict__ scratch, float* __restrict__ src_top,
+                 float* __restrict__ out) {
+  constexpr int NN = N * N, NH = 2 * N * (N + 1), NS = NN + N;
+  const size_t m = (size_t)ng * ncol;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const size_t nc = (size_t)ncol;
+  const size_t cix = i % nc;
+  auto H = [&](int l, int k) { return hist[((size_t)l * NH + k) * m + i]; };
+  auto S = [&](int l, int k) -> float& {
+    return scratch[((size_t)l * NS + k) * m + i];
+  };
+
+  float alb[N][N], src[N];
+#pragma unroll
+  for (int a = 0; a < N; ++a) {
+#pragma unroll
+    for (int b = 0; b < N; ++b)
+      alb[a][b] = init_up[(size_t)(a * N + b) * m + i];
+    src[a] = init_up[(size_t)(NN + a) * m + i];
+  }
+
+  // ---- upward: albedos and sources below each layer ----
+  for (int l = nlev - 1; l >= 0; --l) {
+    const float* c = cols + (size_t)l * LW_NCOLROWS * nc + cix;
+    float R[N][N], T[N][N], SU[N], SD[N];
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+#pragma unroll
+      for (int b = 0; b < N; ++b) {
+        S(l, a * N + b) = alb[a][b];
+        R[a][b] = H(l, a * N + b);
+        T[a][b] = H(l, NN + a * N + b);
+      }
+      S(l, NN + a) = src[a];
+      SU[a] = H(l, 2 * NN + a);
+      SD[a] = H(l, 2 * NN + N + a);
+    }
+    const bool is_clear = c[(size_t)LCLEAR * nc] > 0.5f;
+    const bool both_clear = is_clear && c[(size_t)LCLEARP * nc] > 0.5f;
+    float ab[N][N], sb[N];
+    if (use_matrix) {
+      // one elimination of I - alb R for [alb T | src + alb SD]
+      float den[N][N], rhs[N][N + 1], at[N][N], asd[N], X[N][N];
+      one_minus<N>(alb, R, den);
+      mm<N, N, N>(alb, T, at);
+      mv<N, N>(alb, SD, asd);
+#pragma unroll
+      for (int a = 0; a < N; ++a) {
+#pragma unroll
+        for (int b = 0; b < N; ++b) rhs[a][b] = at[a][b];
+        rhs[a][N] = src[a] + asd[a];
+      }
+      solve<N, N + 1>(den, rhs);
+      float Y[N][N], y[N], ty[N];
+#pragma unroll
+      for (int a = 0; a < N; ++a) {
+#pragma unroll
+        for (int b = 0; b < N; ++b) Y[a][b] = rhs[a][b];
+        y[a] = rhs[a][N];
+      }
+      mm<N, N, N>(T, Y, X);
+      mv<N, N>(T, y, ty);
+#pragma unroll
+      for (int a = 0; a < N; ++a) {
+#pragma unroll
+        for (int b = 0; b < N; ++b) ab[a][b] = R[a][b] + X[a][b];
+        sb[a] = SU[a] + ty[a];
+      }
+    } else {
+#pragma unroll
+      for (int a = 0; a < N; ++a) {
+        const float Rd = R[a][a], Td = T[a][a], Ad = alb[a][a];
+        const float inv = 1.0f / (1.0f - Ad * Rd);
+#pragma unroll
+        for (int b = 0; b < N; ++b) ab[a][b] = 0.0f;
+        ab[a][a] = Rd + Td * Td * Ad * inv;
+        sb[a] = SU[a] + Td * (src[a] + Ad * SD[a]) * inv;
+      }
+    }
+    if (is_clear) {
+      zero_offdiag<N>(ab);
+#pragma unroll
+      for (int a = 1; a < N; ++a) sb[a] = 0.0f;
+    }
+    if (both_clear) {
+#pragma unroll
+      for (int a = 0; a < N; ++a) {
+#pragma unroll
+        for (int b = 0; b < N; ++b) alb[a][b] = ab[a][b];
+        src[a] = sb[a];
+      }
+    } else {
+      float um[N][N], vm[N][N];
+      col_mat<N>(c, nc, LUM, um);
+      col_mat<N>(c, nc, LVM, vm);
+      mv<N, N>(um, sb, src);
+      if (multilayer) {
+        float t[N][N];
+        mm<N, N, N>(um, ab, t);
+        mm<N, N, N>(t, vm, alb);
+      } else {
+        float dg[N], d[N];
+#pragma unroll
+        for (int a = 0; a < N; ++a) dg[a] = ab[a][a];
+        mvt<N>(vm, dg, d);
+#pragma unroll
+        for (int a = 0; a < N; ++a)
+#pragma unroll
+          for (int b = 0; b < N; ++b) alb[a][b] = a == b ? d[a] : 0.0f;
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < N; ++a) src_top[(size_t)a * m + i] = src[a];
+
+  // ---- downward ----
+  float fdn[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) fdn[r] = 0.0f;
+  for (int l = 0; l < nlev; ++l) {
+    const float* c = cols + (size_t)l * LW_NCOLROWS * nc + cix;
+    float R[N][N], T[N][N], SD[N], ab[N][N], sb[N];
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+#pragma unroll
+      for (int b = 0; b < N; ++b) {
+        R[a][b] = H(l, a * N + b);
+        T[a][b] = H(l, NN + a * N + b);
+        ab[a][b] = S(l, a * N + b);
+      }
+      SD[a] = H(l, 2 * NN + N + a);
+      sb[a] = S(l, NN + a);
+    }
+    const bool is_clear = c[(size_t)LCLEAR * nc] > 0.5f;
+    const bool both_clear = is_clear && c[(size_t)LCLEARN * nc] > 0.5f;
+    float fa[N], fu[N];
+    if (use_matrix) {
+      float den[N][N], v1[N], v2[N], rhs[N][1];
+      one_minus<N>(R, ab, den);
+      mv<N, N>(T, fdn, v1);
+      mv<N, N>(R, sb, v2);
+#pragma unroll
+      for (int a = 0; a < N; ++a) rhs[a][0] = v1[a] + v2[a] + SD[a];
+      solve<N, 1>(den, rhs);
+#pragma unroll
+      for (int a = 0; a < N; ++a) fa[a] = rhs[a][0];
+      mv<N, N>(ab, fa, fu);
+#pragma unroll
+      for (int a = 0; a < N; ++a) fu[a] = fu[a] + sb[a];
+    } else {
+#pragma unroll
+      for (int a = 0; a < N; ++a) {
+        const float Rd = R[a][a], Td = T[a][a], Ad = ab[a][a];
+        fa[a] = (Td * fdn[a] + Rd * sb[a] + SD[a]) / (1.0f - Rd * Ad);
+        fu[a] = sb[a] + Ad * fa[a];
+      }
+    }
+    if (is_clear) {
+#pragma unroll
+      for (int a = 1; a < N; ++a) fa[a] = fu[a] = 0.0f;
+    }
+    if (both_clear) {
+#pragma unroll
+      for (int a = 0; a < N; ++a) fdn[a] = fa[a];
+    } else {
+      float vn[N][N];
+      col_mat<N>(c, nc, LVMN, vn);
+      mv<N, N>(vn, fa, fdn);
+    }
+    const size_t o = (size_t)l * 2 * N * m + i;
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+      out[o + (size_t)a * m] = fu[a];
+      out[o + (size_t)(N + a) * m] = fdn[a];
+    }
+  }
+}
+
+inline int blocks_for(size_t n) { return (int)((n + THREADS - 1) / THREADS); }
+
+}  // namespace spadd
+}  // namespace ecrad
+
+extern "C" int spartacus_sw_adding(const float* hist, const float* cols,
+                                   const float* init_up,
+                                   const float* direct0, int nreg, int nlev,
+                                   int ng, int ncol, int entrap, int do_3d,
+                                   float max_cloud_od, float inv_min_size,
+                                   float one_minus_overhang,
+                                   float frac_threshold, float* scratch,
+                                   float* alb_top, float* albdir_top,
+                                   float* out, void* stream) {
+  namespace sa = ecrad::spadd;
+  const size_t m = (size_t)ng * ncol;
+  if (m == 0) return (int)cudaGetLastError();
+  const sa::SwParams p{entrap, do_3d, max_cloud_od, inv_min_size,
+                       one_minus_overhang, frac_threshold};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nreg == 3) {
+    sa::sw_adding_kernel<3><<<sa::blocks_for(m), sa::THREADS, 0, s>>>(
+        hist, cols, init_up, direct0, nlev, ng, ncol, p, scratch, alb_top,
+        albdir_top, out);
+  } else if (nreg == 2) {
+    sa::sw_adding_kernel<2><<<sa::blocks_for(m), sa::THREADS, 0, s>>>(
+        hist, cols, init_up, direct0, nlev, ng, ncol, p, scratch, alb_top,
+        albdir_top, out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int spartacus_lw_adding(const float* hist, const float* cols,
+                                   const float* init_up, int nreg, int nlev,
+                                   int ng, int ncol, int use_matrix,
+                                   int multilayer, float* scratch,
+                                   float* src_top, float* out, void* stream) {
+  namespace sa = ecrad::spadd;
+  const size_t m = (size_t)ng * ncol;
+  if (m == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nreg == 3) {
+    sa::lw_adding_kernel<3><<<sa::blocks_for(m), sa::THREADS, 0, s>>>(
+        hist, cols, init_up, nlev, ng, ncol, use_matrix, multilayer, scratch,
+        src_top, out);
+  } else if (nreg == 2) {
+    sa::lw_adding_kernel<2><<<sa::blocks_for(m), sa::THREADS, 0, s>>>(
+        hist, cols, init_up, nlev, ng, ncol, use_matrix, multilayer, scratch,
+        src_top, out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

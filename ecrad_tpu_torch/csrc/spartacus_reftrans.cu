@@ -1,0 +1,863 @@
+// Kernels B6 and B7: SPARTACUS per-layer reflectance/transmittance.
+//
+// Replace the TPU kernels ecrad_tpu/ops/spartacus_reftrans.py::
+// sw_reftrans_levels (:272, pallas_call :350) and ::lw_reftrans_levels
+// (:600, pallas_call :676). For each (level, g, column) cell: the 1D
+// Meador-Weaver terms of every region; where the cell takes the 3D
+// treatment (use3d), the region-coupled two-stream generator Gamma, its
+// exponential by Pade-5 of the generator scaled by 2^-s, one thin-layer
+// extraction and s adding-doubling steps (solvers/matrix.py
+// expm_reftrans_sw_g / expm_reftrans_lw_g), the clipping (SW) or the
+// particular-solution sources (LW); then the cloudy regions of clear
+// layers zeroed. The output is the packed history the adding sweeps read
+// (SW [R | T | RD | TD | TDD], LW [R | T | SU | SD]).
+//
+// On the TPU the grid ran a static worst-case doubling count on tiles of
+// 16 g x 128 columns, and a tile without a 3D cell skipped the pipeline.
+// Here one thread owns one cell: its matrices live in registers (the SW
+// pipeline for 3 regions, which holds several 6 x 6 and 6 x 3 blocks at
+// once, takes all 255 a thread may have, without spilling), NREG is a
+// template parameter, the doubling loop runs the cell's own count s (the
+// plain version masks to the batch maximum, which gives the same values),
+// and a cell without the 3D treatment computes only its Meador-Weaver
+// terms.
+//
+// What bounds it: device-memory bandwidth at the least-time measure (the
+// 45 | 24 output rows per cell against about 7,000 | 2,500 operations per
+// 3D cell of 3 regions and ~150 per fallback cell, 14 % of cells 3D on
+// the SPARTACUS path); in practice the register count, which leaves 8
+// warps per SM, and the divergence of 3D and fallback cells within a
+// warp. The operand layout (nlev, rows, ng, ncol) keeps every global
+// access coalesced across the 32 neighbouring columns of a warp.
+//
+// Semantics: ops/spartacus_reftrans.py sw_reftrans_levels_plain and
+// lw_reftrans_levels_plain, expression for expression (built with
+// -fmad=false, exact expf/sqrtf): products add their terms left to right
+// as solvers/matrix.py mm_gu does, the elimination is solve_g's, and the
+// doubling count comes from the same compare chain (not a log2, which
+// flips the count on borderline norms). SW fallback cells within
+// RESONANCE_WINDOW (0.03) of k mu0 = 1 take the Meador-Weaver terms in
+// double, as two_stream.sw_reftrans does.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ecrad {
+namespace spartacus {
+
+constexpr int THREADS = 128;
+constexpr float THETA_DBL = 1.8f;
+constexpr int MAX_DOUBLINGS = 12;
+constexpr float MAX_OD_OVER_MU0_3D = 60.0f;
+constexpr float LW_DIFFUSIVITY = 1.66f;
+constexpr float RESONANCE_WINDOW = 0.03f;
+// Pade-5 coefficients
+constexpr float C0 = 30240.0f, C1 = 15120.0f, C2 = 3360.0f, C3 = 420.0f,
+                C4 = 30.0f, C5 = 1.0f;
+
+// o = a b, each o[i][j] summed over k left to right
+template <int M, int K, int N>
+__device__ __forceinline__ void mm(const float (&a)[M][K],
+                                   const float (&b)[K][N], float (&o)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float s = a[i][0] * b[0][j];
+#pragma unroll
+      for (int k = 1; k < K; ++k) s = s + a[i][k] * b[k][j];
+      o[i][j] = s;
+    }
+}
+
+template <int M, int K>
+__device__ __forceinline__ void mv(const float (&a)[M][K], const float (&x)[K],
+                                   float (&o)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    float s = a[i][0] * x[0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) s = s + a[i][k] * x[k];
+    o[i] = s;
+  }
+}
+
+// solve a x = b in place (b <- x), unpivoted elimination in the order of
+// solvers/matrix.py solve_g; a is overwritten
+template <int M, int N>
+__device__ __forceinline__ void solve(float (&a)[M][M], float (&b)[M][N]) {
+#pragma unroll
+  for (int col = 0; col < M; ++col) {
+    const float inv = 1.0f / a[col][col];
+#pragma unroll
+    for (int j = col + 1; j < M; ++j) a[col][j] = a[col][j] * inv;
+#pragma unroll
+    for (int j = 0; j < N; ++j) b[col][j] = b[col][j] * inv;
+#pragma unroll
+    for (int row = col + 1; row < M; ++row) {
+      const float f = a[row][col];
+#pragma unroll
+      for (int j = col + 1; j < M; ++j) a[row][j] = a[row][j] - f * a[col][j];
+#pragma unroll
+      for (int j = 0; j < N; ++j) b[row][j] = b[row][j] - f * b[col][j];
+    }
+  }
+#pragma unroll
+  for (int col = M - 1; col >= 0; --col)
+#pragma unroll
+    for (int row = 0; row < col; ++row) {
+      const float f = a[row][col];
+#pragma unroll
+      for (int j = 0; j < N; ++j) b[row][j] = b[row][j] - f * b[col][j];
+    }
+}
+
+// the doubling count and 2^-count (solvers/matrix.py _squaring_count)
+__device__ __forceinline__ int doubling_count(float norm1, float* scale) {
+  int expo = 0;
+  float s = 1.0f;
+#pragma unroll
+  for (int k = 0; k < MAX_DOUBLINGS; ++k) {
+    if (norm1 > THETA_DBL * (float)(1 << k)) {
+      ++expo;
+      s = s * 0.5f;
+    }
+  }
+  *scale = s;
+  return expo;
+}
+
+// d = I - r r (solvers/matrix.py add_eye_g(-mm_gu(r, r), 1))
+template <int N>
+__device__ __forceinline__ void one_minus_sq(const float (&r)[N][N],
+                                             float (&d)[N][N]) {
+  mm<N, N, N>(r, r, d);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) d[i][j] = -d[i][j];
+    d[i][i] = d[i][i] + 1.0f;
+  }
+}
+
+// ---- SW ----
+
+struct Mw {
+  float r, t, rd, td, tdd;
+};
+
+// two_stream.py _sw_reftrans at precision T, rounded to float
+template <typename T>
+__device__ __forceinline__ Mw sw_mw(T mu0, T od, T ssa, T gamma1, T gamma2,
+                                    T gamma3) {
+  const T one = T(1.0);
+  const T od_over_mu0 = fmax(od / mu0, T(0.0));
+  const T gamma4 = one - gamma3;
+  const T alpha1 = gamma1 * gamma4 + gamma2 * gamma3;
+  const T alpha2 = gamma1 * gamma3 + gamma2 * gamma4;
+  const T k = sqrt(fmax((gamma1 - gamma2) * (gamma1 + gamma2), T(1.0e-4)));
+  T k_mu0 = k * mu0;
+  if (fabs(k_mu0 - one) < T(1.0e-6)) k_mu0 = T(1.0 - 1e-6);
+  const T k_gamma3 = k * gamma3;
+  const T k_gamma4 = k * gamma4;
+  const T e0 = exp(-od_over_mu0);
+  const T expo = exp(-k * od);
+  const T expo2 = expo * expo;
+  const T k2e = T(2.0) * k * expo;
+  const T rt = one / (k + gamma1 + (k - gamma1) * expo2);
+  Mw o;
+  o.r = (float)(gamma2 * (one - expo2) * rt);
+  o.t = (float)(k2e * rt);
+  const T rt_dir = mu0 * ssa * rt / (one - k_mu0 * k_mu0);
+  o.rd = (float)(rt_dir * ((one - k_mu0) * (alpha2 + k_gamma3)
+                           - (one + k_mu0) * (alpha2 - k_gamma3) * expo2
+                           - k2e * (gamma3 - alpha2 * mu0) * e0));
+  o.td = (float)(rt_dir * (k2e * (gamma4 + alpha1 * mu0)
+                           - e0 * ((one + k_mu0) * (alpha1 + k_gamma4)
+                                   - (one - k_mu0) * (alpha1 - k_gamma4)
+                                   * expo2)));
+  o.tdd = (float)e0;
+  return o;
+}
+
+__device__ __forceinline__ void sw_gammas(float mu0, float ssa, float g,
+                                          float* g1, float* g2, float* g3) {
+  const float factor = 0.75f * g;
+  *g1 = 2.0f - ssa * (1.25f + factor);
+  *g2 = ssa * (0.75f - factor);
+  *g3 = 0.5f - mu0 * factor;
+}
+
+__device__ __forceinline__ Mw sw_fallback(float mu0, float od, float ssa,
+                                          float g) {
+  float g1, g2, g3;
+  sw_gammas(mu0, ssa, g, &g1, &g2, &g3);
+  const float k = sqrtf(fmaxf((g1 - g2) * (g1 + g2), 1.0e-4f));
+  if (fabsf(k * mu0 - 1.0f) < RESONANCE_WINDOW)
+    return sw_mw<double>(mu0, od, ssa, g1, g2, g3);
+  return sw_mw<float>(mu0, od, ssa, g1, g2, g3);
+}
+
+// block product of [[a0, a1], [0, a2]] and [[b0, b1], [0, b2]]
+template <int N>
+__device__ __forceinline__ void bprod(
+    const float (&a0)[2 * N][2 * N], const float (&a1)[2 * N][N],
+    const float (&a2)[N][N], const float (&b0)[2 * N][2 * N],
+    const float (&b1)[2 * N][N], const float (&b2)[N][N],
+    float (&o0)[2 * N][2 * N], float (&o1)[2 * N][N], float (&o2)[N][N]) {
+  mm<2 * N, 2 * N, 2 * N>(a0, b0, o0);
+  float t[2 * N][N];
+  mm<2 * N, 2 * N, N>(a0, b1, o1);
+  mm<2 * N, N, N>(a1, b2, t);
+#pragma unroll
+  for (int i = 0; i < 2 * N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) o1[i][j] = o1[i][j] + t[i][j];
+  mm<N, N, N>(a2, b2, o2);
+}
+
+// p = c4 A4 + c2 A2 (+ c0 on the diagonal blocks' diagonals)
+template <int R, int C>
+__device__ __forceinline__ void pade_sum(const float (&a4)[R][C],
+                                         const float (&a2)[R][C], float c4,
+                                         float c2, float c0, bool eye,
+                                         float (&p)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      p[i][j] = c4 * a4[i][j] + c2 * a2[i][j];
+      if (eye && i == j) p[i][j] = p[i][j] + c0;
+    }
+}
+
+// (R, T, Rdir, Tdir, Tdd) of [[M, C], [0, D]] (solvers/matrix.py
+// expm_reftrans_sw_g); returns the doubling count
+template <int N>
+__device__ int expm_reftrans_sw(const float (&M)[2 * N][2 * N],
+                                const float (&C)[2 * N][N],
+                                const float (&D)[N][N], float (&R)[N][N],
+                                float (&T)[N][N], float (&Rdir)[N][N],
+                                float (&Tdir)[N][N], float (&Tdd)[N][N]) {
+  constexpr int N2 = 2 * N;
+  float norm1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < N2; ++j) {
+    float s = fabsf(M[0][j]);
+#pragma unroll
+    for (int i = 1; i < N2; ++i) s = s + fabsf(M[i][j]);
+    norm1 = j == 0 ? s : fmaxf(norm1, s);
+  }
+  float right = 0.0f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    float s = fabsf(C[0][j]);
+#pragma unroll
+    for (int i = 1; i < N2; ++i) s = s + fabsf(C[i][j]);
+#pragma unroll
+    for (int i = 0; i < N; ++i) s = s + fabsf(D[i][j]);
+    right = j == 0 ? s : fmaxf(right, s);
+  }
+  norm1 = fmaxf(norm1, right);
+  float scale;
+  const int expo = doubling_count(norm1, &scale);
+
+  float As0[N2][N2], As1[N2][N], As2[N][N];
+#pragma unroll
+  for (int i = 0; i < N2; ++i) {
+#pragma unroll
+    for (int j = 0; j < N2; ++j) As0[i][j] = M[i][j] * scale;
+#pragma unroll
+    for (int j = 0; j < N; ++j) As1[i][j] = C[i][j] * scale;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) As2[i][j] = D[i][j] * scale;
+
+  float A20[N2][N2], A21[N2][N], A22[N][N];
+  float A40[N2][N2], A41[N2][N], A42[N][N];
+  bprod<N>(As0, As1, As2, As0, As1, As2, A20, A21, A22);
+  bprod<N>(A20, A21, A22, A20, A21, A22, A40, A41, A42);
+  float V0[N2][N2], V1[N2][N], V2[N][N];
+  pade_sum<N2, N2>(A40, A20, C5, C3, C1, true, V0);
+  pade_sum<N2, N>(A41, A21, C5, C3, C1, false, V1);
+  pade_sum<N, N>(A42, A22, C5, C3, C1, true, V2);
+  float U0[N2][N2], U1[N2][N], U2[N][N];
+  bprod<N>(As0, As1, As2, V0, V1, V2, U0, U1, U2);
+  pade_sum<N2, N2>(A40, A20, C4, C2, C0, true, V0);
+  pade_sum<N2, N>(A41, A21, C4, C2, C0, false, V1);
+  pade_sum<N, N>(A42, A22, C4, C2, C0, true, V2);
+  // P = V - U; Xd = Pd^-1 2 Ud; [Xm | Xc] = Pm^-1 [2 Um | 2 Uc - Pc Xd]
+  float Pd[N][N], Xd[N][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      Pd[i][j] = V2[i][j] - U2[i][j];
+      Xd[i][j] = 2.0f * U2[i][j];
+    }
+  solve<N, N>(Pd, Xd);
+  float Pc[N2][N], PcXd[N2][N];
+#pragma unroll
+  for (int i = 0; i < N2; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) Pc[i][j] = V1[i][j] - U1[i][j];
+  mm<N2, N, N>(Pc, Xd, PcXd);
+  float Pm[N2][N2], X[N2][N2 + N];
+#pragma unroll
+  for (int i = 0; i < N2; ++i) {
+#pragma unroll
+    for (int j = 0; j < N2; ++j) {
+      Pm[i][j] = V0[i][j] - U0[i][j];
+      X[i][j] = 2.0f * U0[i][j];
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) X[i][N2 + j] = 2.0f * U1[i][j] - PcXd[i][j];
+  }
+  solve<N2, N2 + N>(Pm, X);
+  // Em = Xm + I, Ec = Xc, Tdd = Xd + I
+#pragma unroll
+  for (int i = 0; i < N2; ++i) X[i][i] = X[i][i] + 1.0f;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) Tdd[i][j] = Xd[i][j] + (i == j ? 1.0f : 0.0f);
+  // thin-layer extraction: [R | Rdir] = -Em[:n,:n]^-1 [Em[:n,n:] | Ec[:n]]
+  float A[N][N], RR[N][2 * N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      A[i][j] = X[i][j];
+      RR[i][j] = X[i][N + j];
+      RR[i][N + j] = X[i][N2 + j];
+    }
+  solve<N, 2 * N>(A, RR);
+  float E21[N][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      R[i][j] = -RR[i][j];
+      Rdir[i][j] = -RR[i][N + j];
+      E21[i][j] = X[N + i][j];
+    }
+  float t1[N][N], t2[N][N];
+  mm<N, N, N>(E21, R, t1);
+  mm<N, N, N>(E21, Rdir, t2);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      T[i][j] = X[N + i][N + j] + t1[i][j];
+      Tdir[i][j] = X[N + i][N2 + j] + t2[i][j];
+    }
+
+  // adding-doubling steps
+  for (int k = 0; k < expo; ++k) {
+    float RdTdd[N][N], RRdTdd[N][N], den[N][N], WD[N][2 * N];
+    mm<N, N, N>(Rdir, Tdd, RdTdd);
+    mm<N, N, N>(R, RdTdd, RRdTdd);
+    one_minus_sq<N>(R, den);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        WD[i][j] = T[i][j];
+        WD[i][N + j] = Tdir[i][j] + RRdTdd[i][j];
+      }
+    solve<N, 2 * N>(den, WD);
+    float W[N][N], di[N][N], TR[N][N], a[N][N], b[N][N], c[N][N];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        W[i][j] = WD[i][j];
+        di[i][j] = WD[i][N + j];
+      }
+    // R <- R + (T R) W
+    mm<N, N, N>(T, R, TR);
+    mm<N, N, N>(TR, W, a);
+    // Rdir <- Rdir + T (Rdir Tdd + R d)
+    mm<N, N, N>(R, di, b);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) b[i][j] = RdTdd[i][j] + b[i][j];
+    mm<N, N, N>(T, b, c);
+    // Tdir <- T d + Tdir Tdd
+    float Td[N][N], TdTdd[N][N], Tn[N][N], Tddn[N][N];
+    mm<N, N, N>(T, di, Td);
+    mm<N, N, N>(Tdir, Tdd, TdTdd);
+    mm<N, N, N>(T, W, Tn);
+    mm<N, N, N>(Tdd, Tdd, Tddn);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        R[i][j] = R[i][j] + a[i][j];
+        Rdir[i][j] = Rdir[i][j] + c[i][j];
+        Tdir[i][j] = Td[i][j] + TdTdd[i][j];
+        T[i][j] = Tn[i][j];
+        Tdd[i][j] = Tddn[i][j];
+      }
+  }
+  return expo;
+}
+
+template <int NREG>
+__global__ void __launch_bounds__(THREADS)
+sw_reftrans_kernel(const float* __restrict__ od_in,
+                   const float* __restrict__ ssa_in,
+                   const float* __restrict__ g_in,
+                   const float* __restrict__ trd_in,
+                   const float* __restrict__ trf_in,
+                   const float* __restrict__ mu0_in,
+                   const uint8_t* __restrict__ use3d_in,
+                   const uint8_t* __restrict__ clear_in, int nlev, int ng,
+                   int ncol, float max_gas_od_3d, float* __restrict__ out,
+                   int8_t* __restrict__ counts) {
+  constexpr int N = NREG, NN = NREG * NREG;
+  const size_t m = (size_t)ng * ncol;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)nlev * m) return;
+  const int l = (int)(idx / m);
+  const size_t i = idx % m;
+  const size_t c = i % ncol;
+  const float mu0 = mu0_in[c];
+  float od[N], ssa[N], gg[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const size_t j = ((size_t)l * N + r) * m + i;
+    od[r] = od_in[j];
+    ssa[r] = ssa_in[j];
+    gg[r] = g_in[j];
+  }
+  float o[5][N][N];
+#pragma unroll
+  for (int q = 0; q < 5; ++q)
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int b = 0; b < N; ++b) o[q][a][b] = 0.0f;
+  const bool use3d = use3d_in[idx] != 0;
+  int count = -1;
+  if (!use3d) {
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      const Mw w = sw_fallback(mu0, od[r], ssa[r], gg[r]);
+      o[0][r][r] = w.r;
+      o[1][r][r] = w.t;
+      o[2][r][r] = w.rd;
+      o[3][r][r] = w.td;
+      o[4][r][r] = w.tdd;
+    }
+  } else {
+    // Gamma = [[M, C], [0, D]], assembled in the order of the plain
+    // version (ops/spartacus_reftrans.py sw_gamma_expm)
+    constexpr int N3 = 3 * N;
+    float G[N3][N3];
+#pragma unroll
+    for (int a = 0; a < N3; ++a)
+#pragma unroll
+      for (int b = 0; b < N3; ++b) G[a][b] = 0.0f;
+    const float one_over_mu0 = 1.0f / mu0;
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      const float odr = r == 0 ? fminf(od[0], max_gas_od_3d) : od[r];
+      float g1, g2, g3;
+      sw_gammas(mu0, ssa[r], gg[r], &g1, &g2, &g3);
+      G[r][r] = G[r][r] + odr * g1;
+      G[N + r][r] = G[N + r][r] + odr * g2;
+      G[r][2 * N + r] = G[r][2 * N + r] + -odr * ssa[r] * g3;
+      G[N + r][2 * N + r] = G[N + r][2 * N + r] + odr * ssa[r] * (1.0f - g3);
+      G[2 * N + r][2 * N + r] = G[2 * N + r][2 * N + r]
+          + -fminf(odr * one_over_mu0, MAX_OD_OVER_MU0_3D);
+    }
+    const size_t tc = (size_t)l * NN * ncol + c;
+    auto trd = [&](int a, int b) {
+      return trd_in[tc + (size_t)(a * N + b) * ncol];
+    };
+    auto trf = [&](int a, int b) {
+      return trf_in[tc + (size_t)(a * N + b) * ncol];
+    };
+    constexpr int NPAIRS = N == 3 ? 3 : 1;
+    const int pa[3] = {0, 1, 0}, pb[3] = {1, 2, 2};
+#pragma unroll
+    for (int p = 0; p < NPAIRS; ++p) {
+      const int a = pa[p], b = pb[p];
+      G[a][a] = G[a][a] + trf(a, b);
+      G[b][b] = G[b][b] + trf(b, a);
+      G[b][a] = G[b][a] + -trf(a, b);
+      G[a][b] = G[a][b] + -trf(b, a);
+      G[2 * N + a][2 * N + a] = G[2 * N + a][2 * N + a] + -trd(a, b);
+      G[2 * N + b][2 * N + b] = G[2 * N + b][2 * N + b] + -trd(b, a);
+      G[2 * N + b][2 * N + a] = G[2 * N + b][2 * N + a] + trd(a, b);
+      G[2 * N + a][2 * N + b] = G[2 * N + a][2 * N + b] + trd(b, a);
+    }
+    float M[2 * N][2 * N], Cm[2 * N][N], D[N][N];
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int b = 0; b < N; ++b) {
+        G[N + a][N + b] = -G[a][b];
+        G[a][N + b] = -G[N + a][b];
+      }
+#pragma unroll
+    for (int a = 0; a < 2 * N; ++a) {
+#pragma unroll
+      for (int b = 0; b < 2 * N; ++b) M[a][b] = G[a][b];
+#pragma unroll
+      for (int b = 0; b < N; ++b) Cm[a][b] = G[a][2 * N + b];
+    }
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int b = 0; b < N; ++b) D[a][b] = G[2 * N + a][2 * N + b];
+    count = expm_reftrans_sw<N>(M, Cm, D, o[0], o[1], o[2], o[3], o[4]);
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int b = 0; b < N; ++b) {
+        o[0][a][b] = fminf(fmaxf(o[0][a][b], 0.0f), 1.0f);
+        o[1][a][b] = fminf(fmaxf(o[1][a][b], 0.0f), 1.0f);
+        o[2][a][b] = fminf(fmaxf(o[2][a][b], 0.0f), mu0);
+        o[3][a][b] = fminf(fmaxf(o[3][a][b], 0.0f), mu0);
+        o[4][a][b] = fminf(fmaxf(o[4][a][b], 0.0f), 1.0f);
+      }
+  }
+  const bool clear = clear_in[(size_t)l * ncol + c] != 0;
+  const size_t base = (size_t)l * 5 * NN * m + i;
+#pragma unroll
+  for (int q = 0; q < 5; ++q)
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int b = 0; b < N; ++b)
+        out[base + (size_t)(q * NN + a * N + b) * m] =
+            (clear && (a > 0 || b > 0)) ? 0.0f : o[q][a][b];
+  if (counts) counts[idx] = (int8_t)count;
+}
+
+// ---- LW ----
+
+// (R, T) of [[A, -B], [B, -A]] (solvers/matrix.py expm_reftrans_lw_g);
+// returns the doubling count
+template <int N>
+__device__ int expm_reftrans_lw(const float (&A)[N][N], const float (&B)[N][N],
+                                float (&R)[N][N], float (&T)[N][N]) {
+  constexpr int N2 = 2 * N;
+  float norm1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    float s = fabsf(A[0][j]) + fabsf(B[0][j]);
+#pragma unroll
+    for (int i = 1; i < N; ++i) s = s + fabsf(A[i][j]) + fabsf(B[i][j]);
+    norm1 = j == 0 ? s : fmaxf(norm1, s);
+  }
+  float scale;
+  const int expo = doubling_count(norm1, &scale);
+  float G[N2][N2];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float x = A[i][j] * scale, y = B[i][j] * scale;
+      G[i][j] = x;
+      G[i][N + j] = -y;
+      G[N + i][j] = y;
+      G[N + i][N + j] = -x;
+    }
+  float A2[N2][N2], A4[N2][N2], V[N2][N2], U[N2][N2];
+  mm<N2, N2, N2>(G, G, A2);
+  mm<N2, N2, N2>(A2, A2, A4);
+  pade_sum<N2, N2>(A4, A2, C5, C3, C1, true, V);
+  mm<N2, N2, N2>(G, V, U);
+  pade_sum<N2, N2>(A4, A2, C4, C2, C0, true, V);
+  float E[N2][N2];
+#pragma unroll
+  for (int i = 0; i < N2; ++i)
+#pragma unroll
+    for (int j = 0; j < N2; ++j) {
+      V[i][j] = V[i][j] - U[i][j];
+      E[i][j] = 2.0f * U[i][j];
+    }
+  solve<N2, N2>(V, E);
+#pragma unroll
+  for (int i = 0; i < N2; ++i) E[i][i] = E[i][i] + 1.0f;
+  float a[N][N], rr[N][N], e21[N][N], t1[N][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      a[i][j] = E[i][j];
+      rr[i][j] = E[i][N + j];
+      e21[i][j] = E[N + i][j];
+    }
+  solve<N, N>(a, rr);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) R[i][j] = -rr[i][j];
+  mm<N, N, N>(e21, R, t1);
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) T[i][j] = E[N + i][N + j] + t1[i][j];
+  for (int k = 0; k < expo; ++k) {
+    float den[N][N], W[N][N], TR[N][N], dR[N][N], Tn[N][N];
+    one_minus_sq<N>(R, den);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) W[i][j] = T[i][j];
+    solve<N, N>(den, W);
+    mm<N, N, N>(T, R, TR);
+    mm<N, N, N>(TR, W, dR);
+    mm<N, N, N>(T, W, Tn);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        R[i][j] = R[i][j] + dR[i][j];
+        T[i][j] = Tn[i][j];
+      }
+  }
+  return expo;
+}
+
+template <int NREG>
+__global__ void __launch_bounds__(THREADS)
+lw_reftrans_kernel(const float* __restrict__ od_in,
+                   const float* __restrict__ ssa_in,
+                   const float* __restrict__ g_in,
+                   const float* __restrict__ tr_in,
+                   const float* __restrict__ se_in,
+                   const float* __restrict__ pt_in,
+                   const float* __restrict__ pb_in,
+                   const float* __restrict__ fr_in,
+                   const uint8_t* __restrict__ use3d_in,
+                   const uint8_t* __restrict__ clear_in, int nlev, int ng,
+                   int ncol, float max_gas_od_3d, int cloud_scattering,
+                   float* __restrict__ out, int8_t* __restrict__ counts) {
+  constexpr int N = NREG, NN = NREG * NREG;
+  const size_t m = (size_t)ng * ncol;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)nlev * m) return;
+  const int l = (int)(idx / m);
+  const size_t i = idx % m;
+  const size_t c = i % ncol;
+  const float pt = pt_in[idx], pb = pb_in[idx];
+  float od[N], ssa[N], g1[N], g2[N], fr[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const size_t j = ((size_t)l * N + r) * m + i;
+    od[r] = od_in[j];
+    ssa[r] = ssa_in[j];
+    // two_stream.py lw_gammas
+    const float factor = (LW_DIFFUSIVITY * 0.5f) * ssa[r];
+    const float gv = g_in[j];
+    g1[r] = LW_DIFFUSIVITY - factor * (1.0f + gv);
+    g2[r] = factor * (1.0f - gv);
+    fr[r] = fr_in[((size_t)l * N + r) * ncol + c];
+  }
+  float R[N][N], T[N][N], su[N], sd[N];
+  const bool use3d = use3d_in[idx] != 0;
+  int count = -1;
+  if (!use3d) {
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int b = 0; b < N; ++b) R[a][b] = T[a][b] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      float rr, tt, u, d;
+      if (cloud_scattering) {
+        // two_stream.py lw_reftrans
+        const float k = sqrtf(fmaxf((g1[r] - g2[r]) * (g1[r] + g2[r]),
+                                    1.0e-4f));
+        const float expo = expf(-k * od[r]);
+        const float expo2 = expo * expo;
+        const float rt = 1.0f / (k + g1[r] + (k - g1[r]) * expo2);
+        if (od[r] <= 1.0e-3f) {
+          rr = g2[r] * od[r];
+          tt = (1.0f - k * od[r]) / (1.0f + od[r] * (g1[r] - k));
+          u = d = (1.0f - rr - tt) * 0.5f * (pt + pb);
+        } else {
+          rr = g2[r] * (1.0f - expo2) * rt;
+          tt = 2.0f * k * expo * rt;
+          const float coeff = (pb - pt) / fmaxf(od[r] * (g1[r] + g2[r]),
+                                                1.0e-30f);
+          u = (coeff + pt) - rr * (-coeff + pt) - tt * (coeff + pb);
+          d = (-coeff + pb) - rr * (coeff + pb) - tt * (-coeff + pt);
+        }
+      } else {
+        // two_stream.py lw_no_scattering_transmittance
+        const float coeff0 = LW_DIFFUSIVITY * od[r];
+        const float trans = expf(-coeff0);
+        const float coeff = (pb - pt) / fmaxf(coeff0, 1.0e-30f);
+        rr = 0.0f;
+        if (od[r] <= 1.0e-3f) {
+          tt = 1.0f - coeff0;
+          u = d = coeff0 * 0.5f * (pt + pb);
+        } else {
+          tt = trans;
+          u = (coeff + pt) - trans * (coeff + pb);
+          d = (-coeff + pb) - trans * (-coeff + pt);
+        }
+      }
+      R[r][r] = rr;
+      T[r][r] = tt;
+      su[r] = u * fr[r];
+      sd[r] = d * fr[r];
+    }
+  } else {
+    const float se = se_in[idx];
+    const size_t tc = (size_t)l * NN * ncol + c;
+    auto tr = [&](int a, int b) {
+      return tr_in[tc + (size_t)(a * N + b) * ncol];
+    };
+    float A[N][N], B[N][N], odc[N];
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int b = 0; b < N; ++b) A[a][b] = B[a][b] = 0.0f;
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      odc[r] = r == 0 ? fminf(od[0], max_gas_od_3d) : od[r];
+      A[r][r] = A[r][r] + odc[r] * g1[r];
+      B[r][r] = B[r][r] + odc[r] * g2[r];
+    }
+#pragma unroll
+    for (int r = 0; r < N - 1; ++r) {
+      A[r][r] = A[r][r] + tr(r, r + 1);
+      A[r + 1][r] = A[r + 1][r] + -tr(r, r + 1);
+      if (r > 0) {
+        A[r + 1][r + 1] = A[r + 1][r + 1] + tr(r + 1, r);
+        A[r][r + 1] = A[r][r + 1] + -tr(r + 1, r);
+      } else {
+        A[r + 1][r + 1] = A[r + 1][r + 1] + se * tr(r + 1, r);
+        A[r][r + 1] = A[r][r + 1] + -se * tr(r + 1, r);
+      }
+    }
+    if (N == 3) {
+      A[0][0] = A[0][0] + tr(0, 2);
+      A[N - 1][0] = A[N - 1][0] + -tr(0, 2);
+      A[N - 1][N - 1] = A[N - 1][N - 1] + se * tr(2, 0);
+      A[0][N - 1] = A[0][N - 1] + -se * tr(2, 0);
+    }
+    // the particular solution in the sum/difference basis
+    float F[N][N], E[N][N], vw[N][2], u[N][1];
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      const float emis = odc[r] * (1.0f - ssa[r]) * fr[r] * LW_DIFFUSIVITY;
+      vw[r][0] = emis * (pb - pt);
+      vw[r][1] = emis * pt;
+#pragma unroll
+      for (int b = 0; b < N; ++b) {
+        E[r][b] = A[r][b] + B[r][b];
+        F[r][b] = A[r][b] - B[r][b];
+      }
+      E[r][r] = E[r][r] + 1e-12f;
+      F[r][r] = F[r][r] + 1e-12f;
+    }
+    solve<N, 2>(F, vw);
+#pragma unroll
+    for (int r = 0; r < N; ++r) u[r][0] = vw[r][0];
+    solve<N, 1>(E, u);
+    float up[N], dn[N], pu_b[N], uu[N];
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      uu[r] = vw[r][0];
+      up[r] = vw[r][1] + u[r][0];
+      dn[r] = vw[r][1] - u[r][0];
+      pu_b[r] = up[r] + uu[r];
+    }
+    count = expm_reftrans_lw<N>(A, B, R, T);
+    float a1[N], a2[N], b1[N], b2[N];
+    mv<N, N>(R, dn, a1);
+    mv<N, N>(T, pu_b, a2);
+    mv<N, N>(T, dn, b1);
+    mv<N, N>(R, pu_b, b2);
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      su[r] = up[r] - a1[r] - a2[r];
+      sd[r] = dn[r] + uu[r] - b1[r] - b2[r];
+    }
+  }
+  const bool clear = clear_in[(size_t)l * ncol + c] != 0;
+  const size_t base = (size_t)l * 2 * N * (N + 1) * m + i;
+#pragma unroll
+  for (int a = 0; a < N; ++a)
+#pragma unroll
+    for (int b = 0; b < N; ++b) {
+      const bool z = clear && (a > 0 || b > 0);
+      out[base + (size_t)(a * N + b) * m] = z ? 0.0f : R[a][b];
+      out[base + (size_t)(NN + a * N + b) * m] = z ? 0.0f : T[a][b];
+    }
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const bool z = clear && r > 0;
+    out[base + (size_t)(2 * NN + r) * m] = z ? 0.0f : su[r];
+    out[base + (size_t)(2 * NN + N + r) * m] = z ? 0.0f : sd[r];
+  }
+  if (counts) counts[idx] = (int8_t)count;
+}
+
+inline int blocks_for(size_t n) { return (int)((n + THREADS - 1) / THREADS); }
+
+}  // namespace spartacus
+}  // namespace ecrad
+
+extern "C" int spartacus_sw_reftrans(const float* od, const float* ssa,
+                                     const float* g, const float* trd,
+                                     const float* trf, const float* mu0,
+                                     const uint8_t* use3d,
+                                     const uint8_t* clear, float* out,
+                                     int8_t* counts, int nreg, int nlev,
+                                     int ng, int ncol, float max_gas_od_3d,
+                                     void* stream) {
+  namespace sp = ecrad::spartacus;
+  const size_t n = (size_t)nlev * ng * ncol;
+  if (n == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nreg == 3) {
+    sp::sw_reftrans_kernel<3><<<sp::blocks_for(n), sp::THREADS, 0, s>>>(
+        od, ssa, g, trd, trf, mu0, use3d, clear, nlev, ng, ncol,
+        max_gas_od_3d, out, counts);
+  } else if (nreg == 2) {
+    sp::sw_reftrans_kernel<2><<<sp::blocks_for(n), sp::THREADS, 0, s>>>(
+        od, ssa, g, trd, trf, mu0, use3d, clear, nlev, ng, ncol,
+        max_gas_od_3d, out, counts);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int spartacus_lw_reftrans(const float* od, const float* ssa,
+                                     const float* g, const float* tr,
+                                     const float* se, const float* pt,
+                                     const float* pb, const float* fr,
+                                     const uint8_t* use3d,
+                                     const uint8_t* clear, float* out,
+                                     int8_t* counts, int nreg, int nlev,
+                                     int ng, int ncol, float max_gas_od_3d,
+                                     int cloud_scattering, void* stream) {
+  namespace sp = ecrad::spartacus;
+  const size_t n = (size_t)nlev * ng * ncol;
+  if (n == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nreg == 3) {
+    sp::lw_reftrans_kernel<3><<<sp::blocks_for(n), sp::THREADS, 0, s>>>(
+        od, ssa, g, tr, se, pt, pb, fr, use3d, clear, nlev, ng, ncol,
+        max_gas_od_3d, cloud_scattering, out, counts);
+  } else if (nreg == 2) {
+    sp::lw_reftrans_kernel<2><<<sp::blocks_for(n), sp::THREADS, 0, s>>>(
+        od, ssa, g, tr, se, pt, pb, fr, use3d, clear, nlev, ng, ncol,
+        max_gas_od_3d, cloud_scattering, out, counts);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -94,8 +94,13 @@ def make_columns(ncol: int, nlev: int = 137, seed: int = 0
 #: cloud fields on levels, (ncol, nlev)
 CLOUD_KEYS = ("fraction", "q_liq", "q_ice", "re_liq", "re_ice",
               "fractional_std")
+#: SPARTACUS's inverse effective sizes (m-1), (ncol, nlev), of
+#: add_effective_sizes
+EFFECTIVE_SIZE_KEYS = ("inv_cloud_effective_size", "inv_inhom_effective_size")
 LEVEL_KEYS = ("pressure_hl", "temperature_hl", "mixing_ratio",
-              "aerosol_mmr") + CLOUD_KEYS
+              "aerosol_mmr") + CLOUD_KEYS + EFFECTIVE_SIZE_KEYS
+
+
 
 
 def make_clouds(cols: Dict[str, np.ndarray], seed: int = 0
@@ -145,6 +150,33 @@ def make_clouds(cols: Dict[str, np.ndarray], seed: int = 0
         re_ice=u(20.0e-6, 80.0e-6, ncol, nlev),
         fractional_std=u(0.75, 1.25, ncol, nlev),
         iseed=np.arange(ncol, dtype=np.int32))
+    return out
+
+
+def add_effective_sizes(cols: Dict[str, np.ndarray], separation_surf=2500.0,
+                        separation_toa=14000.0, power=3.5,
+                        inhom_separation_factor=0.75
+                        ) -> Dict[str, np.ndarray]:
+    """`cols` (of make_clouds) plus inv_cloud_effective_size and
+    inv_inhom_effective_size (ncol, nlev), in m-1, from the cloud fraction
+    and the effective cloud separation of ecRad's CY47R1 offline namelist:
+    2500 m at the surface, 14000 m at the top of the atmosphere, rising
+    with eta to the power 3.5, and inhomogeneities 0.75 times as far apart
+    (types.Cloud.param_cloud_effective_separation_eta, computed in float64
+    on the CPU). SPARTACUS's 3D terms need them: without them every layer
+    takes its 1D fallback."""
+    import torch
+
+    from .types import Cloud, Thermodynamics
+    t = lambda k: torch.as_tensor(cols[k], dtype=torch.float64)
+    cloud = Cloud(q_liq=t("q_liq"), q_ice=t("q_ice"), re_liq=t("re_liq"),
+                  re_ice=t("re_ice"), fraction=t("fraction"))
+    cloud = cloud.param_cloud_effective_separation_eta(
+        Thermodynamics(pressure_hl=t("pressure_hl"),
+                       temperature_hl=t("temperature_hl")),
+        separation_surf, separation_toa, power, inhom_separation_factor)
+    out = dict(cols)
+    out.update({k: getattr(cloud, k).numpy() for k in EFFECTIVE_SIZE_KEYS})
     return out
 
 

@@ -1,18 +1,22 @@
 """Top level: setup_radiation and the radiation() entry point.
 
 Port of ecrad_tpu/interface.py:32-134, :197-510 (radiation/
-radiation_interface.F90) for the Cloudless, McICA, Homogeneous and
-Tripleclouds solvers: setup loads the tables, spectral mappings, for a
-cloudy solver the cloud-optics LUTs, for McICA the cloud-PDF sampler and
-with use_aerosols the aerosol LUT, onto one device (the GPU unless the
-caller asks for another); radiation() runs gas optics, the aerosol stage,
-the cloud stage (default fractional_std, overlap parameter from a 2 km
-decorrelation length, cropping, cloud optics), the solvers and the flux
-assembly. Inputs whose pressure increases upwards are flipped, run TOA
-first, and their flux profiles flipped back. On CUDA tensors the path
+radiation_interface.F90) for the Cloudless, McICA, Homogeneous,
+Tripleclouds and SPARTACUS solvers: setup loads the tables, spectral
+mappings, for a cloudy solver the cloud-optics LUTs, for McICA the
+cloud-PDF sampler and with use_aerosols the aerosol LUT, onto one device
+(the GPU unless the caller asks for another); radiation() runs gas
+optics, the aerosol stage, the cloud stage (default fractional_std,
+overlap parameter from a 2 km decorrelation length, cropping, cloud
+optics), the solvers and the flux assembly. Inputs whose pressure
+increases upwards are flipped, run TOA first, and their flux profiles
+flipped back. On CUDA tensors the path
 runs kernels B1 (LW taumol), B2 (SW taumol), B3/B3' (adding sweeps), B4
-(McICA layer optics) and B5 (Tripleclouds region sweeps); on CPU tensors
-their plain versions.
+(McICA layer optics), B5 (Tripleclouds region sweeps) and B6-B9
+(SPARTACUS layer reflectance/transmittance and adding sweeps); on CPU
+tensors their plain versions. With a SPARTACUS solver the g-points of
+its spectral region are reordered by optical depth, and every band map
+is the reordered one (`spec.band_from_reordered_g_*`).
 """
 from __future__ import annotations
 
@@ -100,8 +104,12 @@ def setup_radiation(config: RadiationConfig,
              if any(s != Solver.CLOUDLESS for s in solvers) else None)
     pdf = (setup_pdf_sampler(config) if Solver.MCICA in solvers else None)
     aerosol = setup_aerosol_optics(config) if config.use_aerosols else None
-    return make_setup(config, tables, make_spec(tables), sw_map, sw_weights,
-                      lw_map, lw_weights, device, cloud, pdf, aerosol)
+    # SPARTACUS orders the g-points of its regions by optical depth
+    # (ecrad_tpu/interface.py:70-73)
+    spec = make_spec(tables, reorder_lw=config.i_solver_lw == Solver.SPARTACUS,
+                     reorder_sw=config.i_solver_sw == Solver.SPARTACUS)
+    return make_setup(config, tables, spec, sw_map, sw_weights, lw_map,
+                      lw_weights, device, cloud, pdf, aerosol)
 
 
 def make_setup(config, tables, spec, sw_map, sw_weights, lw_map,
@@ -128,7 +136,7 @@ def make_setup(config, tables, spec, sw_map, sw_weights, lw_map,
 def get_albedos(setup: RadiationSetup, single_level: SingleLevel):
     """Per-g surface albedos (radiation_single_level.F90:204-330):
     (sw_albedo_diffuse, sw_albedo_direct, lw_albedo), each (ncol, ng)."""
-    band_sw = setup.spec.band_from_g_sw
+    band_sw = setup.spec.band_from_reordered_g_sw
     sw_diffuse = expand_to_g(single_level.sw_albedo, setup.sw_albedo_map,
                              setup.sw_albedo_weights, band_sw)
     sw_direct = sw_diffuse
@@ -139,7 +147,7 @@ def get_albedos(setup: RadiationSetup, single_level: SingleLevel):
     lw_albedo = 1.0 - expand_to_g(single_level.lw_emissivity,
                                   setup.lw_emiss_map,
                                   setup.lw_emiss_weights,
-                                  setup.spec.band_from_g_lw)
+                                  setup.spec.band_from_reordered_g_lw)
     return sw_diffuse, sw_direct, lw_albedo
 
 
@@ -246,7 +254,7 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
         # (radiation_ifs_rrtm.F90:436-443)
         emission = single_level.lw_emission
         if emission.shape[-1] != go.od_lw.shape[-1]:
-            band_g = setup.spec.band_from_g_lw
+            band_g = setup.spec.band_from_reordered_g_lw
             idx = (setup.lw_emiss_map[band_g]
                    if setup.lw_emiss_map is not None else band_g)
             emission = emission[:, torch.as_tensor(idx,
@@ -260,9 +268,9 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
         aerosol = aerosol.replace(**{f: cast(getattr(aerosol, f))
                                      for f in AEROSOL_FIELDS})
         od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw = add_aerosol_optics(
-            cfg, setup.aerosol_coeffs, setup.spec.band_from_g_sw,
-            setup.spec.band_from_g_lw, thermodynamics, gas, aerosol, od_lw,
-            ssa_lw, g_lw, od_sw, ssa_sw, g_sw)
+            cfg, setup.aerosol_coeffs, setup.spec.band_from_reordered_g_sw,
+            setup.spec.band_from_reordered_g_lw, thermodynamics, gas,
+            aerosol, od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw)
 
     cloud_props = None
     if cfg.do_clouds and cloud is not None:
@@ -289,8 +297,8 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
                     t_clear, lw.up[-1].T)
         else:
             lw, lw_clear, extras = solve_lw(
-                setup, single_level, cloud, cloud_props, od_lw, ssa_lw, g_lw,
-                go.planck_hl, emission, lw_albedo)
+                setup, single_level, thermodynamics, cloud, cloud_props,
+                od_lw, ssa_lw, g_lw, go.planck_hl, emission, lw_albedo)
         flux = flux.replace(**_lw_fields(setup, lw, lw_clear, cfg.do_clear),
                             **extras)
 
@@ -303,14 +311,14 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
             sw_clear = sw
         else:
             sw, sw_clear, extras = solve_sw(
-                setup, single_level, cloud, cloud_props, od_sw, ssa_sw,
-                g_sw, go.incoming_sw, sw_alb_diff, sw_alb_dir)
+                setup, single_level, thermodynamics, cloud, cloud_props,
+                od_sw, ssa_sw, g_sw, go.incoming_sw, sw_alb_diff, sw_alb_dir)
         flux = flux.replace(**_sw_fields(setup, sw, sw_clear), **extras)
     return flux
 
 
 def _lw_fields(setup, lw, lw_clear, do_clear) -> dict:
-    band_lw = setup.spec.band_from_g_lw
+    band_lw = setup.spec.band_from_reordered_g_lw
     up, dn, surf_g = _gsum(lw.up), _gsum(lw.dn), _surf_g(lw.dn)
     out = dict(lw_up=up, lw_dn=dn, lw_dn_surf_g=surf_g,
                lw_dn_surf_band=_band_sum(surf_g, band_lw, 16))
@@ -327,7 +335,7 @@ def _lw_fields(setup, lw, lw_clear, do_clear) -> dict:
 
 def _sw_fields(setup, sw, sw_clear) -> dict:
     cfg = setup.config
-    band_sw = setup.spec.band_from_g_sw
+    band_sw = setup.spec.band_from_reordered_g_sw
 
     def fields(s):
         surf_dif, surf_dir = _surf_g(s.dn_diffuse), _surf_g(s.dn_direct)

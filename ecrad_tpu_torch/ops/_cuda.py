@@ -1,11 +1,11 @@
 """Build, load and call the port's CUDA kernels.
 
-All sources under ecrad_tpu_torch/csrc/ compile with one `nvcc` call for
-sm_90a into a shared library with a plain C interface, loaded with
-ctypes (no PyTorch headers: seconds to build rather than minutes). The
-build happens at first use, into ecrad_tpu_torch/_build/ (listed in
-.gitignore), under a name that hashes the sources, so an edited kernel
-is rebuilt. Nothing here runs at import time.
+The sources under ecrad_tpu_torch/csrc/ compile for sm_90a, one `nvcc`
+per source, all started together, and link into a shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers: seconds to
+build rather than minutes). The build happens at first use, into
+ecrad_tpu_torch/_build/ (listed in .gitignore), under a name that hashes
+the sources, so an edited kernel is rebuilt. Nothing here runs at import time.
 
 Every C entry point launches on the stream it is given, returns
 cudaGetLastError() as an int, and allocates nothing: the wrappers
@@ -30,11 +30,13 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 # like its plain version's separate tensor ops and the two agree to the
 # order of summation. No --use_fast_math: the exact expf/logf are needed
 # (an approximate exp biased clear-sky SW by ~1.2 W/m2 on the TPU).
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v", "-lineinfo"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+              "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
-# C signatures: p = device pointer, i = int; the stream is appended
+# C signatures: p = device pointer, i = int, f = float; the stream is
+# appended
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 _SIGS = {
     "taumol_lw": "pppppipp",
     "taumol_sw": "pppppipp",
@@ -45,6 +47,10 @@ _SIGS = {
     "mcica_lw_optics": "ppppppiiiip",
     "tc_sw_sweeps": "ppppppppppppiiiipppp",
     "tc_lw_sweeps": "ppppppppppiiiippp",
+    "spartacus_sw_reftrans": "ppppppppppiiiif",
+    "spartacus_lw_reftrans": "ppppppppppppiiiifi",
+    "spartacus_sw_adding": "ppppiiiiiiffffpppp",
+    "spartacus_lw_adding": "pppiiiiiippp",
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -80,14 +86,27 @@ def build() -> str:
     lib = os.path.join(BUILD_DIR, f"libecrad_kernels_{h.hexdigest()[:12]}.so")
     if os.path.exists(lib):
         return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
+    objdir = f"{tmp}.objs"
+    os.makedirs(objdir, exist_ok=True)
+    nvcc = _nvcc()
     cus = [p for p in sources() if p.endswith(".cu")]
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus],
-                         capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    objs = [os.path.join(objdir, os.path.basename(p) + ".o") for p in cus]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(cus, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    failed = [src for src, p in zip(cus, procs) if p.returncode != 0]
+    if not failed:
+        res = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        build_log += res.stdout + res.stderr
+        failed = ["link"] if res.returncode != 0 else []
+    shutil.rmtree(objdir, ignore_errors=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{build_log}")
     os.replace(tmp, lib)
     return lib
 
@@ -98,8 +117,7 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         for name, sig in _SIGS.items():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p if s == "p" else ctypes.c_int
-                           for s in sig] + [ctypes.c_void_p]
+            fn.argtypes = [_CTYPES[s] for s in sig] + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -125,7 +143,9 @@ def launch(name: str, *args) -> None:
     sig = _SIGS[name]
     if len(args) != len(sig):
         raise TypeError(f"{name} takes {len(sig)} arguments")
-    conv = [a.data_ptr() if s == "p" else int(a) for s, a in zip(sig, args)]
+    # a pointer argument may be None (NULL) where the kernel allows it
+    conv = [(None if a is None else a.data_ptr()) if s == "p"
+            else int(a) if s == "i" else float(a) for s, a in zip(sig, args)]
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(*conv, stream)
     if err != 0:

@@ -6,8 +6,9 @@ Cloudless, Homogeneous and McICA solvers, the per-g surface upward flux,
 normalised, propagated up through the layer transmittances; and the
 region form (:199, calc_lw_derivatives_region) of Tripleclouds, which
 mixes the regions through the upward overlap matrix U at each interface
-before each layer's per-region transmittance. The matrix form comes with
-SPARTACUS (ROADMAP.md Queue A).
+before each layer's per-region transmittance; and the matrix form
+(:137, calc_lw_derivatives_matrix) of SPARTACUS, whose layer
+transmittances couple the regions.
 """
 from __future__ import annotations
 
@@ -39,5 +40,23 @@ def lw_derivatives_region(trans, um, flux_up_surf):
     deriv = [None] * nlev
     for l in range(nlev - 1, -1, -1):
         v = trans[l] * (um[l + 1][:, :, None, :] * v[None]).sum(1)
+        deriv[l] = v.sum((0, 1))
+    return torch.stack(deriv + [torch.ones_like(deriv[0])], 1)
+
+
+def lw_derivatives_matrix(trans, um, flux_up_surf):
+    """trans (nlev, nreg, nreg, ng, ncol) layer transmittance matrices,
+    TOA first; um (nlev+1, nreg, nreg, ncol); flux_up_surf (ncol, ng).
+    Returns (ncol, nlev+1), 1 at the surface
+    (ecrad_tpu/solvers/lw_derivatives.py:87-115)."""
+    nlev = trans.shape[0]
+    norm = (flux_up_surf / torch.clamp(flux_up_surf.sum(-1, keepdim=True),
+                                       min=1e-30)).T
+    v = torch.zeros_like(trans[0, 0])                    # (nreg, ng, ncol)
+    v[0] = norm
+    deriv = [None] * nlev
+    for l in range(nlev - 1, -1, -1):
+        v = (um[l + 1][:, :, None, :] * v[None]).sum(1)
+        v = (trans[l] * v[None]).sum(1)
         deriv[l] = v.sum((0, 1))
     return torch.stack(deriv + [torch.ones_like(deriv[0])], 1)

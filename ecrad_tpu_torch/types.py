@@ -3,13 +3,15 @@
 Field names and shapes follow ecrad_tpu/types.py (columns first, levels
 next, spectral innermost), so inputs convert one-to-one
 (convert.inputs_from_numpy) and tests compare like with like. `Cloud`
-feeds the cloudy solvers; `Aerosol` (mixing ratios, or per-band optical
+feeds the cloudy solvers (SPARTACUS also reads its inverse effective
+sizes); `Aerosol` (mixing ratios, or per-band optical
 properties for the direct-input bypass) feeds the aerosol stage when
 `use_aerosols` is on.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -108,6 +110,45 @@ class Cloud(_Replace):
         sep = 0.5 * (dz[:, :-1] + dz[:, 1:])
         return self.replace(overlap_param=torch.exp(
             -torch.abs(sep) / decorrelation_length))
+
+    def create_inv_cloud_effective_size_eta(
+            self, thermodynamics: "Thermodynamics", inv_eff_size_low: float,
+            inv_eff_size_mid: float, inv_eff_size_high: float,
+            eta_low_mid: float, eta_mid_high: float) -> "Cloud":
+        """Inverse effective cloud size by eta band, eta the full-level
+        pressure over the surface pressure (radiation_cloud.F90:398-460;
+        ecrad_tpu/types.py:197-209)."""
+        p_hl = thermodynamics.pressure_hl
+        eta = (p_hl[:, :-1] + p_hl[:, 1:]) * (0.5 / p_hl[:, -1:])
+        full = lambda v: torch.full_like(eta, v)
+        inv = torch.where(eta > eta_low_mid, full(inv_eff_size_low),
+                          torch.where(eta > eta_mid_high,
+                                      full(inv_eff_size_mid),
+                                      full(inv_eff_size_high)))
+        return self.replace(inv_cloud_effective_size=inv)
+
+    def param_cloud_effective_separation_eta(
+            self, thermodynamics: "Thermodynamics", separation_surf: float,
+            separation_toa: float, power: float = 1.0,
+            inhom_separation_factor: float = 1.0) -> "Cloud":
+        """Inverse effective sizes of the cloud and of its inhomogeneities
+        from an effective cloud separation that rises from
+        `separation_surf` at the surface to `separation_toa` (m) with eta
+        to the `power` (radiation_cloud.F90:476+, the namelist's
+        cloud_separation_scale_* options; ecrad_tpu/types.py:211-230)."""
+        p_hl = thermodynamics.pressure_hl
+        eta = (p_hl[:, :-1] + p_hl[:, 1:]) * (0.5 / p_hl[:, -1:])
+        coeff_e = 1.0 - math.exp(-1.0)
+        coeff_b = (separation_toa - separation_surf) / coeff_e
+        coeff_a = separation_toa - coeff_b
+        eff_sep = coeff_a + coeff_b * torch.exp(-eta ** power)
+        f = self.fraction
+        inv_cloud = 1.0 / (eff_sep * torch.sqrt(torch.clamp(
+            f * (1.0 - f), min=1.0e-5)))
+        inv_inhom = 1.0 / (eff_sep * inhom_separation_factor * torch.sqrt(
+            torch.clamp(0.5 * f * (1.0 - 0.5 * f), min=1.0e-5)))
+        return self.replace(inv_cloud_effective_size=inv_cloud,
+                            inv_inhom_effective_size=inv_inhom)
 
     def crop_cloud_fraction(self, cloud_fraction_threshold: float = 1.0e-6,
                             cloud_mixing_ratio_threshold: float = 1.0e-9

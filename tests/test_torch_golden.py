@@ -1,18 +1,18 @@
 """PyTorch port: its golden files stay current, and the package runs where
 jax is not installed.
 
-tests/goldens/torch_port_{cloudless,mcica,tripleclouds}.npz hold the
-JAX package's fluxes (at float32 and float64) for the first 32 of the
-2048 seed-0 columns that chip_smoke.py runs on the GPU, the McICA and
-Tripleclouds ones also the cloud covers (McICA also its cloudy-subcolumn
-masks, Tripleclouds its LW derivatives), on the synthetic LUTs of
-inputs.write_synthetic_luts; tools/make_torch_port_golden.py --check
-regenerates all three from JAX and compares. The port package must import
+tests/goldens/torch_port_{cloudless,mcica,tripleclouds,spartacus}.npz
+hold the JAX package's fluxes (at float32 and float64) for the first 32
+of the 2048 seed-0 columns that chip_smoke.py runs on the GPU, the
+cloudy ones also the cloud covers (McICA also its cloudy-subcolumn masks,
+Tripleclouds and SPARTACUS their LW derivatives), on the synthetic LUTs
+of inputs.write_synthetic_luts; tools/make_torch_port_golden.py --check
+regenerates all four from JAX and compares. The port package must import
 neither jax nor flax nor the JAX package (the GPU machine has none of
 them): a subprocess blocks all three, imports every module of the port
-and runs its paths (Cloudless, McICA, Tripleclouds, Homogeneous) on the
-CPU. Its entry points run on the GPU unless asked for the CPU: without a
-GPU they raise.
+and runs its paths (Cloudless, McICA, Tripleclouds, Homogeneous,
+SPARTACUS) on the CPU. Its entry points run on the GPU unless asked for
+the CPU: without a GPU they raise.
 """
 import os
 import subprocess
@@ -28,6 +28,8 @@ GOLDEN = os.path.join(REPO, "tests", "goldens", "torch_port_cloudless.npz")
 GOLDEN_MCICA = os.path.join(REPO, "tests", "goldens", "torch_port_mcica.npz")
 GOLDEN_TRIPLECLOUDS = os.path.join(REPO, "tests", "goldens",
                                    "torch_port_tripleclouds.npz")
+GOLDEN_SPARTACUS = os.path.join(REPO, "tests", "goldens",
+                                "torch_port_spartacus.npz")
 
 
 def _env():
@@ -127,22 +129,26 @@ import tempfile
 import torch
 from ecrad_tpu_torch.config import (Solver, cloudless_slice_config,
                                     mcica_slice_config,
+                                    spartacus_slice_config,
                                     tripleclouds_slice_config)
 from ecrad_tpu_torch.convert import columns_to_inputs
-from ecrad_tpu_torch.inputs import (make_aerosols, make_clouds, make_columns,
+from ecrad_tpu_torch.inputs import (add_effective_sizes, make_aerosols,
+                                    make_clouds, make_columns,
                                     write_synthetic_luts)
 from ecrad_tpu_torch.interface import radiation, setup_radiation
 cpu = lambda cfg: setup_radiation(cfg, device="cpu")
 flux = radiation(cpu(cloudless_slice_config()),
                  *columns_to_inputs(make_columns(2, 10, 0), device="cpu"))
 assert flux.lw_up.shape == (2, 11) and bool(torch.isfinite(flux.sw_dn).all())
-cols = make_aerosols(make_clouds(make_columns(3, 10, 0)))
+cols = add_effective_sizes(make_aerosols(make_clouds(make_columns(3, 10, 0))))
 with tempfile.TemporaryDirectory() as luts:
     setups = [cpu(mcica_slice_config(**write_synthetic_luts(luts)))] + [
-        cpu(tripleclouds_slice_config(**write_synthetic_luts(luts, ice="fu"),
-                                      **kw))
-        for kw in ({}, {"i_solver_sw": Solver.HOMOGENEOUS,
-                        "i_solver_lw": Solver.HOMOGENEOUS})]
+        cpu(make(**write_synthetic_luts(luts, ice="fu"), **kw))
+        for make, kw in ((tripleclouds_slice_config, {}),
+                         (tripleclouds_slice_config,
+                          {"i_solver_sw": Solver.HOMOGENEOUS,
+                           "i_solver_lw": Solver.HOMOGENEOUS}),
+                         (spartacus_slice_config, {}))]
 for setup in setups:
     flux = radiation(setup, *columns_to_inputs(cols, device="cpu"))
     assert flux.cloud_cover_sw.shape == (3,)
@@ -190,6 +196,39 @@ def test_tripleclouds_golden_meets_the_port_on_the_cpu(tmp_path):
             assert z[k].shape[0] == 32
             assert np.abs(got - z[k][:2]).max() <= bound, k
             assert np.abs(got - z[k + "_f64"][:2]).max() <= bound, k
+
+
+def test_spartacus_golden_meets_the_port_on_the_cpu(tmp_path):
+    """The first two SPARTACUS golden columns against the port's plain
+    path: the bounds chip_smoke.py applies on the GPU (bench.py's
+    SPARTACUS_F64_BOUNDS against JAX float64, and against JAX float32
+    within them plus JAX's own float32 error; cloud covers 1e-5; LW
+    derivatives 1e-4) hold on the CPU as well."""
+    from ecrad_tpu_torch.config import spartacus_slice_config
+    from ecrad_tpu_torch.convert import columns_to_inputs
+    from ecrad_tpu_torch.inputs import (add_effective_sizes, make_aerosols,
+                                        make_clouds, make_columns,
+                                        slice_columns, write_synthetic_luts)
+    from ecrad_tpu_torch.interface import radiation, setup_radiation
+
+    cols = slice_columns(add_effective_sizes(make_aerosols(make_clouds(
+        make_columns(2048, 137, 0), 0), 0)), slice(0, 2))
+    setup = setup_radiation(spartacus_slice_config(
+        **write_synthetic_luts(str(tmp_path), 0, ice="fu")), device="cpu")
+    flux = radiation(setup, *columns_to_inputs(cols, device="cpu"))
+    bounds = {"lw_up": 0.01, "lw_dn": 0.01, "sw_up": 0.2, "sw_dn": 0.2,
+              "sw_dn_direct": 0.01, "lw_up_clear": 0.01, "lw_dn_clear": 0.01,
+              "sw_up_clear": 0.2, "sw_dn_clear": 0.2,
+              "cloud_cover_sw": 1e-5, "cloud_cover_lw": 1e-5,
+              "lw_derivatives": 1e-4}
+    with np.load(GOLDEN_SPARTACUS) as z:
+        for k, bound in bounds.items():
+            got = getattr(flux, k).double().numpy()
+            f32, f64 = z[k][:2], z[k + "_f64"][:2]
+            assert z[k].shape[0] == 32
+            assert np.abs(got - f64).max() <= bound, k
+            assert (np.abs(got - f32).max()
+                    <= bound + np.abs(f32 - f64).max()), k
 
 
 @pytest.mark.parametrize("entry", ["setup_radiation", "setup_from_numpy",

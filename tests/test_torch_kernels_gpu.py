@@ -1,6 +1,7 @@
 """PyTorch port on a CUDA GPU: each hand-written kernel against its plain
 PyTorch version on the card, the wrappers' refusals, and the launch
-counts of the Cloudless, McICA, Tripleclouds and Homogeneous paths.
+counts of the Cloudless, McICA, Tripleclouds, Homogeneous and SPARTACUS
+paths.
 
 Marked `gpu`; every test decides inside itself whether there is a card
 and skips without one. The file imports no jax, so it runs on a machine
@@ -12,23 +13,28 @@ imports jax):
 Bounds: B1/B2 the JAX package's fused-taumol bound (rel 1e-5 where
 tau > 1e-6, pfrac atol 1e-6), B3/B3'/B5 its fused-sweep bound (2e-6 of
 the range), B4 its McICA-optics bounds (tests/test_mcica_optics.py: SW 2e-3,
-LW 1e-4 of the range). The kernels build with -fmad=false, so only
-summation order separates them from the plain versions.
+LW 1e-4 of the range), B6-B9 its SPARTACUS kernel-vs-fallback bound (2e-5
+of the plain output's largest value, tools/check_kernel_equivalence.py).
+The kernels build with -fmad=false, so only summation order separates
+them from the plain versions.
 """
 import numpy as np
 import pytest
 import torch
 
-from ecrad_tpu_torch.config import (Overlap, PdfShape, Solver,
+from ecrad_tpu_torch.config import (Entrapment, Overlap, PdfShape, Solver,
                                     cloudless_slice_config,
                                     mcica_slice_config,
+                                    spartacus_slice_config,
                                     tripleclouds_slice_config)
 from ecrad_tpu_torch.convert import columns_to_inputs
-from ecrad_tpu_torch.inputs import (make_aerosols, make_clouds,
-                                    make_columns, write_synthetic_luts)
+from ecrad_tpu_torch.inputs import (add_effective_sizes, make_aerosols,
+                                    make_clouds, make_columns,
+                                    write_synthetic_luts)
 from ecrad_tpu_torch.interface import (_cloud_stage, radiation,
                                        setup_radiation)
-from ecrad_tpu_torch.ops import adding_fused, mcica_optics
+from ecrad_tpu_torch.ops import (adding_fused, mcica_optics,
+                                 spartacus_adding, spartacus_reftrans)
 from ecrad_tpu_torch.optics.rrtmg import taumol_lw, taumol_sw
 from ecrad_tpu_torch.optics.rrtmg.setcoef import prepare_gases, setcoef
 from ecrad_tpu_torch.solvers import adding, tripleclouds
@@ -231,7 +237,8 @@ def test_kernels_refuse_float64_and_strided_tensors(cuda, slice_state):
 
 def _reset_counts():
     taumol_lw.launches = taumol_sw.launches = 0
-    for d in (adding_fused.launches, mcica_optics.launches):
+    for d in (adding_fused.launches, mcica_optics.launches,
+              spartacus_reftrans.launches, spartacus_adding.launches):
         for k in d:
             d[k] = 0
 
@@ -419,6 +426,187 @@ def test_tripleclouds_and_homogeneous_paths_launch_their_kernels(
     assert adding_fused.launches == {
         "sw_adding": n_sw, "lw_noscat": n_noscat, "lw_adding": n_lw,
         "tc_sw_sweeps": n_tc, "tc_lw_sweeps": n_tc}
+    cpu = radiation(setup_radiation(cfg, device="cpu"), *_to_cpu(inputs))
+    for k, v in flux.fields():
+        assert bool(torch.isfinite(v).all()), k
+        if k.startswith("cloud_cover") or k == "lw_derivatives":
+            bound = 1e-5
+        else:
+            bound = {(True, True): 0.01, (True, False): 0.2,
+                     (False, True): 0.02, (False, False): 0.3}[
+                ("clear" in k, k.startswith("lw"))]
+        assert float((v.cpu() - getattr(cpu, k)).abs().max()) <= bound, k
+
+
+# ---- SPARTACUS: B6, B7, B8, B9 ----
+
+def _spartacus_case(cuda, nreg, nlev=7, ng=16, ncol=133, seed=7):
+    """Inputs as tools/check_kernel_equivalence.py:143-163 builds them:
+    mu0 at the 1e-10 clamp in every 17th column, a level with no 3D
+    cell, clear layers; and random per-column rows for the sweeps."""
+    rng = np.random.RandomState(seed)
+    r = lambda *s, lo=0.0, hi=1.0: torch.as_tensor(
+        (lo + (hi - lo) * rng.rand(*s)).astype(np.float32), device=cuda)
+    c = dict(od=r(nlev, nreg, ng, ncol, hi=6.0),
+             ssa=r(nlev, nreg, ng, ncol, lo=0.05, hi=0.999),
+             g=r(nlev, nreg, ng, ncol, hi=0.8),
+             trd=r(nlev, nreg, nreg, ncol, hi=0.5),
+             trf=r(nlev, nreg, nreg, ncol, hi=0.5))
+    mu0 = (0.05 + 0.95 * rng.rand(ncol)).astype(np.float32)
+    mu0[::17] = 1e-10
+    c["mu0"] = torch.as_tensor(mu0, device=cuda)
+    use3d = rng.rand(nlev, ng, ncol) > 0.4
+    use3d[0] = False
+    c["use3d"] = torch.as_tensor(use3d, device=cuda)
+    c["clear"] = torch.as_tensor(rng.rand(nlev, ncol) > 0.7, device=cuda)
+    c.update(se=r(nlev, ng, ncol, lo=0.5, hi=1.0), pt=r(nlev, ng, ncol,
+                                                        hi=40.0),
+             pb=r(nlev, ng, ncol, hi=40.0), fr=r(nlev, nreg, ncol))
+    prev = torch.roll(c["clear"], 1, 0)
+    nxt = torch.roll(c["clear"], -1, 0)
+    um, vm = r(nlev + 1, nreg, nreg, ncol), r(nlev + 1, nreg, nreg, ncol)
+    c["cols"] = spartacus_adding.pack_cols(
+        um, vm, r(nlev, ncol), r(nlev, ncol, hi=500), r(nlev, ncol, hi=300),
+        r(nlev, ncol, hi=300), r(nlev, 3, ncol, hi=1e-3),
+        r(nlev, ncol, hi=1e-3), r(nlev, ncol), r(nlev, nreg, ncol),
+        r(nlev, nreg, ncol), c["clear"], prev, nxt, r(ncol))
+    c["lcols"] = spartacus_adding.lw_pack_cols(um, vm, c["clear"], prev, nxt)
+    c["init"] = r(2 * nreg * nreg, ng, ncol, hi=0.3)
+    c["d0"] = r(nreg, ng, ncol, hi=100.0)
+    c["linit"] = torch.cat([r(nreg * nreg, ng, ncol, hi=0.2),
+                            r(nreg, ng, ncol, hi=50.0)])
+    return c
+
+
+SW_RT = ("od", "ssa", "g", "trd", "trf", "mu0", "use3d", "clear")
+LW_RT = ("od", "ssa", "g", "trd", "se", "pt", "pb", "fr", "use3d", "clear")
+
+
+@pytest.mark.parametrize("nreg", [3, 2])
+def test_b6_b7_kernels_match_plain(cuda, nreg):
+    c = _spartacus_case(cuda, nreg)
+    counts = torch.empty(c["use3d"].shape, dtype=torch.int8, device=cuda)
+    n0 = dict(spartacus_reftrans.launches)
+    got = spartacus_reftrans.sw_reftrans_levels(
+        8.0, *(c[k] for k in SW_RT), counts=counts)
+    torch.cuda.synchronize()
+    ref = spartacus_reftrans.sw_reftrans_levels_plain(
+        8.0, *(c[k] for k in SW_RT))
+    assert _rel_all([got], [ref]) <= 2e-5
+    assert bool(((counts < 0) == ~c["use3d"]).all())
+    assert int(counts.max()) >= 4
+    for scattering in (True, False):
+        got = spartacus_reftrans.lw_reftrans_levels(
+            8.0, scattering, *(c[k] for k in LW_RT))
+        torch.cuda.synchronize()
+        ref = spartacus_reftrans.lw_reftrans_levels_plain(
+            8.0, scattering, *(c[k] for k in LW_RT))
+        assert _rel_all([got], [ref]) <= 2e-5, scattering
+    assert spartacus_reftrans.launches == {
+        "spartacus_sw_reftrans": n0["spartacus_sw_reftrans"] + 1,
+        "spartacus_lw_reftrans": n0["spartacus_lw_reftrans"] + 2}
+
+
+@pytest.mark.parametrize("do_3d", [True, False])
+@pytest.mark.parametrize("entrap", list(Entrapment), ids=lambda e: e.name)
+@pytest.mark.parametrize("nreg", [3, 2])
+def test_b8_kernel_matches_plain(cuda, nreg, entrap, do_3d):
+    c = _spartacus_case(cuda, nreg)
+    hist = spartacus_reftrans.sw_reftrans_levels(8.0, *(c[k] for k in SW_RT))
+    cfg = spartacus_slice_config(i_3d_sw_entrapment=entrap,
+                                 do_3d_effects=do_3d)
+    args = (hist, c["cols"], c["init"], c["d0"])
+    n0 = spartacus_adding.launches["spartacus_sw_adding"]
+    got = spartacus_adding.sw_adding_sweeps(cfg, *args)
+    torch.cuda.synchronize()
+    assert spartacus_adding.launches["spartacus_sw_adding"] == n0 + 1
+    assert _rel_all(got, spartacus_adding.sw_adding_sweeps_plain(cfg, *args)
+                    ) <= 2e-5
+
+
+@pytest.mark.parametrize("use_matrix, multilayer", [
+    (True, False), (True, True), (False, False)])
+@pytest.mark.parametrize("nreg", [3, 2])
+def test_b9_kernel_matches_plain(cuda, nreg, use_matrix, multilayer):
+    c = _spartacus_case(cuda, nreg)
+    hist = spartacus_reftrans.lw_reftrans_levels(8.0, False,
+                                                 *(c[k] for k in LW_RT))
+    cfg = spartacus_slice_config(do_3d_lw_multilayer_effects=multilayer)
+    args = (hist, c["lcols"], c["linit"])
+    n0 = spartacus_adding.launches["spartacus_lw_adding"]
+    got = spartacus_adding.lw_adding_sweeps(cfg, use_matrix, *args)
+    torch.cuda.synchronize()
+    assert spartacus_adding.launches["spartacus_lw_adding"] == n0 + 1
+    assert _rel_all(got, spartacus_adding.lw_adding_sweeps_plain(
+        cfg, use_matrix, *args)) <= 2e-5
+
+
+def test_spartacus_kernels_refuse_float64_and_strided_tensors(cuda):
+    c = _spartacus_case(cuda, 3, nlev=3, ng=4, ncol=10)
+    sw = [c[k] for k in SW_RT]
+    strided = sw[0].transpose(2, 3).contiguous().transpose(2, 3)
+    fused = spartacus_reftrans.sw_reftrans_levels_fused
+    with pytest.raises(ValueError, match="contiguous"):
+        fused(8.0, strided, *sw[1:])
+    with pytest.raises(TypeError):
+        fused(8.0, sw[0].double(), *sw[1:])
+    lw = [c[k] for k in LW_RT]
+    with pytest.raises(TypeError):
+        spartacus_reftrans.lw_reftrans_levels_fused(8.0, True, *lw[:4],
+                                                    lw[4].double(), *lw[5:])
+    hist = spartacus_reftrans.sw_reftrans_levels(8.0, *sw)
+    cfg = spartacus_slice_config()
+    with pytest.raises(TypeError):
+        spartacus_adding.sw_adding_sweeps_fused(cfg, hist.double(), c["cols"],
+                                                c["init"], c["d0"])
+    with pytest.raises(ValueError, match="contiguous"):
+        spartacus_adding.sw_adding_sweeps_fused(
+            cfg, hist, c["cols"].transpose(1, 2).contiguous().transpose(1, 2),
+            c["init"], c["d0"])
+    lhist = spartacus_reftrans.lw_reftrans_levels(8.0, True, *lw)
+    with pytest.raises(TypeError):
+        spartacus_adding.lw_adding_sweeps_fused(cfg, True, lhist,
+                                                c["lcols"].double(),
+                                                c["linit"])
+
+
+SPARTACUS_VARIANTS = {
+    # (config overrides, B3 sw_adding, lw_noscat, lw_adding)
+    "spartacus": ({}, 1, 0, 1),
+    "spartacus_maxentr": (dict(i_3d_sw_entrapment=Entrapment.MAXIMUM), 1, 0,
+                          1),
+    "spartacus_2reg": (dict(nregions=2, i_cloud_pdf_shape=PdfShape.LOGNORMAL,
+                            i_3d_sw_entrapment=Entrapment.ZERO,
+                            do_lw_cloud_scattering=True,
+                            do_lw_aerosol_scattering=False,
+                            use_aerosols=False), 1, 1, 0),
+}
+
+
+@pytest.mark.parametrize("variant", list(SPARTACUS_VARIANTS))
+def test_spartacus_path_launches_its_kernels(cuda, tmp_path, variant):
+    """The SPARTACUS path on the card launches B1, B2, B3/B3' for its
+    clear sky and B6-B9 once each; its fluxes against the plain path on
+    the CPU within the float32 contracts (clear sky lw 0.01, sw 0.2; total
+    sky lw 0.02, sw 0.3; cloud covers and derivatives 1e-5)."""
+    kw, n_sw, n_noscat, n_lw = SPARTACUS_VARIANTS[variant]
+    cfg = spartacus_slice_config(
+        **write_synthetic_luts(str(tmp_path), ice="fu"), **kw)
+    cols = add_effective_sizes(make_aerosols(make_clouds(make_columns(
+        96, 137, 0))))
+    inputs = columns_to_inputs(cols, device=cuda)
+    setup = setup_radiation(cfg, device=cuda)
+    _reset_counts()
+    flux = radiation(setup, *inputs)
+    torch.cuda.synchronize()
+    assert taumol_lw.launches == 1 and taumol_sw.launches == 1
+    assert adding_fused.launches == {
+        "sw_adding": n_sw, "lw_noscat": n_noscat, "lw_adding": n_lw,
+        "tc_sw_sweeps": 0, "tc_lw_sweeps": 0}
+    assert spartacus_reftrans.launches == {"spartacus_sw_reftrans": 1,
+                                           "spartacus_lw_reftrans": 1}
+    assert spartacus_adding.launches == {"spartacus_sw_adding": 1,
+                                         "spartacus_lw_adding": 1}
     cpu = radiation(setup_radiation(cfg, device="cpu"), *_to_cpu(inputs))
     for k, v in flux.fields():
         assert bool(torch.isfinite(v).all()), k

@@ -169,8 +169,10 @@ def test_inputs_from_numpy_round_trip():
 # ---- configuration ----
 
 @pytest.mark.parametrize("overrides, slice_no", [
-    (dict(i_solver_sw=pconfig.Solver.SPARTACUS), "7"),
-    (dict(i_solver_lw=pconfig.Solver.SPARTACUS), "7"),
+    (dict(i_solver_sw=pconfig.Solver.SPARTACUS,
+          do_print_entrapment_data=True), "8"),
+    (dict(i_solver_lw=pconfig.Solver.SPARTACUS,
+          do_print_entrapment_data=True), "8"),
     (dict(do_save_gpoint_flux=True), "8"),
     (dict(do_canopy_fluxes_lw=True), "8"),
     (dict(use_canopy_full_spectrum_lw=True), "8"),

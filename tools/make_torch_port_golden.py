@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Golden fluxes for the PyTorch port, from the JAX package on the CPU.
 
-Three goldens, each for the first 32 of the 2048 seed-0 columns of
+Four goldens, each for the first 32 of the 2048 seed-0 columns of
 ecrad_tpu_torch.inputs that chip_smoke.py runs (so the card's run and the
 golden see identical columns):
 
@@ -18,7 +18,12 @@ golden see identical columns):
   aerosol types, LW derivatives) on make_aerosols(make_clouds(
   make_columns(2048, 137, 0), 0), 0) with the same synthetic LUTs (Fu
   ice) and synthetic aerosol table: total- and clear-sky fluxes, both
-  cloud covers and the LW derivatives.
+  cloud covers and the LW derivatives;
+- tests/goldens/torch_port_spartacus.npz: the SPARTACUS path
+  (spartacus_slice_config: 3D effects, Explicit entrapment, the
+  Tripleclouds path's other settings) on the same columns with the
+  effective sizes of inputs.add_effective_sizes (the CY47R1 namelist's
+  cloud separation): the same fields as Tripleclouds.
 
 Each flux field is stored twice: `<field>` from the JAX package at float32
 and `<field>_f64` at float64 (each precision in its own process, because
@@ -41,7 +46,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = {name: os.path.join(REPO, "tests", "goldens",
                               f"torch_port_{name}.npz")
-           for name in ("cloudless", "mcica", "tripleclouds")}
+           for name in ("cloudless", "mcica", "tripleclouds", "spartacus")}
 NCOL_BATCH, NCOL, NLEV, SEED = 2048, 32, 137, 0
 FIELDS = ("lw_up", "lw_dn", "sw_up", "sw_dn", "sw_dn_direct")
 CLEAR_FIELDS = tuple(f + "_clear" for f in FIELDS)
@@ -84,9 +89,10 @@ def jax_inputs(cols, dtype: str):
                         temperature_hl=a("temperature_hl"))
     cloud = None
     if cloudy:
-        cloud = Cloud(**{k: a(k) for k in ("q_liq", "q_ice", "re_liq",
-                                           "re_ice", "fraction",
-                                           "fractional_std")})
+        cloud = Cloud(**{k: a(k) for k in (
+            "q_liq", "q_ice", "re_liq", "re_ice", "fraction",
+            "fractional_std", "inv_cloud_effective_size",
+            "inv_inhom_effective_size") if k in cols})
     aerosol = (Aerosol(mixing_ratio=a("aerosol_mmr"))
                if "aerosol_mmr" in cols else None)
     return sl, th, GasConcs(mixing_ratio=a("mixing_ratio")), cloud, aerosol
@@ -141,15 +147,18 @@ def jax_subcolumn_masks(cols, config, dtype: str = "float32") -> dict:
     return out
 
 
-def mcica_columns(aerosols=False):
-    """The golden's columns of the 2048: with clouds, and with aerosols
-    for Tripleclouds (drawn for all 2048 columns, as chip_smoke.py
-    does)."""
-    from ecrad_tpu_torch.inputs import (make_aerosols, make_clouds,
-                                        make_columns, slice_columns)
+def mcica_columns(aerosols=False, effective_sizes=False):
+    """The golden's columns of the 2048: with clouds, with aerosols for
+    Tripleclouds and SPARTACUS (drawn for all 2048 columns, as
+    chip_smoke.py does), and with the effective sizes for SPARTACUS."""
+    from ecrad_tpu_torch.inputs import (add_effective_sizes, make_aerosols,
+                                        make_clouds, make_columns,
+                                        slice_columns)
     cols = make_clouds(make_columns(NCOL_BATCH, NLEV, SEED), SEED)
     if aerosols:
         cols = make_aerosols(cols, SEED)
+    if effective_sizes:
+        cols = add_effective_sizes(cols)
     return slice_columns(cols, slice(0, NCOL))
 
 
@@ -160,6 +169,7 @@ def _child(name: str, dtype: str, out: str) -> None:
     if dtype == "float64":
         jax.config.update("jax_enable_x64", True)
     from ecrad_tpu_torch.config import (mcica_slice_config,
+                                        spartacus_slice_config,
                                         tripleclouds_slice_config)
     from ecrad_tpu_torch.inputs import (make_columns, slice_columns,
                                         write_synthetic_luts)
@@ -168,11 +178,14 @@ def _child(name: str, dtype: str, out: str) -> None:
                              slice(0, NCOL))
         np.savez(out, **jax_fluxes(dtype, cols)[0])
         return
-    if name == "tripleclouds":
+    if name in ("tripleclouds", "spartacus"):
+        make = {"tripleclouds": tripleclouds_slice_config,
+                "spartacus": spartacus_slice_config}[name]
         with tempfile.TemporaryDirectory() as luts:
-            config = tripleclouds_slice_config(**write_synthetic_luts(
-                luts, SEED, ice="fu"))
-            np.savez(out, **jax_fluxes(dtype, mcica_columns(aerosols=True),
+            config = make(**write_synthetic_luts(luts, SEED, ice="fu"))
+            cols = mcica_columns(aerosols=True,
+                                 effective_sizes=name == "spartacus")
+            np.savez(out, **jax_fluxes(dtype, cols,
                                        fields=TRIPLECLOUDS_FIELDS,
                                        config=config)[0])
         return
@@ -187,7 +200,7 @@ def _child(name: str, dtype: str, out: str) -> None:
 
 
 def generate() -> dict:
-    """Both goldens at both precisions, each (golden, precision) in its
+    """Every golden at both precisions, each (golden, precision) in its
     own process, all run side by side. Returns {golden: {key: array}}."""
     golden = {name: {} for name in GOLDENS}
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -249,7 +262,8 @@ def main() -> int:
         golden = goldens[name]
         np.savez_compressed(GOLDENS[name], **golden)
         for k in {"cloudless": FIELDS, "mcica": MCICA_FIELDS,
-                  "tripleclouds": TRIPLECLOUDS_FIELDS}[name]:
+                  "tripleclouds": TRIPLECLOUDS_FIELDS,
+                  "spartacus": TRIPLECLOUDS_FIELDS}[name]:
             err = np.abs(golden[k] - golden[k + "_f64"]).max()
             print(f"{name} {k}: JAX float32 vs float64 max abs {err:.3e}")
         print(f"wrote {GOLDENS[name]}")

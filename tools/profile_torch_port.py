@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's Cloudless, McICA or Tripleclouds
-path goes, on one GPU.
+"""Where the time of the PyTorch port's Cloudless, McICA, Tripleclouds or
+SPARTACUS path goes, on one GPU.
 
     python3 tools/profile_torch_port.py
-        [--solver cloudless|mcica|tripleclouds] [--ncol 2048] [--nlev 137]
-        [--calls 3] [--out-dir profile_out]
+        [--solver cloudless|mcica|tripleclouds|spartacus] [--ncol 2048]
+        [--nlev 137] [--calls 3] [--out-dir profile_out]
 
 Runs setup_radiation + radiation on the columns of
 ecrad_tpu_torch.inputs (seed 0; for McICA and Tripleclouds with
@@ -18,8 +18,9 @@ window's wall time) and the wall time per call; for each stage span
 cloud generator with its threefry draws and its cumulative cloud cover;
 for Tripleclouds the aerosol stage, the region properties and overlap
 matrices, every two-stream reflectance/transmittance call, the two B5
-sweeps and the LW derivatives) its host time and the device time of the
-kernels it launched.
+sweeps and the LW derivatives; for SPARTACUS, on the same columns with
+add_effective_sizes, also the B6/B7 reftrans and B8/B9 adding calls) its
+host time and the device time of the kernels it launched.
 Writes the full table and a gzipped Chrome trace into --out-dir (file
 names carry the solver). Exits 1 without a GPU.
 """
@@ -61,6 +62,7 @@ def add_spans(solver):
 
     from ecrad_tpu_torch import interface
     from ecrad_tpu_torch.solvers import (cloud_generator, mcica,
+                                         spartacus_lw, spartacus_sw,
                                          tripleclouds, two_stream)
 
     def span(module, attr, name):
@@ -76,6 +78,24 @@ def add_spans(solver):
     if solver == "cloudless":
         return names + [span(interface, "solver_cloudless_lw", "solver_lw"),
                         span(interface, "solver_cloudless_sw", "solver_sw")]
+    if solver == "spartacus":
+        return names + [
+            span(interface, "add_aerosol_optics", "aerosol"),
+            span(interface, "_cloud_stage", "cloud_stage"),
+            span(interface, "solve_lw", "solver_lw"),
+            span(interface, "solve_sw", "solver_sw"),
+            *{span(m, "regions_and_overlap", "region_props")
+              for m in (spartacus_sw, spartacus_lw)},
+            *{span(two_stream, f, "reftrans") for f in (
+                "sw_reftrans", "lw_reftrans",
+                "lw_no_scattering_transmittance")},
+            *{span(m, f, "spartacus_reftrans") for m, f in (
+                (spartacus_sw, "sw_reftrans_levels"),
+                (spartacus_lw, "lw_reftrans_levels"))},
+            *{span(m, f, "spartacus_adding") for m, f in (
+                (spartacus_sw, "sw_adding_sweeps"),
+                (spartacus_lw, "lw_adding_sweeps"))},
+            span(spartacus_lw, "lw_derivatives_matrix", "lw_derivatives")]
     if solver == "tripleclouds":
         return names + [
             span(interface, "add_aerosol_optics", "aerosol"),
@@ -102,7 +122,7 @@ def add_spans(solver):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--solver", choices=("cloudless", "mcica",
-                                         "tripleclouds"),
+                                         "tripleclouds", "spartacus"),
                     default="cloudless")
     ap.add_argument("--ncol", type=int, default=2048)
     ap.add_argument("--nlev", type=int, default=137)
@@ -116,10 +136,12 @@ def main():
 
     from ecrad_tpu_torch.config import (cloudless_slice_config,
                                         mcica_slice_config,
+                                        spartacus_slice_config,
                                         tripleclouds_slice_config)
     from ecrad_tpu_torch.convert import columns_to_inputs
-    from ecrad_tpu_torch.inputs import (make_aerosols, make_clouds,
-                                        make_columns, write_synthetic_luts)
+    from ecrad_tpu_torch.inputs import (add_effective_sizes, make_aerosols,
+                                        make_clouds, make_columns,
+                                        write_synthetic_luts)
     from ecrad_tpu_torch.interface import radiation, setup_radiation
 
     gpu = subprocess.run(
@@ -137,9 +159,12 @@ def main():
         config = mcica_slice_config(**write_synthetic_luts(lut_dir, 0))
         cols = make_clouds(cols, 0)
     else:
-        config = tripleclouds_slice_config(**write_synthetic_luts(
-            lut_dir, 0, ice="fu"))
+        make = (spartacus_slice_config if args.solver == "spartacus"
+                else tripleclouds_slice_config)
+        config = make(**write_synthetic_luts(lut_dir, 0, ice="fu"))
         cols = make_aerosols(make_clouds(cols, 0), 0)
+        if args.solver == "spartacus":
+            cols = add_effective_sizes(cols)
     setup = setup_radiation(config, device=dev)
     inputs = columns_to_inputs(cols, device=dev)
     span_names = add_spans(args.solver)
