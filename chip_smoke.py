@@ -11,14 +11,17 @@ Phases; any failure exits non-zero and prints no result line:
      and lw_noscat, B3' lw_adding, B4 mcica_sw_optics and
      mcica_lw_optics, B5 tc_sw_sweeps and tc_lw_sweeps, B6
      spartacus_sw_reftrans, B7 spartacus_lw_reftrans, B8
-     spartacus_sw_adding, B9 spartacus_lw_adding) against its plain
-     PyTorch version on the card, at the shapes the paths give it (B5-B9
-     on the operands the Tripleclouds and SPARTACUS paths hand them; B6
-     and B7 also on a random case built like
+     spartacus_sw_adding, B9 spartacus_lw_adding, B10 gather_sections)
+     against its plain PyTorch version on the card, at the shapes the
+     paths give it (B5-B9 on the operands the Tripleclouds and SPARTACUS
+     paths hand them; B6 and B7 also on a random case built like
      tools/check_kernel_equivalence.py's, at 3 and 2 regions; B8 under all
-     five entrapment treatments on 256 columns of the path's operands);
-     the SPARTACUS path's share of cells with the 3D treatment and the
-     histogram of their doubling counts;
+     five entrapment treatments on 256 columns of the path's operands;
+     B10 on the 30 calls of one per-band gas-optics call of the 2048 x 137
+     columns and on that tool's random cases, with rows past both ends);
+     the per-band gas optics against B1/B2's; the SPARTACUS path's share
+     of cells with the 3D treatment and the histogram of their doubling
+     counts;
   3. the paths, each run once with the launch counts set to 0 just
      before it and read just after, through setup_radiation + radiation:
      a. Cloudless on 2048 x 137 columns of ecrad_tpu_torch.inputs (seed
@@ -52,9 +55,20 @@ Phases; any failure exits non-zero and prints no result line:
      h. SPARTACUS on 256 columns with Maximum entrapment, and with 2
         regions, lognormal PDF, Zero entrapment, LW cloud scattering and
         no aerosols (B6-B9 at NREG=2, B3 lw_noscat);
+     i. the offline driver (ecrad_tpu_torch.driver.main) with
+        ECRAD_FUSED_TAUMOL=0, the per-band gas optics, on the 2048 x 137
+        columns written to a NetCDF file by save_inputs: 30 B10 launches
+        and no B1/B2, the written fluxes' first 32 columns against
+        tests/goldens/torch_port_cloudless.npz;
+     j. the driver with McICA (all-band gas optics) on 256 columns of
+        make_clouds and the synthetic LUTs: its file equal, field by
+        field, to what radiation() gives for the same file's inputs;
   4. times (information only): each kernel and its plain version with
-     CUDA events, and each 2048-column path's columns/s and peak memory
-     over 10 back-to-back calls, best of 2.
+     CUDA events (B10 per gas-optics call, its 30 launches, beside one
+     embedding_bag call per launch on the same flattened operands), and
+     each 2048-column path's columns/s and peak memory over 10
+     back-to-back calls, best of 2, Cloudless also with the per-band gas
+     optics.
 The line before last is the card's name and power limit, the one before
 that a JSON summary of the kernels (with each kernel's least time on the
 card, bound_ms, from this run's operand bytes and operation count); the
@@ -136,7 +150,40 @@ PATH_KERNELS = {
     "spartacus_2reg": ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat",
                        "spartacus_sw_reftrans", "spartacus_lw_reftrans",
                        "spartacus_sw_adding", "spartacus_lw_adding"),
+    "driver_per_band": ("gather_sections", "sw_adding", "lw_noscat"),
+    "driver_mcica": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
+                     "mcica_sw_optics"),
 }
+# B10 launches per gas-optics call of the per-band path: 16 LW bands, 13
+# SW bands with gas absorption and band 24's Rayleigh term
+B10_PER_CALL = 30
+# B10 against its plain version: the JAX package's gather-interp bound
+# (tools/check_kernel_equivalence.py:59-62), of the output's largest value
+B10_REL = 5e-6
+DRIVER_DIR = os.path.join(REPO, "ecrad_tpu_torch", "_build", "driver")
+# the driver's namelist: the port's slice options (config.SLICE_OPTIONS)
+NAMELIST = """&radiation
+ sw_solver_name = "{solver}",
+ lw_solver_name = "{solver}",
+ overlap_scheme_name = "Exp-Exp",
+ use_aerosols = false,
+ do_nearest_spectral_sw_albedo = false,
+ sw_albedo_wavelength_bound(1:5) = 0.25e-6, 0.44e-6, 0.69e-6, 1.19e-6, 2.38e-6,
+ i_sw_albedo_index(1:6) = 1, 2, 3, 4, 5, 6,
+ do_nearest_spectral_lw_emiss = true,
+ lw_emiss_wavelength_bound(1:2) = 8.0e-6, 13.0e-6,
+ i_lw_emiss_index(1:3) = 1, 2, 1,
+{luts}/
+&radiation_driver
+ iverbose = 1,
+ do_parallel = false,
+ solar_irradiance_override = {solar},
+/
+"""
+# the flux variables of the driver's output file
+FILE_FLUXES = {"lw_up": "flux_up_lw", "lw_dn": "flux_dn_lw",
+               "sw_up": "flux_up_sw", "sw_dn": "flux_dn_sw",
+               "sw_dn_direct": "flux_dn_direct_sw"}
 NCOL_NOSCAT = 256
 # the least time of a kernel: its operand bytes (each input read once,
 # each output written once) over the H100 SXM's device-memory rate, or
@@ -218,6 +265,77 @@ def least_time(name, args, outs, values=None, ops=None):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def write_namelist(path, solver, luts, solar):
+    with open(path, "w") as f:
+        f.write(NAMELIST.format(
+            solver=solver, solar=solar,
+            luts="".join(f' {k} = "{v}",\n' for k, v in luts.items())))
+    return path
+
+
+def read_nc(path):
+    from ecrad_tpu_torch.io.netcdf import NetcdfFile
+    with NetcdfFile(path) as f:
+        return {v: f.read(v) for v in f.variables()}
+
+
+def random_sections(dev, name, n, seed=0):
+    """B10's random cases, built like tools/check_kernel_equivalence.py:
+    48-55 (plain, the two LW eta shapes, mixed), and plain and flattened
+    eta rows past both ends of their tables."""
+    from ecrad_tpu_torch.ops import gather_interp as gi
+    rng = np.random.RandomState(seed)
+    t = lambda x: torch.as_tensor(x, device=dev)            # noqa: E731
+
+    def plain(r, k, g, lo=0, hi=None):
+        return gi.Section(
+            rng.rand(r, g).astype(np.float32),
+            [t(rng.randint(lo, r if hi is None else hi, n).astype(np.int32))
+             for _ in range(k)],
+            [t(rng.rand(n).astype(np.float32)) for _ in range(k)])
+
+    def eta(r1, r2, g, gos, eos, grid=(0, None), etas=(1, None)):
+        return gi.EtaSection(
+            rng.rand(r1, r2, g).astype(np.float32),
+            [t(rng.randint(grid[0], grid[1] or r1 - 1, n).astype(np.int32))
+             for _ in range(2)],
+            [[(o, t(rng.rand(n).astype(np.float32))) for o in gos]
+             for _ in range(2)],
+            [t(rng.randint(etas[0], etas[1] or r2 - 2, n).astype(np.int32))
+             for _ in range(2)],
+            [[(o, t(rng.rand(n).astype(np.float32))) for o in eos]
+             for _ in range(2)])
+
+    return {
+        "plain": lambda: [plain(65, 4, 12)],
+        "eta_lw_absa": lambda: [eta(65, 9, 12, (0, 1), (-1, 0, 1, 2))],
+        "eta_lw_absb": lambda: [eta(235, 5, 12, (0, 1), (0, 1))],
+        "mixed": lambda: [plain(10, 2, 12), eta(19, 9, 12, (0, 1), (0, 1)),
+                          plain(300, 4, 12)],
+        "out_of_range": lambda: [plain(20, 3, 12, lo=-7, hi=26),
+                                 eta(13, 9, 12, (-1, 0, 1), (-3, 0, 1, 4),
+                                     grid=(-2, 15), etas=(-4, 12))],
+    }[name]()
+
+
+def flat_terms(secs, dev):
+    """A section list as the operands of one embedding_bag call: (N, K)
+    global rows into the stacked tables (clipped, EtaSections flattened),
+    the (R, G) tables, (N, K) weights."""
+    from ecrad_tpu_torch.ops import gather_interp as gi
+    rows, ws, tabs, off = [], [], [], 0
+    for sec in secs:
+        if isinstance(sec, gi.EtaSection):
+            sec = gi.eta_to_plain(sec, torch.float32, dev)
+        tab = gi.table_tensor(sec.table, torch.float32, dev)
+        rows += [off + r.clamp(0, tab.shape[0] - 1).long() for r in sec.rows]
+        ws += list(sec.weights)
+        tabs.append(tab)
+        off += tab.shape[0]
+    return (torch.stack(rows, 1).contiguous(), torch.cat(tabs),
+            torch.stack(ws, 1).contiguous())
 
 
 def rel_to_max(a, b):
@@ -360,9 +478,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    # the paths take the all-band gas optics unless a run sets this
+    os.environ.pop("ECRAD_FUSED_TAUMOL", None)
 
+    from ecrad_tpu_torch import driver
     from ecrad_tpu_torch.config import (Entrapment, Overlap, PdfShape,
                                         Solver, cloudless_slice_config,
+                                        load_config_from_namelist,
+                                        load_driver_config_from_namelist,
                                         mcica_slice_config,
                                         spartacus_slice_config,
                                         tripleclouds_slice_config)
@@ -372,10 +495,14 @@ def main():
                                         slice_columns, write_synthetic_luts)
     from ecrad_tpu_torch.interface import (_cloud_stage, get_albedos,
                                            radiation, setup_radiation)
+    from ecrad_tpu_torch.io.input_reader import read_input
+    from ecrad_tpu_torch.io.output import save_fluxes, save_inputs
     from ecrad_tpu_torch.ops import _cuda, adding_fused, mcica_optics
+    from ecrad_tpu_torch.ops import gather_interp as gi
     from ecrad_tpu_torch.ops import spartacus_adding as sa
     from ecrad_tpu_torch.ops import spartacus_reftrans as sr
-    from ecrad_tpu_torch.optics.rrtmg import taumol_lw, taumol_sw
+    from ecrad_tpu_torch.optics.rrtmg import (taumol_lw, taumol_lw_sections,
+                                              taumol_sw, taumol_sw_sections)
     from ecrad_tpu_torch.optics.rrtmg.gas_optics import gas_optics
     from ecrad_tpu_torch.optics.rrtmg.setcoef import prepare_gases, setcoef
     from ecrad_tpu_torch.solvers import (adding, cloudless, spartacus_lw,
@@ -424,7 +551,8 @@ def main():
                        *[gas.get(n) for n in ("h2o", "co2", "ch4", "n2o",
                                               "cfc11", "cfc12", "hcfc22",
                                               "ccl4", "o3")])
-    c = setcoef(gc, t["preflog"], t["tref"], t["chi_mls"]).flip_levels()
+    c_sf = setcoef(gc, t["preflog"], t["tref"], t["chi_mls"])
+    c = c_sf.flip_levels()
     fc_lw, ic_lw = taumol_lw.pack_coeffs(c, t["chi_mls"])
     fc_sw, ic_sw = taumol_sw.pack_coeffs(c)
     errs, bounds = {}, {}
@@ -669,12 +797,92 @@ def main():
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version on the random case")
 
+    # B10 on the 30 calls of one per-band gas-optics call (the section
+    # lists the path builds from the 2048 x 137 columns' coefficients)
+    b10_calls = []
+
+    def keep_sections(secs, n):
+        b10_calls.append((secs, n))
+        return gi.eval_sections(secs, n)
+    for mod in (taumol_lw_sections, taumol_sw_sections):
+        mod.eval_sections = keep_sections
+    pb_lw = taumol_lw_sections.taumol_lw_sections(c_sf, t, toa_first=True)
+    pb_sw = taumol_sw_sections.taumol_sw_sections(c_sf, t, toa_first=True)
+    for mod in (taumol_lw_sections, taumol_sw_sections):
+        mod.eval_sections = gi.eval_sections
+    if len(b10_calls) != B10_PER_CALL:
+        raise AssertionError(f"the per-band gas optics made "
+                             f"{len(b10_calls)} eval_sections calls, not "
+                             f"{B10_PER_CALL}")
+    b10_rel, errs["gather_sections"], b10_bytes, b10_ops = 0.0, 0.0, 0, 0
+    for secs, n in b10_calls:
+        a = gi.eval_sections_kernel(secs, n)
+        torch.cuda.synchronize()
+        b = gi.eval_sections_plain(secs, n)
+        b10_rel = max(b10_rel, rel_to_max(a, b))
+        errs["gather_sections"] = max(errs["gather_sections"],
+                                      float((a - b).abs().max()))
+        _, rows, w, tab, g, nterms = gi.pack_sections(secs, n, dev)
+        b10_bytes += sum(x.numel() * x.element_size()
+                         for x in (rows, w, tab, a))
+        b10_ops += 2 * nterms * g * n
+        del a, b, rows, w, tab
+    t_b, t_o = b10_bytes / HBM_BYTES_PER_S, b10_ops / F32_OPS_PER_S
+    bounds["gather_sections"] = (max(t_b, t_o) * 1e3,
+                                 "bytes" if t_b >= t_o else "operations",
+                                 b10_bytes, b10_ops)
+    log(f"gather_sections: the {B10_PER_CALL} calls of one per-band "
+        f"gas-optics call, N={NCOL * NLEV}: worst |diff|/max|plain| "
+        f"{b10_rel:.3e} (bound {B10_REL}), worst abs "
+        f"{errs['gather_sections']:.3e}")
+    if not b10_rel <= B10_REL:
+        raise AssertionError("gather_sections disagrees with its plain "
+                             "version on the path's operands")
+    n_rand = 2048 * 9 + 133
+    for name in ("plain", "eta_lw_absa", "eta_lw_absb", "mixed",
+                 "out_of_range"):
+        secs = random_sections(dev, name, n_rand)
+        a = gi.eval_sections_kernel(secs, n_rand)
+        torch.cuda.synchronize()
+        b = gi.eval_sections_plain(secs, n_rand)
+        rel = rel_to_max(a, b)
+        log(f"gather_sections random case {name}, N={n_rand}: worst "
+            f"|diff|/max|plain| {rel:.3e} (bound {B10_REL})")
+        if not rel <= B10_REL:
+            raise AssertionError(f"gather_sections disagrees with its "
+                                 f"plain version on the random case {name}")
+        errs["gather_sections"] = max(errs["gather_sections"],
+                                      float((a - b).abs().max()))
+    # the per-band optical depths (B10) against the all-band kernels' (B1,
+    # B2), at the JAX package's fused-vs-per-band bound
+    fu_lw = taumol_lw.taumol_lw_cells(c_sf, t["chi_mls"], setup.gas.lw)
+    fu_sw = taumol_sw.taumol_sw_cells(c_sf, t, setup.gas.sw)
+    for name, x, y in (("tau", pb_lw[0], fu_lw[0]),
+                       ("pfrac", pb_lw[1], fu_lw[1]),
+                       ("taug", pb_sw[0], fu_sw[0]),
+                       ("taur", pb_sw[1], fu_sw[1])):
+        if name == "pfrac":
+            err = float((x - y).abs().max())
+            ok = err <= PF_ATOL
+            what = f"worst abs {err:.3e} (bound {PF_ATOL})"
+        else:
+            mask = y.abs() > 1e-6
+            err = float(((x - y).abs() / y.abs().clamp(min=1e-30))[mask]
+                        .max())
+            ok = err <= TAU_REL
+            what = f"worst rel {err:.3e} (bound {TAU_REL}, |x|>1e-6)"
+        log(f"per-band {name} (B10) vs all-band (B1/B2): {what}")
+        if not ok:
+            raise AssertionError(f"per-band {name} disagrees with the "
+                                 f"all-band kernels")
+    del pb_lw, pb_sw, fu_lw, fu_sw
+
     # ---- 3. the paths, counted ----
     counters = (taumol_lw, taumol_sw, adding_fused.launches,
-                mcica_optics.launches, sr.launches, sa.launches)
+                mcica_optics.launches, sr.launches, sa.launches, gi.launches)
     launches = {}
 
-    def counted(name, fn):
+    def count(name, fn):
         reset_counts(counters)
         out = fn()
         torch.cuda.synchronize()
@@ -683,7 +891,11 @@ def main():
         missing = [k for k in PATH_KERNELS[name] if launches[name][k] < 1]
         if missing:
             raise AssertionError(f"{missing} not launched on path {name}")
-        return {k: v.double().cpu().numpy() for k, v in out.fields()}
+        return out
+
+    def counted(name, fn):
+        return {k: v.double().cpu().numpy()
+                for k, v in count(name, fn).fields()}
 
     # a. Cloudless
     f = counted("cloudless", lambda: radiation(setup, sl, th, gas))
@@ -781,6 +993,57 @@ def main():
         check_fluxes(f, cols_h, NCOL_NOSCAT)
         cloud_effect(f, name)
 
+    # i. the offline driver with the per-band gas optics (B10), from a
+    # NetCDF file of the 2048 x 137 columns (save_inputs writes no solar
+    # irradiance: the namelist's override gives the columns' own)
+    os.makedirs(DRIVER_DIR, exist_ok=True)
+    drv_in = os.path.join(DRIVER_DIR, "columns.nc")
+    drv_out = os.path.join(DRIVER_DIR, "fluxes_per_band.nc")
+    save_inputs(drv_in, sl, th, gas, None, None)
+    nam = write_namelist(os.path.join(DRIVER_DIR, "cloudless.nam"),
+                         "Cloudless", {}, cols["solar_irradiance"])
+    os.environ["ECRAD_FUSED_TAUMOL"] = "0"
+    code = count("driver_per_band",
+                 lambda: driver.main([nam, drv_in, drv_out]))
+    del os.environ["ECRAD_FUSED_TAUMOL"]
+    n_b10 = launches["driver_per_band"]
+    if code != 0 or n_b10["gather_sections"] != B10_PER_CALL or \
+            n_b10["taumol_lw"] or n_b10["taumol_sw"]:
+        raise AssertionError(f"the per-band driver run (rc {code}) launched "
+                             f"B10 {n_b10['gather_sections']} times (not "
+                             f"{B10_PER_CALL}) or B1/B2")
+    out = read_nc(drv_out)
+    f = {k: out[v].astype(np.float64) for k, v in FILE_FLUXES.items()}
+    check_fluxes(f, cols, NCOL)
+    with np.load(GOLDEN) as z:
+        golden = {k: z[k] for k in z.files}
+    check_golden(f, golden, BOUNDS, BOUNDS, what=" driver per-band")
+
+    # j. the driver with McICA on 256 columns against radiation() on the
+    # same file's inputs
+    cols_dm = slice_columns(cols_m, slice(0, NCOL_NOSCAT))
+    dm_in = os.path.join(DRIVER_DIR, "clouds.nc")
+    dm_out = os.path.join(DRIVER_DIR, "fluxes_mcica.nc")
+    dm_ref = os.path.join(DRIVER_DIR, "fluxes_mcica_radiation.nc")
+    save_inputs(dm_in, *columns_to_inputs(cols_dm, device=dev), None)
+    nam = write_namelist(os.path.join(DRIVER_DIR, "mcica.nam"), "McICA",
+                         luts, cols["solar_irradiance"])
+    code = count("driver_mcica", lambda: driver.main([nam, dm_in, dm_out]))
+    ins = read_input(dm_in, load_driver_config_from_namelist(nam),
+                     device=dev)
+    save_fluxes(dm_ref, radiation(setup_radiation(
+        load_config_from_namelist(nam), device=dev), *ins), ins[1])
+    got, ref = read_nc(dm_out), read_nc(dm_ref)
+    differ = [k for k in ref if k not in got
+              or not np.array_equal(got[k], ref[k])]
+    log(f"driver mcica: {len(got)} variables of {NCOL_NOSCAT} columns, "
+        f"{len(differ)} differ from radiation() on the file's inputs "
+        f"{differ}; cloud cover > 0.5 in "
+        f"{int((got['cloud_cover_lw'] > 0.5).sum())} columns")
+    if code != 0 or differ or set(got) != set(ref):
+        raise AssertionError("the McICA driver's file differs from "
+                             "radiation() on its inputs")
+
     # ---- 4. times (information only) ----
     timing = {
         "taumol_lw": (lambda: taumol_lw.taumol_lw_kernel(fc_lw, ic_lw,
@@ -832,6 +1095,36 @@ def main():
             lambda: sa.lw_adding_sweeps_fused(*path_args["lw_adding_sweeps"]),
             lambda: sa.lw_adding_sweeps_plain(*path_args["lw_adding_sweeps"])),
     }
+    # B10 per gas-optics call: its 30 launches on operands packed
+    # beforehand (the wrapper's packing is timed apart), the plain
+    # version's 30 calls, and one embedding_bag call per launch on the
+    # same flattened operands (information: nothing on the path calls it)
+    packed = [gi.pack_sections(secs, n, dev) + (n,) for secs, n in b10_calls]
+    b10_out = [torch.empty((p[4], p[6]), device=dev) for p in packed]
+
+    def b10_kernel():
+        for (desc, rows, w, tab, g, nterms, n), out in zip(packed, b10_out):
+            _cuda.launch("gather_sections", desc, rows, w, tab, n, g,
+                         nterms, desc.numel(), out)
+    timing["gather_sections"] = (
+        b10_kernel, lambda: [gi.eval_sections_plain(secs, n)
+                             for secs, n in b10_calls])
+    lib_args = [flat_terms(secs, dev) for secs, _ in b10_calls]
+    lib_err = max(rel_to_max(torch.nn.functional.embedding_bag(
+        idx, tab, per_sample_weights=w, mode="sum").T,
+        gi.eval_sections_plain(secs, n))
+        for (idx, tab, w), (secs, n) in zip(lib_args, b10_calls))
+    library_ms = {"gather_sections": time_ms(lambda: [
+        torch.nn.functional.embedding_bag(idx, tab, per_sample_weights=w,
+                                          mode="sum")
+        for idx, tab, w in lib_args], 20)}
+    wrapper_ms = time_ms(lambda: [gi.eval_sections_kernel(secs, n)
+                                  for secs, n in b10_calls], 20)
+    log(f"time gather_sections: embedding_bag on the flattened operands "
+        f"{library_ms['gather_sections']:.4f} ms per gas-optics call "
+        f"(worst |diff|/max|plain| {lib_err:.3e}); the wrapper with its "
+        f"packing {wrapper_ms:.4f} ms [{gpu}]")
+    del lib_args
     ms = {}
     for name, (kern, plain) in timing.items():
         # the SPARTACUS plain versions take seconds per call: one timed
@@ -846,9 +1139,20 @@ def main():
     # memory below is what a call adds to its inputs and setup
     del timing, path_args, sw_args, lw_args, lwadd_args, b4_sw_args, b4_lw_args
     del go, planck, props, cloud_m, osc_lw, od_t, ssa_t, g_t, zeros_sw
-    del zeros_lw, frac_mask, fc_lw, ic_lw, fc_sw, ic_sw, c, gc, args, rc
+    del zeros_lw, frac_mask, fc_lw, ic_lw, fc_sw, ic_sw, c, c_sf, gc, args
+    del rc, b10_calls, packed, b10_out, secs, a, b
     torch.cuda.empty_cache()
+
+    def per_band(run):
+        def wrapped():
+            os.environ["ECRAD_FUSED_TAUMOL"] = "0"
+            out = run()
+            del os.environ["ECRAD_FUSED_TAUMOL"]
+            return out
+        return wrapped
     for name, run in (("cloudless", lambda: radiation(setup, sl, th, gas)),
+                      ("cloudless_per_band",
+                       per_band(lambda: radiation(setup, sl, th, gas))),
                       ("mcica", lambda: radiation(setup_m, *inputs_m)),
                       ("tripleclouds",
                        lambda: radiation(setup_t, *inputs_t)),
@@ -892,16 +1196,19 @@ def main():
            "spartacus_sw_reftrans": (sp_rt, f"{jrt}:350"),
            "spartacus_lw_reftrans": (sp_rt, f"{jrt}:676"),
            "spartacus_sw_adding": (sp_add, f"{jadd}:399"),
-           "spartacus_lw_adding": (sp_add, f"{jadd}:614")}
+           "spartacus_lw_adding": (sp_add, f"{jadd}:614"),
+           "gather_sections": ("ecrad_tpu_torch/csrc/gather_sections.cu",
+                               "ecrad_tpu/ops/gather_interp.py:267")}
     # launches: the sum over the counted path runs (per path above); no
-    # single PyTorch call computes any of these functions (library_ms)
+    # single PyTorch call computes B1-B9's functions (library_ms null);
+    # B10's is embedding_bag
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src[n][0],
          "replaces": src[n][1],
          "launches": sum(p[n] for p in launches.values()),
          "max_abs_err": errs[n], "ms": ms[n][0], "plain_ms": ms[n][1],
          "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
-         "library_ms": None}
+         "library_ms": library_ms.get(n)}
         for n in src]}))
     log(gpu)
     log(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@
 A copy of ecrad_tpu/config.py (that module cannot be imported without
 jax): the same RadiationConfig fields, enums and namelist reader
 (radiation/radiation_config.F90:147-543, :558-912), so the port reads the
-same namelists. `check_supported` rejects every setting the port does not
-implement yet, naming the ROADMAP slice that brings it.
+same namelists, and the offline driver's DriverConfig
+(driver/ecrad_driver_config.F90; ecrad_tpu/config.py:311-362, :538+).
+`check_supported` rejects every setting the port does not implement yet,
+naming the ROADMAP slice that brings it.
 """
 from __future__ import annotations
 
@@ -308,6 +310,61 @@ class RadiationConfig:
                 or (self.do_lw and self.i_solver_lw != Solver.CLOUDLESS))
 
 
+@dataclass(frozen=True)
+class DriverConfig:
+    """Offline-driver options (driver/ecrad_driver_config.F90;
+    ecrad_tpu/config.py:311-362)."""
+    do_parallel: bool = True
+    nblocksize: int = 8
+    # Process columns in blocks of this size (0 = the whole batch at
+    # once): the memory-bounding analogue of the reference's nblocksize
+    # column blocks
+    column_block_size: int = 0
+    istartcol: int = 0
+    iendcol: int = 0
+    nrepeat: int = 1
+    iverbose: int = 2
+    do_save_inputs: bool = False
+    do_correct_unphysical_inputs: bool = False
+    # Write outputs as NetCDF4/HDF5 with deflate compression
+    # (ecrad_driver_config.F90:92, easy_netcdf.F90 NF90_HDF5 mode)
+    do_write_hdf5: bool = False
+    do_write_double_precision: bool = False
+    # Scalings / overrides
+    fractional_std: float = 0.0
+    overlap_decorr_length: float = 0.0
+    # Scale the overlap decorrelation length by raising the overlap
+    # parameter to 1/scaling (ecrad_driver_read_input.F90:213-227)
+    overlap_decorr_length_scaling: float = -1.0
+    high_inv_effective_size: float = 0.0
+    middle_inv_effective_size: float = 0.0
+    low_inv_effective_size: float = 0.0
+    effective_size_scaling: float = 0.0
+    cloud_separation_scale_toa: float = 0.0
+    cloud_separation_scale_surface: float = 0.0
+    cloud_separation_scale_power: float = 1.0
+    cloud_inhom_separation_factor: float = 1.0
+    cloud_fraction_override: float = -1.0
+    q_liquid_scaling: float = 1.0
+    q_ice_scaling: float = 1.0
+    co2_scaling: float = 1.0
+    ch4_scaling: float = 1.0
+    n2o_scaling: float = 1.0
+    o3_scaling: float = 1.0
+    co_scaling: float = 1.0
+    nox_scaling: float = 1.0
+    cfc11_scaling: float = 1.0
+    cfc12_scaling: float = 1.0
+    hcfc22_scaling: float = 1.0
+    ccl4_scaling: float = 1.0
+    h2o_scaling: float = 1.0
+    solar_irradiance_override: float = 0.0
+    cos_sza_override: float = -1.0
+    skin_temperature_override: float = -1.0
+    sw_albedo_override: float = -1.0
+    lw_emissivity_override: float = -1.0
+
+
 # ---------------------------------------------------------------------------
 # Fortran namelist parsing
 # ---------------------------------------------------------------------------
@@ -424,6 +481,24 @@ _TUPLE_FIELDS = (
 )
 
 
+def describe_config(cfg: RadiationConfig) -> str:
+    """Human-readable configuration listing (print_config,
+    radiation_config.F90:1127): every field with its value, enums by
+    name."""
+    from dataclasses import fields as dc_fields
+    lines = ["Configuration:"]
+    for f in dc_fields(cfg):
+        if f.name.startswith("_"):
+            continue
+        val = getattr(cfg, f.name)
+        if hasattr(val, "name"):
+            val = val.name
+        lines.append(f"  {f.name:42s} = {val}")
+    # derived flags (radiation_config.F90:1155 "Clouds are...")
+    lines.append(f"  {'do_clouds (derived)':42s} = {cfg.do_clouds}")
+    return "\n".join(lines)
+
+
 def load_config_from_namelist(path_or_text: str,
                               **overrides) -> RadiationConfig:
     """Build a RadiationConfig from a reference-format namelist file.
@@ -461,6 +536,13 @@ def load_config_from_namelist(path_or_text: str,
         if os.path.isdir(candidate):
             kwargs["directory_name"] = candidate
     return RadiationConfig(**kwargs).consolidated()
+
+
+def load_driver_config_from_namelist(path_or_text: str) -> DriverConfig:
+    """The &radiation_driver group of a namelist (unknown keys ignored)."""
+    nml = parse_namelist(path_or_text).get("radiation_driver", {})
+    valid = set(DriverConfig.__dataclass_fields__)
+    return DriverConfig(**{k: v for k, v in nml.items() if k in valid})
 
 
 #: Options of the port's paths besides the solvers (the configuration of

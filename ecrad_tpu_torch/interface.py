@@ -11,7 +11,8 @@ overlap parameter from a 2 km decorrelation length, cropping, cloud
 optics), the solvers and the flux assembly. Inputs whose pressure
 increases upwards are flipped, run TOA first, and their flux profiles
 flipped back. On CUDA tensors the path
-runs kernels B1 (LW taumol), B2 (SW taumol), B3/B3' (adding sweeps), B4
+runs kernels B1 (LW taumol), B2 (SW taumol) or with
+ECRAD_FUSED_TAUMOL=0 B10 (per-band taumol), B3/B3' (adding sweeps), B4
 (McICA layer optics), B5 (Tripleclouds region sweeps) and B6-B9
 (SPARTACUS layer reflectance/transmittance and adding sweeps); on CPU
 tensors their plain versions. With a SPARTACUS solver the g-points of
@@ -152,10 +153,18 @@ def get_albedos(setup: RadiationSetup, single_level: SingleLevel):
 
 
 def _band_sum(flux_g, band_from_g, nbands):
-    """(ncol, ng) -> (ncol, nbands) by index_add_ (no matmul)."""
-    out = flux_g.new_zeros((flux_g.shape[0], nbands))
-    return out.index_add_(1, torch.as_tensor(band_from_g,
-                                             device=flux_g.device), flux_g)
+    """(ncol, ng) -> (ncol, nbands): each band's g-points gathered into a
+    row padded with zeros to the widest band, then summed. No atomics (an
+    index_add_ on the GPU adds in a different order on every run), so a
+    run repeats bit for bit; no matmul."""
+    band_from_g = np.asarray(band_from_g)
+    members = [np.flatnonzero(band_from_g == b) for b in range(nbands)]
+    ng = flux_g.shape[1]
+    idx = np.full((nbands, max(len(m) for m in members)), ng)
+    for b, m in enumerate(members):
+        idx[b, :len(m)] = m
+    padded = torch.cat([flux_g, flux_g.new_zeros((flux_g.shape[0], 1))], 1)
+    return padded[:, torch.as_tensor(idx, device=flux_g.device)].sum(-1)
 
 
 def _gsum(x):

@@ -1,1 +1,2 @@
-"""File input for the port (numpy only)."""
+"""File input and output of the port: NetCDF, the driver's input reader
+and its output writers."""

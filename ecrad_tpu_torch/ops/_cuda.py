@@ -51,6 +51,7 @@ _SIGS = {
     "spartacus_lw_reftrans": "ppppppppppppiiiifi",
     "spartacus_sw_adding": "ppppiiiiiiffffpppp",
     "spartacus_lw_adding": "pppiiiiiippp",
+    "gather_sections": "ppppiiiip",
 }
 
 _lib: Optional[ctypes.CDLL] = None

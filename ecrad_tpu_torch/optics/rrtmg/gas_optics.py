@@ -5,14 +5,19 @@ Port of ecrad_tpu/optics/rrtmg/gas_optics.py:72-207
 planck_function_surf :704): column densities, setcoef, the LW and SW
 taumol (kernels B1 and B2 on a GPU), Planck sources from the TOTPLNK
 table, the solar source normalised to the total solar irradiance, and
-TOA-first outputs of shape (ncol, nlev, ng). For SPARTACUS the g-points
-of a spectral region are reordered by optical depth
+TOA-first outputs of shape (ncol, nlev, ng). The environment variable
+ECRAD_FUSED_TAUMOL, read at call time with the JAX package's meaning
+(ecrad_tpu/optics/rrtmg/taumol_lw.py:246-252), picks the taumol path:
+"0" the per-band path (taumol_lw_sections, taumol_sw_sections: kernel
+B10 on a GPU), anything else the all-band kernels B1 and B2. For
+SPARTACUS the g-points of a spectral region are reordered by optical depth
 (radiation_ifs_rrtm.F90:49-66; ecrad_tpu/optics/rrtmg/gas_optics.py:
 28-47, 153-203): every per-g output comes in the reordered order, and
 every band map downstream is `band_from_reordered_g_*`.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -23,7 +28,9 @@ from . import fused_tables
 from .setcoef import prepare_gases, setcoef
 from .taumol_common import DeviceTables, device_tables
 from .taumol_lw import taumol_lw_cells
+from .taumol_lw_sections import taumol_lw_sections
 from .taumol_sw import taumol_sw_cells
+from .taumol_sw_sections import taumol_sw_sections
 
 FLUXFAC = np.pi * 1.0e4  # radiance -> flux (radiation_ifs_rrtm)
 
@@ -173,9 +180,11 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
                        g("cfc11"), g("cfc12"), g("hcfc22"), g("ccl4"),
                        g("o3"), dtype=pressure_hl.dtype)
     c = setcoef(gc, t["preflog"], t["tref"], t["chi_mls"])
+    per_band = os.environ.get("ECRAD_FUSED_TAUMOL", "1") == "0"
 
     # ---- LW ----
-    od_lw, pfrac = taumol_lw_cells(c, t["chi_mls"], tables.lw)
+    od_lw, pfrac = (taumol_lw_sections(c, t, toa_first=True) if per_band
+                    else taumol_lw_cells(c, t["chi_mls"], tables.lw))
     od_lw = reorder(torch.clamp(od_lw, min=min_gas_od_lw),
                     spec.g_from_reordered_g_lw)
     pfrac = reorder(pfrac, spec.g_from_reordered_g_lw)
@@ -194,7 +203,8 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
                    else planck_surf * (1.0 - lw_albedo))
 
     # ---- SW ----
-    taug, taur, sflux = taumol_sw_cells(c, t, tables.sw)
+    taug, taur, sflux = (taumol_sw_sections(c, t, toa_first=True)
+                         if per_band else taumol_sw_cells(c, t, tables.sw))
     od_sw = taug + taur
     ssa_sw = torch.clamp(taur / torch.clamp(od_sw, min=1e-30), 0.0, 1.0)
     od_sw = torch.clamp(od_sw, min=min_gas_od_sw)

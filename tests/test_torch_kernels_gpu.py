@@ -1,7 +1,7 @@
 """PyTorch port on a CUDA GPU: each hand-written kernel against its plain
 PyTorch version on the card, the wrappers' refusals, and the launch
 counts of the Cloudless, McICA, Tripleclouds, Homogeneous and SPARTACUS
-paths.
+paths and of the per-band gas optics (ECRAD_FUSED_TAUMOL=0, kernel B10).
 
 Marked `gpu`; every test decides inside itself whether there is a card
 and skips without one. The file imports no jax, so it runs on a machine
@@ -14,7 +14,8 @@ Bounds: B1/B2 the JAX package's fused-taumol bound (rel 1e-5 where
 tau > 1e-6, pfrac atol 1e-6), B3/B3'/B5 its fused-sweep bound (2e-6 of
 the range), B4 its McICA-optics bounds (tests/test_mcica_optics.py: SW 2e-3,
 LW 1e-4 of the range), B6-B9 its SPARTACUS kernel-vs-fallback bound (2e-5
-of the plain output's largest value, tools/check_kernel_equivalence.py).
+of the plain output's largest value, tools/check_kernel_equivalence.py),
+B10 its gather-interp bound (5e-6 of the largest value, the same tool).
 The kernels build with -fmad=false, so only summation order separates
 them from the plain versions.
 """
@@ -33,7 +34,7 @@ from ecrad_tpu_torch.inputs import (add_effective_sizes, make_aerosols,
                                     write_synthetic_luts)
 from ecrad_tpu_torch.interface import (_cloud_stage, radiation,
                                        setup_radiation)
-from ecrad_tpu_torch.ops import (adding_fused, mcica_optics,
+from ecrad_tpu_torch.ops import (adding_fused, gather_interp, mcica_optics,
                                  spartacus_adding, spartacus_reftrans)
 from ecrad_tpu_torch.optics.rrtmg import taumol_lw, taumol_sw
 from ecrad_tpu_torch.optics.rrtmg.setcoef import prepare_gases, setcoef
@@ -238,7 +239,8 @@ def test_kernels_refuse_float64_and_strided_tensors(cuda, slice_state):
 def _reset_counts():
     taumol_lw.launches = taumol_sw.launches = 0
     for d in (adding_fused.launches, mcica_optics.launches,
-              spartacus_reftrans.launches, spartacus_adding.launches):
+              spartacus_reftrans.launches, spartacus_adding.launches,
+              gather_interp.launches):
         for k in d:
             d[k] = 0
 
@@ -617,3 +619,93 @@ def test_spartacus_path_launches_its_kernels(cuda, tmp_path, variant):
                      (False, True): 0.02, (False, False): 0.3}[
                 ("clear" in k, k.startswith("lw"))]
         assert float((v.cpu() - getattr(cpu, k)).abs().max()) <= bound, k
+
+
+# ---- B10: the per-band path's table-row interpolation ----
+
+def _b10_sections(cuda, name, n, seed=0, dtype=np.float32):
+    """Random section lists built like tools/check_kernel_equivalence.py
+    (plain, the two LW eta shapes, mixed), and one with plain and
+    flattened eta rows past both ends of their tables."""
+    rng = np.random.RandomState(seed)
+    t = lambda x: torch.as_tensor(x, device=cuda)           # noqa: E731
+
+    def plain(r, k, g, lo=0, hi=None):
+        return gather_interp.Section(
+            rng.rand(r, g).astype(dtype),
+            [t(rng.randint(lo, r if hi is None else hi, n).astype(np.int32))
+             for _ in range(k)],
+            [t(rng.rand(n).astype(dtype)) for _ in range(k)])
+
+    def eta(r1, r2, g, gos, eos, grid=(0, None), etas=(1, None)):
+        return gather_interp.EtaSection(
+            rng.rand(r1, r2, g).astype(dtype),
+            [t(rng.randint(grid[0], grid[1] or r1 - 1, n).astype(np.int32))
+             for _ in range(2)],
+            [[(o, t(rng.rand(n).astype(dtype))) for o in gos]
+             for _ in range(2)],
+            [t(rng.randint(etas[0], etas[1] or r2 - 2, n).astype(np.int32))
+             for _ in range(2)],
+            [[(o, t(rng.rand(n).astype(dtype))) for o in eos]
+             for _ in range(2)])
+
+    return {
+        "plain": lambda: [plain(65, 4, 12)],
+        "eta_lw_absa": lambda: [eta(65, 9, 12, (0, 1), (-1, 0, 1, 2))],
+        "eta_lw_absb": lambda: [eta(235, 5, 12, (0, 1), (0, 1))],
+        "mixed": lambda: [plain(10, 2, 12), eta(19, 9, 12, (0, 1), (0, 1)),
+                          plain(300, 4, 12)],
+        "out_of_range": lambda: [plain(20, 3, 12, lo=-7, hi=26),
+                                 eta(13, 9, 12, (-1, 0, 1), (-3, 0, 1, 4),
+                                     grid=(-2, 15), etas=(-4, 12))],
+    }[name]()
+
+
+@pytest.mark.parametrize("name", ["plain", "eta_lw_absa", "eta_lw_absb",
+                                  "mixed", "out_of_range"])
+def test_b10_kernel_matches_plain(cuda, name):
+    n = 2048 * 9 + 133            # not a multiple of the block
+    secs = _b10_sections(cuda, name, n)
+    n0 = gather_interp.launches["gather_sections"]
+    got = gather_interp.eval_sections(secs, n)      # dispatches to B10
+    torch.cuda.synchronize()
+    assert gather_interp.launches["gather_sections"] == n0 + 1
+    ref = gather_interp.eval_sections_plain(secs, n)
+    assert got.shape == ref.shape == (12, n)
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 5e-6
+
+
+def test_b10_refuses_float64_and_cpu_tensors(cuda):
+    n0 = gather_interp.launches["gather_sections"]
+    with pytest.raises(TypeError, match="float32"):
+        gather_interp.eval_sections(
+            _b10_sections(cuda, "mixed", 300, dtype=np.float64), 300)
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_interp.eval_sections_kernel(
+            _b10_sections("cpu", "mixed", 300), 300)
+    assert gather_interp.launches["gather_sections"] == n0
+
+
+def test_per_band_gas_optics_launch_b10_only(cuda, monkeypatch):
+    """ECRAD_FUSED_TAUMOL=0 on 64 x 137 columns: 30 B10 launches (16 LW
+    bands, 13 SW bands and band 24's Rayleigh term), no B1 or B2, and the
+    optical depths of the all-band kernels within their bound."""
+    from ecrad_tpu_torch.interface import get_albedos
+    from ecrad_tpu_torch.optics.rrtmg.gas_optics import gas_optics
+    setup = setup_radiation(cloudless_slice_config(), device=cuda)
+    sl, th, gas = columns_to_inputs(make_columns(64, 137, 1), device=cuda)
+
+    def run():
+        return gas_optics(th.pressure_hl, th.temperature_hl,
+                          gas.mixing_ratio, sl.skin_temperature, sl.cos_sza,
+                          sl.solar_irradiance, setup.spec, setup.gas,
+                          lw_albedo=get_albedos(setup, sl)[2])
+    fused = run()
+    monkeypatch.setenv("ECRAD_FUSED_TAUMOL", "0")
+    _reset_counts()
+    per_band = run()
+    torch.cuda.synchronize()
+    assert gather_interp.launches["gather_sections"] == 30
+    assert taumol_lw.launches == taumol_sw.launches == 0
+    _tau_close(per_band.od_lw, fused.od_lw)
+    _tau_close(per_band.od_sw, fused.od_sw)

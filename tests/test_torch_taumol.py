@@ -1,10 +1,14 @@
 """PyTorch port: the plain versions of kernels B1 (LW taumol) and B2 (SW
-taumol, with the solar source) against the JAX package.
+taumol, with the solar source), and the per-band path (taumol_lw_sections,
+taumol_sw_sections: kernel B10's plain version), against the JAX package.
 
 Both sides get the same coefficients (the JAX setcoef of seeded columns),
 so the comparison isolates taumol. Bounds are the JAX package's own for
 its fused body against the per-band path (tests/test_taumol_fused.py):
 rel <= 1e-5 where tau > 1e-6 (float32 reassociation), pfrac atol 1e-6.
+The per-band path is held to the JAX per-band path at the same bounds at
+float32 and to 1e-10 at float64 (relative where |tau| > 1e-6, absolute
+below), and to the port's own fused plain versions at the float32 bounds.
 The kernels themselves run only on a GPU (tests/test_torch_kernels_gpu.py).
 """
 import functools
@@ -28,6 +32,10 @@ from ecrad_tpu_torch.optics.rrtmg import fused_tables, taumol_lw, taumol_sw
 from ecrad_tpu_torch.optics.rrtmg.setcoef import Coeffs
 from ecrad_tpu_torch.optics.rrtmg.tables import load_tables
 from ecrad_tpu_torch.optics.rrtmg.taumol_common import device_tables
+from ecrad_tpu_torch.optics.rrtmg.taumol_lw_sections import \
+    taumol_lw_sections
+from ecrad_tpu_torch.optics.rrtmg.taumol_sw_sections import \
+    taumol_sw_sections
 
 GASES = ("h2o", "co2", "ch4", "n2o", "cfc11", "cfc12", "hcfc22", "ccl4",
          "o3")
@@ -49,21 +57,27 @@ def _jax_fn(name):
     return jax.jit(fns[name])
 
 
-@pytest.fixture(scope="module", params=[0, 1])
-def coeffs(request):
-    """(JAX Coeffs, the same as torch Coeffs, tables), surface-first."""
-    cols = make_columns(6, 18, request.param)
+def _coeffs(seed, dtype):
+    """(JAX Coeffs, the same as torch Coeffs, tables), surface-first; at
+    float64 call it under jax.enable_x64."""
+    cols = make_columns(6, 18, seed)
     t = load_tables()
     phl, thl = cols["pressure_hl"], cols["temperature_hl"]
-    f32 = lambda x: jnp.asarray(np.asarray(x, np.float32))
+    cast = lambda x: jnp.asarray(np.asarray(x, dtype))      # noqa: E731
     gc = jsc.prepare_gases(
-        f32(phl), f32(0.5 * (phl[:, :-1] + phl[:, 1:])),
-        f32(0.5 * (thl[:, :-1] + thl[:, 1:])),
-        *(f32(cols["mixing_ratio"][:, :, GAS_INDEX[g]]) for g in GASES))
+        cast(phl), cast(0.5 * (phl[:, :-1] + phl[:, 1:])),
+        cast(0.5 * (thl[:, :-1] + thl[:, 1:])),
+        *(cast(cols["mixing_ratio"][:, :, GAS_INDEX[g]]) for g in GASES),
+        dtype=dtype)
     jc = jsc.setcoef(gc, t["preflog"], t["tref"], t["chi_mls"])
     pc = Coeffs(**{k: torch.as_tensor(np.array(getattr(jc, k)))
                    for k in Coeffs._fields})
     return jc, pc, t
+
+
+@pytest.fixture(scope="module", params=[0, 1])
+def coeffs(request):
+    return _coeffs(request.param, np.float32)
 
 
 def _check_tau(a, b, what):
@@ -122,6 +136,85 @@ def test_b2_plain_matches_jax_per_band(coeffs):
     js = np.asarray(js)
     rel = np.abs(sflux.numpy() - js).max() / np.abs(js).max()
     assert rel <= 1e-6, rel
+
+
+def test_lw_per_band_matches_jax_per_band_and_fused(coeffs):
+    jc, pc, t = coeffs
+    tau, pfrac = taumol_lw_sections(pc, t, toa_first=True)
+    assert tau.dtype == torch.float32 and tau.shape == (6, 18, 140)
+    jtau, jpf = _jax_fn("lw_bands")(jc)
+    _check_tau(tau.numpy(), jtau, "tau")
+    np.testing.assert_allclose(pfrac.numpy(), np.asarray(jpf), rtol=0,
+                               atol=1e-6)
+    ftau, fpf = taumol_lw.taumol_lw_cells(
+        pc, t["chi_mls"],
+        device_tables(fused_tables.build_lw(t), torch.float32, "cpu"))
+    _check_tau(tau.numpy(), ftau.numpy(), "tau vs fused")
+    np.testing.assert_allclose(pfrac.numpy(), fpf.numpy(), rtol=0,
+                               atol=1e-6)
+
+
+def test_sw_per_band_matches_jax_per_band_and_fused(coeffs):
+    jc, pc, t = coeffs
+    taug, taur, sflux = taumol_sw_sections(pc, t, toa_first=True)
+    assert taug.shape == taur.shape == (6, 18, 112)
+    jg, jr, js = _jax_fn("sw_bands")(jc)
+    _check_tau(taug.numpy(), jg, "taug")
+    _check_tau(taur.numpy(), jr, "taur")
+    js = np.asarray(js)
+    assert np.abs(sflux.numpy() - js).max() / np.abs(js).max() <= 1e-6
+    fg, fr, _ = taumol_sw.taumol_sw_cells(
+        pc, t, device_tables(fused_tables.build_sw(t), torch.float32,
+                             "cpu"))
+    _check_tau(taug.numpy(), fg.numpy(), "taug vs fused")
+    _check_tau(taur.numpy(), fr.numpy(), "taur vs fused")
+
+
+def test_per_band_matches_jax_per_band_at_float64():
+    with jax.enable_x64(True):
+        jc, pc, t = _coeffs(0, np.float64)
+        jlw = [np.asarray(x) for x in jax_taumol_lw(jc, t, toa_first=True)]
+        jsw = [np.asarray(x) for x in jax_taumol_sw(jc, t, toa_first=True)]
+    got = [x.numpy() for x in taumol_lw_sections(pc, t, toa_first=True)
+           + taumol_sw_sections(pc, t, toa_first=True)]
+    for name, a, b in zip(("tau", "pfrac", "taug", "taur", "sflux"), got,
+                          jlw + jsw):
+        assert a.dtype == b.dtype == np.float64, name
+        big = np.abs(b) > 1e-6
+        rel = (np.abs(a - b) / np.maximum(np.abs(b), 1e-30))[big]
+        assert rel.max(initial=0.0) <= 1e-10, (name, rel.max())
+        assert np.abs(a - b)[~big].max(initial=0.0) <= 1e-10, name
+
+
+def test_gas_optics_honours_ecrad_fused_taumol(monkeypatch):
+    """ECRAD_FUSED_TAUMOL=0 takes the per-band path (read at call time);
+    the two paths agree at the fused-vs-per-band bounds."""
+    from ecrad_tpu_torch import config as pconfig
+    from ecrad_tpu_torch.convert import columns_to_inputs
+    from ecrad_tpu_torch.interface import get_albedos, setup_radiation
+    from ecrad_tpu_torch.optics.rrtmg import gas_optics as pgo
+    setup = setup_radiation(pconfig.cloudless_slice_config(), device="cpu")
+    sl, th, gas = columns_to_inputs(make_columns(4, 18, 2), device="cpu")
+    calls = []
+    for mod in ("taumol_lw_sections", "taumol_sw_sections"):
+        fn = getattr(pgo, mod)
+        monkeypatch.setattr(pgo, mod, lambda *a, _fn=fn, **k: (
+            calls.append(_fn), _fn(*a, **k))[1])
+
+    def run():
+        return pgo.gas_optics(
+            th.pressure_hl, th.temperature_hl, gas.mixing_ratio,
+            sl.skin_temperature, sl.cos_sza, sl.solar_irradiance,
+            setup.spec, setup.gas, lw_albedo=get_albedos(setup, sl)[2])
+    fused = run()
+    assert not calls
+    monkeypatch.setenv("ECRAD_FUSED_TAUMOL", "0")
+    per_band = run()
+    assert len(calls) == 2
+    _check_tau(per_band.od_lw.numpy(), fused.od_lw.numpy(), "od_lw")
+    _check_tau(per_band.od_sw.numpy(), fused.od_sw.numpy(), "od_sw")
+    np.testing.assert_allclose(per_band.planck_hl.numpy(),
+                               fused.planck_hl.numpy(), rtol=1e-5)
 
 
 @pytest.mark.parametrize("kernel, pack, build", [
