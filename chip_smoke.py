@@ -6,7 +6,9 @@
 Phases; any failure exits non-zero and prints no result line:
   1. device and build: versions, the card's name and power limit, the
      CUDA kernels built from ecrad_tpu_torch/csrc for sm_90a (the
-     compiler's register/shared-memory/spill report is printed);
+     compiler's register/shared-memory/spill report is printed, and for
+     B6's two passes and B8 the registers, spills, shared memory and the
+     warps per SM their launches get);
   2. every kernel of the paths (B1 taumol_lw, B2 taumol_sw, B3 sw_adding
      and lw_noscat, B3' lw_adding, B4 mcica_sw_optics and
      mcica_lw_optics, B5 tc_sw_sweeps and tc_lw_sweeps, B6
@@ -17,8 +19,13 @@ Phases; any failure exits non-zero and prints no result line:
      paths hand them; B6 and B7 also on a random case built like
      tools/check_kernel_equivalence.py's, at 3 and 2 regions; B8 under all
      five entrapment treatments on 256 columns of the path's operands;
-     B10 on the 30 calls of one per-band gas-optics call of the 2048 x 137
-     columns and on that tool's random cases, with rows past both ends);
+     B6 also with no 3D cell, with every cell 3D, with the path's 3D
+     share, and with an odd ng x ncol (its two passes' doubling counts
+     and a second call bit for bit); B8 also with 1, 2 and 7 levels,
+     fewer than or about its stage ring, 15 g-points and 133 columns,
+     under every treatment at 3 and 2 regions; B10 on the 30 calls of
+     one per-band gas-optics call of the 2048 x 137 columns and on that
+     tool's random cases, with rows past both ends);
      the per-band gas optics against B1/B2's; the SPARTACUS path's share
      of cells with the 3D treatment and the histogram of their doubling
      counts;
@@ -65,7 +72,9 @@ Phases; any failure exits non-zero and prints no result line:
         field, to what radiation() gives for the same file's inputs;
   4. times (information only): each kernel and its plain version with
      CUDA events (B10 per gas-optics call, its 30 launches, beside one
-     embedding_bag call per launch on the same flattened operands), and
+     embedding_bag call per launch on the same flattened operands; B6's
+     two passes apart, with the number of 3D cells its first pass found;
+     B8's rate on the bytes its design moves), and
      each 2048-column path's columns/s and peak memory over 10
      back-to-back calls, best of 2, Cloudless also with the per-band gas
      optics.
@@ -185,6 +194,8 @@ FILE_FLUXES = {"lw_up": "flux_up_lw", "lw_dn": "flux_dn_lw",
                "sw_up": "flux_up_sw", "sw_dn": "flux_dn_sw",
                "sw_dn_direct": "flux_dn_direct_sw"}
 NCOL_NOSCAT = 256
+# B8's block height in g-points (csrc/spartacus_adding.cu G_TILE)
+B8_G_TILE = 8
 # the least time of a kernel: its operand bytes (each input read once,
 # each output written once) over the H100 SXM's device-memory rate, or
 # its operations over the float32 rate outside the tensor cores, the
@@ -442,10 +453,14 @@ def cloud_effect(f, name):
         f"lw_up {(f['lw_up'][:, 0] - f['lw_up_clear'][:, 0]).mean():.3f}")
 
 
-def random_reftrans_case(nreg, dev, nlev=7, ng=16, ncol=133, seed=7):
+def random_reftrans_case(nreg, dev, nlev=7, ng=16, ncol=133, seed=7,
+                         share3d=None):
     """B6 and B7's arguments on random inputs built like
     tools/check_kernel_equivalence.py:143-163: mu0 at the 1e-10 clamp in
-    every 17th column, a level with no 3D cell, clear layers."""
+    every 17th column, clear layers, and a level with no 3D cell, or else
+    each cell 3D with probability share3d; and B8's per-column rows and
+    boundary values (random)."""
+    from ecrad_tpu_torch.ops import spartacus_adding as sa
     rng = np.random.RandomState(seed)
     r = lambda *s, lo=0.0, hi=1.0: torch.as_tensor(
         (lo + (hi - lo) * rng.rand(*s)).astype(np.float32), device=dev)
@@ -456,19 +471,32 @@ def random_reftrans_case(nreg, dev, nlev=7, ng=16, ncol=133, seed=7):
                                                     hi=0.5)
     mu0 = (0.05 + 0.95 * rng.rand(ncol)).astype(np.float32)
     mu0[::17] = 1e-10
-    use3d = rng.rand(nlev, ng, ncol) > 0.4
-    use3d[0] = False
+    u = rng.rand(nlev, ng, ncol)
+    if share3d is None:
+        use3d = u > 0.4
+        use3d[0] = False
+    else:
+        use3d = u < share3d
     use3d = torch.as_tensor(use3d, device=dev)
     clear = torch.as_tensor(rng.rand(nlev, ncol) > 0.7, device=dev)
     se, pt, pb = (r(nlev, ng, ncol, lo=0.5, hi=1.0), r(nlev, ng, ncol,
                                                        hi=40.0),
                   r(nlev, ng, ncol, hi=40.0))
     fr = r(nlev, nreg, ncol)
+    um, vm = r(nlev + 1, nreg, nreg, ncol), r(nlev + 1, nreg, nreg, ncol)
+    cols = sa.pack_cols(
+        um, vm, r(nlev, ncol), r(nlev, ncol, hi=500), r(nlev, ncol, hi=300),
+        r(nlev, ncol, hi=300), r(nlev, 3, ncol, hi=1e-3),
+        r(nlev, ncol, hi=1e-3), r(nlev, ncol), r(nlev, nreg, ncol),
+        r(nlev, nreg, ncol), clear, torch.roll(clear, 1, 0),
+        torch.roll(clear, -1, 0), r(ncol))
     return {"sw": (8.0, od, ssa, g, trd, trf, torch.as_tensor(mu0,
                                                               device=dev),
                    use3d, clear),
             "lw": (8.0, True, od, ssa, g, trd, se, pt, pb, fr, use3d,
-                   clear)}
+                   clear),
+            "sweep": (cols, r(2 * nreg * nreg, ng, ncol, hi=0.3),
+                      r(nreg, ng, ncol, hi=100.0))}
 
 
 def main():
@@ -526,6 +554,29 @@ def main():
         if "spill" in line or ("ptxas info" in line and (
                 "Used" in line or "Compiling" in line)):
             log("  " + line.strip())
+    report = _cuda.ptxas_report()
+    for what, name, args, kernel in (
+            ("B6 pass 1, 3D cells", "spartacus_sw_reftrans_info", (1,),
+             "sw_3d_kernel"),
+            ("B6 pass 2, every cell", "spartacus_sw_reftrans_info", (0,),
+             "sw_fallback_kernel"),
+            ("B8", "spartacus_sw_adding_info", (), "sw_adding_kernel")):
+        for nreg in (3, 2):
+            k = _cuda.kernel_info(name, *args, nreg)
+            rep = [v for f, v in report.items() if f"{kernel}ILi{nreg}E" in f]
+            rep = rep[0] if len(rep) == 1 else {}
+            warps = k["blocks_per_sm"] * k["threads"] // 32
+            log(f"  {what}, {nreg} regions: {k['registers']} registers, "
+                f"{k['local_bytes']} B local per thread (stack "
+                f"{rep.get('stack')} B, spill stores {rep.get('spill_stores')}"
+                f" B, loads {rep.get('spill_loads')} B), shared "
+                f"{k['static_smem']} B static + {k['dynamic_smem']} B "
+                f"dynamic per block; {k['threads']} threads x "
+                f"{k['blocks_per_sm']} blocks = {warps} warps per SM of 64"
+                + (f"; persistent grid {k['blocks_per_sm'] * k['sms']} "
+                   f"blocks" if args == (1,) else ""))
+            if k["blocks_per_sm"] < 1:
+                raise AssertionError(f"{what} cannot be resident on an SM")
 
     setup = setup_radiation(cloudless_slice_config(), device=dev)
     cols = make_columns(NCOL, NLEV, SEED)
@@ -796,6 +847,60 @@ def main():
             if not rel <= SPARTACUS_REL:
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version on the random case")
+
+    # B6's two passes with no 3D cell (pass 1 stages nothing), with every
+    # cell 3D (past the staged share pass 1 writes in place), with the
+    # path's share, and with an odd ng x ncol: the doubling counts, and a
+    # second call equal bit for bit (the order of the staged cells is free)
+    worst = 0.0
+    for nreg in (3, 2):
+        for share, ng, ncol in ((0.0, 16, 133), (1.0, 16, 133),
+                                (0.14, 16, 133), (0.14, 15, 133)):
+            args = random_reftrans_case(nreg, dev, ng=ng, ncol=ncol,
+                                        share3d=share)["sw"]
+            counts = torch.empty(args[7].shape, dtype=torch.int8, device=dev)
+            a = sr.sw_reftrans_levels_fused(*args, counts=counts)
+            again = sr.sw_reftrans_levels_fused(*args)
+            torch.cuda.synchronize()
+            b = sr.sw_reftrans_levels_plain(*args)
+            rel = rel_to_max(a, b)
+            worst = max(worst, float((a - b).abs().max()))
+            log(f"spartacus_sw_reftrans {nreg} regions, 3D share {share}, "
+                f"ng x ncol {ng} x {ncol}: worst |diff|/max|plain| "
+                f"{rel:.3e}, worst abs {float((a - b).abs().max()):.3e}, "
+                f"{int((counts >= 0).sum())} 3D cells")
+            if not (rel <= SPARTACUS_REL and torch.equal(a, again)
+                    and bool(((counts < 0) == ~args[7]).all())):
+                raise AssertionError(f"spartacus_sw_reftrans disagrees on "
+                                     f"the share {share} case")
+    log(f"spartacus_sw_reftrans share cases: worst abs {worst:.3e}")
+    # B8 with fewer levels than (or about) its stage ring, ng not a
+    # multiple of its g-tile and 133 columns, under every treatment
+    worst = 0.0
+    for nreg in (3, 2):
+        for nlev in (1, 2, 7):
+            case = random_reftrans_case(nreg, dev, nlev=nlev, ng=15,
+                                        ncol=133)
+            hist = sr.sw_reftrans_levels_fused(*case["sw"])
+            cols_r, init_r, d0_r = case["sweep"]
+            for entrap in Entrapment:
+                cfg_e = dataclasses.replace(setup_sp.config,
+                                            i_3d_sw_entrapment=entrap)
+                a = sa.sw_adding_sweeps_fused(cfg_e, hist, cols_r, init_r,
+                                              d0_r)
+                torch.cuda.synchronize()
+                b = sa.sw_adding_sweeps_plain(cfg_e, hist, cols_r, init_r,
+                                              d0_r)
+                rel = max(rel_to_max(x, y) for x, y in zip(a, b))
+                worst = max([worst] + [float((x - y).abs().max())
+                                       for x, y in zip(a, b)])
+                if not rel <= SPARTACUS_REL:
+                    raise AssertionError(
+                        f"spartacus_sw_adding disagrees with its plain "
+                        f"version ({nreg} regions, {nlev} levels, "
+                        f"{entrap.name}): {rel:.3e}")
+    log(f"spartacus_sw_adding 1, 2 and 7 levels x 15 g x 133 columns, every"
+        f" treatment, 3 and 2 regions: worst abs {worst:.3e}")
 
     # B10 on the 30 calls of one per-band gas-optics call (the section
     # lists the path builds from the 2048 x 137 columns' coefficients)
@@ -1135,6 +1240,72 @@ def main():
             f"{ms[name][1]:.4f} ms, least time {b_ms:.4f} ms by {b_by} "
             f"({nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} Gop; "
             f"{b_ms / ms[name][0]:.1%} of it reached) [{gpu}]")
+    # B6's two passes apart on the path's operands: pass 1 over the 3D
+    # cells (its counter zeroed first, one memset timed with it), staging
+    # their rows; pass 2 over every cell, from what pass 1 left
+    mgod, od, ssa, g, trd, trf, mu0_sp, use3d, clear = \
+        path_args["sw_reftrans_levels"]
+    nlev, nreg, ng, ncol = od.shape
+    cells, rows = use3d.numel(), 5 * nreg * nreg
+    cap = -(-cells // sr._STAGED_SHARE)
+    out6 = torch.empty((nlev, rows, ng, ncol), device=dev)
+    cnt6 = torch.empty(use3d.shape, dtype=torch.int8, device=dev)
+    packed6 = torch.empty((rows, cap), device=dev)
+    slot6 = torch.empty(cells, dtype=torch.int32, device=dev)
+    n3d = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def pass_3d():
+        n3d.zero_()
+        _cuda.launch("spartacus_sw_reftrans_3d", od, ssa, g, trd, trf,
+                     mu0_sp, use3d, clear, out6, cnt6, packed6, slot6, n3d,
+                     nreg, nlev, ng, ncol, cap, mgod)
+
+    def pass_lean():
+        _cuda.launch("spartacus_sw_reftrans_fallback", od, ssa, g, mu0_sp,
+                     use3d, clear, packed6, slot6, out6, cnt6, nreg, nlev,
+                     ng, ncol, cap)
+    ms_3d, ms_lean = time_ms(pass_3d, 20), time_ms(pass_lean, 20)
+    listed, n3_counts = int(n3d.item()), int((cnt6 >= 0).sum())
+    staged, n_fb = min(listed, cap), cells - listed
+    # pass 1's operations from the doubling counts; pass 2's bytes: use3d
+    # of every cell, od/ssa/g read, the rows and a count written per
+    # fallback cell, the slot and the rows read and the rows written per
+    # staged cell
+    ops_3d = doubling_ops("spartacus_sw_reftrans", cnt6) \
+        - n_fb * SPARTACUS_OPS["spartacus_sw_reftrans"][0]
+    bytes_lean = cells + n_fb * (3 * nreg * 4 + rows * 4 + 1) \
+        + staged * (4 + 2 * rows * 4)
+    log(f"time spartacus_sw_reftrans pass 1, 3D cells: {ms_3d:.4f} ms "
+        f"({ops_3d / 1e9:.2f} Gop, {ops_3d / ms_3d / 1e9:.2f} Top/s); pass "
+        f"2, every cell: {ms_lean:.4f} ms ({bytes_lean / 1e9:.3f} GB, "
+        f"{bytes_lean / ms_lean / 1e9:.3f} TB/s); 3D cells listed {listed} "
+        f"= {listed / cells:.4f} of the cells ({staged} staged), counts >= "
+        f"0 in {n3_counts} [{gpu}]")
+    if listed != n3_counts or listed != int(use3d.sum()):
+        raise AssertionError("B6's 3D cells differ from its counts")
+    # B8's rate on the bytes its design moves: per (level, g, column) the
+    # history read twice less RD going down, the scratch albedos written
+    # and read, the fluxes written (13 n^2 + 3 n floats), and per level and
+    # g-tile (B8_G_TILE g-points) the per-column rows it stages
+    hist8 = path_args["sw_adding_sweeps"][1]
+    nlev, _, ng, ncol = hist8.shape
+    n = round((hist8.shape[1] // 5) ** 0.5)
+    moved = 4 * nlev * ng * ncol * (13 * n * n + 3 * n) + 4 * nlev * ncol \
+        * (37 + 11) * -(-ng // B8_G_TILE)
+    # and under Maximum entrapment: the same bytes with a few hundred
+    # operations per (level, g, column), its floor as the design moves them
+    cfg8 = path_args["sw_adding_sweeps"][0]
+    cfg_max = dataclasses.replace(cfg8,
+                                  i_3d_sw_entrapment=Entrapment.MAXIMUM)
+    ms_max = time_ms(lambda: sa.sw_adding_sweeps_fused(
+        cfg_max, *path_args["sw_adding_sweeps"][1:]), 20)
+    log(f"time spartacus_sw_adding: {ms['spartacus_sw_adding'][0]:.4f} ms "
+        f"({cfg8.i_3d_sw_entrapment.name}) on the {moved / 1e9:.3f} GB its "
+        f"design moves, {moved / ms['spartacus_sw_adding'][0] / 1e9:.3f} "
+        f"TB/s; {ms_max:.4f} ms under MAXIMUM entrapment, "
+        f"{moved / ms_max / 1e9:.3f} TB/s [{gpu}]")
+    del out6, cnt6, packed6, slot6, hist8
+
     # the kernels' operands are not needed any more: the paths' peak
     # memory below is what a call adds to its inputs and setup
     del timing, path_args, sw_args, lw_args, lwadd_args, b4_sw_args, b4_lw_args

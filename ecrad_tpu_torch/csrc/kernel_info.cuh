@@ -1,0 +1,35 @@
+// A kernel's compiled resources and the occupancy its launch gets, for
+// the reports of chip_smoke.py (the SPARTACUS kernels' *_info entry
+// points). info receives: registers per thread, local memory per thread
+// in bytes (spills and stack), static and dynamic shared memory per block
+// in bytes, threads per block, resident blocks per SM at that launch, and
+// the device's SM count.
+#pragma once
+#include <cuda_runtime.h>
+
+namespace ecrad {
+
+template <class Kernel>
+inline int kernel_info(Kernel kernel, int threads, size_t dynamic_smem,
+                       int* info) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0, device = 0, sms = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                    dynamic_smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = (int)a.sharedSizeBytes;
+  info[3] = (int)dynamic_smem;
+  info[4] = threads;
+  info[5] = blocks;
+  info[6] = sms;
+  return 0;
+}
+
+}  // namespace ecrad

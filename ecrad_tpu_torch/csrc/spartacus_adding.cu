@@ -16,18 +16,46 @@
 // treatment, do_3d_effects and the LW matrix/multilayer switches are
 // uniform runtime switches.
 //
-// What bounds it: device-memory bandwidth. Each level's history rows
-// (SW 5 NREG^2, LW 2 NREG (NREG+1)) are read twice (up and down), the
-// scratch written and read once, the fluxes written once; the per-column
-// rows ((nlev, 47|30, ncol), the JAX package's layout with 3 x 3-padded
-// matrices) are read by 32 neighbouring columns of a warp, coalesced.
+// What it must move: each level's history rows (SW 5 NREG^2, LW 2 NREG
+// (NREG+1)) are read twice (up and down), the scratch written and read
+// once, the fluxes written once; at 3 regions B8 moves 126 floats per
+// (level, g, column), 15.8 GB at 2048 x 137 and 112 g-points (the
+// least-time measure counts each input once and so sees less than half
+// of that: the scratch round trip and the second read of the history are
+// the design's, since a thread's 137 x 18 albedos do not fit on chip).
+//
+// What bounds B8 (SW) on the H100 is its arithmetic, not that traffic:
+// with Explicit entrapment a (level, g, column) whose layer or the one
+// below is cloudy costs ~3,000 operations (two entrapment mixings, each
+// three 3 x 3 exchange exponentials, ~150 IEEE divisions in all), a
+// clear one a few hundred, and the branch is a column's. With the history
+// read in 128-byte runs the kernel streams its bytes at the card's rate
+// under the cheap treatments (Maximum, Zero, Edge-only), so the layout
+// serves the arithmetic: a warp computes 8 g-points of 4 columns, whose
+// lanes share the clear-sky branch, and copies 32 columns of one g.
+//
+// The design: a block is G_TILE g-points x C_TILE columns. Each level,
+// every thread copies history rows (and on the way down scratch
+// albedos) with 4-byte cp.async into a shared-memory stage, a warp one
+// 128-byte run of a row, and the block copies the level's per-column
+// rows once for all its g-points; a ring of STAGES stages keeps the next
+// level in flight while this one is computed. Two block barriers per
+// level: the copies have landed; the results (the albedos below the
+// layer going up, the fluxes going down), put in the stage by the
+// computing threads, have been written out in 128-byte runs by the
+// copying ones. The carry stays in registers. Copies of 4 bytes take
+// every ng x ncol (the 16-byte forms need 16-byte aligned rows). B9 (LW)
+// keeps the first design: one thread per (g, column), loads used at once.
 //
 // Semantics: ops/spartacus_adding.py sw_up_step / sw_dn_step /
 // lw_up_step / lw_dn_step, expression for expression (built with
 // -fmad=false; products and mixings add left to right as mm_gu, the
 // elimination is solve_g's).
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kernel_info.cuh"
 
 namespace ecrad {
 namespace spadd {
@@ -37,6 +65,61 @@ constexpr int THREADS = 128;
 constexpr int UM = 0, VM = 9, VMN = 18, CF = 27, XLD = 29, XLDIR = 30,
               EDGE = 31, INVEFF = 34, OVP = 35, RF = 36, RFP = 39, CLEAR = 42,
               CLEARP = 43, CLEARN = 44, NOTTOP = 45, NCOLROWS = 47;
+
+// B8's block: G_TILE g-points x C_TILE columns, a ring of STAGES levels,
+// at least SW_MIN_BLOCKS blocks per SM (128 registers, 16 warps). For the
+// arithmetic a warp is 8 g-points of 4 columns (thread t takes g t % 8
+// and column t / 8), so that its lanes share the branch on a column's
+// clear flags; for the copies a warp is 32 columns of one g-point (thread
+// t takes g t / 32 and column t % 32), so that every global row is read
+// and written in 128-byte runs.
+constexpr int G_TILE = 8, C_TILE = 32, SW_THREADS = G_TILE * C_TILE,
+              STAGES = 2, SW_MIN_BLOCKS = 2;
+// the per-column rows staged per level: going up rows [0, 18) (UM, VM)
+// and [27, 46) (CF .. NOTTOP), in that order; going down VMN's 9 rows,
+// CLEAR and CLEARN
+constexpr int UP_COLROWS = 37, DN_COLROWS = 11, DN_CLEAR = 9,
+              DN_CLEARN = 10;
+// the staged index of per-column row k going up, and the inverse
+__host__ __device__ constexpr int up_row(int k) {
+  return k < VMN ? k : k - 9;
+}
+__device__ __forceinline__ int up_src(int r) { return r < VMN ? r : r + 9; }
+__device__ __forceinline__ int dn_src(int r) {
+  return r < 9 ? VMN + r : (r == DN_CLEAR ? CLEAR : CLEARN);
+}
+// the slot of cell (g, c) of the block in one staged row: columns of
+// G_TILE g-points, g swizzled by the column, so that the arithmetic's
+// reads (G_TILE g x 32 / G_TILE columns a warp) and the copies' writes
+// (C_TILE columns x 32 / C_TILE g) each fall in 32 distinct banks
+__device__ __forceinline__ int slot(int g, int c) {
+  return c * G_TILE
+      + (g ^ (((c / (32 / G_TILE)) * (32 / C_TILE)) & (G_TILE - 1)));
+}
+
+// one stage of B8, in floats: the cells' rows (up: R T RD TD TDD; down:
+// R T TD TDD and the two albedos below) at [k][slot], then the block's
+// per-column rows at [row][column]. After a level's arithmetic each
+// thread puts its results (up: the albedos below the layer; down: the
+// fluxes) in its own slots of the first rows, and the block writes them
+// out with the copies' mapping, in 128-byte runs.
+template <int N>
+struct SwStage {
+  static constexpr int NN = N * N, UP_H = 5 * NN, DN_H = 6 * NN;
+  static constexpr int UP = UP_H * SW_THREADS + UP_COLROWS * C_TILE;
+  static constexpr int DN = DN_H * SW_THREADS + DN_COLROWS * C_TILE;
+  static constexpr int FLOATS = UP > DN ? UP : DN;
+  static constexpr size_t BYTES = (size_t)STAGES * FLOATS * sizeof(float);
+};
+static_assert(G_TILE <= 32 && C_TILE <= 32 && SW_THREADS % 32 == 0
+                  && (G_TILE & (G_TILE - 1)) == 0
+                  && (C_TILE & (C_TILE - 1)) == 0,
+              "slot() takes powers of two, a whole number of warps");
+static_assert(SwStage<3>::BYTES <= 227 * 1024, "B8 stages exceed 227 KB");
+
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  __pipeline_memcpy_async(dst, src, sizeof(float));
+}
 // per-column LW rows
 constexpr int LUM = 0, LVM = 9, LVMN = 18, LCLEAR = 27, LCLEARP = 28,
               LCLEARN = 29, LW_NCOLROWS = 30;
@@ -208,13 +291,14 @@ struct SwParams {
 };
 
 // the explicit / non-fractal entrapment term, added to `mixed`
-// (ops/spartacus_adding.py _explicit_entrapment_k)
+// (ops/spartacus_adding.py _explicit_entrapment_k); c is the thread's
+// column of a level's staged per-column rows (stride C_TILE)
 template <int N>
 __device__ __forceinline__ void explicit_entrapment(
-    const SwParams& p, const float* __restrict__ c, size_t ncol,
+    const SwParams& p, const float* __restrict__ c,
     const float (&alb_below)[N][N], const float (&x)[N],
     const float (&um)[N][N], const float (&vm)[N][N], float (&mixed)[N][N]) {
-  auto row = [&](int k) { return c[(size_t)k * ncol]; };
+  auto row = [&](int k) { return c[up_row(k) * C_TILE]; };
   const float inv_eff = fminf(row(INVEFF), p.inv_min_size);
   const bool not_top = row(NOTTOP) > 0.5f;
   const float overlap = row(OVP);
@@ -267,7 +351,7 @@ __device__ __forceinline__ void explicit_entrapment(
 template <int N>
 __device__ __forceinline__ void sw_mix(const SwParams& p,
                                        const float* __restrict__ c,
-                                       size_t ncol, const float (&ab)[N][N],
+                                       const float (&ab)[N][N],
                                        const float (&x)[N],
                                        const float (&um)[N][N],
                                        const float (&vm)[N][N],
@@ -308,12 +392,12 @@ __device__ __forceinline__ void sw_mix(const SwParams& p,
 #pragma unroll
     for (int i = 0; i < N; ++i) mixed[i][i] = mixed[i][i] + d[i];
   } else {
-    explicit_entrapment<N>(p, c, ncol, ab, x, um, vm, mixed);
+    explicit_entrapment<N>(p, c, ab, x, um, vm, mixed);
   }
 }
 
 template <int N>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(SW_THREADS, SW_MIN_BLOCKS)
 sw_adding_kernel(const float* __restrict__ hist,
                  const float* __restrict__ cols,
                  const float* __restrict__ init_up,
@@ -321,15 +405,76 @@ sw_adding_kernel(const float* __restrict__ hist,
                  int ncol, SwParams p, float* __restrict__ scratch,
                  float* __restrict__ alb_top, float* __restrict__ albdir_top,
                  float* __restrict__ out) {
+  using L = SwStage<N>;
   constexpr int NN = N * N, NH = 5 * NN;
-  const size_t m = (size_t)ng * ncol;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const size_t nc = (size_t)ncol;
-  const size_t cix = i % nc;
-  auto H = [&](int l, int k) { return hist[((size_t)l * NH + k) * m + i]; };
-  auto S = [&](int l, int k) -> float& {
-    return scratch[((size_t)l * 2 * NN + k) * m + i];
+  extern __shared__ __align__(16) float stage_mem[];
+  // blocks walk the g-tiles of one column strip before the next strip,
+  // so a strip's per-column rows are read from L2 by all but the first
+  const int ntiles = (ng + G_TILE - 1) / G_TILE;
+  const int g0 = (int)(blockIdx.x % ntiles) * G_TILE;
+  const int c0 = (int)(blockIdx.x / ntiles) * C_TILE;
+  const int width = min(C_TILE, ncol - c0);
+  const size_t m = (size_t)ng * ncol, nc = (size_t)ncol;
+  const int tid = threadIdx.x;
+  // the arithmetic's cell: g0 + ag, column c0 + ac
+  const int ag = tid % G_TILE, ac = tid / G_TILE;
+  const bool active = g0 + ag < ng && ac < width;
+  const size_t i = active ? (size_t)(g0 + ag) * nc + c0 + ac : 0;
+  const int own = slot(ag, ac);
+  // the copies' cell
+  const int qg = tid / C_TILE, qc = tid % C_TILE;
+  const bool qvalid = g0 + qg < ng && qc < width;
+  const size_t qi = qvalid ? (size_t)(g0 + qg) * nc + c0 + qc : 0;
+  const int qslot = slot(qg, qc);
+  auto stage = [&](int s) { return stage_mem + (size_t)s * L::FLOATS; };
+  // the per-column rows of level l that a sweep reads, to staged row r
+  auto copy_cols = [&](int l, float* sc, bool up) {
+    const float* cl = cols + (size_t)l * NCOLROWS * nc + c0;
+    const int nrows = up ? UP_COLROWS : DN_COLROWS;
+    for (int q = tid; q < nrows * C_TILE; q += SW_THREADS) {
+      const int r = q / C_TILE, cc = q % C_TILE;
+      const int src = up ? up_src(r) : dn_src(r);
+      if (cc < width) copy_async(sc + q, cl + (size_t)src * nc + cc);
+    }
+  };
+  // level l's operands of the upward sweep into stage s
+  auto fetch_up = [&](int l, int s) {
+    float* st = stage(s);
+    if (qvalid) {
+      const float* h = hist + (size_t)l * NH * m + qi;
+#pragma unroll
+      for (int k = 0; k < NH; ++k)
+        copy_async(st + k * SW_THREADS + qslot, h + (size_t)k * m);
+    }
+    copy_cols(l, st + L::UP_H * SW_THREADS, true);
+    __pipeline_commit();
+  };
+  // and of the downward sweep: R, T, TD, TDD and the albedos below
+  auto fetch_dn = [&](int l, int s) {
+    float* st = stage(s);
+    if (qvalid) {
+      const float* h = hist + (size_t)l * NH * m + qi;
+#pragma unroll
+      for (int k = 0; k < 4 * NN; ++k)
+        copy_async(st + k * SW_THREADS + qslot,
+                   h + (size_t)(k < 2 * NN ? k : k + NN) * m);
+      const float* sr = scratch + (size_t)l * 2 * NN * m + qi;
+#pragma unroll
+      for (int k = 0; k < 2 * NN; ++k)
+        copy_async(st + (4 * NN + k) * SW_THREADS + qslot,
+                   sr + (size_t)k * m);
+    }
+    copy_cols(l, st + L::DN_H * SW_THREADS, false);
+    __pipeline_commit();
+  };
+  // the results in rows 0 .. nrows - 1 of stage s to dst's rows, by the
+  // copies' mapping (so each scratch value is copied back in the downward
+  // sweep by the thread that stored it)
+  auto flush = [&](int s, float* dst, int nrows) {
+    const float* st = stage(s);
+    if (qvalid)
+      for (int k = 0; k < nrows; ++k)
+        dst[(size_t)k * m + qi] = st[k * SW_THREADS + qslot];
   };
   const bool explicit_x = p.entrap == EXPLICIT || p.entrap == NON_FRACTAL;
 
@@ -338,33 +483,62 @@ sw_adding_kernel(const float* __restrict__ hist,
   for (int a = 0; a < N; ++a) {
 #pragma unroll
     for (int b = 0; b < N; ++b) {
-      alb[a][b] = init_up[(size_t)(a * N + b) * m + i];
-      albdir[a][b] = init_up[(size_t)(NN + a * N + b) * m + i];
+      alb[a][b] = active ? init_up[(size_t)(a * N + b) * m + i] : 0.0f;
+      albdir[a][b] = active ? init_up[(size_t)(NN + a * N + b) * m + i]
+                            : 0.0f;
     }
     xd[a] = xr[a] = 0.0f;
   }
 
   // ---- upward: the total albedos below each layer ----
-  for (int l = nlev - 1; l >= 0; --l) {
-    const float* c = cols + (size_t)l * NCOLROWS * nc + cix;
-    auto row = [&](int k) { return c[(size_t)k * nc]; };
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < nlev) fetch_up(nlev - 1 - j, j);
+    else __pipeline_commit();
+  }
+  for (int j = 0; j < nlev; ++j) {
+    // this level's copies have landed, every thread's included, and the
+    // level before is complete; its results leave its stage before the
+    // stage is refilled
+    __pipeline_wait_prior(STAGES - 2);
+    __syncthreads();
+    if (j > 0) {
+      flush((j - 1) % STAGES, scratch + (size_t)(nlev - j) * 2 * NN * m,
+            2 * NN);
+      __syncthreads();
+    }
+    const int jn = j + STAGES - 1;
+    if (jn < nlev) fetch_up(nlev - 1 - jn, jn % STAGES);
+    else __pipeline_commit();
+    if (!active) continue;
+    float* st = stage(j % STAGES);
+    auto H = [&](int k) -> float& { return st[k * SW_THREADS + own]; };
+    const float* c = st + L::UP_H * SW_THREADS + ac;
+    auto row = [&](int k) { return c[up_row(k) * C_TILE]; };
     float R[N][N], T[N][N], RD[N][N], TD[N][N], TDD[N][N];
 #pragma unroll
     for (int a = 0; a < N; ++a)
 #pragma unroll
       for (int b = 0; b < N; ++b) {
         const int k = a * N + b;
-        S(l, k) = alb[a][b];
-        S(l, NN + k) = albdir[a][b];
-        R[a][b] = H(l, k);
-        T[a][b] = H(l, NN + k);
-        RD[a][b] = H(l, 2 * NN + k);
-        TD[a][b] = H(l, 3 * NN + k);
-        TDD[a][b] = H(l, 4 * NN + k);
+        R[a][b] = H(k);
+        T[a][b] = H(NN + k);
+        RD[a][b] = H(2 * NN + k);
+        TD[a][b] = H(3 * NN + k);
+        TDD[a][b] = H(4 * NN + k);
+      }
+    // the albedos below this layer (the carry at entry) for the downward
+    // sweep, in this thread's slots of the rows just read
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int b = 0; b < N; ++b) {
+        H(a * N + b) = alb[a][b];
+        H(NN + a * N + b) = albdir[a][b];
       }
     float um[N][N], vm[N][N];
-    col_mat<N>(c, nc, UM, um);
-    col_mat<N>(c, nc, VM, vm);
+    col_mat<N>(c, C_TILE, up_row(UM), um);
+    col_mat<N>(c, C_TILE, up_row(VM), vm);
     const bool is_clear = row(CLEAR) > 0.5f;
     const bool both_clear = is_clear && row(CLEARP) > 0.5f;
     if (explicit_x) {
@@ -427,8 +601,8 @@ sw_adding_kernel(const float* __restrict__ hist,
           albdir[a][b] = adb[a][b];
         }
     } else {
-      sw_mix<N>(p, c, nc, ab, xd, um, vm, alb);
-      sw_mix<N>(p, c, nc, adb, xr, um, vm, albdir);
+      sw_mix<N>(p, c, ab, xd, um, vm, alb);
+      sw_mix<N>(p, c, adb, xr, um, vm, albdir);
       if (explicit_x) {
         float y[N];
         mvt<N>(vm, xd, y);
@@ -440,38 +614,61 @@ sw_adding_kernel(const float* __restrict__ hist,
       }
     }
   }
+  if (active) {
 #pragma unroll
-  for (int a = 0; a < N; ++a)
+    for (int a = 0; a < N; ++a)
 #pragma unroll
-    for (int b = 0; b < N; ++b) {
-      alb_top[(size_t)(a * N + b) * m + i] = alb[a][b];
-      albdir_top[(size_t)(a * N + b) * m + i] = albdir[a][b];
-    }
+      for (int b = 0; b < N; ++b) {
+        alb_top[(size_t)(a * N + b) * m + i] = alb[a][b];
+        albdir_top[(size_t)(a * N + b) * m + i] = albdir[a][b];
+      }
+  }
+  __syncthreads();
+  if (nlev > 0) flush((nlev - 1) % STAGES, scratch, 2 * NN);
+  // no thread reads a stage any more
+  __syncthreads();
 
   // ---- downward: the fluxes at the top of each layer ----
   float fdn[N], dir[N];
 #pragma unroll
   for (int r = 0; r < N; ++r) {
     fdn[r] = 0.0f;
-    dir[r] = direct0[(size_t)r * m + i];
+    dir[r] = active ? direct0[(size_t)r * m + i] : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < nlev) fetch_dn(j, j);
+    else __pipeline_commit();
   }
   for (int l = 0; l < nlev; ++l) {
-    const float* c = cols + (size_t)l * NCOLROWS * nc + cix;
+    __pipeline_wait_prior(STAGES - 2);
+    __syncthreads();
+    if (l > 0) {
+      flush((l - 1) % STAGES, out + (size_t)(l - 1) * 3 * N * m, 3 * N);
+      __syncthreads();
+    }
+    const int ln = l + STAGES - 1;
+    if (ln < nlev) fetch_dn(ln, ln % STAGES);
+    else __pipeline_commit();
+    if (!active) continue;
+    float* st = stage(l % STAGES);
+    auto H = [&](int k) -> float& { return st[k * SW_THREADS + own]; };
+    const float* c = st + L::DN_H * SW_THREADS + ac;
     float R[N][N], T[N][N], TD[N][N], TDD[N][N], ab[N][N], adb[N][N];
 #pragma unroll
     for (int a = 0; a < N; ++a)
 #pragma unroll
       for (int b = 0; b < N; ++b) {
         const int k = a * N + b;
-        R[a][b] = H(l, k);
-        T[a][b] = H(l, NN + k);
-        TD[a][b] = H(l, 3 * NN + k);
-        TDD[a][b] = H(l, 4 * NN + k);
-        ab[a][b] = S(l, k);
-        adb[a][b] = S(l, NN + k);
+        R[a][b] = H(k);
+        T[a][b] = H(NN + k);
+        TD[a][b] = H(2 * NN + k);
+        TDD[a][b] = H(3 * NN + k);
+        ab[a][b] = H(4 * NN + k);
+        adb[a][b] = H(5 * NN + k);
       }
-    const bool is_clear = c[(size_t)CLEAR * nc] > 0.5f;
-    const bool both_clear = is_clear && c[(size_t)CLEARN * nc] > 0.5f;
+    const bool is_clear = c[DN_CLEAR * C_TILE] > 0.5f;
+    const bool both_clear = is_clear && c[DN_CLEARN * C_TILE] > 0.5f;
     float src[N], dab[N], tot[N], v1[N], v2[N], den[N][N], rhs[N][1];
     mv<N, N>(TD, dir, src);
     mv<N, N>(TDD, dir, dab);
@@ -491,12 +688,12 @@ sw_adding_kernel(const float* __restrict__ hist,
       fu[r] = fu[r] + tot[r];
       if (is_clear && r > 0) fa[r] = fu[r] = dab[r] = 0.0f;
     }
-    const size_t o = (size_t)l * 3 * N * m + i;
+    // [fup | fdn | ddn] in this thread's slots of the first 3 N rows
 #pragma unroll
     for (int r = 0; r < N; ++r) {
-      out[o + (size_t)r * m] = fu[r];
-      out[o + (size_t)(N + r) * m] = fa[r];
-      out[o + (size_t)(2 * N + r) * m] = dab[r];
+      H(r) = fu[r];
+      H(N + r) = fa[r];
+      H(2 * N + r) = dab[r];
     }
     if (both_clear) {
 #pragma unroll
@@ -506,11 +703,14 @@ sw_adding_kernel(const float* __restrict__ hist,
       }
     } else {
       float vn[N][N];
-      col_mat<N>(c, nc, VMN, vn);
+      col_mat<N>(c, C_TILE, 0, vn);
       mv<N, N>(vn, fa, fdn);
       mv<N, N>(vn, dab, dir);
     }
   }
+  __syncthreads();
+  if (nlev > 0)
+    flush((nlev - 1) % STAGES, out + (size_t)(nlev - 1) * 3 * N * m, 3 * N);
 }
 
 template <int N>
@@ -700,6 +900,20 @@ lw_adding_kernel(const float* __restrict__ hist,
 
 inline int blocks_for(size_t n) { return (int)((n + THREADS - 1) / THREADS); }
 
+// B8's dynamic shared memory above 48 KB, and the carveout that gives
+// shared memory the most of the SM's 256 KB (the kernel's reads land in
+// shared memory, so it needs little L1)
+template <int N>
+cudaError_t configure_sw() {
+  cudaError_t e = cudaFuncSetAttribute(
+      sw_adding_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SwStage<N>::BYTES);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(sw_adding_kernel<N>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
 }  // namespace spadd
 }  // namespace ecrad
 
@@ -713,23 +927,48 @@ extern "C" int spartacus_sw_adding(const float* hist, const float* cols,
                                    float* alb_top, float* albdir_top,
                                    float* out, void* stream) {
   namespace sa = ecrad::spadd;
-  const size_t m = (size_t)ng * ncol;
-  if (m == 0) return (int)cudaGetLastError();
+  if ((size_t)ng * ncol == 0) return (int)cudaGetLastError();
   const sa::SwParams p{entrap, do_3d, max_cloud_od, inv_min_size,
                        one_minus_overhang, frac_threshold};
   cudaStream_t s = (cudaStream_t)stream;
+  // one block per (g-tile, column strip), the g-tiles of a strip adjacent
+  const unsigned blocks = (unsigned)((ng + sa::G_TILE - 1) / sa::G_TILE)
+      * (unsigned)((ncol + sa::C_TILE - 1) / sa::C_TILE);
+  cudaError_t e;
   if (nreg == 3) {
-    sa::sw_adding_kernel<3><<<sa::blocks_for(m), sa::THREADS, 0, s>>>(
-        hist, cols, init_up, direct0, nlev, ng, ncol, p, scratch, alb_top,
-        albdir_top, out);
+    if ((e = sa::configure_sw<3>()) != cudaSuccess) return (int)e;
+    sa::sw_adding_kernel<3><<<blocks, sa::SW_THREADS, sa::SwStage<3>::BYTES,
+                              s>>>(hist, cols, init_up, direct0, nlev, ng,
+                                   ncol, p, scratch, alb_top, albdir_top,
+                                   out);
   } else if (nreg == 2) {
-    sa::sw_adding_kernel<2><<<sa::blocks_for(m), sa::THREADS, 0, s>>>(
-        hist, cols, init_up, direct0, nlev, ng, ncol, p, scratch, alb_top,
-        albdir_top, out);
+    if ((e = sa::configure_sw<2>()) != cudaSuccess) return (int)e;
+    sa::sw_adding_kernel<2><<<blocks, sa::SW_THREADS, sa::SwStage<2>::BYTES,
+                              s>>>(hist, cols, init_up, direct0, nlev, ng,
+                                   ncol, p, scratch, alb_top, albdir_top,
+                                   out);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// B8's compiled resources and the occupancy its launch gets (see
+// kernel_info.cuh), for nreg regions
+extern "C" int spartacus_sw_adding_info(int nreg, int* info) {
+  namespace sa = ecrad::spadd;
+  cudaError_t e;
+  if (nreg == 3) {
+    if ((e = sa::configure_sw<3>()) != cudaSuccess) return (int)e;
+    return ecrad::kernel_info(sa::sw_adding_kernel<3>, sa::SW_THREADS,
+                              sa::SwStage<3>::BYTES, info);
+  }
+  if (nreg == 2) {
+    if ((e = sa::configure_sw<2>()) != cudaSuccess) return (int)e;
+    return ecrad::kernel_info(sa::sw_adding_kernel<2>, sa::SW_THREADS,
+                              sa::SwStage<2>::BYTES, info);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int spartacus_lw_adding(const float* hist, const float* cols,

@@ -24,11 +24,29 @@
 //
 // What bounds it: device-memory bandwidth at the least-time measure (the
 // 45 | 24 output rows per cell against about 7,000 | 2,500 operations per
-// 3D cell of 3 regions and ~150 per fallback cell, 14 % of cells 3D on
-// the SPARTACUS path); in practice the register count, which leaves 8
-// warps per SM, and the divergence of 3D and fallback cells within a
-// warp. The operand layout (nlev, rows, ng, ncol) keeps every global
-// access coalesced across the 32 neighbouring columns of a warp.
+// 3D cell of 3 regions and ~180 per fallback cell; 14 % of cells are 3D
+// on the SPARTACUS path). The operand layout (nlev, rows, ng, ncol) keeps
+// every global access coalesced across the 32 neighbouring columns of a
+// warp.
+//
+// B6 (SW) runs as two launches on one stream, so that the fallback cells,
+// most of the output, are not held to the 3D pipeline's 255 registers
+// (8 warps per SM) nor share a warp with a 3D cell, and so that every
+// 32-byte sector of the output is written whole. A sector is 8 columns
+// of one (level, row, g); at the SPARTACUS path's 3D share (0.14) most
+// sectors hold both kinds of cell, and a sector written in two parts by
+// two launches is read back from device memory to be merged, once for
+// each part. Pass 1, a persistent grid sized by the occupancy
+// of the 3D pipeline, finds the 3D cells itself (each warp queues the 3D
+// cells of its groups of 32 with a ballot and computes them 32 at a
+// time, every lane busy) and stages each cell's rows in a compact buffer
+// of up to a quarter of the cells, coalesced, recording its slot; a cell
+// past that share is written in place. Pass 2, compiled apart with at
+// most 64 registers, streams over every cell: it computes a fallback
+// cell's rows and copies a staged 3D cell's, so each warp writes its 32
+// columns of every row at once. Every output element is written once,
+// by one of the two passes; no value depends on the slots' order. B7
+// (LW) keeps the one-pass design.
 //
 // Semantics: ops/spartacus_reftrans.py sw_reftrans_levels_plain and
 // lw_reftrans_levels_plain, expression for expression (built with
@@ -41,10 +59,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_info.cuh"
+
 namespace ecrad {
 namespace spartacus {
 
 constexpr int THREADS = 128;
+// B6's pass over every cell: 128 threads, at least 6 blocks per SM (80
+// registers, 24 warps; at 64 registers it spilled and ran slower)
+constexpr int LEAN_THREADS = 128, LEAN_MIN_BLOCKS = 6;
 constexpr float THETA_DBL = 1.8f;
 constexpr int MAX_DOUBLINGS = 12;
 constexpr float MAX_OD_OVER_MU0_3D = 60.0f;
@@ -405,26 +428,16 @@ __device__ int expm_reftrans_sw(const float (&M)[2 * N][2 * N],
   return expo;
 }
 
-template <int NREG>
-__global__ void __launch_bounds__(THREADS)
-sw_reftrans_kernel(const float* __restrict__ od_in,
-                   const float* __restrict__ ssa_in,
-                   const float* __restrict__ g_in,
-                   const float* __restrict__ trd_in,
-                   const float* __restrict__ trf_in,
-                   const float* __restrict__ mu0_in,
-                   const uint8_t* __restrict__ use3d_in,
-                   const uint8_t* __restrict__ clear_in, int nlev, int ng,
-                   int ncol, float max_gas_od_3d, float* __restrict__ out,
-                   int8_t* __restrict__ counts) {
-  constexpr int N = NREG, NN = NREG * NREG;
-  const size_t m = (size_t)ng * ncol;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)nlev * m) return;
-  const int l = (int)(idx / m);
-  const size_t i = idx % m;
-  const size_t c = i % ncol;
-  const float mu0 = mu0_in[c];
+// B6's 3D pass: one cell's rows. Gamma, its Pade-5 exponential and the
+// doubling, then the clipping; o[q] is [R | T | RD | TD | TDD][q]. Returns
+// the doubling count.
+template <int N>
+__device__ __forceinline__ int sw_3d_cell(
+    const float* __restrict__ od_in, const float* __restrict__ ssa_in,
+    const float* __restrict__ g_in, const float* __restrict__ trd_in,
+    const float* __restrict__ trf_in, float mu0, int l, size_t i, size_t c,
+    size_t m, int ncol, float max_gas_od_3d, float (&o)[5][N][N]) {
+  constexpr int NN = N * N;
   float od[N], ssa[N], gg[N];
 #pragma unroll
   for (int r = 0; r < N; ++r) {
@@ -433,110 +446,224 @@ sw_reftrans_kernel(const float* __restrict__ od_in,
     ssa[r] = ssa_in[j];
     gg[r] = g_in[j];
   }
-  float o[5][N][N];
+  // Gamma = [[M, C], [0, D]], assembled in the order of the plain
+  // version (ops/spartacus_reftrans.py sw_gamma_expm)
+  constexpr int N3 = 3 * N;
+  float G[N3][N3];
 #pragma unroll
-  for (int q = 0; q < 5; ++q)
+  for (int a = 0; a < N3; ++a)
 #pragma unroll
-    for (int a = 0; a < N; ++a)
+    for (int b = 0; b < N3; ++b) G[a][b] = 0.0f;
+  const float one_over_mu0 = 1.0f / mu0;
 #pragma unroll
-      for (int b = 0; b < N; ++b) o[q][a][b] = 0.0f;
-  const bool use3d = use3d_in[idx] != 0;
-  int count = -1;
-  if (!use3d) {
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      const Mw w = sw_fallback(mu0, od[r], ssa[r], gg[r]);
-      o[0][r][r] = w.r;
-      o[1][r][r] = w.t;
-      o[2][r][r] = w.rd;
-      o[3][r][r] = w.td;
-      o[4][r][r] = w.tdd;
-    }
-  } else {
-    // Gamma = [[M, C], [0, D]], assembled in the order of the plain
-    // version (ops/spartacus_reftrans.py sw_gamma_expm)
-    constexpr int N3 = 3 * N;
-    float G[N3][N3];
-#pragma unroll
-    for (int a = 0; a < N3; ++a)
-#pragma unroll
-      for (int b = 0; b < N3; ++b) G[a][b] = 0.0f;
-    const float one_over_mu0 = 1.0f / mu0;
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      const float odr = r == 0 ? fminf(od[0], max_gas_od_3d) : od[r];
-      float g1, g2, g3;
-      sw_gammas(mu0, ssa[r], gg[r], &g1, &g2, &g3);
-      G[r][r] = G[r][r] + odr * g1;
-      G[N + r][r] = G[N + r][r] + odr * g2;
-      G[r][2 * N + r] = G[r][2 * N + r] + -odr * ssa[r] * g3;
-      G[N + r][2 * N + r] = G[N + r][2 * N + r] + odr * ssa[r] * (1.0f - g3);
-      G[2 * N + r][2 * N + r] = G[2 * N + r][2 * N + r]
-          + -fminf(odr * one_over_mu0, MAX_OD_OVER_MU0_3D);
-    }
-    const size_t tc = (size_t)l * NN * ncol + c;
-    auto trd = [&](int a, int b) {
-      return trd_in[tc + (size_t)(a * N + b) * ncol];
-    };
-    auto trf = [&](int a, int b) {
-      return trf_in[tc + (size_t)(a * N + b) * ncol];
-    };
-    constexpr int NPAIRS = N == 3 ? 3 : 1;
-    const int pa[3] = {0, 1, 0}, pb[3] = {1, 2, 2};
-#pragma unroll
-    for (int p = 0; p < NPAIRS; ++p) {
-      const int a = pa[p], b = pb[p];
-      G[a][a] = G[a][a] + trf(a, b);
-      G[b][b] = G[b][b] + trf(b, a);
-      G[b][a] = G[b][a] + -trf(a, b);
-      G[a][b] = G[a][b] + -trf(b, a);
-      G[2 * N + a][2 * N + a] = G[2 * N + a][2 * N + a] + -trd(a, b);
-      G[2 * N + b][2 * N + b] = G[2 * N + b][2 * N + b] + -trd(b, a);
-      G[2 * N + b][2 * N + a] = G[2 * N + b][2 * N + a] + trd(a, b);
-      G[2 * N + a][2 * N + b] = G[2 * N + a][2 * N + b] + trd(b, a);
-    }
-    float M[2 * N][2 * N], Cm[2 * N][N], D[N][N];
-#pragma unroll
-    for (int a = 0; a < N; ++a)
-#pragma unroll
-      for (int b = 0; b < N; ++b) {
-        G[N + a][N + b] = -G[a][b];
-        G[a][N + b] = -G[N + a][b];
-      }
-#pragma unroll
-    for (int a = 0; a < 2 * N; ++a) {
-#pragma unroll
-      for (int b = 0; b < 2 * N; ++b) M[a][b] = G[a][b];
-#pragma unroll
-      for (int b = 0; b < N; ++b) Cm[a][b] = G[a][2 * N + b];
-    }
-#pragma unroll
-    for (int a = 0; a < N; ++a)
-#pragma unroll
-      for (int b = 0; b < N; ++b) D[a][b] = G[2 * N + a][2 * N + b];
-    count = expm_reftrans_sw<N>(M, Cm, D, o[0], o[1], o[2], o[3], o[4]);
-#pragma unroll
-    for (int a = 0; a < N; ++a)
-#pragma unroll
-      for (int b = 0; b < N; ++b) {
-        o[0][a][b] = fminf(fmaxf(o[0][a][b], 0.0f), 1.0f);
-        o[1][a][b] = fminf(fmaxf(o[1][a][b], 0.0f), 1.0f);
-        o[2][a][b] = fminf(fmaxf(o[2][a][b], 0.0f), mu0);
-        o[3][a][b] = fminf(fmaxf(o[3][a][b], 0.0f), mu0);
-        o[4][a][b] = fminf(fmaxf(o[4][a][b], 0.0f), 1.0f);
-      }
+  for (int r = 0; r < N; ++r) {
+    const float odr = r == 0 ? fminf(od[0], max_gas_od_3d) : od[r];
+    float g1, g2, g3;
+    sw_gammas(mu0, ssa[r], gg[r], &g1, &g2, &g3);
+    G[r][r] = G[r][r] + odr * g1;
+    G[N + r][r] = G[N + r][r] + odr * g2;
+    G[r][2 * N + r] = G[r][2 * N + r] + -odr * ssa[r] * g3;
+    G[N + r][2 * N + r] =
+        G[N + r][2 * N + r] + odr * ssa[r] * (1.0f - g3);
+    G[2 * N + r][2 * N + r] = G[2 * N + r][2 * N + r]
+        + -fminf(odr * one_over_mu0, MAX_OD_OVER_MU0_3D);
   }
-  const bool clear = clear_in[(size_t)l * ncol + c] != 0;
-  const size_t base = (size_t)l * 5 * NN * m + i;
+  const size_t tc = (size_t)l * NN * ncol + c;
+  auto trd = [&](int a, int b) {
+    return trd_in[tc + (size_t)(a * N + b) * ncol];
+  };
+  auto trf = [&](int a, int b) {
+    return trf_in[tc + (size_t)(a * N + b) * ncol];
+  };
+  constexpr int NPAIRS = N == 3 ? 3 : 1;
+  const int pa[3] = {0, 1, 0}, pb[3] = {1, 2, 2};
+#pragma unroll
+  for (int p = 0; p < NPAIRS; ++p) {
+    const int a = pa[p], b = pb[p];
+    G[a][a] = G[a][a] + trf(a, b);
+    G[b][b] = G[b][b] + trf(b, a);
+    G[b][a] = G[b][a] + -trf(a, b);
+    G[a][b] = G[a][b] + -trf(b, a);
+    G[2 * N + a][2 * N + a] = G[2 * N + a][2 * N + a] + -trd(a, b);
+    G[2 * N + b][2 * N + b] = G[2 * N + b][2 * N + b] + -trd(b, a);
+    G[2 * N + b][2 * N + a] = G[2 * N + b][2 * N + a] + trd(a, b);
+    G[2 * N + a][2 * N + b] = G[2 * N + a][2 * N + b] + trd(b, a);
+  }
+  float M[2 * N][2 * N], Cm[2 * N][N], D[N][N];
+#pragma unroll
+  for (int a = 0; a < N; ++a)
+#pragma unroll
+    for (int b = 0; b < N; ++b) {
+      G[N + a][N + b] = -G[a][b];
+      G[a][N + b] = -G[N + a][b];
+    }
+#pragma unroll
+  for (int a = 0; a < 2 * N; ++a) {
+#pragma unroll
+    for (int b = 0; b < 2 * N; ++b) M[a][b] = G[a][b];
+#pragma unroll
+    for (int b = 0; b < N; ++b) Cm[a][b] = G[a][2 * N + b];
+  }
+#pragma unroll
+  for (int a = 0; a < N; ++a)
+#pragma unroll
+    for (int b = 0; b < N; ++b) D[a][b] = G[2 * N + a][2 * N + b];
+  const int count =
+      expm_reftrans_sw<N>(M, Cm, D, o[0], o[1], o[2], o[3], o[4]);
+#pragma unroll
+  for (int a = 0; a < N; ++a)
+#pragma unroll
+    for (int b = 0; b < N; ++b) {
+      o[0][a][b] = fminf(fmaxf(o[0][a][b], 0.0f), 1.0f);
+      o[1][a][b] = fminf(fmaxf(o[1][a][b], 0.0f), 1.0f);
+      o[2][a][b] = fminf(fmaxf(o[2][a][b], 0.0f), mu0);
+      o[3][a][b] = fminf(fmaxf(o[3][a][b], 0.0f), mu0);
+      o[4][a][b] = fminf(fmaxf(o[4][a][b], 0.0f), 1.0f);
+    }
+  return count;
+}
+
+// pass 1 of B6, over the 3D cells only: a persistent grid whose warps
+// stride over groups of 32 cells, append each group's 3D cells to a queue
+// of their own (a ballot, in shared memory) and, each time it holds 32,
+// compute them with every lane busy. A round's 32 results go to 32
+// adjacent slots of `packed` (rows (5 NREG^2, cap), one atomicAdd per
+// round on *n3d, which starts at 0), and slot_of[cell] records the slot;
+// past cap slots a cell is written to `out` in place and its slot is -1.
+// Each cell's rows depend on that cell alone, so the order of the slots
+// changes no value.
+template <int NREG>
+__global__ void __launch_bounds__(THREADS)
+sw_3d_kernel(const float* __restrict__ od_in,
+             const float* __restrict__ ssa_in,
+             const float* __restrict__ g_in,
+             const float* __restrict__ trd_in,
+             const float* __restrict__ trf_in,
+             const float* __restrict__ mu0_in,
+             const uint8_t* __restrict__ use3d_in,
+             const uint8_t* __restrict__ clear_in, int nlev, int ng,
+             int ncol, int cap, float max_gas_od_3d, float* __restrict__ out,
+             int8_t* __restrict__ counts, float* __restrict__ packed,
+             int* __restrict__ slot_of, int* __restrict__ n3d) {
+  constexpr int N = NREG, NN = NREG * NREG, WARPS = THREADS / 32;
+  constexpr unsigned ALL = 0xffffffffu;
+  __shared__ int queues[WARPS][64];
+  const int lane = threadIdx.x % 32;
+  int* q = queues[threadIdx.x / 32];
+  const size_t m = (size_t)ng * ncol, n = (size_t)nlev * m;
+  const size_t groups = (n + 31) / 32, stride = (size_t)gridDim.x * WARPS;
+  int qn = 0;  // the queue's length, the same in every lane
+  for (size_t grp = (size_t)blockIdx.x * WARPS + threadIdx.x / 32;;
+       grp += stride) {
+    const bool more = grp < groups;
+    if (more) {
+      const size_t idx = grp * 32 + lane;
+      const bool is3d = idx < n && use3d_in[idx] != 0;
+      const unsigned vote = __ballot_sync(ALL, is3d);
+      if (is3d) q[qn + __popc(vote & ((1u << lane) - 1u))] = (int)idx;
+      qn += __popc(vote);
+    }
+    // a full round, or the last cells of this warp's groups
+    if (qn >= 32 || (!more && qn > 0)) {
+      const int take = min(qn, 32);
+      __syncwarp();
+      const int cell = lane < take ? q[lane] : -1;
+      __syncwarp();
+      if (lane < qn - take) q[lane] = q[take + lane];
+      __syncwarp();
+      qn -= take;
+      int base = 0;
+      if (lane == 0) base = atomicAdd(n3d, take);
+      base = __shfl_sync(ALL, base, 0);
+      if (cell >= 0) {
+        const size_t idx = (size_t)cell;
+        const int l = (int)(idx / m);
+        const size_t i = idx % m, c = i % ncol;
+        const float mu0 = mu0_in[c];
+        float o[5][N][N];
+        const int count = sw_3d_cell<N>(od_in, ssa_in, g_in, trd_in, trf_in,
+                                        mu0, l, i, c, m, ncol, max_gas_od_3d,
+                                        o);
+        const bool clear = clear_in[(size_t)l * ncol + c] != 0;
+        const int slot = base + lane;
+        const bool staged = slot < cap;
+        float* dst = staged ? packed + slot : out + (size_t)l * 5 * NN * m + i;
+        const size_t step = staged ? (size_t)cap : m;
+#pragma unroll
+        for (int k = 0; k < 5; ++k)
+#pragma unroll
+          for (int a = 0; a < N; ++a)
+#pragma unroll
+            for (int b = 0; b < N; ++b)
+              dst[(size_t)(k * NN + a * N + b) * step] =
+                  (clear && (a > 0 || b > 0)) ? 0.0f : o[k][a][b];
+        slot_of[idx] = staged ? slot : -1;
+        if (counts) counts[idx] = (int8_t)count;
+      }
+    }
+    if (!more) break;
+  }
+}
+
+// pass 2 of B6, over every cell, so that every 32-byte sector of the
+// output is written whole, by one warp, once: a fallback cell gets its
+// Meador-Weaver rows, the off-diagonals zero, and count -1; a 3D cell the
+// rows pass 1 staged in its slot (nothing where pass 1 wrote it in place).
+// Both kinds go through the same 5 NREG^2 stores, each a full row of the
+// warp's 32 columns. Compiled apart from pass 1, so it keeps few registers
+// and many warps for what is a streaming write.
+template <int NREG>
+__global__ void __launch_bounds__(LEAN_THREADS, LEAN_MIN_BLOCKS)
+sw_fallback_kernel(const float* __restrict__ od_in,
+                   const float* __restrict__ ssa_in,
+                   const float* __restrict__ g_in,
+                   const float* __restrict__ mu0_in,
+                   const uint8_t* __restrict__ use3d_in,
+                   const uint8_t* __restrict__ clear_in,
+                   const float* __restrict__ packed,
+                   const int* __restrict__ slot_of, int nlev, int ng,
+                   int ncol, int cap, float* __restrict__ out,
+                   int8_t* __restrict__ counts) {
+  constexpr int N = NREG, NN = NREG * NREG;
+  const size_t m = (size_t)ng * ncol;
+  const size_t idx = (size_t)blockIdx.x * LEAN_THREADS + threadIdx.x;
+  if (idx >= (size_t)nlev * m) return;
+  const int l = (int)(idx / m);
+  const size_t i = idx % m;
+  const size_t c = i % ncol;
+  const bool is3d = use3d_in[idx] != 0;
+  const int slot = is3d ? slot_of[idx] : 0;
+  // a 3D cell past the staged share was written by pass 1
+  if (slot < 0) return;
+  float w[5][N];
+  if (!is3d) {
+    const float mu0 = mu0_in[c];
+    const bool clear = clear_in[(size_t)l * ncol + c] != 0;
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      const size_t j = ((size_t)l * N + r) * m + i;
+      const Mw v = sw_fallback(mu0, od_in[j], ssa_in[j], g_in[j]);
+      const bool z = clear && r > 0;
+      w[0][r] = z ? 0.0f : v.r;
+      w[1][r] = z ? 0.0f : v.t;
+      w[2][r] = z ? 0.0f : v.rd;
+      w[3][r] = z ? 0.0f : v.td;
+      w[4][r] = z ? 0.0f : v.tdd;
+    }
+    if (counts) counts[idx] = -1;
+  }
+  const float* p = packed + slot;
+  float* o = out + (size_t)l * 5 * NN * m + i;
 #pragma unroll
   for (int q = 0; q < 5; ++q)
 #pragma unroll
     for (int a = 0; a < N; ++a)
 #pragma unroll
-      for (int b = 0; b < N; ++b)
-        out[base + (size_t)(q * NN + a * N + b) * m] =
-            (clear && (a > 0 || b > 0)) ? 0.0f : o[q][a][b];
-  if (counts) counts[idx] = (int8_t)count;
+      for (int b = 0; b < N; ++b) {
+        const int k = q * NN + a * N + b;
+        o[(size_t)k * m] = is3d ? p[(size_t)k * cap]
+                                : (a == b ? w[q][a] : 0.0f);
+      }
 }
 
 // ---- LW ----
@@ -809,30 +936,100 @@ inline int blocks_for(size_t n) { return (int)((n + THREADS - 1) / THREADS); }
 }  // namespace spartacus
 }  // namespace ecrad
 
-extern "C" int spartacus_sw_reftrans(const float* od, const float* ssa,
-                                     const float* g, const float* trd,
-                                     const float* trf, const float* mu0,
-                                     const uint8_t* use3d,
-                                     const uint8_t* clear, float* out,
-                                     int8_t* counts, int nreg, int nlev,
-                                     int ng, int ncol, float max_gas_od_3d,
-                                     void* stream) {
+namespace ecrad {
+namespace spartacus {
+// pass 1's persistent grid: as many blocks as are resident on the card at
+// once, and no more than its warps' groups of 32 cells could fill
+template <int N>
+cudaError_t grid_3d(size_t cells, unsigned* blocks) {
+  int per_sm = 0, device = 0, sms = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, sw_3d_kernel<N>, THREADS, 0);
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const size_t most = (size_t)(per_sm > 0 ? per_sm : 1) * sms;
+  const size_t need = (cells + THREADS - 1) / THREADS;
+  *blocks = (unsigned)(need < most ? need : most);
+  return e;
+}
+}  // namespace spartacus
+}  // namespace ecrad
+
+// B6, pass 1, over the 3D cells of the nlev x ng x ncol cells: `packed`
+// holds (5 nreg^2, cap) floats, slot_of one int per cell, and *n3d must
+// be 0 on entry
+extern "C" int spartacus_sw_reftrans_3d(
+    const float* od, const float* ssa, const float* g, const float* trd,
+    const float* trf, const float* mu0, const uint8_t* use3d,
+    const uint8_t* clear, float* out, int8_t* counts, float* packed,
+    int* slot_of, int* n3d, int nreg, int nlev, int ng, int ncol, int cap,
+    float max_gas_od_3d, void* stream) {
   namespace sp = ecrad::spartacus;
   const size_t n = (size_t)nlev * ng * ncol;
   if (n == 0) return (int)cudaGetLastError();
+  if (n > (size_t)INT32_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  unsigned blocks = 0;
+  cudaError_t e;
   if (nreg == 3) {
-    sp::sw_reftrans_kernel<3><<<sp::blocks_for(n), sp::THREADS, 0, s>>>(
-        od, ssa, g, trd, trf, mu0, use3d, clear, nlev, ng, ncol,
-        max_gas_od_3d, out, counts);
+    if ((e = sp::grid_3d<3>(n, &blocks)) != cudaSuccess) return (int)e;
+    sp::sw_3d_kernel<3><<<blocks, sp::THREADS, 0, s>>>(
+        od, ssa, g, trd, trf, mu0, use3d, clear, nlev, ng, ncol, cap,
+        max_gas_od_3d, out, counts, packed, slot_of, n3d);
   } else if (nreg == 2) {
-    sp::sw_reftrans_kernel<2><<<sp::blocks_for(n), sp::THREADS, 0, s>>>(
-        od, ssa, g, trd, trf, mu0, use3d, clear, nlev, ng, ncol,
-        max_gas_od_3d, out, counts);
+    if ((e = sp::grid_3d<2>(n, &blocks)) != cudaSuccess) return (int)e;
+    sp::sw_3d_kernel<2><<<blocks, sp::THREADS, 0, s>>>(
+        od, ssa, g, trd, trf, mu0, use3d, clear, nlev, ng, ncol, cap,
+        max_gas_od_3d, out, counts, packed, slot_of, n3d);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// B6, pass 2, over every cell, after pass 1 on the same stream
+extern "C" int spartacus_sw_reftrans_fallback(
+    const float* od, const float* ssa, const float* g, const float* mu0,
+    const uint8_t* use3d, const uint8_t* clear, const float* packed,
+    const int* slot_of, float* out, int8_t* counts, int nreg, int nlev,
+    int ng, int ncol, int cap, void* stream) {
+  namespace sp = ecrad::spartacus;
+  const size_t n = (size_t)nlev * ng * ncol;
+  if (n == 0) return (int)cudaGetLastError();
+  if (n > (size_t)INT32_MAX) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n + sp::LEAN_THREADS - 1)
+                                     / sp::LEAN_THREADS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nreg == 3) {
+    sp::sw_fallback_kernel<3><<<blocks, sp::LEAN_THREADS, 0, s>>>(
+        od, ssa, g, mu0, use3d, clear, packed, slot_of, nlev, ng, ncol, cap,
+        out, counts);
+  } else if (nreg == 2) {
+    sp::sw_fallback_kernel<2><<<blocks, sp::LEAN_THREADS, 0, s>>>(
+        od, ssa, g, mu0, use3d, clear, packed, slot_of, nlev, ng, ncol, cap,
+        out, counts);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// B6's compiled resources and occupancy (kernel_info.cuh): pass 0 is the
+// lean pass (2), pass 1 the 3D pass (1)
+extern "C" int spartacus_sw_reftrans_info(int pass, int nreg, int* info) {
+  namespace sp = ecrad::spartacus;
+  if (pass == 0 && nreg == 3)
+    return ecrad::kernel_info(sp::sw_fallback_kernel<3>, sp::LEAN_THREADS,
+                              0, info);
+  if (pass == 0 && nreg == 2)
+    return ecrad::kernel_info(sp::sw_fallback_kernel<2>, sp::LEAN_THREADS,
+                              0, info);
+  if (pass == 1 && nreg == 3)
+    return ecrad::kernel_info(sp::sw_3d_kernel<3>, sp::THREADS, 0, info);
+  if (pass == 1 && nreg == 2)
+    return ecrad::kernel_info(sp::sw_3d_kernel<2>, sp::THREADS, 0, info);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int spartacus_lw_reftrans(const float* od, const float* ssa,

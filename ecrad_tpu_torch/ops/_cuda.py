@@ -17,6 +17,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Optional
@@ -47,12 +48,20 @@ _SIGS = {
     "mcica_lw_optics": "ppppppiiiip",
     "tc_sw_sweeps": "ppppppppppppiiiipppp",
     "tc_lw_sweeps": "ppppppppppiiiippp",
-    "spartacus_sw_reftrans": "ppppppppppiiiif",
+    "spartacus_sw_reftrans_3d": "pppppppppppppiiiiif",
+    "spartacus_sw_reftrans_fallback": "ppppppppppiiiii",
     "spartacus_lw_reftrans": "ppppppppppppiiiifi",
     "spartacus_sw_adding": "ppppiiiiiiffffpppp",
     "spartacus_lw_adding": "pppiiiiiippp",
     "gather_sections": "ppppiiiip",
 }
+
+# queries of a kernel's compiled resources (no stream): the leading int
+# arguments, then an int[len(INFO_FIELDS)] that receives them
+_INFO_SIGS = {"spartacus_sw_adding_info": "i",
+              "spartacus_sw_reftrans_info": "ii"}
+INFO_FIELDS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+               "threads", "blocks_per_sm", "sms")
 
 _lib: Optional[ctypes.CDLL] = None
 #: compiler report of the last build (registers, shared memory, spills)
@@ -86,6 +95,9 @@ def build() -> str:
     h.update(" ".join(NVCC_FLAGS).encode())
     lib = os.path.join(BUILD_DIR, f"libecrad_kernels_{h.hexdigest()[:12]}.so")
     if os.path.exists(lib):
+        if not build_log and os.path.exists(lib + ".log"):
+            with open(lib + ".log") as f:
+                build_log = f.read()
         return lib
     tmp = f"{lib}.{os.getpid()}.tmp"
     objdir = f"{tmp}.objs"
@@ -108,8 +120,34 @@ def build() -> str:
     shutil.rmtree(objdir, ignore_errors=True)
     if failed:
         raise RuntimeError(f"nvcc failed ({failed}):\n{build_log}")
+    with open(lib + ".log", "w") as f:
+        f.write(build_log)
     os.replace(tmp, lib)
     return lib
+
+
+def ptxas_report(log: Optional[str] = None) -> dict:
+    """Each compiled function's (registers, stack frame, spill stores,
+    spill loads) from the compiler's report of the build (`build_log`):
+    {mangled name: dict}."""
+    out, name = {}, None
+    for line in (build_log if log is None else log).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(zip(("stack", "spill_stores", "spill_loads"),
+                                 map(int, m.groups())))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
 
 
 def library() -> ctypes.CDLL:
@@ -117,6 +155,10 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         for name, sig in _SIGS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [_CTYPES[s] for s in sig] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for name, sig in _INFO_SIGS.items():
             fn = getattr(lib, name)
             fn.argtypes = [_CTYPES[s] for s in sig] + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -152,3 +194,14 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+
+
+def kernel_info(name: str, *args: int) -> dict:
+    """A kernel's registers, local memory (spills), shared memory and the
+    blocks per SM its launch gets, from C entry point `name` (csrc/
+    kernel_info.cuh)."""
+    out = (ctypes.c_int * len(INFO_FIELDS))()
+    err = getattr(library(), name)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: cudaError {err}")
+    return dict(zip(INFO_FIELDS, out))

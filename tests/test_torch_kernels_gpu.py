@@ -442,10 +442,12 @@ def test_tripleclouds_and_homogeneous_paths_launch_their_kernels(
 
 # ---- SPARTACUS: B6, B7, B8, B9 ----
 
-def _spartacus_case(cuda, nreg, nlev=7, ng=16, ncol=133, seed=7):
+def _spartacus_case(cuda, nreg, nlev=7, ng=16, ncol=133, seed=7,
+                    share3d=None):
     """Inputs as tools/check_kernel_equivalence.py:143-163 builds them:
-    mu0 at the 1e-10 clamp in every 17th column, a level with no 3D
-    cell, clear layers; and random per-column rows for the sweeps."""
+    mu0 at the 1e-10 clamp in every 17th column, clear layers, and a level
+    with no 3D cell, or else each cell 3D with probability share3d; and
+    random per-column rows for the sweeps."""
     rng = np.random.RandomState(seed)
     r = lambda *s, lo=0.0, hi=1.0: torch.as_tensor(
         (lo + (hi - lo) * rng.rand(*s)).astype(np.float32), device=cuda)
@@ -457,8 +459,12 @@ def _spartacus_case(cuda, nreg, nlev=7, ng=16, ncol=133, seed=7):
     mu0 = (0.05 + 0.95 * rng.rand(ncol)).astype(np.float32)
     mu0[::17] = 1e-10
     c["mu0"] = torch.as_tensor(mu0, device=cuda)
-    use3d = rng.rand(nlev, ng, ncol) > 0.4
-    use3d[0] = False
+    u = rng.rand(nlev, ng, ncol)
+    if share3d is None:
+        use3d = u > 0.4
+        use3d[0] = False
+    else:
+        use3d = u < share3d
     c["use3d"] = torch.as_tensor(use3d, device=cuda)
     c["clear"] = torch.as_tensor(rng.rand(nlev, ncol) > 0.7, device=cuda)
     c.update(se=r(nlev, ng, ncol, lo=0.5, hi=1.0), pt=r(nlev, ng, ncol,
@@ -507,6 +513,73 @@ def test_b6_b7_kernels_match_plain(cuda, nreg):
     assert spartacus_reftrans.launches == {
         "spartacus_sw_reftrans": n0["spartacus_sw_reftrans"] + 1,
         "spartacus_lw_reftrans": n0["spartacus_lw_reftrans"] + 2}
+
+
+@pytest.mark.parametrize("share3d, ng", [(0.0, 16), (1.0, 16), (0.14, 16),
+                                         (0.14, 15)])
+@pytest.mark.parametrize("nreg", [3, 2])
+def test_b6_passes_match_plain(cuda, nreg, share3d, ng):
+    """B6's 3D pass and its pass over every cell: no 3D cell (the 3D pass
+    stages nothing), every cell 3D (past its staged share the 3D pass
+    writes in place), the SPARTACUS path's share (about 0.14), and ng x
+    ncol odd. Counts < 0 exactly where use3d is false; a second call
+    equal bit for bit (the order of the staged cells is free); one count
+    per wrapper call."""
+    c = _spartacus_case(cuda, nreg, ng=ng, share3d=share3d)
+    args = [c[k] for k in SW_RT]
+    counts = torch.empty(c["use3d"].shape, dtype=torch.int8, device=cuda)
+    n0 = spartacus_reftrans.launches["spartacus_sw_reftrans"]
+    got = spartacus_reftrans.sw_reftrans_levels(8.0, *args, counts=counts)
+    again = spartacus_reftrans.sw_reftrans_levels(8.0, *args)
+    torch.cuda.synchronize()
+    assert spartacus_reftrans.launches["spartacus_sw_reftrans"] == n0 + 2
+    ref = spartacus_reftrans.sw_reftrans_levels_plain(8.0, *args)
+    assert _rel_all([got], [ref]) <= 2e-5
+    assert torch.equal(got, again)
+    assert bool(((counts < 0) == ~c["use3d"]).all())
+
+
+@pytest.mark.parametrize("nreg", [3, 2])
+def test_b6_b8_resources(cuda, nreg):
+    """B6's pass over every cell at most 80 registers (at least 24 warps
+    per SM), its 3D pass resident, B8's stages within the SM's shared
+    memory and two of its blocks per SM; no spills (the compiler's report)
+    in either pass of B6, and in B8 at most the 8 bytes (one 64-bit value
+    at 3 regions) that its 128-register bound for two blocks per SM
+    costs."""
+    from ecrad_tpu_torch.ops import _cuda
+    lean = _cuda.kernel_info("spartacus_sw_reftrans_info", 0, nreg)
+    full = _cuda.kernel_info("spartacus_sw_reftrans_info", 1, nreg)
+    b8 = _cuda.kernel_info("spartacus_sw_adding_info", nreg)
+    assert lean["registers"] <= 80
+    assert lean["blocks_per_sm"] * lean["threads"] >= 24 * 32
+    assert b8["blocks_per_sm"] >= 2
+    assert full["blocks_per_sm"] >= 1
+    assert b8["dynamic_smem"] <= 227 * 1024
+    report = _cuda.ptxas_report()
+    for kernel, spill in (("sw_fallback_kernel", 0), ("sw_3d_kernel", 0),
+                          ("sw_adding_kernel", 8)):
+        hits = [v for k, v in report.items() if f"{kernel}ILi{nreg}E" in k]
+        assert len(hits) == 1, kernel
+        assert hits[0]["spill_stores"] <= spill, kernel
+        assert hits[0]["spill_loads"] <= spill, kernel
+
+
+@pytest.mark.parametrize("nlev", [1, 2, 7])
+@pytest.mark.parametrize("entrap", list(Entrapment), ids=lambda e: e.name)
+@pytest.mark.parametrize("nreg", [3, 2])
+def test_b8_ragged_shapes_match_plain(cuda, nreg, entrap, nlev):
+    """B8 with fewer levels than (or about) its stage ring, 15 g-points
+    (not a multiple of its g-tile) and 133 columns (not a multiple of its
+    column strip)."""
+    c = _spartacus_case(cuda, nreg, nlev=nlev, ng=15)
+    hist = spartacus_reftrans.sw_reftrans_levels(8.0, *(c[k] for k in SW_RT))
+    cfg = spartacus_slice_config(i_3d_sw_entrapment=entrap)
+    args = (hist, c["cols"], c["init"], c["d0"])
+    got = spartacus_adding.sw_adding_sweeps(cfg, *args)
+    torch.cuda.synchronize()
+    assert _rel_all(got, spartacus_adding.sw_adding_sweeps_plain(cfg, *args)
+                    ) <= 2e-5
 
 
 @pytest.mark.parametrize("do_3d", [True, False])
