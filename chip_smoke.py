@@ -7,8 +7,9 @@ Phases; any failure exits non-zero and prints no result line:
   1. device and build: versions, the card's name and power limit, the
      CUDA kernels built from ecrad_tpu_torch/csrc for sm_90a (the
      compiler's register/shared-memory/spill report is printed, and for
-     B6's two passes and B8 the registers, spills, shared memory and the
-     warps per SM their launches get);
+     B6's and B7's two passes, B8, and B9 with multilayer effects off and
+     on the registers, spills, shared memory and the warps per SM their
+     launches get);
   2. every kernel of the paths (B1 taumol_lw, B2 taumol_sw, B3 sw_adding
      and lw_noscat, B3' lw_adding, B4 mcica_sw_optics and
      mcica_lw_optics, B5 tc_sw_sweeps and tc_lw_sweeps, B6
@@ -23,7 +24,11 @@ Phases; any failure exits non-zero and prints no result line:
      share, and with an odd ng x ncol (its two passes' doubling counts
      and a second call bit for bit); B8 also with 1, 2 and 7 levels,
      fewer than or about its stage ring, 15 g-points and 133 columns,
-     under every treatment at 3 and 2 regions; B10 on the 30 calls of
+     under every treatment at 3 and 2 regions; B7 likewise at 3D shares
+     0, 1 and 0.14, with cloud scattering on and off; B9 with 1, 2 and 7
+     levels, 15 g-points and 133 columns, a full random surface albedo
+     matrix, under (use_matrix, multilayer) (T, F), (T, T) and (F, F), at
+     3 and 2 regions; B10 on the 30 calls of
      one per-band gas-optics call of the 2048 x 137 columns and on that
      tool's random cases, with rows past both ends);
      the per-band gas optics against B1/B2's; the SPARTACUS path's share
@@ -73,8 +78,9 @@ Phases; any failure exits non-zero and prints no result line:
   4. times (information only): each kernel and its plain version with
      CUDA events (B10 per gas-optics call, its 30 launches, beside one
      embedding_bag call per launch on the same flattened operands; B6's
-     two passes apart, with the number of 3D cells its first pass found;
-     B8's rate on the bytes its design moves), and
+     and B7's two passes apart, with the number of 3D cells the first
+     pass found; B8's rate on the bytes its design moves, and B9's
+     with multilayer effects off and on), and
      each 2048-column path's columns/s and peak memory over 10
      back-to-back calls, best of 2, Cloudless also with the per-band gas
      optics.
@@ -194,8 +200,9 @@ FILE_FLUXES = {"lw_up": "flux_up_lw", "lw_dn": "flux_dn_lw",
                "sw_up": "flux_up_sw", "sw_dn": "flux_dn_sw",
                "sw_dn_direct": "flux_dn_direct_sw"}
 NCOL_NOSCAT = 256
-# B8's block height in g-points (csrc/spartacus_adding.cu G_TILE)
-B8_G_TILE = 8
+# B8's and B9's block heights in g-points (csrc/spartacus_adding.cu
+# G_TILE, LW_G_TILE)
+B8_G_TILE, B9_G_TILE = 8, 4
 # the least time of a kernel: its operand bytes (each input read once,
 # each output written once) over the H100 SXM's device-memory rate, or
 # its operations over the float32 rate outside the tensor cores, the
@@ -459,7 +466,7 @@ def random_reftrans_case(nreg, dev, nlev=7, ng=16, ncol=133, seed=7,
     tools/check_kernel_equivalence.py:143-163: mu0 at the 1e-10 clamp in
     every 17th column, clear layers, and a level with no 3D cell, or else
     each cell 3D with probability share3d; and B8's per-column rows and
-    boundary values (random)."""
+    boundary values (random), and B9's."""
     from ecrad_tpu_torch.ops import spartacus_adding as sa
     rng = np.random.RandomState(seed)
     r = lambda *s, lo=0.0, hi=1.0: torch.as_tensor(
@@ -496,7 +503,13 @@ def random_reftrans_case(nreg, dev, nlev=7, ng=16, ncol=133, seed=7,
             "lw": (8.0, True, od, ssa, g, trd, se, pt, pb, fr, use3d,
                    clear),
             "sweep": (cols, r(2 * nreg * nreg, ng, ncol, hi=0.3),
-                      r(nreg, ng, ncol, hi=100.0))}
+                      r(nreg, ng, ncol, hi=100.0)),
+            # B9's per-column rows and a full random albedo matrix and
+            # source at the surface
+            "lsweep": (sa.lw_pack_cols(um, vm, clear, torch.roll(clear, 1, 0),
+                                       torch.roll(clear, -1, 0)),
+                       torch.cat([r(nreg * nreg, ng, ncol, hi=0.2),
+                                  r(nreg, ng, ncol, hi=50.0)]))}
 
 
 def main():
@@ -555,15 +568,26 @@ def main():
                 "Used" in line or "Compiling" in line)):
             log("  " + line.strip())
     report = _cuda.ptxas_report()
+    # (what, info query and its leading arguments, the nreg argument
+    # last unless the query takes it first, the kernel's mangled name)
     for what, name, args, kernel in (
             ("B6 pass 1, 3D cells", "spartacus_sw_reftrans_info", (1,),
-             "sw_3d_kernel"),
+             "sw_3d_kernelILi{}E"),
             ("B6 pass 2, every cell", "spartacus_sw_reftrans_info", (0,),
-             "sw_fallback_kernel"),
-            ("B8", "spartacus_sw_adding_info", (), "sw_adding_kernel")):
+             "sw_fallback_kernelILi{}E"),
+            ("B7 pass 1, 3D cells", "spartacus_lw_reftrans_info", (1,),
+             "lw_3d_kernelILi{}E"),
+            ("B7 pass 2, every cell", "spartacus_lw_reftrans_info", (0,),
+             "lw_fallback_kernelILi{}E"),
+            ("B8", "spartacus_sw_adding_info", (), "sw_adding_kernelILi{}E"),
+            ("B9, multilayer off", "spartacus_lw_adding_info", (0,),
+             "lw_adding_kernelILi{}ELb0E"),
+            ("B9, multilayer on", "spartacus_lw_adding_info", (1,),
+             "lw_adding_kernelILi{}ELb1E")):
         for nreg in (3, 2):
-            k = _cuda.kernel_info(name, *args, nreg)
-            rep = [v for f, v in report.items() if f"{kernel}ILi{nreg}E" in f]
+            k = _cuda.kernel_info(name, *((nreg,) + args if name.startswith(
+                "spartacus_lw_adding") else args + (nreg,)))
+            rep = [v for f, v in report.items() if kernel.format(nreg) in f]
             rep = rep[0] if len(rep) == 1 else {}
             warps = k["blocks_per_sm"] * k["threads"] // 32
             log(f"  {what}, {nreg} regions: {k['registers']} registers, "
@@ -574,7 +598,7 @@ def main():
                 f"dynamic per block; {k['threads']} threads x "
                 f"{k['blocks_per_sm']} blocks = {warps} warps per SM of 64"
                 + (f"; persistent grid {k['blocks_per_sm'] * k['sms']} "
-                   f"blocks" if args == (1,) else ""))
+                   f"blocks" if "3D cells" in what else ""))
             if k["blocks_per_sm"] < 1:
                 raise AssertionError(f"{what} cannot be resident on an SM")
 
@@ -901,6 +925,60 @@ def main():
                         f"{entrap.name}): {rel:.3e}")
     log(f"spartacus_sw_adding 1, 2 and 7 levels x 15 g x 133 columns, every"
         f" treatment, 3 and 2 regions: worst abs {worst:.3e}")
+    # B7's two passes likewise, with cloud scattering on and off
+    worst = 0.0
+    for nreg in (3, 2):
+        for share in (0.0, 1.0, 0.14):
+            lw = random_reftrans_case(nreg, dev, share3d=share)["lw"]
+            for scattering in (True, False):
+                args = (lw[0], scattering) + lw[2:]
+                counts = torch.empty(args[10].shape, dtype=torch.int8,
+                                     device=dev)
+                a = sr.lw_reftrans_levels_fused(*args, counts=counts)
+                again = sr.lw_reftrans_levels_fused(*args)
+                torch.cuda.synchronize()
+                b = sr.lw_reftrans_levels_plain(*args)
+                rel = rel_to_max(a, b)
+                worst = max(worst, float((a - b).abs().max()))
+                log(f"spartacus_lw_reftrans {nreg} regions, 3D share {share}"
+                    f", cloud scattering {scattering}: worst |diff|/max|plain|"
+                    f" {rel:.3e}, worst abs {float((a - b).abs().max()):.3e}, "
+                    f"{int((counts >= 0).sum())} 3D cells")
+                if not (rel <= SPARTACUS_REL and torch.equal(a, again)
+                        and bool(((counts < 0) == ~args[10]).all())):
+                    raise AssertionError(f"spartacus_lw_reftrans disagrees on "
+                                         f"the share {share} case")
+    log(f"spartacus_lw_reftrans share cases: worst abs {worst:.3e}")
+    # B9 with 1, 2 and 7 levels, 15 g-points (no multiple of its g-tile)
+    # and 133 columns, a full random albedo matrix at the surface, under
+    # (use_matrix, multilayer) (T, F), (T, T) and (F, F)
+    worst = 0.0
+    for nreg in (3, 2):
+        for nlev in (1, 2, 7):
+            case = random_reftrans_case(nreg, dev, nlev=nlev, ng=15,
+                                        ncol=133)
+            hist = sr.lw_reftrans_levels_fused(*case["lw"])
+            cols_r, init_r = case["lsweep"]
+            for use_matrix, multilayer in ((True, False), (True, True),
+                                           (False, False)):
+                cfg_l = dataclasses.replace(
+                    setup_sp.config, do_3d_lw_multilayer_effects=multilayer)
+                a = sa.lw_adding_sweeps_fused(cfg_l, use_matrix, hist, cols_r,
+                                              init_r)
+                torch.cuda.synchronize()
+                b = sa.lw_adding_sweeps_plain(cfg_l, use_matrix, hist, cols_r,
+                                              init_r)
+                rel = max(rel_to_max(x, y) for x, y in zip(a, b))
+                worst = max([worst] + [float((x - y).abs().max())
+                                       for x, y in zip(a, b)])
+                if not rel <= SPARTACUS_REL:
+                    raise AssertionError(
+                        f"spartacus_lw_adding disagrees with its plain "
+                        f"version ({nreg} regions, {nlev} levels, use_matrix "
+                        f"{use_matrix}, multilayer {multilayer}): {rel:.3e}")
+    log(f"spartacus_lw_adding 1, 2 and 7 levels x 15 g x 133 columns, "
+        f"(use_matrix, multilayer) (T, F), (T, T), (F, F), 3 and 2 regions: "
+        f"worst abs {worst:.3e}")
 
     # B10 on the 30 calls of one per-band gas-optics call (the section
     # lists the path builds from the 2048 x 137 columns' coefficients)
@@ -1305,6 +1383,71 @@ def main():
         f"TB/s; {ms_max:.4f} ms under MAXIMUM entrapment, "
         f"{moved / ms_max / 1e9:.3f} TB/s [{gpu}]")
     del out6, cnt6, packed6, slot6, hist8
+    # B7's two passes apart, likewise: pass 1 over the 3D cells, staging
+    # their rows, pass 2 over every cell, from what pass 1 left
+    mgod, scat, od, ssa, g, tr, se, pt, pb, fr, use3d, clear = \
+        path_args["lw_reftrans_levels"]
+    nlev, nreg, ng, ncol = od.shape
+    cells, rows = use3d.numel(), 2 * nreg * (nreg + 1)
+    cap = -(-cells // sr._STAGED_SHARE)
+    out7 = torch.empty((nlev, rows, ng, ncol), device=dev)
+    cnt7 = torch.empty(use3d.shape, dtype=torch.int8, device=dev)
+    packed7 = torch.empty((cap, rows), device=dev)
+    slot7 = torch.empty(cells, dtype=torch.int32, device=dev)
+
+    def pass_3d_lw():
+        n3d.zero_()
+        _cuda.launch("spartacus_lw_reftrans_3d", od, ssa, g, tr, se, pt, pb,
+                     fr, use3d, clear, out7, cnt7, packed7, slot7, n3d, nreg,
+                     nlev, ng, ncol, cap, mgod)
+
+    def pass_lean_lw():
+        _cuda.launch("spartacus_lw_reftrans_fallback", od, ssa, g, pt, pb,
+                     fr, use3d, clear, packed7, slot7, out7, cnt7, nreg, nlev,
+                     ng, ncol, cap, int(bool(scat)))
+    ms_3d, ms_lean = time_ms(pass_3d_lw, 20), time_ms(pass_lean_lw, 20)
+    listed, n3_counts = int(n3d.item()), int((cnt7 >= 0).sum())
+    staged, n_fb = min(listed, cap), cells - listed
+    ops_3d = doubling_ops("spartacus_lw_reftrans", cnt7) \
+        - n_fb * SPARTACUS_OPS["spartacus_lw_reftrans"][0]
+    # pass 2: use3d of every cell; per fallback cell od (and ssa, g with
+    # cloud scattering), pt and pb read, the rows and a count written; per
+    # staged cell the slot and the rows read and the rows written
+    bytes_lean = cells + n_fb * ((nreg * (3 if scat else 1) + 2) * 4
+                                 + rows * 4 + 1) \
+        + staged * (4 + 2 * rows * 4)
+    log(f"time spartacus_lw_reftrans pass 1, 3D cells: {ms_3d:.4f} ms "
+        f"({ops_3d / 1e9:.2f} Gop, {ops_3d / ms_3d / 1e9:.2f} Top/s); pass "
+        f"2, every cell: {ms_lean:.4f} ms ({bytes_lean / 1e9:.3f} GB, "
+        f"{bytes_lean / ms_lean / 1e9:.3f} TB/s); 3D cells listed {listed} "
+        f"= {listed / cells:.4f} of the cells ({staged} staged), counts >= "
+        f"0 in {n3_counts} [{gpu}]")
+    if listed != n3_counts or listed != int(use3d.sum()):
+        raise AssertionError("B7's 3D cells differ from its counts")
+    del out7, cnt7, packed7, slot7
+    # B9 with multilayer effects off (the path's) and on, on the path's
+    # history: the rate on the bytes each design moves, per (level, g,
+    # column) the history read twice less SU going down, the scratch
+    # written and read, the fluxes written (4 n^2 + 5 n floats and twice
+    # the scratch's n^2 + n with multilayer, 2 n without: 75 and 63 floats
+    # at 3 regions), and per level and g-tile (B9_G_TILE g-points) the
+    # per-column rows it stages (3 n^2 + 4)
+    cfg9, use_matrix9, hist9, cols9, init9 = path_args["lw_adding_sweeps"]
+    nlev, _, ng, ncol = hist9.shape
+    n = {12: 2, 24: 3}[hist9.shape[1]]
+    for multilayer in (False, True):
+        cfg_ml = dataclasses.replace(cfg9,
+                                     do_3d_lw_multilayer_effects=multilayer)
+        ns = n * n + n if multilayer else 2 * n
+        moved = 4 * nlev * ng * ncol * (4 * n * n + 5 * n + 2 * ns) \
+            + 4 * nlev * ncol * (3 * n * n + 4) * -(-ng // B9_G_TILE)
+        t9 = time_ms(lambda: sa.lw_adding_sweeps_fused(
+            cfg_ml, use_matrix9, hist9, cols9, init9), 20)
+        log(f"time spartacus_lw_adding, multilayer {multilayer}: {t9:.4f} ms"
+            f" on the {moved / 1e9:.3f} GB its design moves "
+            f"({(4 * n * n + 5 * n + 2 * ns)} floats per (level, g, column))"
+            f", {moved / t9 / 1e9:.3f} TB/s [{gpu}]")
+    del hist9, cols9, init9
 
     # the kernels' operands are not needed any more: the paths' peak
     # memory below is what a call adds to its inputs and setup

@@ -13,8 +13,8 @@
 // albedos at the top and [fup | fdn | ddn] per level and region; LW the
 // source at the top and [fup | fdn]). NREG (2 or 3) is a template
 // parameter, so the two-region setting runs here too; the entrapment
-// treatment, do_3d_effects and the LW matrix/multilayer switches are
-// uniform runtime switches.
+// treatment, do_3d_effects and the LW matrix switch are uniform runtime
+// switches, the LW multilayer switch a template parameter of B9.
 //
 // What it must move: each level's history rows (SW 5 NREG^2, LW 2 NREG
 // (NREG+1)) are read twice (up and down), the scratch written and read
@@ -44,8 +44,27 @@
 // layer going up, the fluxes going down), put in the stage by the
 // computing threads, have been written out in 128-byte runs by the
 // copying ones. The carry stays in registers. Copies of 4 bytes take
-// every ng x ncol (the 16-byte forms need 16-byte aligned rows). B9 (LW)
-// keeps the first design: one thread per (g, column), loads used at once.
+// every ng x ncol (the 16-byte forms need 16-byte aligned rows).
+//
+// B9 (LW) is bound by its bytes: its arithmetic is light (~420 operations
+// per (level, g, column) at 3 regions), and in the first design, one
+// thread per (g, column) loading each value when used, it moved 75 floats
+// per (level, g, column) at 76 % of the card's rate. It now moves fewer:
+// without multilayer effects every carry an up step makes is diagonal
+// (the mixing keeps only the diagonal, and a layer clear on both sides
+// zeroes the rest), so the scratch holds the diagonal albedos and the
+// sources (2 NREG floats, not NREG^2 + NREG; 63 floats per (level, g,
+// column) at 3 regions), and the downward sweep puts literal zeros off
+// the diagonal, feeding the same products. The carry below the bottom
+// layer is the caller's and may be full: the downward sweep reads it from
+// init_up. With multilayer effects the scratch holds the whole matrix
+// (ML, a template parameter). And it moves them at a higher rate: each
+// thread copies its own (g, column)'s history and scratch rows with
+// cp.async into a ring of LW_STAGES levels, two levels ahead, a warp 32
+// columns of one g-point in 128-byte runs, and reads them back itself;
+// the block copies a level's per-column rows once for its LW_G_TILE
+// g-points. One block barrier per level (the per-column rows are
+// shared); results go straight out, coalesced.
 //
 // Semantics: ops/spartacus_adding.py sw_up_step / sw_dn_step /
 // lw_up_step / lw_dn_step, expression for expression (built with
@@ -60,7 +79,6 @@
 namespace ecrad {
 namespace spadd {
 
-constexpr int THREADS = 128;
 // per-column SW rows (ops/spartacus_adding.py)
 constexpr int UM = 0, VM = 9, VMN = 18, CF = 27, XLD = 29, XLDIR = 30,
               EDGE = 31, INVEFF = 34, OVP = 35, RF = 36, RFP = 39, CLEAR = 42,
@@ -713,23 +731,115 @@ sw_adding_kernel(const float* __restrict__ hist,
     flush((nlev - 1) % STAGES, out + (size_t)(nlev - 1) * 3 * N * m, 3 * N);
 }
 
+// B9's block: LW_G_TILE g-points x C_TILE columns, a ring of LW_STAGES
+// levels, at least LW_MIN_BLOCKS blocks per SM (128 registers, 16
+// warps). A warp is 32 columns of one g-point, for the copies and the
+// arithmetic alike: each thread copies the history and scratch rows of
+// its own (g, column) and reads them back itself.
+constexpr int LW_G_TILE = 4, LW_THREADS = LW_G_TILE * C_TILE,
+              LW_STAGES = 3, LW_MIN_BLOCKS = 4;
+
+// one stage of B9, in floats: the thread's rows at [k][thread] (up: R T
+// SU SD; down: R T SD and the scratch below the layer), then the block's
+// per-column rows at [row][column] (up: um, vm, clear, clear above; down:
+// vm below, clear, clear below). The scratch holds the carry entering
+// each level going up: with ML (multilayer effects) the albedo matrix and
+// the source (NREG^2 + NREG floats), without it the albedo's diagonal and
+// the source (2 NREG): every carry an up step makes is then diagonal.
+template <int N, bool ML>
+struct LwStage {
+  static constexpr int NN = N * N, NS = ML ? NN + N : 2 * N;
+  static constexpr int UP_H = 2 * NN + 2 * N, DN_H = 2 * NN + N + NS;
+  static constexpr int UP_C = 2 * NN + 2, DN_C = NN + 2;
+  static constexpr int UP = UP_H * LW_THREADS + UP_C * C_TILE;
+  static constexpr int DN = DN_H * LW_THREADS + DN_C * C_TILE;
+  static constexpr int FLOATS = UP > DN ? UP : DN;
+  static constexpr size_t BYTES = (size_t)LW_STAGES * FLOATS * sizeof(float);
+};
+static_assert(LW_MIN_BLOCKS * (LwStage<3, true>::BYTES + 1024)
+                  <= 228 * 1024,
+              "B9's stages keep LW_MIN_BLOCKS blocks on an SM");
+
+// the per-column row (of LW_NCOLROWS) staged in row r of a level
 template <int N>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ int lw_col_src(int r, bool up) {
+  constexpr int NN = N * N;
+  if (up) {
+    if (r < NN) return LUM + 3 * (r / N) + r % N;
+    if (r < 2 * NN) return LVM + 3 * ((r - NN) / N) + (r - NN) % N;
+    return r == 2 * NN ? LCLEAR : LCLEARP;
+  }
+  if (r < NN) return LVMN + 3 * (r / N) + r % N;
+  return r == NN ? LCLEAR : LCLEARN;
+}
+
+// a staged per-column matrix: rows base .. base + N^2 - 1 at stride C_TILE
+template <int N>
+__device__ __forceinline__ void staged_mat(const float* __restrict__ c,
+                                           int base, float (&o)[N][N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) o[i][j] = c[(base + i * N + j) * C_TILE];
+}
+
+template <int N, bool ML>
+__global__ void __launch_bounds__(LW_THREADS, LW_MIN_BLOCKS)
 lw_adding_kernel(const float* __restrict__ hist,
                  const float* __restrict__ cols,
                  const float* __restrict__ init_up, int nlev, int ng,
-                 int ncol, int use_matrix, int multilayer,
-                 float* __restrict__ scratch, float* __restrict__ src_top,
-                 float* __restrict__ out) {
-  constexpr int NN = N * N, NH = 2 * N * (N + 1), NS = NN + N;
-  const size_t m = (size_t)ng * ncol;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const size_t nc = (size_t)ncol;
-  const size_t cix = i % nc;
-  auto H = [&](int l, int k) { return hist[((size_t)l * NH + k) * m + i]; };
-  auto S = [&](int l, int k) -> float& {
-    return scratch[((size_t)l * NS + k) * m + i];
+                 int ncol, int use_matrix, float* __restrict__ scratch,
+                 float* __restrict__ src_top, float* __restrict__ out) {
+  using L = LwStage<N, ML>;
+  constexpr int NN = N * N, NH = 2 * N * (N + 1), NS = L::NS;
+  extern __shared__ __align__(16) float stage_mem[];
+  const int ntiles = (ng + LW_G_TILE - 1) / LW_G_TILE;
+  const int g0 = (int)(blockIdx.x % ntiles) * LW_G_TILE;
+  const int c0 = (int)(blockIdx.x / ntiles) * C_TILE;
+  const int width = min(C_TILE, ncol - c0);
+  const size_t m = (size_t)ng * ncol, nc = (size_t)ncol;
+  const int tid = threadIdx.x, tc = tid % C_TILE;
+  const bool active = g0 + tid / C_TILE < ng && tc < width;
+  const size_t i = active ? (size_t)(g0 + tid / C_TILE) * nc + c0 + tc : 0;
+  auto stage = [&](int s) { return stage_mem + (size_t)s * L::FLOATS; };
+  auto copy_cols = [&](int l, float* sc, bool up) {
+    const float* cl = cols + (size_t)l * LW_NCOLROWS * nc + c0;
+    const int nrows = up ? L::UP_C : L::DN_C;
+    for (int q = tid; q < nrows * C_TILE; q += LW_THREADS) {
+      const int r = q / C_TILE, cc = q % C_TILE;
+      if (cc < width)
+        copy_async(sc + q, cl + (size_t)lw_col_src<N>(r, up) * nc + cc);
+    }
+  };
+  // level l's operands of the upward sweep into stage s: R T SU SD
+  auto fetch_up = [&](int l, int s) {
+    float* st = stage(s);
+    if (active) {
+      const float* h = hist + (size_t)l * NH * m + i;
+#pragma unroll
+      for (int k = 0; k < NH; ++k)
+        copy_async(st + k * LW_THREADS + tid, h + (size_t)k * m);
+    }
+    copy_cols(l, st + L::UP_H * LW_THREADS, true);
+    __pipeline_commit();
+  };
+  // and of the downward sweep: R T SD, then the scratch below the layer
+  auto fetch_dn = [&](int l, int s) {
+    float* st = stage(s);
+    if (active) {
+      const float* h = hist + (size_t)l * NH * m + i;
+#pragma unroll
+      for (int k = 0; k < 2 * NN + N; ++k)
+        copy_async(st + k * LW_THREADS + tid,
+                   h + (size_t)(k < 2 * NN ? k : k + N) * m);
+      const float* sr = scratch + (size_t)l * NS * m + i;
+#pragma unroll
+      for (int k = 0; k < NS; ++k)
+        copy_async(st + (2 * NN + N + k) * LW_THREADS + tid,
+                   sr + (size_t)k * m);
+    }
+    copy_cols(l, st + L::DN_H * LW_THREADS, false);
+    __pipeline_commit();
   };
 
   float alb[N][N], src[N];
@@ -737,28 +847,55 @@ lw_adding_kernel(const float* __restrict__ hist,
   for (int a = 0; a < N; ++a) {
 #pragma unroll
     for (int b = 0; b < N; ++b)
-      alb[a][b] = init_up[(size_t)(a * N + b) * m + i];
-    src[a] = init_up[(size_t)(NN + a) * m + i];
+      alb[a][b] = active ? init_up[(size_t)(a * N + b) * m + i] : 0.0f;
+    src[a] = active ? init_up[(size_t)(NN + a) * m + i] : 0.0f;
   }
 
   // ---- upward: albedos and sources below each layer ----
-  for (int l = nlev - 1; l >= 0; --l) {
-    const float* c = cols + (size_t)l * LW_NCOLROWS * nc + cix;
+#pragma unroll
+  for (int j = 0; j < LW_STAGES - 1; ++j) {
+    if (j < nlev) fetch_up(nlev - 1 - j, j);
+    else __pipeline_commit();
+  }
+  for (int j = 0; j < nlev; ++j) {
+    // this level's copies have landed, and every thread is done with the
+    // stage the next copies go to
+    __pipeline_wait_prior(LW_STAGES - 2);
+    __syncthreads();
+    const int jn = j + LW_STAGES - 1;
+    if (jn < nlev) fetch_up(nlev - 1 - jn, jn % LW_STAGES);
+    else __pipeline_commit();
+    if (!active) continue;
+    const int l = nlev - 1 - j;
+    const float* st = stage(j % LW_STAGES);
+    auto H = [&](int k) { return st[k * LW_THREADS + tid]; };
+    const float* c = st + L::UP_H * LW_THREADS + tc;
+    // the carry at entry, for the downward sweep
+    float* S = scratch + (size_t)l * NS * m + i;
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+      if constexpr (ML) {
+#pragma unroll
+        for (int b = 0; b < N; ++b) S[(size_t)(a * N + b) * m] = alb[a][b];
+        S[(size_t)(NN + a) * m] = src[a];
+      } else {
+        S[(size_t)a * m] = alb[a][a];
+        S[(size_t)(N + a) * m] = src[a];
+      }
+    }
     float R[N][N], T[N][N], SU[N], SD[N];
 #pragma unroll
     for (int a = 0; a < N; ++a) {
 #pragma unroll
       for (int b = 0; b < N; ++b) {
-        S(l, a * N + b) = alb[a][b];
-        R[a][b] = H(l, a * N + b);
-        T[a][b] = H(l, NN + a * N + b);
+        R[a][b] = H(a * N + b);
+        T[a][b] = H(NN + a * N + b);
       }
-      S(l, NN + a) = src[a];
-      SU[a] = H(l, 2 * NN + a);
-      SD[a] = H(l, 2 * NN + N + a);
+      SU[a] = H(2 * NN + a);
+      SD[a] = H(2 * NN + N + a);
     }
-    const bool is_clear = c[(size_t)LCLEAR * nc] > 0.5f;
-    const bool both_clear = is_clear && c[(size_t)LCLEARP * nc] > 0.5f;
+    const bool is_clear = c[2 * NN * C_TILE] > 0.5f;
+    const bool both_clear = is_clear && c[(2 * NN + 1) * C_TILE] > 0.5f;
     float ab[N][N], sb[N];
     if (use_matrix) {
       // one elimination of I - alb R for [alb T | src + alb SD]
@@ -813,10 +950,10 @@ lw_adding_kernel(const float* __restrict__ hist,
       }
     } else {
       float um[N][N], vm[N][N];
-      col_mat<N>(c, nc, LUM, um);
-      col_mat<N>(c, nc, LVM, vm);
+      staged_mat<N>(c, 0, um);
+      staged_mat<N>(c, NN, vm);
       mv<N, N>(um, sb, src);
-      if (multilayer) {
+      if constexpr (ML) {
         float t[N][N];
         mm<N, N, N>(um, ab, t);
         mm<N, N, N>(t, vm, alb);
@@ -832,29 +969,61 @@ lw_adding_kernel(const float* __restrict__ hist,
       }
     }
   }
+  if (active) {
 #pragma unroll
-  for (int a = 0; a < N; ++a) src_top[(size_t)a * m + i] = src[a];
+    for (int a = 0; a < N; ++a) src_top[(size_t)a * m + i] = src[a];
+  }
+  // every copy has landed and no thread reads a stage any more; each
+  // thread reads back only the scratch it wrote
+  __pipeline_wait_prior(0);
+  __syncthreads();
 
   // ---- downward ----
   float fdn[N];
 #pragma unroll
   for (int r = 0; r < N; ++r) fdn[r] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < LW_STAGES - 1; ++j) {
+    if (j < nlev) fetch_dn(j, j);
+    else __pipeline_commit();
+  }
   for (int l = 0; l < nlev; ++l) {
-    const float* c = cols + (size_t)l * LW_NCOLROWS * nc + cix;
+    __pipeline_wait_prior(LW_STAGES - 2);
+    __syncthreads();
+    const int ln = l + LW_STAGES - 1;
+    if (ln < nlev) fetch_dn(ln, ln % LW_STAGES);
+    else __pipeline_commit();
+    if (!active) continue;
+    const float* st = stage(l % LW_STAGES);
+    auto H = [&](int k) { return st[k * LW_THREADS + tid]; };
+    const float* c = st + L::DN_H * LW_THREADS + tc;
     float R[N][N], T[N][N], SD[N], ab[N][N], sb[N];
 #pragma unroll
     for (int a = 0; a < N; ++a) {
 #pragma unroll
       for (int b = 0; b < N; ++b) {
-        R[a][b] = H(l, a * N + b);
-        T[a][b] = H(l, NN + a * N + b);
-        ab[a][b] = S(l, a * N + b);
+        R[a][b] = H(a * N + b);
+        T[a][b] = H(NN + a * N + b);
       }
-      SD[a] = H(l, 2 * NN + N + a);
-      sb[a] = S(l, NN + a);
+      SD[a] = H(2 * NN + a);
     }
-    const bool is_clear = c[(size_t)LCLEAR * nc] > 0.5f;
-    const bool both_clear = is_clear && c[(size_t)LCLEARN * nc] > 0.5f;
+    // the albedo below the layer: the scratch's, or without ML its
+    // diagonal with the off-diagonals the literal zeros the up step made;
+    // below the bottom layer the caller's init_up, which may be full
+#pragma unroll
+    for (int a = 0; a < N; ++a) {
+#pragma unroll
+      for (int b = 0; b < N; ++b) {
+        if constexpr (ML)
+          ab[a][b] = H(2 * NN + N + a * N + b);
+        else
+          ab[a][b] = l == nlev - 1 ? init_up[(size_t)(a * N + b) * m + i]
+                                   : (a == b ? H(2 * NN + N + a) : 0.0f);
+      }
+      sb[a] = H(2 * NN + N + NS - N + a);
+    }
+    const bool is_clear = c[NN * C_TILE] > 0.5f;
+    const bool both_clear = is_clear && c[(NN + 1) * C_TILE] > 0.5f;
     float fa[N], fu[N];
     if (use_matrix) {
       float den[N][N], v1[N], v2[N], rhs[N][1];
@@ -886,7 +1055,7 @@ lw_adding_kernel(const float* __restrict__ hist,
       for (int a = 0; a < N; ++a) fdn[a] = fa[a];
     } else {
       float vn[N][N];
-      col_mat<N>(c, nc, LVMN, vn);
+      staged_mat<N>(c, 0, vn);
       mv<N, N>(vn, fa, fdn);
     }
     const size_t o = (size_t)l * 2 * N * m + i;
@@ -897,8 +1066,6 @@ lw_adding_kernel(const float* __restrict__ hist,
     }
   }
 }
-
-inline int blocks_for(size_t n) { return (int)((n + THREADS - 1) / THREADS); }
 
 // B8's dynamic shared memory above 48 KB, and the carveout that gives
 // shared memory the most of the SM's 256 KB (the kernel's reads land in
@@ -912,6 +1079,42 @@ cudaError_t configure_sw() {
   return cudaFuncSetAttribute(sw_adding_kernel<N>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// and B9's
+template <int N, bool ML>
+cudaError_t configure_lw() {
+  cudaError_t e = cudaFuncSetAttribute(
+      lw_adding_kernel<N, ML>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)LwStage<N, ML>::BYTES);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(lw_adding_kernel<N, ML>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int N, bool ML>
+cudaError_t launch_lw(const float* hist, const float* cols,
+                      const float* init_up, int nlev, int ng, int ncol,
+                      int use_matrix, float* scratch, float* src_top,
+                      float* out, cudaStream_t s) {
+  cudaError_t e = configure_lw<N, ML>();
+  if (e != cudaSuccess) return e;
+  // one block per (g-tile, column strip), the g-tiles of a strip adjacent
+  const unsigned blocks = (unsigned)((ng + LW_G_TILE - 1) / LW_G_TILE)
+      * (unsigned)((ncol + C_TILE - 1) / C_TILE);
+  lw_adding_kernel<N, ML><<<blocks, LW_THREADS, LwStage<N, ML>::BYTES, s>>>(
+      hist, cols, init_up, nlev, ng, ncol, use_matrix, scratch, src_top,
+      out);
+  return cudaGetLastError();
+}
+
+template <int N, bool ML>
+int lw_info(int* info) {
+  cudaError_t e = configure_lw<N, ML>();
+  if (e != cudaSuccess) return (int)e;
+  return kernel_info(lw_adding_kernel<N, ML>, LW_THREADS,
+                     LwStage<N, ML>::BYTES, info);
 }
 
 }  // namespace spadd
@@ -971,25 +1174,36 @@ extern "C" int spartacus_sw_adding_info(int nreg, int* info) {
   return (int)cudaErrorInvalidValue;
 }
 
+// B9; scratch is (nlev, nreg^2 + nreg, ng, ncol) floats with multilayer,
+// (nlev, 2 nreg, ng, ncol) without
 extern "C" int spartacus_lw_adding(const float* hist, const float* cols,
                                    const float* init_up, int nreg, int nlev,
                                    int ng, int ncol, int use_matrix,
                                    int multilayer, float* scratch,
                                    float* src_top, float* out, void* stream) {
   namespace sa = ecrad::spadd;
-  const size_t m = (size_t)ng * ncol;
-  if (m == 0) return (int)cudaGetLastError();
+  if ((size_t)ng * ncol == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  if (nreg == 3) {
-    sa::lw_adding_kernel<3><<<sa::blocks_for(m), sa::THREADS, 0, s>>>(
-        hist, cols, init_up, nlev, ng, ncol, use_matrix, multilayer, scratch,
-        src_top, out);
-  } else if (nreg == 2) {
-    sa::lw_adding_kernel<2><<<sa::blocks_for(m), sa::THREADS, 0, s>>>(
-        hist, cols, init_up, nlev, ng, ncol, use_matrix, multilayer, scratch,
-        src_top, out);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  auto go = [&](auto launch) {
+    return (int)launch(hist, cols, init_up, nlev, ng, ncol, use_matrix,
+                       scratch, src_top, out, s);
+  };
+  if (nreg == 3)
+    return multilayer ? go(sa::launch_lw<3, true>)
+                      : go(sa::launch_lw<3, false>);
+  if (nreg == 2)
+    return multilayer ? go(sa::launch_lw<2, true>)
+                      : go(sa::launch_lw<2, false>);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B9's compiled resources and the occupancy its launch gets
+extern "C" int spartacus_lw_adding_info(int nreg, int multilayer,
+                                        int* info) {
+  namespace sa = ecrad::spadd;
+  if (nreg == 3) return multilayer ? sa::lw_info<3, true>(info)
+                                   : sa::lw_info<3, false>(info);
+  if (nreg == 2) return multilayer ? sa::lw_info<2, true>(info)
+                                   : sa::lw_info<2, false>(info);
+  return (int)cudaErrorInvalidValue;
 }

@@ -45,8 +45,25 @@
 // most 64 registers, streams over every cell: it computes a fallback
 // cell's rows and copies a staged 3D cell's, so each warp writes its 32
 // columns of every row at once. Every output element is written once,
-// by one of the two passes; no value depends on the slots' order. B7
-// (LW) keeps the one-pass design.
+// by one of the two passes; no value depends on the slots' order.
+//
+// B7 (LW) takes the same split, for the same reasons: its 3D pipeline
+// (about 2,200 operations per cell and 240 per doubling step, 14 % of the
+// SPARTACUS path's cells) needs some 200 registers, and a warp of 32
+// columns of one (level, g) holds a 3D cell all but always, so in one
+// pass nearly every warp ran the pipeline with most lanes idle and the
+// fallback cells (~120 operations each, most of the output) ran at its
+// occupancy. Pass 1 runs at the occupancy its registers allow (at most
+// 168, 12 warps per SM), where waiting on memory holds it more than its
+// operations or bytes do: it reads the 3D flags of 16 groups in one wait
+// and computes the cells in the order it lists them, so that a round's
+// operands lie in few lines (rounds sorted by doubling count scattered
+// them and ran slower), and stages each cell's rows in one 96-byte run,
+// so that pass 2 reads them whole. Pass 2 is bound by device memory:
+// with no LW cloud scattering it reads one optical depth per region of a
+// fallback cell and writes 2 NREG (NREG + 1) rows, every 32-byte sector
+// whole. Cells are fewer than 2^31, so a cell's level and column come
+// from 32-bit divisions.
 //
 // Semantics: ops/spartacus_reftrans.py sw_reftrans_levels_plain and
 // lw_reftrans_levels_plain, expression for expression (built with
@@ -68,6 +85,13 @@ constexpr int THREADS = 128;
 // B6's pass over every cell: 128 threads, at least 6 blocks per SM (80
 // registers, 24 warps; at 64 registers it spilled and ran slower)
 constexpr int LEAN_THREADS = 128, LEAN_MIN_BLOCKS = 6;
+// B7's 3D pass: at least this many blocks of THREADS per SM, so at most
+// 168 registers (at 3 regions 164 without spills, against 236 unbounded;
+// at 4 blocks it spilled and ran slower); a build may set another bound
+#ifndef ECRAD_LW_3D_MIN_BLOCKS
+#define ECRAD_LW_3D_MIN_BLOCKS 3
+#endif
+constexpr int LW_3D_MIN_BLOCKS = ECRAD_LW_3D_MIN_BLOCKS;
 constexpr float THETA_DBL = 1.8f;
 constexpr int MAX_DOUBLINGS = 12;
 constexpr float MAX_OD_OVER_MU0_3D = 60.0f;
@@ -668,8 +692,31 @@ sw_fallback_kernel(const float* __restrict__ od_in,
 
 // ---- LW ----
 
+// B7's operands, passed by value to both of its passes: od/ssa/g (nlev,
+// NREG, ng, ncol), tr (nlev, NREG, NREG, ncol), se/pt/pb (nlev, ng,
+// ncol), fr (nlev, NREG, ncol), use3d (nlev, ng, ncol), clear (nlev, ncol)
+struct LwArgs {
+  const float *od, *ssa, *g, *tr, *se, *pt, *pb, *fr;
+  const uint8_t *use3d, *clear;
+  int nlev, ng, ncol;
+};
+
+// a cell's level l, its index i among the level's m = ng ncol cells and
+// its column c; B7 has fewer than 2^31 cells, so the divisions are 32-bit
+struct CellAt {
+  int l;
+  size_t i, c;
+};
+__device__ __forceinline__ CellAt cell_at(size_t idx, const LwArgs& p) {
+  const unsigned m = (unsigned)p.ng * (unsigned)p.ncol, x = (unsigned)idx;
+  const unsigned l = x / m, i = x - l * m;
+  return {(int)l, (size_t)i, (size_t)(i % (unsigned)p.ncol)};
+}
+
 // (R, T) of [[A, -B], [B, -A]] (solvers/matrix.py expm_reftrans_lw_g);
-// returns the doubling count
+// returns the doubling count. Both Pade sums are formed before U = G V,
+// the second in A4's place, so that A2 dies early; each value is the
+// plain version's expression.
 template <int N>
 __device__ int expm_reftrans_lw(const float (&A)[N][N], const float (&B)[N][N],
                                 float (&R)[N][N], float (&T)[N][N]) {
@@ -699,17 +746,17 @@ __device__ int expm_reftrans_lw(const float (&A)[N][N], const float (&B)[N][N],
   mm<N2, N2, N2>(G, G, A2);
   mm<N2, N2, N2>(A2, A2, A4);
   pade_sum<N2, N2>(A4, A2, C5, C3, C1, true, V);
+  pade_sum<N2, N2>(A4, A2, C4, C2, C0, true, A4);
   mm<N2, N2, N2>(G, V, U);
-  pade_sum<N2, N2>(A4, A2, C4, C2, C0, true, V);
   float E[N2][N2];
 #pragma unroll
   for (int i = 0; i < N2; ++i)
 #pragma unroll
     for (int j = 0; j < N2; ++j) {
-      V[i][j] = V[i][j] - U[i][j];
+      A4[i][j] = A4[i][j] - U[i][j];
       E[i][j] = 2.0f * U[i][j];
     }
-  solve<N2, N2>(V, E);
+  solve<N2, N2>(A4, E);
 #pragma unroll
   for (int i = 0; i < N2; ++i) E[i][i] = E[i][i] + 1.0f;
   float a[N][N], rr[N][N], e21[N][N], t1[N][N];
@@ -753,78 +800,274 @@ __device__ int expm_reftrans_lw(const float (&A)[N][N], const float (&B)[N][N],
   return expo;
 }
 
-template <int NREG>
-__global__ void __launch_bounds__(THREADS)
-lw_reftrans_kernel(const float* __restrict__ od_in,
-                   const float* __restrict__ ssa_in,
-                   const float* __restrict__ g_in,
-                   const float* __restrict__ tr_in,
-                   const float* __restrict__ se_in,
-                   const float* __restrict__ pt_in,
-                   const float* __restrict__ pb_in,
-                   const float* __restrict__ fr_in,
-                   const uint8_t* __restrict__ use3d_in,
-                   const uint8_t* __restrict__ clear_in, int nlev, int ng,
-                   int ncol, float max_gas_od_3d, int cloud_scattering,
-                   float* __restrict__ out, int8_t* __restrict__ counts) {
-  constexpr int N = NREG, NN = NREG * NREG;
-  const size_t m = (size_t)ng * ncol;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)nlev * m) return;
-  const int l = (int)(idx / m);
-  const size_t i = idx % m;
-  const size_t c = i % ncol;
-  const float pt = pt_in[idx], pb = pb_in[idx];
+// B7's 3D pass: one cell's (R, T, SU, SD). The generator's blocks A and B
+// (ops/spartacus_reftrans.py lw_gamma_expm, region 0's od capped), the
+// particular solution in the sum/difference basis, the Pade-5
+// exponential and the doubling, then the sources. Returns the doubling
+// count.
+template <int N>
+__device__ __forceinline__ int lw_3d_cell(const LwArgs& p,
+                                          float max_gas_od_3d, int l,
+                                          size_t idx, size_t i, size_t c,
+                                          size_t m, float (&R)[N][N],
+                                          float (&T)[N][N], float (&su)[N],
+                                          float (&sd)[N]) {
+  constexpr int NN = N * N;
+  const float pt = p.pt[idx], pb = p.pb[idx];
   float od[N], ssa[N], g1[N], g2[N], fr[N];
 #pragma unroll
   for (int r = 0; r < N; ++r) {
     const size_t j = ((size_t)l * N + r) * m + i;
-    od[r] = od_in[j];
-    ssa[r] = ssa_in[j];
+    od[r] = p.od[j];
+    ssa[r] = p.ssa[j];
     // two_stream.py lw_gammas
     const float factor = (LW_DIFFUSIVITY * 0.5f) * ssa[r];
-    const float gv = g_in[j];
+    const float gv = p.g[j];
     g1[r] = LW_DIFFUSIVITY - factor * (1.0f + gv);
     g2[r] = factor * (1.0f - gv);
-    fr[r] = fr_in[((size_t)l * N + r) * ncol + c];
+    fr[r] = p.fr[((size_t)l * N + r) * p.ncol + c];
   }
-  float R[N][N], T[N][N], su[N], sd[N];
-  const bool use3d = use3d_in[idx] != 0;
-  int count = -1;
-  if (!use3d) {
+  const float se = p.se[idx];
+  const size_t tc = (size_t)l * NN * p.ncol + c;
+  auto tr = [&](int a, int b) {
+    return p.tr[tc + (size_t)(a * N + b) * p.ncol];
+  };
+  float A[N][N], B[N][N], odc[N];
 #pragma unroll
-    for (int a = 0; a < N; ++a)
+  for (int a = 0; a < N; ++a)
 #pragma unroll
-      for (int b = 0; b < N; ++b) R[a][b] = T[a][b] = 0.0f;
+    for (int b = 0; b < N; ++b) A[a][b] = B[a][b] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    odc[r] = r == 0 ? fminf(od[0], max_gas_od_3d) : od[r];
+    A[r][r] = A[r][r] + odc[r] * g1[r];
+    B[r][r] = B[r][r] + odc[r] * g2[r];
+  }
+#pragma unroll
+  for (int r = 0; r < N - 1; ++r) {
+    A[r][r] = A[r][r] + tr(r, r + 1);
+    A[r + 1][r] = A[r + 1][r] + -tr(r, r + 1);
+    if (r > 0) {
+      A[r + 1][r + 1] = A[r + 1][r + 1] + tr(r + 1, r);
+      A[r][r + 1] = A[r][r + 1] + -tr(r + 1, r);
+    } else {
+      A[r + 1][r + 1] = A[r + 1][r + 1] + se * tr(r + 1, r);
+      A[r][r + 1] = A[r][r + 1] + -se * tr(r + 1, r);
+    }
+  }
+  if (N == 3) {
+    A[0][0] = A[0][0] + tr(0, 2);
+    A[N - 1][0] = A[N - 1][0] + -tr(0, 2);
+    A[N - 1][N - 1] = A[N - 1][N - 1] + se * tr(2, 0);
+    A[0][N - 1] = A[0][N - 1] + -se * tr(2, 0);
+  }
+  // the particular solution in the sum/difference basis
+  float F[N][N], E[N][N], vw[N][2], u[N][1];
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const float emis = odc[r] * (1.0f - ssa[r]) * fr[r] * LW_DIFFUSIVITY;
+    vw[r][0] = emis * (pb - pt);
+    vw[r][1] = emis * pt;
+#pragma unroll
+    for (int b = 0; b < N; ++b) {
+      E[r][b] = A[r][b] + B[r][b];
+      F[r][b] = A[r][b] - B[r][b];
+    }
+    E[r][r] = E[r][r] + 1e-12f;
+    F[r][r] = F[r][r] + 1e-12f;
+  }
+  solve<N, 2>(F, vw);
+#pragma unroll
+  for (int r = 0; r < N; ++r) u[r][0] = vw[r][0];
+  solve<N, 1>(E, u);
+  float up[N], dn[N], pu_b[N], uu[N];
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    uu[r] = vw[r][0];
+    up[r] = vw[r][1] + u[r][0];
+    dn[r] = vw[r][1] - u[r][0];
+    pu_b[r] = up[r] + uu[r];
+  }
+  const int count = expm_reftrans_lw<N>(A, B, R, T);
+  float a1[N], a2[N], b1[N], b2[N];
+  mv<N, N>(R, dn, a1);
+  mv<N, N>(T, pu_b, a2);
+  mv<N, N>(T, dn, b1);
+  mv<N, N>(R, pu_b, b2);
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    su[r] = up[r] - a1[r] - a2[r];
+    sd[r] = dn[r] + uu[r] - b1[r] - b2[r];
+  }
+  return count;
+}
+
+// pass 1 of B7, over the 3D cells only: a persistent grid whose warps
+// stride over groups of 32 cells. A warp reads `use3d` for BATCH of its
+// groups at once (one wait on memory, not one per group), lists their 3D
+// cells in order, and computes the list 32 cells a round, every lane
+// busy. A round's rows go to 32 adjacent slots of `packed`, each slot one
+// cell's 2 NREG (NREG + 1) rows in a row (cap slots), and slot_of[cell]
+// records the slot; past cap slots a cell is written to `out` in place
+// and its slot is -1. Each cell's rows depend on that cell alone, so the
+// order of the slots changes no value.
+template <int NREG>
+__global__ void __launch_bounds__(THREADS, LW_3D_MIN_BLOCKS)
+lw_3d_kernel(LwArgs p, int cap, float max_gas_od_3d,
+             float* __restrict__ out, int8_t* __restrict__ counts,
+             float* __restrict__ packed, int* __restrict__ slot_of,
+             int* __restrict__ n3d) {
+  constexpr int N = NREG, NN = NREG * NREG, NR = 2 * N * (N + 1),
+                WARPS = THREADS / 32, BATCH = 16;
+  constexpr unsigned ALL = 0xffffffffu;
+  static_assert(NR % 4 == 0, "a slot is whole float4s");
+  // a warp's listed cells: fewer than a round, then a batch's
+  __shared__ int listed[WARPS][(BATCH + 1) * 32];
+  const int lane = threadIdx.x % 32;
+  int* list = listed[threadIdx.x / 32];
+  const size_t m = (size_t)p.ng * p.ncol, n = (size_t)p.nlev * m;
+  const size_t groups = (n + 31) / 32, stride = (size_t)gridDim.x * WARPS;
+  size_t grp = (size_t)blockIdx.x * WARPS + threadIdx.x / 32;
+  // the cells not computed yet are list[head .. nlist), in every lane
+  int head = 0, nlist = 0;
+  for (;;) {
+    if (nlist - head < 32 && grp < groups) {
+      // what is left to the front, then the 3D cells of the next BATCH
+      // groups, their flags read at once
+      const int rest = nlist - head;
+      const int v = lane < rest ? list[head + lane] : 0;
+      bool f[BATCH];
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b) {
+        const size_t idx = (grp + (size_t)b * stride) * 32 + lane;
+        f[b] = idx < n && p.use3d[idx] != 0;
+      }
+      __syncwarp();
+      if (lane < rest) list[lane] = v;
+      head = 0;
+      nlist = rest;
+#pragma unroll
+      for (int b = 0; b < BATCH; ++b) {
+        const unsigned vote = __ballot_sync(ALL, f[b]);
+        if (f[b])
+          list[nlist + __popc(vote & ((1u << lane) - 1u))] =
+              (int)((grp + (size_t)b * stride) * 32 + lane);
+        nlist += __popc(vote);
+      }
+      __syncwarp();
+      grp += (size_t)BATCH * stride;
+      continue;
+    }
+    if (head == nlist) break;
+    const int take = min(32, nlist - head);
+    const int cell = lane < take ? list[head + lane] : -1;
+    head += take;
+    int base = 0;
+    if (lane == 0) base = atomicAdd(n3d, take);
+    base = __shfl_sync(ALL, base, 0);
+    if (cell >= 0) {
+      const size_t idx = (size_t)cell;
+      const CellAt at = cell_at(idx, p);
+      float R[N][N], T[N][N], su[N], sd[N];
+      const int count = lw_3d_cell<N>(p, max_gas_od_3d, at.l, idx, at.i,
+                                      at.c, m, R, T, su, sd);
+      const bool clear = p.clear[(size_t)at.l * p.ncol + at.c] != 0;
+      float v[NR];
+#pragma unroll
+      for (int a = 0; a < N; ++a)
+#pragma unroll
+        for (int b = 0; b < N; ++b) {
+          const bool z = clear && (a > 0 || b > 0);
+          v[a * N + b] = z ? 0.0f : R[a][b];
+          v[NN + a * N + b] = z ? 0.0f : T[a][b];
+        }
+#pragma unroll
+      for (int r = 0; r < N; ++r) {
+        const bool z = clear && r > 0;
+        v[2 * NN + r] = z ? 0.0f : su[r];
+        v[2 * NN + N + r] = z ? 0.0f : sd[r];
+      }
+      const int slot = base + lane;
+      if (slot < cap) {
+        float4* d = reinterpret_cast<float4*>(packed + (size_t)slot * NR);
+#pragma unroll
+        for (int h = 0; h < NR / 4; ++h)
+          d[h] = make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2],
+                             v[4 * h + 3]);
+        slot_of[idx] = slot;
+      } else {
+        float* o = out + (size_t)at.l * NR * m + at.i;
+#pragma unroll
+        for (int h = 0; h < NR; ++h) o[(size_t)h * m] = v[h];
+        slot_of[idx] = -1;
+      }
+      if (counts) counts[idx] = (int8_t)count;
+    }
+  }
+}
+
+// pass 2 of B7, over every cell, as B6's: a fallback cell gets its
+// Meador-Weaver rows (two_stream.py lw_reftrans with cloud scattering,
+// lw_no_scattering_transmittance without), the off-diagonals zero, the
+// cloudy regions of clear layers zero, and count -1; a 3D cell the rows
+// pass 1 staged in its slot, read whole (nothing where pass 1 wrote it in
+// place). Every row goes out in one store for all of a warp's lanes, so
+// each 32-byte sector is written whole, once.
+template <int NREG>
+__global__ void __launch_bounds__(LEAN_THREADS, LEAN_MIN_BLOCKS)
+lw_fallback_kernel(LwArgs p, int cloud_scattering,
+                   const float* __restrict__ packed,
+                   const int* __restrict__ slot_of, int cap,
+                   float* __restrict__ out, int8_t* __restrict__ counts) {
+  constexpr int N = NREG, NN = NREG * NREG, NR = 2 * N * (N + 1);
+  const size_t m = (size_t)p.ng * p.ncol;
+  const size_t idx = (size_t)blockIdx.x * LEAN_THREADS + threadIdx.x;
+  if (idx >= (size_t)p.nlev * m) return;
+  const CellAt at = cell_at(idx, p);
+  const int l = at.l;
+  const size_t i = at.i, c = at.c;
+  const bool is3d = p.use3d[idx] != 0;
+  const int slot = is3d ? slot_of[idx] : 0;
+  // a 3D cell past the staged share was written by pass 1
+  if (slot < 0) return;
+  // [R | T | SU | SD] of each region: the diagonals and the sources
+  float w[4][N];
+  if (!is3d) {
+    const float pt = p.pt[idx], pb = p.pb[idx];
+    const bool clear = p.clear[(size_t)l * p.ncol + c] != 0;
 #pragma unroll
     for (int r = 0; r < N; ++r) {
+      const size_t j = ((size_t)l * N + r) * m + i;
+      const float od = p.od[j];
       float rr, tt, u, d;
       if (cloud_scattering) {
-        // two_stream.py lw_reftrans
-        const float k = sqrtf(fmaxf((g1[r] - g2[r]) * (g1[r] + g2[r]),
-                                    1.0e-4f));
-        const float expo = expf(-k * od[r]);
+        // two_stream.py lw_gammas and lw_reftrans
+        const float factor = (LW_DIFFUSIVITY * 0.5f) * p.ssa[j];
+        const float gv = p.g[j];
+        const float g1 = LW_DIFFUSIVITY - factor * (1.0f + gv);
+        const float g2 = factor * (1.0f - gv);
+        const float k = sqrtf(fmaxf((g1 - g2) * (g1 + g2), 1.0e-4f));
+        const float expo = expf(-k * od);
         const float expo2 = expo * expo;
-        const float rt = 1.0f / (k + g1[r] + (k - g1[r]) * expo2);
-        if (od[r] <= 1.0e-3f) {
-          rr = g2[r] * od[r];
-          tt = (1.0f - k * od[r]) / (1.0f + od[r] * (g1[r] - k));
+        const float rt = 1.0f / (k + g1 + (k - g1) * expo2);
+        if (od <= 1.0e-3f) {
+          rr = g2 * od;
+          tt = (1.0f - k * od) / (1.0f + od * (g1 - k));
           u = d = (1.0f - rr - tt) * 0.5f * (pt + pb);
         } else {
-          rr = g2[r] * (1.0f - expo2) * rt;
+          rr = g2 * (1.0f - expo2) * rt;
           tt = 2.0f * k * expo * rt;
-          const float coeff = (pb - pt) / fmaxf(od[r] * (g1[r] + g2[r]),
-                                                1.0e-30f);
+          const float coeff = (pb - pt) / fmaxf(od * (g1 + g2), 1.0e-30f);
           u = (coeff + pt) - rr * (-coeff + pt) - tt * (coeff + pb);
           d = (-coeff + pb) - rr * (coeff + pb) - tt * (-coeff + pt);
         }
       } else {
         // two_stream.py lw_no_scattering_transmittance
-        const float coeff0 = LW_DIFFUSIVITY * od[r];
+        const float coeff0 = LW_DIFFUSIVITY * od;
         const float trans = expf(-coeff0);
         const float coeff = (pb - pt) / fmaxf(coeff0, 1.0e-30f);
         rr = 0.0f;
-        if (od[r] <= 1.0e-3f) {
+        if (od <= 1.0e-3f) {
           tt = 1.0f - coeff0;
           u = d = coeff0 * 0.5f * (pt + pb);
         } else {
@@ -833,118 +1076,55 @@ lw_reftrans_kernel(const float* __restrict__ od_in,
           d = (-coeff + pb) - trans * (-coeff + pt);
         }
       }
-      R[r][r] = rr;
-      T[r][r] = tt;
-      su[r] = u * fr[r];
-      sd[r] = d * fr[r];
+      const float fr = p.fr[((size_t)l * N + r) * p.ncol + c];
+      const bool z = clear && r > 0;
+      w[0][r] = z ? 0.0f : rr;
+      w[1][r] = z ? 0.0f : tt;
+      w[2][r] = z ? 0.0f : u * fr;
+      w[3][r] = z ? 0.0f : d * fr;
+    }
+    if (counts) counts[idx] = -1;
+  }
+  float v[NR];
+  if (is3d) {
+    // the slot's rows, in a row
+    const float4* q =
+        reinterpret_cast<const float4*>(packed + (size_t)slot * NR);
+#pragma unroll
+    for (int h = 0; h < NR / 4; ++h) {
+      const float4 t = q[h];
+      v[4 * h] = t.x;
+      v[4 * h + 1] = t.y;
+      v[4 * h + 2] = t.z;
+      v[4 * h + 3] = t.w;
     }
   } else {
-    const float se = se_in[idx];
-    const size_t tc = (size_t)l * NN * ncol + c;
-    auto tr = [&](int a, int b) {
-      return tr_in[tc + (size_t)(a * N + b) * ncol];
-    };
-    float A[N][N], B[N][N], odc[N];
 #pragma unroll
-    for (int a = 0; a < N; ++a)
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int b = 0; b < N; ++b) A[a][b] = B[a][b] = 0.0f;
+      for (int a = 0; a < N; ++a)
+#pragma unroll
+        for (int b = 0; b < N; ++b)
+          v[h * NN + a * N + b] = a == b ? w[h][a] : 0.0f;
 #pragma unroll
     for (int r = 0; r < N; ++r) {
-      odc[r] = r == 0 ? fminf(od[0], max_gas_od_3d) : od[r];
-      A[r][r] = A[r][r] + odc[r] * g1[r];
-      B[r][r] = B[r][r] + odc[r] * g2[r];
-    }
-#pragma unroll
-    for (int r = 0; r < N - 1; ++r) {
-      A[r][r] = A[r][r] + tr(r, r + 1);
-      A[r + 1][r] = A[r + 1][r] + -tr(r, r + 1);
-      if (r > 0) {
-        A[r + 1][r + 1] = A[r + 1][r + 1] + tr(r + 1, r);
-        A[r][r + 1] = A[r][r + 1] + -tr(r + 1, r);
-      } else {
-        A[r + 1][r + 1] = A[r + 1][r + 1] + se * tr(r + 1, r);
-        A[r][r + 1] = A[r][r + 1] + -se * tr(r + 1, r);
-      }
-    }
-    if (N == 3) {
-      A[0][0] = A[0][0] + tr(0, 2);
-      A[N - 1][0] = A[N - 1][0] + -tr(0, 2);
-      A[N - 1][N - 1] = A[N - 1][N - 1] + se * tr(2, 0);
-      A[0][N - 1] = A[0][N - 1] + -se * tr(2, 0);
-    }
-    // the particular solution in the sum/difference basis
-    float F[N][N], E[N][N], vw[N][2], u[N][1];
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      const float emis = odc[r] * (1.0f - ssa[r]) * fr[r] * LW_DIFFUSIVITY;
-      vw[r][0] = emis * (pb - pt);
-      vw[r][1] = emis * pt;
-#pragma unroll
-      for (int b = 0; b < N; ++b) {
-        E[r][b] = A[r][b] + B[r][b];
-        F[r][b] = A[r][b] - B[r][b];
-      }
-      E[r][r] = E[r][r] + 1e-12f;
-      F[r][r] = F[r][r] + 1e-12f;
-    }
-    solve<N, 2>(F, vw);
-#pragma unroll
-    for (int r = 0; r < N; ++r) u[r][0] = vw[r][0];
-    solve<N, 1>(E, u);
-    float up[N], dn[N], pu_b[N], uu[N];
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      uu[r] = vw[r][0];
-      up[r] = vw[r][1] + u[r][0];
-      dn[r] = vw[r][1] - u[r][0];
-      pu_b[r] = up[r] + uu[r];
-    }
-    count = expm_reftrans_lw<N>(A, B, R, T);
-    float a1[N], a2[N], b1[N], b2[N];
-    mv<N, N>(R, dn, a1);
-    mv<N, N>(T, pu_b, a2);
-    mv<N, N>(T, dn, b1);
-    mv<N, N>(R, pu_b, b2);
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      su[r] = up[r] - a1[r] - a2[r];
-      sd[r] = dn[r] + uu[r] - b1[r] - b2[r];
+      v[2 * NN + r] = w[2][r];
+      v[2 * NN + N + r] = w[3][r];
     }
   }
-  const bool clear = clear_in[(size_t)l * ncol + c] != 0;
-  const size_t base = (size_t)l * 2 * N * (N + 1) * m + i;
+  float* o = out + (size_t)l * NR * m + i;
 #pragma unroll
-  for (int a = 0; a < N; ++a)
-#pragma unroll
-    for (int b = 0; b < N; ++b) {
-      const bool z = clear && (a > 0 || b > 0);
-      out[base + (size_t)(a * N + b) * m] = z ? 0.0f : R[a][b];
-      out[base + (size_t)(NN + a * N + b) * m] = z ? 0.0f : T[a][b];
-    }
-#pragma unroll
-  for (int r = 0; r < N; ++r) {
-    const bool z = clear && r > 0;
-    out[base + (size_t)(2 * NN + r) * m] = z ? 0.0f : su[r];
-    out[base + (size_t)(2 * NN + N + r) * m] = z ? 0.0f : sd[r];
-  }
-  if (counts) counts[idx] = (int8_t)count;
+  for (int h = 0; h < NR; ++h) o[(size_t)h * m] = v[h];
 }
 
-inline int blocks_for(size_t n) { return (int)((n + THREADS - 1) / THREADS); }
-
-}  // namespace spartacus
-}  // namespace ecrad
-
-namespace ecrad {
-namespace spartacus {
-// pass 1's persistent grid: as many blocks as are resident on the card at
-// once, and no more than its warps' groups of 32 cells could fill
-template <int N>
-cudaError_t grid_3d(size_t cells, unsigned* blocks) {
+// a 3D pass's persistent grid: as many blocks of `kernel` as are
+// resident on the card at once, and no more than its warps' groups of 32
+// cells could fill
+template <class Kernel>
+cudaError_t grid_3d(Kernel kernel, size_t cells, unsigned* blocks) {
   int per_sm = 0, device = 0, sms = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, sw_3d_kernel<N>, THREADS, 0);
+      &per_sm, kernel, THREADS, 0);
   if (e == cudaSuccess) e = cudaGetDevice(&device);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
@@ -973,12 +1153,14 @@ extern "C" int spartacus_sw_reftrans_3d(
   unsigned blocks = 0;
   cudaError_t e;
   if (nreg == 3) {
-    if ((e = sp::grid_3d<3>(n, &blocks)) != cudaSuccess) return (int)e;
+    if ((e = sp::grid_3d(sp::sw_3d_kernel<3>, n, &blocks)) != cudaSuccess)
+      return (int)e;
     sp::sw_3d_kernel<3><<<blocks, sp::THREADS, 0, s>>>(
         od, ssa, g, trd, trf, mu0, use3d, clear, nlev, ng, ncol, cap,
         max_gas_od_3d, out, counts, packed, slot_of, n3d);
   } else if (nreg == 2) {
-    if ((e = sp::grid_3d<2>(n, &blocks)) != cudaSuccess) return (int)e;
+    if ((e = sp::grid_3d(sp::sw_3d_kernel<2>, n, &blocks)) != cudaSuccess)
+      return (int)e;
     sp::sw_3d_kernel<2><<<blocks, sp::THREADS, 0, s>>>(
         od, ssa, g, trd, trf, mu0, use3d, clear, nlev, ng, ncol, cap,
         max_gas_od_3d, out, counts, packed, slot_of, n3d);
@@ -1032,29 +1214,80 @@ extern "C" int spartacus_sw_reftrans_info(int pass, int nreg, int* info) {
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int spartacus_lw_reftrans(const float* od, const float* ssa,
-                                     const float* g, const float* tr,
-                                     const float* se, const float* pt,
-                                     const float* pb, const float* fr,
-                                     const uint8_t* use3d,
-                                     const uint8_t* clear, float* out,
-                                     int8_t* counts, int nreg, int nlev,
-                                     int ng, int ncol, float max_gas_od_3d,
-                                     int cloud_scattering, void* stream) {
+// B7, pass 1, over the 3D cells: `packed` holds cap slots of 2 nreg (nreg
+// + 1) floats, slot_of one int per cell, and *n3d must be 0 on entry
+extern "C" int spartacus_lw_reftrans_3d(
+    const float* od, const float* ssa, const float* g, const float* tr,
+    const float* se, const float* pt, const float* pb, const float* fr,
+    const uint8_t* use3d, const uint8_t* clear, float* out, int8_t* counts,
+    float* packed, int* slot_of, int* n3d, int nreg, int nlev, int ng,
+    int ncol, int cap, float max_gas_od_3d, void* stream) {
   namespace sp = ecrad::spartacus;
   const size_t n = (size_t)nlev * ng * ncol;
   if (n == 0) return (int)cudaGetLastError();
+  if (n > (size_t)INT32_MAX) return (int)cudaErrorInvalidValue;
+  const sp::LwArgs p{od, ssa, g, tr, se, pt, pb, fr, use3d, clear,
+                     nlev, ng, ncol};
   cudaStream_t s = (cudaStream_t)stream;
+  unsigned blocks = 0;
+  cudaError_t e;
   if (nreg == 3) {
-    sp::lw_reftrans_kernel<3><<<sp::blocks_for(n), sp::THREADS, 0, s>>>(
-        od, ssa, g, tr, se, pt, pb, fr, use3d, clear, nlev, ng, ncol,
-        max_gas_od_3d, cloud_scattering, out, counts);
+    if ((e = sp::grid_3d(sp::lw_3d_kernel<3>, n, &blocks)) != cudaSuccess)
+      return (int)e;
+    sp::lw_3d_kernel<3><<<blocks, sp::THREADS, 0, s>>>(
+        p, cap, max_gas_od_3d, out, counts, packed, slot_of, n3d);
   } else if (nreg == 2) {
-    sp::lw_reftrans_kernel<2><<<sp::blocks_for(n), sp::THREADS, 0, s>>>(
-        od, ssa, g, tr, se, pt, pb, fr, use3d, clear, nlev, ng, ncol,
-        max_gas_od_3d, cloud_scattering, out, counts);
+    if ((e = sp::grid_3d(sp::lw_3d_kernel<2>, n, &blocks)) != cudaSuccess)
+      return (int)e;
+    sp::lw_3d_kernel<2><<<blocks, sp::THREADS, 0, s>>>(
+        p, cap, max_gas_od_3d, out, counts, packed, slot_of, n3d);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// B7, pass 2, over every cell, after pass 1 on the same stream
+extern "C" int spartacus_lw_reftrans_fallback(
+    const float* od, const float* ssa, const float* g, const float* pt,
+    const float* pb, const float* fr, const uint8_t* use3d,
+    const uint8_t* clear, const float* packed, const int* slot_of,
+    float* out, int8_t* counts, int nreg, int nlev, int ng, int ncol,
+    int cap, int cloud_scattering, void* stream) {
+  namespace sp = ecrad::spartacus;
+  const size_t n = (size_t)nlev * ng * ncol;
+  if (n == 0) return (int)cudaGetLastError();
+  if (n > (size_t)INT32_MAX) return (int)cudaErrorInvalidValue;
+  const sp::LwArgs p{od, ssa, g, nullptr, nullptr, pt, pb, fr, use3d,
+                     clear, nlev, ng, ncol};
+  const unsigned blocks = (unsigned)((n + sp::LEAN_THREADS - 1)
+                                     / sp::LEAN_THREADS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nreg == 3) {
+    sp::lw_fallback_kernel<3><<<blocks, sp::LEAN_THREADS, 0, s>>>(
+        p, cloud_scattering, packed, slot_of, cap, out, counts);
+  } else if (nreg == 2) {
+    sp::lw_fallback_kernel<2><<<blocks, sp::LEAN_THREADS, 0, s>>>(
+        p, cloud_scattering, packed, slot_of, cap, out, counts);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// B7's compiled resources and occupancy (kernel_info.cuh): pass 0 is the
+// pass over every cell (2), pass 1 the 3D pass (1)
+extern "C" int spartacus_lw_reftrans_info(int pass, int nreg, int* info) {
+  namespace sp = ecrad::spartacus;
+  if (pass == 0 && nreg == 3)
+    return ecrad::kernel_info(sp::lw_fallback_kernel<3>, sp::LEAN_THREADS,
+                              0, info);
+  if (pass == 0 && nreg == 2)
+    return ecrad::kernel_info(sp::lw_fallback_kernel<2>, sp::LEAN_THREADS,
+                              0, info);
+  if (pass == 1 && nreg == 3)
+    return ecrad::kernel_info(sp::lw_3d_kernel<3>, sp::THREADS, 0, info);
+  if (pass == 1 && nreg == 2)
+    return ecrad::kernel_info(sp::lw_3d_kernel<2>, sp::THREADS, 0, info);
+  return (int)cudaErrorInvalidValue;
 }

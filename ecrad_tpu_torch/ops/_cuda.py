@@ -50,7 +50,8 @@ _SIGS = {
     "tc_lw_sweeps": "ppppppppppiiiippp",
     "spartacus_sw_reftrans_3d": "pppppppppppppiiiiif",
     "spartacus_sw_reftrans_fallback": "ppppppppppiiiii",
-    "spartacus_lw_reftrans": "ppppppppppppiiiifi",
+    "spartacus_lw_reftrans_3d": "pppppppppppppppiiiiif",
+    "spartacus_lw_reftrans_fallback": "ppppppppppppiiiiii",
     "spartacus_sw_adding": "ppppiiiiiiffffpppp",
     "spartacus_lw_adding": "pppiiiiiippp",
     "gather_sections": "ppppiiiip",
@@ -59,7 +60,9 @@ _SIGS = {
 # queries of a kernel's compiled resources (no stream): the leading int
 # arguments, then an int[len(INFO_FIELDS)] that receives them
 _INFO_SIGS = {"spartacus_sw_adding_info": "i",
-              "spartacus_sw_reftrans_info": "ii"}
+              "spartacus_sw_reftrans_info": "ii",
+              "spartacus_lw_reftrans_info": "ii",
+              "spartacus_lw_adding_info": "ii"}
 INFO_FIELDS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
                "threads", "blocks_per_sm", "sms")
 

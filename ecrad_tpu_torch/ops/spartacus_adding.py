@@ -447,12 +447,16 @@ def lw_adding_sweeps_fused(cfg, use_matrix, hist, cols, init_up):
     _cuda.check(cols, f32, (nlev, LW_NCOLROWS, ncol), "cols")
     _cuda.check(init_up, f32, (n * n + n, ng, ncol), "init_up")
     dev = hist.device
-    scratch = torch.empty((nlev, n * n + n, ng, ncol), dtype=f32, device=dev)
+    # the carry entering each level going up: the albedo matrix and the
+    # source with multilayer effects; without them every carry an up step
+    # makes is diagonal (lw_up_step), so its diagonal and the source
+    multilayer = bool(cfg.do_3d_lw_multilayer_effects)
+    rows = n * n + n if multilayer else 2 * n
+    scratch = torch.empty((nlev, rows, ng, ncol), dtype=f32, device=dev)
     src_top = torch.empty((n, ng, ncol), dtype=f32, device=dev)
     out = torch.empty((nlev, 2 * n, ng, ncol), dtype=f32, device=dev)
     _cuda.launch("spartacus_lw_adding", hist, cols, init_up, n, nlev, ng,
-                 ncol, int(bool(use_matrix)),
-                 int(bool(cfg.do_3d_lw_multilayer_effects)), scratch,
+                 ncol, int(bool(use_matrix)), int(multilayer), scratch,
                  src_top, out)
     launches["spartacus_lw_adding"] += 1
     return src_top, out

@@ -17,13 +17,13 @@ in row-major order.
 `sw_reftrans_levels` / `lw_reftrans_levels` run the plain versions (one
 level at a time, as the JAX package's CPU scan does) on CPU tensors and
 the kernels on CUDA tensors; a float64 or non-contiguous CUDA tensor, or
-a failed build or launch, raises. B6 is two launches on the current
-stream: a 3D pass that finds the 3D cells and stages their rows in a
-compact buffer, then a pass over every cell that writes the fallback
-cells and copies the staged ones, so that each sector of the output is
-written whole and once. With `counts` (an int8 (nlev, ng, ncol) tensor)
-both record each cell's doubling count, -1 where the cell took the
-fallback.
+a failed build or launch, raises. B6 and B7 are two launches each on the
+current stream: a 3D pass that finds the 3D cells and stages their rows
+in a compact buffer, then a pass over every cell that writes the
+fallback cells and copies the staged ones, so that each sector of the
+output is written whole and once. With `counts` (an int8 (nlev, ng,
+ncol) tensor) both record each cell's doubling count, -1 where the cell
+took the fallback.
 
 The plain versions mirror ecrad_tpu/ops/spartacus_reftrans.py:115-248
 (SW) and :416-548 (LW) expression for expression. The SW Meador-Weaver
@@ -50,11 +50,12 @@ MAX_OD_OVER_MU0_3D = 60.0
 LW_DIFFUSIVITY = 1.66
 
 #: launches of each CUDA kernel (incremented only where it is launched;
-#: B6's wrapper launches its two passes and counts one)
+#: B6's and B7's wrappers launch their two passes and count one)
 launches = {"spartacus_sw_reftrans": 0, "spartacus_lw_reftrans": 0}
-# B6 indexes its cells by int32, and stages the rows of up to a quarter
-# of them (the SPARTACUS path's 3D share is 0.14); a 3D cell past that
-# share is written in place by the 3D pass, slower but the same values
+# B6 and B7 index their cells by int32, and stage the rows of up to a
+# quarter of them (the SPARTACUS path's 3D share is 0.14); a 3D cell past
+# that share is written in place by the 3D pass, slower but the same
+# values
 _MAX_CELLS = 2**31 - 1
 _STAGED_SHARE = 4
 
@@ -366,11 +367,26 @@ def lw_reftrans_levels_fused(max_gas_od_3d, cloud_scattering, od, ssa, g,
     _cuda.check(clear, torch.bool, (nlev, ncol), "clear")
     if counts is not None:
         _cuda.check(counts, torch.int8, (nlev, ng, ncol), "counts")
-    out = torch.empty((nlev, 2 * nreg * (nreg + 1), ng, ncol),
-                      dtype=torch.float32, device=od.device)
-    _cuda.launch("spartacus_lw_reftrans", od, ssa, g, tr, se, pt, pb, fr,
-                 use3d, clear, out, counts, nreg, nlev, ng, ncol,
-                 max_gas_od_3d, int(bool(cloud_scattering)))
+    cells = nlev * ng * ncol
+    if cells > _MAX_CELLS:
+        raise ValueError(f"{cells} cells: kernel B7 indexes its cells by "
+                         f"int32 (at most {_MAX_CELLS})")
+    dev = od.device
+    rows = 2 * nreg * (nreg + 1)
+    out = torch.empty((nlev, rows, ng, ncol), dtype=torch.float32,
+                      device=dev)
+    # as B6: the 3D pass stages its cells' rows, each cell's in a row,
+    # the second pass writes every cell of `out`
+    cap = -(-cells // _STAGED_SHARE)
+    packed = torch.empty((cap, rows), dtype=torch.float32, device=dev)
+    slot_of = torch.empty(cells, dtype=torch.int32, device=dev)
+    n3d = torch.zeros(1, dtype=torch.int32, device=dev)
+    _cuda.launch("spartacus_lw_reftrans_3d", od, ssa, g, tr, se, pt, pb, fr,
+                 use3d, clear, out, counts, packed, slot_of, n3d, nreg, nlev,
+                 ng, ncol, cap, max_gas_od_3d)
+    _cuda.launch("spartacus_lw_reftrans_fallback", od, ssa, g, pt, pb, fr,
+                 use3d, clear, packed, slot_of, out, counts, nreg, nlev, ng,
+                 ncol, cap, int(bool(cloud_scattering)))
     launches["spartacus_lw_reftrans"] += 1
     return out
 

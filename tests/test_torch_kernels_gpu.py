@@ -565,6 +565,77 @@ def test_b6_b8_resources(cuda, nreg):
         assert hits[0]["spill_loads"] <= spill, kernel
 
 
+@pytest.mark.parametrize("scattering", [True, False])
+@pytest.mark.parametrize("share3d", [0.0, 1.0, 0.14])
+@pytest.mark.parametrize("nreg", [3, 2])
+def test_b7_passes_match_plain(cuda, nreg, share3d, scattering):
+    """B7's 3D pass and its pass over every cell: no 3D cell, every cell
+    3D (past the staged share the 3D pass writes in place), the SPARTACUS
+    path's share; cloud scattering on and off. Equal to the plain version
+    bit for bit (the kernel keeps its expressions, built with
+    -fmad=false), counts < 0 exactly where use3d is false, one count per
+    wrapper call."""
+    c = _spartacus_case(cuda, nreg, share3d=share3d)
+    args = [8.0, scattering] + [c[k] for k in LW_RT]
+    counts = torch.empty(c["use3d"].shape, dtype=torch.int8, device=cuda)
+    n0 = spartacus_reftrans.launches["spartacus_lw_reftrans"]
+    got = spartacus_reftrans.lw_reftrans_levels(*args, counts=counts)
+    again = spartacus_reftrans.lw_reftrans_levels(*args)
+    torch.cuda.synchronize()
+    assert spartacus_reftrans.launches["spartacus_lw_reftrans"] == n0 + 2
+    ref = spartacus_reftrans.lw_reftrans_levels_plain(*args)
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    assert bool(((counts < 0) == ~c["use3d"]).all())
+
+
+@pytest.mark.parametrize("nreg", [3, 2])
+def test_b7_b9_resources(cuda, nreg):
+    """B7's pass over every cell at most 80 registers (at least 24 warps
+    per SM), its 3D pass resident; B9's stages within the SM's shared
+    memory and four of its blocks per SM, multilayer effects on and off;
+    no spills (the compiler's report) in any of them."""
+    from ecrad_tpu_torch.ops import _cuda
+    lean = _cuda.kernel_info("spartacus_lw_reftrans_info", 0, nreg)
+    full = _cuda.kernel_info("spartacus_lw_reftrans_info", 1, nreg)
+    assert lean["registers"] <= 80
+    assert lean["blocks_per_sm"] * lean["threads"] >= 24 * 32
+    assert full["blocks_per_sm"] >= 1
+    for ml in (0, 1):
+        b9 = _cuda.kernel_info("spartacus_lw_adding_info", nreg, ml)
+        assert b9["dynamic_smem"] <= 227 * 1024
+        assert b9["blocks_per_sm"] >= 4
+    report = _cuda.ptxas_report()
+    for kernel in (f"lw_fallback_kernelILi{nreg}E", f"lw_3d_kernelILi{nreg}E",
+                   f"lw_adding_kernelILi{nreg}ELb0E",
+                   f"lw_adding_kernelILi{nreg}ELb1E"):
+        hits = [v for k, v in report.items() if kernel in k]
+        assert len(hits) == 1, kernel
+        assert hits[0]["spill_stores"] == 0, kernel
+        assert hits[0]["spill_loads"] == 0, kernel
+
+
+@pytest.mark.parametrize("nlev", [1, 2, 7])
+@pytest.mark.parametrize("use_matrix, multilayer", [
+    (True, False), (True, True), (False, False)])
+@pytest.mark.parametrize("nreg", [3, 2])
+def test_b9_ragged_shapes_match_plain(cuda, nreg, use_matrix, multilayer,
+                                      nlev):
+    """B9 with fewer levels than (or about) its stage ring, 15 g-points
+    (no multiple of its g-tile) and 133 columns (no multiple of its
+    column strip), and a full random albedo matrix at the surface, which
+    the diagonal scratch without multilayer effects must not lose. Equal
+    to the plain version bit for bit."""
+    c = _spartacus_case(cuda, nreg, nlev=nlev, ng=15)
+    hist = spartacus_reftrans.lw_reftrans_levels(8.0, True,
+                                                 *(c[k] for k in LW_RT))
+    cfg = spartacus_slice_config(do_3d_lw_multilayer_effects=multilayer)
+    args = (hist, c["lcols"], c["linit"])
+    got = spartacus_adding.lw_adding_sweeps(cfg, use_matrix, *args)
+    torch.cuda.synchronize()
+    ref = spartacus_adding.lw_adding_sweeps_plain(cfg, use_matrix, *args)
+    assert all(torch.equal(x, y) for x, y in zip(got, ref))
+
+
 @pytest.mark.parametrize("nlev", [1, 2, 7])
 @pytest.mark.parametrize("entrap", list(Entrapment), ids=lambda e: e.name)
 @pytest.mark.parametrize("nreg", [3, 2])
