@@ -568,8 +568,8 @@ def main():
                 "Used" in line or "Compiling" in line)):
             log("  " + line.strip())
     report = _cuda.ptxas_report()
-    # (what, info query and its leading arguments, the nreg argument
-    # last unless the query takes it first, the kernel's mangled name)
+    # (what, info query and its arguments before nreg, the kernel's
+    # mangled name)
     for what, name, args, kernel in (
             ("B6 pass 1, 3D cells", "spartacus_sw_reftrans_info", (1,),
              "sw_3d_kernelILi{}E"),
@@ -585,8 +585,7 @@ def main():
             ("B9, multilayer on", "spartacus_lw_adding_info", (1,),
              "lw_adding_kernelILi{}ELb1E")):
         for nreg in (3, 2):
-            k = _cuda.kernel_info(name, *((nreg,) + args if name.startswith(
-                "spartacus_lw_adding") else args + (nreg,)))
+            k = _cuda.kernel_info(name, *args, nreg)
             rep = [v for f, v in report.items() if kernel.format(nreg) in f]
             rep = rep[0] if len(rep) == 1 else {}
             warps = k["blocks_per_sm"] * k["threads"] // 32

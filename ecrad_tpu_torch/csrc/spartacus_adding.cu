@@ -1198,7 +1198,7 @@ extern "C" int spartacus_lw_adding(const float* hist, const float* cols,
 }
 
 // B9's compiled resources and the occupancy its launch gets
-extern "C" int spartacus_lw_adding_info(int nreg, int multilayer,
+extern "C" int spartacus_lw_adding_info(int multilayer, int nreg,
                                         int* info) {
   namespace sa = ecrad::spadd;
   if (nreg == 3) return multilayer ? sa::lw_info<3, true>(info)

@@ -85,13 +85,11 @@ constexpr int THREADS = 128;
 // B6's pass over every cell: 128 threads, at least 6 blocks per SM (80
 // registers, 24 warps; at 64 registers it spilled and ran slower)
 constexpr int LEAN_THREADS = 128, LEAN_MIN_BLOCKS = 6;
-// B7's 3D pass: at least this many blocks of THREADS per SM, so at most
-// 168 registers (at 3 regions 164 without spills, against 236 unbounded;
-// at 4 blocks it spilled and ran slower); a build may set another bound
-#ifndef ECRAD_LW_3D_MIN_BLOCKS
-#define ECRAD_LW_3D_MIN_BLOCKS 3
-#endif
-constexpr int LW_3D_MIN_BLOCKS = ECRAD_LW_3D_MIN_BLOCKS;
+// B7's 3D pass: at least 3 blocks of THREADS per SM, so at most 168
+// registers. Measured on the H100 at 3 regions: 236 registers unbounded,
+// B7 6.2005 ms; 3 blocks, no spills, 5.4151 ms; 4 blocks, 88 B spilled,
+// 5.5751 ms (PERF.md, PR 7).
+constexpr int LW_3D_MIN_BLOCKS = 3;
 constexpr float THETA_DBL = 1.8f;
 constexpr int MAX_DOUBLINGS = 12;
 constexpr float MAX_OD_OVER_MU0_3D = 60.0f;

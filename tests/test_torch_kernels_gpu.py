@@ -601,7 +601,7 @@ def test_b7_b9_resources(cuda, nreg):
     assert lean["blocks_per_sm"] * lean["threads"] >= 24 * 32
     assert full["blocks_per_sm"] >= 1
     for ml in (0, 1):
-        b9 = _cuda.kernel_info("spartacus_lw_adding_info", nreg, ml)
+        b9 = _cuda.kernel_info("spartacus_lw_adding_info", ml, nreg)
         assert b9["dynamic_smem"] <= 227 * 1024
         assert b9["blocks_per_sm"] >= 4
     report = _cuda.ptxas_report()

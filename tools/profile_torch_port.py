@@ -4,7 +4,8 @@ SPARTACUS path goes, on one GPU.
 
     python3 tools/profile_torch_port.py
         [--solver cloudless|mcica|tripleclouds|spartacus] [--ncol 2048]
-        [--nlev 137] [--calls 3] [--out-dir profile_out]
+        [--nlev 137] [--calls 3] [--out-dir profile_out] [--multilayer]
+        [--no-trace]
 
 Runs setup_radiation + radiation on the columns of
 ecrad_tpu_torch.inputs (seed 0; for McICA and Tripleclouds with
@@ -22,7 +23,12 @@ sweeps and the LW derivatives; for SPARTACUS, on the same columns with
 add_effective_sizes, also the B6/B7 reftrans and B8/B9 adding calls) its
 host time and the device time of the kernels it launched.
 Writes the full table and a gzipped Chrome trace into --out-dir (file
-names carry the solver). Exits 1 without a GPU.
+names carry the solver). --multilayer turns SPARTACUS's LW multilayer 3D
+effects on (kernel B9 then keeps its full albedo scratch). --no-trace
+runs no profiler: it times the `--calls` back-to-back calls on the host
+clock, with a synchronise, and prints only the JSON line {"solver",
+"wall_ms", "card"}; run from two checkouts in turn, it compares their
+paths on one card. Exits 1 without a GPU.
 """
 import argparse
 import json
@@ -128,6 +134,8 @@ def main():
     ap.add_argument("--nlev", type=int, default=137)
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--out-dir", default=os.path.join(REPO, "profile_out"))
+    ap.add_argument("--multilayer", action="store_true")
+    ap.add_argument("--no-trace", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: this script profiles the port on a GPU only")
@@ -159,18 +167,29 @@ def main():
         config = mcica_slice_config(**write_synthetic_luts(lut_dir, 0))
         cols = make_clouds(cols, 0)
     else:
-        make = (spartacus_slice_config if args.solver == "spartacus"
-                else tripleclouds_slice_config)
-        config = make(**write_synthetic_luts(lut_dir, 0, ice="fu"))
+        luts = write_synthetic_luts(lut_dir, 0, ice="fu")
+        config = (spartacus_slice_config(
+            do_3d_lw_multilayer_effects=args.multilayer, **luts)
+            if args.solver == "spartacus" else
+            tripleclouds_slice_config(**luts))
         cols = make_aerosols(make_clouds(cols, 0), 0)
         if args.solver == "spartacus":
             cols = add_effective_sizes(cols)
     setup = setup_radiation(config, device=dev)
     inputs = columns_to_inputs(cols, device=dev)
-    span_names = add_spans(args.solver)
+    span_names = [] if args.no_trace else add_spans(args.solver)
     for _ in range(2):
         radiation(setup, *inputs)
     torch.cuda.synchronize()
+    if args.no_trace:
+        t0 = time.perf_counter()
+        for _ in range(args.calls):
+            radiation(setup, *inputs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / args.calls
+        print(json.dumps({"solver": args.solver, "wall_ms": wall * 1e3,
+                          "card": gpu}))
+        return 0
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
