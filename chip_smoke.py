@@ -7,9 +7,10 @@ Phases; any failure exits non-zero and prints no result line:
   1. device and build: versions, the card's name and power limit, the
      CUDA kernels built from ecrad_tpu_torch/csrc for sm_90a (the
      compiler's register/shared-memory/spill report is printed, and for
-     B6's and B7's two passes, B8, and B9 with multilayer effects off and
-     on the registers, spills, shared memory and the warps per SM their
-     launches get);
+     B1, B3 sw_adding and B3' lw_adding at 137 and 300 levels, B3
+     lw_noscat, B6's and B7's two passes, B8, and B9 with multilayer
+     effects off and on the registers, spills, shared memory and the warps
+     per SM their launches get);
   2. every kernel of the paths (B1 taumol_lw, B2 taumol_sw, B3 sw_adding
      and lw_noscat, B3' lw_adding, B4 mcica_sw_optics and
      mcica_lw_optics, B5 tc_sw_sweeps and tc_lw_sweeps, B6
@@ -31,6 +32,11 @@ Phases; any failure exits non-zero and prints no result line:
      3 and 2 regions; B10 on the 30 calls of
      one per-band gas-optics call of the 2048 x 137 columns and on that
      tool's random cases, with rows past both ends);
+     B1 also on 1, 137 and 4,099 cells and on the tropospheric and the
+     stratospheric cells apart; B3 sw_adding and B3' lw_adding equal to
+     their plain versions bit for bit at the paths' shapes, on 1, 2, 137
+     and 300 levels x 15 g-points x 133 columns, and at 300 levels at the
+     path's width (past their on-chip window: the device-memory branch);
      the per-band gas optics against B1/B2's; the SPARTACUS path's share
      of cells with the 3D treatment and the histogram of their doubling
      counts;
@@ -77,7 +83,9 @@ Phases; any failure exits non-zero and prints no result line:
         field, to what radiation() gives for the same file's inputs;
   4. times (information only): each kernel and its plain version with
      CUDA events (B10 per gas-optics call, its 30 launches, beside one
-     embedding_bag call per launch on the same flattened operands; B6's
+     embedding_bag call per launch on the same flattened operands; B1's
+     rate on its least bytes; B3 sw_adding and B3' lw_adding at 137 and
+     300 levels with the rate on the bytes each design moves; B6's
      and B7's two passes apart, with the number of 3D cells the first
      pass found; B8's rate on the bytes its design moves, and B9's
      with multilayer effects off and on), and
@@ -143,6 +151,9 @@ TAU_REL, PF_ATOL, SWEEP_REL = 1e-5, 1e-6, 2e-6
 # plain version is (:186-196)
 SPARTACUS_REL = 2e-5
 OPTICS_REL = {"mcica_sw_optics": 2e-3, "mcica_lw_optics": 1e-4}
+# the adding kernels (B3 sw_adding, B3' lw_adding) keep their plain
+# versions' operation order: 0 difference
+ADDING = ("sw_adding", "lw_adding")
 # the kernels each path must launch
 PATH_KERNELS = {
     "cloudless": ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat"),
@@ -175,6 +186,10 @@ B10_PER_CALL = 30
 # B10 against its plain version: the JAX package's gather-interp bound
 # (tools/check_kernel_equivalence.py:59-62), of the output's largest value
 B10_REL = 5e-6
+# the adding sweeps' level count past their on-chip windows
+# (ops/adding_fused.py SW_ONCHIP_LEVELS, LW_ONCHIP_LEVELS): the top levels'
+# values go to the device-memory scratch
+ADD_SPILL_NLEV = 300
 DRIVER_DIR = os.path.join(REPO, "ecrad_tpu_torch", "_build", "driver")
 # the driver's namelist: the port's slice options (config.SLICE_OPTIONS)
 NAMELIST = """&radiation
@@ -601,6 +616,34 @@ def main():
             if k["blocks_per_sm"] < 1:
                 raise AssertionError(f"{what} cannot be resident on an SM")
 
+    # B1 and B3/B3': (what, info query and its arguments, the kernel's
+    # mangled name); the adding sweeps at the path's 137 levels, all on
+    # chip, and at ADD_SPILL_NLEV, the top levels in device memory
+    for what, name, args, kernel in (
+            ("B1 taumol_lw", "taumol_lw_info", (), "taumol_lw_kernel"),
+            ("B3 sw_adding, 137 levels", "level_sweep_info", (0, NLEV),
+             "sw_adding_kernelILb0E"),
+            (f"B3 sw_adding, {ADD_SPILL_NLEV} levels", "level_sweep_info",
+             (0, ADD_SPILL_NLEV), "sw_adding_kernelILb1E"),
+            ("B3' lw_adding, 137 levels", "level_sweep_info", (1, NLEV),
+             "lw_adding_kernelILb0E"),
+            (f"B3' lw_adding, {ADD_SPILL_NLEV} levels", "level_sweep_info",
+             (1, ADD_SPILL_NLEV), "lw_adding_kernelILb1E"),
+            ("B3 lw_noscat", "level_sweep_info", (2, NLEV),
+             "lw_noscat_kernel")):
+        k = _cuda.kernel_info(name, *args)
+        rep = [v for f, v in report.items() if kernel in f]
+        rep = rep[0] if len(rep) == 1 else {}
+        warps = k["blocks_per_sm"] * k["threads"] // 32
+        log(f"  {what}: {k['registers']} registers, {k['local_bytes']} B "
+            f"local per thread (stack {rep.get('stack')} B, spill stores "
+            f"{rep.get('spill_stores')} B, loads {rep.get('spill_loads')} B)"
+            f", shared {k['static_smem']} B static + {k['dynamic_smem']} B "
+            f"dynamic per block; {k['threads']} threads x "
+            f"{k['blocks_per_sm']} blocks = {warps} warps per SM of 64")
+        if k["blocks_per_sm"] < 1:
+            raise AssertionError(f"{what} cannot be resident on an SM")
+
     setup = setup_radiation(cloudless_slice_config(), device=dev)
     cols = make_columns(NCOL, NLEV, SEED)
     sl, th, gas = columns_to_inputs(cols, device=dev)
@@ -656,6 +699,26 @@ def main():
     taumol_check("taumol_sw", taumol_sw.taumol_sw_kernel,
                  taumol_sw.taumol_sw_plain, fc_sw, ic_sw, setup.gas.sw,
                  "taur")
+    # B1 on 1, 137 and 4,099 cells (no multiple of its 32-cell tile) and on
+    # the path's tropospheric and stratospheric cells apart
+    tropo = fc_lw[0] > 0
+    for what, sel in (("1 cell", slice(0, 1)), ("137 cells", slice(0, 137)),
+                      ("4099 cells", slice(0, 4099)),
+                      ("the tropospheric cells", tropo),
+                      ("the stratospheric cells", ~tropo)):
+        f_, i_ = fc_lw[:, sel].contiguous(), ic_lw[:, sel].contiguous()
+        a1, a2 = taumol_lw.taumol_lw_kernel(f_, i_, setup.gas.lw)
+        torch.cuda.synchronize()
+        b1, b2 = taumol_lw.taumol_lw_plain(f_, i_, setup.gas.lw)
+        mask = b1.abs() > 1e-6
+        rel = float(((a1 - b1).abs() / b1.abs().clamp(min=1e-30))[mask]
+                    .max()) if bool(mask.any()) else 0.0
+        err2 = float((a2 - b2).abs().max())
+        log(f"taumol_lw on {what} (N={f_.shape[1]}): worst rel {rel:.3e}, "
+            f"pfrac worst abs {err2:.3e}")
+        if not (rel <= TAU_REL and err2 <= PF_ATOL):
+            raise AssertionError(f"taumol_lw disagrees on {what}")
+    del tropo, f_, i_, a1, a2, b1, b2
 
     # the operands as the paths make them: gas optics of the columns,
     # and for McICA the cloud stage and the cloud generator
@@ -763,6 +826,60 @@ def main():
             f"{rel:.3e} (bound {bound}), worst abs {errs[name]:.3e}")
         if not rel <= bound:
             raise AssertionError(f"{name} disagrees with its plain version")
+        # the adding sweeps keep their plain versions' operation order
+        if name in ADDING and errs[name] != 0.0:
+            raise AssertionError(f"{name} differs from its plain version")
+    # B3 sw_adding and B3' lw_adding with 1, 2, 137 and ADD_SPILL_NLEV
+    # levels on 15 g x 133 columns (no multiple of their 32-thread
+    # blocks): equal to their plain versions bit for bit
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rnd = lambda *s, lo=0.0, hi=1.0: lo + (hi - lo) * torch.rand(  # noqa
+        *s, generator=gen, device=dev)
+    for nlev in (1, 2, NLEV, ADD_SPILL_NLEV):
+        for name, kern, plain, args in (
+                ("sw_adding", adding_fused.adding_sw_fused,
+                 adding.adding_sw_plain,
+                 (rnd(nlev, 15, 133, hi=0.4), rnd(nlev, 15, 133, lo=0.3,
+                                                  hi=0.6),
+                  rnd(nlev, 15, 133, hi=0.3), rnd(nlev, 15, 133, hi=0.4),
+                  rnd(nlev, 15, 133, lo=0.2, hi=0.9),
+                  rnd(15, 133, hi=1300.0), rnd(15, 133, hi=0.8),
+                  rnd(15, 133, hi=0.8), rnd(133, lo=0.05))),
+                ("lw_adding", adding_fused.adding_lw_fused,
+                 adding.adding_lw_plain,
+                 (rnd(nlev, 15, 133, hi=0.3), rnd(nlev, 15, 133, lo=0.2,
+                                                  hi=0.7),
+                  rnd(nlev, 15, 133, hi=50.0), rnd(nlev, 15, 133, hi=50.0),
+                  rnd(15, 133, hi=400.0), rnd(15, 133, hi=0.2)))):
+            a = kern(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(a, plain(*args))):
+                raise AssertionError(f"{name} differs from its plain version"
+                                     f" on {nlev} levels x 15 g x 133 "
+                                     f"columns")
+    log(f"sw_adding, lw_adding on 1, 2, {NLEV} and {ADD_SPILL_NLEV} levels x "
+        f"15 g x 133 columns: equal to their plain versions bit for bit")
+    # and at the path's width with ADD_SPILL_NLEV levels (the path's layers
+    # repeated), against the plain versions bit for bit
+    spill_args = {}
+    for name, kern, plain, args in (
+            ("sw_adding", adding_fused.adding_sw_fused,
+             adding.adding_sw_plain, sw_args),
+            ("lw_adding", adding_fused.adding_lw_fused,
+             adding.adding_lw_plain, lwadd_args)):
+        reps = -(-ADD_SPILL_NLEV // NLEV)
+        big = tuple(torch.cat([x] * reps)[:ADD_SPILL_NLEV] if x.dim() == 3
+                    else x for x in args)
+        a = kern(*big)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, plain(*big))):
+            raise AssertionError(f"{name} differs from its plain version on "
+                                 f"{ADD_SPILL_NLEV} levels")
+        spill_args[name] = big
+        del a
+    log(f"sw_adding, lw_adding on {ADD_SPILL_NLEV} levels x the path's g x "
+        f"{NCOL} columns (device-memory branch): equal to their plain "
+        f"versions bit for bit")
 
     # B6 and B7 on the SPARTACUS path's operands, with the doubling counts
     sp_counts = {}
@@ -1317,6 +1434,36 @@ def main():
             f"{ms[name][1]:.4f} ms, least time {b_ms:.4f} ms by {b_by} "
             f"({nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} Gop; "
             f"{b_ms / ms[name][0]:.1%} of it reached) [{gpu}]")
+    # B1 runs as one pass (each warp builds a band's terms and sums its
+    # outputs in turn): its rate on its least bytes (the fields read, the
+    # two (N, 140) outputs written)
+    b1_bytes, b1_ms = bounds["taumol_lw"][2], ms["taumol_lw"][0]
+    log(f"time taumol_lw: {b1_ms:.4f} ms in one pass, {b1_bytes / 1e9:.3f} "
+        f"GB least, {b1_bytes / b1_ms / 1e9:.3f} TB/s [{gpu}]")
+    # B3 sw_adding and B3' lw_adding: the rate on the bytes each design
+    # moves (SW: tdir, the ascent's 4 operands and the descent's 4 read, 3
+    # fluxes written; LW: 4 and 3 read, 2 written; per level past the
+    # window 2 floats written and read back), at the path's 137
+    # levels and at ADD_SPILL_NLEV (the device-memory branch)
+    for name, kern, plain, args137 in (
+            ("sw_adding", adding_fused.adding_sw_fused,
+             adding.adding_sw_plain, sw_args),
+            ("lw_adding", adding_fused.adding_lw_fused,
+             adding.adding_lw_plain, lwadd_args)):
+        for args in (args137, spill_args[name]):
+            nlev, ng, ncol = args[0].shape
+            profiles = (9 * nlev + 3 * (nlev + 1) if name == "sw_adding"
+                        else 7 * nlev + 2 * (nlev + 1))
+            spilled = max(nlev - (adding_fused.SW_ONCHIP_LEVELS
+                                  if name == "sw_adding"
+                                  else adding_fused.LW_ONCHIP_LEVELS), 0)
+            moved = 4 * ng * ncol * (profiles + 4 * spilled)
+            t_k, t_p = ((ms[name][0], ms[name][1]) if nlev == NLEV else
+                        (time_ms(lambda: kern(*args), 20),
+                         time_ms(lambda: plain(*args), 3)))
+            log(f"time {name}, {nlev} levels: kernel {t_k:.4f} ms, plain "
+                f"{t_p:.4f} ms, on the {moved / 1e9:.3f} GB its design "
+                f"moves {moved / t_k / 1e9:.3f} TB/s [{gpu}]")
     # B6's two passes apart on the path's operands: pass 1 over the 3D
     # cells (its counter zeroed first, one memset timed with it), staging
     # their rows; pass 2 over every cell, from what pass 1 left
@@ -1451,6 +1598,7 @@ def main():
     # the kernels' operands are not needed any more: the paths' peak
     # memory below is what a call adds to its inputs and setup
     del timing, path_args, sw_args, lw_args, lwadd_args, b4_sw_args, b4_lw_args
+    del spill_args
     del go, planck, props, cloud_m, osc_lw, od_t, ssa_t, g_t, zeros_sw
     del zeros_lw, frac_mask, fc_lw, ic_lw, fc_sw, ic_sw, c, c_sf, gc, args
     del rc, b10_calls, packed, b10_out, secs, a, b

@@ -1,16 +1,18 @@
-// Shared device code of the two taumol kernels (taumol_lw.cu, taumol_sw.cu).
-//
-// Both kernels run in two phases over a tile of TILE cells per block:
+// Shared device code of the two taumol kernels (taumol_lw.cu, taumol_sw.cu):
+// eta_index and oneminus for both; the tile, Terms and gather_sum for the
+// SW kernel, which runs in two phases over a tile of TILE cells per block:
 //   1. one thread per (band, cell) writes that band's TERMS for the cell
 //      into shared memory: a flat-table element offset `base` (the start
 //      of one table row) and a weight `w`;
 //   2. the block strides over (cell, g) pairs:
 //        out[cell, g] = sum_k w_k * tab[base_k + g - g_off(band(g))],
 //      storing coalesced (N, ng) rows.
-// Term k of a band is the tropospheric term in a tropospheric cell and the
-// stratospheric one otherwise; a row outside its table gets weight 0. The
-// plain PyTorch versions (optics/rrtmg/taumol_lw.py, taumol_sw.py) build the
-// same terms in the same slot order.
+// (The LW kernel builds the same terms a band at a time per warp, with
+// its own slot layout.) Term k of a band is the tropospheric term in a
+// tropospheric cell and the stratospheric one otherwise; a row outside
+// its table gets weight 0. The plain PyTorch versions
+// (optics/rrtmg/taumol_lw.py, taumol_sw.py) build the same terms in the
+// same slot order.
 #pragma once
 
 #include <cuda_runtime.h>

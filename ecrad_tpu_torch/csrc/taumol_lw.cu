@@ -8,18 +8,33 @@
 // tables (0.6 MB as float32) stay in device memory and live in the 50 MB
 // L2, and each lookup is a direct float32 row gather.
 //
-// What bounds it: per cell it writes 2 x 140 floats (1.1 KB) and gathers
-// about 20 table values per output; the writes set the device-memory floor
-// (314 MB at 2048 x 137 cells), the gathers hit L1/L2. It runs well above
-// that floor; the likely limit (not yet isolated) is phase 1, where one
-// thread builds a band's terms, expf/logf chi adjustments included, for a
-// block of only 16 cells. Design: phase 1 puts every row index and weight
-// of a tile of cells in shared memory (one thread per band and cell, so
-// the per-band physics runs in parallel); phase 2 walks (cell, g) pairs
-// so consecutive threads store consecutive addresses of the (N, 140)
-// output and read consecutive g of one table row.
+// What bounds it: per cell it writes 2 x 140 floats (1.1 KB), which set
+// the device-memory floor (314 MB at 2048 x 137 cells), and gathers ~2,430
+// table values (266 term slots, a row of ng_b values each), mostly from
+// L1 and L2. It runs well above that floor, bound by neither bytes nor
+// the table gathers but by the issue and latency of its slot loops (a
+// warp runs one band's code at a time, so nothing diverges by band).
+// Writing a band's outputs straight to the (N, 140) rows, in runs of ng_b
+// floats (partial sectors), would cost about as much as the whole kernel,
+// hence the rows staged in shared memory.
+//
+// Design: a block is a tile of 32 consecutive cells and 4 warps; each warp
+// takes a fixed list of bands (c_warp_bands, split by work) and, per band,
+//   1. builds the band's terms with lane = cell, so the band's switch is
+//      warp-uniform; the fields come from the tile's copy in shared memory
+//      (each field one 128-byte load per tile), and the terms go to the
+//      warp's own slots, (row offset, weight) as a float2 per (slot, lane):
+//      23 slots x 32 cells at most, 5.9 KB a warp;
+//   2. sums the band's (cell, g) outputs with lanes on consecutive g of a
+//      cell, up to 12 outputs a lane at once (one shared load and one
+//      gather per slot and output, in slot order), into the tile's rows
+//      in shared memory.
+// Only __syncwarp orders the phases; at the end the block writes the
+// tile's 32 rows of tau and of pfrac, each one contiguous run, 16 bytes a
+// thread. 66 KB of shared memory a block: 3 blocks (12 warps) per SM.
 //
 // Semantics: optics/rrtmg/taumol_lw.py (`lw_terms`), term for term.
+#include "kernel_info.cuh"
 #include "taumol_common.cuh"
 
 namespace ecrad {
@@ -58,9 +73,6 @@ enum C {
 };
 
 constexpr int NG = 140;
-constexpr int K_TAU_TOTAL = 241;
-constexpr int K_PF_TOTAL = 25;
-constexpr int KTOT = K_TAU_TOTAL + K_PF_TOTAL;
 __constant__ int c_ng[16] = {10, 12, 16, 14, 16, 8, 12, 8, 12, 6, 8, 8, 4,
                              2, 2, 2};
 __constant__ int c_goff[17] = {0, 10, 22, 38, 52, 68, 76, 88, 96, 108, 114,
@@ -70,21 +82,55 @@ __constant__ int c_ktau[17] = {0, 10, 18, 38, 54, 75, 87, 107, 123, 143,
                                151, 161, 177, 197, 205, 225, 241};
 __constant__ int c_kpf[17] = {0, 1, 2, 4, 6, 8, 9, 11, 12, 14, 15, 16, 18,
                               20, 21, 23, 25};
-__constant__ unsigned char c_band[NG] = {
-    0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-    1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
-    2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
-    3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3,
-    4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4,
-    5, 5, 5, 5, 5, 5, 5, 5,
-    6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6,
-    7, 7, 7, 7, 7, 7, 7, 7,
-    8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8, 8,
-    9, 9, 9, 9, 9, 9,
-    10, 10, 10, 10, 10, 10, 10, 10,
-    11, 11, 11, 11, 11, 11, 11, 11,
-    12, 12, 12, 12,
-    13, 13, 14, 14, 15, 15};
+// B1's block: one tile of TILE_LW cells (a warp's lanes in phase 1),
+// NWARP_LW warps. Warp w takes the bands of row w of c_warp_bands, in
+// order (0 ends a row): the 16 bands split by work, ng_b (K_TAU_b +
+// K_PF_b) + 4 (K_TAU_b + K_PF_b) per cell, 880, 896, 862 and 856 of 3494
+// (tests/test_torch_taumol_design.py checks the split).
+constexpr int TILE_LW = 32, NWARP_LW = 4, THREADS_LW = TILE_LW * NWARP_LW;
+constexpr int BANDS_PER_WARP = 5;
+__constant__ signed char c_warp_bands[NWARP_LW][BANDS_PER_WARP] = {
+    {5, 13, 1, 10, 0}, {3, 8, 2, 16, 0}, {7, 4, 11, 14, 0},
+    {9, 12, 6, 15, 0}};
+// the most term slots of one band (band 5: 21 tau + 2 pfrac)
+constexpr int K_BAND_MAX = 23;
+// blocks per SM the launch asks for (the shared-memory carveout is set
+// for them, the rest of the SM's 256 KB is L1 for the tables)
+constexpr int BLOCKS_PER_SM_LW = 3;
+
+// Writes one band's terms for one cell into its warp's slots: slot k of
+// lane l at t[k * TILE_LW] (t = the warp's storage + l), as (table element
+// offset of the row, weight) with the offset's bits in .x.
+struct WarpTerms {
+  float2* t;
+  int k;
+  const int* toff;     // table id -> element offset
+  const int* tnrows;   // table id -> number of rows
+
+  __device__ __forceinline__ void put(int tab, int ng, int row, float wt,
+                                      bool ok = true) {
+    bool valid = ok && row >= 0 && row < tnrows[tab];
+    t[k * TILE_LW] = make_float2(
+        __int_as_float(toff[tab] + (valid ? row : 0) * ng),
+        valid ? wt : 0.0f);
+    ++k;
+  }
+  __device__ __forceinline__ void zeros(int m) {
+    for (int i = 0; i < m; ++i) {
+      t[k * TILE_LW] = make_float2(__int_as_float(0), 0.0f);
+      ++k;
+    }
+  }
+  // linear interpolation between rows row0 and row0 + 1
+  __device__ __forceinline__ void pair(int tab, int ng, int row0, float wt,
+                                       float frac) {
+    put(tab, ng, row0, wt * (1.0f - frac));
+    put(tab, ng, row0 + 1, wt * frac);
+  }
+  __device__ __forceinline__ void scale_last(int m, float s) {
+    for (int i = k - m; i < k; ++i) t[i * TILE_LW].y *= s;
+  }
+};
 
 __device__ __forceinline__ float chi_adjust(float col, float coldry,
                                             float ref, float thresh,
@@ -95,31 +141,37 @@ __device__ __forceinline__ float chi_adjust(float col, float coldry,
   return rat > thresh ? adjcol : col;
 }
 
-// one cell's inputs and the derived quantities every band shares
+// one cell's inputs, staged in shared memory, and the derived quantities
+// every band shares
 struct Cell {
-  float f[NF];
-  int i[NI];
+  const float* fcp;    // the staged fields + lane: field k at fcp[k * TILE_LW]
+  const int* icp;
   bool tropo;
   int grid0, grid1, grid0b, grid1b;
   const float* kc;
 
-  __device__ void major_noeta(Terms& t, int tab, int ng, bool strat,
+  __device__ __forceinline__ float F(int k) const {
+    return fcp[k * TILE_LW];
+  }
+  __device__ __forceinline__ int I(int k) const { return icp[k * TILE_LW]; }
+
+  __device__ void major_noeta(WarpTerms& t, int tab, int ng, bool strat,
                               float w) const {
     int g0 = strat ? grid0b : grid0, g1 = strat ? grid1b : grid1;
-    t.put(tab, ng, g0, w * f[FAC00]);
-    t.put(tab, ng, g0 + 1, w * f[FAC10]);
-    t.put(tab, ng, g1, w * f[FAC01]);
-    t.put(tab, ng, g1 + 1, w * f[FAC11]);
+    t.put(tab, ng, g0, w * F(FAC00));
+    t.put(tab, ng, g0 + 1, w * F(FAC10));
+    t.put(tab, ng, g1, w * F(FAC01));
+    t.put(tab, ng, g1 + 1, w * F(FAC11));
   }
 
   // tropospheric binary-species lookup, 2 families x 2 corners x 3 etas
-  __device__ void major_eta3(Terms& t, int b, float col1, float col2,
+  __device__ void major_eta3(WarpTerms& t, int b, float col1, float col2,
                              float rat0, float rat1) const {
     int ng = c_ng[b - 1];
     for (int fam = 0; fam < 2; ++fam) {
       int g = fam ? grid1 : grid0;
-      float fa = fam ? f[FAC01] : f[FAC00];
-      float fb = fam ? f[FAC11] : f[FAC10];
+      float fa = fam ? F(FAC01) : F(FAC00);
+      float fb = fam ? F(FAC11) : F(FAC10);
       float sc = col1 + (fam ? rat1 : rat0) * col2;
       float sp, fs;
       int js;
@@ -150,13 +202,13 @@ struct Cell {
   }
 
   // stratospheric binary-species lookup, 2 families x 2 corners x 2 etas
-  __device__ void major_eta2(Terms& t, int b, float col1, float col2,
+  __device__ void major_eta2(WarpTerms& t, int b, float col1, float col2,
                              float rat0, float rat1) const {
     int ng = c_ng[b - 1];
     for (int fam = 0; fam < 2; ++fam) {
       int g = fam ? grid1b : grid0b;
-      float fa = fam ? f[FAC01] : f[FAC00];
-      float fb = fam ? f[FAC11] : f[FAC10];
+      float fa = fam ? F(FAC01) : F(FAC00);
+      float fb = fam ? F(FAC11) : F(FAC10);
       float sc = col1 + (fam ? rat1 : rat0) * col2;
       float sp, fs;
       int js;
@@ -174,66 +226,68 @@ struct Cell {
     }
   }
 
-  __device__ void self_(Terms& t, int b) const {
-    t.pair(SELF(b), c_ng[b - 1], i[INDSELF] - 1, f[TROPF] * f[SELFFAC],
-           f[SELFFRAC]);
+  __device__ void self_(WarpTerms& t, int b) const {
+    t.pair(SELF(b), c_ng[b - 1], I(INDSELF) - 1, F(TROPF) * F(SELFFAC),
+           F(SELFFRAC));
   }
-  __device__ void for_(Terms& t, int b) const {
-    t.pair(FOR(b), c_ng[b - 1], i[INDFOR] - 1, f[FORFAC], f[FORFRAC]);
+  __device__ void for_(WarpTerms& t, int b) const {
+    t.pair(FOR(b), c_ng[b - 1], I(INDFOR) - 1, F(FORFAC), F(FORFRAC));
   }
-  __device__ void for_(Terms& t, int b, float w) const {
-    t.pair(FOR(b), c_ng[b - 1], i[INDFOR] - 1, f[FORFAC] * w, f[FORFRAC]);
+  __device__ void for_(WarpTerms& t, int b, float w) const {
+    t.pair(FOR(b), c_ng[b - 1], I(INDFOR) - 1, F(FORFAC) * w, F(FORFRAC));
   }
-  __device__ void gated_for(Terms& t, int b) const { for_(t, b, f[TROPF]); }
-  __device__ void minor(Terms& t, int tab, int b, float w) const {
-    t.pair(tab, c_ng[b - 1], i[INDMINOR] - 1, w, f[MINORFRAC]);
+  __device__ void gated_for(WarpTerms& t, int b) const {
+    for_(t, b, F(TROPF));
+  }
+  __device__ void minor(WarpTerms& t, int tab, int b, float w) const {
+    t.pair(tab, c_ng[b - 1], I(INDMINOR) - 1, w, F(MINORFRAC));
   }
   // minor gas with eta dependence, table (r1, 19, ng)
-  __device__ void minor_eta(Terms& t, int tab, int b, int r1, float col1,
-                            float refm, float col2, float mult,
+  __device__ void minor_eta(WarpTerms& t, int tab, int b, int r1,
+                            float col1, float refm, float col2, float mult,
                             float w) const {
     float sp, fm;
     int jm;
     eta_index(col1, col1 + refm * col2, mult, sp, jm, fm);
-    float mfrac = f[MINORFRAC];
+    float mfrac = F(MINORFRAC);
     for (int jo = 0; jo < 2; ++jo) {
       int j = jm + jo;
       bool ok = j >= 0 && j < r1;
       float bw = jo ? fm : 1.0f - fm;
       for (int io = 0; io < 2; ++io) {
-        int r = i[INDMINOR] - 1 + io;
+        int r = I(INDMINOR) - 1 + io;
         float mw = io ? mfrac : 1.0f - mfrac;
         t.put(tab, c_ng[b - 1], j * 19 + r, w * bw * mw, ok);
       }
     }
   }
-  __device__ void pf_eta(Terms& t, int tab, int b, float col1, float refm,
-                         float col2, float mult) const {
+  __device__ void pf_eta(WarpTerms& t, int tab, int b, float col1,
+                         float refm, float col2, float mult) const {
     float sp, fpl;
     int jpl;
     eta_index(col1, col1 + refm * col2, mult, sp, jpl, fpl);
     t.pair(tab, c_ng[b - 1], jpl, 1.0f, fpl);
   }
-  __device__ void cst(Terms& t, int tab, int b, float w) const {
+  __device__ void cst(WarpTerms& t, int tab, int b, float w) const {
     t.put(tab, c_ng[b - 1], 0, w);
   }
 };
 
 // Phase 1 for band b (1-based): tau terms into `tau`, pfrac terms into `pf`.
-__device__ void band_terms(const Cell& c, int b, Terms& tau, Terms& pf) {
-  const float* f = c.f;
-  const float* kc = c.kc;
+__device__ void band_terms(const Cell& c, int b, WarpTerms& tau,
+                           WarpTerms& pf) {
+    const float* kc = c.kc;
   const bool tr = c.tropo;
-  const float h2o = f[COLH2O], co2 = f[COLCO2], o3 = f[COLO3];
-  const float n2o = f[COLN2O], ch4 = f[COLCH4];
+  const float h2o = c.F(COLH2O), co2 = c.F(COLCO2), o3 = c.F(COLO3);
+  const float n2o = c.F(COLN2O), ch4 = c.F(COLCH4);
   switch (b) {
     case 1: {  // h2o, minor n2; everything times corradj1
-      float pavel = f[PAVEL];
+      float pavel = c.F(PAVEL);
       float corradj1 = tr ? (pavel < 250.0f
                                  ? 1.0f - 0.15f * (250.0f - pavel) / 154.4f
                                  : 1.0f)
                           : 1.0f - 0.15f * (pavel / 95.6f);
-      float scalen2 = f[COLBRD] * f[SCALEMINORN2];
+      float scalen2 = c.F(COLBRD) * c.F(SCALEMINORN2);
       c.major_noeta(tau, tr ? ABSA(1) : ABSB(1), 10, !tr, h2o);
       c.self_(tau, 1);
       c.for_(tau, 1);
@@ -243,7 +297,7 @@ __device__ void band_terms(const Cell& c, int b, Terms& tau, Terms& pf) {
       break;
     }
     case 2: {  // h2o; corradj2 on the tropospheric terms
-      float corradj2 = 1.0f - 0.05f * (f[PAVEL] - 100.0f) / 900.0f;
+      float corradj2 = 1.0f - 0.05f * (c.F(PAVEL) - 100.0f) / 900.0f;
       float wa2 = tr ? corradj2 : 1.0f;
       c.major_noeta(tau, tr ? ABSA(2) : ABSB(2), 12, !tr,
                     tr ? h2o * corradj2 : h2o);
@@ -254,12 +308,12 @@ __device__ void band_terms(const Cell& c, int b, Terms& tau, Terms& pf) {
       break;
     }
     case 3: {  // h2o+co2, minor n2o
-      float adjcoln2o = chi_adjust(n2o, f[COLDRY], f[CHI_N2O], 1.5f, 0.5f,
+      float adjcoln2o = chi_adjust(n2o, c.F(COLDRY), c.F(CHI_N2O), 1.5f, 0.5f,
                                    0.65f);
       if (tr) {
-        c.major_eta3(tau, 3, h2o, co2, f[RAT_H2OCO2], f[RAT_H2OCO2_1]);
+        c.major_eta3(tau, 3, h2o, co2, c.F(RAT_H2OCO2), c.F(RAT_H2OCO2_1));
       } else {
-        c.major_eta2(tau, 3, h2o, co2, f[RAT_H2OCO2], f[RAT_H2OCO2_1]);
+        c.major_eta2(tau, 3, h2o, co2, c.F(RAT_H2OCO2), c.F(RAT_H2OCO2_1));
         tau.zeros(4);
       }
       c.self_(tau, 3);
@@ -277,9 +331,9 @@ __device__ void band_terms(const Cell& c, int b, Terms& tau, Terms& pf) {
     }
     case 4: {  // h2o+co2 / o3+co2
       if (tr) {
-        c.major_eta3(tau, 4, h2o, co2, f[RAT_H2OCO2], f[RAT_H2OCO2_1]);
+        c.major_eta3(tau, 4, h2o, co2, c.F(RAT_H2OCO2), c.F(RAT_H2OCO2_1));
       } else {
-        c.major_eta2(tau, 4, o3, co2, f[RAT_O3CO2], f[RAT_O3CO2_1]);
+        c.major_eta2(tau, 4, o3, co2, c.F(RAT_O3CO2), c.F(RAT_O3CO2_1));
         tau.zeros(4);
       }
       c.self_(tau, 4);
@@ -292,9 +346,9 @@ __device__ void band_terms(const Cell& c, int b, Terms& tau, Terms& pf) {
     }
     case 5: {  // h2o+co2 / o3+co2, minor o3, ccl4
       if (tr) {
-        c.major_eta3(tau, 5, h2o, co2, f[RAT_H2OCO2], f[RAT_H2OCO2_1]);
+        c.major_eta3(tau, 5, h2o, co2, c.F(RAT_H2OCO2), c.F(RAT_H2OCO2_1));
       } else {
-        c.major_eta2(tau, 5, o3, co2, f[RAT_O3CO2], f[RAT_O3CO2_1]);
+        c.major_eta2(tau, 5, o3, co2, c.F(RAT_O3CO2), c.F(RAT_O3CO2_1));
         tau.zeros(4);
       }
       c.self_(tau, 5);
@@ -304,7 +358,7 @@ __device__ void band_terms(const Cell& c, int b, Terms& tau, Terms& pf) {
                     o3);
       else
         tau.zeros(4);
-      c.cst(tau, LW5_CCL4, 5, f[WX_CCL4]);
+      c.cst(tau, LW5_CCL4, 5, c.F(WX_CCL4));
       if (tr)
         c.pf_eta(pf, PFA(5), 5, h2o, kc[PF5_A], co2, 8.0f);
       else
@@ -320,21 +374,21 @@ __device__ void band_terms(const Cell& c, int b, Terms& tau, Terms& pf) {
       c.gated_for(tau, 6);
       if (tr)
         c.minor(tau, LW6_KAO_MCO2, 6,
-                chi_adjust(co2, f[COLDRY], f[CHI_CO2], 3.0f, 2.0f, 0.77f));
+                chi_adjust(co2, c.F(COLDRY), c.F(CHI_CO2), 3.0f, 2.0f, 0.77f));
       else
         tau.zeros(2);
-      c.cst(tau, LW6_CFC11ADJ, 6, f[WX_CFC11]);
-      c.cst(tau, LW6_CFC12, 6, f[WX_CFC12]);
+      c.cst(tau, LW6_CFC11ADJ, 6, c.F(WX_CFC11));
+      c.cst(tau, LW6_CFC12, 6, c.F(WX_CFC12));
       c.cst(pf, tr ? PFA(6) : PFB(6), 6, 1.0f);
       break;
     }
     case 7: {  // h2o+o3 / o3; minor co2
       if (tr) {
-        c.major_eta3(tau, 7, h2o, o3, f[RAT_H2OO3], f[RAT_H2OO3_1]);
+        c.major_eta3(tau, 7, h2o, o3, c.F(RAT_H2OO3), c.F(RAT_H2OO3_1));
         c.self_(tau, 7);
         c.gated_for(tau, 7);
         c.minor_eta(tau, LW7_KAO_MCO2, 7, 9, h2o, kc[B7_REFM_A], o3, 8.0f,
-                    chi_adjust(co2, f[COLDRY], f[CHI_CO2], 3.0f, 3.0f,
+                    chi_adjust(co2, c.F(COLDRY), c.F(CHI_CO2), 3.0f, 3.0f,
                                0.79f));
         c.pf_eta(pf, PFA(7), 7, h2o, kc[PF7_A], o3, 8.0f);
       } else {
@@ -343,13 +397,13 @@ __device__ void band_terms(const Cell& c, int b, Terms& tau, Terms& pf) {
         c.self_(tau, 7);
         c.gated_for(tau, 7);
         c.minor(tau, LW7_KBO_MCO2, 7,
-                chi_adjust(co2, f[COLDRY], f[CHI_CO2], 3.0f, 2.0f, 0.79f));
+                chi_adjust(co2, c.F(COLDRY), c.F(CHI_CO2), 3.0f, 2.0f, 0.79f));
         c.cst(pf, PFB(7), 7, 1.0f);
       }
       break;
     }
     case 8: {  // h2o / o3; minors co2, o3, n2o; cfc12, cfc22
-      float adjco2 = chi_adjust(co2, f[COLDRY], f[CHI_CO2], 3.0f, 2.0f,
+      float adjco2 = chi_adjust(co2, c.F(COLDRY), c.F(CHI_CO2), 3.0f, 2.0f,
                                 0.65f);
       c.major_noeta(tau, tr ? ABSA(8) : ABSB(8), 8, !tr, tr ? h2o : o3);
       c.self_(tau, 8);
@@ -360,16 +414,16 @@ __device__ void band_terms(const Cell& c, int b, Terms& tau, Terms& pf) {
       else
         tau.zeros(2);
       c.minor(tau, tr ? LW8_KAO_MN2O : LW8_KBO_MN2O, 8, n2o);
-      c.cst(tau, LW8_CFC12, 8, f[WX_CFC12]);
-      c.cst(tau, LW8_CFC22ADJ, 8, f[WX_CFC22]);
+      c.cst(tau, LW8_CFC12, 8, c.F(WX_CFC12));
+      c.cst(tau, LW8_CFC22ADJ, 8, c.F(WX_CFC22));
       c.cst(pf, tr ? PFA(8) : PFB(8), 8, 1.0f);
       break;
     }
     case 9: {  // h2o+ch4 / ch4; minor n2o
-      float adjn2o = chi_adjust(n2o, f[COLDRY], f[CHI_N2O], 1.5f, 0.5f,
+      float adjn2o = chi_adjust(n2o, c.F(COLDRY), c.F(CHI_N2O), 1.5f, 0.5f,
                                 0.65f);
       if (tr) {
-        c.major_eta3(tau, 9, h2o, ch4, f[RAT_H2OCH4], f[RAT_H2OCH4_1]);
+        c.major_eta3(tau, 9, h2o, ch4, c.F(RAT_H2OCH4), c.F(RAT_H2OCH4_1));
         c.self_(tau, 9);
         c.gated_for(tau, 9);
         c.minor_eta(tau, LW9_KAO_MN2O, 9, 9, h2o, kc[B9_REFM_A], ch4, 8.0f,
@@ -397,13 +451,13 @@ __device__ void band_terms(const Cell& c, int b, Terms& tau, Terms& pf) {
       c.self_(tau, 11);
       c.for_(tau, 11);
       c.minor(tau, tr ? LW11_KAO_MO2 : LW11_KBO_MO2, 11,
-              f[COLO2] * f[SCALEMINOR]);
+              c.F(COLO2) * c.F(SCALEMINOR));
       c.cst(pf, tr ? PFA(11) : PFB(11), 11, 1.0f);
       break;
     }
     case 12: {  // h2o+co2, troposphere only
       if (tr)
-        c.major_eta3(tau, 12, h2o, co2, f[RAT_H2OCO2], f[RAT_H2OCO2_1]);
+        c.major_eta3(tau, 12, h2o, co2, c.F(RAT_H2OCO2), c.F(RAT_H2OCO2_1));
       else
         tau.zeros(12);
       c.self_(tau, 12);
@@ -413,14 +467,14 @@ __device__ void band_terms(const Cell& c, int b, Terms& tau, Terms& pf) {
     }
     case 13: {  // h2o+n2o; minor co2; strat minor o3
       if (tr)
-        c.major_eta3(tau, 13, h2o, n2o, f[RAT_H2ON2O], f[RAT_H2ON2O_1]);
+        c.major_eta3(tau, 13, h2o, n2o, c.F(RAT_H2ON2O), c.F(RAT_H2ON2O_1));
       else
         tau.zeros(12);
       c.self_(tau, 13);
       c.gated_for(tau, 13);
       if (tr) {
         c.minor_eta(tau, LW13_KAO_MCO2, 13, 9, h2o, kc[B13_REFM_A], n2o,
-                    8.0f, chi_adjust(co2, f[COLDRY], 3.55e-4f, 3.0f, 2.0f,
+                    8.0f, chi_adjust(co2, c.F(COLDRY), 3.55e-4f, 3.0f, 2.0f,
                                      0.68f));
         c.pf_eta(pf, PFA(13), 13, h2o, kc[PF13_A], n2o, 8.0f);
       } else {
@@ -438,21 +492,21 @@ __device__ void band_terms(const Cell& c, int b, Terms& tau, Terms& pf) {
     }
     case 15: {  // n2o+co2; minor n2, troposphere only
       if (tr)
-        c.major_eta3(tau, 15, n2o, co2, f[RAT_N2OCO2], f[RAT_N2OCO2_1]);
+        c.major_eta3(tau, 15, n2o, co2, c.F(RAT_N2OCO2), c.F(RAT_N2OCO2_1));
       else
         tau.zeros(12);
       c.self_(tau, 15);
       c.gated_for(tau, 15);
       if (tr) {
         c.minor_eta(tau, LW15_KAO_MN2, 15, 9, n2o, kc[B15_REFM_A], co2,
-                    8.0f, f[COLBRD] * f[SCALEMINOR]);
+                    8.0f, c.F(COLBRD) * c.F(SCALEMINOR));
         c.pf_eta(pf, PFA(15), 15, n2o, kc[PF15_A], co2, 8.0f);
       }
       break;
     }
     case 16: {  // h2o+ch4 / ch4
       if (tr) {
-        c.major_eta3(tau, 16, h2o, ch4, f[RAT_H2OCH4], f[RAT_H2OCH4_1]);
+        c.major_eta3(tau, 16, h2o, ch4, c.F(RAT_H2OCH4), c.F(RAT_H2OCH4_1));
       } else {
         c.major_noeta(tau, ABSB(16), 2, true, ch4);
         tau.zeros(8);
@@ -468,66 +522,193 @@ __device__ void band_terms(const Cell& c, int b, Terms& tau, Terms& pf) {
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Phase 2 of a band of NGB g-points: the lane's outputs are the pairs
+// (cell, g) = it * TILE_LW + lane of the tile's TILE_LW x NGB, it < NGB.
+// Each output is the sum over slots k0 .. k1 - 1, in order, of w_k
+// tab[row_k + g]; CHUNK (at most 12) of the lane's sums run together, so a
+// slot's gathers are independent loads in flight at once.
+template <int NGB>
+__device__ __forceinline__ void band_outputs(const float* __restrict__ tab,
+                                             const float2* terms, int lane,
+                                             int g0, int kt, int kp,
+                                             float (*out)[TILE_LW][NG]) {
+  constexpr int CHUNK = NGB <= 12 ? NGB : NGB / 2;
+  static_assert(NGB % CHUNK == 0, "whole chunks");
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+    const int k0 = part ? kt : 0, k1 = part ? kt + kp : kt;
+#pragma unroll
+    for (int i0 = 0; i0 < NGB; i0 += CHUNK) {
+      // per output: its cell, its g, and tab + g (a slot's row offset is
+      // then one wide multiply-add away from the value's address)
+      int cl[CHUNK], gl[CHUNK];
+      const float* tg[CHUNK];
+      float acc[CHUNK];
+#pragma unroll
+      for (int it = 0; it < CHUNK; ++it) {
+        const int p = (i0 + it) * TILE_LW + lane;
+        cl[it] = p / NGB;
+        gl[it] = p % NGB;
+        tg[it] = tab + gl[it];
+        acc[it] = 0.0f;
+      }
+      for (int k = k0; k < k1; ++k) {
+        const float2* t = terms + k * TILE_LW;
+#pragma unroll
+        for (int it = 0; it < CHUNK; ++it) {
+          const float2 e = t[cl[it]];
+          acc[it] += e.y * __ldg(tg[it] + __float_as_int(e.x));
+        }
+      }
+#pragma unroll
+      for (int it = 0; it < CHUNK; ++it)
+        out[part][cl[it]][g0 + gl[it]] = acc[it];
+    }
+  }
+}
+
+struct __align__(16) SharedLw {
+  float out[2][TILE_LW][NG];         // the tile's tau and pfrac rows
+  float2 terms[NWARP_LW][K_BAND_MAX * TILE_LW];
+  float f[NF][TILE_LW];              // the tile's fields
+  int i[NI][TILE_LW];
+  int toff[NTAB], tnrows[NTAB];      // table offsets and row counts
+  float kc[NC];                      // body constants
+};
+
+__global__ void __launch_bounds__(THREADS_LW, BLOCKS_PER_SM_LW)
 taumol_lw_kernel(const float* __restrict__ fc, const int* __restrict__ ic,
                  const float* __restrict__ tab, const int* __restrict__ meta,
                  const float* __restrict__ kc, int n,
                  float* __restrict__ tau, float* __restrict__ pfrac) {
-  __shared__ int s_base[TILE][KTOT];
-  __shared__ float s_w[TILE][KTOT];
-  const int cell0 = blockIdx.x * TILE;
-
-  // phase 1: thread (band, cell) -> that band's terms
+  extern __shared__ __align__(16) unsigned char smem_lw[];
+  SharedLw& sh = *reinterpret_cast<SharedLw*>(smem_lw);
+  const int warp = threadIdx.x / TILE_LW, lane = threadIdx.x % TILE_LW;
+  const int pos0 = blockIdx.x * TILE_LW;
+  const bool my_live = pos0 + lane < n;
+  // stage the table offsets, the body constants and the tile's fields
+  // (warp w loads fields w, w + NWARP_LW, ...: one 128-byte run each, all
+  // in flight together)
+  for (int q = threadIdx.x; q < 2 * NTAB; q += THREADS_LW)
+    (q < NTAB ? sh.toff[q] : sh.tnrows[q - NTAB]) = meta[q];
+  if (threadIdx.x < NC) sh.kc[threadIdx.x] = kc[threadIdx.x];
   {
-    const int cl = threadIdx.x % TILE;
-    const int b = threadIdx.x / TILE + 1;
-    const int cell = cell0 + cl;
-    if (b <= 16 && cell < n) {
-      Cell c;
-      for (int k = 0; k < NF; ++k) c.f[k] = fc[(size_t)k * n + cell];
-      for (int k = 0; k < NI; ++k) c.i[k] = ic[(size_t)k * n + cell];
-      c.tropo = c.f[TROPF] > 0.0f;
-      c.grid0 = (c.i[JP] - 1) * 5 + (c.i[JT] - 1);
-      c.grid1 = c.i[JP] * 5 + (c.i[JT1] - 1);
-      c.grid0b = (c.i[JP] - 13) * 5 + (c.i[JT] - 1);
-      c.grid1b = (c.i[JP] - 12) * 5 + (c.i[JT1] - 1);
-      c.kc = kc;
-      Terms t_tau{s_base[cl], s_w[cl], c_ktau[b - 1], meta, meta + NTAB};
-      Terms t_pf{s_base[cl], s_w[cl], K_TAU_TOTAL + c_kpf[b - 1], meta,
-                 meta + NTAB};
-      band_terms(c, b, t_tau, t_pf);
-      t_tau.zeros(c_ktau[b] - t_tau.k);
-      t_pf.zeros(K_TAU_TOTAL + c_kpf[b] - t_pf.k);
+    constexpr int ROUNDS = (NF + NI + NWARP_LW - 1) / NWARP_LW;
+    float v[ROUNDS];
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int k = warp + r * NWARP_LW;
+      v[r] = 0.0f;
+      if (my_live && k < NF)
+        v[r] = fc[(size_t)k * n + pos0 + lane];
+      else if (my_live && k < NF + NI)
+        v[r] = __int_as_float(ic[(size_t)(k - NF) * n + pos0 + lane]);
+    }
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int k = warp + r * NWARP_LW;
+      if (k < NF)
+        sh.f[k][lane] = v[r];
+      else if (k < NF + NI)
+        sh.i[k - NF][lane] = __float_as_int(v[r]);
     }
   }
   __syncthreads();
 
-  // phase 2: (cell, g) pairs, coalesced (N, 140) stores
-  for (int p = threadIdx.x; p < TILE * NG; p += THREADS) {
-    const int cl = p / NG, g = p % NG;
-    const int cell = cell0 + cl;
-    if (cell >= n) break;
-    const int b = c_band[g];
-    const int gl = g - c_goff[b];
-    tau[(size_t)cell * NG + g] =
-        gather_sum(tab, s_base[cl], s_w[cl], c_ktau[b], c_ktau[b + 1], gl);
-    pfrac[(size_t)cell * NG + g] =
-        gather_sum(tab, s_base[cl], s_w[cl], K_TAU_TOTAL + c_kpf[b],
-                   K_TAU_TOTAL + c_kpf[b + 1], gl);
+  float2* terms = sh.terms[warp];
+  Cell c;
+  c.fcp = &sh.f[0][lane];
+  c.icp = &sh.i[0][lane];
+  c.kc = sh.kc;
+  {
+    const int jp = c.I(JP), jt = c.I(JT), jt1 = c.I(JT1);
+    c.tropo = c.F(TROPF) > 0.0f;
+    c.grid0 = (jp - 1) * 5 + (jt - 1);
+    c.grid1 = jp * 5 + (jt1 - 1);
+    c.grid0b = (jp - 13) * 5 + (jt - 1);
+    c.grid1b = (jp - 12) * 5 + (jt1 - 1);
+  }
+  for (int j = 0; j < BANDS_PER_WARP; ++j) {
+    const int b = c_warp_bands[warp][j];
+    if (b == 0) break;
+    const int kt = c_ktau[b] - c_ktau[b - 1];
+    const int kp = c_kpf[b] - c_kpf[b - 1];
+    // phase 1: lane = cell, band b's terms (the switch is warp-uniform);
+    // a lane past the last cell writes zero terms, which phase 2 reads
+    WarpTerms t_tau{terms + lane, 0, sh.toff, sh.tnrows};
+    WarpTerms t_pf{terms + lane, kt, sh.toff, sh.tnrows};
+    if (my_live) band_terms(c, b, t_tau, t_pf);
+    t_tau.zeros(kt - t_tau.k);
+    t_pf.zeros(kt + kp - t_pf.k);
+    __syncwarp();
+    // phase 2: lanes over the tile's (cell, g) pairs of band b
+    const int g0 = c_goff[b - 1];
+    switch (c_ng[b - 1]) {
+#define ECRAD_BAND_OUTPUTS(NGB)                                             \
+  case NGB:                                                                 \
+    band_outputs<NGB>(tab, terms, lane, g0, kt, kp, sh.out);              \
+    break;
+      ECRAD_BAND_OUTPUTS(2) ECRAD_BAND_OUTPUTS(4) ECRAD_BAND_OUTPUTS(6)
+      ECRAD_BAND_OUTPUTS(8) ECRAD_BAND_OUTPUTS(10) ECRAD_BAND_OUTPUTS(12)
+      ECRAD_BAND_OUTPUTS(14) ECRAD_BAND_OUTPUTS(16)
+#undef ECRAD_BAND_OUTPUTS
+    }
+    // every lane is done with the slots before the next band's terms
+    __syncwarp();
+  }
+  // the tile's rows out: for each output one run of up to 32 x 140
+  // floats, 16 bytes a thread
+  __syncthreads();
+  const int live4 = (min(n - pos0, TILE_LW) * NG) / 4;
+  const float4* out4 = reinterpret_cast<const float4*>(sh.out);
+  float4* tau4 = reinterpret_cast<float4*>(tau + (size_t)pos0 * NG);
+  float4* pfrac4 = reinterpret_cast<float4*>(pfrac + (size_t)pos0 * NG);
+#pragma unroll
+  for (int q = threadIdx.x; q < TILE_LW * NG / 4; q += THREADS_LW) {
+    if (q < live4) {
+      tau4[q] = out4[q];
+      pfrac4[q] = out4[TILE_LW * NG / 4 + q];
+    }
   }
 }
 
 }  // namespace lw
 }  // namespace ecrad
 
+// B1's dynamic shared memory, and the carveout, in percent of the SM's
+// 228 KB, that holds BLOCKS_PER_SM_LW blocks and the 1 KB each reserves
+static cudaError_t lw_attributes() {
+  using namespace ecrad::lw;
+  const int per_block = (int)sizeof(SharedLw) + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      taumol_lw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(SharedLw));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(
+      taumol_lw_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (BLOCKS_PER_SM_LW * per_block * 100 + 228 * 1024 - 1) / (228 * 1024));
+}
+
 extern "C" int taumol_lw(const float* fc, const int* ic, const float* tab,
                          const int* meta, const float* consts, int n,
                          float* tau, float* pfrac, void* stream) {
   using namespace ecrad;
   if (n > 0) {
-    const int blocks = (n + TILE - 1) / TILE;
-    lw::taumol_lw_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        fc, ic, tab, meta, consts, n, tau, pfrac);
+    cudaError_t e = lw_attributes();
+    if (e != cudaSuccess) return (int)e;
+    const int blocks = (n + lw::TILE_LW - 1) / lw::TILE_LW;
+    lw::taumol_lw_kernel<<<blocks, lw::THREADS_LW, sizeof(lw::SharedLw),
+                           (cudaStream_t)stream>>>(fc, ic, tab, meta, consts,
+                                                   n, tau, pfrac);
   }
   return (int)cudaGetLastError();
+}
+
+// B1's resources and the blocks per SM its launch gets (kernel_info.cuh)
+extern "C" int taumol_lw_info(int* info) {
+  using namespace ecrad;
+  cudaError_t e = lw_attributes();
+  if (e != cudaSuccess) return (int)e;
+  return kernel_info(lw::taumol_lw_kernel, lw::THREADS_LW,
+                     sizeof(lw::SharedLw), info);
 }

@@ -59,7 +59,9 @@ _SIGS = {
 
 # queries of a kernel's compiled resources (no stream): the leading int
 # arguments, then an int[len(INFO_FIELDS)] that receives them
-_INFO_SIGS = {"spartacus_sw_adding_info": "i",
+_INFO_SIGS = {"level_sweep_info": "ii",
+              "taumol_lw_info": "",
+              "spartacus_sw_adding_info": "i",
               "spartacus_sw_reftrans_info": "ii",
               "spartacus_lw_reftrans_info": "ii",
               "spartacus_lw_adding_info": "ii"}

@@ -15,12 +15,11 @@ kernel csrc/taumol_lw.cu and `taumol_lw_plain` compute the same terms
 in the same order. On a CPU tensor `taumol_lw` runs the plain version;
 on a CUDA tensor it launches the kernel (float32 only) or raises.
 
-On the H100 the kernel's floor is its 2 x 140 float stores per cell; it
-runs well above it, and the likely limit (not yet isolated) is phase 1,
-each thread building one band's terms (chi adjustments with expf/logf)
-for a block of only 16 cells.
-The design keeps the float32 tables in L2 and gathers rows directly,
-with coalesced (N, 140) stores (csrc/taumol_lw.cu).
+On the H100 the kernel's floor is its 2 x 140 float stores per cell. A
+block takes a tile of 32 cells; each of its 4 warps builds the terms of
+a fixed list of bands with one lane per cell (a warp-uniform band switch)
+and sums that band's outputs into the tile's rows in shared memory, which
+the block then writes out whole (csrc/taumol_lw.cu).
 """
 from __future__ import annotations
 

@@ -98,6 +98,30 @@ def test_b2_kernel_matches_plain(slice_state):
     _tau_close(taur, r0)
 
 
+@pytest.mark.parametrize("cells", ["n1", "n137", "n4099", "troposphere",
+                                   "stratosphere"])
+def test_b1_ragged_and_regime_cells(slice_state, cells):
+    """B1 on 1, 137 and 4,099 cells (no multiple of its 32-cell tile: the
+    last tile's lanes past the end), and on the tropospheric and the
+    stratospheric cells of the slice apart: within its bound of the plain
+    version."""
+    setup, _, c = slice_state
+    fc, ic = taumol_lw.pack_coeffs(c, setup.tables["chi_mls"])
+    if cells.startswith("n"):
+        sel = torch.arange(int(cells[1:]), device=fc.device)
+    else:
+        tropo = fc[0] > 0
+        sel = torch.nonzero(tropo if cells == "troposphere" else ~tropo)[:, 0]
+    assert sel.numel() > 0
+    fc, ic = fc[:, sel].contiguous(), ic[:, sel].contiguous()
+    tau, pf = taumol_lw.taumol_lw_kernel(fc, ic, setup.gas.lw)
+    torch.cuda.synchronize()
+    tau0, pf0 = taumol_lw.taumol_lw_plain(fc, ic, setup.gas.lw)
+    if bool((tau0.abs() > 1e-6).any()):
+        _tau_close(tau, tau0)
+    assert float((pf - pf0).abs().max()) <= 1e-6
+
+
 def _rand(gen, *shape, lo=0.0, hi=1.0, device):
     return lo + (hi - lo) * torch.rand(*shape, generator=gen,
                                        device=device)
@@ -146,6 +170,66 @@ def test_b3prime_lw_adding_kernel_matches_plain(cuda, nlev, ng, ncol):
     ref = adding.adding_lw_plain(*args)
     for x, y in zip(got, ref):
         assert float((x - y).abs().max() / y.abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("nlev", [1, 2, 137, 200, 300])
+@pytest.mark.parametrize("kind", ["sw", "lw"])
+def test_b3_adding_ragged_levels_bit_identical(cuda, kind, nlev):
+    """B3 sw_adding and B3' lw_adding on 15 g x 133 columns (no multiple
+    of their 32-thread blocks) with 1, 2, 137, 200 and 300 levels: up to
+    their windows (adding_fused.SW_ONCHIP_LEVELS, LW_ONCHIP_LEVELS, 256
+    and 160) every level's values stay on chip, above them the top levels'
+    go to the device-memory scratch (LW at 200, both at 300). Equal bit
+    for bit to the plain versions."""
+    assert 137 <= adding_fused.LW_ONCHIP_LEVELS < 200
+    assert 200 <= adding_fused.SW_ONCHIP_LEVELS < 300
+    gen = torch.Generator(device=cuda).manual_seed(nlev)
+    r = lambda *s, lo=0.0, hi=1.0: _rand(gen, *s, lo=lo, hi=hi, device=cuda)
+    ng, ncol = 15, 133
+    if kind == "sw":
+        args = (r(nlev, ng, ncol, hi=0.4), r(nlev, ng, ncol, lo=0.3, hi=0.6),
+                r(nlev, ng, ncol, hi=0.3), r(nlev, ng, ncol, hi=0.4),
+                r(nlev, ng, ncol, lo=0.2, hi=0.9), r(ng, ncol, hi=1300.0),
+                r(ng, ncol, hi=0.8), r(ng, ncol, hi=0.8), r(ncol, lo=0.05))
+        kern, plain = adding_fused.adding_sw_fused, adding.adding_sw_plain
+    else:
+        args = (r(nlev, ng, ncol, hi=0.3), r(nlev, ng, ncol, lo=0.2, hi=0.7),
+                r(nlev, ng, ncol, hi=50.0), r(nlev, ng, ncol, hi=50.0),
+                r(ng, ncol, hi=400.0), r(ng, ncol, hi=0.2))
+        kern, plain = adding_fused.adding_lw_fused, adding.adding_lw_plain
+    got = kern(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    assert len(got) == len(ref)
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+
+
+def test_b1_b3_resources(cuda):
+    """B1 at 3 blocks (12 warps) per SM with at most 170 registers and at
+    most 32 bytes of local memory (the compiler keeps a few per-thread
+    values there, stored once and reloaded once per band, outside the slot
+    loops); sw_adding and lw_adding at 5 blocks per SM at 137 levels,
+    resident at 300, without spills (the compiler's report)."""
+    from ecrad_tpu_torch.ops import _cuda
+    b1 = _cuda.kernel_info("taumol_lw_info")
+    assert b1["blocks_per_sm"] >= 3 and b1["registers"] <= 170
+    assert b1["local_bytes"] <= 32
+    for which in (0, 1):
+        assert _cuda.kernel_info("level_sweep_info", which,
+                                 137)["blocks_per_sm"] >= 5
+        assert _cuda.kernel_info("level_sweep_info", which,
+                                 300)["blocks_per_sm"] >= 1
+    report = _cuda.ptxas_report()
+    hits = [v for k, v in report.items() if "taumol_lw_kernel" in k]
+    assert len(hits) == 1
+    assert hits[0]["spill_stores"] <= 32 and hits[0]["spill_loads"] <= 64
+    for kernel in ("sw_adding_kernelILb0E", "sw_adding_kernelILb1E",
+                   "lw_adding_kernelILb0E", "lw_adding_kernelILb1E"):
+        hits = [v for k, v in report.items() if kernel in k]
+        assert len(hits) == 1, kernel
+        assert hits[0]["spill_stores"] == 0, kernel
+        assert hits[0]["spill_loads"] == 0, kernel
 
 
 def _b4_args(cuda, ncol, nlev, ng, nb, seed):

@@ -12,7 +12,8 @@ ecrad_tpu_torch.inputs (seed 0; for McICA and Tripleclouds with
 make_clouds' clouds and the SYNTHETIC LUTs of write_synthetic_luts,
 written into --out-dir; for Tripleclouds also make_aerosols' aerosols) on
 cuda:0, warms up, then traces `--calls` back-to-back calls with
-torch.profiler. Prints the device time by kernel name, the device-busy
+torch.profiler. Prints the device time by kernel name (the 25 longest
+kernels and every kernel of the port's csrc/), the device-busy
 share of the traced window (union of kernel and copy intervals over the
 window's wall time) and the wall time per call; for each stage span
 (gas optics, the cloud stage, each solver; inside the McICA solvers the
@@ -236,9 +237,11 @@ def main():
           f"{wall * 1e3:.3f} ms per call, device time {total_us / 1e3 / args.calls:.3f} ms per call, "
           f"device busy {share:.1%} of the traced window [{gpu}]")
     print(f"device kernels: {len(dev_events) // args.calls} per call")
-    for name, (n, us) in rows[:25]:
-        print(f"  {us / 1e3 / args.calls:9.4f} ms/call {n // args.calls:5d}x "
-              f"{us / total_us:6.1%}  {name[:90]}")
+    # the 25 longest kernels, and the port's own (csrc/) below that cut
+    for k, (name, (n, us)) in enumerate(rows):
+        if k < 25 or "ecrad::" in name:
+            print(f"  {us / 1e3 / args.calls:9.4f} ms/call "
+                  f"{n // args.calls:5d}x {us / total_us:6.1%}  {name[:90]}")
     stages = {}
     for name in span_names:
         e = avg.get(name)
