@@ -7,10 +7,11 @@ Phases; any failure exits non-zero and prints no result line:
   1. device and build: versions, the card's name and power limit, the
      CUDA kernels built from ecrad_tpu_torch/csrc for sm_90a (the
      compiler's register/shared-memory/spill report is printed, and for
-     B1, B3 sw_adding and B3' lw_adding at 137 and 300 levels, B3
-     lw_noscat, B6's and B7's two passes, B8, and B9 with multilayer
-     effects off and on the registers, spills, shared memory and the warps
-     per SM their launches get);
+     B1, B2, B3 sw_adding and B3' lw_adding at 137 and 300 levels, B3
+     lw_noscat, B5's SW and LW kernels with 3 and 2 regions at 137 and 300
+     levels, B6's and B7's two passes, B8, and B9 with multilayer effects
+     off and on the registers, spills, shared memory and the warps per SM
+     their launches get);
   2. every kernel of the paths (B1 taumol_lw, B2 taumol_sw, B3 sw_adding
      and lw_noscat, B3' lw_adding, B4 mcica_sw_optics and
      mcica_lw_optics, B5 tc_sw_sweeps and tc_lw_sweeps, B6
@@ -33,10 +34,15 @@ Phases; any failure exits non-zero and prints no result line:
      one per-band gas-optics call of the 2048 x 137 columns and on that
      tool's random cases, with rows past both ends);
      B1 also on 1, 137 and 4,099 cells and on the tropospheric and the
-     stratospheric cells apart; B3 sw_adding and B3' lw_adding equal to
-     their plain versions bit for bit at the paths' shapes, on 1, 2, 137
-     and 300 levels x 15 g-points x 133 columns, and at 300 levels at the
-     path's width (past their on-chip window: the device-memory branch);
+     stratospheric cells apart; B2 on 1, 31, 33 and 4,099 cells and on
+     those two cell sets, taur at 0 difference; B3 sw_adding and B3'
+     lw_adding equal to their plain versions bit for bit at the paths'
+     shapes, on 1, 2, 137 and 300 levels x 15 g-points x 133 columns, and
+     at 300 levels at the path's width (past their on-chip window: the
+     device-memory branch); B5 likewise at the path's shapes, with 3 and 2
+     regions on 1, 2, 7, 137 and 300 levels x 15 g-points x 133 and 132
+     columns (its 4-byte and 16-byte copies), all clear, all cloudy and
+     alternating, and with 2 regions on the path's operands cut to two;
      the per-band gas optics against B1/B2's; the SPARTACUS path's share
      of cells with the 3D treatment and the histogram of their doubling
      counts;
@@ -84,8 +90,10 @@ Phases; any failure exits non-zero and prints no result line:
   4. times (information only): each kernel and its plain version with
      CUDA events (B10 per gas-optics call, its 30 launches, beside one
      embedding_bag call per launch on the same flattened operands; B1's
-     rate on its least bytes; B3 sw_adding and B3' lw_adding at 137 and
-     300 levels with the rate on the bytes each design moves; B6's
+     and B2's rate on their least bytes, B2's beside its table gathers;
+     B3 sw_adding and B3' lw_adding at 137 and 300 levels with the rate
+     on the bytes each design moves; B5 with 3 and 2 regions with the
+     rate on the bytes its design moves on this run's clear sectors; B6's
      and B7's two passes apart, with the number of 3D cells the first
      pass found; B8's rate on the bytes its design moves, and B9's
      with multilayer effects off and on), and
@@ -151,9 +159,12 @@ TAU_REL, PF_ATOL, SWEEP_REL = 1e-5, 1e-6, 2e-6
 # plain version is (:186-196)
 SPARTACUS_REL = 2e-5
 OPTICS_REL = {"mcica_sw_optics": 2e-3, "mcica_lw_optics": 1e-4}
-# the adding kernels (B3 sw_adding, B3' lw_adding) keep their plain
-# versions' operation order: 0 difference
-ADDING = ("sw_adding", "lw_adding")
+# the adding kernels (B3 sw_adding, B3' lw_adding) and the Tripleclouds
+# sweeps (B5) keep their plain versions' operation order: 0 difference
+ADDING = ("sw_adding", "lw_adding", "tc_sw_sweeps", "tc_lw_sweeps")
+# B5's clear-layer patterns (all clear, all cloudy, alternating in level
+# and column) on random operands of 15 g-points x 133 columns
+TC_PATTERNS = ("all_clear", "all_cloudy", "alternating")
 # the kernels each path must launch
 PATH_KERNELS = {
     "cloudless": ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat"),
@@ -409,6 +420,76 @@ def sweep_ops(name, cols, ng, clear_rows):
     return ng * (nlev * ncol * per_cell + int(mixed.sum()) * per_mix)
 
 
+def tc_moved_bytes(kind, args):
+    """Bytes B5's design moves on this run's clear pattern, in 32-byte
+    sectors of 8 columns: per level and g-point, each layer operand and
+    history value of region 0 in every sector and of the cloudy regions
+    only in the sectors with a cloudy column (LW: the source history also
+    below a clear layer on a cloudy one or on the surface), the profiles
+    written, and the per-column inputs once. Returns (bytes, the bytes of
+    every region in every sector, share of the (level, sector) pairs clear
+    in all 8 columns)."""
+    nlev, nreg, ng, ncol = args[0].shape
+    n_ops = 5 if kind == "sw" else 4
+    clear = args[6]
+    sect = torch.nn.functional.pad(clear, (0, (-ncol) % 8), value=True)
+    sect = sect.view(nlev, -1, 8).all(2)                # (nlev, sectors)
+    nsec = sect.shape[1]
+    cloudy = (~sect).sum(1).double()
+    every = nsec + (nreg - 1) * cloudy                  # sectors a level
+    if kind == "sw":
+        # 5 operands up, 4 down, 2 history values written and read
+        per = 13 * every
+    else:
+        # 4 up, 3 down, the albedo history written and read, and the
+        # source history where it is kept
+        keep = ~sect
+        keep[-1] = True
+        keep[:-1] |= ~sect[1:]
+        per = 9 * every + 2 * (nsec + (nreg - 1) * keep.sum(1).double())
+    n_out = 3 if kind == "sw" else 2
+    small = sum(t.numel() * t.element_size()
+                for t in tensors(args[n_ops:]))
+    out = 32 * ng * n_out * (nlev + 1) * nsec
+    full = 32 * ng * nlev * (13 if kind == "sw" else 11) * nreg * nsec
+    return (32 * ng * float(per.sum()) + out + small, full + out + small,
+            float(sect.double().mean()))
+
+
+def tc_random_args(kind, nreg, nlev, pattern, dev, ng=15, ncol=133,
+                   seed=0):
+    """Random B5 operands (tests/test_torch_kernels_gpu.py's ranges) on a
+    clear pattern of TC_PATTERNS."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, lo=0.0, hi=1.0: lo + (hi - lo) * torch.rand(  # noqa
+        *s, generator=gen, device=dev)
+    lev = torch.arange(nlev, device=dev)[:, None]
+    col = torch.arange(ncol, device=dev)[None, :]
+    clear = {"all_clear": lev + col >= 0, "all_cloudy": lev + col < 0,
+             "alternating": (lev + col) % 2 == 0}[pattern]
+    lay = (nlev, nreg, ng, ncol)
+    v, u = r(nlev + 1, nreg, nreg, ncol), r(nlev, nreg, nreg, ncol)
+    frac = r(nreg, ncol, lo=0.05, hi=0.6)
+    if kind == "sw":
+        return (r(*lay, hi=0.4), r(*lay, lo=0.3, hi=0.6), r(*lay, hi=0.3),
+                r(*lay, hi=0.4), r(*lay, lo=0.2, hi=0.9), v, clear,
+                r(ng, ncol, hi=0.8), r(ng, ncol, hi=0.8), r(ncol, lo=0.05),
+                r(ng, ncol, hi=1300.0), frac)
+    return (r(*lay, hi=0.3), r(*lay, lo=0.3, hi=0.6), r(*lay, hi=20.0),
+            r(*lay, hi=20.0), v, u, clear, r(ng, ncol, hi=400.0),
+            r(ng, ncol, hi=0.2), frac)
+
+
+def tc_two_regions(kind, args):
+    """B5's arguments cut to their first two regions: the layer operands,
+    the overlap matrices' leading 2 x 2 and the region fractions."""
+    n_ops, n_mat = (5, 1) if kind == "sw" else (4, 2)
+    return (tuple(x[:, :2].contiguous() for x in args[:n_ops])
+            + tuple(x[:, :2, :2].contiguous()
+                    for x in args[n_ops:n_ops + n_mat])
+            + args[n_ops + n_mat:-1] + (args[-1][:2].contiguous(),))
+
+
 def histogram(counts):
     """'share of 3D cells; doubling count: cells' of an int8 count
     tensor (-1 where the cell took the 1D fallback)."""
@@ -630,7 +711,13 @@ def main():
             (f"B3' lw_adding, {ADD_SPILL_NLEV} levels", "level_sweep_info",
              (1, ADD_SPILL_NLEV), "lw_adding_kernelILb1E"),
             ("B3 lw_noscat", "level_sweep_info", (2, NLEV),
-             "lw_noscat_kernel")):
+             "lw_noscat_kernel"),
+            ("B2 taumol_sw", "taumol_sw_info", (), "taumol_sw_kernel"),
+            *((f"B5 tc_{k}_sweeps, {nreg} regions, {nlev} levels",
+               "tc_sweeps_info", (int(k == "lw"), nreg, nlev),
+               f"tc_{k}_kernelILi{nreg}ELb1E")
+              for k in ("sw", "lw") for nreg in (3, 2)
+              for nlev in (NLEV, ADD_SPILL_NLEV))):
         k = _cuda.kernel_info(name, *args)
         rep = [v for f, v in report.items() if kernel in f]
         rep = rep[0] if len(rep) == 1 else {}
@@ -692,13 +779,16 @@ def main():
         errs[name] = max(float((a1 - b1).abs().max()), err2)
         bounds[name] = least_time(name, (fc, ic, tables), (a1, a2),
                                   a1.numel())
+        return err2
 
     taumol_check("taumol_lw", taumol_lw.taumol_lw_kernel,
                  taumol_lw.taumol_lw_plain, fc_lw, ic_lw, setup.gas.lw,
                  "pfrac")
-    taumol_check("taumol_sw", taumol_sw.taumol_sw_kernel,
-                 taumol_sw.taumol_sw_plain, fc_sw, ic_sw, setup.gas.sw,
-                 "taur")
+    if taumol_check("taumol_sw", taumol_sw.taumol_sw_kernel,
+                    taumol_sw.taumol_sw_plain, fc_sw, ic_sw, setup.gas.sw,
+                    "taur") != 0.0:
+        raise AssertionError("taumol_sw: taur differs from its plain "
+                             "version")
     # B1 on 1, 137 and 4,099 cells (no multiple of its 32-cell tile) and on
     # the path's tropospheric and stratospheric cells apart
     tropo = fc_lw[0] > 0
@@ -718,6 +808,26 @@ def main():
             f"pfrac worst abs {err2:.3e}")
         if not (rel <= TAU_REL and err2 <= PF_ATOL):
             raise AssertionError(f"taumol_lw disagrees on {what}")
+    # B2 likewise on 1, 31, 33 and 4,099 cells and on the tropospheric and
+    # stratospheric cells apart; taur at 0 difference
+    tropo = fc_sw[0] > 0
+    for what, sel in (("1 cell", slice(0, 1)), ("31 cells", slice(0, 31)),
+                      ("33 cells", slice(0, 33)),
+                      ("4099 cells", slice(0, 4099)),
+                      ("the tropospheric cells", tropo),
+                      ("the stratospheric cells", ~tropo)):
+        f_, i_ = fc_sw[:, sel].contiguous(), ic_sw[:, sel].contiguous()
+        a1, a2 = taumol_sw.taumol_sw_kernel(f_, i_, setup.gas.sw)
+        torch.cuda.synchronize()
+        b1, b2 = taumol_sw.taumol_sw_plain(f_, i_, setup.gas.sw)
+        mask = b1.abs() > 1e-6
+        rel = float(((a1 - b1).abs() / b1.abs().clamp(min=1e-30))[mask]
+                    .max()) if bool(mask.any()) else 0.0
+        err2 = float((a2 - b2).abs().max())
+        log(f"taumol_sw on {what} (N={f_.shape[1]}): worst rel {rel:.3e}, "
+            f"taur worst abs {err2:.3e}")
+        if not (rel <= TAU_REL and err2 == 0.0):
+            raise AssertionError(f"taumol_sw disagrees on {what}")
     del tropo, f_, i_, a1, a2, b1, b2
 
     # the operands as the paths make them: gas optics of the columns,
@@ -859,6 +969,49 @@ def main():
                                      f"columns")
     log(f"sw_adding, lw_adding on 1, 2, {NLEV} and {ADD_SPILL_NLEV} levels x "
         f"15 g x 133 columns: equal to their plain versions bit for bit")
+    # B5 with 3 and 2 regions on 1, 2, 7, 137 and ADD_SPILL_NLEV levels x
+    # 15 g x 133 columns (its 4-byte copies) and 132 columns (its 16-byte
+    # copies, a part-filled last block), all clear, all cloudy and
+    # alternating: equal to its plain versions bit for bit
+    for kind, kern, plain in (
+            ("sw", adding_fused.tc_sw_sweeps_fused,
+             tripleclouds.tc_sw_sweeps_plain),
+            ("lw", adding_fused.tc_lw_sweeps_fused,
+             tripleclouds.tc_lw_sweeps_plain)):
+        for nreg in (3, 2):
+            for nlev in (1, 2, 7, NLEV, ADD_SPILL_NLEV):
+                for pattern in TC_PATTERNS:
+                    for ncol in (133, 132):
+                        args = tc_random_args(kind, nreg, nlev, pattern, dev,
+                                              ncol=ncol, seed=nlev)
+                        a = kern(*args)
+                        torch.cuda.synchronize()
+                        if not all(torch.equal(x, y)
+                                   for x, y in zip(a, plain(*args))):
+                            raise AssertionError(
+                                f"tc_{kind}_sweeps differs from its plain "
+                                f"version ({nreg} regions, {nlev} levels, "
+                                f"{ncol} columns, {pattern})")
+    log(f"tc_sw_sweeps, tc_lw_sweeps with 3 and 2 regions on 1, 2, 7, {NLEV}"
+        f" and {ADD_SPILL_NLEV} levels x 15 g x 133 and 132 columns, "
+        f"{', '.join(TC_PATTERNS)}: equal to their plain versions bit for "
+        f"bit")
+    # and with 2 regions on the path's operands (its first two regions and
+    # their overlap rows)
+    for name, kern, plain in (
+            ("tc_sw_sweeps", adding_fused.tc_sw_sweeps_fused,
+             tripleclouds.tc_sw_sweeps_plain),
+            ("tc_lw_sweeps", adding_fused.tc_lw_sweeps_fused,
+             tripleclouds.tc_lw_sweeps_plain)):
+        args = tc_two_regions(name[3:5], path_args[name])
+        a = kern(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, plain(*args))):
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"with 2 regions on the path's operands")
+        del a, args
+    log("tc_sw_sweeps, tc_lw_sweeps with 2 regions on the path's operands: "
+        "equal to their plain versions bit for bit")
     # and at the path's width with ADD_SPILL_NLEV levels (the path's layers
     # repeated), against the plain versions bit for bit
     spill_args = {}
@@ -1440,6 +1593,16 @@ def main():
     b1_bytes, b1_ms = bounds["taumol_lw"][2], ms["taumol_lw"][0]
     log(f"time taumol_lw: {b1_ms:.4f} ms in one pass, {b1_bytes / 1e9:.3f} "
         f"GB least, {b1_bytes / b1_ms / 1e9:.3f} TB/s [{gpu}]")
+    # B2 likewise (its least bytes are what its design moves from device
+    # memory), beside the table values it gathers from L1/L2: ng_b per slot
+    # of each band, 1,166 a cell
+    b2_bytes, b2_ms = bounds["taumol_sw"][2], ms["taumol_sw"][0]
+    gathered = fc_sw.shape[1] * sum(
+        ng * (kg + kr) for ng, kg, kr in zip(taumol_sw.NG, taumol_sw.K_TAUG,
+                                             taumol_sw.K_TAUR))
+    log(f"time taumol_sw: {b2_ms:.4f} ms in one pass, {b2_bytes / 1e9:.3f} "
+        f"GB least, {b2_bytes / b2_ms / 1e9:.3f} TB/s; {gathered / 1e9:.3f} "
+        f"G table values gathered, {gathered / b2_ms / 1e6:.1f} G/s [{gpu}]")
     # B3 sw_adding and B3' lw_adding: the rate on the bytes each design
     # moves (SW: tdir, the ascent's 4 operands and the descent's 4 read, 3
     # fluxes written; LW: 4 and 3 read, 2 written; per level past the
@@ -1464,6 +1627,23 @@ def main():
             log(f"time {name}, {nlev} levels: kernel {t_k:.4f} ms, plain "
                 f"{t_p:.4f} ms, on the {moved / 1e9:.3f} GB its design "
                 f"moves {moved / t_k / 1e9:.3f} TB/s [{gpu}]")
+    # B5: the rate on the bytes its design moves on this run's clear
+    # sectors, beside the bytes of every region in every sector; and with
+    # 2 regions (the path's operands cut to two)
+    for name in ("tc_sw_sweeps", "tc_lw_sweeps"):
+        kern = (adding_fused.tc_sw_sweeps_fused if name == "tc_sw_sweeps"
+                else adding_fused.tc_lw_sweeps_fused)
+        for args in (path_args[name], tc_two_regions(name[3:5],
+                                                     path_args[name])):
+            moved, full, clear_share = tc_moved_bytes(name[3:5], args)
+            nreg = args[0].shape[1]
+            t_k = ms[name][0] if nreg == 3 else time_ms(
+                lambda: kern(*args), 20)
+            log(f"time {name}, {nreg} regions: kernel {t_k:.4f} ms on the "
+                f"{moved / 1e9:.3f} GB its design moves ({clear_share:.1%} "
+                f"of the (level, 8-column sector) pairs clear; every region "
+                f"in every sector {full / 1e9:.3f} GB), "
+                f"{moved / t_k / 1e9:.3f} TB/s [{gpu}]")
     # B6's two passes apart on the path's operands: pass 1 over the 3D
     # cells (its counter zeroed first, one memset timed with it), staging
     # their rows; pass 2 over every cell, from what pass 1 left

@@ -1,26 +1,24 @@
-// Shared device code of the two taumol kernels (taumol_lw.cu, taumol_sw.cu):
-// eta_index and oneminus for both; the tile, Terms and gather_sum for the
-// SW kernel, which runs in two phases over a tile of TILE cells per block:
-//   1. one thread per (band, cell) writes that band's TERMS for the cell
-//      into shared memory: a flat-table element offset `base` (the start
-//      of one table row) and a weight `w`;
-//   2. the block strides over (cell, g) pairs:
-//        out[cell, g] = sum_k w_k * tab[base_k + g - g_off(band(g))],
-//      storing coalesced (N, ng) rows.
-// (The LW kernel builds the same terms a band at a time per warp, with
-// its own slot layout.) Term k of a band is the tropospheric term in a
-// tropospheric cell and the stratospheric one otherwise; a row outside
-// its table gets weight 0. The plain PyTorch versions
-// (optics/rrtmg/taumol_lw.py, taumol_sw.py) build the same terms in the
-// same slot order.
+// Shared device code of the taumol kernels: eta_index and oneminus for
+// B1 (taumol_lw.cu) and B2 (taumol_sw.cu); the warp's term slots of
+// their band-uniform design (WarpTerms); and gather_sum, the phase-2 core
+// of B10 (gather_sections.cu).
+//
+// B1 and B2 build one band's TERMS at a time per warp, lane = cell of a
+// tile of TILE_CELLS consecutive cells: a flat-table element offset (the
+// start of one table row) and a weight w, then sum
+//   out[cell, g] = sum_k w_k * tab[row_k + g - g_off(band(g))].
+// Term k of a band is the tropospheric term in a tropospheric cell and
+// the stratospheric one otherwise; a row outside its table gets weight 0.
+// The plain PyTorch versions (optics/rrtmg/taumol_lw.py, taumol_sw.py)
+// build the same terms in the same slot order.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace ecrad {
 
-constexpr int TILE = 16;          // cells per block
-constexpr int THREADS = 256;      // 16 bands x 16 cells in phase 1
+// cells of a B1/B2 tile: one per lane while a warp builds a band's terms
+constexpr int TILE_CELLS = 32;
 
 // 1 - 1e-6 rounded once to float, as a Python float reaches float32
 __device__ __forceinline__ float oneminus() {
@@ -39,10 +37,11 @@ __device__ __forceinline__ void eta_index(float col1, float speccomb,
   fs = sm - fl;
 }
 
-// Writes one band's terms for one cell, in slot order.
-struct Terms {
-  int* base;
-  float* w;
+// Writes one band's terms for one cell into its warp's slots: slot k of
+// lane l at t[k * TILE_CELLS] (t = the warp's storage + l), as (table
+// element offset of the row, weight) with the offset's bits in .x.
+struct WarpTerms {
+  float2* t;
   int k;
   const int* toff;     // table id -> element offset
   const int* tnrows;   // table id -> number of rows
@@ -50,14 +49,14 @@ struct Terms {
   __device__ __forceinline__ void put(int tab, int ng, int row, float wt,
                                       bool ok = true) {
     bool valid = ok && row >= 0 && row < tnrows[tab];
-    base[k] = toff[tab] + (valid ? row : 0) * ng;
-    w[k] = valid ? wt : 0.0f;
+    t[k * TILE_CELLS] = make_float2(
+        __int_as_float(toff[tab] + (valid ? row : 0) * ng),
+        valid ? wt : 0.0f);
     ++k;
   }
   __device__ __forceinline__ void zeros(int m) {
     for (int i = 0; i < m; ++i) {
-      base[k] = 0;
-      w[k] = 0.0f;
+      t[k * TILE_CELLS] = make_float2(__int_as_float(0), 0.0f);
       ++k;
     }
   }
@@ -68,11 +67,12 @@ struct Terms {
     put(tab, ng, row0 + 1, wt * frac);
   }
   __device__ __forceinline__ void scale_last(int m, float s) {
-    for (int i = k - m; i < k; ++i) w[i] *= s;
+    for (int i = k - m; i < k; ++i) t[i * TILE_CELLS].y *= s;
   }
 };
 
-// Phase 2 for one output: sum the terms of band b for (cell cl, g).
+// B10's phase 2 for one output: the sum of terms k0 .. k1 - 1 (element
+// offsets `base`, weights `w`) at column gl.
 __device__ __forceinline__ float gather_sum(const float* __restrict__ tab,
                                             const int* base, const float* w,
                                             int k0, int k1, int gl) {

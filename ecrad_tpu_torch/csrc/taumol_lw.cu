@@ -87,7 +87,8 @@ __constant__ int c_kpf[17] = {0, 1, 2, 4, 6, 8, 9, 11, 12, 14, 15, 16, 18,
 // order (0 ends a row): the 16 bands split by work, ng_b (K_TAU_b +
 // K_PF_b) + 4 (K_TAU_b + K_PF_b) per cell, 880, 896, 862 and 856 of 3494
 // (tests/test_torch_taumol_design.py checks the split).
-constexpr int TILE_LW = 32, NWARP_LW = 4, THREADS_LW = TILE_LW * NWARP_LW;
+constexpr int TILE_LW = TILE_CELLS, NWARP_LW = 4;
+constexpr int THREADS_LW = TILE_LW * NWARP_LW;
 constexpr int BANDS_PER_WARP = 5;
 __constant__ signed char c_warp_bands[NWARP_LW][BANDS_PER_WARP] = {
     {5, 13, 1, 10, 0}, {3, 8, 2, 16, 0}, {7, 4, 11, 14, 0},
@@ -97,40 +98,6 @@ constexpr int K_BAND_MAX = 23;
 // blocks per SM the launch asks for (the shared-memory carveout is set
 // for them, the rest of the SM's 256 KB is L1 for the tables)
 constexpr int BLOCKS_PER_SM_LW = 3;
-
-// Writes one band's terms for one cell into its warp's slots: slot k of
-// lane l at t[k * TILE_LW] (t = the warp's storage + l), as (table element
-// offset of the row, weight) with the offset's bits in .x.
-struct WarpTerms {
-  float2* t;
-  int k;
-  const int* toff;     // table id -> element offset
-  const int* tnrows;   // table id -> number of rows
-
-  __device__ __forceinline__ void put(int tab, int ng, int row, float wt,
-                                      bool ok = true) {
-    bool valid = ok && row >= 0 && row < tnrows[tab];
-    t[k * TILE_LW] = make_float2(
-        __int_as_float(toff[tab] + (valid ? row : 0) * ng),
-        valid ? wt : 0.0f);
-    ++k;
-  }
-  __device__ __forceinline__ void zeros(int m) {
-    for (int i = 0; i < m; ++i) {
-      t[k * TILE_LW] = make_float2(__int_as_float(0), 0.0f);
-      ++k;
-    }
-  }
-  // linear interpolation between rows row0 and row0 + 1
-  __device__ __forceinline__ void pair(int tab, int ng, int row0, float wt,
-                                       float frac) {
-    put(tab, ng, row0, wt * (1.0f - frac));
-    put(tab, ng, row0 + 1, wt * frac);
-  }
-  __device__ __forceinline__ void scale_last(int m, float s) {
-    for (int i = k - m; i < k; ++i) t[i * TILE_LW].y *= s;
-  }
-};
 
 __device__ __forceinline__ float chi_adjust(float col, float coldry,
                                             float ref, float thresh,

@@ -7,15 +7,33 @@
 // against concatenated bf16-split tables on the MXU. Here the float32
 // tables (0.4 MB, L2-resident) are gathered row by row.
 //
-// What bounds it: the (N, 112) x 2 float stores (251 MB at 2048 x 137
-// cells) set the floor, with about 10 L1/L2 gathers per output. It runs
-// well above that floor; as in B1 the likely limit (not yet isolated) is
-// the per-band term building of phase 1. Same design as B1
-// (taumol_common.cuh): phase 1 builds one band's terms per thread into
-// shared memory, phase 2 walks (cell, g) pairs for coalesced stores. The
+// What bounds it: per cell it writes 2 x 112 floats (0.9 KB), which set
+// the device-memory floor (251 MB at 2048 x 137 cells), and gathers
+// ~1,166 table values (144 term slots, a row of ng_b values each), mostly
+// from L1 and L2. It runs at about 4x that floor, bound by neither: on
+// the card (diagnostic builds, PERF.md) building the terms and writing
+// the rows, the issue of the slot loop and the table gathers take about
+// a third of its time each.
+//
+// Design (B1's): a block is a tile of 32 consecutive cells and 4 warps;
+// each warp takes a fixed list of bands (c_warp_bands, split by work)
+// and, per band,
+//   1. builds the band's terms with lane = cell, so the band's switch is
+//      warp-uniform; the 20 fields come from the tile's copy in shared
+//      memory (each field one 128-byte load per tile), and the terms go to
+//      the warp's own slots, (row offset, weight) as a float2 per (slot,
+//      lane): 15 slots x 32 cells at most, 3.8 KB a warp;
+//   2. sums the band's (cell, g) outputs with lanes on consecutive g of a
+//      cell, ng_b outputs a lane at once (one shared load and one gather
+//      per slot and output, in slot order), into the tile's rows in shared
+//      memory.
+// Only __syncwarp orders the phases; at the end the block writes the
+// tile's 32 rows of taug and of taur, each one contiguous run, 16 bytes a
+// thread. 47 KB of shared memory a block: 4 blocks (16 warps) per SM. The
 // solar source stays in PyTorch (it selects one layer per column).
 //
 // Semantics: optics/rrtmg/taumol_sw.py (`sw_terms`), term for term.
+#include "kernel_info.cuh"
 #include "taumol_common.cuh"
 
 namespace ecrad {
@@ -39,13 +57,10 @@ enum Named {
   SW25_ABSO3B, SW29_ABSCO2, SW29_ABSH2O, SW24_RAYLB, NTAB
 };
 // body constants: strrat of band b at b - 16, then givfac23
-constexpr int GIVFAC23 = 14;
+constexpr int GIVFAC23 = 14, NC = 15;
 constexpr float O2ADJ = 1.6f;
 
 constexpr int NG = 112;
-constexpr int K_TAUG_TOTAL = 129;
-constexpr int K_TAUR_TOTAL = 15;
-constexpr int KTOT = K_TAUG_TOTAL + K_TAUR_TOTAL;
 __constant__ int c_ng[14] = {6, 12, 8, 8, 10, 10, 2, 10, 8, 6, 6, 8, 6, 12};
 __constant__ int c_goff[15] = {0, 6, 18, 26, 34, 44, 54, 56, 66, 74, 80,
                                86, 94, 100, 112};
@@ -54,50 +69,56 @@ __constant__ int c_ktaug[15] = {0, 12, 24, 36, 48, 57, 69, 82, 90, 103,
                                 108, 108, 112, 120, 129};
 __constant__ int c_ktaur[15] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 12, 13,
                                 14, 15};
-__constant__ unsigned char c_band[NG] = {
-    0, 0, 0, 0, 0, 0,
-    1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
-    2, 2, 2, 2, 2, 2, 2, 2,
-    3, 3, 3, 3, 3, 3, 3, 3,
-    4, 4, 4, 4, 4, 4, 4, 4, 4, 4,
-    5, 5, 5, 5, 5, 5, 5, 5, 5, 5,
-    6, 6,
-    7, 7, 7, 7, 7, 7, 7, 7, 7, 7,
-    8, 8, 8, 8, 8, 8, 8, 8,
-    9, 9, 9, 9, 9, 9,
-    10, 10, 10, 10, 10, 10,
-    11, 11, 11, 11, 11, 11, 11, 11,
-    12, 12, 12, 12, 12, 12,
-    13, 13, 13, 13, 13, 13, 13, 13, 13, 13, 13, 13};
+// B2's block: one tile of TILE_SW cells (a warp's lanes in phase 1),
+// NWARP_SW warps. Warp w takes the bands of row w of c_warp_bands, in
+// order (0 ends a row): the 14 bands split by work, ng_b (K_TAUG_b +
+// K_TAUR_b) per cell, 286, 294, 292 and 294 of 1166
+// (tests/test_torch_taumol_design.py checks the split).
+constexpr int TILE_SW = TILE_CELLS, NWARP_SW = 4;
+constexpr int THREADS_SW = TILE_SW * NWARP_SW;
+constexpr int BANDS_PER_WARP_SW = 5;
+__constant__ signed char c_warp_bands[NWARP_SW][BANDS_PER_WARP_SW] = {
+    {17, 21, 0, 0, 0}, {24, 29, 28, 0, 0}, {18, 19, 16, 26, 0},
+    {20, 23, 27, 25, 22}};
+// the most term slots of one band (band 24: 13 taug + 2 taur)
+constexpr int K_BAND_MAX_SW = 15;
+// blocks per SM the launch asks for (the shared-memory carveout is set
+// for them, the rest of the SM's 256 KB is L1 for the tables)
+constexpr int BLOCKS_PER_SM_SW = 4;
 
+// one cell's inputs, staged in shared memory, and the derived quantities
+// every band shares
 struct Cell {
-  float f[NF];
-  int i[NI];
+  const float* fcp;    // the staged fields + lane: field k at
+  const int* icp;      // fcp[k * TILE_SW]
   bool tropo;
   int grid0, grid1, grid0b, grid1b;
   const float* kc;
 
+  __device__ __forceinline__ float F(int k) const { return fcp[k * TILE_SW]; }
+  __device__ __forceinline__ int I(int k) const { return icp[k * TILE_SW]; }
+
   __device__ void eta_cols(int b, float& col1, float& col2) const {
-    col1 = f[COLH2O];
-    if (b == 16 || b == 18) col2 = f[COLCH4];
-    else if (b == 17 || b == 19 || b == 21) col2 = f[COLCO2];
-    else if (b == 22) col2 = O2ADJ * f[COLO2];
-    else if (b == 24) col2 = f[COLO2];
-    else { col1 = f[COLO3]; col2 = f[COLO2]; }    // band 28
+    col1 = F(COLH2O);
+    if (b == 16 || b == 18) col2 = F(COLCH4);
+    else if (b == 17 || b == 19 || b == 21) col2 = F(COLCO2);
+    else if (b == 22) col2 = O2ADJ * F(COLO2);
+    else if (b == 24) col2 = F(COLO2);
+    else { col1 = F(COLO3); col2 = F(COLO2); }    // band 28
   }
   __device__ int corner(int j, bool strat) const {
     int g0 = strat ? grid0b : grid0, g1 = strat ? grid1b : grid1;
     return j == 0 ? g0 : j == 1 ? g0 + 1 : j == 2 ? g1 : g1 + 1;
   }
-  __device__ float fac(int j) const { return f[FAC00 + j]; }
+  __device__ float fac(int j) const { return F(FAC00 + j); }
 
-  __device__ void noeta(Terms& t, int b, bool strat, float w) const {
+  __device__ void noeta(WarpTerms& t, int b, bool strat, float w) const {
     int tab = strat ? ABSB(b) : ABSA(b);
     for (int j = 0; j < 4; ++j)
       t.put(tab, c_ng[b - 16], corner(j, strat), w * fac(j));
   }
   // binary-species lookup, 4 grid corners x 2 eta rows
-  __device__ void eta(Terms& t, int b, bool strat) const {
+  __device__ void eta(WarpTerms& t, int b, bool strat) const {
     float col1, col2;
     eta_cols(b, col1, col2);
     float sc = col1 + kc[b - 16] * col2;
@@ -117,28 +138,28 @@ struct Cell {
       }
     }
   }
-  __device__ void self_for(Terms& t, int b) const {
+  __device__ void self_for(WarpTerms& t, int b) const {
     bool ungated = b == 17 || b == 20 || b == 21;
-    t.pair(SELF(b), c_ng[b - 16], i[INDSELF] - 1, f[TROPF] * f[SELFFAC],
-           f[SELFFRAC]);
-    t.pair(FOR(b), c_ng[b - 16], i[INDFOR] - 1,
-           ungated ? f[FORFAC] : f[FORFAC] * f[TROPF], f[FORFRAC]);
+    t.pair(SELF(b), c_ng[b - 16], I(INDSELF) - 1, F(TROPF) * F(SELFFAC),
+           F(SELFFRAC));
+    t.pair(FOR(b), c_ng[b - 16], I(INDFOR) - 1,
+           ungated ? F(FORFAC) : F(FORFAC) * F(TROPF), F(FORFRAC));
   }
-  __device__ void cst(Terms& t, int tab, int b, float w) const {
+  __device__ void cst(WarpTerms& t, int tab, int b, float w) const {
     t.put(tab, c_ng[b - 16], 0, w);
   }
 };
 
 // Phase 1 for band b (16..29): taug terms into `tg`, taur terms into `tr_`.
-__device__ void band_terms(const Cell& c, int b, Terms& tg, Terms& tr_) {
-  const float* f = c.f;
+__device__ void band_terms(const Cell& c, int b, WarpTerms& tg,
+                           WarpTerms& tr_) {
   const bool tr = c.tropo;
   switch (b) {
     case 16: case 18: case 19:
       if (tr) {
         c.eta(tg, b, false);
       } else {
-        c.noeta(tg, b, true, b == 19 ? f[COLCO2] : f[COLCH4]);
+        c.noeta(tg, b, true, b == 19 ? c.F(COLCO2) : c.F(COLCH4));
         tg.zeros(4);
       }
       c.self_for(tg, b);
@@ -148,23 +169,23 @@ __device__ void band_terms(const Cell& c, int b, Terms& tg, Terms& tr_) {
       c.self_for(tg, b);
       break;
     case 20:
-      c.noeta(tg, 20, !tr, f[COLH2O]);
+      c.noeta(tg, 20, !tr, c.F(COLH2O));
       c.self_for(tg, 20);
-      c.cst(tg, SW20_ABSCH4, 20, f[COLCH4]);
+      c.cst(tg, SW20_ABSCH4, 20, c.F(COLCH4));
       break;
     case 22:
       if (tr) {
         c.eta(tg, 22, false);
       } else {
-        c.noeta(tg, 22, true, O2ADJ * f[COLO2]);
+        c.noeta(tg, 22, true, O2ADJ * c.F(COLO2));
         tg.zeros(4);
       }
       c.self_for(tg, 22);
-      c.cst(tg, SW22_ONES, 22, 4.35e-4f * f[COLO2] / (350.0f * 2.0f));
+      c.cst(tg, SW22_ONES, 22, 4.35e-4f * c.F(COLO2) / (350.0f * 2.0f));
       break;
     case 23:
       if (tr)
-        c.noeta(tg, 23, false, c.kc[GIVFAC23] * f[COLH2O]);
+        c.noeta(tg, 23, false, c.kc[GIVFAC23] * c.F(COLH2O));
       else
         tg.zeros(4);
       c.self_for(tg, 23);
@@ -173,32 +194,32 @@ __device__ void band_terms(const Cell& c, int b, Terms& tg, Terms& tr_) {
       if (tr) {
         c.eta(tg, 24, false);
       } else {
-        c.noeta(tg, 24, true, f[COLO2]);
+        c.noeta(tg, 24, true, c.F(COLO2));
         tg.zeros(4);
       }
       c.self_for(tg, 24);
-      c.cst(tg, tr ? SW24_ABSO3A : SW24_ABSO3B, 24, f[COLO3]);
+      c.cst(tg, tr ? SW24_ABSO3A : SW24_ABSO3B, 24, c.F(COLO3));
       break;
     case 25:
       if (tr)
-        c.noeta(tg, 25, false, f[COLH2O]);
+        c.noeta(tg, 25, false, c.F(COLH2O));
       else
         tg.zeros(4);
-      c.cst(tg, tr ? SW25_ABSO3A : SW25_ABSO3B, 25, f[COLO3]);
+      c.cst(tg, tr ? SW25_ABSO3A : SW25_ABSO3B, 25, c.F(COLO3));
       break;
     case 26:
       break;
     case 27:
-      c.noeta(tg, 27, !tr, f[COLO3]);
+      c.noeta(tg, 27, !tr, c.F(COLO3));
       break;
     case 28:
       c.eta(tg, 28, !tr);
       break;
     case 29:
-      c.noeta(tg, 29, !tr, tr ? f[COLH2O] : f[COLCO2]);
+      c.noeta(tg, 29, !tr, tr ? c.F(COLH2O) : c.F(COLCO2));
       c.self_for(tg, 29);
       c.cst(tg, tr ? SW29_ABSCO2 : SW29_ABSH2O, 29,
-            tr ? f[COLCO2] : f[COLH2O]);
+            tr ? c.F(COLCO2) : c.F(COLH2O));
       break;
   }
   // Rayleigh: per-g coefficient x colmol; band 24 eta-interpolated in the
@@ -208,70 +229,196 @@ __device__ void band_terms(const Cell& c, int b, Terms& tg, Terms& tr_) {
     int js;
     c.eta_cols(24, col1, col2);
     eta_index(col1, col1 + c.kc[24 - 16] * col2, 8.0f, sp, js, fs);
-    tr_.pair(RAYL(24), 8, js, f[COLMOL], fs);
+    tr_.pair(RAYL(24), 8, js, c.F(COLMOL), fs);
   } else {
-    c.cst(tr_, b == 24 ? SW24_RAYLB : RAYL(b), b, f[COLMOL]);
+    c.cst(tr_, b == 24 ? SW24_RAYLB : RAYL(b), b, c.F(COLMOL));
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Phase 2 of a band of NGB g-points: the lane's outputs are the pairs
+// (cell, g) = it * TILE_SW + lane of the tile's TILE_SW x NGB, it < NGB,
+// all summed together, so a slot's gathers are independent loads in
+// flight at once. Each output is the sum over the slots in order of w_k
+// tab[row_k + g], taug over slots 0 .. kt - 1 and taur over kt .. kt + kr
+// - 1.
+template <int NGB>
+__device__ __forceinline__ void band_outputs(const float* __restrict__ tab,
+                                             const float2* terms, int lane,
+                                             int g0, int kt, int kr,
+                                             float (*out)[TILE_SW][NG]) {
+  int cl[NGB];
+  const float* tg[NGB];
+#pragma unroll
+  for (int it = 0; it < NGB; ++it) {
+    const int p = it * TILE_SW + lane;
+    cl[it] = p / NGB;
+    tg[it] = tab + p % NGB;
+  }
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+    const int k0 = part ? kt : 0, k1 = part ? kt + kr : kt;
+    float acc[NGB];
+#pragma unroll
+    for (int it = 0; it < NGB; ++it) acc[it] = 0.0f;
+    for (int k = k0; k < k1; ++k) {
+      const float2* t = terms + k * TILE_SW;
+#pragma unroll
+      for (int it = 0; it < NGB; ++it) {
+        const float2 e = t[cl[it]];
+        acc[it] += e.y * __ldg(tg[it] + __float_as_int(e.x));
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < NGB; ++it) {
+      const int p = it * TILE_SW + lane;
+      out[part][cl[it]][g0 + p % NGB] = acc[it];
+    }
+  }
+}
+
+struct __align__(16) SharedSw {
+  float out[2][TILE_SW][NG];          // the tile's taug and taur rows
+  float2 terms[NWARP_SW][K_BAND_MAX_SW * TILE_SW];
+  float f[NF][TILE_SW];               // the tile's fields
+  int i[NI][TILE_SW];
+  int toff[NTAB], tnrows[NTAB];       // table offsets and row counts
+  float kc[NC];                       // body constants
+};
+
+__global__ void __launch_bounds__(THREADS_SW, BLOCKS_PER_SM_SW)
 taumol_sw_kernel(const float* __restrict__ fc, const int* __restrict__ ic,
                  const float* __restrict__ tab, const int* __restrict__ meta,
                  const float* __restrict__ kc, int n,
                  float* __restrict__ taug, float* __restrict__ taur) {
-  __shared__ int s_base[TILE][KTOT];
-  __shared__ float s_w[TILE][KTOT];
-  const int cell0 = blockIdx.x * TILE;
-
+  extern __shared__ __align__(16) unsigned char smem_sw[];
+  SharedSw& sh = *reinterpret_cast<SharedSw*>(smem_sw);
+  const int warp = threadIdx.x / TILE_SW, lane = threadIdx.x % TILE_SW;
+  const int pos0 = blockIdx.x * TILE_SW;
+  const bool my_live = pos0 + lane < n;
+  // stage the table offsets, the body constants and the tile's fields
+  // (warp w loads fields w, w + NWARP_SW, ...: one 128-byte run each, all
+  // in flight together)
+  for (int q = threadIdx.x; q < 2 * NTAB; q += THREADS_SW)
+    (q < NTAB ? sh.toff[q] : sh.tnrows[q - NTAB]) = meta[q];
+  if (threadIdx.x < NC) sh.kc[threadIdx.x] = kc[threadIdx.x];
   {
-    const int cl = threadIdx.x % TILE;
-    const int bi = threadIdx.x / TILE;         // 0..15, bands 0..13 used
-    const int cell = cell0 + cl;
-    if (bi < 14 && cell < n) {
-      Cell c;
-      for (int k = 0; k < NF; ++k) c.f[k] = fc[(size_t)k * n + cell];
-      for (int k = 0; k < NI; ++k) c.i[k] = ic[(size_t)k * n + cell];
-      c.tropo = c.f[TROPF] > 0.0f;
-      c.grid0 = (c.i[JP] - 1) * 5 + (c.i[JT] - 1);
-      c.grid1 = c.i[JP] * 5 + (c.i[JT1] - 1);
-      c.grid0b = (c.i[JP] - 13) * 5 + (c.i[JT] - 1);
-      c.grid1b = (c.i[JP] - 12) * 5 + (c.i[JT1] - 1);
-      c.kc = kc;
-      Terms tg{s_base[cl], s_w[cl], c_ktaug[bi], meta, meta + NTAB};
-      Terms trr{s_base[cl], s_w[cl], K_TAUG_TOTAL + c_ktaur[bi], meta,
-                meta + NTAB};
-      band_terms(c, bi + 16, tg, trr);
-      tg.zeros(c_ktaug[bi + 1] - tg.k);
-      trr.zeros(K_TAUG_TOTAL + c_ktaur[bi + 1] - trr.k);
+    constexpr int ROUNDS = (NF + NI + NWARP_SW - 1) / NWARP_SW;
+    float v[ROUNDS];
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int k = warp + r * NWARP_SW;
+      v[r] = 0.0f;
+      if (my_live && k < NF)
+        v[r] = fc[(size_t)k * n + pos0 + lane];
+      else if (my_live && k < NF + NI)
+        v[r] = __int_as_float(ic[(size_t)(k - NF) * n + pos0 + lane]);
+    }
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int k = warp + r * NWARP_SW;
+      if (k < NF)
+        sh.f[k][lane] = v[r];
+      else if (k < NF + NI)
+        sh.i[k - NF][lane] = __float_as_int(v[r]);
     }
   }
   __syncthreads();
 
-  for (int p = threadIdx.x; p < TILE * NG; p += THREADS) {
-    const int cl = p / NG, g = p % NG;
-    const int cell = cell0 + cl;
-    if (cell >= n) break;
-    const int b = c_band[g];
-    const int gl = g - c_goff[b];
-    taug[(size_t)cell * NG + g] =
-        gather_sum(tab, s_base[cl], s_w[cl], c_ktaug[b], c_ktaug[b + 1], gl);
-    taur[(size_t)cell * NG + g] =
-        gather_sum(tab, s_base[cl], s_w[cl], K_TAUG_TOTAL + c_ktaur[b],
-                   K_TAUG_TOTAL + c_ktaur[b + 1], gl);
+  float2* terms = sh.terms[warp];
+  Cell c;
+  c.fcp = &sh.f[0][lane];
+  c.icp = &sh.i[0][lane];
+  c.kc = sh.kc;
+  {
+    const int jp = c.I(JP), jt = c.I(JT), jt1 = c.I(JT1);
+    c.tropo = c.F(TROPF) > 0.0f;
+    c.grid0 = (jp - 1) * 5 + (jt - 1);
+    c.grid1 = jp * 5 + (jt1 - 1);
+    c.grid0b = (jp - 13) * 5 + (jt - 1);
+    c.grid1b = (jp - 12) * 5 + (jt1 - 1);
+  }
+  for (int j = 0; j < BANDS_PER_WARP_SW; ++j) {
+    const int b = c_warp_bands[warp][j];
+    if (b == 0) break;
+    const int bi = b - 16;
+    const int kt = c_ktaug[bi + 1] - c_ktaug[bi];
+    const int kr = c_ktaur[bi + 1] - c_ktaur[bi];
+    // phase 1: lane = cell, band b's terms (the switch is warp-uniform);
+    // a lane past the last cell writes zero terms
+    WarpTerms t_g{terms + lane, 0, sh.toff, sh.tnrows};
+    WarpTerms t_r{terms + lane, kt, sh.toff, sh.tnrows};
+    if (my_live) band_terms(c, b, t_g, t_r);
+    t_g.zeros(kt - t_g.k);
+    t_r.zeros(kt + kr - t_r.k);
+    __syncwarp();
+    // phase 2: lanes over the tile's (cell, g) pairs of band b
+    const int g0 = c_goff[bi];
+    switch (c_ng[bi]) {
+#define ECRAD_SW_BAND_OUTPUTS(NGB)                                          \
+  case NGB:                                                                 \
+    band_outputs<NGB>(tab, terms, lane, g0, kt, kr, sh.out);               \
+    break;
+      ECRAD_SW_BAND_OUTPUTS(2) ECRAD_SW_BAND_OUTPUTS(6)
+      ECRAD_SW_BAND_OUTPUTS(8) ECRAD_SW_BAND_OUTPUTS(10)
+      ECRAD_SW_BAND_OUTPUTS(12)
+#undef ECRAD_SW_BAND_OUTPUTS
+    }
+    // every lane is done with the slots before the next band's terms
+    __syncwarp();
+  }
+  // the tile's rows out: for each output one run of up to 32 x 112
+  // floats, 16 bytes a thread
+  __syncthreads();
+  const int live4 = (min(n - pos0, TILE_SW) * NG) / 4;
+  const float4* out4 = reinterpret_cast<const float4*>(sh.out);
+  float4* taug4 = reinterpret_cast<float4*>(taug + (size_t)pos0 * NG);
+  float4* taur4 = reinterpret_cast<float4*>(taur + (size_t)pos0 * NG);
+#pragma unroll
+  for (int q = threadIdx.x; q < TILE_SW * NG / 4; q += THREADS_SW) {
+    if (q < live4) {
+      taug4[q] = out4[q];
+      taur4[q] = out4[TILE_SW * NG / 4 + q];
+    }
   }
 }
 
 }  // namespace sw
 }  // namespace ecrad
 
+// B2's dynamic shared memory, and the carveout, in percent of the SM's
+// 228 KB, that holds BLOCKS_PER_SM_SW blocks and the 1 KB each reserves
+static cudaError_t sw_attributes() {
+  using namespace ecrad::sw;
+  const int per_block = (int)sizeof(SharedSw) + 1024;
+  cudaError_t e = cudaFuncSetAttribute(
+      taumol_sw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(SharedSw));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(
+      taumol_sw_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (BLOCKS_PER_SM_SW * per_block * 100 + 228 * 1024 - 1) / (228 * 1024));
+}
+
 extern "C" int taumol_sw(const float* fc, const int* ic, const float* tab,
                          const int* meta, const float* consts, int n,
                          float* taug, float* taur, void* stream) {
   using namespace ecrad;
   if (n > 0) {
-    const int blocks = (n + TILE - 1) / TILE;
-    sw::taumol_sw_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        fc, ic, tab, meta, consts, n, taug, taur);
+    cudaError_t e = sw_attributes();
+    if (e != cudaSuccess) return (int)e;
+    const int blocks = (n + sw::TILE_SW - 1) / sw::TILE_SW;
+    sw::taumol_sw_kernel<<<blocks, sw::THREADS_SW, sizeof(sw::SharedSw),
+                           (cudaStream_t)stream>>>(fc, ic, tab, meta, consts,
+                                                   n, taug, taur);
   }
   return (int)cudaGetLastError();
+}
+
+// B2's resources and the blocks per SM its launch gets (kernel_info.cuh)
+extern "C" int taumol_sw_info(int* info) {
+  using namespace ecrad;
+  cudaError_t e = sw_attributes();
+  if (e != cudaSuccess) return (int)e;
+  return kernel_info(sw::taumol_sw_kernel, sw::THREADS_SW,
+                     sizeof(sw::SharedSw), info);
 }

@@ -61,6 +61,8 @@ _SIGS = {
 # arguments, then an int[len(INFO_FIELDS)] that receives them
 _INFO_SIGS = {"level_sweep_info": "ii",
               "taumol_lw_info": "",
+              "taumol_sw_info": "",
+              "tc_sweeps_info": "iii",
               "spartacus_sw_adding_info": "i",
               "spartacus_sw_reftrans_info": "ii",
               "spartacus_lw_reftrans_info": "ii",

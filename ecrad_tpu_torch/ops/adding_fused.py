@@ -120,7 +120,12 @@ def adding_lw_fused(ref, trans, source_up, source_dn, emission_surf,
 # Replaces ecrad_tpu/ops/adding_fused.py::tc_sw_sweeps (:290) and
 # ::tc_lw_sweeps (:361). One thread per (g, column) runs the upward sweep
 # into scratch and the downward sweep from it; only the region-summed
-# profiles are written. The plain versions are solvers/tripleclouds.py
+# profiles are written. In a clear layer the cloudy regions are neither
+# loaded nor kept in the scratch (the plain versions zero them), and a
+# block's four g-points share one copy of each level's overlap matrices.
+# Bound by device-memory bandwidth on what it moves, the history in the
+# scratch and then the overlap matrices its largest costs
+# (csrc/tc_sweeps.cu). The plain versions are solvers/tripleclouds.py
 # tc_sw_sweeps_plain and tc_lw_sweeps_plain.
 
 def tc_sw_sweeps_fused(ref, trans, ref_dir, tdd, tdir, v_mat, clear,

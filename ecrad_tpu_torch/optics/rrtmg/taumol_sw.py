@@ -16,9 +16,11 @@ across levels and stays in PyTorch on every device; it indexes the
 SURFACE-first coefficients (taumol_sw_fused.py:420-426, :439-493).
 
 On the H100 the kernel's floor is its 2 x 112 float stores per cell; it
-runs well above it, likely (not yet isolated) in building the per-band
-terms of phase 1, as B1 does. The float32 tables stay in L2 and rows are gathered
-directly, with coalesced (N, 112) stores (csrc/taumol_sw.cu).
+runs well above it, on B1's design (csrc/taumol_sw.cu: band-uniform
+warps over 32-cell tiles, rows staged and written whole). Diagnostic
+builds on the card split its time into about equal parts: building the
+terms and writing the rows, the issue of the slot loop, and the table
+gathers from L1/L2; none is bound by device-memory bytes.
 """
 from __future__ import annotations
 

@@ -122,6 +122,30 @@ def test_b1_ragged_and_regime_cells(slice_state, cells):
     assert float((pf - pf0).abs().max()) <= 1e-6
 
 
+@pytest.mark.parametrize("cells", ["n1", "n31", "n33", "n4099",
+                                   "troposphere", "stratosphere"])
+def test_b2_ragged_and_regime_cells(slice_state, cells):
+    """B2 on 1, 31, 33 and 4,099 cells (around and past its 32-cell tile:
+    the last tile's lanes past the end), and on the tropospheric and the
+    stratospheric cells of the slice apart: within its bound of the plain
+    version, taur equal."""
+    setup, _, c = slice_state
+    fc, ic = taumol_sw.pack_coeffs(c)
+    if cells.startswith("n"):
+        sel = torch.arange(int(cells[1:]), device=fc.device)
+    else:
+        tropo = fc[0] > 0
+        sel = torch.nonzero(tropo if cells == "troposphere" else ~tropo)[:, 0]
+    assert sel.numel() > 0
+    fc, ic = fc[:, sel].contiguous(), ic[:, sel].contiguous()
+    taug, taur = taumol_sw.taumol_sw_kernel(fc, ic, setup.gas.sw)
+    torch.cuda.synchronize()
+    g0, r0 = taumol_sw.taumol_sw_plain(fc, ic, setup.gas.sw)
+    if bool((g0.abs() > 1e-6).any()):
+        _tau_close(taug, g0)
+    assert torch.equal(taur, r0)
+
+
 def _rand(gen, *shape, lo=0.0, hi=1.0, device):
     return lo + (hi - lo) * torch.rand(*shape, generator=gen,
                                        device=device)
@@ -427,13 +451,19 @@ def test_mcica_path_launches_its_kernels(cuda, tmp_path, variant):
         assert float((v.cpu() - ref)[same].abs().max()) <= bound, k
 
 
-def _b5_args(cuda, nreg, nlev, ng, ncol, seed):
+def _b5_args(cuda, nreg, nlev, ng, ncol, seed, pattern="random"):
     """Random region optics (the ranges of tests/test_adding_fused.py),
-    overlap matrices and clear layers, as the sweeps take them."""
+    overlap matrices and clear layers (random, all clear, all cloudy or
+    alternating in level and column), as the sweeps take them."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
     r = lambda *s, lo=0.0, hi=1.0: _rand(gen, *s, lo=lo, hi=hi, device=cuda)
     lay = (nlev, nreg, ng, ncol)
     clear = torch.rand(nlev, ncol, generator=gen, device=cuda) < 0.4
+    lev = torch.arange(nlev, device=cuda)[:, None]
+    col = torch.arange(ncol, device=cuda)[None, :]
+    clear = {"random": clear, "all_clear": torch.ones_like(clear),
+             "all_cloudy": torch.zeros_like(clear),
+             "alternating": (lev + col) % 2 == 0}[pattern]
     v, u = r(nlev + 1, nreg, nreg, ncol), r(nlev, nreg, nreg, ncol)
     frac = r(nreg, ncol, lo=0.05, hi=0.6)
     sw = (r(*lay, hi=0.4), r(*lay, lo=0.3, hi=0.6), r(*lay, hi=0.3),
@@ -461,6 +491,60 @@ def test_b5_kernels_match_plain(cuda, nreg, nlev, ng, ncol):
         torch.cuda.synchronize()
         assert adding_fused.launches[name] == n0 + 1
         assert _rel_all(got, plain(*args)) <= 2e-6, name
+
+
+@pytest.mark.parametrize("ncol", [133, 132])
+@pytest.mark.parametrize("pattern", ["all_clear", "all_cloudy",
+                                     "alternating"])
+@pytest.mark.parametrize("nlev", [1, 2, 7, 137, 300])
+@pytest.mark.parametrize("nreg", [3, 2])
+def test_b5_clear_patterns_bit_identical(cuda, nreg, nlev, pattern, ncol):
+    """B5 skips the cloudy regions' loads and history in clear layers: on
+    all-clear, all-cloudy and alternating layers, at 1, 2, 7, 137 and 300
+    levels x 15 g-points x 133 columns (its 4-byte copies) and 132 columns
+    (its 16-byte copies), neither a multiple of its 32-column x 4-g-point
+    blocks, equal to the plain versions bit for bit."""
+    sw, lw = _b5_args(cuda, nreg, nlev, 15, ncol, nlev, pattern)
+    for fn, plain, args in (
+            (adding_fused.tc_sw_sweeps_fused,
+             tripleclouds.tc_sw_sweeps_plain, sw),
+            (adding_fused.tc_lw_sweeps_fused,
+             tripleclouds.tc_lw_sweeps_plain, lw)):
+        got = fn(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        assert len(got) == len(ref)
+        for x, y in zip(got, ref):
+            assert torch.equal(x, y)
+
+
+def test_b2_b5_resources(cuda):
+    """B2 at 4 blocks (16 warps) per SM with at most 32 bytes of local
+    memory (at its 128-register cap the compiler keeps a few values
+    there, as in B1); B5 with 3 regions resident at the 7 (SW) and 6 (LW)
+    blocks of 4 warps per SM it is compiled for, at 137 and 300 levels,
+    without spills; with 2 regions at most 32 bytes of local memory (the
+    compiler's report)."""
+    from ecrad_tpu_torch.ops import _cuda
+    b2 = _cuda.kernel_info("taumol_sw_info")
+    assert b2["blocks_per_sm"] >= 4 and b2["local_bytes"] <= 32
+    for which, at137, at300 in ((0, 7, 7), (1, 6, 6)):
+        k = _cuda.kernel_info("tc_sweeps_info", which, 3, 137)
+        assert k["threads"] == 128 and k["blocks_per_sm"] >= at137
+        assert k["local_bytes"] == 0
+        assert _cuda.kernel_info("tc_sweeps_info", which, 3,
+                                 300)["blocks_per_sm"] >= at300
+        assert _cuda.kernel_info("tc_sweeps_info", which, 2,
+                                 137)["local_bytes"] <= 32
+    report = _cuda.ptxas_report()
+    for kernel, spills in (("taumol_sw_kernel", 32),
+                           ("tc_sw_kernelILi3ELb1E", 0),
+                           ("tc_lw_kernelILi3ELb1E", 0),
+                           ("tc_sw_kernelILi3ELb0E", 0),
+                           ("tc_lw_kernelILi3ELb0E", 0)):
+        hits = [v for k, v in report.items() if kernel in k]
+        assert len(hits) == 1, kernel
+        assert hits[0]["spill_stores"] <= spills, kernel
 
 
 def test_b5_refuses_what_it_does_not_take(cuda):

@@ -290,17 +290,15 @@ def test_cuda_sources_match_the_plain_layout(mod, src, names, consts):
     assert first + len(named) - 1 == len(names)
     assert _int_array(s, "c_ng") == mod.NG
     assert _int_array(s, "c_goff") == mod.G_OFF
-    if mod is taumol_sw:
-        band = _int_array(s, "c_band")
-        assert band == [b for b, n in enumerate(mod.NG) for _ in range(n)]
-    else:
-        # the LW kernel walks bands, not g-points: its warps' band lists
-        # take every band once (tests/test_torch_taumol_design.py)
-        assert "c_band" not in s
-        body = re.search(r"c_warp_bands(?:\[\w+\])+ = \{(.*?)\};", s,
-                         re.S).group(1)
-        bands = [int(x) for x in re.findall(r"\d+", body)]
-        assert sorted(b for b in bands if b) == list(range(1, 17))
+    # both kernels walk bands, not g-points: their warps' band lists take
+    # every band once (tests/test_torch_taumol_design.py)
+    assert "c_band" not in s
+    body = re.search(r"c_warp_bands(?:\[\w+\])+ = \{(.*?)\};", s,
+                     re.S).group(1)
+    bands = [int(x) for x in re.findall(r"\d+", body)]
+    band0 = 1 if mod is taumol_lw else 16
+    assert sorted(b for b in bands if b) == list(range(band0,
+                                                       band0 + len(mod.NG)))
     if consts is not None:
         assert [c.lower() for c in _enum(s, "C")[:-1]] == consts
     k1, k2 = (mod.K_TAU, mod.K_PF) if mod is taumol_lw \
