@@ -31,8 +31,11 @@ Phases; any failure exits non-zero and prints no result line:
      levels, 15 g-points and 133 columns, a full random surface albedo
      matrix, under (use_matrix, multilayer) (T, F), (T, T) and (F, F), at
      3 and 2 regions; B10 on the 30 calls of
-     one per-band gas-optics call of the 2048 x 137 columns and on that
-     tool's random cases, with rows past both ends);
+     one per-band gas-optics call of the 2048 x 137 columns, with no
+     operand copied by its wrapper, its registers, spills, shared memory
+     and blocks per SM for each call, and on that tool's random cases,
+     with rows past both ends, with zero-padded halves, an all-zero table
+     and weights of both signs);
      B1 also on 1, 137 and 4,099 cells and on the tropospheric and the
      stratospheric cells apart; B2 on 1, 31, 33 and 4,099 cells and on
      those two cell sets, taur at 0 difference; B3 sw_adding and B3'
@@ -88,8 +91,10 @@ Phases; any failure exits non-zero and prints no result line:
         make_clouds and the synthetic LUTs: its file equal, field by
         field, to what radiation() gives for the same file's inputs;
   4. times (information only): each kernel and its plain version with
-     CUDA events (B10 per gas-optics call, its 30 launches, beside one
-     embedding_bag call per launch on the same flattened operands; B1's
+     CUDA events (B10 per gas-optics call, its 30 launches issued from
+     Python, beside the same launches replayed from a CUDA graph, the
+     wrapper with its packing and one embedding_bag call per launch on the
+     same flattened operands; B1's
      and B2's rate on their least bytes, B2's beside its table gathers;
      B3 sw_adding and B3' lw_adding at 137 and 300 levels with the rate
      on the bytes each design moves; B5 with 3 and 2 regions with the
@@ -327,30 +332,66 @@ def read_nc(path):
 
 def random_sections(dev, name, n, seed=0):
     """B10's random cases, built like tools/check_kernel_equivalence.py:
-    48-55 (plain, the two LW eta shapes, mixed), and plain and flattened
-    eta rows past both ends of their tables."""
+    48-55 (plain, the two LW eta shapes, mixed), plain and flattened eta
+    rows past both ends of their tables, the LW bands' tau and pfrac
+    tables side by side with each zero on the other half (ev2 in
+    optics/rrtmg/taumol_lw_sections.py; 10 columns each, so one group of
+    the kernel's 4 columns holds both), and an all-zero table between two
+    others, one of them with a zero column inside its live range; the
+    last two with weights of both signs and one weight a view 4 bytes
+    into its storage (read with 4-byte copies)."""
     from ecrad_tpu_torch.ops import gather_interp as gi
     rng = np.random.RandomState(seed)
     t = lambda x: torch.as_tensor(x, device=dev)            # noqa: E731
 
-    def plain(r, k, g, lo=0, hi=None):
+    def weight(signed):
+        if not signed:
+            return t(rng.rand(n).astype(np.float32))
+        return t((rng.rand(n) - 0.5).astype(np.float32))
+
+    def plain(r, k, g, lo=0, hi=None, signed=False):
         return gi.Section(
             rng.rand(r, g).astype(np.float32),
             [t(rng.randint(lo, r if hi is None else hi, n).astype(np.int32))
              for _ in range(k)],
-            [t(rng.rand(n).astype(np.float32)) for _ in range(k)])
+            [weight(signed) for _ in range(k)])
 
-    def eta(r1, r2, g, gos, eos, grid=(0, None), etas=(1, None)):
+    def eta(r1, r2, g, gos, eos, grid=(0, None), etas=(1, None),
+            signed=False):
         return gi.EtaSection(
             rng.rand(r1, r2, g).astype(np.float32),
             [t(rng.randint(grid[0], grid[1] or r1 - 1, n).astype(np.int32))
              for _ in range(2)],
-            [[(o, t(rng.rand(n).astype(np.float32))) for o in gos]
-             for _ in range(2)],
+            [[(o, weight(signed)) for o in gos] for _ in range(2)],
             [t(rng.randint(etas[0], etas[1] or r2 - 2, n).astype(np.int32))
              for _ in range(2)],
-            [[(o, t(rng.rand(n).astype(np.float32))) for o in eos]
-             for _ in range(2)])
+            [[(o, weight(signed)) for o in eos] for _ in range(2)])
+
+    def half(sec, tau):
+        """sec with the pfrac (tau) or tau (not tau) half of g zeroed"""
+        tab = sec.table.copy()
+        h = tab.shape[-1] // 2
+        tab[..., h:] = 0.0
+        return sec._replace(table=tab if tau else np.roll(tab, h, -1))
+
+    def ev2_halves():
+        secs = [half(eta(65, 9, 20, (0, 1), (-1, 0, 1, 2), signed=True),
+                     True),
+                half(eta(235, 5, 20, (0, 1), (0, 1), signed=True), True),
+                half(plain(10, 2, 20, signed=True), True),
+                half(plain(9, 2, 20, signed=True), False),
+                half(plain(5, 2, 20, signed=True), False)]
+        w = t(np.zeros(n + 1, np.float32))
+        w[1:] = secs[2].weights[0]
+        secs[2].weights[0] = w[1:]
+        return secs
+
+    def zero_section():
+        first = plain(20, 3, 12, lo=-7, hi=26, signed=True)
+        first.table[:, 5] = 0.0
+        zero = plain(7, 2, 12, signed=True)
+        return [first, zero._replace(table=np.zeros_like(zero.table)),
+                eta(13, 9, 12, (0, 1), (0, 1), signed=True)]
 
     return {
         "plain": lambda: [plain(65, 4, 12)],
@@ -361,6 +402,8 @@ def random_sections(dev, name, n, seed=0):
         "out_of_range": lambda: [plain(20, 3, 12, lo=-7, hi=26),
                                  eta(13, 9, 12, (-1, 0, 1), (-3, 0, 1, 4),
                                      grid=(-2, 15), etas=(-4, 12))],
+        "ev2_halves": ev2_halves,
+        "zero_section": zero_section,
     }[name]()
 
 
@@ -380,6 +423,28 @@ def flat_terms(secs, dev):
         off += tab.shape[0]
     return (torch.stack(rows, 1).contiguous(), torch.cat(tabs),
             torch.stack(ws, 1).contiguous())
+
+
+def b10_least(secs, n, g):
+    """(bytes, operations) of one B10 launch at its least: each distinct
+    row and weight tensor the section list names (an eta family's grid
+    and eta rows and its weights) read once, however often it is named,
+    each table whole, the (G, N) output written; 2 operations per term,
+    g and cell."""
+    from ecrad_tpu_torch.ops import gather_interp as gi
+    vecs, ntab, nterms = set(), 0, 0
+    for sec in secs:
+        ntab += int(np.prod(sec.table.shape))
+        if isinstance(sec, gi.EtaSection):
+            for fam, (gts, ets) in enumerate(zip(sec.grid_terms,
+                                                 sec.eta_terms)):
+                vecs |= {id(sec.grids[fam]), id(sec.etas[fam])}
+                vecs |= {id(w) for _, w in gts + ets}
+                nterms += len(gts) * len(ets)
+        else:
+            vecs |= {id(t) for t in list(sec.rows) + list(sec.weights)}
+            nterms += len(sec.rows)
+    return 4 * (len(vecs) * n + ntab + g * n), 2 * nterms * g * n
 
 
 def rel_to_max(a, b):
@@ -1267,6 +1332,8 @@ def main():
                              f"{len(b10_calls)} eval_sections calls, not "
                              f"{B10_PER_CALL}")
     b10_rel, errs["gather_sections"], b10_bytes, b10_ops = 0.0, 0.0, 0, 0
+    b10_moved, b10_plans = 0, []
+    gi.copies["gather_sections"] = 0
     for secs, n in b10_calls:
         a = gi.eval_sections_kernel(secs, n)
         torch.cuda.synchronize()
@@ -1274,11 +1341,15 @@ def main():
         b10_rel = max(b10_rel, rel_to_max(a, b))
         errs["gather_sections"] = max(errs["gather_sections"],
                                       float((a - b).abs().max()))
-        _, rows, w, tab, g, nterms = gi.pack_sections(secs, n, dev)
-        b10_bytes += sum(x.numel() * x.element_size()
-                         for x in (rows, w, tab, a))
-        b10_ops += 2 * nterms * g * n
-        del a, b, rows, w, tab
+        nbytes, nops = b10_least(secs, n, a.shape[0])
+        b10_bytes += nbytes
+        b10_ops += nops
+        p = gi.pack_sections(secs, n, dev)
+        b10_moved += 4 * (len(p.operands) * n + p.tab.numel() + p.g * n)
+        tile = gi._plan_on_card(n, p.nterms, p.ptrs.numel(), p.g)
+        b10_plans.append((tile, _cuda.kernel_info(
+            "gather_sections_info", tile, p.nterms, p.ptrs.numel(), p.g)))
+        del a, b, p
     t_b, t_o = b10_bytes / HBM_BYTES_PER_S, b10_ops / F32_OPS_PER_S
     bounds["gather_sections"] = (max(t_b, t_o) * 1e3,
                                  "bytes" if t_b >= t_o else "operations",
@@ -1286,13 +1357,28 @@ def main():
     log(f"gather_sections: the {B10_PER_CALL} calls of one per-band "
         f"gas-optics call, N={NCOL * NLEV}: worst |diff|/max|plain| "
         f"{b10_rel:.3e} (bound {B10_REL}), worst abs "
-        f"{errs['gather_sections']:.3e}")
+        f"{errs['gather_sections']:.3e}; operands the wrapper copied "
+        f"{gi.copies['gather_sections']}")
     if not b10_rel <= B10_REL:
         raise AssertionError("gather_sections disagrees with its plain "
                              "version on the path's operands")
+    if gi.copies["gather_sections"]:
+        raise AssertionError("the B10 wrapper copied operands of the path")
+    rep = [v for f, v in report.items() if "gather_sections_kernel" in f]
+    rep = rep[0] if len(rep) == 1 else {}
+    big = max(b10_plans, key=lambda x: x[1]["dynamic_smem"])
+    log(f"  B10: {big[1]['registers']} registers, {big[1]['local_bytes']} B "
+        f"local per thread (spill stores {rep.get('spill_stores')} B, loads "
+        f"{rep.get('spill_loads')} B), {big[1]['threads']} threads; its "
+        f"largest block ({big[0]} cells) {big[1]['dynamic_smem']} B shared, "
+        f"{big[1]['blocks_per_sm']} blocks per SM; the 30 calls' (cells a "
+        f"block, blocks per SM): "
+        f"{[(tl, k['blocks_per_sm']) for tl, k in b10_plans]}")
+    if min(k["blocks_per_sm"] for _, k in b10_plans) < 1:
+        raise AssertionError("a B10 block cannot be resident on an SM")
     n_rand = 2048 * 9 + 133
     for name in ("plain", "eta_lw_absa", "eta_lw_absb", "mixed",
-                 "out_of_range"):
+                 "out_of_range", "ev2_halves", "zero_section"):
         secs = random_sections(dev, name, n_rand)
         a = gi.eval_sections_kernel(secs, n_rand)
         torch.cuda.synchronize()
@@ -1548,16 +1634,23 @@ def main():
             lambda: sa.lw_adding_sweeps_plain(*path_args["lw_adding_sweeps"])),
     }
     # B10 per gas-optics call: its 30 launches on operands packed
-    # beforehand (the wrapper's packing is timed apart), the plain
-    # version's 30 calls, and one embedding_bag call per launch on the
-    # same flattened operands (information: nothing on the path calls it)
-    packed = [gi.pack_sections(secs, n, dev) + (n,) for secs, n in b10_calls]
-    b10_out = [torch.empty((p[4], p[6]), device=dev) for p in packed]
+    # beforehand, issued from Python; the same launches replayed from a
+    # CUDA graph (without the host's gaps between launches) and the
+    # wrapper with its packing are timed apart. The plain version's 30
+    # calls, and one embedding_bag call per launch on the same flattened
+    # operands (information: nothing on the path calls it)
+    packed = [(gi.pack_sections(secs, n, dev), n) for secs, n in b10_calls]
+    b10_out = [torch.empty((p.g, n), device=dev) for p, n in packed]
 
     def b10_kernel():
-        for (desc, rows, w, tab, g, nterms, n), out in zip(packed, b10_out):
-            _cuda.launch("gather_sections", desc, rows, w, tab, n, g,
-                         nterms, desc.numel(), out)
+        for ((p, n), out), (tile, _) in zip(zip(packed, b10_out), b10_plans):
+            _cuda.launch("gather_sections", p.desc, p.desc.numel(), p.ptrs,
+                         p.ptrs.numel(), p.tab, n, p.g, tile, out)
+    b10_kernel()
+    torch.cuda.synchronize()
+    b10_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(b10_graph):
+        b10_kernel()
     timing["gather_sections"] = (
         b10_kernel, lambda: [gi.eval_sections_plain(secs, n)
                              for secs, n in b10_calls])
@@ -1570,12 +1663,16 @@ def main():
         torch.nn.functional.embedding_bag(idx, tab, per_sample_weights=w,
                                           mode="sum")
         for idx, tab, w in lib_args], 20)}
+    graph_ms = time_ms(b10_graph.replay, 20)
     wrapper_ms = time_ms(lambda: [gi.eval_sections_kernel(secs, n)
                                   for secs, n in b10_calls], 20)
     log(f"time gather_sections: embedding_bag on the flattened operands "
         f"{library_ms['gather_sections']:.4f} ms per gas-optics call "
-        f"(worst |diff|/max|plain| {lib_err:.3e}); the wrapper with its "
-        f"packing {wrapper_ms:.4f} ms [{gpu}]")
+        f"(worst |diff|/max|plain| {lib_err:.3e}); the 30 launches "
+        f"replayed from a CUDA graph {graph_ms:.4f} ms, the wrapper with "
+        f"its packing {wrapper_ms:.4f} ms; each moves {b10_moved / 1e9:.3f} GB (each "
+        f"row and weight tensor read in place once, the tables' live "
+        f"columns, the outputs; {b10_bytes / 1e9:.3f} GB least) [{gpu}]")
     del lib_args
     ms = {}
     for name, (kern, plain) in timing.items():
@@ -1781,7 +1878,7 @@ def main():
     del spill_args
     del go, planck, props, cloud_m, osc_lw, od_t, ssa_t, g_t, zeros_sw
     del zeros_lw, frac_mask, fc_lw, ic_lw, fc_sw, ic_sw, c, c_sf, gc, args
-    del rc, b10_calls, packed, b10_out, secs, a, b
+    del rc, b10_calls, packed, b10_out, b10_graph, secs, a, b
     torch.cuda.empty_cache()
 
     def per_band(run):

@@ -1,7 +1,6 @@
 // Shared device code of the taumol kernels: eta_index and oneminus for
-// B1 (taumol_lw.cu) and B2 (taumol_sw.cu); the warp's term slots of
-// their band-uniform design (WarpTerms); and gather_sum, the phase-2 core
-// of B10 (gather_sections.cu).
+// B1 (taumol_lw.cu) and B2 (taumol_sw.cu), and the warp's term slots of
+// their band-uniform design (WarpTerms).
 //
 // B1 and B2 build one band's TERMS at a time per warp, lane = cell of a
 // tile of TILE_CELLS consecutive cells: a flat-table element offset (the
@@ -70,15 +69,5 @@ struct WarpTerms {
     for (int i = k - m; i < k; ++i) t[i * TILE_CELLS].y *= s;
   }
 };
-
-// B10's phase 2 for one output: the sum of terms k0 .. k1 - 1 (element
-// offsets `base`, weights `w`) at column gl.
-__device__ __forceinline__ float gather_sum(const float* __restrict__ tab,
-                                            const int* base, const float* w,
-                                            int k0, int k1, int gl) {
-  float acc = 0.0f;
-  for (int k = k0; k < k1; ++k) acc += w[k] * __ldg(tab + base[k] + gl);
-  return acc;
-}
 
 }  // namespace ecrad

@@ -54,7 +54,7 @@ _SIGS = {
     "spartacus_lw_reftrans_fallback": "ppppppppppppiiiiii",
     "spartacus_sw_adding": "ppppiiiiiiffffpppp",
     "spartacus_lw_adding": "pppiiiiiippp",
-    "gather_sections": "ppppiiiip",
+    "gather_sections": "pipipiiip",
 }
 
 # queries of a kernel's compiled resources (no stream): the leading int
@@ -66,7 +66,8 @@ _INFO_SIGS = {"level_sweep_info": "ii",
               "spartacus_sw_adding_info": "i",
               "spartacus_sw_reftrans_info": "ii",
               "spartacus_lw_reftrans_info": "ii",
-              "spartacus_lw_adding_info": "ii"}
+              "spartacus_lw_adding_info": "ii",
+              "gather_sections_info": "iiii"}
 INFO_FIELDS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
                "threads", "blocks_per_sm", "sms")
 

@@ -151,24 +151,35 @@ def test_terms_sum_in_section_then_term_order():
 
 
 def test_pack_sections_descriptor():
-    """The kernel's descriptor, rows and weights for a mixed list: the
-    layout csrc/gather_sections.cu reads."""
+    """The kernel's descriptor, operand table and compacted tables for a
+    mixed list: the layout csrc/gather_sections.cu reads (every table of
+    this case lives on all 12 columns: 3 groups of 4)."""
     case = _rand_case("mixed", 3, "float32")
     secs = _port_sections(case)
-    desc, rows, w, tab, g, nterms = pgi.pack_sections(secs, N, "cpu")
-    d = desc.tolist()
-    assert d[0] == 3 and g == 12 and nterms == 2 + 2 * 2 * 2 + 4
-    # plain(10 x 12): kind, offset, R, K, first row, first weight
-    assert d[1:7] == [pgi.PLAIN, 0, 10, 2, 0, 0]
-    # eta(19, 9): kind, offset, R1*R2, R2, families, then per family
-    assert d[7:12] == [pgi.ETA, 10 * 12, 19 * 9, 9, 2]
-    assert d[12:22] == [2, 3, 2, 2, 2, 4, 0, 1, 0, 1]
-    assert d[22:32] == [4, 5, 2, 6, 2, 8, 0, 1, 0, 1]
-    assert d[32:] == [pgi.PLAIN, 10 * 12 + 19 * 9 * 12, 300, 4, 6, 10]
-    assert rows.shape == (10, N) and rows.dtype == torch.int32
-    assert w.shape == (14, N) and w.dtype == torch.float32
-    assert tab.numel() == (10 + 19 * 9 + 300) * 12
-    np.testing.assert_array_equal(rows[3].numpy(), case[1][4][0])
+    p = pgi.pack_sections(secs, N, "cpu")
+    d = p.desc.tolist()
+    # sections, segments, terms, operands; one segment of 3 groups
+    assert d[:6] == [3, 1, 2 + 2 * 2 * 2 + 4, 24, 0, 3] and p.g == 12
+    # per section: first group, end group, first term, end term
+    assert d[6:18] == [0, 3, 0, 2, 0, 3, 2, 10, 0, 3, 10, 14]
+    terms = [d[18 + 9 * k:18 + 9 * (k + 1)] for k in range(14)]
+    # plain(10 x 12): offset, rows, stride, row, weight operands
+    assert terms[:2] == [[0, 10, 12, 0, 1, -1, 0, 0, 0],
+                         [0, 10, 12, 2, 3, -1, 0, 0, 0]]
+    # eta(19, 9): per family (grid, eta, 2 gw, 2 ew operands), go, eo
+    for fam in range(2):
+        base = 4 + 6 * fam
+        assert terms[2 + 4 * fam:6 + 4 * fam] == [
+            [120, 19 * 9, 12, base, base + 2 + go, base + 1, base + 4 + eo,
+             9, go * 9 + eo] for go in (0, 1) for eo in (0, 1)]
+    assert terms[10:] == [[120 + 19 * 9 * 12, 300, 12, 16 + 2 * k,
+                           17 + 2 * k, -1, 0, 0, 0] for k in range(4)]
+    assert p.tab.numel() == (10 + 19 * 9 + 300) * 12 and p.nterms == 14
+    assert all(o.dtype == (torch.int32 if i in (0, 2, 4, 5, 10, 11)
+                           or (i >= 16 and i % 2 == 0) else torch.float32)
+               for i, o in enumerate(p.operands))
+    np.testing.assert_array_equal(p.operands[5].numpy(), case[1][4][0])
+    assert p.ptrs.tolist() == [o.data_ptr() for o in p.operands]
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -348,7 +348,7 @@ def _reset_counts():
     taumol_lw.launches = taumol_sw.launches = 0
     for d in (adding_fused.launches, mcica_optics.launches,
               spartacus_reftrans.launches, spartacus_adding.launches,
-              gather_interp.launches):
+              gather_interp.launches, gather_interp.copies):
         for k in d:
             d[k] = 0
 
@@ -935,31 +935,67 @@ def test_spartacus_path_launches_its_kernels(cuda, tmp_path, variant):
 
 # ---- B10: the per-band path's table-row interpolation ----
 
+B10_CASES = ["plain", "eta_lw_absa", "eta_lw_absb", "mixed", "out_of_range",
+             "ev2_halves", "zero_section"]
+
+
 def _b10_sections(cuda, name, n, seed=0, dtype=np.float32):
     """Random section lists built like tools/check_kernel_equivalence.py
-    (plain, the two LW eta shapes, mixed), and one with plain and
-    flattened eta rows past both ends of their tables."""
+    (plain, the two LW eta shapes, mixed), one with plain and flattened
+    eta rows past both ends of their tables, the LW bands' tau and pfrac
+    tables side by side with each zero on the other half (10 columns
+    each), and an all-zero table between two others (one with a zero
+    column inside its live range); the last two with weights of both
+    signs and one weight a view 4 bytes into its storage."""
     rng = np.random.RandomState(seed)
     t = lambda x: torch.as_tensor(x, device=cuda)           # noqa: E731
 
-    def plain(r, k, g, lo=0, hi=None):
+    def weight(signed):
+        x = rng.rand(n) - (0.5 if signed else 0.0)
+        return t(x.astype(dtype))
+
+    def plain(r, k, g, lo=0, hi=None, signed=False):
         return gather_interp.Section(
             rng.rand(r, g).astype(dtype),
             [t(rng.randint(lo, r if hi is None else hi, n).astype(np.int32))
              for _ in range(k)],
-            [t(rng.rand(n).astype(dtype)) for _ in range(k)])
+            [weight(signed) for _ in range(k)])
 
-    def eta(r1, r2, g, gos, eos, grid=(0, None), etas=(1, None)):
+    def eta(r1, r2, g, gos, eos, grid=(0, None), etas=(1, None),
+            signed=False):
         return gather_interp.EtaSection(
             rng.rand(r1, r2, g).astype(dtype),
             [t(rng.randint(grid[0], grid[1] or r1 - 1, n).astype(np.int32))
              for _ in range(2)],
-            [[(o, t(rng.rand(n).astype(dtype))) for o in gos]
-             for _ in range(2)],
+            [[(o, weight(signed)) for o in gos] for _ in range(2)],
             [t(rng.randint(etas[0], etas[1] or r2 - 2, n).astype(np.int32))
              for _ in range(2)],
-            [[(o, t(rng.rand(n).astype(dtype))) for o in eos]
-             for _ in range(2)])
+            [[(o, weight(signed)) for o in eos] for _ in range(2)])
+
+    def half(sec, tau):
+        tab = sec.table.copy()
+        h = tab.shape[-1] // 2
+        tab[..., h:] = 0.0
+        return sec._replace(table=tab if tau else np.roll(tab, h, -1))
+
+    def ev2_halves():
+        secs = [half(eta(65, 9, 20, (0, 1), (-1, 0, 1, 2), signed=True),
+                     True),
+                half(eta(235, 5, 20, (0, 1), (0, 1), signed=True), True),
+                half(plain(10, 2, 20, signed=True), True),
+                half(plain(9, 2, 20, signed=True), False),
+                half(plain(5, 2, 20, signed=True), False)]
+        w = t(np.zeros(n + 1, dtype))
+        w[1:] = secs[2].weights[0]
+        secs[2].weights[0] = w[1:]
+        return secs
+
+    def zero_section():
+        first = plain(20, 3, 12, lo=-7, hi=26, signed=True)
+        first.table[:, 5] = 0.0
+        zero = plain(7, 2, 12, signed=True)
+        return [first, zero._replace(table=np.zeros_like(zero.table)),
+                eta(13, 9, 12, (0, 1), (0, 1), signed=True)]
 
     return {
         "plain": lambda: [plain(65, 4, 12)],
@@ -970,11 +1006,12 @@ def _b10_sections(cuda, name, n, seed=0, dtype=np.float32):
         "out_of_range": lambda: [plain(20, 3, 12, lo=-7, hi=26),
                                  eta(13, 9, 12, (-1, 0, 1), (-3, 0, 1, 4),
                                      grid=(-2, 15), etas=(-4, 12))],
+        "ev2_halves": ev2_halves,
+        "zero_section": zero_section,
     }[name]()
 
 
-@pytest.mark.parametrize("name", ["plain", "eta_lw_absa", "eta_lw_absb",
-                                  "mixed", "out_of_range"])
+@pytest.mark.parametrize("name", B10_CASES)
 def test_b10_kernel_matches_plain(cuda, name):
     n = 2048 * 9 + 133            # not a multiple of the block
     secs = _b10_sections(cuda, name, n)
@@ -983,8 +1020,59 @@ def test_b10_kernel_matches_plain(cuda, name):
     torch.cuda.synchronize()
     assert gather_interp.launches["gather_sections"] == n0 + 1
     ref = gather_interp.eval_sections_plain(secs, n)
-    assert got.shape == ref.shape == (12, n)
+    g = 20 if name == "ev2_halves" else 12
+    assert got.shape == ref.shape == (g, n)
     assert float((got - ref).abs().max() / ref.abs().max()) <= 5e-6
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 2048 * 9 + 133])
+@pytest.mark.parametrize("name", B10_CASES)
+def test_b10_equals_plain_by_value(cuda, name, n):
+    """Each (cell, g) summed in the plain version's order from 0, the
+    zero columns skipped: equal by value (-0 == +0) on ragged N, through
+    the wrapper (its planned tile) and launched at other tiles on the
+    same packed operands."""
+    from ecrad_tpu_torch.ops import _cuda
+    secs = _b10_sections(cuda, name, n, seed=n)
+    ref = gather_interp.eval_sections_plain(secs, n)
+    c0 = gather_interp.copies["gather_sections"]
+    assert torch.equal(gather_interp.eval_sections_kernel(secs, n), ref)
+    p = gather_interp.pack_sections(secs, n, cuda)
+    for tile in (32, 100, 512):
+        got = torch.empty((p.g, n), device=cuda)
+        _cuda.launch("gather_sections", p.desc, p.desc.numel(), p.ptrs,
+                     p.ptrs.numel(), p.tab, n, p.g, tile, got)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), tile
+    assert gather_interp.copies["gather_sections"] == c0
+
+
+def test_b10_copies_int64_and_strided_operands(cuda):
+    n = 4099
+    secs = _b10_sections(cuda, "mixed", n)
+    rows64 = secs[0].rows[0].long()
+    strided = torch.stack([secs[0].weights[1]] * 2, 1)[:, 1]
+    secs[0] = secs[0]._replace(rows=[rows64, rows64],
+                               weights=[secs[0].weights[0], strided])
+    c0 = gather_interp.copies["gather_sections"]
+    got = gather_interp.eval_sections_kernel(secs, n)
+    torch.cuda.synchronize()
+    assert gather_interp.copies["gather_sections"] == c0 + 2
+    assert torch.equal(got, gather_interp.eval_sections_plain(secs, n))
+
+
+def test_b10_resources(cuda):
+    """The largest call of the path (LW band 3: 40 terms, 55 operands,
+    G = 32) and the smallest: no local memory, the shared memory the
+    wrapper counts, resident at the planned tile."""
+    from ecrad_tpu_torch.ops import _cuda
+    for nterms, nptr, g in ((40, 55, 32), (3, 6, 8)):
+        tile = gather_interp._plan_on_card(2048 * 137, nterms, nptr, g)
+        k = _cuda.kernel_info("gather_sections_info", tile, nterms, nptr, g)
+        assert k["local_bytes"] == 0 and k["threads"] == gather_interp.BLOCK
+        assert k["dynamic_smem"] == gather_interp.smem_bytes(tile, nterms,
+                                                             nptr, g)
+        assert k["blocks_per_sm"] >= 1 and tile % 32 == 0
 
 
 def test_b10_refuses_float64_and_cpu_tensors(cuda):
@@ -1018,6 +1106,7 @@ def test_per_band_gas_optics_launch_b10_only(cuda, monkeypatch):
     per_band = run()
     torch.cuda.synchronize()
     assert gather_interp.launches["gather_sections"] == 30
+    assert gather_interp.copies["gather_sections"] == 0
     assert taumol_lw.launches == taumol_sw.launches == 0
     _tau_close(per_band.od_lw, fused.od_lw)
     _tau_close(per_band.od_sw, fused.od_sw)
