@@ -90,6 +90,24 @@ Phases; any failure exits non-zero and prints no result line:
      j. the driver with McICA (all-band gas optics) on 256 columns of
         make_clouds and the synthetic LUTs: its file equal, field by
         field, to what radiation() gives for the same file's inputs;
+     k. the IFS entry point, coupling.radiation_scheme, on the 2048 x 137
+        columns with make_clouds' clouds (McICA, the surface band fluxes,
+        the band profiles, the clear sky, a spectral solar scaling of
+        0.8-1.2, the canopy fluxes), then unpack_host_outputs: the
+        profiles summed over bands against the broadband fluxes, a
+        scaling of ones against none bit for bit, UV and PAR finite and
+        below the surface sw_dn; its ms beside radiation() on McICA;
+     l. SPARTACUS with the g-point profiles on the 2048 x 137 columns:
+        summed, the broadband fluxes; summed over each band's g-points by
+        the un-reordered band map, the band profiles of the same call
+        with do_save_spectral_flux alone;
+     m. the monochromatic model on the 2048 x 137 columns under
+        Homogeneous (LW cloud scattering on) and McICA (off): B3, B3' and
+        B4 at one g-point, each against its plain version on the
+        operands those paths hand it;
+     n. SPARTACUS with the entrapment dump on 256 columns: every flux
+        field equal to the call without it, B8 launched, the internals
+        finite and (137, 3, 256), the driver's fort.101/102 files;
   4. times (information only): each kernel and its plain version with
      CUDA events (B10 per gas-optics call, its 30 launches issued from
      Python, beside the same launches replayed from a CUDA graph, the
@@ -195,7 +213,29 @@ PATH_KERNELS = {
     "driver_per_band": ("gather_sections", "sw_adding", "lw_noscat"),
     "driver_mcica": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
                      "mcica_sw_optics"),
+    "ifs_entry": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
+                  "mcica_sw_optics"),
+    "spartacus_gpoint": ("taumol_lw", "taumol_sw", "sw_adding",
+                         "lw_adding", "spartacus_sw_reftrans",
+                         "spartacus_lw_reftrans", "spartacus_sw_adding",
+                         "spartacus_lw_adding"),
+    "spartacus_bands": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
+                        "spartacus_sw_reftrans", "spartacus_lw_reftrans",
+                        "spartacus_sw_adding", "spartacus_lw_adding"),
+    "mono_homogeneous": ("sw_adding", "lw_adding", "lw_noscat"),
+    "mono_mcica": ("sw_adding", "lw_noscat", "mcica_sw_optics",
+                   "mcica_lw_optics"),
+    "spartacus_dump": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
+                       "spartacus_sw_reftrans", "spartacus_lw_reftrans",
+                       "spartacus_sw_adding", "spartacus_lw_adding"),
 }
+# the band and g-point profiles, each summed over its last axis, against
+# the broadband profile: of each field's largest value
+PROFILE_REL = 1e-5
+PROFILES = ("lw_up", "lw_dn", "sw_up", "sw_dn", "sw_dn_direct")
+# the monochromatic model's optical depths (the toy model's totals)
+MONO = dict(mono_lw_total_od=2.0, mono_sw_total_od=0.5, use_aerosols=False)
+NCOL_DUMP = 256
 # B10 launches per gas-optics call of the per-band path: 16 LW bands, 13
 # SW bands with gas absorption and band 24's Rayleigh term
 B10_PER_CALL = 30
@@ -587,6 +627,56 @@ def check_fluxes(f, cols, ncol):
     if not (toa_err <= 1e-5 * cols["solar_irradiance"]
             and night_max == 0.0 and rise <= 1e-3):
         raise AssertionError("fluxes are not physical")
+
+
+def host_arrays(cols):
+    """coupling.radiation_scheme's arguments from columns with clouds:
+    water vapour and ozone from the columns, latitudes from pole to pole,
+    land and sea in turn."""
+    from ecrad_tpu_torch.constants import GAS_INDEX
+    ncol = cols["cos_sza"].shape[0]
+    return dict(
+        pressure_hl=cols["pressure_hl"], temperature_hl=cols["temperature_hl"],
+        cos_sza=cols["cos_sza"], skin_temperature=cols["skin_temperature"],
+        sw_albedo=cols["sw_albedo"], lw_emissivity=cols["lw_emissivity"],
+        q=cols["mixing_ratio"][:, :, GAS_INDEX["h2o"]],
+        o3_mmr=cols["mixing_ratio"][:, :, GAS_INDEX["o3"]],
+        q_liq=cols["q_liq"], q_ice=cols["q_ice"], cloud_frac=cols["fraction"],
+        sin_latitude=np.linspace(-0.99, 0.99, ncol),
+        land_frac=np.arange(ncol) % 2 * 1.0,
+        solar_irradiance=float(cols["solar_irradiance"]))
+
+
+def path_ms(fn, reps=3):
+    """Host milliseconds per call of fn(), best of 2 x reps back-to-back
+    calls ending in a synchronise."""
+    best = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        best.append((time.perf_counter() - t0) / reps)
+    return min(best) * 1e3
+
+
+def check_profiles(f, what):
+    """Every band or g-point profile, total and clear sky, summed over its
+    last axis: the broadband profile, within PROFILE_REL of its largest
+    value."""
+    worst = 0.0
+    for k in PROFILES + tuple(p + "_clear" for p in PROFILES):
+        band = k.replace("_clear", "_band_clear") if "clear" in k \
+            else k + "_band"
+        err = np.abs(f[band].sum(-1) - f[k]).max() / np.abs(f[k]).max()
+        worst = max(worst, err)
+        if not err <= PROFILE_REL:
+            raise AssertionError(f"{what}: {band} summed is {err:.3e} of "
+                                 f"{k}'s largest value from it")
+    log(f"{what}: the 10 profiles of {f['lw_up_band'].shape[-1]} (LW) and "
+        f"{f['sw_up_band'].shape[-1]} (SW) summed: worst {worst:.3e} of "
+        f"the broadband's largest value (bound {PROFILE_REL})")
 
 
 def check_golden(f, golden, fields, bounds, rows=slice(None), f64=True,
@@ -1581,6 +1671,194 @@ def main():
     if code != 0 or differ or set(got) != set(ref):
         raise AssertionError("the McICA driver's file differs from "
                              "radiation() on its inputs")
+
+    # ---- the configuration surface: the IFS entry point, g-point
+    # profiles, the monochromatic model, the entrapment dump ----
+    from ecrad_tpu_torch import coupling
+    from ecrad_tpu_torch.config import GasModel
+    # k. coupling.radiation_scheme at full width: McICA with the surface
+    # band fluxes, the band profiles, the clear sky, a spectral solar
+    # scaling and the canopy fluxes (SW by overlap weights), then
+    # unpack_host_outputs
+    setup_ifs = setup_radiation(mcica_slice_config(
+        **luts, do_surface_sw_spectral_flux=True, do_save_spectral_flux=True,
+        do_clear=True, use_spectral_solar_scaling=True,
+        do_canopy_fluxes_sw=True, do_canopy_fluxes_lw=True), device=dev)
+    host = host_arrays(cols_m)
+    scaling = np.linspace(0.8, 1.2, 14)
+    ifs = lambda s: coupling.radiation_scheme(  # noqa: E731
+        setup_ifs, **host, spectral_solar_scaling=s)
+    flux_ifs = count("ifs_entry", lambda: ifs(scaling))
+    f = {k: v.double().cpu().numpy() for k, v in flux_ifs.fields()}
+    check_fluxes(f, cols_m, NCOL)
+    check_profiles(f, "ifs_entry")
+    out = coupling.unpack_host_outputs(
+        setup_ifs, flux_ifs, cos_sza=host["cos_sza"],
+        skin_temperature=host["skin_temperature"],
+        lw_emissivity=host["lw_emissivity"])
+    for k, sw_surf in (("flux_uv", flux_ifs.sw_dn), ("flux_par",
+                                                      flux_ifs.sw_dn),
+                       ("flux_par_clear", flux_ifs.sw_dn_clear)):
+        v = getattr(out, k)
+        if not (bool(torch.isfinite(v).all())
+                and bool((v <= sw_surf[:, -1] + 1e-3).all())):
+            raise AssertionError(f"{k} is not finite or exceeds the surface "
+                                 f"sw_dn (clear sky for the clear PAR)")
+    ones, unscaled = ifs(np.ones(14)), ifs(None)
+    differ = [k for k, v in ones.fields()
+              if not torch.equal(v, getattr(unscaled, k))]
+    moved = float((flux_ifs.sw_dn_band - unscaled.sw_dn_band).abs().max())
+    log(f"ifs_entry: UV {float(out.flux_uv.max()):.3f}, PAR "
+        f"{float(out.flux_par.max()):.3f} W/m2 at most, below the surface "
+        f"sw_dn (the clear PAR below the clear sw_dn); a scaling of ones against none: {len(differ)} of "
+        f"{len(ones.fields())} fields differ {differ}; the scaling 0.8-1.2 "
+        f"moves sw_dn_band by up to {moved:.3f} W/m2")
+    if differ or not moved > 1.0:
+        raise AssertionError("the spectral solar scaling is wrong")
+    del ones, unscaled, out
+    ms_ifs = path_ms(lambda: ifs(scaling))
+    ms_mcica = path_ms(lambda: radiation(setup_m, *inputs_m))
+    log(f"time ifs_entry: coupling.radiation_scheme {ms_ifs:.3f} ms per "
+        f"{NCOL}-column call, radiation() on the McICA path {ms_mcica:.3f} "
+        f"ms [{gpu}]")
+
+    # l. the g-point profiles under SPARTACUS at full width, in the
+    # original g order: summed over each band's g-points by the
+    # un-reordered band map, the band profiles of the same call with
+    # do_save_spectral_flux alone
+    setup_gp, setup_bd = (setup_radiation(spartacus_slice_config(
+        **luts_fu, do_save_spectral_flux=True, do_save_gpoint_flux=gp),
+        device=dev) for gp in (True, False))
+    f_gp = counted("spartacus_gpoint", lambda: radiation(setup_gp,
+                                                        *inputs_sp))
+    check_profiles(f_gp, "spartacus_gpoint")
+    f_bd = counted("spartacus_bands", lambda: radiation(setup_bd,
+                                                       *inputs_sp))
+    check_profiles(f_bd, "spartacus_bands")
+    worst = 0.0
+    for k in f_bd:
+        if "_band" not in k or "surf" in k:
+            continue
+        band = (setup_gp.spec.band_from_g_lw if k.startswith("lw")
+                else setup_gp.spec.band_from_g_sw)
+        summed = np.stack([f_gp[k][..., band == b].sum(-1)
+                           for b in range(f_bd[k].shape[-1])], -1)
+        err = np.abs(summed - f_bd[k]).max() / np.abs(f_bd[k]).max()
+        worst = max(worst, err)
+        if not err <= PROFILE_REL:
+            raise AssertionError(f"g-point {k} summed by band is {err:.3e} "
+                                 f"from the band profile")
+    log(f"spartacus_gpoint: g-point profiles summed by the un-reordered "
+        f"band map against the band profiles: worst {worst:.3e} of each "
+        f"field's largest value (bound {PROFILE_REL})")
+    del f_gp, f_bd
+    ms_gp = path_ms(lambda: radiation(setup_gp, *inputs_sp))
+    ms_sp = path_ms(lambda: radiation(setup_sp, *inputs_sp))
+    log(f"time spartacus_gpoint: {ms_gp:.3f} ms per {NCOL}-column call with"
+        f" the g-point profiles, {ms_sp:.3f} ms without [{gpu}]")
+
+    # m. the monochromatic model at full width: B3, B3' and B4 at one
+    # g-point (Homogeneous with LW cloud scattering, the clear sky without:
+    # sw_adding, lw_adding, lw_noscat; McICA without: sw_adding, lw_noscat
+    # and both B4 kernels);
+    # each kernel against its plain version on the operands the paths
+    # hand it
+    mono = {"mono_homogeneous": setup_radiation(tripleclouds_slice_config(
+                **luts_fu, **MONO, i_gas_model=GasModel.MONOCHROMATIC,
+                i_solver_sw=Solver.HOMOGENEOUS,
+                i_solver_lw=Solver.HOMOGENEOUS, do_lw_cloud_scattering=True,
+                do_lw_aerosol_scattering=False), device=dev),
+            "mono_mcica": setup_radiation(mcica_slice_config(
+                **luts, **MONO, i_gas_model=GasModel.MONOCHROMATIC,
+                do_lw_cloud_scattering=False,
+                do_lw_aerosol_scattering=False), device=dev)}
+    for name, s_mono in mono.items():
+        f = counted(name, lambda: radiation(s_mono, *inputs_m))
+        check_fluxes(f, cols_m, NCOL)
+        cloud_effect(f, name)
+    one_g = {}
+    one_g_kernels = (
+        ("sw_adding", adding_fused, "adding_sw_fused",
+         adding.adding_sw_plain),
+        ("lw_noscat", adding_fused, "lw_noscat_fused",
+         adding.lw_no_scattering_fluxes_plain),
+        ("lw_adding", adding_fused, "adding_lw_fused",
+         adding.adding_lw_plain),
+        ("mcica_sw_optics", mcica_optics, "mcica_sw_optics_fused",
+         mcica_optics.sw_clear_total_reftrans_plain),
+        ("mcica_lw_optics", mcica_optics, "mcica_lw_optics_fused",
+         mcica_optics.lw_clear_total_noscat_plain))
+
+    def first_args(attr, orig):
+        def wrapper(*args):
+            one_g.setdefault(attr, args)
+            return orig(*args)
+        return wrapper
+    saved = [(mod, attr, getattr(mod, attr))
+             for _, mod, attr, _ in one_g_kernels]
+    for mod, attr, orig in saved:
+        setattr(mod, attr, first_args(attr, orig))
+    try:
+        for s_mono in mono.values():
+            radiation(s_mono, *inputs_m)
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+    for name, mod, attr, plain in one_g_kernels:
+        args = one_g[attr]
+        got = getattr(mod, attr)(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        rel = max(rel_to_max(x, y) for x, y in zip(got, ref))
+        err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
+        errs[name] = max(errs[name], err)
+        bound = OPTICS_REL.get(name, SWEEP_REL)
+        log(f"{name} at one g-point: shape {tuple(args[0].shape)} worst "
+            f"|diff|/max|plain| {rel:.3e} (bound {bound}), worst abs "
+            f"{err:.3e}")
+        if not rel <= bound or (name in ADDING and err != 0.0):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at one g-point")
+    del one_g, got, ref
+    for name, s_mono in mono.items():
+        log(f"time {name}: {path_ms(lambda: radiation(s_mono, *inputs_m)):.3f}"
+            f" ms per {NCOL}-column call [{gpu}]")
+
+    # n. the SPARTACUS entrapment dump on 256 columns: B8 still carries the
+    # fluxes, equal to those of the call without the dump; the plain
+    # sweeps give the first g-point's internals; the driver's text files
+    setup_dump = setup_radiation(spartacus_slice_config(
+        **luts_fu, do_print_entrapment_data=True), device=dev)
+    cols_d = slice_columns(cols_sp, slice(0, NCOL_DUMP))
+    inputs_d = columns_to_inputs(cols_d, device=dev)
+    flux_d = count("spartacus_dump", lambda: radiation(setup_dump,
+                                                       *inputs_d))
+    ref_d = radiation(setup_sp, *inputs_d)
+    differ = [k for k, v in ref_d.fields()
+              if not torch.equal(v, getattr(flux_d, k))]
+    shapes = [tuple(x.shape) for x in flux_d.entrapment_data]
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in flux_d.entrapment_data)
+    driver._dump_entrapment_data(os.path.join(DRIVER_DIR, "dump.nc"),
+                                 flux_d.entrapment_data)
+    lines = [sum(1 for _ in open(os.path.join(DRIVER_DIR, "dump.nc" + ext)))
+             for ext in (".fort.101", ".fort.102")]
+    log(f"spartacus_dump: {len(differ)} of {len(ref_d.fields())} flux fields"
+        f" differ from the call without the dump {differ}; internals "
+        f"{shapes}, finite {finite}, largest migration distance "
+        f"{float(flux_d.entrapment_data[0].max()):.1f} m; fort.101/102 "
+        f"{lines} lines")
+    if differ or not finite or shapes != [(NLEV, 3, NCOL_DUMP)] * 4 or \
+            lines != [NLEV * NCOL_DUMP] * 2:
+        raise AssertionError("the entrapment dump is wrong")
+    # (the dump's plain sweeps launch small kernels level by level: one
+    # call a repetition)
+    log(f"time spartacus_dump: "
+        f"{path_ms(lambda: radiation(setup_dump, *inputs_d), 1):.3f} ms per "
+        f"{NCOL_DUMP}-column call with the dump, "
+        f"{path_ms(lambda: radiation(setup_sp, *inputs_d)):.3f} without "
+        f"[{gpu}]")
+    del flux_d, ref_d, inputs_d, flux_ifs, setup_gp, setup_bd, mono
 
     # ---- 4. times (information only) ----
     timing = {

@@ -5,8 +5,8 @@ jax): the same RadiationConfig fields, enums and namelist reader
 (radiation/radiation_config.F90:147-543, :558-912), so the port reads the
 same namelists, and the offline driver's DriverConfig
 (driver/ecrad_driver_config.F90; ecrad_tpu/config.py:311-362, :538+).
-`check_supported` rejects every setting the port does not implement yet,
-naming the ROADMAP slice that brings it.
+`check_supported` rejects a region count or dtype that no solver takes;
+every setting the JAX package accepts is ported.
 """
 from __future__ import annotations
 
@@ -634,21 +634,12 @@ def spartacus_slice_config(**overrides) -> RadiationConfig:
         "min_cloud_effective_size": 100.0, **overrides})
 
 
-# (setting, ROADMAP Queue A slice that brings it) for everything the
-# ported paths do not cover
 def _unsupported(cfg: RadiationConfig):
-    if cfg.i_gas_model != GasModel.RRTMG_IFS:
-        yield "the monochromatic gas model", "8 (periphery)"
-    if cfg.do_print_entrapment_data:
-        yield "do_print_entrapment_data", "8 (periphery)"
-    if cfg.do_save_spectral_flux or cfg.do_save_gpoint_flux:
-        yield "do_save_spectral_flux/do_save_gpoint_flux", "8 (periphery)"
-    if cfg.do_canopy_fluxes_sw or cfg.do_canopy_fluxes_lw:
-        yield "do_canopy_fluxes_sw/lw", "8 (periphery, surface)"
-    if cfg.use_canopy_full_spectrum_sw or cfg.use_canopy_full_spectrum_lw:
-        yield "use_canopy_full_spectrum_sw/lw", "8 (periphery, surface)"
-    if cfg.use_spectral_solar_scaling:
-        yield "use_spectral_solar_scaling", "8 (periphery)"
+    """(setting, ROADMAP Queue A item that brings it) for each setting of
+    `cfg` the port lacks: none, since every setting the JAX package's
+    setup_radiation accepts is ported (a tiled-surface input is the
+    driver's to refuse). Raises ValueError for a region count or dtype
+    that no solver takes."""
     solvers = (cfg.i_solver_sw, cfg.i_solver_lw)
     for solver in (Solver.TRIPLECLOUDS, Solver.SPARTACUS):
         if solver in solvers and cfg.nregions not in (2, 3):
@@ -657,13 +648,13 @@ def _unsupported(cfg: RadiationConfig):
     if cfg.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be float32 or float64, not "
                          f"{cfg.dtype!r}")
+    yield from ()
 
 
 def check_supported(cfg: RadiationConfig) -> None:
     """Raise NotImplementedError for a setting the port lacks, rather
-    than silently computing something else."""
+    than silently computing something else, and ValueError for one no
+    solver takes."""
     for what, where in _unsupported(cfg):
         raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP.md Queue A, slice "
-            f"{where}); the PyTorch port runs the Cloudless, McICA, "
-            f"Homogeneous, Tripleclouds and SPARTACUS solvers")
+            f"{what} is not ported yet (ROADMAP.md Queue A, item {where})")

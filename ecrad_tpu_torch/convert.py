@@ -39,10 +39,11 @@ def setup_from_numpy(config: RadiationConfig, tables: Mapping,
                      aerosol_optics=None) -> RadiationSetup:
     """The port's setup, on `device` (the GPU unless the caller asks for
     another), from a JAX RadiationSetup's numpy content: `tables` its
-    `setup.tables`, `spec_arrays` its `setup.spec` (any object with the
-    GasOpticsSpec fields; without g_from_reordered_g_* the g order is the
-    identity, with them the SPARTACUS order carries over), the four
-    interval maps, its `cloud_optics` (the five coefficient arrays) for a
+    `setup.tables` (empty for the monochromatic model, whose one-g spec
+    and maps carry over as they are), `spec_arrays` its `setup.spec` (any
+    object with the GasOpticsSpec fields; without g_from_reordered_g_* the
+    g order is the identity, with them the SPARTACUS order carries over),
+    the four interval maps, its `cloud_optics` (the five coefficient arrays) for a
     cloudy setup, its `pdf_sampler` (val, fsd1, inv_fsd_interval, cheb,
     z0, z1) for McICA, and its `aerosol_optics` (the AerosolOpticsTables
     fields) with use_aerosols."""
@@ -100,13 +101,15 @@ def columns_to_inputs(cols: Mapping, device="cuda", dtype=torch.float32):
     (inputs.make_clouds; with the effective sizes of
     inputs.add_effective_sizes where `cols` holds them), and the Aerosol
     as a fifth when it holds aerosol_mmr (inputs.make_aerosols; the Cloud
-    is then None without cloud fields). On `device`, the GPU unless the
-    caller asks for another."""
+    is then None without cloud fields); the SingleLevel takes `cols`'
+    spectral_solar_scaling (14,) where it holds one. On `device`, the GPU
+    unless the caller asks for another."""
     cloudy = "fraction" in cols
     aerosols = "aerosol_mmr" in cols
     sl, th, gas, cloud, aer = inputs_from_numpy(
         {k: cols[k] for k in ("cos_sza", "skin_temperature", "sw_albedo",
-                              "lw_emissivity") + (("iseed",) * cloudy)}
+                              "lw_emissivity", "spectral_solar_scaling")
+         + (("iseed",) * cloudy) if k in cols}
         | {"solar_irradiance": float(cols["solar_irradiance"])},
         {k: cols[k] for k in ("pressure_hl", "temperature_hl")},
         {"mixing_ratio": cols["mixing_ratio"]},

@@ -9,17 +9,18 @@ the inputs (and clamps them with do_correct_unphysical_inputs), writes
 inputs.nc and radiative_properties.nc when asked, runs the scheme nrepeat
 times (in column blocks of column_block_size when that is set), checks
 the fluxes, flips them back for height-increasing input and writes them
-(HDF5 with do_write_hdf5, float64 with do_write_double_precision).
+(HDF5 with do_write_hdf5, float64 with do_write_double_precision), with
+do_print_entrapment_data also the SPARTACUS entrapment internals as the
+text files <output>.fort.101 and <output>.fort.102.
 
 It runs on the GPU unless --device says otherwise (the CPU runs the
 kernels' plain versions). The environment variable ECRAD_FUSED_TAUMOL=0
 selects the per-band gas optics (kernel B10), as in the JAX package.
 `--no-jit` is accepted for the JAX driver's command line and ignored
 (PyTorch runs eagerly). Not ported: a tiled-surface input (refused with
-NotImplementedError until the surface slice, ROADMAP.md Queue A slice 8);
+NotImplementedError until the surface slice, ROADMAP.md Queue A);
 do_parallel (the port runs on one GPU, where the JAX driver's sharding
-does nothing either); do_print_entrapment_data (refused by
-config.check_supported).
+does nothing either).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import argparse
 import sys
 import time
 
+import numpy as np
 import torch
 
 from .config import (describe_config, load_config_from_namelist,
@@ -161,7 +163,32 @@ def main(argv=None) -> int:
         print(f"Writing {args.output_nc}")
     save_fluxes(args.output_nc, flux, thermo, hdf5=dc.do_write_hdf5,
                 double_precision=dc.do_write_double_precision)
+    if flux.entrapment_data is not None:
+        _dump_entrapment_data(args.output_nc, flux.entrapment_data)
     return 0
+
+
+def _dump_entrapment_data(output_nc, data):
+    """The reference's PRINT_ENTRAPMENT_DATA text dumps
+    (radiation_spartacus_sw.F90:1007-1020, :1486-1497), byte for byte as
+    ecrad_tpu/driver.py:242-264 writes them: <output_nc>.fort.101 holds
+    per column and level the direct and diffuse migration distances of
+    each region and a 1.0 per region, .fort.102 the direct and total
+    downward fluxes of each region."""
+    x_dir, x_diff, direct_dn, flux_dn = [
+        x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        for x in data]
+    nlev, nreg, ncol = x_dir.shape
+
+    def write(path, columns):
+        with open(path, "w") as f:
+            for jcol in range(ncol):
+                for jlev in range(nlev):
+                    f.write(f"{jcol + 1:4d}{jlev + 1:4d}" + "".join(
+                        f"{v:14.6e}" for x in columns
+                        for v in x[jlev, :, jcol]) + "\n")
+    write(output_nc + ".fort.101", (x_dir, x_diff, np.ones_like(x_dir)))
+    write(output_nc + ".fort.102", (direct_dn, flux_dn))
 
 
 if __name__ == "__main__":

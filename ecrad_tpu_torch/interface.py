@@ -1,23 +1,27 @@
 """Top level: setup_radiation and the radiation() entry point.
 
-Port of ecrad_tpu/interface.py:32-134, :197-510 (radiation/
-radiation_interface.F90) for the Cloudless, McICA, Homogeneous,
-Tripleclouds and SPARTACUS solvers: setup loads the tables, spectral
-mappings, for a cloudy solver the cloud-optics LUTs, for McICA the
-cloud-PDF sampler and with use_aerosols the aerosol LUT, onto one device
-(the GPU unless the caller asks for another); radiation() runs gas
-optics, the aerosol stage, the cloud stage (default fractional_std,
+Port of ecrad_tpu/interface.py (radiation/radiation_interface.F90) for
+the Cloudless, McICA, Homogeneous, Tripleclouds and SPARTACUS solvers and
+both gas models: setup loads the tables and spectral mappings (the
+monochromatic model has neither: one band, one g-point), for a cloudy
+solver the cloud-optics LUTs, for McICA the cloud-PDF sampler and with
+use_aerosols the aerosol LUT, onto one device (the GPU unless the caller
+asks for another); radiation() runs gas optics (with the spectral solar
+scaling), the aerosol stage, the cloud stage (default fractional_std,
 overlap parameter from a 2 km decorrelation length, cropping, cloud
-optics), the solvers and the flux assembly. Inputs whose pressure
-increases upwards are flipped, run TOA first, and their flux profiles
-flipped back. On CUDA tensors the path
+optics), the solvers and the flux assembly: broadband profiles, surface
+band and g-point fluxes, the canopy-top fluxes, and the band or g-point
+profiles of do_save_spectral_flux. Inputs whose pressure increases
+upwards are flipped, run TOA first, and their flux profiles flipped
+back. On CUDA tensors the path
 runs kernels B1 (LW taumol), B2 (SW taumol) or with
 ECRAD_FUSED_TAUMOL=0 B10 (per-band taumol), B3/B3' (adding sweeps), B4
 (McICA layer optics), B5 (Tripleclouds region sweeps) and B6-B9
 (SPARTACUS layer reflectance/transmittance and adding sweeps); on CPU
 tensors their plain versions. With a SPARTACUS solver the g-points of
 its spectral region are reordered by optical depth, and every band map
-is the reordered one (`spec.band_from_reordered_g_*`).
+is the reordered one (`spec.band_from_reordered_g_*`); the g-point
+profiles come back in the original order.
 """
 from __future__ import annotations
 
@@ -27,16 +31,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import RadiationConfig, Solver, check_supported
+from .config import GasModel, RadiationConfig, Solver, check_supported
 from .optics.aerosol import (AerosolOpticsTables, add_aerosol_optics,
                              aerosol_tensors, setup_aerosol_optics)
 from .optics.cloud import (CloudOpticsTables, cloud_optics,
                            coefficient_tensors, setup_cloud_optics)
+from .optics.monochromatic import cloud_optics_mono, gas_optics_mono
 from .optics.rrtmg.gas_optics import (
     WAVENUM1_LW, WAVENUM1_SW, WAVENUM2_LW, WAVENUM2_SW, GasOpticsSpec,
     GasTables, gas_optics, gas_tables, make_spec)
 from .optics.rrtmg.tables import load_tables
-from .optics.spectral_mapping import expand_to_g, interval_mapping
+from .optics.spectral_mapping import (expand_to_g, interval_mapping,
+                                      single_g_mapping)
 from .solvers.cloudless import solver_cloudless_lw, solver_cloudless_sw
 from .solvers.dispatch import solve_lw, solve_sw
 from .solvers.lw_derivatives import lw_derivatives_ica
@@ -60,7 +66,7 @@ class RadiationSetup:
     lw_emiss_weights: Optional[np.ndarray]
     device: torch.device
     dtype: torch.dtype
-    gas: GasTables                     # tables on the device
+    gas: Optional[GasTables]           # tables on the device (RRTMG only)
     cloud_optics: Optional[CloudOpticsTables] = None   # numpy, as read
     pdf_sampler: Optional[PdfSampler] = None
     cloud_coeffs: Optional[dict] = None   # cloud_optics on the device
@@ -87,12 +93,19 @@ def setup_radiation(config: RadiationConfig,
     """Load the tables and precompute the spectral mappings
     (radiation_interface.F90:37-134); for a cloudy solver also the cloud
     optics LUTs, for McICA the cloud-PDF sampler and with use_aerosols
-    the aerosol LUT (NetCDF files named by the config). Runs on the GPU
-    unless `device` says otherwise; raises NotImplementedError for a
-    configuration the port does not cover."""
+    the aerosol LUT (NetCDF files named by the config); the monochromatic
+    model reads no table and no optics LUT. Runs on the GPU unless
+    `device` says otherwise; raises ValueError for a configuration no
+    solver takes."""
     device = resolve_device(device)
     config = config.consolidated()
     check_supported(config)
+    solvers = (config.i_solver_sw, config.i_solver_lw)
+    pdf = (setup_pdf_sampler(config) if Solver.MCICA in solvers else None)
+    if config.i_gas_model == GasModel.MONOCHROMATIC:
+        spec, one = single_g_mapping()
+        return make_setup(config, {}, spec, one, None, one, None, device,
+                          pdf_sampler=pdf)
     tables = load_tables()
     sw_map, sw_weights = interval_mapping(
         config.sw_albedo_wavelength_bound, config.i_sw_albedo_index,
@@ -100,10 +113,8 @@ def setup_radiation(config: RadiationConfig,
     lw_map, lw_weights = interval_mapping(
         config.lw_emiss_wavelength_bound, config.i_lw_emiss_index,
         WAVENUM1_LW, WAVENUM2_LW, config.do_nearest_spectral_lw_emiss)
-    solvers = (config.i_solver_sw, config.i_solver_lw)
     cloud = (setup_cloud_optics(config)
              if any(s != Solver.CLOUDLESS for s in solvers) else None)
-    pdf = (setup_pdf_sampler(config) if Solver.MCICA in solvers else None)
     aerosol = setup_aerosol_optics(config) if config.use_aerosols else None
     # SPARTACUS orders the g-points of its regions by optical depth
     # (ecrad_tpu/interface.py:70-73)
@@ -123,7 +134,7 @@ def make_setup(config, tables, spec, sw_map, sw_weights, lw_map,
         sw_albedo_map=sw_map, sw_albedo_weights=sw_weights,
         lw_emiss_map=lw_map, lw_emiss_weights=lw_weights,
         device=device, dtype=dtype,
-        gas=gas_tables(tables, dtype, device),
+        gas=gas_tables(tables, dtype, device) if tables else None,
         cloud_optics=cloud_optics, pdf_sampler=pdf_sampler,
         cloud_coeffs=(None if cloud_optics is None
                       else coefficient_tensors(cloud_optics, device)),
@@ -136,35 +147,89 @@ def make_setup(config, tables, spec, sw_map, sw_weights, lw_map,
 
 def get_albedos(setup: RadiationSetup, single_level: SingleLevel):
     """Per-g surface albedos (radiation_single_level.F90:204-330):
-    (sw_albedo_diffuse, sw_albedo_direct, lw_albedo), each (ncol, ng)."""
+    (sw_albedo_diffuse, sw_albedo_direct, lw_albedo), each (ncol, ng).
+    With use_canopy_full_spectrum_* an albedo or emissivity given per g
+    (in the spec's g order) passes through unchanged (:240-248)."""
+    cfg = setup.config
     band_sw = setup.spec.band_from_reordered_g_sw
-    sw_diffuse = expand_to_g(single_level.sw_albedo, setup.sw_albedo_map,
-                             setup.sw_albedo_weights, band_sw)
-    sw_direct = sw_diffuse
-    if single_level.sw_albedo_direct is not None:
-        sw_direct = expand_to_g(single_level.sw_albedo_direct,
-                                setup.sw_albedo_map,
-                                setup.sw_albedo_weights, band_sw)
-    lw_albedo = 1.0 - expand_to_g(single_level.lw_emissivity,
-                                  setup.lw_emiss_map,
-                                  setup.lw_emiss_weights,
-                                  setup.spec.band_from_reordered_g_lw)
-    return sw_diffuse, sw_direct, lw_albedo
+    band_lw = setup.spec.band_from_reordered_g_lw
+
+    def sw(values):
+        if cfg.use_canopy_full_spectrum_sw and \
+                values.shape[-1] == len(band_sw):
+            return values
+        return expand_to_g(values, setup.sw_albedo_map,
+                           setup.sw_albedo_weights, band_sw)
+    sw_diffuse = sw(single_level.sw_albedo)
+    sw_direct = (sw_diffuse if single_level.sw_albedo_direct is None
+                 else sw(single_level.sw_albedo_direct))
+    emissivity = single_level.lw_emissivity
+    if not (cfg.use_canopy_full_spectrum_lw
+            and emissivity.shape[-1] == len(band_lw)):
+        emissivity = expand_to_g(emissivity, setup.lw_emiss_map,
+                                 setup.lw_emiss_weights, band_lw)
+    return sw_diffuse, sw_direct, 1.0 - emissivity
+
+
+def _indexed_sum(x, group_of, ngroups, dim):
+    """x summed over its axis `dim` in groups, member k going to group
+    group_of[k]: that axis becomes ngroups long. Each group's members are
+    gathered into a row padded with zeros to the widest group, then
+    summed; groups of one member each are a plain gather. No atomics (an
+    index_add_ on the GPU adds in a different order on every run), so a
+    run repeats bit for bit; no matmul, so TF32 never rounds a flux."""
+    group_of = np.asarray(group_of)
+    members = [np.flatnonzero(group_of == b) for b in range(ngroups)]
+    n = x.shape[dim]
+    width = max(len(m) for m in members)
+    idx = np.full((ngroups, width), n)
+    for b, m in enumerate(members):
+        idx[b, :len(m)] = m
+    idx = torch.as_tensor(idx, device=x.device)
+    if all(len(m) == 1 for m in members):
+        return x.index_select(dim, idx[:, 0])
+    pad = list(x.shape)
+    pad[dim] = 1
+    padded = torch.cat([x, x.new_zeros(pad)], dim)
+    return padded.index_select(dim, idx.flatten()).unflatten(
+        dim, (ngroups, width)).sum(dim + 1)
 
 
 def _band_sum(flux_g, band_from_g, nbands):
-    """(ncol, ng) -> (ncol, nbands): each band's g-points gathered into a
-    row padded with zeros to the widest band, then summed. No atomics (an
-    index_add_ on the GPU adds in a different order on every run), so a
-    run repeats bit for bit; no matmul."""
-    band_from_g = np.asarray(band_from_g)
-    members = [np.flatnonzero(band_from_g == b) for b in range(nbands)]
-    ng = flux_g.shape[1]
-    idx = np.full((nbands, max(len(m) for m in members)), ng)
-    for b, m in enumerate(members):
-        idx[b, :len(m)] = m
-    padded = torch.cat([flux_g, flux_g.new_zeros((flux_g.shape[0], 1))], 1)
-    return padded[:, torch.as_tensor(idx, device=flux_g.device)].sum(-1)
+    """(ncol, ng) -> (ncol, nbands)."""
+    return _indexed_sum(flux_g, band_from_g, nbands, 1)
+
+
+def _canopy_sum(flux_g, band_from_g, imap, weights):
+    """Surface per-g flux (ncol, ng) -> canopy intervals (ncol, nint)
+    (radiation_flux.F90:377-450): the nearest interval's sum, or the band
+    sums weighted by the intervals' overlap (nint, nbands), an explicit
+    multiply-add (no TF32)."""
+    if imap is not None:
+        imap = np.asarray(imap)
+        return _band_sum(flux_g, imap[band_from_g], int(imap.max()) + 1)
+    bands = _band_sum(flux_g, band_from_g, int(np.max(band_from_g)) + 1)
+    w = torch.as_tensor(weights, dtype=flux_g.dtype, device=flux_g.device)
+    return (bands[:, None, :] * w[None]).sum(-1)
+
+
+def _profiles(x, spec_map, nspec):
+    """g-first (nlev+1, ng, ncol) -> (ncol, nlev+1, nspec), summed by
+    spec_map (a band map, or g_from_reordered_g: a permutation back to
+    the original g order)."""
+    return _indexed_sum(x, spec_map, nspec, 1).permute(2, 0, 1)
+
+
+def _spectral_map(setup, region, nbands):
+    """(map, length) of the do_save_spectral_flux profiles of a region:
+    per g in the original order with do_save_gpoint_flux, else per band
+    (one band for the monochromatic model)."""
+    spec = setup.spec
+    if setup.config.do_save_gpoint_flux:
+        g = getattr(spec, f"g_from_reordered_g_{region}")
+        return g, len(g)
+    band = getattr(spec, f"band_from_reordered_g_{region}")
+    return band, nbands if len(band) > 1 else 1
 
 
 def _gsum(x):
@@ -210,8 +275,8 @@ def radiation(setup: RadiationSetup, single_level: SingleLevel,
 
 def _cloud_stage(setup, thermodynamics, cloud, cast):
     """Default fractional_std and overlap parameter, crop, cloud optics
-    (ecrad_tpu/interface.py:338-359). Returns (cloud, six band-resolved
-    optical properties)."""
+    (ecrad_tpu/interface.py:338-359; the monochromatic model's geometric
+    optics). Returns (cloud, six band-resolved optical properties)."""
     cfg = setup.config
     cloud = cloud.replace(**{f: cast(getattr(cloud, f)) for f in (
         "q_liq", "q_ice", "re_liq", "re_ice", "fraction", "fractional_std",
@@ -224,6 +289,8 @@ def _cloud_stage(setup, thermodynamics, cloud, cast):
         cloud = cloud.set_overlap_param(thermodynamics, 2000.0)
     cloud = cloud.crop_cloud_fraction(cfg.cloud_fraction_threshold,
                                       cfg.cloud_mixing_ratio_threshold)
+    if cfg.i_gas_model == GasModel.MONOCHROMATIC:
+        return cloud, cloud_optics_mono(cfg, thermodynamics, cloud)
     return cloud, cloud_optics(cfg, setup.cloud_optics, setup.cloud_coeffs,
                                thermodynamics.pressure_hl,
                                thermodynamics.temperature_hl, cloud)
@@ -242,6 +309,7 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
         sw_albedo_direct=cast(single_level.sw_albedo_direct),
         lw_emissivity=cast(single_level.lw_emissivity),
         lw_emission=cast(single_level.lw_emission),
+        spectral_solar_scaling=cast(single_level.spectral_solar_scaling),
         iseed=(None if single_level.iseed is None
                else single_level.iseed.to(setup.device)))
     thermodynamics = thermodynamics.replace(
@@ -250,12 +318,18 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
         h2o_sat_liq=cast(thermodynamics.h2o_sat_liq))
     gas = gas.replace(mixing_ratio=cast(gas.mixing_ratio))
     sw_alb_diff, sw_alb_dir, lw_albedo = get_albedos(setup, single_level)
-    go = gas_optics(
-        thermodynamics.pressure_hl, thermodynamics.temperature_hl,
-        gas.mixing_ratio, single_level.skin_temperature,
-        single_level.cos_sza, single_level.solar_irradiance, setup.spec,
-        setup.gas, lw_albedo=lw_albedo, min_gas_od_lw=cfg.min_gas_od_lw,
-        min_gas_od_sw=cfg.min_gas_od_sw)
+    if cfg.i_gas_model == GasModel.MONOCHROMATIC:
+        go = gas_optics_mono(cfg, single_level, thermodynamics)
+    else:
+        go = gas_optics(
+            thermodynamics.pressure_hl, thermodynamics.temperature_hl,
+            gas.mixing_ratio, single_level.skin_temperature,
+            single_level.cos_sza, single_level.solar_irradiance, setup.spec,
+            setup.gas, lw_albedo=lw_albedo, min_gas_od_lw=cfg.min_gas_od_lw,
+            min_gas_od_sw=cfg.min_gas_od_sw,
+            spectral_solar_scaling=(single_level.spectral_solar_scaling
+                                    if cfg.use_spectral_solar_scaling
+                                    else None))
 
     emission = go.lw_emission
     if single_level.lw_emission is not None:
@@ -273,7 +347,9 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
     zeros_lw = torch.zeros_like(go.od_lw)
     od_lw, ssa_lw, g_lw = go.od_lw, zeros_lw, zeros_lw
     od_sw, ssa_sw, g_sw = go.od_sw, go.ssa_sw, torch.zeros_like(go.od_sw)
-    if cfg.use_aerosols and aerosol is not None:
+    # (the monochromatic setup loads no aerosol LUT)
+    if cfg.use_aerosols and aerosol is not None and \
+            setup.aerosol_coeffs is not None:
         aerosol = aerosol.replace(**{f: cast(getattr(aerosol, f))
                                      for f in AEROSOL_FIELDS})
         od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw = add_aerosol_optics(
@@ -327,6 +403,7 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
 
 
 def _lw_fields(setup, lw, lw_clear, do_clear) -> dict:
+    cfg = setup.config
     band_lw = setup.spec.band_from_reordered_g_lw
     up, dn, surf_g = _gsum(lw.up), _gsum(lw.dn), _surf_g(lw.dn)
     out = dict(lw_up=up, lw_dn=dn, lw_dn_surf_g=surf_g,
@@ -339,23 +416,44 @@ def _lw_fields(setup, lw, lw_clear, do_clear) -> dict:
         else:
             out["lw_dn_surf_clear_band"] = out["lw_dn_surf_band"]
         out.update(lw_up_clear=up, lw_dn_clear=dn)
+    if cfg.do_canopy_fluxes_lw:
+        out["lw_dn_surf_canopy"] = (
+            surf_g if cfg.use_canopy_full_spectrum_lw else _canopy_sum(
+                surf_g, band_lw, setup.lw_emiss_map, setup.lw_emiss_weights))
+    if cfg.do_save_spectral_flux:
+        smap, nspec = _spectral_map(setup, "lw", 16)
+        out.update(lw_up_band=_profiles(lw.up, smap, nspec),
+                   lw_dn_band=_profiles(lw.dn, smap, nspec))
+        if do_clear:
+            out.update(
+                lw_up_band_clear=(out["lw_up_band"] if lw_clear is lw
+                                  else _profiles(lw_clear.up, smap, nspec)),
+                lw_dn_band_clear=(out["lw_dn_band"] if lw_clear is lw
+                                  else _profiles(lw_clear.dn, smap, nspec)))
     return out
 
 
 def _sw_fields(setup, sw, sw_clear) -> dict:
     cfg = setup.config
     band_sw = setup.spec.band_from_reordered_g_sw
+    if cfg.do_save_spectral_flux:
+        smap, nspec = _spectral_map(setup, "sw", 14)
 
     def fields(s):
         surf_dif, surf_dir = _surf_g(s.dn_diffuse), _surf_g(s.dn_direct)
-        return {"up": _gsum(s.up), "dn": _gsum(s.dn_diffuse + s.dn_direct),
-                "direct": _gsum(s.dn_direct) if cfg.do_sw_direct else None,
-                "surf_dif": surf_dif, "surf_dir": surf_dir,
-                "surf_band": (_band_sum(surf_dif + surf_dir, band_sw, 14)
-                              if cfg.do_surface_sw_spectral_flux else None),
-                "direct_band": (_band_sum(surf_dir, band_sw, 14)
-                                if cfg.do_surface_sw_spectral_flux
-                                else None)}
+        dn = s.dn_diffuse + s.dn_direct
+        f = {"up": _gsum(s.up), "dn": _gsum(dn),
+             "direct": _gsum(s.dn_direct) if cfg.do_sw_direct else None,
+             "surf_dif": surf_dif, "surf_dir": surf_dir,
+             "surf_band": (_band_sum(surf_dif + surf_dir, band_sw, 14)
+                           if cfg.do_surface_sw_spectral_flux else None),
+             "direct_band": (_band_sum(surf_dir, band_sw, 14)
+                             if cfg.do_surface_sw_spectral_flux else None)}
+        if cfg.do_save_spectral_flux:
+            f.update(up_band=_profiles(s.up, smap, nspec),
+                     dn_band=_profiles(dn, smap, nspec),
+                     direct_band_profile=_profiles(s.dn_direct, smap, nspec))
+        return f
 
     tot = fields(sw)
     out = dict(sw_up=tot["up"], sw_dn=tot["dn"],
@@ -373,4 +471,17 @@ def _sw_fields(setup, sw, sw_clear) -> dict:
         if clr is not None:
             out.update(sw_dn_surf_clear_band=clr["surf_band"],
                        sw_dn_direct_surf_clear_band=clr["direct_band"])
+    if cfg.do_canopy_fluxes_sw:
+        canopy = ((lambda x: x) if cfg.use_canopy_full_spectrum_sw else
+                  (lambda x: _canopy_sum(x, band_sw, setup.sw_albedo_map,
+                                         setup.sw_albedo_weights)))
+        out.update(sw_dn_diffuse_surf_canopy=canopy(tot["surf_dif"]),
+                   sw_dn_direct_surf_canopy=canopy(tot["surf_dir"]))
+    if cfg.do_save_spectral_flux:
+        out.update(sw_up_band=tot["up_band"], sw_dn_band=tot["dn_band"],
+                   sw_dn_direct_band=tot["direct_band_profile"])
+        if clr is not None:
+            out.update(sw_up_band_clear=clr["up_band"],
+                       sw_dn_band_clear=clr["dn_band"],
+                       sw_dn_direct_band_clear=clr["direct_band_profile"])
     return out

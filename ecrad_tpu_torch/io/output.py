@@ -3,10 +3,11 @@
 Port of ecrad_tpu/io/output.py:17-206 (radiation/radiation_save.F90:
 save_fluxes :34-304, save_inputs :719, save_radiative_properties :411):
 the same variable names, units and layouts, so downstream tools read
-either package's files. `save_fluxes` writes the fields the port's Flux
-has (a field that is None is skipped); the canopy and band-resolved
-profile fields, and `save_surface_fluxes`, come with ROADMAP.md Queue A
-slice 8. `save_inputs` writes aerosol_mmr as (column, level,
+either package's files. `save_fluxes` writes every field of the Flux
+that is set (a field that is None is skipped), the canopy-top fluxes and
+the band or g-point profiles of do_save_spectral_flux included;
+`save_surface_fluxes` comes with the tiled-surface scheme (ROADMAP.md
+Queue A). `save_inputs` writes aerosol_mmr as (column, level,
 aerosol_type), as the JAX package does, while the reader takes
 (column, aerosol_type, level): the round trip with aerosols is broken in
 both packages (ROADMAP.md Queue C).
@@ -98,6 +99,43 @@ def save_fluxes(path: str, flux: Flux,
     v.add("flux_dn_lw_surf_band", ("column", "band_lw"),
           flux.lw_dn_surf_band, "W m-2",
           "Surface downwelling longwave flux in each band")
+    # canopy-top fluxes (radiation_save.F90 canopy_flux_*)
+    v.add("canopy_flux_dn_diffuse_sw_surf", ("column", "canopy_band_sw"),
+          flux.sw_dn_diffuse_surf_canopy, "W m-2",
+          "Surface downwelling diffuse shortwave flux in canopy bands")
+    v.add("canopy_flux_dn_direct_sw_surf", ("column", "canopy_band_sw"),
+          flux.sw_dn_direct_surf_canopy, "W m-2",
+          "Surface downwelling direct shortwave flux in canopy bands")
+    v.add("canopy_flux_dn_lw_surf", ("column", "canopy_band_lw"),
+          flux.lw_dn_surf_canopy, "W m-2",
+          "Surface downwelling longwave flux in canopy bands")
+    # band-resolved profiles (do_save_spectral_flux)
+    for region, fields in (
+            ("sw", (("spectral_flux_up_sw", flux.sw_up_band,
+                     "Spectral upwelling shortwave flux"),
+                    ("spectral_flux_dn_sw", flux.sw_dn_band,
+                     "Spectral downwelling shortwave flux"),
+                    ("spectral_flux_dn_direct_sw", flux.sw_dn_direct_band,
+                     "Spectral downwelling direct shortwave flux"),
+                    ("spectral_flux_up_sw_clear", flux.sw_up_band_clear,
+                     "Spectral clear-sky upwelling shortwave flux"),
+                    ("spectral_flux_dn_sw_clear", flux.sw_dn_band_clear,
+                     "Spectral clear-sky downwelling shortwave flux"),
+                    ("spectral_flux_dn_direct_sw_clear",
+                     flux.sw_dn_direct_band_clear,
+                     "Spectral clear-sky downwelling direct shortwave "
+                     "flux"))),
+            ("lw", (("spectral_flux_up_lw", flux.lw_up_band,
+                     "Spectral upwelling longwave flux"),
+                    ("spectral_flux_dn_lw", flux.lw_dn_band,
+                     "Spectral downwelling longwave flux"),
+                    ("spectral_flux_up_lw_clear", flux.lw_up_band_clear,
+                     "Spectral clear-sky upwelling longwave flux"),
+                    ("spectral_flux_dn_lw_clear", flux.lw_dn_band_clear,
+                     "Spectral clear-sky downwelling longwave flux")))):
+        for name, field, long_name in fields:
+            v.add(name, ("column", "half_level", f"band_{region}"), field,
+                  "W m-2", long_name)
     write_netcdf(path, v.dims, v.variables, v.attrs,
                  global_attrs={"title": "Radiative fluxes from ecRad-TPU"},
                  **nc_kwargs)

@@ -66,7 +66,7 @@ def sw_clear_total_reftrans_plain(od, ssa, g, od_cloud, ssa_cloud, g_cloud,
         od, ssa, g, od_cloud, ssa_cloud, g_cloud, band_from_g,
         od_scaling=od_scaling, cloud_mask=frac_mask[..., None])
     tot = _sw_chain(mu, _gf(od_t), _gf(ssa_t), _gf(g_t), delta_all)
-    mg = frac_mask.T[:, None, :]
+    mg = frac_mask.T.contiguous()[:, None, :]
     return clear + tuple(torch.where(mg, x, c) for x, c in zip(tot, clear))
 
 
@@ -82,7 +82,7 @@ def lw_clear_total_noscat_plain(od, od_cloud, band_from_g, od_scaling,
     od_t = torch.where(frac_mask[..., None],
                        od + od_cloud[:, :, b] * od_scaling, od)
     tot = ts.lw_no_scattering_transmittance(_gf(od_t), pt, pb)
-    mg = frac_mask.T[:, None, :]
+    mg = frac_mask.T.contiguous()[:, None, :]
     return clear + tuple(torch.where(mg, x, c) for x, c in zip(tot, clear))
 
 

@@ -158,6 +158,22 @@ def _explicit_entrapment_k(cfg, nreg, alb_below, x_migration, vm, um, c):
     return entrap_total
 
 
+def _migrations(cfg, n, carry, hist, cols):
+    """(x_diffuse, x_direct), (n, ng, ncol): the carry's horizontal
+    migration distances after this layer's step (Explicit and Non-fractal
+    entrapment; the carry's as they are under the other treatments)."""
+    n2 = n * n
+    x_diff, x_dir = carry[2 * n2:2 * n2 + n], carry[2 * n2 + n:]
+    if cfg.i_3d_sw_entrapment not in (Entrapment.EXPLICIT,
+                                      Entrapment.EXPLICIT_NON_FRACTAL):
+        return x_diff, x_dir
+    c = _rows(cols, NCOLROWS)
+    R, T, RD, TD, TDD = (_mats(hist, k * n2, n) for k in range(5))
+    return _step_migrations_k(n, c[_CF], R, T, RD, TDD, TD,
+                              _mats(carry, 0, n), _mats(carry, n2, n),
+                              x_diff, x_dir, c[_XLD], c[_XLDIR])
+
+
 def sw_up_step(cfg, nreg, carry, hist, cols):
     """One level of the upward SW sweep. carry (2 n^2 + 2 n, ng, ncol)
     [alb | albdir | x_diff | x_dir], n = nreg; hist (5 n^2, ng, ncol)
@@ -167,7 +183,6 @@ def sw_up_step(cfg, nreg, carry, hist, cols):
     entrap = cfg.i_3d_sw_entrapment
     c = _rows(cols, NCOLROWS)
     alb, albdir = _mats(carry, 0, n), _mats(carry, n2, n)
-    x_diff, x_dir = carry[2 * n2:2 * n2 + n], carry[2 * n2 + n:]
     R, T, RD, TD, TDD = (_mats(hist, k * n2, n) for k in range(5))
     um, vm = _mat(c, _UM, n), _mat(c, _VM, n)
     vm_t = vm.transpose(0, 1)
@@ -175,10 +190,7 @@ def sw_up_step(cfg, nreg, carry, hist, cols):
     both_clear = is_clear & (c[_CLEARP] > 0.5)
     explicit = entrap in (Entrapment.EXPLICIT,
                           Entrapment.EXPLICIT_NON_FRACTAL)
-    if explicit:
-        x_diff, x_dir = _step_migrations_k(
-            n, c[_CF], R, T, RD, TDD, TD, alb, albdir, x_diff, x_dir,
-            c[_XLD], c[_XLDIR])
+    x_diff, x_dir = _migrations(cfg, n, carry, hist, cols)
 
     denom = add_eye_g(-mm_gu(alb, R), 1.0)
     rhs = torch.cat([mm_gu(alb, T), mm_gu(albdir, TDD) + mm_gu(alb, TD)], 1)
@@ -280,25 +292,43 @@ def pack_cols(um, vm, cf, dz, xld, xldir, edge_prev, inv_eff, ovp, rf,
                       row(tan_sza[None])], 1).contiguous()
 
 
-def sw_adding_sweeps_plain(cfg, hist, cols, init_up, direct0):
+def sw_adding_sweeps_plain(cfg, hist, cols, init_up, direct0,
+                           dump=False):
     """Kernel B8's plain version. hist (nlev, 5 n^2, ng, ncol); cols
     (nlev, NCOLROWS, ncol); init_up (2 n^2, ng, ncol) [alb | albdir] at
     the surface; direct0 (n, ng, ncol) the direct flux entering the top.
     Returns (alb_top, albdir_top (n, n, ng, ncol), (nlev, 3 n, ng, ncol)
-    [fup | fdn | ddn] at the top of each layer)."""
+    [fup | fdn | ddn] at the top of each layer). With `dump`, a fourth
+    item: the entrapment internals (x_direct, x_diffuse, direct_dn,
+    flux_dn), each (nlev, n, ng, ncol): the migration distances at the top
+    of each layer after its step and before the overlap conversion, and
+    the direct and diffuse downward fluxes entering its top
+    (radiation_spartacus_sw.F90:1007-1020, :1486-1497;
+    ecrad_tpu/solvers/spartacus_sw.py:409-413, :433-436). B8 writes none
+    of these; the g-points are independent, so one g-point's slice of the
+    operands gives that g-point's values."""
     nlev = hist.shape[0]
     n = direct0.shape[0]
     carry = torch.cat([init_up, init_up.new_zeros((2 * n,)
                                                   + init_up.shape[1:])])
     ys = [None] * nlev
+    x_dump = [None] * nlev
     for l in range(nlev - 1, -1, -1):
+        if dump:
+            x_dump[l] = _migrations(cfg, n, carry, hist[l], cols[l])
         carry, ys[l] = sw_up_step(cfg, n, carry, hist[l], cols[l])
     dcarry = torch.cat([torch.zeros_like(direct0), direct0])
-    out = []
+    out, dn_dump = [], []
     for l in range(nlev):
+        dn_dump.append(dcarry)
         dcarry, o = sw_dn_step(n, dcarry, hist[l], ys[l], cols[l])
         out.append(o)
-    return _mats(carry, 0, n), _mats(carry, n * n, n), torch.stack(out)
+    result = (_mats(carry, 0, n), _mats(carry, n * n, n), torch.stack(out))
+    if not dump:
+        return result
+    x_diff, x_dir = (torch.stack(x) for x in zip(*x_dump))
+    dn = torch.stack(dn_dump)
+    return result + ((x_dir, x_diff, dn[:, n:], dn[:, :n]),)
 
 
 def sw_adding_sweeps_fused(cfg, hist, cols, init_up, direct0):

@@ -155,11 +155,15 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
                cos_sza, solar_irradiance, spec: GasOpticsSpec,
                tables: GasTables, lw_albedo: Optional[torch.Tensor] = None,
                min_gas_od_lw: float = 1.0e-15,
-               min_gas_od_sw: float = 0.0) -> GasOptics:
+               min_gas_od_sw: float = 0.0,
+               spectral_solar_scaling: Optional[torch.Tensor] = None
+               ) -> GasOptics:
     """pressure_hl/temperature_hl (ncol, nlev+1) TOA first; gas_mmr
     (ncol, nlev, NUM_GASES); lw_albedo (ncol, 140), in the spec's g order,
-    for the surface emission (1 - albedo) x Planck. All in the tables'
-    dtype."""
+    for the surface emission (1 - albedo) x Planck; spectral_solar_scaling
+    (14,) a factor per SW band on the solar source before its
+    normalisation (ecrad_tpu/optics/rrtmg/gas_optics.py:195-196). All in
+    the tables' dtype."""
     t = tables.t
     nlev = pressure_hl.shape[1] - 1
     dev = pressure_hl.device
@@ -208,6 +212,11 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
     od_sw = taug + taur
     ssa_sw = torch.clamp(taur / torch.clamp(od_sw, min=1e-30), 0.0, 1.0)
     od_sw = torch.clamp(od_sw, min=min_gas_od_sw)
+    if spectral_solar_scaling is not None:
+        # sflux is in the original g order on both taumol paths: the
+        # un-reordered band map, before the reordering below
+        sflux = sflux * spectral_solar_scaling.to(sflux)[
+            torch.as_tensor(spec.band_from_g_sw, device=dev)]
     # normalise to the solar irradiance (radiation_ifs_rrtm.F90:519-526)
     total = sflux.sum(-1)
     scale = torch.where(cos_sza > 0.0,

@@ -3,7 +3,8 @@
 Port of ecrad_tpu/optics/spectral_mapping.py
 (radiation_config.F90:1374-1560, radiation_single_level.F90:204-330):
 `interval_mapping` is numpy at setup time, `expand_to_g` maps
-(ncol, nintervals) values to (ncol, ng) tensors.
+(ncol, nintervals) values to (ncol, ng) tensors; `single_g_mapping` is the
+monochromatic model's.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from .rrtmg.gas_optics import GasOpticsSpec, spec_from_arrays
 
 
 def interval_mapping(wavelength_bound: Tuple[float, ...],
@@ -89,3 +92,13 @@ def expand_to_g(values: torch.Tensor, mapping: Optional[np.ndarray],
         band_vals = values[:, torch.as_tensor(mapping,
                                               device=values.device)]
     return band_vals[:, torch.as_tensor(band_from_g, device=values.device)]
+
+
+def single_g_mapping() -> Tuple[GasOpticsSpec, np.ndarray]:
+    """(spec, interval map) of the monochromatic model
+    (ecrad_tpu/interface.py:52-63): one band and one g-point in each
+    spectral region, in the identity order, and the first albedo or
+    emissivity interval mapped to it (the same map serves both
+    regions)."""
+    one = np.zeros(1, dtype=int)
+    return spec_from_arrays(one, one), one

@@ -53,6 +53,7 @@ def solve_sw(setup, single_level, thermodynamics, cloud, cloud_props, od,
     props = (od, ssa, g, *cloud_props[3:], incoming_sw)
     albedos = (albedo_diffuse, albedo_direct)
     cos_sza = single_level.cos_sza
+    extras = {}
     if cfg.i_solver_sw == Solver.MCICA:
         total, clear, tcc = solver_mcica_sw(
             cfg, setup.pdf_sampler, band, single_level.iseed, cos_sza, cloud,
@@ -65,8 +66,8 @@ def solve_sw(setup, single_level, thermodynamics, cloud, cloud_props, od,
         total, clear, tcc = solver_tripleclouds_sw(cfg, band, cloud, cos_sza,
                                                    *props, *albedos)
     elif cfg.i_solver_sw == Solver.SPARTACUS:
-        total, clear, tcc = solver_spartacus_sw(
+        total, clear, tcc, extras = solver_spartacus_sw(
             cfg, band, cos_sza, thermodynamics, cloud, *props, *albedos)
     else:
         raise ValueError(f"no cloudy SW solver {cfg.i_solver_sw!r}")
-    return total, clear, {"cloud_cover_sw": tcc}
+    return total, clear, {"cloud_cover_sw": tcc, **extras}

@@ -113,7 +113,7 @@ def solver_mcica_lw(config: RadiationConfig, pdf_sampler: PdfSampler,
             od, ssa, g, od_cloud, ssa_cloud, g_cloud, band_from_g,
             config.do_lw_cloud_scattering, od_scaling=od_scaling,
             cloud_mask=frac_mask[..., None])
-        mask_g = frac_mask.T[:, None, :]
+        mask_g = frac_mask.T.contiguous()[:, None, :]
         if config.do_lw_cloud_scattering:
             r, t, su, sd = ts.lw_reftrans(
                 _gf(od_t), *ts.lw_gammas(_gf(ssa_t), _gf(g_t)), planck_top,

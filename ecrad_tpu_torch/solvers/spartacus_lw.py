@@ -98,7 +98,7 @@ def solver_spartacus_lw(cfg: RadiationConfig, band_from_g, thermo, cloud, od,
         se = torch.ones_like(od_g)
     planck_g = _gf(planck_hl)
     planck_top, planck_bot = planck_g[:-1], planck_g[1:]
-    use3d = ((has_3d.T[:, None, :] | cfg.use_expm_everywhere)
+    use3d = ((has_3d.T.contiguous()[:, None, :] | cfg.use_expm_everywhere)
              & (od_g <= cfg.max_gas_od_3d))
     clear_lay = ~cloudy
     hist = lw_reftrans_levels(

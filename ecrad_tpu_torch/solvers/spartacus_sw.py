@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from ..config import PdfShape, RadiationConfig
-from ..ops.spartacus_adding import pack_cols, sw_adding_sweeps
+from ..ops.spartacus_adding import (pack_cols, sw_adding_sweeps,
+                                    sw_adding_sweeps_plain)
 from ..ops.spartacus_reftrans import _diag_g, sw_reftrans_levels
 from . import two_stream as ts
 from .adding import adding_sw
@@ -139,7 +140,11 @@ def solver_spartacus_sw(cfg: RadiationConfig, band_from_g, cos_sza, thermo,
                         incoming_sw, albedo_diffuse, albedo_direct):
     """od/ssa/g (ncol, nlev, ng); cloud properties (ncol, nlev, nbands);
     incoming_sw and albedos (ncol, ng); cos_sza (ncol,). Returns (total
-    SwFluxes, clear SwFluxes, cloud_cover (ncol,))."""
+    SwFluxes, clear SwFluxes, cloud_cover (ncol,), extras): extras holds
+    with do_print_entrapment_data the entrapment internals of the first
+    g-point, (x_direct, x_diffuse, direct_dn, flux_dn) each (nlev, nreg,
+    ncol), from the plain sweeps on that g-point alone; the fluxes still
+    come from sw_adding_sweeps (kernel B8 on the GPU)."""
     ncol, nlev, ng = od.shape
     nreg = cfg.nregions
     mu0 = torch.clamp(cos_sza, min=1e-10)
@@ -186,7 +191,7 @@ def solver_spartacus_sw(cfg: RadiationConfig, band_from_g, cos_sza, thermo,
 
     # the 3D mask, (nlev, ng, ncol): sub-horizon columns are left out as
     # the reference's early cycle does (radiation_spartacus_sw.F90:360)
-    use3d = ((has_3d.T[:, None, :] | cfg.use_expm_everywhere)
+    use3d = ((has_3d.T.contiguous()[:, None, :] | cfg.use_expm_everywhere)
              & (od_g <= cfg.max_gas_od_3d)
              & (cos_sza > 1.0e-10)[None, None, :])
     clear_lay = ~cloudy
@@ -217,6 +222,13 @@ def solver_spartacus_sw(cfg: RadiationConfig, band_from_g, cos_sza, thermo,
     direct0 = (incoming_sw.T[None] * reg_fracs[:, 0].T[:, None, :]
                ).contiguous()
     _, albdir_top, dn = sw_adding_sweeps(cfg, hist, cols, init_up, direct0)
+    extras = {}
+    if cfg.do_print_entrapment_data:
+        g0 = slice(0, 1)
+        dump = sw_adding_sweeps_plain(cfg, hist[:, :, g0], cols,
+                                      init_up[:, g0], direct0[:, g0],
+                                      dump=True)[3]
+        extras["entrapment_data"] = tuple(x[:, :, 0] for x in dump)
     del hist
 
     def profile(top, per_level):
@@ -238,4 +250,4 @@ def solver_spartacus_sw(cfg: RadiationConfig, band_from_g, cos_sza, thermo,
     total, clear = (SwFluxes(*(torch.where(day, f, zero) for f in x))
                     for x in (total, clear))
     tcc = torch.where(cos_sza > 1.0e-10, tcc, torch.full_like(tcc, -1.0))
-    return total, clear, tcc
+    return total, clear, tcc, extras

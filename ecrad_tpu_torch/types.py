@@ -17,7 +17,8 @@ from typing import Optional
 
 import torch
 
-from .constants import ACCEL_DUE_TO_GRAVITY, GAS_INDEX
+from .constants import (ACCEL_DUE_TO_GRAVITY, GAS_INDEX, GAS_MOLAR_MASS,
+                        MOLAR_MASS_DRY_AIR, NUM_GASES, SPECIFIC_HEAT_DRY_AIR)
 
 
 class _Replace:
@@ -64,6 +65,12 @@ class Thermodynamics(_Replace):
         return 0.5 * (self.temperature_hl[:, :-1]
                       + self.temperature_hl[:, 1:])
 
+    def layer_mass(self) -> torch.Tensor:
+        """Mass of each layer (kg m-2), |dp| / g
+        (radiation_thermodynamics.F90:164; ecrad_tpu/types.py:79-86)."""
+        dp = self.pressure_hl[:, 1:] - self.pressure_hl[:, :-1]
+        return torch.abs(dp) * (1.0 / ACCEL_DUE_TO_GRAVITY)
+
     def calc_saturation_wrt_liquid(self) -> "Thermodynamics":
         """Clausius-Clapeyron saturation mass mixing ratio over liquid
         water (radiation_thermodynamics.F90:118-161;
@@ -77,11 +84,51 @@ class Thermodynamics(_Replace):
 
 @dataclass
 class GasConcs(_Replace):
-    """Mass mixing ratios, (ncol, nlev, NUM_GASES), gas order GAS_NAMES."""
+    """Mass mixing ratios, (ncol, nlev, NUM_GASES), gas order GAS_NAMES.
+    The setters return a new GasConcs (ecrad_tpu/types.py:113-153); a
+    volume mixing ratio is converted with the gas's molar mass."""
     mixing_ratio: torch.Tensor
+
+    @classmethod
+    def create(cls, ncol: int, nlev: int, dtype=torch.float32,
+               device=None) -> "GasConcs":
+        """No gas. float32 by default, as in the JAX package: radiation()
+        casts to the configuration's dtype."""
+        return cls(mixing_ratio=torch.zeros((ncol, nlev, NUM_GASES),
+                                            dtype=dtype, device=device))
+
+    def put(self, gas: str, mmr) -> "GasConcs":
+        """Set one gas from a (ncol, nlev) mass mixing ratio."""
+        mr = self.mixing_ratio.clone()
+        mr[:, :, GAS_INDEX[gas]] = torch.as_tensor(mmr, device=mr.device)
+        return self.replace(mixing_ratio=mr)
+
+    def put_vmr(self, gas: str, vmr) -> "GasConcs":
+        return self.put(gas, vmr * (GAS_MOLAR_MASS[gas]
+                                    / MOLAR_MASS_DRY_AIR))
+
+    def put_well_mixed(self, gas: str, mmr: float, ncol: int,
+                       nlev: int) -> "GasConcs":
+        return self.put(gas, torch.full(
+            (ncol, nlev), mmr, dtype=self.mixing_ratio.dtype,
+            device=self.mixing_ratio.device))
+
+    def put_well_mixed_vmr(self, gas: str, vmr: float, ncol: int,
+                           nlev: int) -> "GasConcs":
+        return self.put_well_mixed(
+            gas, vmr * (GAS_MOLAR_MASS[gas] / MOLAR_MASS_DRY_AIR), ncol,
+            nlev)
+
+    def scale(self, gas: str, factor: float) -> "GasConcs":
+        mr = self.mixing_ratio.clone()
+        mr[:, :, GAS_INDEX[gas]] *= factor
+        return self.replace(mixing_ratio=mr)
 
     def get(self, gas: str) -> torch.Tensor:
         return self.mixing_ratio[:, :, GAS_INDEX[gas]]
+
+    def get_vmr(self, gas: str) -> torch.Tensor:
+        return self.get(gas) * (MOLAR_MASS_DRY_AIR / GAS_MOLAR_MASS[gas])
 
 
 @dataclass
@@ -96,6 +143,15 @@ class Cloud(_Replace):
     overlap_param: Optional[torch.Tensor] = None        # (ncol, nlev-1)
     inv_cloud_effective_size: Optional[torch.Tensor] = None
     inv_inhom_effective_size: Optional[torch.Tensor] = None
+
+    @classmethod
+    def create_zero(cls, ncol: int, nlev: int, dtype=torch.float32,
+                    device=None) -> "Cloud":
+        """No cloud, with the JAX package's placeholder radii of 10 and 50
+        um (ecrad_tpu/types.py:171-175)."""
+        z = torch.zeros((ncol, nlev), dtype=dtype, device=device)
+        return cls(q_liq=z, q_ice=z, re_liq=z + 1.0e-5, re_ice=z + 5.0e-5,
+                   fraction=z)
 
     def set_overlap_param(self, thermodynamics: "Thermodynamics",
                           decorrelation_length: float) -> "Cloud":
@@ -208,16 +264,63 @@ class Flux(_Replace):
     lw_dn_surf_g: Optional[torch.Tensor] = None
     sw_dn_diffuse_surf_g: Optional[torch.Tensor] = None
     sw_dn_direct_surf_g: Optional[torch.Tensor] = None
+    # downwelling at canopy top (do_canopy_fluxes_*), per g with
+    # use_canopy_full_spectrum_*, else per albedo / emissivity interval
+    # (radiation_flux.F90:377-450), (ncol, n_canopy_bands)
+    lw_dn_surf_canopy: Optional[torch.Tensor] = None
+    sw_dn_diffuse_surf_canopy: Optional[torch.Tensor] = None
+    sw_dn_direct_surf_canopy: Optional[torch.Tensor] = None
     # diagnostics
     cloud_cover_lw: Optional[torch.Tensor] = None    # (ncol,)
     cloud_cover_sw: Optional[torch.Tensor] = None    # (ncol,)
     lw_derivatives: Optional[torch.Tensor] = None    # (ncol, nlev+1)
+    # profiles per band, or per g in the original g order with
+    # do_save_gpoint_flux (do_save_spectral_flux), (ncol, nlev+1, nspec)
+    lw_up_band: Optional[torch.Tensor] = None
+    lw_dn_band: Optional[torch.Tensor] = None
+    sw_up_band: Optional[torch.Tensor] = None
+    sw_dn_band: Optional[torch.Tensor] = None
+    sw_dn_direct_band: Optional[torch.Tensor] = None
+    lw_up_band_clear: Optional[torch.Tensor] = None
+    lw_dn_band_clear: Optional[torch.Tensor] = None
+    sw_up_band_clear: Optional[torch.Tensor] = None
+    sw_dn_band_clear: Optional[torch.Tensor] = None
+    sw_dn_direct_band_clear: Optional[torch.Tensor] = None
+    # SPARTACUS SW entrapment internals (do_print_entrapment_data):
+    # (x_direct, x_diffuse, direct_dn, flux_dn), each (nlev, nreg, ncol)
+    # at the solver's first g-point, TOA first
+    # (radiation_spartacus_sw.F90:1007-1020, :1486-1497)
+    entrapment_data: Optional[tuple] = None
 
     def fields(self):
-        """(name, tensor) for every field that is set."""
+        """(name, tensor) for every tensor field that is set (not
+        entrapment_data, a tuple)."""
         return [(f.name, getattr(self, f.name))
                 for f in dataclasses.fields(self)
-                if getattr(self, f.name) is not None]
+                if isinstance(getattr(self, f.name), torch.Tensor)]
+
+    def net_lw(self) -> torch.Tensor:
+        return self.lw_dn - self.lw_up
+
+    def net_sw(self) -> torch.Tensor:
+        return self.sw_dn - self.sw_up
+
+    def heating_rate_lw(self, thermodynamics: Thermodynamics
+                        ) -> torch.Tensor:
+        return _heating_rate(self.net_lw(), thermodynamics)
+
+    def heating_rate_sw(self, thermodynamics: Thermodynamics
+                        ) -> torch.Tensor:
+        return _heating_rate(self.net_sw(), thermodynamics)
+
+
+def _heating_rate(net_flux, thermo: Thermodynamics) -> torch.Tensor:
+    """Heating rate in K/day, -(g / cp) dFnet / dp
+    (practical/ecradplot/io.py:73-78; ecrad_tpu/types.py:338-349)."""
+    dfnet = net_flux[:, 1:] - net_flux[:, :-1]
+    dp = thermo.pressure_hl[:, 1:] - thermo.pressure_hl[:, :-1]
+    return -(ACCEL_DUE_TO_GRAVITY / SPECIFIC_HEAT_DRY_AIR) * dfnet / dp \
+        * 86400.0
 
 
 #: Flux fields with a level axis (axis 1), flipped back for
@@ -225,5 +328,10 @@ class Flux(_Replace):
 LEVEL_FLUX_FIELDS = (
     "lw_up", "lw_dn", "sw_up", "sw_dn", "sw_dn_direct",
     "lw_up_clear", "lw_dn_clear", "sw_up_clear", "sw_dn_clear",
-    "sw_dn_direct_clear", "lw_derivatives",
+    "sw_dn_direct_clear",
+    "lw_up_band", "lw_dn_band", "sw_up_band", "sw_dn_band",
+    "sw_dn_direct_band",
+    "lw_up_band_clear", "lw_dn_band_clear", "sw_up_band_clear",
+    "sw_dn_band_clear", "sw_dn_direct_band_clear",
+    "lw_derivatives",
 )

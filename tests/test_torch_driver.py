@@ -408,3 +408,55 @@ def test_driver_saves_inputs_and_radiative_properties(case, monkeypatch):
     day = orig["cos_solar_zenith_angle"] > 0
     np.testing.assert_allclose(props["incoming_sw"][day].sum(1), 1366.0,
                                rtol=1e-5)
+
+
+def test_spectral_outputs_and_entrapment_dump_reach_the_files(case):
+    """SPARTACUS (with the CY47R1 effective cloud separation) with the
+    band profiles, the canopy fluxes and the entrapment dump: the
+    driver's file holds, under the same variable names, what the JAX
+    package's save_fluxes writes of radiation()'s fluxes on the file's
+    inputs, and its <output>.fort.101/.fort.102 are what the JAX
+    driver's writer makes of radiation()'s entrapment arrays, byte for
+    byte."""
+    from ecrad_tpu.driver import _dump_entrapment_data as jax_dump
+    from ecrad_tpu.io.output import save_fluxes as jax_save_fluxes
+    from ecrad_tpu.types import Flux as JaxFlux
+    from ecrad_tpu_torch.config import (load_config_from_namelist,
+                                        load_driver_config_from_namelist)
+    from ecrad_tpu_torch.interface import radiation, setup_radiation
+    d = case["dir"] / "spectral"
+    d.mkdir()
+    nam = str(d / "spartacus.nam")
+    luts = "".join(f' {k} = "{v}",\n' if isinstance(v, str)
+                   else f" {k} = {v},\n" for k, v in case["luts"].items())
+    with open(nam, "w") as f:
+        f.write(NAMELIST.format(
+            solver="SPARTACUS", radiation=luts + (
+                " do_save_spectral_flux = true,\n"
+                " do_canopy_fluxes_sw = true, do_canopy_fluxes_lw = true,\n"
+                " do_print_entrapment_data = true,\n"),
+            driver=(" cloud_separation_scale_surface = 2500.0,\n"
+                    " cloud_separation_scale_toa = 14000.0,\n"
+                    " cloud_separation_scale_power = 3.5,\n"
+                    " cloud_inhom_separation_factor = 0.75,\n")))
+    got = _run(nam, case["input"], d / "out.nc")
+    dc = load_driver_config_from_namelist(nam)
+    sl, th, gas, cloud, aer = input_reader.read_input(case["input"], dc,
+                                                      device="cpu")
+    cloud = cloud.param_cloud_effective_separation_eta(th, 2500.0, 14000.0,
+                                                       3.5, 0.75)
+    flux = radiation(setup_radiation(load_config_from_namelist(nam),
+                                     device="cpu"), sl, th, gas, cloud, aer)
+    jax_save_fluxes(str(d / "ref.nc"), JaxFlux(**{
+        k: v.numpy() for k, v in flux.fields()}), th)
+    want = _read_all(str(d / "ref.nc"))
+    assert set(got) == set(want)
+    assert {"spectral_flux_up_sw", "spectral_flux_dn_lw_clear",
+            "canopy_flux_dn_direct_sw_surf", "canopy_flux_dn_lw_surf"} \
+        <= set(got)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    jax_dump(str(d / "ref.nc"), [x.numpy() for x in flux.entrapment_data])
+    for ext in (".fort.101", ".fort.102"):
+        assert (d / ("out.nc" + ext)).read_bytes() == \
+            (d / ("ref.nc" + ext)).read_bytes(), ext

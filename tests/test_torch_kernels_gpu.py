@@ -23,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from ecrad_tpu_torch.config import (Entrapment, Overlap, PdfShape, Solver,
+from ecrad_tpu_torch.config import (Entrapment, GasModel, Overlap,
+                                    PdfShape, Solver,
                                     cloudless_slice_config,
                                     mcica_slice_config,
                                     spartacus_slice_config,
@@ -1110,3 +1111,168 @@ def test_per_band_gas_optics_launch_b10_only(cuda, monkeypatch):
     assert taumol_lw.launches == taumol_sw.launches == 0
     _tau_close(per_band.od_lw, fused.od_lw)
     _tau_close(per_band.od_sw, fused.od_sw)
+
+
+# ---- one g-point (the monochromatic model) and the IFS entry point ----
+
+@pytest.mark.parametrize("kernel", ["sw_adding", "lw_noscat", "lw_adding",
+                                    "mcica_sw_optics", "mcica_lw_optics"])
+def test_kernels_at_one_g_point_match_plain(cuda, kernel):
+    """B3 (sw_adding, lw_noscat), B3' and B4 at ng = 1, the monochromatic
+    model's, on 137 levels x 2048 columns: the sweeps bit for bit, B4
+    within its bounds (SW 2e-3, LW 1e-4 of the range)."""
+    nlev, ncol = 137, 2048
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    r = lambda *s, lo=0.0, hi=1.0: _rand(gen, *s, lo=lo, hi=hi, device=cuda)
+    if kernel == "sw_adding":
+        args = (r(nlev, 1, ncol, hi=0.4), r(nlev, 1, ncol, lo=0.3, hi=0.6),
+                r(nlev, 1, ncol, hi=0.3), r(nlev, 1, ncol, hi=0.4),
+                r(nlev, 1, ncol, lo=0.2, hi=0.9), r(1, ncol, hi=1300.0),
+                r(1, ncol, hi=0.8), r(1, ncol, hi=0.8), r(ncol, lo=0.05))
+        kern, plain = adding_fused.adding_sw_fused, adding.adding_sw_plain
+    elif kernel == "lw_noscat":
+        args = (r(nlev, 1, ncol, lo=0.2, hi=0.99), r(nlev, 1, ncol, hi=50.0),
+                r(nlev, 1, ncol, hi=50.0), r(1, ncol, hi=400.0),
+                r(1, ncol, hi=0.2))
+        kern = adding_fused.lw_noscat_fused
+        plain = adding.lw_no_scattering_fluxes_plain
+    elif kernel == "lw_adding":
+        args = (r(nlev, 1, ncol, hi=0.3), r(nlev, 1, ncol, lo=0.2, hi=0.7),
+                r(nlev, 1, ncol, hi=50.0), r(nlev, 1, ncol, hi=50.0),
+                r(1, ncol, hi=400.0), r(1, ncol, hi=0.2))
+        kern, plain = adding_fused.adding_lw_fused, adding.adding_lw_plain
+    else:
+        a = _b4_args(cuda, ncol, nlev, 1, 1, 12)
+        if kernel == "mcica_sw_optics":
+            args = (a["od"], a["ssa"], a["g"], a["odc"], a["ssac"], a["gc"],
+                    a["band"], a["osc"], a["mask"], a["mu0"], False)
+            kern = mcica_optics.mcica_sw_optics_fused
+            plain = mcica_optics.sw_clear_total_reftrans_plain
+        else:
+            args = (a["od"], a["odc"], a["band"], a["osc"], a["mask"],
+                    a["planck"])
+            kern = mcica_optics.mcica_lw_optics_fused
+            plain = mcica_optics.lw_clear_total_noscat_plain
+    launches = (mcica_optics.launches if kernel.startswith("mcica")
+                else adding_fused.launches)
+    n0 = launches[kernel]
+    got = kern(*args)
+    torch.cuda.synchronize()
+    assert launches[kernel] == n0 + 1
+    ref = plain(*args)
+    if kernel.startswith("mcica"):
+        assert _rel_all(got, ref) <= (2e-3 if kernel == "mcica_sw_optics"
+                                      else 1e-4)
+    else:
+        assert all(torch.equal(x, y) for x, y in zip(got, ref))
+
+
+MONO = dict(i_gas_model=GasModel.MONOCHROMATIC, mono_lw_total_od=2.0,
+            mono_sw_total_od=0.5, use_aerosols=False)
+
+
+# the kernels each monochromatic path launches at one g-point
+MONO_KERNELS = {
+    "homogeneous": ("sw_adding", "lw_adding"),
+    "mcica": ("sw_adding", "lw_adding", "mcica_sw_optics"),
+    "mcica_noscat": ("sw_adding", "lw_noscat", "mcica_sw_optics",
+                     "mcica_lw_optics"),
+    "tripleclouds": ("sw_adding", "lw_adding", "tc_sw_sweeps",
+                     "tc_lw_sweeps"),
+    "spartacus": ("sw_adding", "lw_adding", "spartacus_sw_reftrans",
+                  "spartacus_lw_reftrans", "spartacus_sw_adding",
+                  "spartacus_lw_adding"),
+}
+
+
+@pytest.mark.parametrize("variant", list(MONO_KERNELS))
+def test_monochromatic_paths_launch_their_kernels(cuda, tmp_path, variant):
+    """The monochromatic model on 64 x 137 columns: no taumol, and the
+    solvers' kernels at one g-point (B3, B3', B4, B5, B6-B9); the fluxes
+    against the plain path on the CPU (the contracts of
+    test_mcica_path_launches_its_kernels; one g-point leaves McICA no
+    subcolumn to differ in but its cover)."""
+    solver = Solver[variant.split("_")[0].upper()]
+    kw = (dict(do_lw_cloud_scattering=False, do_lw_aerosol_scattering=False)
+          if variant == "mcica_noscat" else {})
+    cfg = mcica_slice_config(**write_synthetic_luts(str(tmp_path)), **MONO,
+                             i_solver_sw=solver, i_solver_lw=solver, **kw)
+    cols = add_effective_sizes(make_clouds(make_columns(64, 137, 0)))
+    inputs = columns_to_inputs(cols, device=cuda)
+    _reset_counts()
+    flux = radiation(setup_radiation(cfg, device=cuda), *inputs)
+    torch.cuda.synchronize()
+    assert taumol_lw.launches == taumol_sw.launches == 0
+    counts = {**adding_fused.launches, **mcica_optics.launches,
+              **spartacus_reftrans.launches, **spartacus_adding.launches}
+    assert all(counts[k] >= 1 for k in MONO_KERNELS[variant]), counts
+    cpu = radiation(setup_radiation(cfg, device="cpu"), *_to_cpu(inputs))
+    for k, v in flux.fields():
+        assert v.shape[-1] != 0 and bool(torch.isfinite(v).all()), k
+        bound = 1e-5 if k.startswith(("cloud_cover", "lw_deriv")) else {
+            (True, True): 0.01, (True, False): 0.2, (False, True): 0.02,
+            (False, False): 0.3}[("clear" in k, k.startswith("lw"))]
+        assert float((v.cpu() - getattr(cpu, k)).abs().max()) <= bound, k
+
+
+def test_radiation_scheme_on_the_card(cuda, tmp_path, monkeypatch):
+    """coupling.radiation_scheme on 64 x 137 columns with McICA, the band
+    profiles, canopy fluxes and a solar scaling: B1, B2, B3, B3' and B4
+    launch, and the fluxes and host outputs meet the plain path's on the
+    CPU on every column whose subcolumns came out the same (the bounds of
+    test_mcica_path_launches_its_kernels)."""
+    from ecrad_tpu_torch import coupling
+    from ecrad_tpu_torch.constants import GAS_INDEX
+    cfg = mcica_slice_config(
+        **write_synthetic_luts(str(tmp_path)), do_save_spectral_flux=True,
+        do_canopy_fluxes_sw=True, do_canopy_fluxes_lw=True,
+        use_spectral_solar_scaling=True)
+    c = make_clouds(make_columns(64, 137, 0))
+    host = dict(
+        pressure_hl=c["pressure_hl"], temperature_hl=c["temperature_hl"],
+        cos_sza=c["cos_sza"], skin_temperature=c["skin_temperature"],
+        sw_albedo=c["sw_albedo"], lw_emissivity=c["lw_emissivity"],
+        q=c["mixing_ratio"][:, :, GAS_INDEX["h2o"]],
+        o3_mmr=c["mixing_ratio"][:, :, GAS_INDEX["o3"]], q_liq=c["q_liq"],
+        q_ice=c["q_ice"], cloud_frac=c["fraction"],
+        sin_latitude=np.linspace(-0.9, 0.9, 64),
+        land_frac=np.tile([0.0, 1.0], 32),
+        spectral_solar_scaling=np.linspace(0.9, 1.1, 14))
+    seen = []
+    run = coupling.radiation
+    monkeypatch.setattr(coupling, "radiation",
+                        lambda s, *a: seen.append((s, a)) or run(s, *a))
+    results = []
+    for device in (cuda, "cpu"):
+        setup = setup_radiation(cfg, device=device)
+        _reset_counts()
+        flux = coupling.radiation_scheme(setup, **host)
+        if device == cuda:
+            torch.cuda.synchronize()
+            assert taumol_lw.launches == taumol_sw.launches == 1
+            assert adding_fused.launches["sw_adding"] == 2
+            assert adding_fused.launches["lw_adding"] == 2
+            assert mcica_optics.launches["mcica_sw_optics"] == 1
+        out = coupling.unpack_host_outputs(
+            setup, flux, cos_sza=host["cos_sza"],
+            skin_temperature=host["skin_temperature"],
+            lw_emissivity=host["lw_emissivity"])
+        results.append({**{k: v.cpu() for k, v in flux.fields()},
+                        **{f"host_{k}": getattr(out, k).cpu()
+                           for k in out._fields
+                           if getattr(out, k) is not None}})
+    same = torch.ones(64, dtype=torch.bool)
+    for a, b in zip(*(_masks(s, a[:4]) for s, a in seen)):
+        same &= (a == b).flatten(1).all(1)
+    assert int((~same).sum()) <= 3
+    gpu, cpu = results
+    for k, v in gpu.items():
+        assert bool(torch.isfinite(v).all()), k
+        if k.startswith(("cloud_cover", "lw_derivative", "host_emis",
+                         "host_lw_derivative")):
+            bound = 1e-5
+        else:
+            bound = {(True, True): 0.01, (True, False): 0.2,
+                     (False, True): 0.02, (False, False): 0.3}[
+                ("clear" in k, "lw" in k)]
+        assert float((v - cpu[k])[same].abs().max()) <= bound, k

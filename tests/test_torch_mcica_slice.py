@@ -247,17 +247,73 @@ def test_setup_from_numpy_equals_setup_radiation(luts):
     assert torch.equal(got.pdf_cheb, ref.pdf_cheb)
 
 
+# SPARTACUS in one region beside McICA, with its entrapment dump, which the
+# port refused until it ported it
+BESIDE_MCICA = {
+    region: (lambda luts, region=region: pconfig.mcica_slice_config(
+        **luts, **{f"i_solver_{region}": pconfig.Solver.SPARTACUS},
+        do_print_entrapment_data=True))
+    for region in ("sw", "lw")}
+
+
+def beside_columns(name=None):
+    """12 levels: the shape of the other modules' JAX runs, whose compiled
+    operations these share."""
+    return {"toa_first": make_clouds(make_columns(NCOL, 12, SEED), SEED)}
+
+
+def jax_results(dtype, luts):
+    import test_torch_spectral as spectral
+    return spectral.jax_fluxes(dtype, luts, BESIDE_MCICA, beside_columns,
+                               lut_overrides)
+
+
+@pytest.fixture(scope="module")
+def beside_mcica(luts, tmp_path_factory):
+    """{region: (port f32, JAX f32, port f64)} of BESIDE_MCICA."""
+    import test_torch_spectral as spectral
+    procs = spectral.start_jax(__name__, luts["directory_name"],
+                               tmp_path_factory, dtypes=("float32",))
+    cols = beside_columns()["toa_first"]
+    port = {}
+    for region, make in BESIDE_MCICA.items():
+        port[region] = []
+        for dtype in ("float32", "float64"):
+            flux = radiation(setup_radiation(dataclasses.replace(
+                make(luts), dtype=dtype), device="cpu"), *columns_to_inputs(
+                    cols, device="cpu", dtype=getattr(torch, dtype)))
+            got = {k: v.double().numpy() for k, v in flux.fields()}
+            if flux.entrapment_data is not None:
+                got["entrapment_data"] = torch.stack(
+                    flux.entrapment_data).double().numpy()
+            port[region].append(got)
+    jax = spectral.finish_jax(procs)["float32"]
+    return {r: (p32, jax[r]["toa_first"], p64)
+            for r, (p32, p64) in port.items()}
+
+
 @pytest.mark.parametrize("solver, slice_no", [(pconfig.Solver.SPARTACUS,
                                                "8")])
 @pytest.mark.parametrize("region", ["sw", "lw"])
-def test_other_cloudy_solvers_raise(luts, solver, slice_no, region):
-    """Every cloudy solver is ported; what SPARTACUS still lacks (its
-    entrapment-data dump, periphery) raises beside McICA."""
-    cfg = pconfig.mcica_slice_config(**luts, **{f"i_solver_{region}":
-                                                solver},
-                                     do_print_entrapment_data=True)
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-        setup_radiation(cfg, device="cpu")
+def test_other_cloudy_solvers_raise(beside_mcica, solver, slice_no, region):
+    """SPARTACUS runs beside McICA in the other region with its
+    entrapment dump, which the port refused until it ported it (ROADMAP
+    Queue A, item 8 of the port's plan then): every field within the
+    module docstring's float32 bounds of the JAX package's (McICA's
+    total-sky contract for the total sky), and the dump, SW only, within
+    1e-4 of its largest value."""
+    port, jax32, exact = beside_mcica[region]
+    assert set(port) == set(jax32)
+    assert ("entrapment_data" in port) == (region == "sw")
+    bad = {}
+    for k, a in port.items():
+        b, e = jax32[k], exact[k]
+        assert a.shape == b.shape and np.isfinite(a).all(), k
+        bound = (1e-4 * np.abs(b).max() if k == "entrapment_data"
+                 else _bound(k, b, e))
+        if np.abs(a - b).max() > bound:
+            bad[k] = (float(np.abs(a - b).max()), bound)
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("solver", [pconfig.Solver.HOMOGENEOUS,

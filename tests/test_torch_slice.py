@@ -24,7 +24,8 @@ from ecrad_tpu import interface as jinterface
 from ecrad_tpu_torch import config as pconfig
 from ecrad_tpu_torch.convert import (columns_to_inputs, inputs_from_numpy,
                                      setup_from_numpy)
-from ecrad_tpu_torch.inputs import make_columns, reverse_levels
+from ecrad_tpu_torch.inputs import (make_columns, reverse_levels,
+                                    write_synthetic_luts)
 from ecrad_tpu_torch.interface import radiation, setup_radiation
 from ecrad_tpu_torch.types import LEVEL_FLUX_FIELDS
 
@@ -168,23 +169,81 @@ def test_inputs_from_numpy_round_trip():
 
 # ---- configuration ----
 
-@pytest.mark.parametrize("overrides, slice_no", [
+# the settings the port refused (NotImplementedError) until it ported
+# them, with the flux fields each adds on the Cloudless slice's columns
+# (do_save_gpoint_flux alone adds none: it acts with do_save_spectral_flux)
+ONCE_REFUSED = [
     (dict(i_solver_sw=pconfig.Solver.SPARTACUS,
-          do_print_entrapment_data=True), "8"),
+          do_print_entrapment_data=True), ()),
     (dict(i_solver_lw=pconfig.Solver.SPARTACUS,
-          do_print_entrapment_data=True), "8"),
-    (dict(do_save_gpoint_flux=True), "8"),
-    (dict(do_canopy_fluxes_lw=True), "8"),
-    (dict(use_canopy_full_spectrum_lw=True), "8"),
-    (dict(do_save_spectral_flux=True), "8"),
-    (dict(do_canopy_fluxes_sw=True), "8"),
-    (dict(use_spectral_solar_scaling=True), "8"),
-    (dict(i_gas_model=pconfig.GasModel.MONOCHROMATIC), "8"),
-])
-def test_unported_settings_raise(overrides, slice_no):
-    cfg = pconfig.cloudless_slice_config(**overrides)
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-        setup_radiation(cfg, device="cpu")
+          do_print_entrapment_data=True), ()),
+    (dict(do_save_gpoint_flux=True), ()),
+    (dict(do_canopy_fluxes_lw=True), ("lw_dn_surf_canopy",)),
+    (dict(use_canopy_full_spectrum_lw=True), ()),
+    (dict(do_save_spectral_flux=True), (
+        "lw_up_band", "lw_dn_band", "sw_up_band", "sw_dn_band",
+        "sw_dn_direct_band", "lw_up_band_clear", "sw_dn_band_clear")),
+    (dict(do_canopy_fluxes_sw=True), ("sw_dn_diffuse_surf_canopy",
+                                      "sw_dn_direct_surf_canopy")),
+    (dict(use_spectral_solar_scaling=True), ()),
+    (dict(i_gas_model=pconfig.GasModel.MONOCHROMATIC), ()),
+]
+REFUSED_CONFIGS = {
+    f"case{i}": (lambda luts, o=o: pconfig.cloudless_slice_config(**luts,
+                                                                  **o))
+    for i, (o, _) in enumerate(ONCE_REFUSED)}
+
+
+def refused_columns(name=None):
+    # 12 levels: the shape of the other modules' JAX runs, whose compiled
+    # operations these share
+    cols = make_columns(NCOL, 12, SEED)
+    cols["spectral_solar_scaling"] = np.linspace(1.3, 0.7, 14)
+    return {"toa_first": cols}
+
+
+def jax_results(dtype, luts):
+    import test_torch_spectral as spectral
+    return spectral.jax_fluxes(dtype, luts, REFUSED_CONFIGS,
+                               refused_columns)
+
+
+@pytest.fixture(scope="module")
+def once_refused(tmp_path_factory):
+    """{case: (port f32, JAX f32, port f64)}: each setting of
+    ONCE_REFUSED on the Cloudless slice configuration (with the synthetic
+    LUTs SPARTACUS's setup reads) and columns with a solar scaling."""
+    import test_torch_spectral as spectral
+    luts = write_synthetic_luts(str(tmp_path_factory.mktemp("luts")), SEED,
+                                ice="fu")
+    procs = spectral.start_jax(__name__, luts["directory_name"],
+                               tmp_path_factory, dtypes=("float32",))
+    cols = refused_columns()["toa_first"]
+    port = {name: [spectral.port_run(make(luts), cols, dtype)
+                   for dtype in ("float32", "float64")]
+            for name, make in REFUSED_CONFIGS.items()}
+    jax = spectral.finish_jax(procs)["float32"]
+    return {name: (p32, jax[name]["toa_first"], p64)
+            for name, (p32, p64) in port.items()}
+
+
+@pytest.mark.parametrize("overrides, fields", ONCE_REFUSED)
+def test_unported_settings_raise(once_refused, overrides, fields):
+    """Every setting the port refused until it ported it runs, adds its
+    fields, and matches the JAX package under the slice's float32 bound
+    (the module docstring)."""
+    case = f"case{[o for o, _ in ONCE_REFUSED].index(overrides)}"
+    port, jax32, exact = once_refused[case]
+    assert set(port) == set(jax32) and set(fields) <= set(port)
+    bad = {}
+    for k, a in port.items():
+        b, e = jax32[k], exact[k]
+        assert a.shape == b.shape and np.isfinite(a).all(), k
+        bound = max(1e-5 * max(np.abs(e).max(), 1.0),
+                    2 * np.abs(b - e).max())
+        if np.abs(a - b).max() > bound:
+            bad[k] = (float(np.abs(a - b).max()), bound)
+    assert not bad, bad
 
 
 NAMELIST = """

@@ -6,10 +6,12 @@ tables, not ecRad's), with g-point reordering on, both level orientations
 for the slice configuration.
 
 Configurations: the SPARTACUS path (spartacus_slice_config: 3 regions,
-Explicit entrapment, 3D effects, 12 aerosol types, LW derivatives); its
-Maximum-entrapment variant (the CY47R1 matrix's spartacus_maxentr); two
-regions with lognormal PDF, Zero entrapment, LW cloud scattering and no
-aerosols; and 3D effects off.
+Explicit entrapment, 3D effects, 12 aerosol types, LW derivatives) with
+the entrapment internals dumped (do_print_entrapment_data); its
+Maximum-entrapment variant (the CY47R1 matrix's spartacus_maxentr) with
+the g-point profiles (in the original g order); two regions with
+lognormal PDF, Zero entrapment, LW cloud scattering and no aerosols, with
+the band profiles and the canopy fluxes; and 3D effects off.
 
 Bounds: at float64 1e-9 of each field's range (its largest magnitude
 where that is larger). At float32, every field within its bound of the
@@ -18,8 +20,11 @@ plus the JAX package's own float32 error on these columns (the rule the
 Tripleclouds path follows, because the port computes the SW
 Meador-Weaver resonance window in float64): bench.py:140-145's
 SPARTACUS_F64_BOUNDS for the broadband fluxes (W/m2), the same per
-spectral region for band and g-point surface fluxes, 1e-5 for the cloud
-covers and 1e-4 for the LW derivatives. The JAX runs go to
+spectral region for band and g-point surface fluxes, profiles and canopy
+fluxes, 1e-5 for the cloud covers and 1e-4 for the LW derivatives. The
+entrapment internals: at float64 1e-9 of each array's largest value, at
+float32 1e-4 of it against the JAX package's float64 (the migration
+distances accumulate over the column). The JAX runs go to
 subprocesses, four side by side (`jax_enable_x64` is process-global).
 """
 import dataclasses
@@ -46,13 +51,17 @@ NCOL, NLEV, SEED = 6, 20, 0
 F64_TOL = 1e-9
 E = pconfig.Entrapment
 CONFIGS = {
-    "spartacus": lambda luts: pconfig.spartacus_slice_config(**luts),
+    "spartacus": lambda luts: pconfig.spartacus_slice_config(
+        **luts, do_print_entrapment_data=True),
     "spartacus_maxentr": lambda luts: pconfig.spartacus_slice_config(
-        **luts, i_3d_sw_entrapment=E.MAXIMUM),
+        **luts, i_3d_sw_entrapment=E.MAXIMUM, do_save_spectral_flux=True,
+        do_save_gpoint_flux=True),
     "spartacus_2reg": lambda luts: pconfig.spartacus_slice_config(
         **luts, nregions=2, i_cloud_pdf_shape=pconfig.PdfShape.LOGNORMAL,
         i_3d_sw_entrapment=E.ZERO, do_lw_cloud_scattering=True,
-        do_lw_aerosol_scattering=False, use_aerosols=False),
+        do_lw_aerosol_scattering=False, use_aerosols=False,
+        do_save_spectral_flux=True, do_canopy_fluxes_sw=True,
+        do_canopy_fluxes_lw=True),
     "spartacus_1d": lambda luts: pconfig.spartacus_slice_config(
         **luts, do_3d_effects=False),
 }
@@ -171,10 +180,13 @@ def port_runs(luts, cols_sets, monkeypatch):
                 three_d = ThreeD(monkeypatch)
             elif name != "spartacus" and orient != "toa_first":
                 continue
-            out[name, dtype][orient] = {k: v.numpy() for k, v in radiation(
-                setup, *columns_to_inputs(cols, device="cpu",
-                                          dtype=getattr(torch, dtype))
-            ).fields()}
+            flux = radiation(setup, *columns_to_inputs(
+                cols, device="cpu", dtype=getattr(torch, dtype)))
+            out[name, dtype][orient] = {k: v.numpy()
+                                        for k, v in flux.fields()}
+            if flux.entrapment_data is not None:
+                out[name, dtype][orient]["entrapment_data"] = torch.stack(
+                    flux.entrapment_data).numpy()
             if three_d is not None:
                 monkeypatch.undo()
                 out["3d"], three_d = three_d, None
@@ -214,6 +226,8 @@ def test_spartacus_f32_matches_jax(fluxes, config, orient):
     assert {"cloud_cover_sw", "cloud_cover_lw", "lw_derivatives"} <= set(got)
     bad = {}
     for k, a in got.items():
+        if k == "entrapment_data":
+            continue
         assert a.dtype == np.float32 and a.shape == j32[k].shape, k
         assert np.isfinite(a).all(), k
         slack = float(np.abs(j32[k] - j64[k]).max())
@@ -235,6 +249,8 @@ def test_spartacus_f64_matches_jax(fluxes, config, orient):
     bad = {}
     for k, a in got.items():
         b = ref[k]
+        if k == "entrapment_data":
+            continue
         scale = max(np.ptp(b), np.abs(b).max(), 1e-300)
         err = float(np.abs(a - b).max() / scale)
         if not (a.dtype == np.float64 and err <= F64_TOL):
@@ -381,11 +397,56 @@ def test_effective_sizes_match_jax(dtype):
                                       got[1])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_entrapment_data_matches_jax(fluxes, dtype):
+    """(x_direct, x_diffuse, direct_dn, flux_dn) at the first g-point,
+    (nlev, 3, ncol) each, against the JAX package's."""
+    port, jax = fluxes
+    got = port["spartacus", dtype]["toa_first"]["entrapment_data"]
+    ref = jax["spartacus", "float64"]["toa_first"]["entrapment_data"]
+    assert got.shape == ref.shape == (4, NLEV, 3, NCOL)
+    tol = F64_TOL if dtype == "float64" else 1e-4
+    for a, b, name in zip(got, ref, ("x_direct", "x_diffuse", "direct_dn",
+                                     "flux_dn")):
+        assert np.abs(b).max() > 0 and np.isfinite(a).all(), name
+        err = np.abs(a - b).max() / np.abs(b).max()
+        assert err <= tol, (name, err)
+
+
+def test_entrapment_dump_files_are_the_jax_drivers(fluxes, tmp_path):
+    """The port's fort.101/fort.102 text is byte for byte what the JAX
+    driver writes from the same arrays."""
+    from ecrad_tpu.driver import _dump_entrapment_data as jax_dump
+    from ecrad_tpu_torch.driver import _dump_entrapment_data as port_dump
+    data = fluxes[0]["spartacus", "float32"]["toa_first"]["entrapment_data"]
+    port_dump(str(tmp_path / "port.nc"), tuple(torch.as_tensor(data)))
+    jax_dump(str(tmp_path / "jax.nc"), tuple(data))
+    for ext in (".fort.101", ".fort.102"):
+        got = (tmp_path / ("port.nc" + ext)).read_bytes()
+        assert got == (tmp_path / ("jax.nc" + ext)).read_bytes(), ext
+        assert len(got.splitlines()) == NLEV * NCOL
+
+
 @pytest.mark.parametrize("overrides, error, match", [
-    (dict(do_print_entrapment_data=True), NotImplementedError, "slice 8"),
+    (dict(do_print_entrapment_data=True), None, None),
     (dict(nregions=4), ValueError, "2 or 3 regions"),
 ])
-def test_unported_spartacus_settings_raise(luts, overrides, error, match):
-    with pytest.raises(error, match=match):
-        setup_radiation(pconfig.spartacus_slice_config(**luts, **overrides),
-                        device="cpu")
+def test_unported_spartacus_settings_raise(luts, fluxes, overrides, error,
+                                           match):
+    """Four regions raise. The entrapment dump, refused before it was
+    ported, runs: it leaves every flux field as it is without it, and its
+    arrays are the JAX package's (test_entrapment_data_matches_jax)."""
+    cfg = pconfig.spartacus_slice_config(**luts, **overrides)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            setup_radiation(cfg, device="cpu")
+        return
+    plain = radiation(setup_radiation(
+        dataclasses.replace(cfg, do_print_entrapment_data=False),
+        device="cpu"), *columns_to_inputs(columns()["toa_first"],
+                                          device="cpu"))
+    assert plain.entrapment_data is None
+    got = fluxes[0]["spartacus", "float32"]["toa_first"]
+    assert set(got) - {"entrapment_data"} == {k for k, _ in plain.fields()}
+    for k, v in plain.fields():
+        np.testing.assert_array_equal(got[k], v.numpy(), err_msg=k)

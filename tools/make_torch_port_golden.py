@@ -71,7 +71,8 @@ def jax_config(config, dtype: str):
 def jax_inputs(cols, dtype: str):
     """(SingleLevel, Thermodynamics, GasConcs, Cloud or None, Aerosol or
     None) of the JAX package from numpy columns (inputs.make_columns /
-    make_clouds / make_aerosols)."""
+    make_clouds / make_aerosols; a spectral_solar_scaling where `cols`
+    holds one)."""
     import jax.numpy as jnp
     from ecrad_tpu.types import (Aerosol, Cloud, GasConcs, SingleLevel,
                                  Thermodynamics)
@@ -83,6 +84,9 @@ def jax_inputs(cols, dtype: str):
                      sw_albedo=a("sw_albedo"),
                      lw_emissivity=a("lw_emissivity"),
                      solar_irradiance=float(cols["solar_irradiance"]),
+                     spectral_solar_scaling=(
+                         a("spectral_solar_scaling")
+                         if "spectral_solar_scaling" in cols else None),
                      iseed=(jnp.asarray(cols["iseed"], jnp.int32)
                             if cloudy else None))
     th = Thermodynamics(pressure_hl=a("pressure_hl"),
@@ -98,18 +102,23 @@ def jax_inputs(cols, dtype: str):
     return sl, th, GasConcs(mixing_ratio=a("mixing_ratio")), cloud, aerosol
 
 
-def jax_fluxes(dtype: str, *col_sets, fields=FIELDS, config=None) -> list:
+def jax_fluxes(dtype: str, *col_sets, fields=FIELDS, config=None,
+               jit=True) -> list:
     """The JAX package's fluxes at `dtype`, one dict per set of numpy
-    columns; one jitted function serves every set. `config` is a port
-    RadiationConfig (default: the Cloudless path); `fields=None` returns
-    every flux field the run sets."""
+    columns; one jitted function serves every set (with jit=False the
+    operations run one by one, whose compiled forms one process shares
+    between configurations). `config` is a port RadiationConfig (default:
+    the Cloudless path); `fields=None` returns every flux field the run
+    sets (entrapment_data stacked, (4, nlev, nreg, ncol))."""
     import jax
     from ecrad_tpu.interface import radiation, setup_radiation
     from ecrad_tpu_torch.config import cloudless_slice_config
 
     setup = setup_radiation(jax_config(config or cloudless_slice_config(),
                                        dtype))
-    fn = jax.jit(lambda *a: radiation(setup, *a))
+    fn = lambda *a: radiation(setup, *a)                # noqa: E731
+    if jit:
+        fn = jax.jit(fn)
     out = []
     for cols in col_sets:
         flux = fn(*jax_inputs(cols, dtype))
