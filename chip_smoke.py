@@ -108,6 +108,34 @@ Phases; any failure exits non-zero and prints no result line:
      n. SPARTACUS with the entrapment dump on 256 columns: every flux
         field equal to the call without it, B8 launched, the internals
         finite and (137, 3, 256), the driver's fort.101/102 files;
+     o. the driver on a tiled surface: the 2048 x 137 columns with
+        make_clouds' clouds and inputs.make_surface(2048, (1, 2, 3), 0)
+        (mls_london1's flat, vegetation and urban tiles) in one NetCDF
+        file under ecrad_tpu_torch/_build/driver/. Cloudless with
+        full-spectrum LW canopies and their gas absorption
+        (do_canopy_gases_lw): B1 and B2 launched twice (the lowest
+        level's gas optics), sw_adding and lw_noscat once; the first 32
+        columns' fluxes and facet and canopy fields against
+        tests/goldens/torch_port_surface.npz (BOUNDS, each facet field
+        its region's downwelling bound, plus the JAX package's own
+        float32 error), the four boundary fields from the driver's steps
+        on the file's inputs within 1e-5 of their largest values. McICA
+        with full-spectrum SW and LW canopies on the synthetic LUTs: the
+        flux and surface-flux files equal, field by field, to
+        calc_boundary_conditions + radiation() + partition_fluxes called
+        on the file's inputs. Both: facet fields finite, the flat ground
+        facet's sw_dn and lw_dn the surface fluxes (rtol 1e-5), no facet
+        reflecting more SW than it receives. The ms of
+        calc_boundary_conditions and partition_fluxes at 2048 columns;
+     p. analysis.compare (numpy only: no jax, no matplotlib) on the
+        McICA driver file and the radiation() file, in process and
+        through `python -m ecrad_tpu_torch.analysis.compare`: 0 in every
+        one of its 16 fields;
+     q. parallel on one card: init_distributed's single-process dict,
+        the McICA surface driver with do_parallel = true writing the
+        files of do_parallel = false bit for bit (one card: no split),
+        and parallel.scaling.scaling_benchmark at 2048 x 137 McICA
+        (columns/s on one device, information only);
   4. times (information only): each kernel and its plain version with
      CUDA events (B10 per gas-optics call, its 30 launches issued from
      Python, beside the same launches replayed from a CUDA graph, the
@@ -228,6 +256,10 @@ PATH_KERNELS = {
     "spartacus_dump": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
                        "spartacus_sw_reftrans", "spartacus_lw_reftrans",
                        "spartacus_sw_adding", "spartacus_lw_adding"),
+    "surface_cloudless": ("taumol_lw", "taumol_sw", "sw_adding",
+                          "lw_noscat"),
+    "surface_mcica": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
+                      "mcica_sw_optics"),
 }
 # the band and g-point profiles, each summed over its last axis, against
 # the broadband profile: of each field's largest value
@@ -247,6 +279,30 @@ B10_REL = 5e-6
 # values go to the device-memory scratch
 ADD_SPILL_NLEV = 300
 DRIVER_DIR = os.path.join(REPO, "ecrad_tpu_torch", "_build", "driver")
+GOLDEN_SURF = os.path.join(REPO, "tests", "goldens",
+                           "torch_port_surface.npz")
+# the tiled surface of phase o: mls_london1's flat, vegetation and urban
+# tiles; its namelist lines (Cloudless: full-spectrum LW canopies with
+# their gas absorption; McICA: full-spectrum SW and LW canopies)
+SURFACE_REPRESENTATION = (1, 2, 3)
+SURFACE_OPTIONS = {
+    "Cloudless": " use_canopy_full_spectrum_lw = true,\n"
+                 " do_canopy_gases_lw = true,\n",
+    "McICA": " use_canopy_full_spectrum_sw = true,\n"
+             " use_canopy_full_spectrum_lw = true,\n"}
+# the surface-flux file's variables and their golden names; each facet
+# and canopy field takes the bound of its region's downwelling flux
+SURFACE_FILE = {"lw_dn_facet": "flux_dn_lw_facet",
+                "lw_up_facet": "flux_up_lw_facet",
+                "lw_abs_canopy": "absorption_lw_canopy",
+                "sw_dn_facet": "flux_dn_sw_facet",
+                "sw_dn_direct_facet": "flux_dn_direct_sw_facet",
+                "sw_up_facet": "flux_up_sw_facet",
+                "sw_abs_canopy": "absorption_sw_canopy"}
+SURFACE_BOUNDS = {k: BOUNDS["lw_dn"] if k.startswith("lw") else
+                  BOUNDS["sw_dn"] for k in SURFACE_FILE}
+# the boundary fields against the golden: of each field's largest value
+BC_REL = 1e-5
 # the driver's namelist: the port's slice options (config.SLICE_OPTIONS)
 NAMELIST = """&radiation
  sw_solver_name = "{solver}",
@@ -356,11 +412,16 @@ def least_time(name, args, outs, values=None, ops=None):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
-def write_namelist(path, solver, luts, solar):
+def write_namelist(path, solver, luts, solar, extra="", parallel=False):
+    """The driver's namelist for `solver` with the LUT overrides `luts`,
+    `extra` &radiation lines, and do_parallel as given."""
+    text = NAMELIST.format(
+        solver=solver, solar=solar,
+        luts="".join(f' {k} = "{v}",\n' for k, v in luts.items()) + extra)
+    if parallel:
+        text = text.replace("do_parallel = false", "do_parallel = true")
     with open(path, "w") as f:
-        f.write(NAMELIST.format(
-            solver=solver, solar=solar,
-            luts="".join(f' {k} = "{v}",\n' for k, v in luts.items())))
+        f.write(text)
     return path
 
 
@@ -701,6 +762,43 @@ def check_golden(f, golden, fields, bounds, rows=slice(None), f64=True,
             f" used)")
         if not (e32 <= bound + slack and (e64 is None or e64 <= bound)):
             raise AssertionError(f"{k} outside its golden bound")
+
+
+def check_golden_rel(f, golden, fields, rel, what=""):
+    """Each field's first 32 columns within rel of the golden's largest
+    JAX float64 value, against JAX float64, and against JAX float32 with
+    the JAX package's own float32 error added (check_golden's rule)."""
+    for k in fields:
+        bound = rel * float(np.abs(golden[k + "_f64"]).max())
+        slack = float(np.abs(golden[k] - golden[k + "_f64"]).max())
+        e32 = float(np.abs(f[k][:32] - golden[k]).max())
+        e64 = float(np.abs(f[k][:32] - golden[k + "_f64"]).max())
+        log(f"golden{what} {k}: vs JAX float32 {e32:.3e} (JAX float32 vs "
+            f"float64 {slack:.3e}), vs JAX float64 {e64:.3e} (bound "
+            f"{bound:.3e}: {rel} of the largest value)")
+        if not (e32 <= bound + slack and e64 <= bound):
+            raise AssertionError(f"{k} outside its golden bound")
+
+
+def check_surface_file(sf, ff, what):
+    """The facet fields finite; the flat tile's ground facet (facet 0)
+    sees the atmosphere's surface fluxes (tests/test_surface.py:164-171);
+    no facet reflects more SW than it receives."""
+    for k, v in sf.items():
+        if not np.isfinite(v).all():
+            raise AssertionError(f"{what}: {k} has non-finite values")
+    flat = max(float(np.abs(sf[f"flux_dn_{r}_facet"][:, 0]
+                            / np.maximum(np.abs(ff[f"flux_dn_{r}"][:, -1]),
+                                         1e-30) - 1.0)
+                     [np.abs(ff[f"flux_dn_{r}"][:, -1]) > 0].max())
+               for r in ("sw", "lw"))
+    excess = float((sf["flux_up_sw_facet"] - sf["flux_dn_sw_facet"]).max())
+    log(f"{what}: {len(sf)} surface variables {sorted(sf)}, shapes "
+        f"{sorted({v.shape for v in sf.values()})}; flat facet against the "
+        f"surface sw_dn/lw_dn: worst relative {flat:.3e} (bound 1e-5); "
+        f"largest sw_up - sw_dn of a facet {excess:.3e} W/m2 (bound 1e-3)")
+    if not (flat <= 1e-5 and excess <= 1e-3):
+        raise AssertionError(f"{what}: the facet fluxes are not physical")
 
 
 def cloud_effect(f, name):
@@ -1860,6 +1958,158 @@ def main():
         f"[{gpu}]")
     del flux_d, ref_d, inputs_d, flux_ifs, setup_gp, setup_bd, mono
 
+    # ---- the last modules: the tiled surface through the driver, the
+    # comparison of output files, the columns split over devices ----
+    from ecrad_tpu_torch import analysis
+    from ecrad_tpu_torch.inputs import make_surface, write_surface
+    from ecrad_tpu_torch.io.output import save_surface_fluxes
+    from ecrad_tpu_torch.parallel import scaling
+    from ecrad_tpu_torch.surface import (calc_boundary_conditions,
+                                         partition_fluxes, read_surface)
+    # o. the driver on a tiled surface at full width: the 2048 x 137
+    # columns with make_clouds' clouds and make_surface's mls_london1
+    # tiles in one NetCDF file; Cloudless (full-spectrum LW canopies with
+    # their gas absorption: B1 and B2 twice) against its golden, McICA
+    # (full-spectrum SW and LW canopies) against the same steps called
+    # directly on the file's inputs
+    surf_in = os.path.join(DRIVER_DIR, "surface_columns.nc")
+    save_inputs(surf_in, *columns_to_inputs(cols_m, device=dev), None)
+    write_surface(surf_in, make_surface(NCOL, SURFACE_REPRESENTATION, SEED))
+    surf_out = {}
+    for solver, name in (("Cloudless", "surface_cloudless"),
+                         ("McICA", "surface_mcica")):
+        nam = write_namelist(os.path.join(DRIVER_DIR, f"{name}.nam"), solver,
+                             luts if solver == "McICA" else {},
+                             cols["solar_irradiance"],
+                             SURFACE_OPTIONS[solver])
+        out = (os.path.join(DRIVER_DIR, f"{name}.nc"),
+               os.path.join(DRIVER_DIR, f"{name}_facets.nc"))
+        code = count(name, lambda: driver.main([nam, surf_in, *out]))
+        if code != 0:
+            raise AssertionError(f"the {name} driver run returned {code}")
+        surf_out[solver] = (nam, out)
+        check_surface_file(read_nc(out[1]), read_nc(out[0]), name)
+    n_sc = launches["surface_cloudless"]
+    if (n_sc["taumol_lw"], n_sc["taumol_sw"], n_sc["sw_adding"],
+            n_sc["lw_noscat"]) != (2, 2, 1, 1):
+        raise AssertionError(f"the Cloudless surface driver launched {n_sc}:"
+                             f" not B1 and B2 twice (the canopies' gas "
+                             f"optics), sw_adding and lw_noscat once")
+    nam, (out, out_s) = surf_out["Cloudless"]
+    with np.load(GOLDEN_SURF) as z:
+        golden = {k: z[k] for k in z.files}
+    ff, sf = read_nc(out), read_nc(out_s)
+    f = {k: ff[v].astype(np.float64) for k, v in FILE_FLUXES.items()}
+    check_fluxes(f, cols, NCOL)
+    check_golden(f, golden, BOUNDS, BOUNDS, what=" surface driver",
+                 jax_slack=True)
+    check_golden({k: sf[v].astype(np.float64)
+                  for k, v in SURFACE_FILE.items()}, golden, SURFACE_FILE,
+                 SURFACE_BOUNDS, what=" surface facets", jax_slack=True)
+    # the boundary fields, from the driver's steps on the file's inputs
+    dcfg = load_driver_config_from_namelist(nam)
+    cfg_s = dataclasses.replace(load_config_from_namelist(nam),
+                                do_canopy_fluxes_sw=True,
+                                do_canopy_fluxes_lw=True)
+    setup_s = setup_radiation(cfg_s, device=dev)
+    ins = read_input(surf_in, dcfg, device=dev)
+    surface = read_surface(surf_in, device=dev)
+    ext_lw = driver._lowest_level_extinction(setup_s, *ins[:3])
+    bc = calc_boundary_conditions(setup_s, surface, ins[0].cos_sza,
+                                  ext_lw_air=ext_lw)
+    check_golden_rel({k: getattr(bc, k).double().cpu().numpy() for k in
+                      ("sw_albedo_diffuse", "sw_albedo_direct",
+                       "lw_emissivity", "lw_emission")}, golden,
+                     ("sw_albedo_diffuse", "sw_albedo_direct",
+                      "lw_emissivity", "lw_emission"), BC_REL,
+                     what=" surface boundary")
+    flux_s = radiation(setup_s, ins[0].replace(
+        sw_albedo=bc.sw_albedo_diffuse, sw_albedo_direct=bc.sw_albedo_direct,
+        lw_emissivity=bc.lw_emissivity, lw_emission=bc.lw_emission), *ins[1:])
+    ms_bc = path_ms(lambda: calc_boundary_conditions(
+        setup_s, surface, ins[0].cos_sza, ext_lw_air=ext_lw))
+    ms_pf = path_ms(lambda: partition_fluxes(surface, bc.intermediate,
+                                             flux_s))
+    log(f"time surface: calc_boundary_conditions {ms_bc:.3f} ms, "
+        f"partition_fluxes {ms_pf:.3f} ms per {NCOL}-column call "
+        f"(representation {SURFACE_REPRESENTATION}, full-spectrum LW, "
+        f"canopy gases) [{gpu}]")
+    del bc, flux_s, ext_lw, setup_s
+    # McICA: both files against the steps called directly
+    nam, (out, out_s) = surf_out["McICA"]
+    cfg_s = dataclasses.replace(load_config_from_namelist(nam),
+                                do_canopy_fluxes_sw=True,
+                                do_canopy_fluxes_lw=True)
+    setup_s = setup_radiation(cfg_s, device=dev)
+    ins = read_input(surf_in, load_driver_config_from_namelist(nam),
+                     device=dev)
+    bc = calc_boundary_conditions(setup_s, surface, ins[0].cos_sza)
+    flux_s = radiation(setup_s, ins[0].replace(
+        sw_albedo=bc.sw_albedo_diffuse, sw_albedo_direct=bc.sw_albedo_direct,
+        lw_emissivity=bc.lw_emissivity, lw_emission=bc.lw_emission), *ins[1:])
+    ref = (os.path.join(DRIVER_DIR, "surface_mcica_radiation.nc"),
+           os.path.join(DRIVER_DIR, "surface_mcica_radiation_facets.nc"))
+    save_fluxes(ref[0], flux_s, ins[1])
+    save_surface_fluxes(ref[1], partition_fluxes(surface, bc.intermediate,
+                                                 flux_s))
+    for got, want in zip((out, out_s), ref):
+        got, want = read_nc(got), read_nc(want)
+        differ = [k for k in want if k not in got
+                  or not np.array_equal(got[k], want[k])]
+        log(f"surface_mcica: {len(got)} variables, {len(differ)} differ from"
+            f" the steps called directly on the file's inputs {differ}")
+        if differ or set(got) != set(want):
+            raise AssertionError("the McICA surface driver's files differ "
+                                 "from the steps called directly")
+    del bc, flux_s, setup_s, ins, surface
+
+    # p. analysis.compare (numpy only: no jax, no matplotlib here) on the
+    # McICA driver file and the radiation() file: 0 in every field, in
+    # process and through its command line
+    stats = analysis.compare_outputs(analysis.load_inputs(surf_in),
+                                     analysis.load_fluxes(out),
+                                     analysis.load_fluxes(ref[0]))
+    report = analysis.format_report(stats)
+    log(report)
+    cli = subprocess.run(
+        [sys.executable, "-m", "ecrad_tpu_torch.analysis.compare", surf_in,
+         out, ref[0], "--tolerance", "0"], cwd=REPO, capture_output=True,
+        text=True, timeout=300)
+    log(f"analysis.compare command line: rc {cli.returncode}, last line "
+        f"{cli.stdout.splitlines()[-1] if cli.stdout else cli.stderr!r}")
+    if (len(stats) != 16 or any(v.get("max_abs") != 0.0
+                                for v in stats.values())
+            or cli.returncode != 0 or report not in cli.stdout):
+        raise AssertionError("analysis.compare does not show 0 for every "
+                             "field of two equal files")
+
+    # q. parallel on one card: the driver with do_parallel = true writes
+    # the files of do_parallel = false bit for bit (one device: no split);
+    # the scaling benchmark at 2048 x 137 McICA (information only)
+    info = scaling.init_distributed()
+    nam_p = write_namelist(os.path.join(DRIVER_DIR, "surface_mcica_par.nam"),
+                           "McICA", luts, cols["solar_irradiance"],
+                           SURFACE_OPTIONS["McICA"], parallel=True)
+    out_p = (os.path.join(DRIVER_DIR, "surface_mcica_par.nc"),
+             os.path.join(DRIVER_DIR, "surface_mcica_par_facets.nc"))
+    code = driver.main([nam_p, surf_in, *out_p])
+    differ = []
+    for got, want in zip(out_p, (out, out_s)):
+        got, want = read_nc(got), read_nc(want)
+        differ += [k for k in want if k not in got
+                   or not np.array_equal(got[k], want[k])]
+    log(f"parallel: init_distributed {info}; do_parallel = true on "
+        f"{torch.cuda.device_count()} device(s): rc {code}, {len(differ)} "
+        f"variables differ from do_parallel = false {differ}")
+    if code != 0 or differ:
+        raise AssertionError("do_parallel changed the driver's files")
+    bench = scaling.scaling_benchmark(
+        lambda d, *a: radiation(setup_m, *a), inputs_m, nrepeat=3)
+    log(f"scaling_benchmark McICA {NCOL} x {NLEV}: "
+        + "; ".join(f"{r['devices']} device(s) {r['columns_per_sec']:.1f} "
+                    f"columns/s, speedup {r['speedup']:.3f}, efficiency "
+                    f"{r['efficiency']:.3f}" for r in bench) + f" [{gpu}]")
+
     # ---- 4. times (information only) ----
     timing = {
         "taumol_lw": (lambda: taumol_lw.taumol_lw_kernel(fc_lw, ic_lw,
@@ -2189,6 +2439,29 @@ def main():
             f"{NCOL / min(best):.1f} columns/s, peak memory "
             f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB "
             f"above the inputs and setups [{gpu}]")
+
+    # the broadband g sums (interface._gsum: the g-points added in
+    # halves, the same bits in any batch) against the x.sum(1) they
+    # replaced: alone on the LW operand's shape, and on the Cloudless path
+    # in turns (x.sum(1), halves, halves, x.sum(1))
+    from ecrad_tpu_torch import interface
+    halves = interface._gsum
+
+    def one_sum(x):
+        return x.sum(1).T
+    xg = torch.rand(NLEV + 1, 140, NCOL, device=dev)
+    log(f"time g sums of {tuple(xg.shape)}: halves "
+        f"{time_ms(lambda: halves(xg), 20):.4f} ms, x.sum(1) "
+        f"{time_ms(lambda: one_sum(xg), 20):.4f} ms [{gpu}]")
+    del xg
+    turns = []
+    for form in (one_sum, halves, halves, one_sum):
+        interface._gsum = form
+        turns.append(path_ms(lambda: radiation(setup, sl, th, gas), 10))
+    interface._gsum = halves
+    log(f"time cloudless with the g sums as x.sum(1), halves, halves, "
+        f"x.sum(1): {', '.join(f'{t:.3f}' for t in turns)} ms per "
+        f"{NCOL}-column call [{gpu}]")
 
     level_sweep = ("ecrad_tpu_torch/csrc/level_sweep.cu",
                    "ecrad_tpu/ops/adding_fused.py:125")

@@ -1,5 +1,6 @@
 """Carry state across from numpy: a JAX RadiationSetup's content, the
-input dataclasses, and the columns of inputs.make_columns.
+input dataclasses, the columns of inputs.make_columns and the tiled
+surface of inputs.make_surface.
 
 Everything here takes numpy arrays (or anything np.asarray accepts), so
 the JAX package's objects cross over without this package importing it.
@@ -19,6 +20,7 @@ from .optics.aerosol import AerosolOpticsTables
 from .optics.cloud import CloudOpticsTables
 from .optics.rrtmg.gas_optics import spec_from_arrays
 from .solvers.pdf_sampler import PdfSampler
+from .surface.properties import SurfaceDescription
 from .types import Aerosol, Cloud, GasConcs, SingleLevel, Thermodynamics
 
 
@@ -120,3 +122,15 @@ def columns_to_inputs(cols: Mapping, device="cuda", dtype=torch.float32):
     if aerosols:
         return sl, th, gas, cloud, aer
     return (sl, th, gas, cloud) if cloudy else (sl, th, gas)
+
+
+def surface_from_numpy(surface: Mapping, device="cuda",
+                       dtype=torch.float32) -> SurfaceDescription:
+    """The port's SurfaceDescription from a dict of numpy arrays keyed by
+    field name and its "representation" (inputs.make_surface), float
+    arrays in `dtype`, on `device` (the GPU unless the caller asks for
+    another)."""
+    fields = {k: v for k, v in surface.items() if k != "representation"}
+    return _build(SurfaceDescription, fields, resolve_device(device),
+                  dtype).replace(representation=tuple(
+                      int(r) for r in surface["representation"]))

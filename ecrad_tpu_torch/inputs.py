@@ -207,6 +207,101 @@ def make_aerosols(cols: Dict[str, np.ndarray], seed: int = 0
     return out
 
 
+#: the facets of each tile code (1 flat, 2 vegetation, 3 urban; as
+#: surface.properties.N_TILE_FACETS)
+_TILE_FACETS = {1: 1, 2: 1, 3: 3}
+
+
+def make_surface(ncol: int, representation=(1,), seed: int = 0,
+                 nalb: int = N_SW_ALBEDO, nem: int = N_LW_EMISS
+                 ) -> Dict[str, np.ndarray]:
+    """A tiled surface of `representation` (tile codes: 1 flat, 2
+    vegetation, 3 urban; (1,) is ecRad's mls_flat case, (1, 2)
+    mls_forest, (1, 2, 3) mls_london1), built as the JAX package's
+    tests/test_surface.py:38-61 builds one, each field drawn per column
+    from its own RandomState: skin temperatures 283-293 K per facet,
+    diffuse and direct albedos 0.05-0.4 in `nalb` intervals,
+    emissivities 0.9-1.0 in `nem` intervals, tile fractions from a flat
+    Dirichlet, canopies 6-18 m deep at 285-295 K, building fractions
+    0.2-0.6 with normalised perimeters 0.05-0.15 (height to width about
+    0.5-1), vegetation optical depths 1-5, vegetation albedos 0.1-0.2
+    and emissivities 0.96-0.99. A dict of float64 arrays under the
+    SurfaceDescription field names (convert.surface_from_numpy makes the
+    port's), plus "representation" (a tuple)."""
+    rep = tuple(int(r) for r in representation)
+    nfacet, ntile = sum(_TILE_FACETS[r] for r in rep), len(rep)
+    rng = np.random.RandomState(seed + 32452843)
+    u = lambda lo, hi, *shape: rng.uniform(lo, hi, shape)   # noqa: E731
+    return {
+        "skin_temperature": u(283.0, 293.0, ncol, nfacet),
+        "sw_albedo": u(0.05, 0.4, ncol, nfacet, nalb),
+        "sw_albedo_direct": u(0.05, 0.4, ncol, nfacet, nalb),
+        "lw_emissivity": u(0.9, 1.0, ncol, nfacet, nem),
+        "tile_fraction": rng.dirichlet(np.ones(ntile), size=ncol),
+        "canopy_depth": u(6.0, 18.0, ncol, ntile),
+        "canopy_temperature": u(285.0, 295.0, ncol, ntile),
+        "building_fraction": u(0.2, 0.6, ncol, ntile),
+        "building_normalized_perimeter": u(0.05, 0.15, ncol, ntile),
+        "vegetation_optical_depth": u(1.0, 5.0, ncol, ntile),
+        "vegetation_fractional_std": u(0.5, 1.0, ncol, ntile),
+        "vegetation_sw_albedo": u(0.1, 0.2, ncol, ntile, nalb),
+        "vegetation_lw_emissivity": u(0.96, 0.99, ncol, ntile, nem),
+        "representation": rep,
+    }
+
+
+def write_surface(path: str, surface: Dict[str, np.ndarray],
+                  building_scale: bool = False) -> None:
+    """Add `surface` (of make_surface) to the driver input file `path`
+    (one written by io.output.save_inputs), under the names
+    surface.read_surface reads: tile_representation (tile), the facet
+    fields skin_temperature (column, facet), sw_albedo and
+    sw_albedo_direct (column, facet, sw_albedo_band), lw_emissivity
+    (column, facet, lw_emiss_band), which replace the single-level ones,
+    and the tile fields (column, tile[, band]). An albedo or emissivity
+    of one interval is written 2-D (column, facet), as some ecRad
+    surface files hold it. With building_scale the file holds
+    building_scale = 4 f (1 - f) / perimeter in place of
+    building_normalized_perimeter (radsurf_properties.F90:425-429
+    converts it back)."""
+    from scipy.io import netcdf_file
+
+    from .io.netcdf import write_netcdf
+    with netcdf_file(path, "r", mmap=False) as f:
+        variables = {k: (v.dimensions, v[...].copy())
+                     for k, v in f.variables.items()}
+    band = {"sw": ("sw_albedo_band",), "lw": ("lw_emiss_band",)}
+
+    def spectral(x, region):
+        return ((), x[..., 0]) if x.shape[-1] == 1 else (band[region], x)
+
+    facet, tile = ("column", "facet"), ("column", "tile")
+    for name, region, dims in (
+            ("sw_albedo", "sw", facet), ("sw_albedo_direct", "sw", facet),
+            ("lw_emissivity", "lw", facet),
+            ("vegetation_sw_albedo", "sw", tile),
+            ("vegetation_lw_emissivity", "lw", tile)):
+        extra, data = spectral(surface[name], region)
+        variables[name] = (dims + extra, data)
+    for name in ("tile_fraction", "canopy_depth", "canopy_temperature",
+                 "building_fraction", "vegetation_optical_depth",
+                 "vegetation_fractional_std"):
+        variables[name] = (tile, surface[name])
+    variables["skin_temperature"] = (facet, surface["skin_temperature"])
+    perimeter = surface["building_normalized_perimeter"]
+    if building_scale:
+        f = surface["building_fraction"]
+        variables["building_scale"] = (tile, 4.0 * f * (1.0 - f) / perimeter)
+    else:
+        variables["building_normalized_perimeter"] = (tile, perimeter)
+    variables["tile_representation"] = (
+        ("tile",), np.asarray(surface["representation"], np.int32))
+    dims = {}
+    for vdims, data in variables.values():
+        dims.update(zip(vdims, np.shape(data)))
+    write_netcdf(path, dims, variables)
+
+
 def _write_nc(path, variables):
     from scipy.io import netcdf_file
     with netcdf_file(path, "w", version=2) as f:

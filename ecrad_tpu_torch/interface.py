@@ -233,8 +233,18 @@ def _spectral_map(setup, region, nbands):
 
 
 def _gsum(x):
-    """g-first (nlev+1, ng, ncol) -> (ncol, nlev+1)."""
-    return x.sum(1).T
+    """g-first (nlev+1, ng, ncol) -> (ncol, nlev+1): the g-points added
+    in halves (the first half to the second, an odd last one carried),
+    an order set by ng alone. Each column's sum is the same bits in any
+    batch and on any device, so columns split over devices or processes
+    give the fluxes of the whole batch bit for bit; x.sum(1) sums a
+    column in an order that depends on the batch width (on the CPU, 4
+    columns against 8)."""
+    while x.shape[1] > 1:
+        half = x.shape[1] // 2
+        s = x[:, :half] + x[:, half:2 * half]
+        x = torch.cat([s, x[:, 2 * half:]], 1) if x.shape[1] % 2 else s
+    return x[:, 0].T
 
 
 def _surf_g(x):

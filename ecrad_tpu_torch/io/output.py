@@ -1,16 +1,16 @@
 """Write fluxes, inputs and per-g radiative properties to NetCDF.
 
-Port of ecrad_tpu/io/output.py:17-206 (radiation/radiation_save.F90:
-save_fluxes :34-304, save_inputs :719, save_radiative_properties :411):
-the same variable names, units and layouts, so downstream tools read
-either package's files. `save_fluxes` writes every field of the Flux
-that is set (a field that is None is skipped), the canopy-top fluxes and
-the band or g-point profiles of do_save_spectral_flux included;
-`save_surface_fluxes` comes with the tiled-surface scheme (ROADMAP.md
-Queue A). `save_inputs` writes aerosol_mmr as (column, level,
-aerosol_type), as the JAX package does, while the reader takes
-(column, aerosol_type, level): the round trip with aerosols is broken in
-both packages (ROADMAP.md Queue C).
+Port of ecrad_tpu/io/output.py (radiation/radiation_save.F90:
+save_fluxes :34-304, save_inputs :719, save_radiative_properties :411;
+radsurf/radsurf_save.F90 for save_surface_fluxes): the same variable
+names, units and layouts, so downstream tools read either package's
+files. `save_fluxes` writes every field of the Flux that is set (a field
+that is None is skipped), the canopy-top fluxes and the band or g-point
+profiles of do_save_spectral_flux included; `save_surface_fluxes` the
+facet and canopy fluxes of a tiled surface. `save_inputs` writes
+aerosol_mmr as (column, level, aerosol_type), as the JAX package does,
+while the reader takes (column, aerosol_type, level): the round trip
+with aerosols is broken in both packages (ROADMAP.md Queue C).
 """
 from __future__ import annotations
 
@@ -202,3 +202,27 @@ def save_radiative_properties(path: str, setup, single_level, thermo,
     write_netcdf(path, v.dims, v.variables,
                  global_attrs={"title":
                                "ecRad-TPU per-g radiative properties"})
+
+
+def save_surface_fluxes(path: str, surface_flux) -> None:
+    """The facet and canopy fluxes of a tiled surface (a
+    surface.SurfaceFlux) under radsurf_save.F90's names (:24-140):
+    (column, facet) and (column, tile), float32."""
+    v = _Vars()
+    cf, ct = ("column", "facet"), ("column", "tile")
+    v.add("flux_dn_lw_facet", cf, surface_flux.lw_dn_facet, "W m-2",
+          "Longwave flux into facet of surface")
+    v.add("flux_up_lw_facet", cf, surface_flux.lw_up_facet, "W m-2",
+          "Longwave flux out of facet of surface")
+    v.add("absorption_lw_canopy", ct, surface_flux.lw_abs_canopy, "W m-2",
+          "Longwave absorption by tile canopy")
+    v.add("flux_dn_sw_facet", cf, surface_flux.sw_dn_facet, "W m-2",
+          "Shortwave flux into facet of surface")
+    v.add("flux_dn_direct_sw_facet", cf, surface_flux.sw_dn_direct_facet,
+          "W m-2", "Shortwave direct flux into facet of surface")
+    v.add("flux_up_sw_facet", cf, surface_flux.sw_up_facet, "W m-2",
+          "Shortwave flux out of facet of surface")
+    v.add("absorption_sw_canopy", ct, surface_flux.sw_abs_canopy, "W m-2",
+          "Shortwave absorption by tile canopy")
+    write_netcdf(path, v.dims, v.variables, v.attrs,
+                 global_attrs={"title": "Surface fluxes from ecRad-TPU"})

@@ -1,1 +1,2 @@
-"""Column blocking of the offline driver (one GPU)."""
+"""Column blocks, columns split over devices, several processes, and the
+scaling benchmark."""

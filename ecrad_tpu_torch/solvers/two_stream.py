@@ -1,10 +1,11 @@
 """Two-stream coefficients and layer reflectance/transmittance.
 
-Port of ecrad_tpu/solvers/two_stream.py:21-130
+Port of ecrad_tpu/solvers/two_stream.py:21-185
 (radiation/radiation_two_stream.F90): LW Fu et al. (1997) gammas, SW
 Zdunkowski PIFM gammas, Meador & Weaver (1980) reflectance and
-transmittance with linear-in-tau Planck sources, and the LW
-no-scattering transmittance. Elementwise over any broadcastable shapes.
+transmittance with linear-in-tau Planck sources, the LW
+no-scattering transmittance, and the surface scheme's isothermal LW and
+physical-coordinate SW variants. Elementwise over any broadcastable shapes.
 `torch.exp` is the exact libm exponential on every device; the TPU's
 software exp (ecrad_tpu/utils/fastmath.py) is not needed here.
 """
@@ -137,6 +138,56 @@ def _sw_reftrans(mu0, od, ssa, gamma1, gamma2, gamma3):
     ref_diff = gamma2 * (1.0 - expo2) * rt
     trans_diff = k2e * rt
     rt_dir = mu0 * ssa * rt / (1.0 - k_mu0 * k_mu0)
+    ref_dir = rt_dir * ((1.0 - k_mu0) * (alpha2 + k_gamma3)
+                        - (1.0 + k_mu0) * (alpha2 - k_gamma3) * expo2
+                        - k2e * (gamma3 - alpha2 * mu0) * e0)
+    trans_dir_diff = rt_dir * (
+        k2e * (gamma4 + alpha1 * mu0)
+        - e0 * ((1.0 + k_mu0) * (alpha1 + k_gamma4)
+                - (1.0 - k_mu0) * (alpha1 - k_gamma4) * expo2))
+    return ref_diff, trans_diff, ref_dir, trans_dir_diff, e0
+
+
+def lw_reftrans_isothermal(od, gamma1, gamma2, planck):
+    """Isothermal-layer LW Meador-Weaver reflectance and transmittance
+    (radiation_two_stream.F90:263-327), for a canopy whose temperature
+    is constant with height. Returns (reflectance, transmittance,
+    source), the source the layer's own emission, the same up and
+    down."""
+    k = _k_exponent(gamma1, gamma2)
+    expo = torch.exp(-k * od)
+    expo2 = expo * expo
+    rt = 1.0 / (k + gamma1 + (k - gamma1) * expo2)
+    ref = gamma2 * (1.0 - expo2) * rt
+    trans = 2.0 * k * expo * rt
+    return ref, trans, planck * (1.0 - ref - trans)
+
+
+def sw_reftrans_z(mu0, depth, gamma0, gamma1, gamma2, gamma3, gamma4):
+    """SW Meador-Weaver in physical (z) coordinates
+    (radiation_two_stream.F90:648-774): the gammas are rates per metre
+    (an urban canyon's include its wall exchange, so gamma3 and gamma4
+    come scaled, not from an ssa), gamma0 the direct beam's attenuation
+    rate. Returns (ref_diff, trans_diff, ref_dir, trans_dir_diff,
+    trans_dir_dir). As in the JAX package, without sw_reftrans's float64
+    resonance window: only the float32-sized nudge of k mu0 off 1."""
+    od_over_mu0 = torch.clamp(gamma0 * depth, min=0.0)
+    alpha1 = gamma1 * gamma4 + gamma2 * gamma3
+    alpha2 = gamma1 * gamma3 + gamma2 * gamma4
+    k = _k_exponent(gamma1, gamma2)
+    k_mu0 = k * mu0
+    k_mu0 = torch.where(torch.abs(k_mu0 - 1.0) < 1e-6,
+                        torch.full_like(k_mu0, 1.0 - 1e-6), k_mu0)
+    k_gamma3 = k * gamma3
+    k_gamma4 = k * gamma4
+    e0 = torch.exp(-od_over_mu0)
+    expo = torch.exp(-k * depth)
+    expo2 = expo * expo
+    k2e = 2.0 * k * expo
+    rt = 1.0 / (k + gamma1 + (k - gamma1) * expo2)
+    ref_diff = gamma2 * (1.0 - expo2) * rt
+    trans_diff = k2e * rt
+    rt_dir = mu0 * rt / (1.0 - k_mu0 * k_mu0)
     ref_dir = rt_dir * ((1.0 - k_mu0) * (alpha2 + k_gamma3)
                         - (1.0 + k_mu0) * (alpha2 - k_gamma3) * expo2
                         - k2e * (gamma3 - alpha2 * mu0) * e0)

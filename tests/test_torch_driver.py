@@ -18,7 +18,7 @@ tests/test_torch_slice.py and test_torch_mcica_slice.py:
 Besides: column blocks, height-increasing input, istartcol/iendcol, the
 bounds checks, the input round trip, the aerosol layout (a fault of the
 JAX package pinned here, ROADMAP.md Queue C), HDF5 output and the refusal
-of a tiled surface.
+of a tiled surface cropped by istartcol/iendcol.
 """
 import os
 import subprocess
@@ -376,13 +376,20 @@ def test_hdf5_output_and_its_refusal_without_h5py(case, monkeypatch):
 
 
 def test_tiled_surface_input_is_refused(case):
+    """A tiled-surface input is refused with istartcol/iendcol: the JAX
+    driver crops the atmosphere and not the surface, and fails
+    (ROADMAP.md Queue C). Without the crop the driver runs it
+    (tests/test_torch_surface_driver.py)."""
+    from ecrad_tpu_torch.inputs import make_surface, write_surface
     d = case["dir"]
-    path = _rewrite(case["input"], str(d / "tiled.nc"), {
-        "tile_representation": (("tile",), np.array([1], np.int32)),
-        "tile_fraction": (("column", "tile"), np.ones((NCOL, 1)))})
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        driver.main([case["nam"]["cloudless"], path, str(d / "t.nc"),
-                     "--device", "cpu"])
+    path = str(d / "tiled.nc")
+    output.save_inputs(path, *columns_to_inputs(case["cols"], device="cpu"),
+                       None)
+    write_surface(path, make_surface(NCOL, (1,), SEED, nem=1))
+    nam = _namelist(d / "tiled_crop.nam", "cloudless", case["luts"],
+                    driver_opts=" istartcol = 2,\n iendcol = 5,\n")
+    with pytest.raises(ValueError, match="tiled-surface input"):
+        driver.main([nam, path, str(d / "t.nc"), "--device", "cpu"])
 
 
 def test_driver_saves_inputs_and_radiative_properties(case, monkeypatch):

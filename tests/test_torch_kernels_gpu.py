@@ -1276,3 +1276,73 @@ def test_radiation_scheme_on_the_card(cuda, tmp_path, monkeypatch):
                      (False, True): 0.02, (False, False): 0.3}[
                 ("clear" in k, "lw" in k)]
         assert float((v - cpu[k])[same].abs().max()) <= bound, k
+
+
+@pytest.mark.parametrize("dtype, rel", [("float64", 1e-6),
+                                        ("float32", 1e-5)])
+@pytest.mark.parametrize("rep", [(1,), (1, 2), (1, 2, 3), (3,)])
+def test_surface_scheme_on_the_card(cuda, rep, dtype, rel):
+    """calc_boundary_conditions and partition_fluxes (plain PyTorch, no
+    kernel) on the card against the same call on the CPU: full-spectrum
+    SW and LW canopies with the lowest level's LW extinction, cos_sza
+    0 to 1; every field within `rel` of its largest magnitude. float64
+    within 1e-6; float32 within 1e-5, the port's float32 cross-program
+    bound: the two devices' float32 exp and sums differ by up to 1.6e-6
+    of a field's largest value where terms cancel (trans_dir_diff, the
+    canopies' LW absorption)."""
+    import dataclasses
+    import types
+
+    from ecrad_tpu_torch.convert import surface_from_numpy
+    from ecrad_tpu_torch.inputs import make_surface
+    from ecrad_tpu_torch.surface import (calc_boundary_conditions,
+                                         partition_fluxes)
+    ncol = 64
+    rng = np.random.RandomState(3)
+    cos_sza = np.linspace(0.0, 1.0, ncol)
+    day = cos_sza[:, None]
+    extra = {"ext_lw_air": rng.uniform(1e-5, 5e-3, (ncol, 140))}
+    flux = {"lw_dn_surf_canopy": rng.uniform(0, 6, (ncol, 140)),
+            "sw_dn_diffuse_surf_canopy": rng.uniform(0, 4, (ncol, 112)),
+            "sw_dn_direct_surf_canopy": day * rng.uniform(0, 12,
+                                                          (ncol, 112))}
+    for k in ("lw_dn", "lw_up", "sw_dn", "sw_up", "sw_dn_direct"):
+        flux[k] = rng.uniform(0, 500, (ncol, 3)) * (
+            day if k.startswith("sw") else 1.0)
+    cfg = cloudless_slice_config(
+        do_canopy_fluxes_sw=True, do_canopy_fluxes_lw=True,
+        use_canopy_full_spectrum_sw=True, use_canopy_full_spectrum_lw=True)
+    results = []
+    dt = getattr(torch, dtype)
+    for device in (cuda, "cpu"):
+        setup = setup_radiation(dataclasses.replace(cfg, dtype=dtype),
+                                device=device)
+        t = lambda x: torch.as_tensor(x, dtype=dt,  # noqa: E731
+                                      device=device)
+        surf = surface_from_numpy(make_surface(ncol, rep, 0), device=device,
+                                  dtype=dt)
+        bc = calc_boundary_conditions(setup, surf, t(cos_sza),
+                                      ext_lw_air=t(extra["ext_lw_air"]))
+        sflux = partition_fluxes(surf, bc.intermediate, types.SimpleNamespace(
+            **{k: t(v) for k, v in flux.items()}))
+        out = {k: getattr(bc, k) for k in ("sw_albedo_diffuse",
+                                           "sw_albedo_direct",
+                                           "lw_emissivity", "lw_emission")}
+        out.update({f"inter_{k}": v for k, v in vars(bc.intermediate).items()
+                    if v is not None})
+        out.update({f"flux_{k}": v for k, v in sflux.fields()})
+        assert all(v.device.type == torch.device(device).type
+                   for v in out.values())
+        results.append({k: v.double().cpu() for k, v in out.items()})
+    gpu, cpu = results
+    assert set(gpu) == set(cpu)
+    bad = {}
+    for k, v in gpu.items():
+        assert bool(torch.isfinite(v).all()), k
+        scale = float(cpu[k].abs().max().clamp(min=1e-30))
+        err = (v - cpu[k]).abs()
+        if float(err.max()) > rel * scale:
+            at = np.unravel_index(int(err.argmax()), tuple(err.shape))
+            bad[k] = (float(err.max()) / scale, at, float(cpu[k][at]),
+                      float(v[at]))
+    assert not bad, bad

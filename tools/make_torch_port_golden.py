@@ -23,7 +23,17 @@ golden see identical columns):
   (spartacus_slice_config: 3D effects, Explicit entrapment, the
   Tripleclouds path's other settings) on the same columns with the
   effective sizes of inputs.add_effective_sizes (the CY47R1 namelist's
-  cloud separation): the same fields as Tripleclouds.
+  cloud separation): the same fields as Tripleclouds;
+- tests/goldens/torch_port_surface.npz: the offline driver's
+  tiled-surface branch (chip_smoke.py phase o) on make_columns(2048, 137,
+  0) with mls_london1's tiles, inputs.make_surface(2048, (1, 2, 3), 0),
+  Cloudless with full-spectrum LW canopies and their gas absorption
+  (do_canopy_gases_lw), the columns' solar irradiance (1361 W/m2): the
+  JAX driver's steps on a NetCDF file of the 32 columns (so the inputs
+  are rounded to float32 as the card's file is) — the lowest level's LW
+  extinction, calc_boundary_conditions, radiation() and partition_fluxes
+  — holding the four boundary fields (BC_FIELDS), the broadband fluxes
+  and the seven facet and canopy fields (SURFACE_FIELDS).
 
 Each flux field is stored twice: `<field>` from the JAX package at float32
 and `<field>_f64` at float64 (each precision in its own process, because
@@ -46,12 +56,84 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = {name: os.path.join(REPO, "tests", "goldens",
                               f"torch_port_{name}.npz")
-           for name in ("cloudless", "mcica", "tripleclouds", "spartacus")}
+           for name in ("cloudless", "mcica", "tripleclouds", "spartacus",
+                        "surface")}
 NCOL_BATCH, NCOL, NLEV, SEED = 2048, 32, 137, 0
 FIELDS = ("lw_up", "lw_dn", "sw_up", "sw_dn", "sw_dn_direct")
 CLEAR_FIELDS = tuple(f + "_clear" for f in FIELDS)
 MCICA_FIELDS = FIELDS + CLEAR_FIELDS + ("cloud_cover_sw", "cloud_cover_lw")
 TRIPLECLOUDS_FIELDS = MCICA_FIELDS + ("lw_derivatives",)
+BC_FIELDS = ("sw_albedo_diffuse", "sw_albedo_direct", "lw_emissivity",
+             "lw_emission")
+SURFACE_FIELDS = ("lw_dn_facet", "lw_up_facet", "lw_abs_canopy",
+                  "sw_dn_facet", "sw_dn_direct_facet", "sw_up_facet",
+                  "sw_abs_canopy")
+SURFACE_REPRESENTATION = (1, 2, 3)
+
+
+def surface_config():
+    """The port configuration of the tiled-surface golden (the driver
+    turns the canopy fluxes on for a tiled input)."""
+    from ecrad_tpu_torch.config import cloudless_slice_config
+    return cloudless_slice_config(
+        do_canopy_fluxes_sw=True, do_canopy_fluxes_lw=True,
+        use_canopy_full_spectrum_lw=True, do_canopy_gases_lw=True)
+
+
+def write_surface_input(path: str, ncol_batch: int = NCOL_BATCH,
+                        ncol: int = NCOL) -> None:
+    """The driver input of the tiled-surface golden: the first `ncol` of
+    `ncol_batch` seed-0 columns with their tiles, written by the port's
+    save_inputs and inputs.write_surface."""
+    from ecrad_tpu_torch.convert import columns_to_inputs
+    from ecrad_tpu_torch.inputs import (make_columns, make_surface,
+                                        slice_columns, write_surface)
+    from ecrad_tpu_torch.io.output import save_inputs
+    cols = slice_columns(make_columns(ncol_batch, NLEV, SEED),
+                         slice(0, ncol))
+    surf = make_surface(ncol_batch, SURFACE_REPRESENTATION, SEED)
+    surf = {k: (v[:ncol] if isinstance(v, np.ndarray) else v)
+            for k, v in surf.items()}
+    save_inputs(path, *columns_to_inputs(cols, device="cpu"), None, None)
+    write_surface(path, surf)
+
+
+def jax_surface_run(path: str, dtype: str) -> dict:
+    """The JAX driver's tiled-surface steps (ecrad_tpu/driver.py:86-96,
+    :168-214) on the file `path` at `dtype`: {field: array} of BC_FIELDS,
+    FIELDS and SURFACE_FIELDS."""
+    import jax
+    import jax.numpy as jnp
+    from ecrad_tpu.config import DriverConfig
+    from ecrad_tpu.driver import _lowest_level_extinction
+    from ecrad_tpu.interface import radiation, setup_radiation
+    from ecrad_tpu.io.input_reader import read_input
+    from ecrad_tpu.surface import (calc_boundary_conditions,
+                                   partition_fluxes, read_surface)
+    dt = getattr(jnp, dtype)
+    setup = setup_radiation(jax_config(surface_config(), dtype))
+    def cast(x):
+        floating = hasattr(x, "dtype") and jnp.issubdtype(x.dtype,
+                                                          jnp.floating)
+        return x.astype(dt) if floating else x
+    sl, th, gas, cloud, aerosol = (jax.tree.map(cast, part) for part in
+                                   read_input(path, DriverConfig(
+                                       solar_irradiance_override=1361.0)))
+    surface = read_surface(path, dt)
+    ext_lw = _lowest_level_extinction(setup, sl, th, gas)[0]
+    bc = calc_boundary_conditions(setup, surface, sl.cos_sza,
+                                  ext_lw_air=ext_lw)
+    sl = sl.replace(sw_albedo=bc.sw_albedo_diffuse,
+                    sw_albedo_direct=bc.sw_albedo_direct,
+                    lw_emissivity=bc.lw_emissivity,
+                    lw_emission=bc.lw_emission)
+    flux = jax.jit(lambda *a: radiation(setup, *a))(sl, th, gas, cloud,
+                                                    aerosol)
+    sflux = partition_fluxes(surface, bc.intermediate, flux)
+    out = {k: getattr(bc, k) for k in BC_FIELDS}
+    out.update({k: getattr(flux, k) for k in FIELDS})
+    out.update({k: getattr(sflux, k) for k in SURFACE_FIELDS})
+    return {k: np.asarray(v, np.float64) for k, v in out.items()}
 
 
 def jax_config(config, dtype: str):
@@ -187,6 +269,12 @@ def _child(name: str, dtype: str, out: str) -> None:
                              slice(0, NCOL))
         np.savez(out, **jax_fluxes(dtype, cols)[0])
         return
+    if name == "surface":
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "surface.nc")
+            write_surface_input(path)
+            np.savez(out, **jax_surface_run(path, dtype))
+        return
     if name in ("tripleclouds", "spartacus"):
         make = {"tripleclouds": tripleclouds_slice_config,
                 "spartacus": spartacus_slice_config}[name]
@@ -272,7 +360,8 @@ def main() -> int:
         np.savez_compressed(GOLDENS[name], **golden)
         for k in {"cloudless": FIELDS, "mcica": MCICA_FIELDS,
                   "tripleclouds": TRIPLECLOUDS_FIELDS,
-                  "spartacus": TRIPLECLOUDS_FIELDS}[name]:
+                  "spartacus": TRIPLECLOUDS_FIELDS,
+                  "surface": BC_FIELDS + FIELDS + SURFACE_FIELDS}[name]:
             err = np.abs(golden[k] - golden[k + "_f64"]).max()
             print(f"{name} {k}: JAX float32 vs float64 max abs {err:.3e}")
         print(f"wrote {GOLDENS[name]}")
