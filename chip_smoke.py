@@ -136,6 +136,22 @@ Phases; any failure exits non-zero and prints no result line:
         files of do_parallel = false bit for bit (one card: no split),
         and parallel.scaling.scaling_benchmark at 2048 x 137 McICA
         (columns/s on one device, information only);
+     r. the profiler and the general matrix exponentials: the native host
+        cores (ecrad_tpu_torch/csrc/host, built with g++ into
+        ecrad_tpu_torch/_build/; a missing library fails) and a record
+        read back through FortranFile's native reader; McICA at 2048 x
+        137 with ECRAD_HOOK=1, its stages in utils.hooks spans
+        (tools/profile_torch_port.add_spans) inside a `radiation` span
+        that synchronises: 3 calls accounted (each span's calls, self at
+        most total, radiation's total at least its children's, the hook
+        stack empty after), dump_profile read back by
+        tools/merge_hook_profiles.py, one call traced with
+        start_trace/stop_trace (B1 and B2 inside the gas_optics span);
+        McICA's ms with the spans and ECRAD_HOOK=0 and =1 in turns and
+        without the spans (information only); expm_g (3 x 3) and
+        expm_sw_g (6 x 6 + 3 x 3) on 112 x 2048 SW generators in float32
+        on the card against float64 and float32 on the CPU (2e-5 of each
+        output's largest value);
   4. times (information only): each kernel and its plain version with
      CUDA events (B10 per gas-optics call, its 30 launches issued from
      Python, beside the same launches replayed from a CUDA graph, the
@@ -158,6 +174,7 @@ last line is {"ok": true, "device": {...}}. There is no CPU fallback:
 without a GPU the script exits 1.
 """
 import dataclasses
+import glob
 import json
 import os
 import subprocess
@@ -260,6 +277,8 @@ PATH_KERNELS = {
                           "lw_noscat"),
     "surface_mcica": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
                       "mcica_sw_optics"),
+    "hooks_mcica": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
+                    "mcica_sw_optics"),
 }
 # the band and g-point profiles, each summed over its last axis, against
 # the broadband profile: of each field's largest value
@@ -330,6 +349,18 @@ NCOL_NOSCAT = 256
 # B8's and B9's block heights in g-points (csrc/spartacus_adding.cu
 # G_TILE, LW_G_TILE)
 B8_G_TILE, B9_G_TILE = 8, 4
+# phase r: the hook spans a McICA radiation() call enters (the cloud
+# generator's once for SW and once for LW), and those directly inside
+# `radiation`
+HOOK_CALLS = {"radiation": 1, "gas_optics": 1, "cloud_stage": 1,
+              "solver_lw": 1, "solver_sw": 1, "cloud_generator": 2,
+              "threefry": 2, "cloud_cover": 2}
+HOOK_CHILDREN = ("gas_optics", "cloud_stage", "solver_lw", "solver_sw")
+HOOK_REPS = 3
+# the matrix exponentials on the card in float32 against the CPU: the
+# float32 bound of tests/test_torch_matrix.py, of each output's largest
+# value; the generators' g-points (the SW path's 112)
+MATRIX_REL, MATRIX_G = 2e-5, 112
 # the least time of a kernel: its operand bytes (each input read once,
 # each output written once) over the H100 SXM's device-memory rate, or
 # its operations over the float32 rate outside the tensor cores, the
@@ -859,6 +890,76 @@ def random_reftrans_case(nreg, dev, nlev=7, ng=16, ncol=133, seed=7,
                                        torch.roll(clear, -1, 0)),
                        torch.cat([r(nreg * nreg, ng, ncol, hi=0.2),
                                   r(nreg, ng, ncol, hi=50.0)]))}
+
+
+def sw_generators(ng, ncol, seed):
+    """M (6, 6), C (6, 3) and D (3, 3) blocks, (.., ng, ncol) float64 on
+    the CPU, of 3-region SPARTACUS SW layer generators built like
+    tests/test_torch_matrix.py's: od gamma1 plus the lateral exchange on
+    the diffuse diagonals, od gamma2 across, the direct beam's
+    extinction and exchange in D; optical depths from 0.01 to 40, so the
+    Pade-7 squaring counts run from 0 to 5."""
+    rng = np.random.RandomState(seed)
+    n, batch = 3, (ng, ncol)
+    u = lambda lo, hi, shape=(n,) + batch: rng.uniform(lo, hi, shape)
+    od = np.exp(u(np.log(0.01), np.log(40.0)))
+    ssa = u(0.0, 0.9)
+    A, B = np.zeros((n, n) + batch), np.zeros((n, n) + batch)
+    for r in range(n):
+        A[r, r] = od[r] * (1.66 - 0.83 * ssa[r] * 1.8)
+        B[r, r] = od[r] * 0.83 * ssa[r] * 0.2
+    for r in range(n - 1):
+        t1, t2 = u(0, 3, (2,) + batch)
+        A[r, r] += t1
+        A[r + 1, r] -= t1
+        A[r + 1, r + 1] += t2
+        A[r, r + 1] -= t2
+    M = np.concatenate([np.concatenate([A, -B], 1),
+                        np.concatenate([B, -A], 1)], 0)
+    od = np.exp(u(np.log(0.01), np.log(20.0)))
+    C, D = np.zeros((2 * n, n) + batch), np.zeros((n, n) + batch)
+    for r in range(n):
+        C[r, r] = -od[r] * 0.3
+        C[n + r, r] = od[r] * 0.5
+        D[r, r] = -np.minimum(od[r] / u(0.05, 1.0, batch), 60.0)
+    for r in range(n - 1):
+        t = u(0, 2, batch)
+        D[r, r] -= t
+        D[r + 1, r] += t
+    return tuple(torch.as_tensor(x) for x in (M, C, D))
+
+
+def trace_kernels_in_span(logdir, span, kernels):
+    """Read the one torch.profiler trace under logdir: (the host spans
+    named `span`, {kernel name fragment: (launches, of them launched
+    inside a host span, of them run inside the span's device range)},
+    the events' categories).
+    A launch is the runtime or driver call with the kernel's correlation
+    id; the device range is the profiler's gpu_user_annotation."""
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"{len(files)} trace files under {logdir}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    within = lambda a, b, spans: any(s <= a and b <= e for s, e in spans)
+    host = [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("name") == span and e.get("cat") == "user_annotation"]
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("name") == span
+              and e.get("cat") == "gpu_user_annotation"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    out = {}
+    for frag in kernels:
+        ks = [e for e in events if e.get("cat") == "kernel"
+              and frag in e.get("name", "")]
+        at = [launch.get(k.get("args", {}).get("correlation")) for k in ks]
+        out[frag] = (len(ks),
+                     sum(t is not None and within(t, t, host) for t in at),
+                     sum(within(k["ts"], k["ts"] + k["dur"], device)
+                         for k in ks))
+    return host, out, sorted({str(e.get("cat")) for e in events})
 
 
 def main():
@@ -2109,6 +2210,131 @@ def main():
         + "; ".join(f"{r['devices']} device(s) {r['columns_per_sec']:.1f} "
                     f"columns/s, speedup {r['speedup']:.3f}, efficiency "
                     f"{r['efficiency']:.3f}" for r in bench) + f" [{gpu}]")
+
+    # r. the profiler and the general matrix exponentials: the native host
+    # cores built from csrc/host (no quiet fallback here: the machine has
+    # a C++ compiler); McICA at full width with ECRAD_HOOK=1 and its
+    # stages in hooks.hook spans (tools/profile_torch_port.add_spans),
+    # radiation() outermost with a synchronise inside it: the accounting
+    # of HOOK_REPS calls, its dump read back by merge_hook_profiles, one
+    # call traced; expm_g and expm_sw_g on the card
+    os.environ["ECRAD_HOOK"] = "1"
+    from ecrad_tpu_torch.solvers import matrix
+    from ecrad_tpu_torch.utils import hooks, native
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import merge_hook_profiles
+    import profile_torch_port
+    hook_lib, fort_lib = native.hook_lib(), native.fort_lib()
+    log(f"native cores: {getattr(hook_lib, '_name', None)}, "
+        f"{getattr(fort_lib, '_name', None)}; ECRAD_HOOK on {hooks.LHOOK}")
+    if hook_lib is None or fort_lib is None or not hooks.LHOOK:
+        raise AssertionError("the native host cores did not build from "
+                             "ecrad_tpu_torch/csrc/host")
+    rec = np.random.RandomState(SEED).standard_normal(37)
+    rec_path = os.path.join(DRIVER_DIR, "records.bin")
+    with open(rec_path, "wb") as f:
+        for x in (rec[:1], rec):
+            frame = np.array([8 * x.size], ">i4").tobytes()
+            f.write(frame + x.astype(">f8").tobytes() + frame)
+    with native.FortranFile(rec_path) as f:
+        native_read = f._lib is not None
+        got = [f.read_f64(), f.read_f64()]
+    if not native_read or not (np.array_equal(got[0], rec[:1])
+                               and np.array_equal(got[1], rec)):
+        raise AssertionError("FortranFile's native reader misread")
+
+    def hooked():
+        with hooks.hook("radiation"):
+            out = radiation(setup_m, *inputs_m)
+            torch.cuda.synchronize()
+        return out
+    replaced = []
+    span_names = profile_torch_port.add_spans("mcica", replaced)
+    try:
+        if set(span_names) | {"radiation"} != set(HOOK_CALLS):
+            raise AssertionError(f"add_spans gave {span_names}")
+        count("hooks_mcica", hooked)
+        hooks.reset_profile()
+        for _ in range(HOOK_REPS):
+            hooked()
+        log(f"hooks.profile_report, {HOOK_REPS} McICA calls of {NCOL} x "
+            f"{NLEV} [{gpu}]:\n{hooks.profile_report()}")
+        rows = {r[0]: r[1:] for r in hooks._native_rows(hook_lib)}
+        calls = {k: v[0] for k, v in rows.items()}
+        want = {k: HOOK_REPS * v for k, v in HOOK_CALLS.items()}
+        worse = [k for k, (_, tw, sw, _, _) in rows.items() if sw > tw]
+        kids = sum(rows[k][1] for k in HOOK_CHILDREN)
+        depth = hook_lib.ecr_hook_stack_depth()
+        log(f"hooks: calls {calls}; self above total in {worse}; radiation "
+            f"total {rows['radiation'][1]:.6f} s, its children's "
+            f"{kids:.6f} s; stack depth {depth}")
+        if calls != want or worse or rows["radiation"][1] < kids or depth:
+            raise AssertionError("the hook accounting is wrong")
+        prof = hooks.dump_profile(os.path.join(DRIVER_DIR, "ecrhook.prof.0"))
+        wall, parsed = merge_hook_profiles.parse_profile(prof)
+        acc, walls = merge_hook_profiles.merge([(wall, parsed)])
+        merged = {k: v["calls"] for k, v in acc.items()}
+        log(f"dump_profile {prof}: walltime {wall:.6f} s; merged calls "
+            f"{merged}")
+        if merged != want or walls["nproc"] != 1:
+            raise AssertionError("merge_hook_profiles misreads the dump")
+        trace_dir = os.path.join(DRIVER_DIR, "trace")
+        if os.path.isdir(trace_dir):
+            for name in os.listdir(trace_dir):
+                os.remove(os.path.join(trace_dir, name))
+        hooks.start_trace(trace_dir)
+        hooked()
+        hooks.stop_trace()
+        spans, inside, cats = trace_kernels_in_span(
+            trace_dir, "gas_optics", ("taumol_lw_kernel", "taumol_sw_kernel"))
+        log(f"trace: {len(spans)} gas_optics host span(s); (kernels, "
+            f"launched inside the span, run inside its device range) "
+            f"{inside}; event categories {cats}")
+        if len(spans) != 1 or any(n != 1 or not (h == n or d == n)
+                                  for n, h, d in inside.values()):
+            raise AssertionError("the trace does not hold B1 and B2 in the "
+                                 "gas_optics span")
+        # McICA's ms a call with the spans and ECRAD_HOOK=0 and =1 in turns
+        # (0, 1, 1, 0), then without the spans (information only)
+        turns = []
+        for on in (False, True, True, False):
+            hooks.LHOOK = on
+            turns.append(path_ms(lambda: radiation(setup_m, *inputs_m), 10))
+    finally:
+        profile_torch_port.remove_spans(replaced)
+    ms_plain = path_ms(lambda: radiation(setup_m, *inputs_m), 10)
+    log(f"time hooks: McICA {NCOL} x {NLEV} with the stage spans, "
+        f"ECRAD_HOOK=0, 1, 1, 0: {', '.join(f'{t:.3f}' for t in turns)} ms "
+        f"per call; without the spans {ms_plain:.3f} ms (best of 2 x 10) "
+        f"[{gpu}]")
+    # expm_g on the direct block (3 x 3) and expm_sw_g on the whole
+    # generator (6 x 6 + 3 x 3) at 112 x 2048, float32 on the card,
+    # against float64 and float32 on the CPU
+    M, C, D = sw_generators(MATRIX_G, NCOL, SEED)
+    counts = matrix._squaring_count(matrix._norm1_sw(M, C, D),
+                                    matrix._THETA3, matrix._MAX_SQUARINGS)[0]
+    for name, fn, args in (("expm_g 3x3", matrix.expm_g, (D,)),
+                           ("expm_sw_g 6x6+3x3", matrix.expm_sw_g,
+                            (M, C, D))):
+        ref64 = fn(*args)
+        ref32 = fn(*(a.float() for a in args))
+        on_card = tuple(a.to(dev, torch.float32) for a in args)
+        got = fn(*on_card)
+        torch.cuda.synchronize()
+        if name.startswith("expm_g"):
+            ref64, ref32, got = (ref64,), (ref32,), (got,)
+        got = [x.cpu() for x in got]
+        e64 = max(rel_to_max(x.double(), y) for x, y in zip(got, ref64))
+        e32 = max(rel_to_max(x, y) for x, y in zip(got, ref32))
+        ms_m = time_ms(lambda: fn(*on_card), 3)
+        log(f"{name} at {MATRIX_G} x {NCOL}: float32 on the card against "
+            f"float64 on the CPU, worst |diff|/max|ref| {e64:.3e}, against "
+            f"float32 on the CPU {e32:.3e} (bound {MATRIX_REL}); squaring "
+            f"counts {torch.bincount(counts.flatten()).tolist()}; {ms_m:.3f}"
+            f" ms a call [{gpu}]")
+        if not (e64 <= MATRIX_REL and e32 <= MATRIX_REL):
+            raise AssertionError(f"{name} on the card is outside its bound")
+    del M, C, D, ref64, ref32, got, on_card
 
     # ---- 4. times (information only) ----
     timing = {

@@ -1,20 +1,27 @@
 """Batched small-matrix algebra for SPARTACUS.
 
-Port of ecrad_tpu/solvers/matrix.py:38-57, :103-204, :271-466, :561-634
-(radiation/radiation_matrix.F90): matrices are (m, n, *batch) tensors,
-the small matrix dimensions leading. These are the plain versions that
-kernels B6 and B7 (csrc/spartacus_reftrans.cu) repeat cell by cell, so
-every sum runs in the JAX package's unrolled order (`mm_gu`, `solve_g`):
-a product adds its k terms left to right, written as k broadcast
-multiply-adds over whole matrices (element (i, j) sees exactly the
-scalar chain a[i,0] b[0,j] + a[i,1] b[1,j] + ...), and the elimination
-updates whole rows (the entries left of the pivot that this touches are
-never read again). No torch.matmul, so no TF32 on the card.
+Port of ecrad_tpu/solvers/matrix.py (radiation/radiation_matrix.F90).
+The g-minor forms take (m, n, *batch) tensors, the small matrix
+dimensions leading. They are the plain versions that kernels B6 and B7
+(csrc/spartacus_reftrans.cu) repeat cell by cell, so every sum runs in
+the JAX package's unrolled order (`mm_gu`, `solve_g`): a product adds
+its k terms left to right, written as k broadcast multiply-adds over
+whole matrices (element (i, j) sees exactly the scalar chain
+a[i,0] b[0,j] + a[i,1] b[1,j] + ...), and the elimination updates whole
+rows (the entries left of the pivot that this touches are never read
+again). No torch.matmul there, so no TF32 on the card. The batch-leading
+`expm` (..., m, m), the faithful Pade-7 of radiation_matrix.F90, uses
+torch.matmul and torch.linalg.solve, and needs TF32 off for float32 on
+the card (PyTorch's default; float32 matmul precision "highest").
 """
 from __future__ import annotations
 
 import torch
 
+# Pade-7 coefficients and scaling threshold (radiation_matrix.F90:1128-1131)
+_THETA3 = 3.925724783138660
+_C = (17297280.0, 8648640.0, 1995840.0, 277200.0, 25200.0, 1512.0, 56.0,
+      1.0)
 # Pade-5 coefficients and the adding-doubling scaling threshold
 # (ecrad_tpu/solvers/matrix.py:24-35)
 _THETA_DBL = 1.8
@@ -34,6 +41,37 @@ def _squaring_count(norm1, theta, max_count):
         expo = expo + gt.to(torch.int32)
         scale = torch.where(gt, scale * 0.5, scale)
     return expo, scale
+
+
+def _steps(expo, fixed=None):
+    """The squaring or doubling steps to run: `fixed` if given (each
+    cell still stops at its own count, so fewer steps truncate), else
+    the batch's largest count."""
+    if fixed is not None:
+        return fixed
+    return int(expo.max()) if expo.numel() else 0
+
+
+def expm(A):
+    """Matrix exponential of A (..., m, m), batched Pade-7, faithful to
+    radiation_matrix.F90 expm (ecrad_tpu/solvers/matrix.py:60-88): 1-norm
+    scaling by a power of two, Pade-7, then repeated squaring, each
+    matrix stopping at its own count (at most _MAX_SQUARINGS)."""
+    expo, scale = _squaring_count(A.abs().sum(-2).amax(-1), _THETA3,
+                                  _MAX_SQUARINGS)
+    As = A * scale[..., None, None]
+    A2 = As @ As
+    A4 = A2 @ A2
+    A6 = A2 @ A4
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    V = _C[7] * A6 + _C[5] * A4 + _C[3] * A2 + _C[1] * eye
+    U = As @ V
+    V = _C[6] * A6 + _C[4] * A4 + _C[2] * A2 + _C[0] * eye
+    P = torch.linalg.solve(V - U, 2.0 * U) + eye
+    do = expo[..., None, None]
+    for k in range(_steps(expo)):
+        P = torch.where(k < do, P @ P, P)
+    return P
 
 
 def add_eye_g(M, c):
@@ -58,6 +96,17 @@ def mv_gu(a, x):
     for kk in range(1, a.shape[1]):
         s = s + a[:, kk] * x[None, kk]
     return s
+
+
+def mm_g(a, b):
+    """(m, k, *batch) @ (k, n, *batch) -> (m, n, *batch) as one
+    broadcast product summed over k."""
+    return (a[:, :, None] * b[None]).sum(1)
+
+
+def mv_g(a, x):
+    """(m, k, *batch) @ (k, *batch) -> (m, *batch)."""
+    return (a * x[None]).sum(1)
 
 
 def norm1_g(A):
@@ -104,6 +153,90 @@ def _pade5_solve(V, U):
     return add_eye_g(solve_g(V - U, 2.0 * U), 1.0)
 
 
+def _pade7_g(As):
+    """Pade-7 approximant of the (already scaled) g-minor matrix As."""
+    A2 = mm_gu(As, As)
+    A4 = mm_gu(A2, A2)
+    A6 = mm_gu(A2, A4)
+    V = add_eye_g(_C[7] * A6 + _C[5] * A4 + _C[3] * A2, _C[1])
+    U = mm_gu(As, V)
+    V = add_eye_g(_C[6] * A6 + _C[4] * A4 + _C[2] * A2, _C[0])
+    return add_eye_g(solve_g(V - U, 2.0 * U), 1.0)
+
+
+def expm_g(A, fixed_squarings=None):
+    """Matrix exponential of A (m, m, *batch): expm's scaling and Pade-7
+    in the g-minor layout (ecrad_tpu/solvers/matrix.py:207-257), then the
+    squarings, each cell stopping at its own count. fixed_squarings: run
+    exactly that many masked steps (a count below a cell's own leaves it
+    truncated) instead of stepping to the batch's largest count."""
+    expo, scale = _squaring_count(norm1_g(A), _THETA3, _MAX_SQUARINGS)
+    P = _pade7_g(A * scale)
+    for k in range(_steps(expo, fixed_squarings)):
+        P = torch.where(k < expo, mm_gu(P, P), P)
+    return P
+
+
+def _norm1_sw(M, C, D):
+    """1-norm of [[M, C], [0, D]]: the larger of M's column sums and of
+    the right block's, C's rows then D's summed in order."""
+    s = C[0].abs()
+    for i in range(1, C.shape[0]):
+        s = s + C[i].abs()
+    for i in range(D.shape[0]):
+        s = s + D[i].abs()
+    return torch.maximum(norm1_g(M), s.amax(0))
+
+
+def _bprod(a, b):
+    """Product of two block-upper-triangular matrices given as their
+    (M, C, D) blocks."""
+    return (mm_gu(a[0], b[0]), mm_gu(a[0], b[1]) + mm_gu(a[1], b[2]),
+            mm_gu(a[2], b[2]))
+
+
+def _pade5_sw(As):
+    """Blockwise Pade-5 (Em, Ec, Ed) of the scaled [[M, C], [0, D]] given
+    as As = (M, C, D): the system (V - U) X = 2U is itself block
+    triangular, so the direct block is solved first, then one elimination
+    of the diffuse block serves both right-hand-side families."""
+    m2 = As[0].shape[0]
+    A2 = _bprod(As, As)
+    A4 = _bprod(A2, A2)
+
+    def pade_sum(c4, c2, c0):
+        return (add_eye_g(c4 * A4[0] + c2 * A2[0], c0),
+                c4 * A4[1] + c2 * A2[1],
+                add_eye_g(c4 * A4[2] + c2 * A2[2], c0))
+
+    V = pade_sum(_C5[5], _C5[3], _C5[1])
+    U = _bprod(As, V)
+    V = pade_sum(_C5[4], _C5[2], _C5[0])
+    Pm, Pc, Pd = V[0] - U[0], V[1] - U[1], V[2] - U[2]
+    Xd = solve_g(Pd, 2.0 * U[2])
+    Xmc = solve_g(Pm, torch.cat([2.0 * U[0], 2.0 * U[1] - mm_gu(Pc, Xd)],
+                                1))
+    return add_eye_g(Xmc[:, :m2], 1.0), Xmc[:, m2:], add_eye_g(Xd, 1.0)
+
+
+def expm_sw_g(M, C, D, fixed_squarings=None):
+    """expm of the block-upper-triangular [[M, C], [0, D]] (the SPARTACUS
+    SW Gamma matrix's sparsity): M (2n, 2n, *batch) the diffuse block, C
+    (2n, n, *batch) the direct to diffuse coupling, D (n, n, *batch) the
+    direct block. Scaled as expm (theta3), a blockwise Pade-5, then
+    blockwise squarings (ecrad_tpu/solvers/matrix.py:469-551);
+    fixed_squarings as in expm_g. Returns (Em, Ec, Ed), the exponential
+    being [[Em, Ec], [0, Ed]]."""
+    expo, scale = _squaring_count(_norm1_sw(M, C, D), _THETA3,
+                                  _MAX_SQUARINGS)
+    P = _pade5_sw((M * scale, C * scale, D * scale))
+    for k in range(_steps(expo, fixed_squarings)):
+        do = k < expo
+        P = tuple(torch.where(do, new, old)
+                  for new, old in zip(_bprod(P, P), P))
+    return P
+
+
 def expm_reftrans_lw_g(Atl, Bbl):
     """Reflectance and transmittance (R, T) of the LW layer generator
     [[Atl, -Bbl], [Bbl, -Atl]] (blocks (n, n, *batch)): Pade-5 of the
@@ -127,7 +260,7 @@ def expm_reftrans_lw_g(Atl, Bbl):
     E = _pade5_solve(V, U)
     R = -solve_g(E[:n, :n], E[:n, n:])
     T = E[n:, n:] + mm_gu(E[n:, :n], R)
-    for k in range(int(expo.max()) if expo.numel() else 0):
+    for k in range(_steps(expo)):
         W = solve_g(add_eye_g(-mm_gu(R, R), 1.0), T)
         Rn = R + mm_gu(mm_gu(T, R), W)
         Tn = mm_gu(T, W)
@@ -146,43 +279,15 @@ def expm_reftrans_sw_g(M, C, D):
         Rdir <- Rdir + T (Rdir Tdd + R d), Tdir <- T d + Tdir Tdd
         R <- R + T R (S T), T <- T (S T), Tdd <- Tdd Tdd.
     Returns the five and the per-cell doubling count (int32)."""
-    m2, n = M.shape[0], D.shape[0]
-    s = C[0].abs()
-    for i in range(1, m2):
-        s = s + C[i].abs()
-    for i in range(n):
-        s = s + D[i].abs()
-    norm1 = torch.maximum(norm1_g(M), s.amax(0))
-    expo, scale = _squaring_count(norm1, _THETA_DBL, _MAX_DOUBLINGS)
-    As = (M * scale, C * scale, D * scale)
-
-    def bprod(a, b):
-        return (mm_gu(a[0], b[0]), mm_gu(a[0], b[1]) + mm_gu(a[1], b[2]),
-                mm_gu(a[2], b[2]))
-
-    A2 = bprod(As, As)
-    A4 = bprod(A2, A2)
-
-    def pade_sum(c4, c2, c0):
-        return (add_eye_g(c4 * A4[0] + c2 * A2[0], c0),
-                c4 * A4[1] + c2 * A2[1],
-                add_eye_g(c4 * A4[2] + c2 * A2[2], c0))
-
-    V = pade_sum(_C5[5], _C5[3], _C5[1])
-    U = bprod(As, V)
-    V = pade_sum(_C5[4], _C5[2], _C5[0])
-    Pm, Pc, Pd = V[0] - U[0], V[1] - U[1], V[2] - U[2]
-    Xd = solve_g(Pd, 2.0 * U[2])
-    Xmc = solve_g(Pm, torch.cat([2.0 * U[0], 2.0 * U[1] - mm_gu(Pc, Xd)],
-                                1))
-    Em = add_eye_g(Xmc[:, :m2], 1.0)
-    Ec = Xmc[:, m2:]
-    Tdd = add_eye_g(Xd, 1.0)
+    n = D.shape[0]
+    expo, scale = _squaring_count(_norm1_sw(M, C, D), _THETA_DBL,
+                                  _MAX_DOUBLINGS)
+    Em, Ec, Tdd = _pade5_sw((M * scale, C * scale, D * scale))
     RRd = -solve_g(Em[:n, :n], torch.cat([Em[:n, n:], Ec[:n]], 1))
     R, Rdir = RRd[:, :n], RRd[:, n:]
     T = Em[n:, n:] + mm_gu(Em[n:, :n], R)
     Tdir = Ec[n:] + mm_gu(Em[n:, :n], Rdir)
-    for k in range(int(expo.max()) if expo.numel() else 0):
+    for k in range(_steps(expo)):
         RdTdd = mm_gu(Rdir, Tdd)
         WD = solve_g(add_eye_g(-mm_gu(R, R), 1.0),
                      torch.cat([T, Tdir + mm_gu(R, RdTdd)], 1))
@@ -248,3 +353,15 @@ def fast_expm_exchange_3_g(a, b, c, d):
     return torch.stack([torch.stack([
         V[i][0] * X[0][j] + V[i][1] * X[1][j] + V[i][2] * X[2][j]
         for j in range(3)]) for i in range(3)])
+
+
+def fast_expm_exchange_2(a, b):
+    """exp of [[-a, b], [a, -b]] for a, b (...,): (..., 2, 2)."""
+    return torch.movedim(fast_expm_exchange_2_g(a, b), (0, 1), (-2, -1))
+
+
+def fast_expm_exchange_3(a, b, c, d):
+    """exp of [[-a, b, 0], [a, -b-c, d], [0, c, -d]] for a-d (...,):
+    (..., 3, 3)."""
+    return torch.movedim(fast_expm_exchange_3_g(a, b, c, d), (0, 1),
+                         (-2, -1))

@@ -1,11 +1,12 @@
 """Two-stream coefficients and layer reflectance/transmittance.
 
-Port of ecrad_tpu/solvers/two_stream.py:21-185
+Port of ecrad_tpu/solvers/two_stream.py
 (radiation/radiation_two_stream.F90): LW Fu et al. (1997) gammas, SW
 Zdunkowski PIFM gammas, Meador & Weaver (1980) reflectance and
 transmittance with linear-in-tau Planck sources, the LW
-no-scattering transmittance, and the surface scheme's isothermal LW and
-physical-coordinate SW variants. Elementwise over any broadcastable shapes.
+no-scattering transmittance, the surface scheme's isothermal LW and
+physical-coordinate SW variants, and the scattered-diffuse fraction of
+the direct beam. Elementwise over any broadcastable shapes.
 `torch.exp` is the exact libm exponential on every device; the TPU's
 software exp (ecrad_tpu/utils/fastmath.py) is not needed here.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import torch
 
 LW_DIFFUSIVITY = 1.66
+SW_DIFFUSIVITY = 2.0
 KMIN = 1.0e-4  # single-precision value (radiation_two_stream.F90:46)
 
 
@@ -196,3 +198,20 @@ def sw_reftrans_z(mu0, depth, gamma0, gamma1, gamma2, gamma3, gamma4):
         - e0 * ((1.0 + k_mu0) * (alpha1 + k_gamma4)
                 - (1.0 - k_mu0) * (alpha1 - k_gamma4) * expo2))
     return ref_diff, trans_diff, ref_dir, trans_dir_diff, e0
+
+
+def sw_frac_scattered_diffuse(od, gamma1, gamma2):
+    """Fraction of beam extinction that scatters into the diffuse streams
+    (radiation_two_stream.F90:781-839): 1 where the layer is too thin for
+    the ratio (1 - exp(-2 od) <= 1e-12)."""
+    k = _k_exponent(gamma1, gamma2)
+    expo = torch.exp(-k * od)
+    expo2 = expo * expo
+    rt = 1.0 / (k + gamma1 + (k - gamma1) * expo2)
+    ref = gamma2 * (1.0 - expo2) * rt
+    trans = 2.0 * k * expo * rt
+    one_minus = 1.0 - ref - trans
+    denom = 1.0 - torch.exp(-SW_DIFFUSIVITY * od)
+    return torch.where(denom > 1e-12,
+                       torch.clamp(one_minus / torch.clamp(denom, min=1e-12),
+                                   0.0, 1.0), 1.0)

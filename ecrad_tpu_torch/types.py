@@ -20,6 +20,10 @@ import torch
 from .constants import (ACCEL_DUE_TO_GRAVITY, GAS_INDEX, GAS_MOLAR_MASS,
                         MOLAR_MASS_DRY_AIR, NUM_GASES, SPECIFIC_HEAT_DRY_AIR)
 
+# Gas concentration units (reference: radiation/radiation_gas.F90:60-66)
+IMassMixingRatio = 0
+IVolumeMixingRatio = 1
+
 
 class _Replace:
     def replace(self, **changes):

@@ -6,6 +6,7 @@ the scan (tests/test_adding_fused.py): |diff| / max|ref| <= 2e-6. The JAX
 side runs both as the lax.scan sweeps and as its Pallas kernels in
 interpret mode.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -230,3 +231,37 @@ def test_sw_reftrans_is_float64_accurate_near_the_resonance():
         assert float((a.double() - e)[away].abs().max()) <= 2e-5
         assert torch.equal(a[outside], b[outside])
     assert float((plain[3].double() - exact[3])[away].abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("dtype, tol", [("float64", 1e-12),
+                                        ("float32", 1e-5)])
+def test_sw_frac_scattered_diffuse_matches_jax(dtype, tol):
+    """On the layers of _layers with od 0 (the thin-layer branch, 1),
+    1e-6 and 40 on every g-point of three columns, of the largest value
+    (the fraction lies in [0, 1]). The ratio (1 - ref - trans) /
+    (1 - exp(-2 od)) divides a difference of numbers near 1 by a
+    denominator ~2 od: the two programs' exps differ by an ulp, so each
+    cell also has 4 ulps of 1 over its denominator (at od 1e-6 in
+    float32 that is 0.24: neither program's value is accurate there)."""
+    x = _layers(1)
+    od = x["od"].astype(np.float64)
+    od[..., :3] = np.array([0.0, 1e-6, 40.0])
+    mu0 = np.broadcast_to(x["mu0"], od.shape)
+    args = [np.array(v, dtype) for v in (od, mu0, x["ssa"], x["g"])]
+    with jax.enable_x64(dtype == "float64"):
+        j = [jnp.asarray(v) for v in args]
+        ref = np.asarray(jts.sw_frac_scattered_diffuse(
+            j[0], *jts.sw_gammas(*j[1:])[:2]))
+    t = [torch.as_tensor(v) for v in args]
+    got = pts.sw_frac_scattered_diffuse(t[0],
+                                        *pts.sw_gammas(*t[1:])[:2]).numpy()
+    assert got.dtype == ref.dtype == np.dtype(dtype)
+    assert (got[..., 0] == 1.0).all() and (got[..., 1:] < 1.0).any()
+    diff = np.abs(got.astype(np.float64) - ref)
+    top = np.abs(ref).max()
+    assert (diff[..., 0] == 0.0).all()
+    ulps = 4 * np.finfo(dtype).eps / -np.expm1(-2.0 * od[..., 1:])
+    assert (diff[..., 1:] <= tol * top + ulps).all(), (
+        diff[..., 1:] - ulps).max()
+    thick = od >= 0.1
+    assert diff[thick].max() <= tol * top, diff[thick].max()

@@ -1346,3 +1346,56 @@ def test_surface_scheme_on_the_card(cuda, rep, dtype, rel):
             bad[k] = (float(err.max()) / scale, at, float(cpu[k][at]),
                       float(v[at]))
     assert not bad, bad
+
+
+def test_native_host_cores_build_on_the_card_machine(cuda, tmp_path):
+    """The profiler and record-reader cores build with the machine's g++
+    from ecrad_tpu_torch/csrc/host; a record reads back through the native
+    reader bit for bit."""
+    from ecrad_tpu_torch.utils import native
+    assert native.hook_lib() is not None and native.fort_lib() is not None
+    rec = np.random.RandomState(3).standard_normal(4800)
+    frame = np.array([rec.nbytes], ">i4").tobytes()
+    path = tmp_path / "records.bin"
+    path.write_bytes(frame + rec.astype(">f8").tobytes() + frame)
+    with native.FortranFile(str(path)) as f:
+        assert f._lib is not None
+        np.testing.assert_array_equal(f.read_f64(), rec)
+        with pytest.raises(EOFError):
+            f.read_f64()
+
+
+def test_traced_call_holds_its_kernels_in_its_span(cuda, tmp_path,
+                                                   slice_state,
+                                                   monkeypatch):
+    """One Cloudless call between hooks.start_trace and stop_trace, inside
+    a hook span with the host accounting on: the trace holds the span and
+    the B1 and B2 launches, each launched inside the span's host range."""
+    import glob
+    import json
+
+    from ecrad_tpu_torch.utils import hooks
+    monkeypatch.setattr(hooks, "LHOOK", True)
+    setup, inputs, _ = slice_state
+    radiation(setup, *inputs)
+    hooks.reset_profile()
+    hooks.start_trace(str(tmp_path))
+    with hooks.hook("traced_radiation"):
+        radiation(setup, *inputs)
+    hooks.stop_trace()
+    assert [r[:2] for r in hooks.profile_rows()] == [("traced_radiation", 1)]
+    (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    (span,) = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("name") == "traced_radiation"
+               and e.get("cat") == "user_annotation"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    for name in ("taumol_lw_kernel", "taumol_sw_kernel"):
+        ks = [e for e in events if e.get("cat") == "kernel"
+              and name in e["name"]]
+        assert len(ks) == 1, name
+        t = launch[ks[0]["args"]["correlation"]]
+        assert span[0] <= t <= span[1], name

@@ -162,3 +162,108 @@ def test_squaring_count_is_identical_on_borderline_norms(dtype):
     np.testing.assert_array_equal(pe.numpy()[k:2 * k - 2],
                                   np.arange(1, k - 1))
     np.testing.assert_array_equal(ps.numpy(), 2.0 ** -pe.numpy())
+
+
+# ---- the general exponentials and products (ecrad_tpu/solvers/matrix.py
+# :60-124, :207-268, :469-634): Pade-7 scaled to theta3; expm also against
+# scipy's at float64 ----
+
+def _expm_case(case):
+    """(16, 9, 9) uniform in [-1, 1], or (4, 6, 6) x 20 shifted by -25 I
+    (norms that need several squarings, the exponential bounded): the
+    cases of tests/test_matrix.py."""
+    if case == "random":
+        return np.random.RandomState(0).uniform(-1.0, 1.0, (16, 9, 9))
+    A = np.random.RandomState(1).uniform(-1.0, 1.0, (4, 6, 6)) * 20.0
+    return A - np.eye(6) * 25.0
+
+
+def _counts(norm1, dtype):
+    """(port, JAX) Pade-7 squaring counts of the same norms."""
+    with jax.enable_x64(dtype == "float64"):
+        je = np.asarray(jm._squaring_count(jnp.asarray(norm1))[0])
+    return pm._squaring_count(torch.as_tensor(norm1), pm._THETA3,
+                              pm._MAX_SQUARINGS)[0].numpy(), je
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("case", ["random", "large_norm"])
+def test_expm_matches_jax_and_scipy(case, dtype):
+    from scipy.linalg import expm as scipy_expm
+    A = _expm_case(case)
+    ref, got = _both(jm.expm, pm.expm, (A,), dtype)
+    assert got[0].shape == A.shape and got[0].dtype == np.dtype(dtype)
+    assert _rel(got[0], ref[0]) <= _tol(dtype), _rel(got[0], ref[0])
+    pe, je = _counts(np.abs(A.astype(dtype)).sum(-2).max(-1), dtype)
+    np.testing.assert_array_equal(pe, je)
+    assert pe.max() >= (4 if case == "large_norm" else 1), pe
+    if dtype == "float64":
+        want = np.stack([scipy_expm(a) for a in A])
+        assert _rel(got[0], want) <= _tol(dtype), _rel(got[0], want)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_mm_g_and_mv_g_match_jax(dtype):
+    rng = np.random.RandomState(4)
+    a = rng.uniform(-1, 1, (6, 4) + BATCH)
+    b = rng.uniform(-1, 1, (4, 3) + BATCH)
+    ref, got = _both(lambda x, y: (jm.mm_g(x, y), jm.mv_g(x, y[:, 0])),
+                     lambda x, y: (pm.mm_g(x, y), pm.mv_g(x, y[:, 0])),
+                     (a, b), dtype)
+    for name, x, y in zip(("mm_g", "mv_g"), got, ref):
+        assert x.shape == y.shape and x.dtype == np.dtype(dtype), name
+        assert _rel(x, y) <= _tol(dtype), (name, _rel(x, y))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("fixed", [None, 0, 3])
+@pytest.mark.parametrize("m", [3, 6])
+def test_expm_g_matches_jax(m, fixed, dtype):
+    """expm_g on SPARTACUS-like generators: the 3 x 3 direct block and
+    the 6 x 6 LW generator [[A, -B], [B, -A]]; fixed_squarings 0 and 3
+    truncate the cells that need more (counts reach 4 and beyond)."""
+    if m == 3:
+        A = _sw_blocks(np.random.RandomState(30), 3)[2]
+    else:
+        At, Bt = _lw_blocks(np.random.RandomState(31), 3)
+        A = np.concatenate([np.concatenate([At, -Bt], 1),
+                            np.concatenate([Bt, -At], 1)], 0)
+    A = A.astype(dtype)
+    ref, got = _both(lambda x: jm.expm_g(x, fixed_squarings=fixed),
+                     lambda x: pm.expm_g(x, fixed_squarings=fixed),
+                     (A,), dtype)
+    assert got[0].shape == A.shape and got[0].dtype == np.dtype(dtype)
+    assert _rel(got[0], ref[0]) <= _tol(dtype), _rel(got[0], ref[0])
+    pe, je = _counts(np.asarray(pm.norm1_g(torch.as_tensor(A))), dtype)
+    np.testing.assert_array_equal(pe, je)
+    assert pe.max() >= 4, np.bincount(pe.ravel())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("fixed", [None, 0, 3])
+def test_expm_sw_g_matches_jax(fixed, dtype):
+    M, C, D = (x.astype(dtype)
+               for x in _sw_blocks(np.random.RandomState(32), 3))
+    ref, got = _both(lambda *a: jm.expm_sw_g(*a, fixed_squarings=fixed),
+                     lambda *a: pm.expm_sw_g(*a, fixed_squarings=fixed),
+                     (M, C, D), dtype)
+    for name, x, y, src in zip(("Em", "Ec", "Ed"), got, ref, (M, C, D)):
+        assert x.shape == src.shape and x.dtype == np.dtype(dtype), name
+        assert _rel(x, y) <= _tol(dtype), (name, _rel(x, y))
+    pe, je = _counts(np.asarray(pm._norm1_sw(*(torch.as_tensor(x)
+                                                for x in (M, C, D)))), dtype)
+    np.testing.assert_array_equal(pe, je)
+    assert pe.max() >= 4, np.bincount(pe.ravel())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_fast_expm_exchange_batch_leading_match_jax(dtype):
+    rng = np.random.RandomState(5)
+    abcd = rng.uniform(0.0, 16.0, (4,) + BATCH)
+    abcd[:, 0, :4] = 0.0
+    for fj, fp, k in ((jm.fast_expm_exchange_2, pm.fast_expm_exchange_2, 2),
+                      (jm.fast_expm_exchange_3, pm.fast_expm_exchange_3, 4)):
+        ref, got = _both(fj, fp, tuple(abcd[:k]), dtype)
+        assert got[0].shape == BATCH + (k // 2 + 1, k // 2 + 1)
+        assert _rel(got[0], ref[0]) <= (1e-12 if dtype == "float64"
+                                        else 1e-5), (k, _rel(got[0], ref[0]))

@@ -29,7 +29,10 @@ effects on (kernel B9 then keeps its full albedo scratch). --no-trace
 runs no profiler: it times the `--calls` back-to-back calls on the host
 clock, with a synchronise, and prints only the JSON line {"solver",
 "wall_ms", "card"}; run from two checkouts in turn, it compares their
-paths on one card. Exits 1 without a GPU.
+paths on one card. With ECRAD_HOOK=1 the spans also keep the host
+accounting of ecrad_tpu_torch.utils.hooks, and the script prints its
+profile_report of the traced calls (host wall and CPU time per span)
+beside the device-busy share. Exits 1 without a GPU.
 """
 import argparse
 import json
@@ -61,23 +64,25 @@ def busy_share(events, t0, t1):
     return busy / max(t1 - t0, 1e-9)
 
 
-def add_spans(solver):
-    """Wrap the stages in torch.profiler.record_function spans by
-    replacing the module attributes the path calls them through.
-    Returns the span names."""
-    from torch.profiler import record_function
-
+def add_spans(solver, replaced):
+    """Wrap the stages in hooks.hook spans (torch.profiler spans; with
+    ECRAD_HOOK=1 also the profiler's host accounting) by replacing the
+    module attributes the path calls them through. Returns the span
+    names; each (module, attribute, original) replaced is appended to
+    the list `replaced`, for remove_spans."""
     from ecrad_tpu_torch import interface
     from ecrad_tpu_torch.solvers import (cloud_generator, mcica,
                                          spartacus_lw, spartacus_sw,
                                          tripleclouds, two_stream)
+    from ecrad_tpu_torch.utils.hooks import hook
 
     def span(module, attr, name):
         fn = getattr(module, attr)
 
         def wrapped(*a, **k):
-            with record_function(name):
+            with hook(name):
                 return fn(*a, **k)
+        replaced.append((module, attr, fn))
         setattr(module, attr, wrapped)
         return name
 
@@ -126,6 +131,13 @@ def add_spans(solver):
           for o in ("exp_exp", "exp_ran", "max_ran")}]
 
 
+def remove_spans(replaced):
+    """Put back the attributes add_spans replaced, last first."""
+    while replaced:
+        module, attr, fn = replaced.pop()
+        setattr(module, attr, fn)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--solver", choices=("cloudless", "mcica",
@@ -152,6 +164,7 @@ def main():
                                         make_clouds, make_columns,
                                         write_synthetic_luts)
     from ecrad_tpu_torch.interface import radiation, setup_radiation
+    from ecrad_tpu_torch.utils import hooks
 
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -178,7 +191,7 @@ def main():
             cols = add_effective_sizes(cols)
     setup = setup_radiation(config, device=dev)
     inputs = columns_to_inputs(cols, device=dev)
-    span_names = [] if args.no_trace else add_spans(args.solver)
+    span_names = [] if args.no_trace else add_spans(args.solver, [])
     for _ in range(2):
         radiation(setup, *inputs)
     torch.cuda.synchronize()
@@ -191,6 +204,8 @@ def main():
         print(json.dumps({"solver": args.solver, "wall_ms": wall * 1e3,
                           "card": gpu}))
         return 0
+
+    hooks.reset_profile()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -254,6 +269,11 @@ def main():
               f"({host / (wall * 1e3):6.1%} of wall), device {devt:9.4f} "
               f"ms/call ({devt * 1e3 * args.calls / max(total_us, 1e-9):6.1%}"
               f" of device time), {e.count // args.calls} per call")
+    if hooks.LHOOK:
+        # host accounting of the traced calls (ECRAD_HOOK=1): wall and CPU
+        # time around the launches, not device time
+        print(f"hooks.profile_report, {args.calls} traced calls [{gpu}]:")
+        print(hooks.profile_report())
     print(json.dumps({"solver": args.solver, "wall_ms": wall * 1e3,
                       "device_ms": total_us / 1e3 / args.calls,
                       "device_busy": share, "stages": stages,
