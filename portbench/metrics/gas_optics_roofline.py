@@ -1,0 +1,13 @@
+"""gas_optics_roofline: the least time of the gas_optics spans' work,
+counted at their call boundary (roofline.py), over its device time, in
+%."""
+from portbench.spans import pick
+
+SPANS = pick("gas_optics")
+
+
+def read(t):
+    least, device = t.least_s("gas_optics"), t.device_s("gas_optics")
+    if least is None or device <= 0:
+        return None
+    return 100.0 * least / device

@@ -1,0 +1,169 @@
+"""RRTMG-IFS gas optics: optical depth, Planck and solar source per g.
+
+Copied from ecrad_tpu_torch/optics/rrtmg/gas_optics.py (a port of
+radiation_ifs_rrtm.F90: gas_optics :189, planck_function_atmos :570,
+planck_function_surf :704): column densities, setcoef, the LW and SW
+taumol in plain PyTorch, Planck sources from the TOTPLNK table, the
+solar source normalised to the total solar irradiance, and TOA-first
+outputs of shape (ncol, nlev, ng), every g-point in its original order.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ...constants import GAS_INDEX
+from . import fused_tables
+from .setcoef import prepare_gases, setcoef
+from .taumol_common import DeviceTables, device_tables
+from .taumol_lw import taumol_lw_cells
+from .taumol_sw import taumol_sw_cells
+
+FLUXFAC = np.pi * 1.0e4  # radiance -> flux (radiation_ifs_rrtm)
+
+# Band bounds (cm-1), radiation_ifs_rrtm.F90:103-112
+WAVENUM1_LW = np.array([10, 350, 500, 630, 700, 820, 980, 1080, 1180, 1390,
+                        1480, 1800, 2080, 2250, 2380, 2600], dtype=float)
+WAVENUM2_LW = np.array([350, 500, 630, 700, 820, 980, 1080, 1180, 1390,
+                        1480, 1800, 2080, 2250, 2380, 2600, 3250],
+                       dtype=float)
+WAVENUM1_SW = np.array([2600, 3250, 4000, 4650, 5150, 6150, 7700, 8050,
+                        12850, 16000, 22650, 29000, 38000, 820], dtype=float)
+WAVENUM2_SW = np.array([3250, 4000, 4650, 5150, 6150, 7700, 8050, 12850,
+                        16000, 22650, 29000, 38000, 50000, 2600],
+                       dtype=float)
+
+
+class GasOpticsSpec(NamedTuple):
+    """Static spectral mapping. g_from_reordered_g_* is the identity
+    unless the region's solver is SPARTACUS."""
+    band_from_g_lw: np.ndarray        # (140,) 0-based LW band per g
+    band_from_g_sw: np.ndarray        # (112,) 0-based SW band per g
+    g_from_reordered_g_lw: np.ndarray
+    g_from_reordered_g_sw: np.ndarray
+    band_from_reordered_g_lw: np.ndarray
+    band_from_reordered_g_sw: np.ndarray
+
+
+def make_spec(tables: dict) -> GasOpticsSpec:
+    """The spectral mapping, every g-point in its original order."""
+    return spec_from_arrays(
+        np.asarray(tables["lw_band_from_g"]).astype(int) - 1,
+        np.asarray(tables["sw_band_from_g"]).astype(int) - 1)
+
+
+def spec_from_arrays(band_lw, band_sw, g_lw=None, g_sw=None
+                     ) -> GasOpticsSpec:
+    """GasOpticsSpec from the band maps and the g orders (None: the
+    identity)."""
+    band_lw = np.asarray(band_lw).astype(int)
+    band_sw = np.asarray(band_sw).astype(int)
+    g_lw = np.arange(len(band_lw)) if g_lw is None else np.asarray(g_lw)
+    g_sw = np.arange(len(band_sw)) if g_sw is None else np.asarray(g_sw)
+    return GasOpticsSpec(band_from_g_lw=band_lw, band_from_g_sw=band_sw,
+                         g_from_reordered_g_lw=g_lw,
+                         g_from_reordered_g_sw=g_sw,
+                         band_from_reordered_g_lw=band_lw[g_lw],
+                         band_from_reordered_g_sw=band_sw[g_sw])
+
+
+class GasTables(NamedTuple):
+    """Everything gas optics reads, on one device in one dtype."""
+    t: dict                      # the npz tables (numpy)
+    lw: DeviceTables             # flat LW tables
+    sw: DeviceTables             # flat SW tables
+    totplnk: torch.Tensor        # (181, 16)
+    delwave: torch.Tensor        # (16,)
+
+
+def gas_tables(t: dict, dtype, device) -> GasTables:
+    as_t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype,
+                                     device=device)
+    return GasTables(
+        t=t,
+        lw=device_tables(fused_tables.build_lw(t), dtype, device),
+        sw=device_tables(fused_tables.build_sw(t), dtype, device),
+        totplnk=as_t(t["totplnk"]), delwave=as_t(t["delwave"]))
+
+
+def planck_store(temperature, totplnk, delwave):
+    """Band-integrated Planck flux, (...,) -> (..., 16)
+    (radiation_ifs_rrtm.F90:570-699, TOTPLNK interpolation)."""
+    t = temperature
+    inside = (t < 339.0) & (t >= 160.0)
+    hot = t >= 339.0
+    ind = torch.where(inside, torch.floor(t - 159.0).to(torch.int64),
+                      torch.where(hot, 180, 1))
+    frac = torch.where(inside, t - torch.floor(t),
+                       torch.where(hot, t - 339.0, torch.zeros_like(t)))
+    tp0 = totplnk[ind - 1]
+    tp1 = totplnk[ind]
+    return FLUXFAC * delwave * (tp0 + frac[..., None] * (tp1 - tp0))
+
+
+class GasOptics(NamedTuple):
+    """Per-g optical properties, (ncol, nlev, ng), TOA-first levels."""
+    od_lw: torch.Tensor
+    od_sw: torch.Tensor
+    ssa_sw: torch.Tensor
+    planck_hl: torch.Tensor      # (ncol, nlev+1, 140)
+    lw_emission: torch.Tensor    # (ncol, 140)
+    incoming_sw: torch.Tensor    # (ncol, 112)
+
+
+def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
+               cos_sza, solar_irradiance, spec: GasOpticsSpec,
+               tables: GasTables, lw_albedo: Optional[torch.Tensor] = None,
+               min_gas_od_lw: float = 1.0e-15,
+               min_gas_od_sw: float = 0.0) -> GasOptics:
+    """pressure_hl/temperature_hl (ncol, nlev+1) TOA first; gas_mmr
+    (ncol, nlev, NUM_GASES); lw_albedo (ncol, 140), in the spec's g order,
+    for the surface emission (1 - albedo) x Planck. All in the tables'
+    dtype."""
+    t = tables.t
+    nlev = pressure_hl.shape[1] - 1
+    dev = pressure_hl.device
+    p_fl = 0.5 * (pressure_hl[:, :-1] + pressure_hl[:, 1:])
+    t_fl = 0.5 * (temperature_hl[:, :-1] + temperature_hl[:, 1:])
+
+    def g(name):
+        return gas_mmr[:, :, GAS_INDEX[name]]
+
+    gc = prepare_gases(pressure_hl, p_fl, t_fl,
+                       g("h2o"), g("co2"), g("ch4"), g("n2o"),
+                       g("cfc11"), g("cfc12"), g("hcfc22"), g("ccl4"),
+                       g("o3"), dtype=pressure_hl.dtype)
+    c = setcoef(gc, t["preflog"], t["tref"], t["chi_mls"])
+
+    # ---- LW ----
+    od_lw, pfrac = taumol_lw_cells(c, t["chi_mls"], tables.lw)
+    od_lw = torch.clamp(od_lw, min=min_gas_od_lw)
+    band_lw = torch.as_tensor(spec.band_from_reordered_g_lw, device=dev)
+    # half level i uses the Planck fraction of TOA-first layer
+    # min(i, nlev-1): layers [0, 0, 1, ..., nlev-1]
+    lay_idx = torch.as_tensor(np.concatenate([[0], np.arange(nlev)]),
+                              device=dev)
+    planck_bands = planck_store(temperature_hl, tables.totplnk,
+                                tables.delwave)         # (ncol, nlev+1, 16)
+    planck_hl = planck_bands[:, :, band_lw] * pfrac[:, lay_idx, :]
+    planck_surf = (planck_store(skin_temperature, tables.totplnk,
+                                tables.delwave)[:, band_lw]
+                   * pfrac[:, -1, :])
+    lw_emission = (planck_surf if lw_albedo is None
+                   else planck_surf * (1.0 - lw_albedo))
+
+    # ---- SW ----
+    taug, taur, sflux = taumol_sw_cells(c, t, tables.sw)
+    od_sw = taug + taur
+    ssa_sw = torch.clamp(taur / torch.clamp(od_sw, min=1e-30), 0.0, 1.0)
+    od_sw = torch.clamp(od_sw, min=min_gas_od_sw)
+    # normalise to the solar irradiance (radiation_ifs_rrtm.F90:519-526)
+    total = sflux.sum(-1)
+    scale = torch.where(cos_sza > 0.0,
+                        solar_irradiance / torch.clamp(total, min=1e-10),
+                        torch.ones_like(total))
+    return GasOptics(od_lw=od_lw, od_sw=od_sw, ssa_sw=ssa_sw,
+                     planck_hl=planck_hl, lw_emission=lw_emission,
+                     incoming_sw=scale[:, None] * sflux)
