@@ -140,14 +140,14 @@ Phases; any failure exits non-zero and prints no result line:
         cores (ecrad_tpu_torch/csrc/host, built with g++ into
         ecrad_tpu_torch/_build/; a missing library fails) and a record
         read back through FortranFile's native reader; McICA at 2048 x
-        137 with ECRAD_HOOK=1, its stages in utils.hooks spans
-        (tools/profile_torch_port.add_spans) inside a `radiation` span
-        that synchronises: 3 calls accounted (each span's calls, self at
-        most total, radiation's total at least its children's, the hook
+        137 with the hooks on (hooks.enable), the program's own `ecrad.*`
+        spans inside an outer span that synchronises: 3 calls accounted
+        (each layer's and generator stage's calls, self at most total,
+        `ecrad.radiation`'s total at least its children's, the hook
         stack empty after), dump_profile read back by
         tools/merge_hook_profiles.py, one call traced with
-        start_trace/stop_trace (B1 and B2 inside the gas_optics span);
-        McICA's ms with the spans and ECRAD_HOOK=0 and =1 in turns and
+        start_trace/stop_trace (B1 and B2 inside `ecrad.gas_optics`);
+        McICA's ms with the hooks off and on in turns and
         without the spans (information only); expm_g (3 x 3) and
         expm_sw_g (6 x 6 + 3 x 3) on 112 x 2048 SW generators in float32
         on the card against float64 and float32 on the CPU (2e-5 of each
@@ -349,13 +349,17 @@ NCOL_NOSCAT = 256
 # B8's and B9's block heights in g-points (csrc/spartacus_adding.cu
 # G_TILE, LW_G_TILE)
 B8_G_TILE, B9_G_TILE = 8, 4
-# phase r: the hook spans a McICA radiation() call enters (the cloud
-# generator's once for SW and once for LW), and those directly inside
-# `radiation`
-HOOK_CALLS = {"radiation": 1, "gas_optics": 1, "cloud_stage": 1,
-              "solver_lw": 1, "solver_sw": 1, "cloud_generator": 2,
-              "threefry": 2, "cloud_cover": 2}
-HOOK_CHILDREN = ("gas_optics", "cloud_stage", "solver_lw", "solver_sw")
+# phase r: the program's spans a McICA radiation() call enters (the cloud
+# generator's once for SW and once for LW) inside the outer HOOK_OUTER,
+# and those directly inside `ecrad.radiation`
+HOOK_OUTER = "smoke_call"
+HOOK_CALLS = {HOOK_OUTER: 1, "ecrad.radiation": 1, "ecrad.gas_optics": 1,
+              "ecrad.cloud_optics": 1, "ecrad.solver_lw": 1,
+              "ecrad.solver_sw": 1, "ecrad.cloud_generator": 2,
+              **{f"ecrad.cloud_generator.{stage}": 2 for stage in (
+                  "cover", "random", "walk", "sample")}}
+HOOK_CHILDREN = ("ecrad.gas_optics", "ecrad.cloud_optics", "ecrad.solver_lw",
+                 "ecrad.solver_sw")
 HOOK_REPS = 3
 # the matrix exponentials on the card in float32 against the CPU: the
 # float32 bound of tests/test_torch_matrix.py, of each output's largest
@@ -2213,20 +2217,19 @@ def main():
 
     # r. the profiler and the general matrix exponentials: the native host
     # cores built from csrc/host (no quiet fallback here: the machine has
-    # a C++ compiler); McICA at full width with ECRAD_HOOK=1 and its
-    # stages in hooks.hook spans (tools/profile_torch_port.add_spans),
-    # radiation() outermost with a synchronise inside it: the accounting
-    # of HOOK_REPS calls, its dump read back by merge_hook_profiles, one
-    # call traced; expm_g and expm_sw_g on the card
-    os.environ["ECRAD_HOOK"] = "1"
+    # a C++ compiler); McICA at full width with the hooks on and the
+    # program's own spans inside an outer one with a synchronise: the
+    # accounting of HOOK_REPS calls, its dump read back by
+    # merge_hook_profiles, one call traced; expm_g and expm_sw_g on the
+    # card
     from ecrad_tpu_torch.solvers import matrix
     from ecrad_tpu_torch.utils import hooks, native
     sys.path.insert(0, os.path.join(REPO, "tools"))
     import merge_hook_profiles
-    import profile_torch_port
+    hooks.enable(True)
     hook_lib, fort_lib = native.hook_lib(), native.fort_lib()
     log(f"native cores: {getattr(hook_lib, '_name', None)}, "
-        f"{getattr(fort_lib, '_name', None)}; ECRAD_HOOK on {hooks.LHOOK}")
+        f"{getattr(fort_lib, '_name', None)}; hooks on {hooks.LHOOK}")
     if hook_lib is None or fort_lib is None or not hooks.LHOOK:
         raise AssertionError("the native host cores did not build from "
                              "ecrad_tpu_torch/csrc/host")
@@ -2244,15 +2247,11 @@ def main():
         raise AssertionError("FortranFile's native reader misread")
 
     def hooked():
-        with hooks.hook("radiation"):
+        with hooks.hook(HOOK_OUTER):
             out = radiation(setup_m, *inputs_m)
             torch.cuda.synchronize()
         return out
-    replaced = []
-    span_names = profile_torch_port.add_spans("mcica", replaced)
     try:
-        if set(span_names) | {"radiation"} != set(HOOK_CALLS):
-            raise AssertionError(f"add_spans gave {span_names}")
         count("hooks_mcica", hooked)
         hooks.reset_profile()
         for _ in range(HOOK_REPS):
@@ -2265,10 +2264,13 @@ def main():
         worse = [k for k, (_, tw, sw, _, _) in rows.items() if sw > tw]
         kids = sum(rows[k][1] for k in HOOK_CHILDREN)
         depth = hook_lib.ecr_hook_stack_depth()
-        log(f"hooks: calls {calls}; self above total in {worse}; radiation "
-            f"total {rows['radiation'][1]:.6f} s, its children's "
-            f"{kids:.6f} s; stack depth {depth}")
-        if calls != want or worse or rows["radiation"][1] < kids or depth:
+        log(f"hooks: calls {calls}; self above total in {worse}; "
+            f"ecrad.radiation total {rows['ecrad.radiation'][1]:.6f} s, its "
+            f"children's {kids:.6f} s; hooks.counters {hooks.counters()}; "
+            f"stack depth {depth}")
+        if ({k: calls.get(k) for k in want} != want or worse
+                or rows["ecrad.radiation"][1] < kids or depth
+                or rows[HOOK_OUTER][1] < rows["ecrad.radiation"][1]):
             raise AssertionError("the hook accounting is wrong")
         prof = hooks.dump_profile(os.path.join(DRIVER_DIR, "ecrhook.prof.0"))
         wall, parsed = merge_hook_profiles.parse_profile(prof)
@@ -2276,7 +2278,7 @@ def main():
         merged = {k: v["calls"] for k, v in acc.items()}
         log(f"dump_profile {prof}: walltime {wall:.6f} s; merged calls "
             f"{merged}")
-        if merged != want or walls["nproc"] != 1:
+        if merged != calls or walls["nproc"] != 1:
             raise AssertionError("merge_hook_profiles misreads the dump")
         trace_dir = os.path.join(DRIVER_DIR, "trace")
         if os.path.isdir(trace_dir):
@@ -2286,27 +2288,25 @@ def main():
         hooked()
         hooks.stop_trace()
         spans, inside, cats = trace_kernels_in_span(
-            trace_dir, "gas_optics", ("taumol_lw_kernel", "taumol_sw_kernel"))
-        log(f"trace: {len(spans)} gas_optics host span(s); (kernels, "
+            trace_dir, "ecrad.gas_optics",
+            ("taumol_lw_kernel", "taumol_sw_kernel"))
+        log(f"trace: {len(spans)} ecrad.gas_optics host span(s); (kernels, "
             f"launched inside the span, run inside its device range) "
             f"{inside}; event categories {cats}")
         if len(spans) != 1 or any(n != 1 or not (h == n or d == n)
                                   for n, h, d in inside.values()):
             raise AssertionError("the trace does not hold B1 and B2 in the "
-                                 "gas_optics span")
-        # McICA's ms a call with the spans and ECRAD_HOOK=0 and =1 in turns
-        # (0, 1, 1, 0), then without the spans (information only)
+                                 "ecrad.gas_optics span")
+        # McICA's ms a call with the hooks off and on in turns (0, 1, 1, 0)
         turns = []
         for on in (False, True, True, False):
-            hooks.LHOOK = on
+            hooks.enable(on)
             turns.append(path_ms(lambda: radiation(setup_m, *inputs_m), 10))
     finally:
-        profile_torch_port.remove_spans(replaced)
-    ms_plain = path_ms(lambda: radiation(setup_m, *inputs_m), 10)
-    log(f"time hooks: McICA {NCOL} x {NLEV} with the stage spans, "
-        f"ECRAD_HOOK=0, 1, 1, 0: {', '.join(f'{t:.3f}' for t in turns)} ms "
-        f"per call; without the spans {ms_plain:.3f} ms (best of 2 x 10) "
-        f"[{gpu}]")
+        hooks.enable(False)
+    log(f"time hooks: McICA {NCOL} x {NLEV} with the program's spans, the "
+        f"hooks off, on, on, off: {', '.join(f'{t:.3f}' for t in turns)} ms "
+        f"per call (best of 2 x 10) [{gpu}]")
     # expm_g on the direct block (3 x 3) and expm_sw_g on the whole
     # generator (6 x 6 + 3 x 3) at 112 x 2048, float32 on the card,
     # against float64 and float32 on the CPU

@@ -49,6 +49,7 @@ from .solvers.lw_derivatives import lw_derivatives_ica
 from .solvers.pdf_sampler import PdfSampler, setup_pdf_sampler
 from .types import (AEROSOL_FIELDS, LEVEL_FLUX_FIELDS, Aerosol, Cloud,
                     Flux, GasConcs, SingleLevel, Thermodynamics)
+from .utils import hooks
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -185,7 +186,7 @@ def _indexed_sum(x, group_of, ngroups, dim):
     idx = np.full((ngroups, width), n)
     for b, m in enumerate(members):
         idx[b, :len(m)] = m
-    idx = torch.as_tensor(idx, device=x.device)
+    idx = hooks.upload("interface", idx, x.device)
     if all(len(m) == 1 for m in members):
         return x.index_select(dim, idx[:, 0])
     pad = list(x.shape)
@@ -209,7 +210,7 @@ def _canopy_sum(flux_g, band_from_g, imap, weights):
         imap = np.asarray(imap)
         return _band_sum(flux_g, imap[band_from_g], int(imap.max()) + 1)
     bands = _band_sum(flux_g, band_from_g, int(np.max(band_from_g)) + 1)
-    w = torch.as_tensor(weights, dtype=flux_g.dtype, device=flux_g.device)
+    w = hooks.upload("interface", weights, flux_g.device, flux_g.dtype)
     return (bands[:, None, :] * w[None]).sum(-1)
 
 
@@ -264,8 +265,14 @@ def radiation(setup: RadiationSetup, single_level: SingleLevel,
     """Radiative fluxes (radiation_interface.F90:175-473). `cloud` is
     used by the cloudy solvers and ignored by Cloudless; `aerosol` is
     used when use_aerosols is on."""
+    with hooks.hook("ecrad.radiation"):
+        return _radiation(setup, single_level, thermodynamics, gas, cloud,
+                          aerosol)
+
+
+def _radiation(setup, single_level, thermodynamics, gas, cloud, aerosol):
     phl = thermodynamics.pressure_hl
-    if not bool(phl[0, 1] < phl[0, 0]):
+    if not hooks.sync("orientation", bool, phl[0, 1] < phl[0, 0]):
         return _radiation_oriented(setup, single_level, thermodynamics,
                                    gas, cloud, aerosol)
     thermodynamics = _flip_fields(thermodynamics, (
@@ -328,18 +335,20 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
         h2o_sat_liq=cast(thermodynamics.h2o_sat_liq))
     gas = gas.replace(mixing_ratio=cast(gas.mixing_ratio))
     sw_alb_diff, sw_alb_dir, lw_albedo = get_albedos(setup, single_level)
-    if cfg.i_gas_model == GasModel.MONOCHROMATIC:
-        go = gas_optics_mono(cfg, single_level, thermodynamics)
-    else:
-        go = gas_optics(
-            thermodynamics.pressure_hl, thermodynamics.temperature_hl,
-            gas.mixing_ratio, single_level.skin_temperature,
-            single_level.cos_sza, single_level.solar_irradiance, setup.spec,
-            setup.gas, lw_albedo=lw_albedo, min_gas_od_lw=cfg.min_gas_od_lw,
-            min_gas_od_sw=cfg.min_gas_od_sw,
-            spectral_solar_scaling=(single_level.spectral_solar_scaling
-                                    if cfg.use_spectral_solar_scaling
-                                    else None))
+    with hooks.hook("ecrad.gas_optics"):
+        if cfg.i_gas_model == GasModel.MONOCHROMATIC:
+            go = gas_optics_mono(cfg, single_level, thermodynamics)
+        else:
+            go = gas_optics(
+                thermodynamics.pressure_hl, thermodynamics.temperature_hl,
+                gas.mixing_ratio, single_level.skin_temperature,
+                single_level.cos_sza, single_level.solar_irradiance,
+                setup.spec, setup.gas, lw_albedo=lw_albedo,
+                min_gas_od_lw=cfg.min_gas_od_lw,
+                min_gas_od_sw=cfg.min_gas_od_sw,
+                spectral_solar_scaling=(single_level.spectral_solar_scaling
+                                        if cfg.use_spectral_solar_scaling
+                                        else None))
 
     emission = go.lw_emission
     if single_level.lw_emission is not None:
@@ -350,8 +359,8 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
             band_g = setup.spec.band_from_reordered_g_lw
             idx = (setup.lw_emiss_map[band_g]
                    if setup.lw_emiss_map is not None else band_g)
-            emission = emission[:, torch.as_tensor(idx,
-                                                   device=emission.device)]
+            emission = emission[:, hooks.upload("interface", idx,
+                                                emission.device)]
 
     # the aerosol stage: the clear sky includes the aerosols
     zeros_lw = torch.zeros_like(go.od_lw)
@@ -362,10 +371,12 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
             setup.aerosol_coeffs is not None:
         aerosol = aerosol.replace(**{f: cast(getattr(aerosol, f))
                                      for f in AEROSOL_FIELDS})
-        od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw = add_aerosol_optics(
-            cfg, setup.aerosol_coeffs, setup.spec.band_from_reordered_g_sw,
-            setup.spec.band_from_reordered_g_lw, thermodynamics, gas,
-            aerosol, od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw)
+        with hooks.hook("ecrad.aerosol"):
+            od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw = add_aerosol_optics(
+                cfg, setup.aerosol_coeffs,
+                setup.spec.band_from_reordered_g_sw,
+                setup.spec.band_from_reordered_g_lw, thermodynamics, gas,
+                aerosol, od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw)
 
     cloud_props = None
     if cfg.do_clouds and cloud is not None:
@@ -373,8 +384,9 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
                 and single_level.iseed is None):
             raise ValueError("the McICA cloud generator needs "
                              "single_level.iseed (one seed per column)")
-        cloud, cloud_props = _cloud_stage(setup, thermodynamics, cloud,
-                                          cast)
+        with hooks.hook("ecrad.cloud_optics"):
+            cloud, cloud_props = _cloud_stage(setup, thermodynamics, cloud,
+                                              cast)
 
     flux = Flux()
     if cfg.do_lw:

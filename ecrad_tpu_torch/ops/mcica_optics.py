@@ -36,6 +36,7 @@ import torch
 from ..optics.cloud import delta_eddington
 from ..optics.combine import combine_cloud_gas_sw
 from ..solvers import two_stream as ts
+from ..utils import hooks
 from . import _cuda
 
 #: launches of each CUDA kernel (incremented only where it is launched)
@@ -78,7 +79,7 @@ def lw_clear_total_noscat_plain(od, od_cloud, band_from_g, od_scaling,
     sd)."""
     pt, pb = _gf(planck_hl[:, :-1, :]), _gf(planck_hl[:, 1:, :])
     clear = ts.lw_no_scattering_transmittance(_gf(od), pt, pb)
-    b = torch.as_tensor(band_from_g, device=od.device)
+    b = hooks.upload("mcica_optics", band_from_g, od.device)
     od_t = torch.where(frac_mask[..., None],
                        od + od_cloud[:, :, b] * od_scaling, od)
     tot = ts.lw_no_scattering_transmittance(_gf(od_t), pt, pb)
@@ -148,6 +149,7 @@ def mcica_lw_optics_fused(od, od_cloud, band_from_g, od_scaling, frac_mask,
     return tuple(out)
 
 
+@hooks.hooked("ecrad.layer_optics")
 def sw_clear_total_reftrans(*args):
     """The plain version on CPU tensors, kernel B4 on any other."""
     if args[0].device.type == "cpu":
@@ -155,6 +157,7 @@ def sw_clear_total_reftrans(*args):
     return mcica_sw_optics_fused(*args)
 
 
+@hooks.hooked("ecrad.layer_optics")
 def lw_clear_total_noscat(*args):
     """The plain version on CPU tensors, kernel B4 on any other."""
     if args[0].device.type == "cpu":

@@ -40,7 +40,15 @@ import torch
 from ..solvers import two_stream as ts
 from ..solvers.matrix import (_THETA_DBL, add_eye_g, expm_reftrans_lw_g,
                               expm_reftrans_sw_g, mv_gu, solve_vec_g)
+from ..utils import hooks
 from . import _cuda
+
+# the two-stream forms without their own `ecrad.layer_optics` scope: the
+# plain versions call them once a level, inside the scope that
+# sw_reftrans_levels / lw_reftrans_levels open around the whole pass
+_sw_gammas, _sw_reftrans, _lw_gammas, _lw_reftrans, _lw_noscat = (
+    f.__wrapped__ for f in (ts.sw_gammas, ts.sw_reftrans, ts.lw_gammas,
+                            ts.lw_reftrans, ts.lw_no_scattering_transmittance))
 
 # Cap on od/mu0 in the direct block of the SW Gamma: exp(-60) is zero at
 # float32 flux resolution, and an uncapped diagonal (mu0 is clamped at
@@ -130,7 +138,7 @@ def sw_gamma_expm(nreg, mu0, od, ssa, gg, trd, trf, use3d):
     trd/trf (nreg, nreg, ...) broadcasting against *batch; mu0 likewise;
     use3d (*batch): Gamma is zeroed where false."""
     one_over_mu0 = 1.0 / mu0
-    gamma1, gamma2, gamma3 = ts.sw_gammas(mu0, ssa, gg)
+    gamma1, gamma2, gamma3 = _sw_gammas(mu0, ssa, gg)
     n3 = 3 * nreg
     rows, add = _gamma(n3, od.shape[1:], od)
     for r in range(nreg):
@@ -174,8 +182,8 @@ def _sw_level(max_gas_od_3d, od, ssa, gg, trd, trf, mu0, use3d, clear):
     the (5 nreg^2, ng, ncol) rows and the doubling counts (or None)."""
     nreg = od.shape[0]
     mu0 = mu0[None]
-    g1, g2, g3 = ts.sw_gammas(mu0, ssa, gg)
-    out5 = [_diag_g(x, nreg) for x in ts.sw_reftrans(mu0, od, ssa, g1, g2,
+    g1, g2, g3 = _sw_gammas(mu0, ssa, gg)
+    out5 = [_diag_g(x, nreg) for x in _sw_reftrans(mu0, od, ssa, g1, g2,
                                                        g3)]
     expo = None
     if bool(use3d.any()):
@@ -245,6 +253,7 @@ def sw_reftrans_levels_fused(max_gas_od_3d, od, ssa, g, trd, trf, mu0,
     return out
 
 
+@hooks.hooked("ecrad.layer_optics")
 def sw_reftrans_levels(*args, **kw):
     """SW reftrans histories: the plain version on CPU tensors, kernel B6
     on any other (which raises unless it is CUDA float32)."""
@@ -260,7 +269,7 @@ def lw_gamma_expm(nreg, od, ssa, gg, tr, se, pt, pb, fr, use3d):
     and the doubling counts: od/ssa/gg (nreg, *batch), region 0's od
     capped; tr (nreg, nreg, ...) and fr (nreg, ...) broadcasting; se/pt/pb
     (*batch)."""
-    gamma1, gamma2 = ts.lw_gammas(ssa, gg)
+    gamma1, gamma2 = _lw_gammas(ssa, gg)
     rows, add = _gamma(2 * nreg, od.shape[1:], od)
     for r in range(nreg):
         add(r, r, od[r] * gamma1[r])
@@ -309,13 +318,13 @@ def _lw_level(max_gas_od_3d, cloud_scattering, od, ssa, gg, tr, se, pt,
     counts (or None)."""
     nreg = od.shape[0]
     fr = fr[:, None]
-    gamma1, gamma2 = ts.lw_gammas(ssa, gg)
+    gamma1, gamma2 = _lw_gammas(ssa, gg)
     pt_b = pt[None] * torch.ones_like(od)
     pb_b = pb[None] * torch.ones_like(od)
     if cloud_scattering:
-        rmw, tmw, sumw, sdmw = ts.lw_reftrans(od, gamma1, gamma2, pt_b, pb_b)
+        rmw, tmw, sumw, sdmw = _lw_reftrans(od, gamma1, gamma2, pt_b, pb_b)
     else:
-        tmw, sumw, sdmw = ts.lw_no_scattering_transmittance(od, pt_b, pb_b)
+        tmw, sumw, sdmw = _lw_noscat(od, pt_b, pb_b)
         rmw = torch.zeros_like(tmw)
     out = [_diag_g(rmw, nreg), _diag_g(tmw, nreg), sumw * fr, sdmw * fr]
     expo = None
@@ -391,6 +400,7 @@ def lw_reftrans_levels_fused(max_gas_od_3d, cloud_scattering, od, ssa, g,
     return out
 
 
+@hooks.hooked("ecrad.layer_optics")
 def lw_reftrans_levels(*args, **kw):
     """LW reftrans histories: the plain version on CPU tensors, kernel B7
     on any other (which raises unless it is CUDA float32)."""

@@ -25,6 +25,7 @@ import torch
 from ..config import RadiationConfig
 from ..constants import ACCEL_DUE_TO_GRAVITY, GAS_INDEX
 from ..io.netcdf import NetcdfFile
+from ..utils import hooks
 from .cloud import delta_eddington_extensive
 
 
@@ -114,8 +115,8 @@ def add_aerosol_optics(config: RadiationConfig, tabs: Dict[str, torch.Tensor],
     (radiation_aerosol_optics.F90:75-344). `tabs` is aerosol_tensors of
     the setup. Returns (od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw)."""
     dev = od_sw.device
-    b_sw = torch.as_tensor(band_from_g_sw, device=dev)
-    b_lw = torch.as_tensor(band_from_g_lw, device=dev)
+    b_sw = hooks.upload("aerosol", band_from_g_sw, dev)
+    b_lw = hooks.upload("aerosol", band_from_g_lw, dev)
     if aerosol.od_sw is not None:
         return _add_direct(aerosol, b_sw, b_lw, od_lw, ssa_lw, g_lw, od_sw,
                            ssa_sw)

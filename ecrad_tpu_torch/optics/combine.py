@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import hooks
+
 
 def _mix(od, ssa, g, odc, ssac, gc, cloud_mask):
     zero = torch.zeros((), dtype=od.dtype, device=od.device)
@@ -33,7 +35,7 @@ def _mix(od, ssa, g, odc, ssac, gc, cloud_mask):
 def combine_cloud_gas_sw(od, ssa, g, od_cloud, ssa_cloud, g_cloud,
                          band_from_g, od_scaling=None, cloud_mask=None):
     """Returns (od_total, ssa_total, g_total), (ncol, nlev, ng)."""
-    b = torch.as_tensor(band_from_g, device=od.device)
+    b = hooks.upload("combine", band_from_g, od.device)
     odc = od_cloud[:, :, b]
     if od_scaling is not None:
         odc = odc * od_scaling
@@ -50,7 +52,7 @@ def combine_cloud_gas_lw(od, ssa, g, od_cloud, ssa_cloud, g_cloud,
         return combine_cloud_gas_sw(od, ssa, g, od_cloud, ssa_cloud,
                                     g_cloud, band_from_g, od_scaling,
                                     cloud_mask)
-    odc = od_cloud[:, :, torch.as_tensor(band_from_g, device=od.device)]
+    odc = od_cloud[:, :, hooks.upload("combine", band_from_g, od.device)]
     if od_scaling is not None:
         odc = odc * od_scaling
     od_total = od + odc

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ...constants import GAS_INDEX
+from ...utils import hooks
 from . import fused_tables
 from .setcoef import prepare_gases, setcoef
 from .taumol_common import DeviceTables, device_tables
@@ -177,7 +178,7 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
         """x (..., ng) in the spec's g order (no copy for the identity)."""
         if np.array_equal(order, np.arange(len(order))):
             return x
-        return x[..., torch.as_tensor(order, device=dev)]
+        return x[..., hooks.upload("gas_optics", order, dev)]
 
     gc = prepare_gases(pressure_hl, p_fl, t_fl,
                        g("h2o"), g("co2"), g("ch4"), g("n2o"),
@@ -192,11 +193,12 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
     od_lw = reorder(torch.clamp(od_lw, min=min_gas_od_lw),
                     spec.g_from_reordered_g_lw)
     pfrac = reorder(pfrac, spec.g_from_reordered_g_lw)
-    band_lw = torch.as_tensor(spec.band_from_reordered_g_lw, device=dev)
+    band_lw = hooks.upload("gas_optics", spec.band_from_reordered_g_lw,
+                           dev)
     # half level i uses the Planck fraction of TOA-first layer
     # min(i, nlev-1): layers [0, 0, 1, ..., nlev-1]
-    lay_idx = torch.as_tensor(np.concatenate([[0], np.arange(nlev)]),
-                              device=dev)
+    lay_idx = hooks.upload("gas_optics",
+                           np.concatenate([[0], np.arange(nlev)]), dev)
     planck_bands = planck_store(temperature_hl, tables.totplnk,
                                 tables.delwave)         # (ncol, nlev+1, 16)
     planck_hl = planck_bands[:, :, band_lw] * pfrac[:, lay_idx, :]
@@ -216,7 +218,7 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
         # sflux is in the original g order on both taumol paths: the
         # un-reordered band map, before the reordering below
         sflux = sflux * spectral_solar_scaling.to(sflux)[
-            torch.as_tensor(spec.band_from_g_sw, device=dev)]
+            hooks.upload("gas_optics", spec.band_from_g_sw, dev)]
     # normalise to the solar irradiance (radiation_ifs_rrtm.F90:519-526)
     total = sflux.sum(-1)
     scale = torch.where(cos_sza > 0.0,

@@ -16,6 +16,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ...utils import hooks
+
 # Molar masses as hard-coded in rrtm_prepare_gases.F90 (DATA statements)
 _AMD = 28.970
 _AMW = 18.0154
@@ -165,9 +167,9 @@ def setcoef(gc: GasColumns, preflog: np.ndarray, tref: np.ndarray,
     """Interpolation indices and factors (rrtm_setcoef_140gp.F90:86-278).
     preflog/tref: (59,) reference profiles; chi_mls: (7, 59)."""
     dt, dev = gc.pavel.dtype, gc.pavel.device
-    preflog = torch.as_tensor(preflog, dtype=dt, device=dev)
-    tref = torch.as_tensor(tref, dtype=dt, device=dev)
-    chi = torch.as_tensor(chi_mls, dtype=dt, device=dev)
+    preflog = hooks.upload("setcoef", preflog, dev, dt)
+    tref = hooks.upload("setcoef", tref, dev, dt)
+    chi = hooks.upload("setcoef", chi_mls, dev, dt)
 
     plog = torch.log(gc.pavel)
     jp = _floor_int(36.0 - 5.0 * (plog + 0.04)).clamp(1, 58)

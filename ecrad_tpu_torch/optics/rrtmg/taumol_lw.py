@@ -27,6 +27,7 @@ from typing import List, Tuple
 
 import torch
 
+from ...utils import hooks
 from . import fused_tables as ft
 from .setcoef import Coeffs, chi_rows_at
 from .taumol_common import (DeviceTables, Terms, Term, eta_index,
@@ -62,7 +63,7 @@ def pack_coeffs(c: Coeffs, chi_mls) -> Tuple[torch.Tensor, torch.Tensor]:
     """(NF, N) float and (NI, N) int32 per-cell inputs from (ncol, nlev)
     coefficients, cells in row-major (column, level) order."""
     dt = c.colh2o.dtype
-    chi = torch.as_tensor(chi_mls, dtype=dt, device=c.colh2o.device)
+    chi = hooks.upload("taumol_lw", chi_mls, c.colh2o.device, dt)
     chiv = chi_rows_at(chi, c.jp)       # chi_mls at JP+1 per gas
     vals = dict(c._asdict())
     vals["tropf"] = c.tropo.to(dt)

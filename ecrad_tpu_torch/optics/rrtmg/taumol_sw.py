@@ -29,6 +29,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ...utils import hooks
 from . import fused_tables as ft
 from .setcoef import Coeffs
 from .taumol_common import (DeviceTables, Terms, Term, eta_index,
@@ -255,8 +256,8 @@ def _at_layer(x, lay):
 
 
 def _sflux_eta(sfluxref, js, fs, dtype, device):
-    tab = torch.as_tensor(np.asarray(sfluxref).T, dtype=dtype,
-                          device=device)                 # (neta, ng)
+    tab = hooks.upload("taumol_sw", np.asarray(sfluxref).T, device,
+                       dtype)                            # (neta, ng)
     t0 = tab[js.clamp(0, tab.shape[0] - 1)]
     t1 = tab[(js + 1).clamp(0, tab.shape[0] - 1)]
     return t0 + fs[:, None] * (t1 - t0)
@@ -267,8 +268,8 @@ def solar_source(c2: Coeffs, t: dict) -> torch.Tensor:
     dt, dev = c2.colh2o.dtype, c2.colh2o.device
     ncol = c2.colh2o.shape[0]
     def one_d(b, scale=1.0):
-        v = torch.as_tensor(np.asarray(t[f"sw{b}_sfluxref"]), dtype=dt,
-                            device=dev)
+        v = hooks.upload("taumol_sw", np.asarray(t[f"sw{b}_sfluxref"]),
+                         dev, dt)
         return (scale * v).expand(ncol, -1)
 
     def eta_at(b, col1, col2, mult, laysolfr):

@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import hooks
 from .rrtmg.gas_optics import GasOpticsSpec, spec_from_arrays
 
 
@@ -85,13 +86,14 @@ def expand_to_g(values: torch.Tensor, mapping: Optional[np.ndarray],
     (weights: (nvalue, nband)). The weighted sum is an explicit
     multiply-add, not a matmul, so TF32 can never round the albedos."""
     if weights is not None:
-        w = torch.as_tensor(weights, dtype=values.dtype,
-                            device=values.device)
+        w = hooks.upload("spectral_mapping", weights, values.device,
+                         values.dtype)
         band_vals = (values[:, :w.shape[0], None] * w[None]).sum(1)
     else:
-        band_vals = values[:, torch.as_tensor(mapping,
-                                              device=values.device)]
-    return band_vals[:, torch.as_tensor(band_from_g, device=values.device)]
+        band_vals = values[:, hooks.upload("spectral_mapping", mapping,
+                                           values.device)]
+    return band_vals[:, hooks.upload("spectral_mapping", band_from_g,
+                                     values.device)]
 
 
 def single_g_mapping() -> Tuple[GasOpticsSpec, np.ndarray]:

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import adding_fused
+from ..utils import hooks
 
 
 def adding_sw_plain(ref, trans, ref_dir, trans_dir_diff, trans_dir_dir,
@@ -86,6 +87,7 @@ def adding_lw_plain(ref, trans, source_up, source_dn, emission_surf,
     return torch.stack(albedo) * flux_dn + torch.stack(source), flux_dn
 
 
+@hooks.hooked("ecrad.sweeps")
 def adding_sw(*args):
     """SW adding: the plain loops on CPU tensors, kernel B3 on any
     other (which raises unless it is CUDA float32)."""
@@ -94,6 +96,7 @@ def adding_sw(*args):
     return adding_fused.adding_sw_fused(*args)
 
 
+@hooks.hooked("ecrad.sweeps")
 def lw_no_scattering_fluxes(*args):
     """LW no-scattering fluxes: the plain loops on CPU tensors, kernel
     B3 on any other (which raises unless it is CUDA float32)."""
@@ -102,6 +105,7 @@ def lw_no_scattering_fluxes(*args):
     return adding_fused.lw_noscat_fused(*args)
 
 
+@hooks.hooked("ecrad.sweeps")
 def adding_lw(*args):
     """LW adding with scattering: the plain loops on CPU tensors, kernel
     B3' on any other (which raises unless it is CUDA float32)."""

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import hooks
+
 MAX_CLOUD_FRAC = 1.0 - 1.2e-6  # float32 counterpart of 1-10*eps
 MIN_FRAC = 1.0e-6
 
@@ -58,6 +60,12 @@ def cum_cloud_cover_exp_ran(frac, overlap_param, is_beta=False):
     """Exponential-random overlap (:181)."""
     pcc, _ = _pair_cloud_cover(frac, overlap_param, is_beta)
     return _cum_from_pair(frac, pcc), pcc
+
+
+def _more_to_merge(n_active) -> bool:
+    """Whether a column still holds two objects to merge: read on the
+    host (a sync) before each merge pass and once after the last."""
+    return hooks.sync("cover_merge", bool, (n_active > 1).any())
 
 
 def cum_cloud_cover_exp_exp(frac, overlap_param, is_beta=False):
@@ -163,7 +171,8 @@ def cum_cloud_cover_exp_exp(frac, overlap_param, is_beta=False):
     n_active = nobj.clone()
     neg_inf = torch.full_like(alpha_obj, float("-inf"))
     col = torch.arange(ncol, device=dev)
-    while bool((n_active > 1).any()):
+    while _more_to_merge(n_active):
+        hooks.count("cloud_cover.merge_passes")
         m = n_active > 1                                      # (ncol,)
         # the reference walks its linked list while the 1-based slot
         # index < remaining object count, so only active slots with

@@ -10,6 +10,7 @@ diagnostics (cloud cover, LW derivatives).
 from __future__ import annotations
 
 from ..config import Solver
+from ..utils import hooks
 from .homogeneous import solver_homogeneous_lw, solver_homogeneous_sw
 from .mcica import solver_mcica_lw, solver_mcica_sw
 from .spartacus_lw import solver_spartacus_lw
@@ -23,6 +24,7 @@ def _any_cloud(config, cloud, dtype):
         dtype)
 
 
+@hooks.hooked("ecrad.solver_lw")
 def solve_lw(setup, single_level, thermodynamics, cloud, cloud_props, od,
              ssa, g, planck_hl, emission, albedo):
     cfg = setup.config
@@ -46,6 +48,7 @@ def solve_lw(setup, single_level, thermodynamics, cloud, cloud_props, od,
     return total, clear, {"cloud_cover_lw": tcc, **extras}
 
 
+@hooks.hooked("ecrad.solver_sw")
 def solve_sw(setup, single_level, thermodynamics, cloud, cloud_props, od,
              ssa, g, incoming_sw, albedo_diffuse, albedo_direct):
     cfg = setup.config

@@ -14,7 +14,10 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import hooks
 
+
+@hooks.hooked("ecrad.lw_derivatives")
 def lw_derivatives_ica(transmittance, flux_up_surf):
     """transmittance g-first (nlev, ng, ncol), TOA first; flux_up_surf
     (ncol, ng). Returns (ncol, nlev+1), 1 at the surface."""
@@ -26,6 +29,7 @@ def lw_derivatives_ica(transmittance, flux_up_surf):
     return torch.cat([deriv, torch.ones_like(deriv[:, :1])], 1)
 
 
+@hooks.hooked("ecrad.lw_derivatives")
 def lw_derivatives_region(trans, um, flux_up_surf):
     """trans (nlev, nreg, ng, ncol) per-region diffuse transmittance, TOA
     first; um (nlev+1, nreg, nreg, ncol) upward overlap matrices (the

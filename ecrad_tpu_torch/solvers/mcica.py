@@ -20,6 +20,7 @@ import torch
 from ..config import RadiationConfig
 from ..ops.mcica_optics import lw_clear_total_noscat, sw_clear_total_reftrans
 from ..optics.combine import combine_cloud_gas_lw
+from ..utils import hooks
 from . import two_stream as ts
 from .adding import adding_lw, adding_sw, lw_no_scattering_fluxes
 from .cloud_generator import cloud_generator
@@ -28,6 +29,7 @@ from .lw_derivatives import lw_derivatives_ica
 from .pdf_sampler import PdfSampler
 
 
+@hooks.hooked("ecrad.cloud_generator")
 def _generate(config, pdf_sampler, ng, iseed, cloud, cheb):
     return cloud_generator(
         ng, iseed, config.i_overlap_scheme, config.cloud_fraction_threshold,

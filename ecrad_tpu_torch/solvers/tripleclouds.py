@@ -31,6 +31,7 @@ import torch
 from ..config import PdfShape, RadiationConfig
 from ..ops import adding_fused
 from ..optics.cloud import delta_eddington
+from ..utils import hooks
 from . import two_stream as ts
 from .adding import adding_lw, adding_sw, lw_no_scattering_fluxes
 from .cloud_cover import beta2alpha
@@ -143,6 +144,7 @@ def calc_overlap_matrices(reg_fracs, overlap_param, decorr_scaling,
     return u, v, cloud_cover
 
 
+@hooks.hooked("ecrad.layer_optics")
 def _region_props_sw_g(od_g, ssa_g, g_g, odc_g, ssac_g, gc_g, sc_g,
                        cmask_g):
     """Per-region SW optical properties, g-first: inputs (nlev, ng, ncol)
@@ -303,6 +305,7 @@ def tc_lw_sweeps_plain(ref, trans, src_up, src_dn, v_mat, u_mat, clear,
     return torch.stack(up), torch.stack(dn)
 
 
+@hooks.hooked("ecrad.sweeps")
 def tc_sw_sweeps(*args):
     """The SW region sweeps: the plain loops on CPU tensors, kernel B5 on
     any other (which raises unless it is CUDA float32)."""
@@ -311,6 +314,7 @@ def tc_sw_sweeps(*args):
     return adding_fused.tc_sw_sweeps_fused(*args)
 
 
+@hooks.hooked("ecrad.sweeps")
 def tc_lw_sweeps(*args):
     """The LW region sweeps: the plain loops on CPU tensors, kernel B5 on
     any other (which raises unless it is CUDA float32)."""
@@ -321,6 +325,7 @@ def tc_lw_sweeps(*args):
 
 # ---- the solvers ----
 
+@hooks.hooked("ecrad.regions")
 def _regions(config: RadiationConfig, cloud):
     """Region fractions and scalings, overlap matrices and cloud cover."""
     reg_fracs, od_scaling = calc_region_properties(
@@ -344,7 +349,7 @@ def solver_tripleclouds_sw(config: RadiationConfig, band_from_g, cloud,
     Returns (total SwFluxes, clear SwFluxes, cloud_cover (ncol,))."""
     mu0 = torch.clamp(cos_sza, min=1e-10)
     reg_fracs, od_scaling, _, v, tcc = _regions(config, cloud)
-    b = torch.as_tensor(band_from_g, device=od.device)
+    b = hooks.upload("tripleclouds", band_from_g, od.device)
     bandx = lambda x: _gf(x)[:, b, :]
     cloudy = cloud.fraction > 0.0
     od_r, ssa_r, g_r = _region_props_sw_g(
@@ -383,7 +388,7 @@ def solver_tripleclouds_lw(config: RadiationConfig, band_from_g, cloud, od,
     aer_scat, cld_scat = (config.do_lw_aerosol_scattering,
                           config.do_lw_cloud_scattering)
     reg_fracs, od_scaling, u, v, tcc = _regions(config, cloud)
-    b = torch.as_tensor(band_from_g, device=od.device)
+    b = hooks.upload("tripleclouds", band_from_g, od.device)
     od_g, ssa_g, g_g = _gf(od), _gf(ssa), _gf(g)
     planck_g = _gf(planck_hl)
     planck_top, planck_bot = planck_g[:-1], planck_g[1:]

@@ -14,11 +14,14 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import hooks
+
 LW_DIFFUSIVITY = 1.66
 SW_DIFFUSIVITY = 2.0
 KMIN = 1.0e-4  # single-precision value (radiation_two_stream.F90:46)
 
 
+@hooks.hooked("ecrad.layer_optics")
 def lw_gammas(ssa, g):
     """Fu et al. (1997) Eq 2.9/2.10."""
     factor = (LW_DIFFUSIVITY * 0.5) * ssa
@@ -27,6 +30,7 @@ def lw_gammas(ssa, g):
     return gamma1, gamma2
 
 
+@hooks.hooked("ecrad.layer_optics")
 def sw_gammas(mu0, ssa, g):
     """Zdunkowski PIFM (practical improved flux method)."""
     factor = 0.75 * g
@@ -41,6 +45,7 @@ def _k_exponent(gamma1, gamma2):
                                   min=KMIN))
 
 
+@hooks.hooked("ecrad.layer_optics")
 def lw_reftrans(od, gamma1, gamma2, planck_top, planck_bot):
     """LW Meador-Weaver reflectance/transmittance and linear-in-tau
     sources, with the od <= 1e-3 series branch
@@ -71,6 +76,7 @@ def lw_reftrans(od, gamma1, gamma2, planck_top, planck_bot):
             torch.where(thin, src_thin, src_dn_full))
 
 
+@hooks.hooked("ecrad.layer_optics")
 def lw_no_scattering_transmittance(od, planck_top, planck_bot):
     """No-scattering LW: trans = exp(-1.66 od) and linear-in-tau sources
     (radiation_two_stream.F90:337-409). Returns (trans, src_up, src_dn).
@@ -92,6 +98,7 @@ def lw_no_scattering_transmittance(od, planck_top, planck_bot):
 RESONANCE_WINDOW = 0.03
 
 
+@hooks.hooked("ecrad.layer_optics")
 def sw_reftrans(mu0, od, ssa, gamma1, gamma2, gamma3):
     """SW Meador-Weaver and direct-beam terms (classic variant,
     radiation_two_stream.F90:461-560); mu0 broadcasts against od.
@@ -111,7 +118,8 @@ def sw_reftrans(mu0, od, ssa, gamma1, gamma2, gamma3):
         return out
     near = torch.abs(_k_exponent(gamma1, gamma2) * mu0 - 1.0) \
         < RESONANCE_WINDOW
-    idx = near.expand(out[0].shape).nonzero(as_tuple=True)
+    idx = hooks.sync("resonance", near.expand(out[0].shape).nonzero,
+                     as_tuple=True)
     if idx[0].numel():
         exact = _sw_reftrans(*(x.expand(out[0].shape)[idx].double() for x in
                                (mu0, od, ssa, gamma1, gamma2, gamma3)))

@@ -1,43 +1,57 @@
-"""Profiling scopes: the Dr Hook analogue.
+"""Profiling scopes and counters: the Dr Hook analogue.
 
 Port of ecrad_tpu/utils/hooks.py (reference drhook/: the IFS profiler
 that brackets every routine with dr_hook(name, 0/1, handle), zero-cost
-when off; C core drhook/drhook/drhook.c). Two layers:
+when off; C core drhook/drhook/drhook.c). A scope, `with hook(name):`,
+has two layers, each on only while its switch is:
 
- - torch.profiler.record_function (always on): labels the scope in a
-   torch.profiler trace, the counterpart of jax.named_scope; the trace
-   shows the scope on the host and the device time of the kernels
-   launched inside it.
- - the native C++ core (csrc/host/ecrhook.cc via utils/native.py) when
-   ECRAD_HOOK=1: per-thread call-stack accounting with wall and CPU self
-   and total time, peak RSS, and fatal-signal hook-stack dumps, matching
-   Dr Hook's profile output. Without a compiler, a pure-Python wall-time
-   accumulator.
+ - torch.profiler.record_function, while a torch.profiler trace runs:
+   labels the scope in the trace, the counterpart of jax.named_scope;
+   the trace shows the scope on the host and the device time of the
+   kernels launched inside it.
+ - the native C++ core (csrc/host/ecrhook.cc via utils/native.py) while
+   LHOOK is on (ECRAD_HOOK=1 at import, or `enable(True)`): per-thread
+   call-stack accounting with wall and CPU self and total time, peak RSS,
+   and fatal-signal hook-stack dumps, matching Dr Hook's profile output.
+   Without a compiler, a pure-Python wall-time accumulator.
+
+With neither on, `hook(name)` returns a shared scope that does nothing
+(well under a microsecond an entry), so the scopes stay in the path.
+
+The program's scopes are named `ecrad.<layer>[.<stage>]`, one at each
+layer boundary (`with hook(name):` or the decorator `hooked(name)`) and
+around each stage of the cloud generator, never inside a loop over
+levels. Each statement of a radiation() call that
+blocks the host on the device runs through `sync(site, fn, ...)`: a
+scope `ecrad.sync.<site>` and, while LHOOK is on, the counter
+`sync.<site>`. `count(name)` adds to a counter while LHOOK is on;
+`counters()` reads them, `reset_profile()` clears them with the
+accounting.
 
 The accounted times are host wall and CPU time around asynchronous
 kernel launches: a scope ends when its launches are queued, not when the
 device has run them (the eager twin of the JAX package's trace-time-only
 scopes under jit). They are not device time; read device time from the
 trace (start_trace / stop_trace), or synchronise inside the scope.
-
-Controlled by ECRAD_HOOK=1, read at import.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
+import functools
 import os
 import time
 from collections import defaultdict
 from typing import Dict
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import record_function
 
 LHOOK = os.environ.get("ECRAD_HOOK", "0") == "1"
 
 _accum: Dict[str, float] = defaultdict(float)
 _counts: Dict[str, int] = defaultdict(int)
+_counters: Dict[str, int] = defaultdict(int)
 _trace = None
 
 # rows the native report returns at most, and its name field's width
@@ -51,27 +65,116 @@ def _native():
     return hook_lib()
 
 
-@contextlib.contextmanager
+def _profiling() -> bool:
+    """Whether a torch.profiler (or autograd profiler) trace runs."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def enable(on: bool) -> None:
+    """Turn the host accounting and the counters on or off (LHOOK)."""
+    global LHOOK
+    LHOOK = bool(on)
+
+
+class _Scope:
+    """One entry of a named scope: a record_function while a trace runs,
+    the native core's (or the Python accumulator's) enter and exit while
+    LHOOK is on, as each stood when the scope was entered."""
+    __slots__ = ("name", "_span", "_lib", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._span = None
+        self._lib = None
+        self._t0 = None
+
+    def __enter__(self):
+        if LHOOK:
+            self._lib = _native()
+            if self._lib is not None:
+                self._lib.ecr_hook_enter(self.name.encode())
+            else:
+                self._t0 = time.perf_counter()
+        if _profiling():
+            self._span = record_function(self.name)
+            self._span.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._span is not None:
+            self._span.__exit__(*exc)
+        if self._lib is not None:
+            self._lib.ecr_hook_exit(self.name.encode())
+        elif self._t0 is not None:
+            _accum[self.name] += time.perf_counter() - self._t0
+            _counts[self.name] += 1
+        return False
+
+
+class _Off:
+    """The scope of `hook` with the profiler and LHOOK both off."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
 def hook(name: str):
-    """Named scope for traces; accumulates host time when ECRAD_HOOK=1."""
-    if not LHOOK:
-        with record_function(name):
-            yield
-        return
-    lib = _native()
-    if lib is not None:
-        lib.ecr_hook_enter(name.encode())
-        try:
-            with record_function(name):
-                yield
-        finally:
-            lib.ecr_hook_exit(name.encode())
-        return
-    t0 = time.perf_counter()
-    with record_function(name):
-        yield
-    _accum[name] += time.perf_counter() - t0
-    _counts[name] += 1
+    """Named scope (`with hook(name):`): a span while a trace runs, host
+    accounting while LHOOK is on, nothing otherwise."""
+    if LHOOK or _profiling():
+        return _Scope(name)
+    return _OFF
+
+
+def hooked(name: str):
+    """Decorator: every call of the function in the scope `name`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def scoped(*args, **kwargs):
+            with hook(name):
+                return fn(*args, **kwargs)
+        return scoped
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name` while LHOOK is on."""
+    if LHOOK:
+        _counters[name] += n
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of the counters."""
+    return dict(_counters)
+
+
+def sync(site: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs), a call that blocks the host until the device
+    has run what was queued before it (a device value read on the host, a
+    copy from pageable host memory, an index whose size depends on device
+    data), in the scope `ecrad.sync.<site>`; counted as `sync.<site>`
+    while LHOOK is on. Returns what fn returns."""
+    if LHOOK:
+        _counters["sync." + site] += 1
+    if LHOOK or _profiling():
+        with _Scope("ecrad.sync." + site):
+            return fn(*args, **kwargs)
+    return fn(*args, **kwargs)
+
+
+def upload(site: str, array, device, dtype=None):
+    """torch.as_tensor(array, dtype, device) of a host (numpy) array: a
+    copy from pageable memory, which waits for the device's queue when the
+    device is a GPU; a sync at `upload.<site>`."""
+    return sync("upload." + site, torch.as_tensor, array, dtype=dtype,
+                device=device)
 
 
 def install_signal_handlers() -> bool:
@@ -154,11 +257,13 @@ def dump_profile(path: str | None = None) -> str:
 
 
 def reset_profile() -> None:
+    """Clear the accounting and the counters."""
     lib = _native()
     if lib is not None:
         lib.ecr_hook_reset()
     _accum.clear()
     _counts.clear()
+    _counters.clear()
 
 
 def start_trace(logdir: str) -> None:

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from . import hooks
+
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -45,8 +47,9 @@ def threefry2x32(k0, k1, x0, x1):
 
 def prng_key(seed: int, device=None) -> torch.Tensor:
     """jax.random.PRNGKey(seed) for 0 <= seed < 2**32: (2,) int64."""
-    return torch.tensor([(seed >> 32) & MASK, seed & MASK],
-                        dtype=torch.int64, device=device)
+    return hooks.sync("upload.threefry", torch.tensor,
+                      [(seed >> 32) & MASK, seed & MASK], dtype=torch.int64,
+                      device=device)
 
 
 def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:

@@ -1369,8 +1369,10 @@ def test_traced_call_holds_its_kernels_in_its_span(cuda, tmp_path,
                                                    slice_state,
                                                    monkeypatch):
     """One Cloudless call between hooks.start_trace and stop_trace, inside
-    a hook span with the host accounting on: the trace holds the span and
-    the B1 and B2 launches, each launched inside the span's host range."""
+    a hook span with the host accounting on: the accounting holds the
+    span and the program's own (`ecrad.radiation`, `ecrad.gas_optics`),
+    and the trace the B1 and B2 launches, each launched inside the host
+    range of both the outer span and `ecrad.gas_optics`."""
     import glob
     import json
 
@@ -1383,13 +1385,16 @@ def test_traced_call_holds_its_kernels_in_its_span(cuda, tmp_path,
     with hooks.hook("traced_radiation"):
         radiation(setup, *inputs)
     hooks.stop_trace()
-    assert [r[:2] for r in hooks.profile_rows()] == [("traced_radiation", 1)]
+    rows = dict(r[:2] for r in hooks.profile_rows())
+    assert rows["traced_radiation"] == rows["ecrad.radiation"] == 1
+    assert rows["ecrad.gas_optics"] == 1
     (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    (span,) = [(e["ts"], e["ts"] + e["dur"]) for e in events
-               if e.get("name") == "traced_radiation"
-               and e.get("cat") == "user_annotation"]
+    (span,), (gas,) = ([(e["ts"], e["ts"] + e["dur"]) for e in events
+                        if e.get("name") == name
+                        and e.get("cat") == "user_annotation"]
+                       for name in ("traced_radiation", "ecrad.gas_optics"))
     launch = {e["args"]["correlation"]: e["ts"] for e in events
               if e.get("cat") in ("cuda_runtime", "cuda_driver")
               and "correlation" in e.get("args", {})}
@@ -1398,4 +1403,4 @@ def test_traced_call_holds_its_kernels_in_its_span(cuda, tmp_path,
               and name in e["name"]]
         assert len(ks) == 1, name
         t = launch[ks[0]["args"]["correlation"]]
-        assert span[0] <= t <= span[1], name
+        assert span[0] <= t <= span[1] and gas[0] <= t <= gas[1], name
