@@ -9,14 +9,18 @@ Phases; any failure exits non-zero and prints no result line:
      compiler's register/shared-memory/spill report is printed, and for
      B1, B2, B3 sw_adding and B3' lw_adding at 137 and 300 levels, B3
      lw_noscat, B5's SW and LW kernels with 3 and 2 regions at 137 and 300
-     levels, B6's and B7's two passes, B8, and B9 with multilayer effects
-     off and on the registers, spills, shared memory and the warps per SM
-     their launches get);
+     levels, B6's and B7's two passes, B8, B9 with multilayer effects
+     off and on, and the McICA generator's random-fields kernel for
+     float32 and float64 the registers, spills, shared memory and the
+     warps per SM their launches get);
   2. every kernel of the paths (B1 taumol_lw, B2 taumol_sw, B3 sw_adding
      and lw_noscat, B3' lw_adding, B4 mcica_sw_optics and
      mcica_lw_optics, B5 tc_sw_sweeps and tc_lw_sweeps, B6
      spartacus_sw_reftrans, B7 spartacus_lw_reftrans, B8
-     spartacus_sw_adding, B9 spartacus_lw_adding, B10 gather_sections)
+     spartacus_sw_adding, B9 spartacus_lw_adding, B10 gather_sections,
+     and threefry_fields, the McICA generator's random fields, bit for
+     bit in float32 and float64 at the SW and LW generator calls' 2048 x
+     137 x 112 and 140 with iseed and iseed + 997)
      against its plain PyTorch version on the card, at the shapes the
      paths give it (B5-B9 on the operands the Tripleclouds and SPARTACUS
      paths hand them; B6 and B7 also on a random case built like
@@ -153,10 +157,11 @@ Phases; any failure exits non-zero and prints no result line:
         on the card against float64 and float32 on the CPU (2e-5 of each
         output's largest value);
   4. times (information only): each kernel and its plain version with
-     CUDA events (B10 per gas-optics call, its 30 launches issued from
-     Python, beside the same launches replayed from a CUDA graph, the
-     wrapper with its packing and one embedding_bag call per launch on the
-     same flattened operands; B1's
+     CUDA events (threefry_fields over both generator calls of a McICA
+     call, against its integer-operation bound; B10 per gas-optics call,
+     its 30 launches issued from Python, beside the same launches replayed
+     from a CUDA graph, the wrapper with its packing and one embedding_bag
+     call per launch on the same flattened operands; B1's
      and B2's rate on their least bytes, B2's beside its table gathers;
      B3 sw_adding and B3' lw_adding at 137 and 300 levels with the rate
      on the bytes each design moves; B5 with 3 and 2 regions with the
@@ -237,9 +242,10 @@ TC_PATTERNS = ("all_clear", "all_cloudy", "alternating")
 PATH_KERNELS = {
     "cloudless": ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat"),
     "mcica": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
-              "mcica_sw_optics"),
+              "mcica_sw_optics", "threefry_fields"),
     "mcica_noscat": ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat",
-                     "mcica_sw_optics", "mcica_lw_optics"),
+                     "mcica_sw_optics", "mcica_lw_optics",
+                     "threefry_fields"),
     "tripleclouds": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
                      "tc_sw_sweeps", "tc_lw_sweeps"),
     "tripleclouds_2reg": ("taumol_lw", "taumol_sw", "sw_adding",
@@ -257,9 +263,9 @@ PATH_KERNELS = {
                        "spartacus_sw_adding", "spartacus_lw_adding"),
     "driver_per_band": ("gather_sections", "sw_adding", "lw_noscat"),
     "driver_mcica": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
-                     "mcica_sw_optics"),
+                     "mcica_sw_optics", "threefry_fields"),
     "ifs_entry": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
-                  "mcica_sw_optics"),
+                  "mcica_sw_optics", "threefry_fields"),
     "spartacus_gpoint": ("taumol_lw", "taumol_sw", "sw_adding",
                          "lw_adding", "spartacus_sw_reftrans",
                          "spartacus_lw_reftrans", "spartacus_sw_adding",
@@ -269,16 +275,16 @@ PATH_KERNELS = {
                         "spartacus_sw_adding", "spartacus_lw_adding"),
     "mono_homogeneous": ("sw_adding", "lw_adding", "lw_noscat"),
     "mono_mcica": ("sw_adding", "lw_noscat", "mcica_sw_optics",
-                   "mcica_lw_optics"),
+                   "mcica_lw_optics", "threefry_fields"),
     "spartacus_dump": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
                        "spartacus_sw_reftrans", "spartacus_lw_reftrans",
                        "spartacus_sw_adding", "spartacus_lw_adding"),
     "surface_cloudless": ("taumol_lw", "taumol_sw", "sw_adding",
                           "lw_noscat"),
     "surface_mcica": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
-                      "mcica_sw_optics"),
+                      "mcica_sw_optics", "threefry_fields"),
     "hooks_mcica": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
-                    "mcica_sw_optics"),
+                    "mcica_sw_optics", "threefry_fields"),
 }
 # the band and g-point profiles, each summed over its last axis, against
 # the broadband profile: of each field's largest value
@@ -388,6 +394,14 @@ SPARTACUS_OPS = {"spartacus_sw_reftrans": (180, 3900, 650),
                  "spartacus_lw_reftrans": (120, 2200, 240),
                  "spartacus_sw_adding": (600, 1200),
                  "spartacus_lw_adding": (420, 45)}
+# the McICA generator's random fields (csrc/threefry.cu) are integer work:
+# 32-bit integer operations a uniform (a Threefry-2x32 hash: 20 rounds of
+# add, rotate and xor, 5 key injections of two adds, 2 initial adds; 3
+# more to make the float), over the integer pipe's 64 lanes a clock on
+# each of the 132 SMs at the 1.98 GHz boost clock; and the generator
+# calls of a McICA radiation call, (g-points, seed shift): SW and LW
+THREEFRY_INT_OPS, INT32_OPS_PER_S = 75, 132 * 64 * 1.98e9
+GENERATOR_CALLS = ((112, 0), (140, 997))
 
 
 def log(msg=""):
@@ -588,17 +602,20 @@ def rel_to_max(a, b):
 
 
 def reset_counts(counters):
-    for m in counters[:2]:
+    for m in counters[:3]:
         m.launches = 0
-    for d in counters[2:]:
+    for d in counters[3:]:
         for k in d:
             d[k] = 0
 
 
 def read_counts(counters):
+    """Launches by kernel: counters are the taumol_lw, taumol_sw and
+    random_fields modules, then the other wrappers' dicts."""
     out = {"taumol_lw": counters[0].launches,
-           "taumol_sw": counters[1].launches}
-    for d in counters[2:]:
+           "taumol_sw": counters[1].launches,
+           "threefry_fields": counters[2].launches}
+    for d in counters[3:]:
         out.update(d)
     return out
 
@@ -994,6 +1011,7 @@ def main():
     from ecrad_tpu_torch.io.output import save_fluxes, save_inputs
     from ecrad_tpu_torch.ops import _cuda, adding_fused, mcica_optics
     from ecrad_tpu_torch.ops import gather_interp as gi
+    from ecrad_tpu_torch.ops import random_fields as rf
     from ecrad_tpu_torch.ops import spartacus_adding as sa
     from ecrad_tpu_torch.ops import spartacus_reftrans as sr
     from ecrad_tpu_torch.optics.rrtmg import (taumol_lw, taumol_lw_sections,
@@ -1071,6 +1089,10 @@ def main():
             ("B3 lw_noscat", "level_sweep_info", (2, NLEV),
              "lw_noscat_kernel"),
             ("B2 taumol_sw", "taumol_sw_info", (), "taumol_sw_kernel"),
+            ("threefry_fields, float32", "threefry_fields_info", (0,),
+             "threefry_fields_kernelIfi"),
+            ("threefry_fields, float64", "threefry_fields_info", (1,),
+             "threefry_fields_kernelIdi"),
             *((f"B5 tc_{k}_sweeps, {nreg} regions, {nlev} levels",
                "tc_sweeps_info", (int(k == "lw"), nreg, nlev),
                f"tc_{k}_kernelILi{nreg}ELb1E")
@@ -1708,8 +1730,36 @@ def main():
                                  f"all-band kernels")
     del pb_lw, pb_sw, fu_lw, fu_sw
 
+    # the McICA generator's random fields at the cells' shapes (the SW and
+    # LW calls of a radiation call, on the cells' int32 seeds): the kernel
+    # against utils/threefry.py's passes on the card, bit for bit
+    rf_seeds = [torch.arange(NCOL, dtype=torch.int32, device=dev) + shift
+                for _, shift in GENERATOR_CALLS]
+    for (ng, shift), iseed in zip(GENERATOR_CALLS, rf_seeds):
+        for dtype in (torch.float32, torch.float64):
+            rf_out = rf.random_fields_kernel(iseed, ng, NLEV, dtype)
+            torch.cuda.synchronize()
+            rf_ref = rf.random_fields_plain(iseed, ng, NLEV, dtype)
+            same = all(torch.equal(x, y) for x, y in zip(rf_out, rf_ref))
+            log(f"threefry_fields: {NCOL} x {NLEV} x {ng}, iseed + {shift},"
+                f" {dtype}: rand_top, rand_cloud, u1 and u2 equal to the "
+                f"plain path's bit for bit: {same}")
+            if not same:
+                raise AssertionError("threefry_fields disagrees with the "
+                                     "plain path")
+            del rf_out, rf_ref
+    errs["threefry_fields"] = 0.0
+    rf_values = sum(NCOL * (ng + 3 * NLEV * ng) for ng, _ in GENERATOR_CALLS)
+    # the float32 uniforms written once and the int32 seeds read once
+    rf_bytes = 4 * rf_values + 4 * NCOL * len(GENERATOR_CALLS)
+    t_i, t_b = (rf_values * THREEFRY_INT_OPS / INT32_OPS_PER_S,
+                rf_bytes / HBM_BYTES_PER_S)
+    bounds["threefry_fields"] = (
+        max(t_i, t_b) * 1e3, "integer operations" if t_i >= t_b else "bytes",
+        rf_bytes, rf_values * THREEFRY_INT_OPS)
+
     # ---- 3. the paths, counted ----
-    counters = (taumol_lw, taumol_sw, adding_fused.launches,
+    counters = (taumol_lw, taumol_sw, rf, adding_fused.launches,
                 mcica_optics.launches, sr.launches, sa.launches, gi.launches)
     launches = {}
 
@@ -2360,6 +2410,12 @@ def main():
         "mcica_lw_optics": (
             lambda: mcica_optics.mcica_lw_optics_fused(*b4_lw_args),
             lambda: mcica_optics.lw_clear_total_noscat_plain(*b4_lw_args)),
+        # both generator calls of a McICA radiation call, float32
+        "threefry_fields": (
+            lambda: [rf.random_fields_kernel(iseed, ng, NLEV, torch.float32)
+                     for (ng, _), iseed in zip(GENERATOR_CALLS, rf_seeds)],
+            lambda: [rf.random_fields_plain(iseed, ng, NLEV, torch.float32)
+                     for (ng, _), iseed in zip(GENERATOR_CALLS, rf_seeds)]),
         "tc_sw_sweeps": (
             lambda: adding_fused.tc_sw_sweeps_fused(
                 *path_args["tc_sw_sweeps"]),
@@ -2713,7 +2769,10 @@ def main():
            "spartacus_sw_adding": (sp_add, f"{jadd}:399"),
            "spartacus_lw_adding": (sp_add, f"{jadd}:614"),
            "gather_sections": ("ecrad_tpu_torch/csrc/gather_sections.cu",
-                               "ecrad_tpu/ops/gather_interp.py:267")}
+                               "ecrad_tpu/ops/gather_interp.py:267"),
+           "threefry_fields": ("ecrad_tpu_torch/csrc/threefry.cu",
+                               "none: jax.random in ecrad_tpu/solvers/"
+                               "cloud_generator.py:73-85")}
     # launches: the sum over the counted path runs (per path above); no
     # single PyTorch call computes B1-B9's functions (library_ms null);
     # B10's is embedding_bag

@@ -1,11 +1,11 @@
 // A kernel's compiled resources and the occupancy its launch gets, for
 // the reports of chip_smoke.py and for B10's choice of block size (the
 // *_info entry points, each in its kernel's source: level_sweep_info,
-// taumol_lw_info, taumol_sw_info, tc_sweeps_info, spartacus_*_info and
-// gather_sections_info). info receives: registers per thread, local memory per thread
-// in bytes (spills and stack), static and dynamic shared memory per block
-// in bytes, threads per block, resident blocks per SM at that launch, and
-// the device's SM count.
+// taumol_lw_info, taumol_sw_info, tc_sweeps_info, spartacus_*_info,
+// gather_sections_info and threefry_fields_info). info receives:
+// registers per thread, local memory per thread in bytes (spills and
+// stack), static and dynamic shared memory per block in bytes, threads per
+// block, resident blocks per SM at that launch, and the device's SM count.
 #pragma once
 #include <cuda_runtime.h>
 

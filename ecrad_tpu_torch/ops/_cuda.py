@@ -35,9 +35,10 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
-# C signatures: p = device pointer, i = int, f = float; the stream is
-# appended
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+# C signatures: p = device pointer, i = int, u = unsigned 32-bit int,
+# f = float; the stream is appended
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint32,
+           "f": ctypes.c_float}
 _SIGS = {
     "taumol_lw": "pppppipp",
     "taumol_sw": "pppppipp",
@@ -55,6 +56,7 @@ _SIGS = {
     "spartacus_sw_adding": "ppppiiiiiiffffpppp",
     "spartacus_lw_adding": "pppiiiiiippp",
     "gather_sections": "pipipiiip",
+    "threefry_fields": "piuuiiiipppp",
 }
 
 # queries of a kernel's compiled resources (no stream): the leading int
@@ -67,7 +69,8 @@ _INFO_SIGS = {"level_sweep_info": "ii",
               "spartacus_sw_reftrans_info": "ii",
               "spartacus_lw_reftrans_info": "ii",
               "spartacus_lw_adding_info": "ii",
-              "gather_sections_info": "iiii"}
+              "gather_sections_info": "iiii",
+              "threefry_fields_info": "i"}
 INFO_FIELDS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
                "threads", "blocks_per_sm", "sms")
 
@@ -196,7 +199,8 @@ def launch(name: str, *args) -> None:
         raise TypeError(f"{name} takes {len(sig)} arguments")
     # a pointer argument may be None (NULL) where the kernel allows it
     conv = [(None if a is None else a.data_ptr()) if s == "p"
-            else int(a) if s == "i" else float(a) for s, a in zip(sig, args)]
+            else int(a) if s in "iu" else float(a)
+            for s, a in zip(sig, args)]
     stream = torch.cuda.current_stream().cuda_stream
     err = fn(*conv, stream)
     if err != 0:

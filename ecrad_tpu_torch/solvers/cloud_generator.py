@@ -8,14 +8,15 @@ by a draw from the water-content PDF with vertically correlated random
 numbers (Exp-Ran and Max-Ran correlate within contiguous cloudy runs,
 Exp-Exp over the whole trigger..base span).
 
-The random numbers are the JAX package's own: utils/threefry.py gives
+The random numbers are the JAX package's own: ops/random_fields.py gives
 the bits of its jax.random chain, so both programs draw the same
-subcolumns. Its two level scans (`_level_walk`) are Python loops over
-levels of (ncol, ng) tensors here: about 22 launches a level, 3,051 a
-generator call at 137 levels (6,102 in a McICA radiation() call, whose
-two generator calls launch about 15,900 in all: the Exp-Exp cover about
-8,000, as many as its merge passes make, the random fields 1,412, the
-PDF sample 326; 2048 x 137 on an H100).
+subcolumns (one CUDA kernel a generator call on the card, the int64
+passes of utils/threefry.py on the CPU). Its two level scans
+(`_level_walk`) are Python loops over levels of (ncol, ng) tensors here:
+about 22 launches a level, 3,051 a generator call at 137 levels (6,102 in
+a McICA radiation() call, whose two generator calls launch about 14,460
+in all: the Exp-Exp cover about 8,000, as many as its merge passes make,
+the random fields 2, the PDF sample 326; 2048 x 137 on an H100).
 
 Each stage runs in its own scope (utils/hooks.py):
 `ecrad.cloud_generator.cover`, `.random`, `.walk` and `.sample`.
@@ -27,7 +28,8 @@ from typing import Tuple
 import torch
 
 from ..config import Overlap
-from ..utils import hooks, threefry
+from ..ops import random_fields as fields
+from ..utils import hooks
 from .cloud_cover import (cum_cloud_cover_exp_exp, cum_cloud_cover_exp_ran,
                           cum_cloud_cover_max_ran)
 from .pdf_sampler import PdfSampler, sample_pdf, sample_pdf_fast
@@ -36,13 +38,10 @@ from .pdf_sampler import PdfSampler, sample_pdf, sample_pdf_fast
 @hooks.hooked("ecrad.cloud_generator.random")
 def random_fields(iseed, ng: int, nlev: int, dtype, seed_offset: int = 0):
     """The generator's uniforms per column (cloud_generator.py:73-85):
-    rand_top (ncol, ng) and rand_cloud, u1, u2 (ncol, nlev, ng)."""
-    key = threefry.fold_in(threefry.prng_key(seed_offset, iseed.device),
-                           iseed)
-    sub = threefry.split(key, 4)                       # (ncol, 4, 2)
-    rand_top = threefry.uniform(sub[:, 0], (ng,), dtype)
-    rest = threefry.uniform(sub[:, 1:], (nlev, ng), dtype)
-    return rand_top, rest[:, 0], rest[:, 1], rest[:, 2]
+    rand_top (ncol, ng) and rand_cloud, u1, u2 (ncol, nlev, ng), from
+    ops/random_fields.py (the kernel on the card, utils/threefry.py on
+    the CPU)."""
+    return fields.random_fields(iseed, ng, nlev, dtype, seed_offset)
 
 
 @hooks.hooked("ecrad.cloud_generator.walk")

@@ -14,6 +14,13 @@ shift (PyTorch's uint32 support is partial). A float32 uniform takes
 the 23 high bits of bits1 ^ bits2, a float64 one the 52 high bits of the
 64-bit word (bits1 << 32) | bits2, each as the mantissa of a number in
 [1, 2) minus 1.
+
+This is the plain version: the generator takes it on CPU tensors, where
+the tests hold it to jax.random. On the card the generator draws through
+ops/random_fields.py's CUDA kernel (csrc/threefry.cu), one launch a
+generator call with the same bits, where these passes made 706 launches
+and one upload of the key (1,412 and two a McICA radiation call at 2048 x
+137).
 """
 from __future__ import annotations
 

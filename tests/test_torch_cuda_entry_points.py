@@ -15,13 +15,13 @@ import re
 
 import pytest
 
-from ecrad_tpu_torch.ops import _cuda
+from ecrad_tpu_torch.ops import _cuda, random_fields
 
 _DECL = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
 
 
 def _c_signatures():
-    """name -> the 'p'/'i'/'f' letters of its parameters."""
+    """name -> the 'p'/'i'/'u'/'f' letters of its parameters."""
     out = {}
     for path in glob.glob(os.path.join(_cuda.CSRC, "*.cu")):
         with open(path) as f:
@@ -33,6 +33,8 @@ def _c_signatures():
                         letters += "p"
                     elif p.startswith("int "):
                         letters += "i"
+                    elif p.startswith("unsigned "):
+                        letters += "u"
                     elif p.startswith("float "):
                         letters += "f"
                     else:
@@ -93,3 +95,13 @@ def test_b8_stage_ring_fits_an_sm(nreg):
     regs = 65536 // (threads * k["SW_MIN_BLOCKS"])
     assert min(regs, 255) >= 64
     assert threads % 32 == 0 and k["STAGES"] >= 2
+
+
+def test_threefry_block_span_matches_the_wrapper():
+    """The values a block of the random-fields kernel owns (threefry.cu
+    SPAN = THREADS * VEC * GROUPS), which the wrapper's bound on a draw's
+    size keeps the kernel's 32-bit indices under 2**31; a thread's VEC
+    floats make one 16-byte store."""
+    k = _constants("threefry.cu", ("THREADS", "VEC", "GROUPS"))
+    assert k["THREADS"] * k["VEC"] * k["GROUPS"] == random_fields.SPAN
+    assert k["VEC"] * 4 == 16 and k["THREADS"] % 32 == 0

@@ -2,6 +2,8 @@
 PyTorch version on the card, the wrappers' refusals, and the launch
 counts of the Cloudless, McICA, Tripleclouds, Homogeneous and SPARTACUS
 paths and of the per-band gas optics (ECRAD_FUSED_TAUMOL=0, kernel B10).
+The McICA generator's random-fields kernel (csrc/threefry.cu) is held to
+the plain utils/threefry.py path on the CPU bit for bit.
 
 Marked `gpu`; every test decides inside itself whether there is a card
 and skips without one. The file imports no jax, so it runs on a machine
@@ -37,9 +39,11 @@ from ecrad_tpu_torch.interface import (_cloud_stage, radiation,
                                        setup_radiation)
 from ecrad_tpu_torch.ops import (adding_fused, gather_interp, mcica_optics,
                                  spartacus_adding, spartacus_reftrans)
+from ecrad_tpu_torch.ops import random_fields as fields
 from ecrad_tpu_torch.optics.rrtmg import taumol_lw, taumol_sw
 from ecrad_tpu_torch.optics.rrtmg.setcoef import prepare_gases, setcoef
 from ecrad_tpu_torch.solvers import adding, tripleclouds
+from ecrad_tpu_torch.utils import hooks
 
 pytestmark = pytest.mark.gpu
 
@@ -330,6 +334,90 @@ def test_new_kernels_refuse_float64_and_strided_tensors(cuda):
         lw(planck=a["planck"].double())
 
 
+FIELDS = ("rand_top", "rand_cloud", "u1", "u2")
+
+
+def _fields_match_plain(iseed, ng, nlev, dtype, offset=0):
+    """One launch of the random-fields kernel; each of its four outputs
+    contiguous and equal bit for bit to the plain path's on the CPU."""
+    n0 = fields.launches
+    got = fields.random_fields(iseed, ng, nlev, dtype, offset)
+    torch.cuda.synchronize()
+    assert fields.launches == n0 + 1
+    want = fields.random_fields_plain(iseed.cpu(), ng, nlev, dtype, offset)
+    for name, a, b in zip(FIELDS, got, want):
+        assert a.is_cuda and a.is_contiguous() and a.dtype == dtype, name
+        assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ng, shift", [(112, 0), (140, 997)])
+def test_threefry_kernel_at_the_cells_shapes(cuda, dtype, ng, shift):
+    """The SW (iseed) and LW (iseed + 997) generator calls of a 2048 x 137
+    McICA call, on the cells' int32 seeds."""
+    iseed = torch.arange(2048, dtype=torch.int32, device=cuda) + shift
+    _fields_match_plain(iseed, ng, 137, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ncol, nlev, ng", [
+    (5, 137, 1), (3, 1, 140), (2049, 1, 112), (1000, 2, 3), (7, 13, 19),
+    (1, 1, 1)])
+def test_threefry_kernel_ragged_shapes(cuda, dtype, ncol, nlev, ng):
+    """One g-point, one level, a column count that is no multiple of a
+    block's span, blocks that span many columns."""
+    iseed = (torch.arange(ncol, dtype=torch.int64, device=cuda) * 7919
+             - 50)
+    _fields_match_plain(iseed, ng, nlev, dtype)
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+@pytest.mark.parametrize("seed_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_threefry_kernel_edge_seeds(cuda, offset, seed_dtype, dtype):
+    """Seeds at the edges of 32 bits and a negative one, taken mod 2**32
+    as fold_in takes them."""
+    info = torch.iinfo(seed_dtype)
+    seeds = [s for s in (0, 2**31 - 1, 2**32 - 1, 2**32 + 5, -3)
+             if info.min <= s <= info.max]
+    iseed = torch.tensor(seeds, dtype=seed_dtype, device=cuda)
+    _fields_match_plain(iseed, 13, 7, dtype, offset)
+
+
+def test_threefry_kernel_makes_no_sync(cuda, monkeypatch):
+    """The generator's random stage on the card: one launch, counted as
+    `threefry.kernel`, and no statement that blocks the host (no upload
+    of the key)."""
+    from ecrad_tpu_torch.solvers.cloud_generator import random_fields
+    iseed = torch.arange(64, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(hooks, "LHOOK", True)
+    hooks.reset_profile()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        random_fields(iseed, 112, 137, torch.float32)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = hooks.counters()
+    hooks.reset_profile()
+    torch.cuda.synchronize()
+    assert counts == {"threefry.kernel": 1}, counts
+
+
+def test_threefry_kernel_refuses_what_it_does_not_take(cuda):
+    iseed = torch.arange(8, dtype=torch.int32, device=cuda)
+    n0 = fields.launches
+    for dtype in (torch.int32, torch.int64, torch.float16, torch.bfloat16):
+        with pytest.raises(TypeError):
+            fields.random_fields(iseed, 4, 3, dtype)
+    with pytest.raises(TypeError):
+        fields.random_fields(iseed.float(), 4, 3, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        fields.random_fields(torch.arange(16, device=cuda)[::2], 4, 3,
+                             torch.float32)
+    assert fields.launches == n0
+
+
 def test_kernels_refuse_float64_and_strided_tensors(cuda, slice_state):
     setup, _, c = slice_state
     fc, ic = taumol_lw.pack_coeffs(c, setup.tables["chi_mls"])
@@ -346,7 +434,7 @@ def test_kernels_refuse_float64_and_strided_tensors(cuda, slice_state):
 
 
 def _reset_counts():
-    taumol_lw.launches = taumol_sw.launches = 0
+    taumol_lw.launches = taumol_sw.launches = fields.launches = 0
     for d in (adding_fused.launches, mcica_optics.launches,
               spartacus_reftrans.launches, spartacus_adding.launches,
               gather_interp.launches, gather_interp.copies):
@@ -428,6 +516,8 @@ def test_mcica_path_launches_its_kernels(cuda, tmp_path, variant):
                                          "tc_lw_sweeps": 0}
         assert mcica_optics.launches == {"mcica_sw_optics": 1,
                                          "mcica_lw_optics": 1}
+    # the random fields of the SW and the LW generator call
+    assert fields.launches == 2
     for k, v in flux.fields():
         assert bool(torch.isfinite(v).all()), k
     setup_cpu = setup_radiation(cfg, device="cpu")
@@ -1203,6 +1293,7 @@ def test_monochromatic_paths_launch_their_kernels(cuda, tmp_path, variant):
     flux = radiation(setup_radiation(cfg, device=cuda), *inputs)
     torch.cuda.synchronize()
     assert taumol_lw.launches == taumol_sw.launches == 0
+    assert fields.launches == (2 if variant.startswith("mcica") else 0)
     counts = {**adding_fused.launches, **mcica_optics.launches,
               **spartacus_reftrans.launches, **spartacus_adding.launches}
     assert all(counts[k] >= 1 for k in MONO_KERNELS[variant]), counts
@@ -1253,6 +1344,7 @@ def test_radiation_scheme_on_the_card(cuda, tmp_path, monkeypatch):
             assert adding_fused.launches["sw_adding"] == 2
             assert adding_fused.launches["lw_adding"] == 2
             assert mcica_optics.launches["mcica_sw_optics"] == 1
+            assert fields.launches == 2
         out = coupling.unpack_host_outputs(
             setup, flux, cos_sza=host["cos_sza"],
             skin_temperature=host["skin_temperature"],

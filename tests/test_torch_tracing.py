@@ -10,7 +10,7 @@ fluxes are the same bits with the hooks on and off.
 The test marked `gpu` runs one call of each on the card under
 torch.cuda.set_sync_debug_mode("warn"): every synchronising operation
 of the call goes through hooks.sync, so the warnings equal the sync
-counters. The file imports no jax; on the card:
+counters; McICA's random fields are two kernel launches and no sync. The file imports no jax; on the card:
 
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_tracing.py
 """
@@ -206,3 +206,8 @@ def test_every_sync_of_a_call_is_counted(kind, tmp_path):
     assert counted > 0 and len(warned) == counted, (
         len(warned), hooks.counters(),
         sorted({f"{w.filename}:{w.lineno}" for w in warned}))
+    # McICA's two generator calls draw in one kernel launch each, with no
+    # upload of the key
+    counts = hooks.counters()
+    assert counts.get("threefry.kernel", 0) == (2 if kind == "mcica" else 0)
+    assert "sync.upload.threefry" not in counts
