@@ -13,6 +13,8 @@ makes by a digest.
   - cos_sza in [-0.2, 1] (day and night columns);
   - 6 SW albedo intervals and 3 LW emissivity intervals;
   - up to four cloud decks, 15 % of the columns cloud-free;
+  - the cloud's inverse effective sizes from an effective cloud
+    separation that rises with height (SPARTACUS's 3D terms);
   - 12 aerosol types decaying with height;
   - SYNTHETIC cloud-optics, cloud-PDF and aerosol lookup tables.
 Arrays are float64, TOA first; mixing ratios are mass mixing ratios in
@@ -154,6 +156,39 @@ def make_clouds(cols: Dict[str, np.ndarray], seed: int = 0,
         re_ice=u(20.0e-6, 80.0e-6, ncol, nlev),
         fractional_std=u(0.75, 1.25, ncol, nlev),
         iseed=np.arange(ncol, dtype=np.int32))
+    return out
+
+
+def add_effective_sizes(cols: Dict[str, np.ndarray],
+                        cloud_separation_scale_surface: float = 2500.0,
+                        cloud_separation_scale_toa: float = 14000.0,
+                        cloud_separation_scale_power: float = 3.5,
+                        cloud_inhom_separation_factor: float = 0.75
+                        ) -> Dict[str, np.ndarray]:
+    """`cols` (of make_clouds) plus inv_cloud_effective_size and
+    inv_inhom_effective_size (ncol, nlev), in m-1, from the cloud fraction
+    and an effective cloud separation that rises from
+    `cloud_separation_scale_surface` at the surface to
+    `cloud_separation_scale_toa` (m) with eta to the power
+    `cloud_separation_scale_power`, the inhomogeneities
+    `cloud_inhom_separation_factor` times as far apart
+    (radiation_cloud.F90 param_cloud_effective_separation_eta; the
+    defaults and the names are those of ecRad's CY47R1 offline
+    namelist). Float64, as make_clouds's fraction."""
+    p_hl = cols["pressure_hl"]
+    eta = (p_hl[:, :-1] + p_hl[:, 1:]) * (0.5 / p_hl[:, -1:])
+    coeff_e = 1.0 - np.exp(-1.0)
+    coeff_b = (cloud_separation_scale_toa
+               - cloud_separation_scale_surface) / coeff_e
+    coeff_a = cloud_separation_scale_toa - coeff_b
+    eff_sep = coeff_a + coeff_b * np.exp(-eta ** cloud_separation_scale_power)
+    f = cols["fraction"]
+    out = dict(cols)
+    out["inv_cloud_effective_size"] = 1.0 / (eff_sep * np.sqrt(np.maximum(
+        f * (1.0 - f), 1.0e-5)))
+    out["inv_inhom_effective_size"] = 1.0 / (
+        eff_sep * cloud_inhom_separation_factor * np.sqrt(np.maximum(
+            0.5 * f * (1.0 - 0.5 * f), 1.0e-5)))
     return out
 
 

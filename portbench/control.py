@@ -53,7 +53,8 @@ def readings(bench, workload, seed, device, ncol=None, levels=None,
         columns.write_synthetic_luts(lut_dir, seed)
         rcfg = ref_config.from_fields(conf["fields"], directory_name=lut_dir)
         aerosols = rcfg.use_aerosols
-        batch = harness.make_pool(traffic, seed, aerosols, ncol)[0]
+        batch = harness.make_pool(traffic, seed, aerosols, ncol,
+                                  conf.get("cloud_geometry"))[0]
         if program:
             from ecrad_tpu_torch import convert, interface
             setup = interface.setup_radiation(

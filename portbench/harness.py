@@ -64,7 +64,8 @@ ENUM_TABLES = {"i_gas_model": "GAS_MODEL_NAMES",
                "i_ice_model": "ICE_MODEL_NAMES",
                "i_solver_sw": "SOLVER_NAMES", "i_solver_lw": "SOLVER_NAMES",
                "i_overlap_scheme": "OVERLAP_NAMES",
-               "i_cloud_pdf_shape": "PDF_SHAPE_NAMES"}
+               "i_cloud_pdf_shape": "PDF_SHAPE_NAMES",
+               "i_3d_sw_entrapment": "ENTRAPMENT_NAMES"}
 
 
 def load_json(*parts):
@@ -108,15 +109,19 @@ def program_config(fields: dict, lut_dir: str):
 
 
 def make_pool(traffic: dict, seed: int, aerosols: bool,
-              ncol: Optional[int] = None) -> List[dict]:
-    """The traffic's batches from seed .. seed + pool - 1, float arrays
-    rounded to float32 (the precision both the port and the reference
-    are handed)."""
+              ncol: Optional[int] = None,
+              geometry: Optional[dict] = None) -> List[dict]:
+    """The traffic's batches from seed .. seed + pool - 1, with the
+    cloud's inverse effective sizes of `geometry` (a configuration's
+    cloud_geometry) where it is given, float arrays rounded to float32
+    (the precision both the port and the reference are handed)."""
     ncol = ncol or traffic["columns"]
     pool = []
     for s in range(seed, seed + traffic["pool"]):
         cols = columns.make_columns(ncol, traffic["levels"], s)
         cols = columns.make_clouds(cols, s, **traffic["clouds"])
+        if geometry is not None:
+            cols = columns.add_effective_sizes(cols, **geometry)
         if aerosols:
             cols = columns.make_aerosols(cols, s)
         pool.append({k: v.astype(np.float32)
@@ -131,7 +136,8 @@ class Spans:
     wrapper that opens a record_function span `portbench.<label>`; while
     `timing`, adds the host seconds of the label's outermost calls to
     `host_s`, and while `recording`, adds the call's boundary work
-    (roofline.py) to its label."""
+    (roofline.py) to its label; work counted from the call's tensors is
+    added when `settle()` is called, after the window."""
 
     def __init__(self, wanted: Dict[str, List[str]]):
         import torch
@@ -143,7 +149,8 @@ class Spans:
         self.host_s = {}
         self._depth = {}
         for label, targets in wanted.items():
-            self.work[label] = {"least_s": 0.0, "ops": 0.0, "unknown": False}
+            self.work[label] = {"least_s": 0.0, "ops": 0.0, "unknown": False,
+                                "later": []}
             self.host_s[label] = 0.0
             self._depth[label] = 0
             for target in targets:
@@ -176,11 +183,23 @@ class Spans:
                 w = self.work[label]
                 if ops is None:
                     w["unknown"] = True
+                elif callable(ops):
+                    w["later"].append((nbytes, ops))
                 else:
                     w["least_s"] += roofline.least_time_s(nbytes, ops)
                     w["ops"] += ops
             return out
         return wrapped
+
+    def settle(self):
+        """Count the work that was left to be read from the calls'
+        tensors, and let go of them."""
+        for w in self.work.values():
+            while w["later"]:
+                nbytes, count = w["later"].pop()
+                ops = float(count())
+                w["least_s"] += roofline.least_time_s(nbytes, ops)
+                w["ops"] += ops
 
     def remove(self):
         while self._replaced:
@@ -231,7 +250,8 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
         config = program_config(conf["fields"], lut_dir)
         setup = interface.setup_radiation(config, device=dev)
         stamp("setup_radiation")
-        pool = make_pool(traffic, seed, config.use_aerosols, ncol)
+        pool = make_pool(traffic, seed, config.use_aerosols, ncol,
+                         conf.get("cloud_geometry"))
         ncols = pool[0]["pressure_hl"].shape[0]
         inputs = [convert.columns_to_inputs(c, device=dev) for c in pool]
         stamp("pool")
@@ -310,6 +330,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
             trace_path = None
             if trace:
                 prof.stop()
+                spans.settle()
                 trace_dir = tempfile.mkdtemp(prefix="portbench-trace-")
                 trace_path = os.path.join(trace_dir, "trace.json")
                 prof.export_chrome_trace(trace_path)

@@ -229,7 +229,8 @@ def measure(workload: str, seed: int, calls: int, device: str = "cuda",
         setup = interface.setup_radiation(config, device=dev)
     finally:
         shutil.rmtree(lut_dir, ignore_errors=True)
-    pool = harness.make_pool(traffic, seed, config.use_aerosols, ncol)
+    pool = harness.make_pool(traffic, seed, config.use_aerosols, ncol,
+                             conf.get("cloud_geometry"))
     inputs = [convert.columns_to_inputs(c, device=dev) for c in pool]
 
     def call(i):

@@ -1,6 +1,6 @@
 """The reference's configuration: the RadiationConfig fields and enums of
-ecrad_tpu_torch/config.py that the McICA and Tripleclouds paths read,
-with ecRad's defaults (radiation_config.F90:147-543).
+ecrad_tpu_torch/config.py that the McICA, Tripleclouds and SPARTACUS
+paths read, with ecRad's defaults (radiation_config.F90:147-543).
 
 `from_fields` builds one from a benchmark configuration file's `fields`
 (enums by their ecRad names), and refuses a field it does not know, so a
@@ -53,6 +53,14 @@ class PdfShape(IntEnum):
     GAMMA = 1
 
 
+class Entrapment(IntEnum):
+    ZERO = 0
+    EDGE_ONLY = 1
+    EXPLICIT = 2
+    EXPLICIT_NON_FRACTAL = 3
+    MAXIMUM = 4
+
+
 #: the enum of each enum-valued field, named as in ecRad's namelists
 ENUM_NAMES = {
     "i_gas_model": (GasModel, {"Monochromatic": 0, "RRTMG-IFS": 1}),
@@ -65,6 +73,9 @@ ENUM_NAMES = {
     "i_overlap_scheme": (Overlap, {"Max-Ran": 0, "Exp-Ran": 1,
                                    "Exp-Exp": 2}),
     "i_cloud_pdf_shape": (PdfShape, {"Lognormal": 0, "Gamma": 1}),
+    "i_3d_sw_entrapment": (Entrapment, {"Zero": 0, "Edge-only": 1,
+                                        "Explicit": 2, "Non-fractal": 3,
+                                        "Maximum": 4}),
 }
 ENUM_NAMES["i_solver_lw"] = ENUM_NAMES["i_solver_sw"]
 
@@ -90,6 +101,19 @@ class RadiationConfig:
     do_lw_cloud_scattering: bool = True
     do_lw_aerosol_scattering: bool = True
     do_sw_delta_scaling_with_gases: bool = False
+    # SPARTACUS's 3D settings
+    do_3d_effects: bool = True
+    i_3d_sw_entrapment: Entrapment = Entrapment.EXPLICIT
+    do_3d_lw_multilayer_effects: bool = False
+    do_lw_side_emissivity: bool = True
+    clear_to_thick_fraction: float = 0.0
+    overhead_sun_factor: float = 0.0
+    max_gas_od_3d: float = 8.0
+    max_cloud_od: float = 16.0
+    max_3d_transfer_rate: float = 10.0
+    min_cloud_effective_size: float = 100.0
+    overhang_factor: float = 0.0
+    use_expm_everywhere: bool = False
     min_gas_od_lw: float = 1.0e-15
     min_gas_od_sw: float = 0.0
     use_aerosols: bool = False
@@ -154,9 +178,10 @@ def from_fields(values: dict, **overrides) -> RadiationConfig:
         kwargs[key] = value
     cfg = RadiationConfig(**kwargs)
     for solver in (cfg.i_solver_sw, cfg.i_solver_lw):
-        if solver not in (Solver.MCICA, Solver.TRIPLECLOUDS):
-            raise ValueError(f"the reference follows McICA and Tripleclouds "
-                             f"only, not {solver.name}")
+        if solver not in (Solver.MCICA, Solver.TRIPLECLOUDS,
+                          Solver.SPARTACUS):
+            raise ValueError(f"the reference follows McICA, Tripleclouds and "
+                             f"SPARTACUS only, not {solver.name}")
     if cfg.i_gas_model != GasModel.RRTMG_IFS:
         raise ValueError("the reference follows RRTMG-IFS gas optics only")
     return cfg

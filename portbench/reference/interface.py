@@ -1,10 +1,12 @@
-"""The plain reference of one radiation call, McICA or Tripleclouds.
+"""The plain reference of one radiation call, McICA, Tripleclouds or
+SPARTACUS.
 
-Copied from ecrad_tpu_torch/interface.py and trimmed to these two paths:
-gas optics, the aerosol stage, the cloud stage (default fractional_std,
-overlap parameter from a 2 km decorrelation length, cropping, cloud
-optics), the solvers and the flux assembly (broadband profiles, surface
-band and g-point fluxes). Every stage is plain PyTorch; nothing of the
+Copied from ecrad_tpu_torch/interface.py and trimmed to these three
+paths: gas optics (in the SPARTACUS g order where that solver runs), the
+aerosol stage, the cloud stage (default fractional_std, overlap
+parameter from a 2 km decorrelation length, cropping, cloud optics), the
+solvers and the flux assembly (broadband profiles, surface band and
+g-point fluxes). Every stage is plain PyTorch; nothing of the
 port is imported, and every table is worked out again from the files the
 benchmark wrote.
 
@@ -35,11 +37,16 @@ from .optics.rrtmg.tables import DEFAULT_PATH, load_tables
 from .optics.spectral_mapping import expand_to_g, interval_mapping
 from .solvers.mcica import solver_mcica_lw, solver_mcica_sw
 from .solvers.pdf_sampler import PdfSampler, setup_pdf_sampler
+from .solvers.spartacus_lw import solver_spartacus_lw
+from .solvers.spartacus_sw import solver_spartacus_sw
 from .solvers.tripleclouds import (solver_tripleclouds_lw,
                                    solver_tripleclouds_sw)
 from .types import Aerosol, Cloud, Flux, GasConcs, SingleLevel, Thermodynamics
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
+#: the cloud's inverse effective sizes (m-1), (ncol, nlev): SPARTACUS's
+#: 3D terms read them
+EFFECTIVE_SIZE_KEYS = ("inv_cloud_effective_size", "inv_inhom_effective_size")
 
 
 @dataclass
@@ -76,8 +83,12 @@ def setup(config: RadiationConfig, device, dtype=torch.float64,
     pdf = setup_pdf_sampler(config) if mcica else None
     cloud = setup_cloud_optics(config)
     aerosol = setup_aerosol_optics(config) if config.use_aerosols else None
+    # SPARTACUS orders the g-points of its regions by optical depth
+    spec = make_spec(tables,
+                     reorder_lw=config.i_solver_lw == Solver.SPARTACUS,
+                     reorder_sw=config.i_solver_sw == Solver.SPARTACUS)
     return Setup(
-        config=config, spec=make_spec(tables), sw_albedo_map=sw_map,
+        config=config, spec=spec, sw_albedo_map=sw_map,
         sw_albedo_weights=sw_weights, lw_emiss_map=lw_map,
         lw_emiss_weights=lw_weights, device=torch.device(device),
         dtype=dtype, gen_dtype=DTYPES[config.dtype],
@@ -92,7 +103,8 @@ def setup(config: RadiationConfig, device, dtype=torch.float64,
 def columns_to_inputs(cols: dict, device):
     """(single_level, thermodynamics, gas, cloud, aerosol) of the
     reference from the benchmark's numpy columns, at their own precision
-    (the caller casts)."""
+    (the caller casts); the cloud's inverse effective sizes where the
+    columns hold them."""
     t = lambda k: torch.as_tensor(cols[k], device=device)
     single = SingleLevel(
         cos_sza=t("cos_sza"), skin_temperature=t("skin_temperature"),
@@ -104,7 +116,8 @@ def columns_to_inputs(cols: dict, device):
                             temperature_hl=t("temperature_hl"))
     cloud = Cloud(q_liq=t("q_liq"), q_ice=t("q_ice"), re_liq=t("re_liq"),
                   re_ice=t("re_ice"), fraction=t("fraction"),
-                  fractional_std=t("fractional_std"))
+                  fractional_std=t("fractional_std"),
+                  **{k: t(k) for k in EFFECTIVE_SIZE_KEYS if k in cols})
     aerosol = (Aerosol(mixing_ratio=t("aerosol_mmr"))
                if "aerosol_mmr" in cols else None)
     return single, thermo, GasConcs(mixing_ratio=t("mixing_ratio")), \
@@ -163,7 +176,7 @@ def _cloud_stage(setup, thermodynamics, cloud, cast):
     cfg = setup.config
     cloud = cloud.replace(**{f: cast(getattr(cloud, f)) for f in (
         "q_liq", "q_ice", "re_liq", "re_ice", "fraction",
-        "fractional_std")})
+        "fractional_std") + EFFECTIVE_SIZE_KEYS})
     cloud = cloud.set_overlap_param(thermodynamics, 2000.0)
     cloud = cloud.crop_cloud_fraction(cfg.cloud_fraction_threshold,
                                       cfg.cloud_mixing_ratio_threshold)
@@ -236,6 +249,10 @@ def radiation(setup: Setup, single_level: SingleLevel,
             cfg, setup.pdf_sampler, band_lw, iseed, cloud, gen_cloud,
             od_lw, ssa_lw, g_lw, *props[:3], go.planck_hl, go.lw_emission,
             lw_albedo, cheb=setup.pdf_cheb)
+    elif cfg.i_solver_lw == Solver.SPARTACUS:
+        lw, lw_clear, tcc, more = solver_spartacus_lw(
+            cfg, band_lw, thermodynamics, cloud, od_lw, ssa_lw, g_lw,
+            *props[:3], go.planck_hl, go.lw_emission, lw_albedo)
     else:
         lw, lw_clear, tcc, more = solver_tripleclouds_lw(
             cfg, band_lw, cloud, od_lw, ssa_lw, g_lw, *props[:3],
@@ -248,6 +265,10 @@ def radiation(setup: Setup, single_level: SingleLevel,
             cfg, setup.pdf_sampler, band_sw, iseed, single_level.cos_sza,
             cloud, gen_cloud, *sw_props, sw_alb_diff, sw_alb_dir,
             cheb=setup.pdf_cheb)
+    elif cfg.i_solver_sw == Solver.SPARTACUS:
+        sw, sw_clear, tcc = solver_spartacus_sw(
+            cfg, band_sw, single_level.cos_sza, thermodynamics, cloud,
+            *sw_props, sw_alb_diff, sw_alb_dir)
     else:
         sw, sw_clear, tcc = solver_tripleclouds_sw(
             cfg, band_sw, cloud, single_level.cos_sza, *sw_props,

@@ -5,7 +5,8 @@ radiation_ifs_rrtm.F90: gas_optics :189, planck_function_atmos :570,
 planck_function_surf :704): column densities, setcoef, the LW and SW
 taumol in plain PyTorch, Planck sources from the TOTPLNK table, the
 solar source normalised to the total solar irradiance, and TOA-first
-outputs of shape (ncol, nlev, ng), every g-point in its original order.
+outputs of shape (ncol, nlev, ng), in the spec's g order: the original
+one, or the SPARTACUS order where the spec reorders a region.
 """
 from __future__ import annotations
 
@@ -36,6 +37,28 @@ WAVENUM2_SW = np.array([3250, 4000, 4650, 5150, 6150, 7700, 8050, 12850,
                        dtype=float)
 
 
+# SPARTACUS g-point reorderings by increasing optical depth
+# (radiation_ifs_rrtm.F90:49-66), 0-based
+RRTM_GPOINT_REORDERING_LW = np.array([
+    89, 90, 139, 77, 137, 69, 131, 97, 91, 70, 78, 71, 53, 72, 123, 54, 79,
+    98, 92, 55, 80, 132, 124, 81, 73, 56, 99, 82, 57, 23, 125, 100, 24, 74,
+    93, 58, 25, 83, 126, 75, 26, 11, 101, 133, 59, 27, 76, 140, 12, 84, 102,
+    94, 28, 127, 85, 13, 39, 60, 86, 103, 87, 109, 14, 29, 115, 40, 95, 15,
+    61, 88, 41, 110, 104, 1, 116, 42, 30, 134, 128, 138, 96, 62, 16, 43,
+    117, 63, 111, 44, 2, 64, 31, 65, 105, 17, 45, 66, 118, 32, 3, 33, 67,
+    18, 129, 135, 46, 112, 34, 106, 68, 35, 4, 119, 36, 47, 107, 19, 37, 38,
+    113, 48, 130, 5, 120, 49, 108, 20, 50, 51, 114, 21, 121, 52, 136, 122,
+    6, 22, 7, 8, 9, 10]) - 1
+RRTM_GPOINT_REORDERING_SW = np.array([
+    35, 45, 19, 27, 36, 57, 20, 46, 58, 21, 28, 67, 55, 68, 37, 1, 69, 22,
+    29, 59, 78, 101, 79, 77, 70, 76, 47, 75, 30, 81, 60, 102, 80, 82, 23, 2,
+    83, 84, 85, 86, 103, 61, 31, 87, 56, 38, 71, 48, 88, 3, 62, 89, 24, 7,
+    49, 32, 104, 72, 90, 63, 39, 4, 8, 50, 91, 64, 40, 33, 25, 51, 95, 96,
+    73, 65, 9, 41, 97, 92, 105, 52, 5, 98, 10, 42, 99, 100, 66, 11, 74, 34,
+    53, 26, 6, 106, 12, 43, 13, 54, 93, 44, 107, 94, 14, 108, 15, 16, 109,
+    17, 18, 110, 111, 112]) - 1
+
+
 class GasOpticsSpec(NamedTuple):
     """Static spectral mapping. g_from_reordered_g_* is the identity
     unless the region's solver is SPARTACUS."""
@@ -47,11 +70,15 @@ class GasOpticsSpec(NamedTuple):
     band_from_reordered_g_sw: np.ndarray
 
 
-def make_spec(tables: dict) -> GasOpticsSpec:
-    """The spectral mapping, every g-point in its original order."""
+def make_spec(tables: dict, reorder_lw: bool = False,
+              reorder_sw: bool = False) -> GasOpticsSpec:
+    """The spectral mapping, with the SPARTACUS g-point order in a region
+    where reorder_* is set, else every g-point in its original order."""
     return spec_from_arrays(
         np.asarray(tables["lw_band_from_g"]).astype(int) - 1,
-        np.asarray(tables["sw_band_from_g"]).astype(int) - 1)
+        np.asarray(tables["sw_band_from_g"]).astype(int) - 1,
+        RRTM_GPOINT_REORDERING_LW if reorder_lw else None,
+        RRTM_GPOINT_REORDERING_SW if reorder_sw else None)
 
 
 def spec_from_arrays(band_lw, band_sw, g_lw=None, g_sw=None
@@ -131,6 +158,12 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
     def g(name):
         return gas_mmr[:, :, GAS_INDEX[name]]
 
+    def reorder(x, order):
+        """x (..., ng) in the spec's g order (x itself for the identity)."""
+        if np.array_equal(order, np.arange(len(order))):
+            return x
+        return x[..., torch.as_tensor(order, device=dev)]
+
     gc = prepare_gases(pressure_hl, p_fl, t_fl,
                        g("h2o"), g("co2"), g("ch4"), g("n2o"),
                        g("cfc11"), g("cfc12"), g("hcfc22"), g("ccl4"),
@@ -139,7 +172,9 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
 
     # ---- LW ----
     od_lw, pfrac = taumol_lw_cells(c, t["chi_mls"], tables.lw)
-    od_lw = torch.clamp(od_lw, min=min_gas_od_lw)
+    od_lw = reorder(torch.clamp(od_lw, min=min_gas_od_lw),
+                    spec.g_from_reordered_g_lw)
+    pfrac = reorder(pfrac, spec.g_from_reordered_g_lw)
     band_lw = torch.as_tensor(spec.band_from_reordered_g_lw, device=dev)
     # half level i uses the Planck fraction of TOA-first layer
     # min(i, nlev-1): layers [0, 0, 1, ..., nlev-1]
@@ -164,6 +199,8 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
     scale = torch.where(cos_sza > 0.0,
                         solar_irradiance / torch.clamp(total, min=1e-10),
                         torch.ones_like(total))
-    return GasOptics(od_lw=od_lw, od_sw=od_sw, ssa_sw=ssa_sw,
-                     planck_hl=planck_hl, lw_emission=lw_emission,
-                     incoming_sw=scale[:, None] * sflux)
+    g_sw = spec.g_from_reordered_g_sw
+    return GasOptics(od_lw=od_lw, od_sw=reorder(od_sw, g_sw),
+                     ssa_sw=reorder(ssa_sw, g_sw), planck_hl=planck_hl,
+                     lw_emission=lw_emission,
+                     incoming_sw=reorder(scale[:, None] * sflux, g_sw))

@@ -9,7 +9,11 @@ implements the layer: a CUDA kernel, plain PyTorch passes or a future
 fused kernel. The arithmetic is chip_smoke.py's `least_time`; the
 operations per value are its OPS_PER_VALUE for the kernels' work
 (exp, sqrt and division count one each) and counts of the plain
-formulas of solvers/two_stream.py for the rest.
+formulas of solvers/two_stream.py for the rest. SPARTACUS's kernels do
+work that depends on the data (SPARTACUS_OPS): their counts are read
+from the call's own masks after the window (a count returns a function
+that Spans calls then), so that counting launches nothing inside it and
+waits for nothing.
 """
 from __future__ import annotations
 
@@ -70,6 +74,49 @@ def _per_cell(n):
     return lambda args, out: n * args[0].numel()
 
 
+#: chip_smoke.py's SPARTACUS_OPS, for 3 regions: B6/B7 per fallback cell
+#: and per 3D cell before its doubling steps (the steps are left out, so
+#: the count is a floor); B8/B9 per (level, g, column) and per mixed
+#: interface (the layer or the one above it cloudy)
+SPARTACUS_OPS = {"sw_reftrans": (180, 3900), "lw_reftrans": (120, 2200),
+                 "sw_adding": (600, 1200), "lw_adding": (420, 45)}
+
+
+def _spartacus_reftrans(kind, od_at, use3d_at):
+    """B6/B7's operations from the call's 3D mask use3d (level, g,
+    column); None for other than 3 regions."""
+    per_fallback, per_3d = SPARTACUS_OPS[kind]
+
+    def count(args, out):
+        if args[od_at].shape[1] != 3:
+            return None
+        use3d = args[use3d_at]
+        return lambda: (use3d.numel() * per_fallback
+                        + int(use3d.sum()) * (per_3d - per_fallback))
+    return count
+
+
+def _spartacus_sweeps(kind, hist_at, cols_at, clear_rows, rows3):
+    """B8/B9's operations from the call's per-column rows: the rows of a
+    layer's and of the layer above's clearness, `clear_rows`; None unless
+    the history has the `rows3` rows of 3 regions."""
+    per_cell, per_mix = SPARTACUS_OPS[kind]
+
+    def count(args, out):
+        hist, cols = args[hist_at], args[cols_at]
+        if hist.shape[1] != rows3:
+            return None
+        ng = hist.shape[2]
+        nlev, _, ncol = cols.shape
+
+        def later():
+            mixed = ~((cols[:, clear_rows[0]] > 0.5)
+                      & (cols[:, clear_rows[1]] > 0.5))
+            return ng * (nlev * ncol * per_cell + int(mixed.sum()) * per_mix)
+        return later
+    return count
+
+
 def _gas_optics(args, out):
     """60 per LW (cell, g) and 30 per SW (cell, g): taumol's kernels;
     od_lw and od_sw are the first two outputs."""
@@ -106,12 +153,30 @@ OPS = {
         _per_cell(6),
     "ecrad_tpu_torch.solvers.tripleclouds:tc_sw_sweeps": _per_cell(60),
     "ecrad_tpu_torch.solvers.tripleclouds:tc_lw_sweeps": _per_cell(45),
+    # SPARTACUS: B6 and B7 (their 3D mask the 8th and 11th argument), the
+    # clear sky's B3 and B3', B8 and B9 (their column rows the 3rd and
+    # 4th, SW rows 42/43 and LW rows 27/28 the layer's and the layer
+    # above's clearness; 3 regions' histories 5 x 9 and 2 x 3 x 4 rows)
+    "ecrad_tpu_torch.solvers.spartacus_sw:sw_reftrans_levels":
+        _spartacus_reftrans("sw_reftrans", 1, 7),
+    "ecrad_tpu_torch.solvers.spartacus_lw:lw_reftrans_levels":
+        _spartacus_reftrans("lw_reftrans", 2, 10),
+    "ecrad_tpu_torch.solvers.spartacus_sw:adding_sw": _per_cell(40),
+    "ecrad_tpu_torch.solvers.spartacus_lw:adding_lw": _per_cell(25),
+    "ecrad_tpu_torch.solvers.spartacus_lw:lw_no_scattering_fluxes":
+        _per_cell(6),
+    "ecrad_tpu_torch.solvers.spartacus_sw:sw_adding_sweeps":
+        _spartacus_sweeps("sw_adding", 1, 2, (42, 43), 45),
+    "ecrad_tpu_torch.solvers.spartacus_lw:lw_adding_sweeps":
+        _spartacus_sweeps("lw_adding", 2, 3, (27, 28), 24),
 }
 
 
 def call_work(target: str, args, kwargs, out):
     """(bytes, operations) of one call of `target`; operations None where
-    the table has no count for it."""
+    the table has no count for it, and a function that returns them where
+    they are read from the call's tensors once the window has closed."""
     count = OPS.get(target)
+    ops = None if count is None else count(args, out)
     return (boundary_bytes(args, kwargs, out),
-            None if count is None else float(count(args, out)))
+            ops if ops is None or callable(ops) else float(ops))

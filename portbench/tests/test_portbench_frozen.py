@@ -29,6 +29,16 @@ def test_columns_clouds_aerosols(seed, digest):
     assert _digest(cols) == digest
 
 
+@pytest.mark.parametrize("seed,digest", [
+    (0, "071080014443a902"), (2 ** 31 + 5, "d5465d20158d924c")])
+def test_effective_sizes(seed, digest):
+    cols = columns.add_effective_sizes(columns.make_clouds(
+        columns.make_columns(6, 16, seed), seed))
+    assert _digest({k: cols[k] for k in ("inv_cloud_effective_size",
+                                         "inv_inhom_effective_size")}) \
+        == digest
+
+
 def test_lookup_tables(tmp_path):
     names = columns.write_synthetic_luts(str(tmp_path), 3, ice="fu")
     assert names["ice_optics_override_file_name"] == "synthetic_fu_ice.nc"

@@ -59,3 +59,38 @@ def test_least_time():
     assert roofline.least_time_s(3.35e12, 0) == 1.0
     assert roofline.least_time_s(0, 67e12) == 1.0
     assert roofline.call_work("no.such:thing", (), {}, ())[1] is None
+
+
+def test_spartacus_work_is_counted_after_the_window():
+    """B6's operations come from its 3D mask, B8's from its column rows,
+    as functions that Spans.settle calls once the window has closed; two
+    regions have no count."""
+    from portbench import harness
+    from ecrad_tpu_torch.ops import spartacus_adding as sa
+
+    nlev, ng, ncol = 3, 2, 4
+    use3d = _rand(nlev, ng, ncol) > 0.5
+    od = _rand(nlev, 3, ng, ncol)
+    args = (8.0, od, od, od, None, None, None, use3d, None)
+    target = P + "spartacus_sw:sw_reftrans_levels"
+    nbytes, count = roofline.call_work(target, args, {}, od)
+    n3 = int(use3d.sum())
+    assert count() == (use3d.numel() - n3) * 180 + n3 * 3900
+    two = (8.0, od[:, :2], od[:, :2], od[:, :2], None, None, None, use3d,
+           None)
+    assert roofline.call_work(target, two, {}, od)[1] is None
+
+    cols = torch.zeros(nlev, sa.NCOLROWS, ncol)
+    cols[:, sa._CLEAR] = cols[:, sa._CLEARP] = 1.0
+    cols[1, sa._CLEAR, 0] = 0.0          # one mixed interface
+    hist = torch.zeros(nlev, 45, ng, ncol)
+    _, count = roofline.call_work(P + "spartacus_sw:sw_adding_sweeps",
+                                  (None, hist, cols), {}, ())
+    assert count() == ng * (nlev * ncol * 600 + 1 * 1200)
+
+    spans = harness.Spans({})
+    spans.work["x"] = {"least_s": 0.0, "ops": 0.0, "unknown": False,
+                       "later": [(nbytes, lambda: 67e12)]}
+    spans.settle()
+    assert spans.work["x"]["ops"] == 67e12
+    assert spans.work["x"]["least_s"] == 1.0 and not spans.work["x"]["later"]

@@ -1,6 +1,8 @@
 """Whole runs of the harness on the CPU at a tiny size: the port's plain
 path against the reference, `correct` false with the timed path broken,
 and the control (the reference in bfloat16) outside every limit."""
+import dataclasses
+
 import pytest
 import torch
 
@@ -8,7 +10,7 @@ from portbench import check, control, harness
 from ecrad_tpu_torch import interface
 
 SMALL = dict(ncol=6, levels=20)
-CELLS = ("mcica.cols2048", "tripleclouds.cols2048")
+CELLS = ("mcica.cols2048", "tripleclouds.cols2048", "spartacus.cols2048")
 
 
 def _run(bench, cell, trace=False, seed=11):
@@ -68,7 +70,7 @@ def _altered(real):
     return lw_fields
 
 
-@pytest.mark.parametrize("cell", ("mcica.cols2048", "tripleclouds.cols2048"))
+@pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("fault,attr,make", [
     ("state unchanged", "radiation", _stale),
     ("half the batch left out", "radiation", _half),
@@ -79,6 +81,26 @@ def test_a_broken_timed_path_is_not_correct(bench, monkeypatch, cell, fault,
     r = _run(bench, cell, seed=12)
     assert not r["correct"], fault
     assert r["failed"] >= 1
+
+
+def flat_config(real):
+    """The port's configuration with SPARTACUS's 3D terms dropped: every
+    layer takes the 1D fallback on the timed side alone."""
+    def program_config(*args, **kwargs):
+        return dataclasses.replace(real(*args, **kwargs),
+                                   do_3d_effects=False)
+    return program_config
+
+
+@pytest.mark.parametrize("seed", (12, 13))
+def test_the_3d_terms_dropped_are_not_correct(bench, monkeypatch, seed):
+    monkeypatch.setattr(harness, "program_config",
+                        flat_config(harness.program_config))
+    r = _run(bench, "spartacus.cols2048", seed=seed)
+    assert not r["correct"] and r["failed"] >= 1
+    limits = harness.load_json(harness.HERE, "limits",
+                               "spartacus.cols2048.json")
+    assert r["check"]["column_lw"]["value"] > limits["column_lw"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
