@@ -10,9 +10,11 @@ Phases; any failure exits non-zero and prints no result line:
      B1, B2, B3 sw_adding and B3' lw_adding at 137 and 300 levels, B3
      lw_noscat, B5's SW and LW kernels with 3 and 2 regions at 137 and 300
      levels, B6's and B7's two passes, B8, B9 with multilayer effects
-     off and on, and the McICA generator's random-fields kernel for
-     float32 and float64 the registers, spills, shared memory and the
-     warps per SM their launches get);
+     off and on, B4's SW form, the McICA generator's random-fields kernel
+     for float32 and float64, and the double forms of B1, B2, B3 sw_adding
+     and lw_noscat, B3' lw_adding at 137 levels and B4's SW form the
+     registers, spills, shared memory and the warps per SM their launches
+     get; a spill in the double forms of B1-B3 fails);
   2. every kernel of the paths (B1 taumol_lw, B2 taumol_sw, B3 sw_adding
      and lw_noscat, B3' lw_adding, B4 mcica_sw_optics and
      mcica_lw_optics, B5 tc_sw_sweeps and tc_lw_sweeps, B6
@@ -52,7 +54,16 @@ Phases; any failure exits non-zero and prints no result line:
      alternating, and with 2 regions on the path's operands cut to two;
      the per-band gas optics against B1/B2's; the SPARTACUS path's share
      of cells with the 3D treatment and the histogram of their doubling
-     counts;
+     counts; the float64 McICA path (the benchmark's float64 cell's
+     configuration: LW aerosol scattering on, cloud scattering off, 12
+     aerosol types, LW derivatives) on the 2048 x 137 columns with clouds
+     and aerosols, the hooks' counters reset just before the call and read
+     just after: every launch in its double form (F64_LAUNCHES, the
+     launch.<kernel>.f64 counters and no other launch or plain_on_device
+     counter), every output float64; and on that call's operands each
+     double form against its plain version in float64, B1 and B2 within
+     F64_TAUMOL_REL of each output's largest value, B3 sw_adding (both
+     calls), lw_noscat, B3' lw_adding and B4's SW form bit for bit;
   3. the paths, each run once with the launch counts set to 0 just
      before it and read just after, through setup_radiation + radiation:
      a. Cloudless on 2048 x 137 columns of ecrad_tpu_torch.inputs (seed
@@ -168,13 +179,16 @@ Phases; any failure exits non-zero and prints no result line:
      rate on the bytes its design moves on this run's clear sectors; B6's
      and B7's two passes apart, with the number of 3D cells the first
      pass found; B8's rate on the bytes its design moves, and B9's
-     with multilayer effects off and on), and
+     with multilayer effects off and on; the double forms on the first of
+     their float64 path calls, `<kernel>_f64` in the summary, against a
+     least time at the FP64 rate), and
      each 2048-column path's columns/s and peak memory over 10
      back-to-back calls, best of 2, Cloudless also with the per-band gas
      optics.
 The line before last is the card's name and power limit, the one before
 that a JSON summary of the kernels (with each kernel's least time on the
-card, bound_ms, from this run's operand bytes and operation count); the
+card, bound_ms, from this run's operand bytes and operation count, at
+the float32 rate, or the FP64 rate for a double form); the
 last line is {"ok": true, "device": {...}}. There is no CPU fallback:
 without a GPU the script exits 1.
 """
@@ -376,6 +390,9 @@ MATRIX_REL, MATRIX_G = 2e-5, 112
 # its operations over the float32 rate outside the tensor cores, the
 # larger (published H100 SXM peak rates)
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# the double forms' least time takes the FP64 rate outside the tensor
+# cores (published H100 SXM peak)
+F64_OPS_PER_S = 34e12
 # floating-point operations per output value, counted from each kernel's
 # source (exp, sqrt and division count one each): per (cell, g) for the
 # taumol and McICA-optics kernels, per (level, g, column) for the adding
@@ -402,6 +419,21 @@ SPARTACUS_OPS = {"spartacus_sw_reftrans": (180, 3900, 650),
 # calls of a McICA radiation call, (g-points, seed shift): SW and LW
 THREEFRY_INT_OPS, INT32_OPS_PER_S = 75, 132 * 64 * 1.98e9
 GENERATOR_CALLS = ((112, 0), (140, 997))
+# phase 2's float64 path: the launches of each kernel in one float64
+# McICA call, all in their double forms (the hooks' launch.<kernel>.f64
+# counters): B3 sw_adding for the clear and the total sky, B3' lw_adding
+# for the clear sky (LW aerosol scattering), B3 lw_noscat for the total
+# sky (no LW cloud scattering), the generator's fields for SW and LW
+F64_LAUNCHES = {"taumol_lw": 1, "taumol_sw": 1, "sw_adding": 2,
+                "lw_noscat": 1, "lw_adding": 1, "mcica_sw_optics": 1,
+                "threefry_fields": 2}
+# the double forms against their plain versions in float64: B1 and B2
+# within F64_TAUMOL_REL of each output's largest value (their sums run in
+# slot order, the plain versions' in PyTorch's: up to 21 double terms
+# reassociated, some 1e-16 apart), B3, B3' and B4's SW form bit for bit
+# (the same operations in the same order, CUDA's double exp, sqrt and
+# division on both sides)
+F64_TAUMOL_REL = 1e-13
 
 
 def log(msg=""):
@@ -451,12 +483,14 @@ def tensors(obj):
     return out
 
 
-def least_time(name, args, outs, values=None, ops=None):
+def least_time(name, args, outs, values=None, ops=None,
+               ops_per_s=F32_OPS_PER_S):
     """(bound_ms, bound_by, bytes, operations) of one launch: `values`
-    output values of OPS_PER_VALUE[name] operations each, or `ops`."""
+    output values of OPS_PER_VALUE[name] operations each, or `ops`, at
+    ops_per_s (the float32 rate; F64_OPS_PER_S for a double form)."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors((args, outs)))
     ops = values * OPS_PER_VALUE[name] if ops is None else ops
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
@@ -1077,18 +1111,33 @@ def main():
     # mangled name); the adding sweeps at the path's 137 levels, all on
     # chip, and at ADD_SPILL_NLEV, the top levels in device memory
     for what, name, args, kernel in (
-            ("B1 taumol_lw", "taumol_lw_info", (), "taumol_lw_kernel"),
+            ("B1 taumol_lw", "taumol_lw_info", (), "taumol_lw_kernelIf"),
             ("B3 sw_adding, 137 levels", "level_sweep_info", (0, NLEV),
-             "sw_adding_kernelILb0E"),
+             "sw_adding_kernelIfLb0E"),
             (f"B3 sw_adding, {ADD_SPILL_NLEV} levels", "level_sweep_info",
-             (0, ADD_SPILL_NLEV), "sw_adding_kernelILb1E"),
+             (0, ADD_SPILL_NLEV), "sw_adding_kernelIfLb1E"),
             ("B3' lw_adding, 137 levels", "level_sweep_info", (1, NLEV),
-             "lw_adding_kernelILb0E"),
+             "lw_adding_kernelIfLb0E"),
             (f"B3' lw_adding, {ADD_SPILL_NLEV} levels", "level_sweep_info",
-             (1, ADD_SPILL_NLEV), "lw_adding_kernelILb1E"),
+             (1, ADD_SPILL_NLEV), "lw_adding_kernelIfLb1E"),
             ("B3 lw_noscat", "level_sweep_info", (2, NLEV),
-             "lw_noscat_kernel"),
-            ("B2 taumol_sw", "taumol_sw_info", (), "taumol_sw_kernel"),
+             "lw_noscat_kernelIf"),
+            ("B2 taumol_sw", "taumol_sw_info", (), "taumol_sw_kernelIf"),
+            ("B4 mcica_sw_optics", "mcica_optics_info", (0,),
+             "mcica_sw_optics_kernelIf"),
+            # the double forms: B3' lw_adding's window is under 137 levels
+            ("B1 taumol_lw, float64", "taumol_lw_info_f64", (),
+             "taumol_lw_kernelId"),
+            ("B2 taumol_sw, float64", "taumol_sw_info_f64", (),
+             "taumol_sw_kernelId"),
+            ("B3 sw_adding, float64, 137 levels", "level_sweep_info_f64",
+             (0, NLEV), "sw_adding_kernelIdLb0E"),
+            ("B3' lw_adding, float64, 137 levels", "level_sweep_info_f64",
+             (1, NLEV), "lw_adding_kernelIdLb1E"),
+            ("B3 lw_noscat, float64", "level_sweep_info_f64", (2, NLEV),
+             "lw_noscat_kernelId"),
+            ("B4 mcica_sw_optics, float64", "mcica_optics_info", (2,),
+             "mcica_sw_optics_kernelId"),
             ("threefry_fields, float32", "threefry_fields_info", (0,),
              "threefry_fields_kernelIfi"),
             ("threefry_fields, float64", "threefry_fields_info", (1,),
@@ -1110,6 +1159,10 @@ def main():
             f"{k['blocks_per_sm']} blocks = {warps} warps per SM of 64")
         if k["blocks_per_sm"] < 1:
             raise AssertionError(f"{what} cannot be resident on an SM")
+        # the double forms of B1-B3 keep every value in registers
+        if ", float64" in what and not what.startswith("B4") and (
+                rep.get("spill_stores") != 0 or rep.get("spill_loads") != 0):
+            raise AssertionError(f"{what} spills")
 
     setup = setup_radiation(cloudless_slice_config(), device=dev)
     cols = make_columns(NCOL, NLEV, SEED)
@@ -1757,6 +1810,101 @@ def main():
     bounds["threefry_fields"] = (
         max(t_i, t_b) * 1e3, "integer operations" if t_i >= t_b else "bytes",
         rf_bytes, rf_values * THREEFRY_INT_OPS)
+
+    # the double forms on the float64 path's operands: one float64 McICA
+    # call (the configuration of the benchmark's float64 cell) on the 2048
+    # x 137 columns with clouds and aerosols, the hooks' counters reset
+    # just before it and read just after, each double form's operands kept
+    from ecrad_tpu_torch.config import TRIPLECLOUDS_AEROSOL_MAP
+    from ecrad_tpu_torch.utils import hooks
+    setup_f64 = setup_radiation(mcica_slice_config(
+        **luts, dtype="float64", do_lw_cloud_scattering=False,
+        use_aerosols=True, n_aerosol_types=len(TRIPLECLOUDS_AEROSOL_MAP),
+        i_aerosol_type_map=TRIPLECLOUDS_AEROSOL_MAP,
+        do_lw_derivatives=True), device=dev)
+    # name: (module, wrapper, plain version, bound of each output's
+    # largest value, 0 for bit for bit)
+    f64_kernels = {
+        "taumol_lw": (taumol_lw, "taumol_lw_kernel",
+                      taumol_lw.taumol_lw_plain, F64_TAUMOL_REL),
+        "taumol_sw": (taumol_sw, "taumol_sw_kernel",
+                      taumol_sw.taumol_sw_plain, F64_TAUMOL_REL),
+        "sw_adding": (adding_fused, "adding_sw_fused",
+                      adding.adding_sw_plain, 0.0),
+        "lw_noscat": (adding_fused, "lw_noscat_fused",
+                      adding.lw_no_scattering_fluxes_plain, 0.0),
+        "lw_adding": (adding_fused, "adding_lw_fused",
+                      adding.adding_lw_plain, 0.0),
+        "mcica_sw_optics": (mcica_optics, "mcica_sw_optics_fused",
+                            mcica_optics.sw_clear_total_reftrans_plain, 0.0)}
+    f64_args = {name: [] for name in f64_kernels}
+
+    def kept(name, fn):
+        def wrapped(*args):
+            f64_args[name].append(args)
+            return fn(*args)
+        return wrapped
+    f64_fns = [(mod, attr, getattr(mod, attr))
+               for mod, attr, _, _ in f64_kernels.values()]
+    for name, (mod, attr, fn) in zip(f64_kernels, f64_fns):
+        setattr(mod, attr, kept(name, fn))
+    hooks.enable(True)
+    hooks.reset_profile()
+    try:
+        flux_f64 = radiation(setup_f64, *inputs_t)
+        torch.cuda.synchronize()
+        counts_f64 = hooks.counters()
+    finally:
+        for mod, attr, fn in f64_fns:
+            setattr(mod, attr, fn)
+        hooks.reset_profile()
+        hooks.enable(False)
+    launched = {k: v for k, v in counts_f64.items()
+                if k.startswith(("launch.", "plain_on_device."))}
+    not_f64 = [k for k, v in flux_f64.fields() if v.dtype != torch.float64]
+    log(f"path mcica_f64: launch and plain-on-device counters {launched}; "
+        f"output fields not float64: {not_f64}")
+    if launched != {f"launch.{k}.f64": n for k, n in F64_LAUNCHES.items()}:
+        raise AssertionError("the float64 McICA call did not launch each "
+                             "kernel of its path in its double form alone")
+    if not_f64:
+        raise AssertionError(f"float64 McICA call: {not_f64} not float64")
+    del flux_f64
+    for name, (mod, attr, plain, bound) in f64_kernels.items():
+        kern, calls = getattr(mod, attr), f64_args[name]
+        if len(calls) != F64_LAUNCHES[name]:
+            raise AssertionError(f"{name}: {len(calls)} calls on the "
+                                 f"float64 path")
+        rel = err = 0.0
+        for i, args in enumerate(calls):
+            got = kern(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            if any(x.dtype != torch.float64 for x in got) or (
+                    bound == 0.0 and not all(torch.equal(x, y)
+                                             for x, y in zip(got, want))):
+                raise AssertionError(f"{name} in float64 differs from its "
+                                     f"plain version")
+            rel = max(rel, *(rel_to_max(x, y) for x, y in zip(got, want)))
+            err = max(err, *(float((x - y).abs().max())
+                             for x, y in zip(got, want)))
+            if i == 0:
+                outs = got
+        errs[name + "_f64"] = err
+        # output values as for the float forms: (cell, g) for B1/B2, one
+        # per element of the first operand for B3/B3' and B4
+        bounds[name + "_f64"] = least_time(
+            name, calls[0], outs,
+            outs[0].numel() if name.startswith("taumol") else
+            calls[0][0].numel(), ops_per_s=F64_OPS_PER_S)
+        log(f"{name} float64: {len(calls)} call(s), shape "
+            f"{tuple(calls[0][0].shape)} worst |diff|/max|plain| {rel:.3e} "
+            f"(bound {bound or 'bit for bit'}), worst abs {err:.3e}")
+        if not rel <= bound:
+            raise AssertionError(f"{name} in float64 disagrees with its "
+                                 f"plain version")
+        # phase 4 times the first call
+        del calls[1:], got, want, outs
 
     # ---- 3. the paths, counted ----
     counters = (taumol_lw, taumol_sw, rf, adding_fused.launches,
@@ -2443,6 +2591,11 @@ def main():
             lambda: sa.lw_adding_sweeps_fused(*path_args["lw_adding_sweeps"]),
             lambda: sa.lw_adding_sweeps_plain(*path_args["lw_adding_sweeps"])),
     }
+    # the double forms on the first of their float64 path calls
+    for name, (mod, attr, plain, _) in f64_kernels.items():
+        timing[name + "_f64"] = (
+            lambda k=getattr(mod, attr), a=f64_args[name][0]: k(*a),
+            lambda p=plain, a=f64_args[name][0]: p(*a))
     # B10 per gas-optics call: its 30 launches on operands packed
     # beforehand, issued from Python; the same launches replayed from a
     # CUDA graph (without the host's gaps between launches) and the
@@ -2773,13 +2926,16 @@ def main():
            "threefry_fields": ("ecrad_tpu_torch/csrc/threefry.cu",
                                "none: jax.random in ecrad_tpu/solvers/"
                                "cloud_generator.py:73-85")}
-    # launches: the sum over the counted path runs (per path above); no
-    # single PyTorch call computes B1-B9's functions (library_ms null);
-    # B10's is embedding_bag
+    # the double forms (name_f64) come from the float forms' sources
+    src.update({n + "_f64": src[n] for n in f64_kernels})
+    launches["mcica_f64"] = {f"{n}_f64": F64_LAUNCHES[n] for n in f64_kernels}
+    # launches: the sum over the counted path runs (per path above, the
+    # double forms' on the float64 path); no single PyTorch call computes
+    # B1-B9's functions (library_ms null); B10's is embedding_bag
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src[n][0],
          "replaces": src[n][1],
-         "launches": sum(p[n] for p in launches.values()),
+         "launches": sum(p.get(n, 0) for p in launches.values()),
          "max_abs_err": errs[n], "ms": ms[n][0], "plain_ms": ms[n][1],
          "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
          "library_ms": library_ms.get(n)}

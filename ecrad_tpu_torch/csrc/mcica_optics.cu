@@ -29,22 +29,37 @@
 // 0.03 of the SW resonance k mu0 = 1 take the Meador-Weaver terms in
 // double, as the plain version does (two_stream.RESONANCE_WINDOW), and
 // the nudge |k mu0 - 1| < 1e-6 is kept exactly.
+//
+// The SW kernel is a template on the scalar type: its double form
+// (mcica_sw_optics_f64) is the float64 path's, every stage in double as
+// the plain version computes it in float64 (no resonance window: double
+// is the window's precision). Its transpose tile doubles in bytes, past
+// the 48 KB of static shared memory, so the double form takes it as
+// dynamic shared memory (84 KB, 2 blocks per SM). In double exp, sqrt
+// and division run on the FP64 pipe, at half the float rate and with no
+// SFU, yet the double form stays bound by its bytes on an H100 (PERF.md).
+// The LW form stays float only: the float64 path takes the LW clear sky
+// with aerosol scattering, off this kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kernel_info.cuh"
+#include "scalar.cuh"
 
 namespace ecrad {
 
 constexpr int TILE = 32;      // columns and g-points per block
 constexpr int ROWS = 8;       // blockDim.y
 
+template <typename O>
 struct SwOut {
-  float r, t, rd, tdd, tdir;
+  O r, t, rd, tdd, tdir;
 };
 
-// solvers/two_stream.py _sw_reftrans at precision T, rounded to float
-template <typename T>
-__device__ __forceinline__ SwOut reftrans(T mu0, T od, T ssa, T gamma1,
-                                          T gamma2, T gamma3) {
+// solvers/two_stream.py _sw_reftrans at precision T, rounded to O
+template <typename O, typename T>
+__device__ __forceinline__ SwOut<O> reftrans(T mu0, T od, T ssa, T gamma1,
+                                             T gamma2, T gamma3) {
   const T one = T(1.0);
   const T od_over_mu0 = fmax(od / mu0, T(0.0));
   const T gamma4 = one - gamma3;
@@ -60,43 +75,70 @@ __device__ __forceinline__ SwOut reftrans(T mu0, T od, T ssa, T gamma1,
   const T expo2 = expo * expo;
   const T k2e = T(2.0) * k * expo;
   const T rt = one / (k + gamma1 + (k - gamma1) * expo2);
-  SwOut o;
-  o.r = (float)(gamma2 * (one - expo2) * rt);
-  o.t = (float)(k2e * rt);
+  SwOut<O> o;
+  o.r = (O)(gamma2 * (one - expo2) * rt);
+  o.t = (O)(k2e * rt);
   const T rt_dir = mu0 * ssa * rt / (one - k_mu0 * k_mu0);
-  o.rd = (float)(rt_dir * ((one - k_mu0) * (alpha2 + k_gamma3)
-                           - (one + k_mu0) * (alpha2 - k_gamma3) * expo2
-                           - k2e * (gamma3 - alpha2 * mu0) * e0));
-  o.tdd = (float)(rt_dir * (k2e * (gamma4 + alpha1 * mu0)
-                            - e0 * ((one + k_mu0) * (alpha1 + k_gamma4)
-                                    - (one - k_mu0) * (alpha1 - k_gamma4)
-                                    * expo2)));
-  o.tdir = (float)e0;
+  o.rd = (O)(rt_dir * ((one - k_mu0) * (alpha2 + k_gamma3)
+                       - (one + k_mu0) * (alpha2 - k_gamma3) * expo2
+                       - k2e * (gamma3 - alpha2 * mu0) * e0));
+  o.tdd = (O)(rt_dir * (k2e * (gamma4 + alpha1 * mu0)
+                        - e0 * ((one + k_mu0) * (alpha1 + k_gamma4)
+                                - (one - k_mu0) * (alpha1 - k_gamma4)
+                                * expo2)));
+  o.tdir = (O)e0;
   return o;
 }
 
-__device__ __forceinline__ SwOut sw_chain(float mu0, float od, float ssa,
-                                          float g, int delta_all) {
+template <typename T>
+__device__ __forceinline__ SwOut<T> sw_chain(T mu0, T od, T ssa, T g,
+                                             int delta_all) {
   if (delta_all) {                    // optics/cloud.py delta_eddington
-    const float f = g * g;
-    const float od_new = od * (1.0f - ssa * f);
-    const float ssa_new = ssa * (1.0f - f) / (1.0f - ssa * f);
-    g = g / (1.0f + g);
+    const T f = g * g;
+    const T od_new = od * (ECRAD_LIT(1.0) - ssa * f);
+    const T ssa_new = ssa * (ECRAD_LIT(1.0) - f) / (ECRAD_LIT(1.0) - ssa * f);
+    g = g / (ECRAD_LIT(1.0) + g);
     od = od_new;
     ssa = ssa_new;
   }
   // solvers/two_stream.py sw_gammas, then sw_reftrans: in float, or in
-  // double within RESONANCE_WINDOW of k mu0 = 1, where float cancels
-  const float factor = 0.75f * g;
-  const float gamma1 = 2.0f - ssa * (1.25f + factor);
-  const float gamma2 = ssa * (0.75f - factor);
-  const float gamma3 = 0.5f - mu0 * factor;
-  const float k = sqrtf(fmaxf((gamma1 - gamma2) * (gamma1 + gamma2), 1.0e-4f));
-  if (fabsf(k * mu0 - 1.0f) < 0.03f) {
-    return reftrans<double>(mu0, od, ssa, gamma1, gamma2, gamma3);
+  // double within RESONANCE_WINDOW of k mu0 = 1, where float cancels; the
+  // double form in double throughout
+  const T factor = ECRAD_LIT(0.75) * g;
+  const T gamma1 = ECRAD_LIT(2.0) - ssa * (ECRAD_LIT(1.25) + factor);
+  const T gamma2 = ssa * (ECRAD_LIT(0.75) - factor);
+  const T gamma3 = ECRAD_LIT(0.5) - mu0 * factor;
+  if constexpr (sizeof(T) == 4) {
+    const float k =
+        sqrtf(fmaxf((gamma1 - gamma2) * (gamma1 + gamma2), 1.0e-4f));
+    if (fabsf(k * mu0 - 1.0f) < 0.03f) {
+      return reftrans<float, double>(mu0, od, ssa, gamma1, gamma2, gamma3);
+    }
+    return reftrans<float, float>(mu0, od, ssa, gamma1, gamma2, gamma3);
+  } else {
+    return reftrans<double, double>(mu0, od, ssa, gamma1, gamma2, gamma3);
   }
-  return reftrans<float>(mu0, od, ssa, gamma1, gamma2, gamma3);
 }
+
+// the SW kernel's transpose tile: static shared memory in the float form
+// (42 KB), dynamic in the double one (84 KB, past the static 48 KB)
+template <typename T>
+struct SwTile;
+template <>
+struct SwTile<float> {
+  __device__ __forceinline__ static float (*get())[TILE][TILE + 1] {
+    __shared__ float tile[10][TILE][TILE + 1];
+    return tile;
+  }
+};
+template <>
+struct SwTile<double> {
+  static constexpr size_t bytes = sizeof(double) * 10 * TILE * (TILE + 1);
+  __device__ __forceinline__ static double (*get())[TILE][TILE + 1] {
+    extern __shared__ __align__(16) unsigned char mcica_tile[];
+    return reinterpret_cast<double (*)[TILE][TILE + 1]>(mcica_tile);
+  }
+};
 
 __device__ __forceinline__ void lw_noscat(float od, float pt, float pb,
                                           float* t, float* su, float* sd) {
@@ -115,20 +157,21 @@ __device__ __forceinline__ void lw_noscat(float od, float pt, float pb,
 }
 
 // grid (ceil(ng/TILE), ceil(ncol/TILE), nlev), block (TILE, ROWS)
+template <typename T>
 __global__ void __launch_bounds__(TILE * ROWS)
-mcica_sw_optics_kernel(const float* __restrict__ od,
-                       const float* __restrict__ ssa,
-                       const float* __restrict__ g,
-                       const float* __restrict__ od_scaling,
-                       const float* __restrict__ od_cloud,
-                       const float* __restrict__ ssa_cloud,
-                       const float* __restrict__ g_cloud,
+mcica_sw_optics_kernel(const T* __restrict__ od,
+                       const T* __restrict__ ssa,
+                       const T* __restrict__ g,
+                       const T* __restrict__ od_scaling,
+                       const T* __restrict__ od_cloud,
+                       const T* __restrict__ ssa_cloud,
+                       const T* __restrict__ g_cloud,
                        const uint8_t* __restrict__ mask,
-                       const float* __restrict__ cos_sza,
+                       const T* __restrict__ cos_sza,
                        const int* __restrict__ band_from_g, int ncol,
                        int nlev, int ng, int nb, int delta_all,
-                       float* __restrict__ out) {
-  __shared__ float tile[10][TILE][TILE + 1];
+                       T* __restrict__ out) {
+  T (*tile)[TILE][TILE + 1] = SwTile<T>::get();
   const int g0 = blockIdx.x * TILE, c0 = blockIdx.y * TILE;
   const int l = blockIdx.z;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -142,26 +185,26 @@ mcica_sw_optics_kernel(const float* __restrict__ od,
       if (c >= ncol) break;
       const size_t cl = (size_t)c * nlev + l;
       const size_t j = cl * ng + gi;
-      const float mu0 = fmaxf(cos_sza[c], 1.0e-10f);
-      const float od_g = od[j], ssa_g = ssa[j], g_g = g[j];
-      const SwOut cl_o = sw_chain(mu0, od_g, ssa_g, g_g, delta_all);
-      SwOut to = cl_o;
+      const T mu0 = mmax(cos_sza[c], ECRAD_LIT(1.0e-10));
+      const T od_g = od[j], ssa_g = ssa[j], g_g = g[j];
+      const SwOut<T> cl_o = sw_chain(mu0, od_g, ssa_g, g_g, delta_all);
+      SwOut<T> to = cl_o;
       if (mask[cl]) {                 // optics/combine.py _mix
         const size_t jb = cl * nb + band;
-        const float odc = od_cloud[jb] * od_scaling[j];
-        const float od_t = od_g + odc;
-        const float scat_gas = ssa_g * od_g;
-        const float scat_cld = ssa_cloud[jb] * odc;
-        const float scat_od = scat_gas + scat_cld;
-        const float ssa_t = od_t > 0.0f
-            ? scat_od / fmaxf(od_t, 1.0e-30f) : 0.0f;
-        const float g_t = scat_od > 0.0f
+        const T odc = od_cloud[jb] * od_scaling[j];
+        const T od_t = od_g + odc;
+        const T scat_gas = ssa_g * od_g;
+        const T scat_cld = ssa_cloud[jb] * odc;
+        const T scat_od = scat_gas + scat_cld;
+        const T ssa_t = od_t > ECRAD_LIT(0.0)
+            ? scat_od / mmax(od_t, ECRAD_LIT(1.0e-30)) : ECRAD_LIT(0.0);
+        const T g_t = scat_od > ECRAD_LIT(0.0)
             ? (g_g * scat_gas + g_cloud[jb] * scat_cld)
-              / fmaxf(scat_od, 1.0e-30f)
-            : 0.0f;
+              / mmax(scat_od, ECRAD_LIT(1.0e-30))
+            : ECRAD_LIT(0.0);
         to = sw_chain(mu0, od_t, ssa_t, g_t, delta_all);
       }
-      const float v[10] = {cl_o.r, cl_o.t, cl_o.rd, cl_o.tdd, cl_o.tdir,
+      const T v[10] = {cl_o.r, cl_o.t, cl_o.rd, cl_o.tdd, cl_o.tdir,
                            to.r, to.t, to.rd, to.tdd, to.tdir};
 #pragma unroll
       for (int q = 0; q < 10; ++q) tile[q][cc][tx] = v[q];
@@ -234,6 +277,33 @@ mcica_lw_optics_kernel(const float* __restrict__ od,
 
 }  // namespace ecrad
 
+namespace ecrad {
+template <typename T>
+int mcica_sw_optics_launch(const T* od, const T* ssa, const T* g,
+                           const T* od_scaling, const T* od_cloud,
+                           const T* ssa_cloud, const T* g_cloud,
+                           const uint8_t* mask, const T* cos_sza,
+                           const int* band_from_g, int ncol, int nlev, int ng,
+                           int nb, int delta_all, T* out, void* stream) {
+  if ((size_t)ncol * nlev * ng > 0) {
+    size_t smem = 0;
+    if constexpr (sizeof(T) == 8) {
+      smem = SwTile<double>::bytes;
+      cudaError_t e = cudaFuncSetAttribute(
+          mcica_sw_optics_kernel<T>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const dim3 grid((ng + TILE - 1) / TILE, (ncol + TILE - 1) / TILE, nlev);
+    const dim3 block(TILE, ROWS);
+    mcica_sw_optics_kernel<T><<<grid, block, smem, (cudaStream_t)stream>>>(
+        od, ssa, g, od_scaling, od_cloud, ssa_cloud, g_cloud, mask, cos_sza,
+        band_from_g, ncol, nlev, ng, nb, delta_all, out);
+  }
+  return (int)cudaGetLastError();
+}
+}  // namespace ecrad
+
 extern "C" int mcica_sw_optics(const float* od, const float* ssa,
                                const float* g, const float* od_scaling,
                                const float* od_cloud, const float* ssa_cloud,
@@ -241,15 +311,24 @@ extern "C" int mcica_sw_optics(const float* od, const float* ssa,
                                const float* cos_sza, const int* band_from_g,
                                int ncol, int nlev, int ng, int nb,
                                int delta_all, float* out, void* stream) {
-  if ((size_t)ncol * nlev * ng > 0) {
-    const dim3 grid((ng + ecrad::TILE - 1) / ecrad::TILE,
-                    (ncol + ecrad::TILE - 1) / ecrad::TILE, nlev);
-    const dim3 block(ecrad::TILE, ecrad::ROWS);
-    ecrad::mcica_sw_optics_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        od, ssa, g, od_scaling, od_cloud, ssa_cloud, g_cloud, mask, cos_sza,
-        band_from_g, ncol, nlev, ng, nb, delta_all, out);
-  }
-  return (int)cudaGetLastError();
+  return ecrad::mcica_sw_optics_launch<float>(
+      od, ssa, g, od_scaling, od_cloud, ssa_cloud, g_cloud, mask, cos_sza,
+      band_from_g, ncol, nlev, ng, nb, delta_all, out, stream);
+}
+
+// the double form, the float64 path's
+extern "C" int mcica_sw_optics_f64(const double* od, const double* ssa,
+                                   const double* g, const double* od_scaling,
+                                   const double* od_cloud,
+                                   const double* ssa_cloud,
+                                   const double* g_cloud, const uint8_t* mask,
+                                   const double* cos_sza,
+                                   const int* band_from_g, int ncol, int nlev,
+                                   int ng, int nb, int delta_all, double* out,
+                                   void* stream) {
+  return ecrad::mcica_sw_optics_launch<double>(
+      od, ssa, g, od_scaling, od_cloud, ssa_cloud, g_cloud, mask, cos_sza,
+      band_from_g, ncol, nlev, ng, nb, delta_all, out, stream);
 }
 
 extern "C" int mcica_lw_optics(const float* od, const float* od_scaling,
@@ -266,4 +345,24 @@ extern "C" int mcica_lw_optics(const float* od, const float* od_scaling,
         ng, nb, out);
   }
   return (int)cudaGetLastError();
+}
+
+// Resources of B4's kernel `which` (0 the SW form, 1 the LW form, 2 the
+// SW double form) at its launch (kernel_info.cuh)
+extern "C" int mcica_optics_info(int which, int* info) {
+  using namespace ecrad;
+  if (which == 0)
+    return kernel_info(mcica_sw_optics_kernel<float>, TILE * ROWS, 0, info);
+  if (which == 1)
+    return kernel_info(mcica_lw_optics_kernel, TILE * ROWS, 0, info);
+  if (which == 2) {
+    cudaError_t e = cudaFuncSetAttribute(
+        mcica_sw_optics_kernel<double>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)SwTile<double>::bytes);
+    if (e != cudaSuccess) return (int)e;
+    return kernel_info(mcica_sw_optics_kernel<double>, TILE * ROWS,
+                       SwTile<double>::bytes, info);
+  }
+  return (int)cudaErrorInvalidValue;
 }

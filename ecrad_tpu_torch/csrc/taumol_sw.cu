@@ -32,6 +32,11 @@
 // thread. 47 KB of shared memory a block: 4 blocks (16 warps) per SM. The
 // solar source stays in PyTorch (it selects one layer per column).
 //
+// The kernel is a template on the scalar type. Its double form
+// (taumol_sw_f64) is the float64 path's: the tables, the fields, the terms'
+// weights and the sums in double. Its tile's rows and term slots double in
+// bytes: 93 KB a block, two blocks (8 warps) per SM.
+//
 // Semantics: optics/rrtmg/taumol_sw.py (`sw_terms`), term for term.
 #include "kernel_info.cuh"
 #include "taumol_common.cuh"
@@ -58,7 +63,10 @@ enum Named {
 };
 // body constants: strrat of band b at b - 16, then givfac23
 constexpr int GIVFAC23 = 14, NC = 15;
-constexpr float O2ADJ = 1.6f;
+template <typename T>
+__device__ __forceinline__ T o2adj() {
+  return ECRAD_LIT(1.6);
+}
 
 constexpr int NG = 112;
 __constant__ int c_ng[14] = {6, 12, 8, 8, 10, 10, 2, 10, 8, 6, 6, 8, 6, 12};
@@ -83,26 +91,32 @@ __constant__ signed char c_warp_bands[NWARP_SW][BANDS_PER_WARP_SW] = {
 // the most term slots of one band (band 24: 13 taug + 2 taur)
 constexpr int K_BAND_MAX_SW = 15;
 // blocks per SM the launch asks for (the shared-memory carveout is set
-// for them, the rest of the SM's 256 KB is L1 for the tables)
-constexpr int BLOCKS_PER_SM_SW = 4;
+// for them, the rest of the SM's 256 KB is L1 for the tables); the double
+// form's block takes 93 KB, so two
+constexpr int BLOCKS_PER_SM_SW = 4, F64_BLOCKS_PER_SM_SW = 2;
+template <typename T>
+constexpr int blocks_per_sm_sw() {
+  return sizeof(T) == 4 ? BLOCKS_PER_SM_SW : F64_BLOCKS_PER_SM_SW;
+}
 
 // one cell's inputs, staged in shared memory, and the derived quantities
 // every band shares
+template <typename T>
 struct Cell {
-  const float* fcp;    // the staged fields + lane: field k at
+  const T* fcp;        // the staged fields + lane: field k at
   const int* icp;      // fcp[k * TILE_SW]
   bool tropo;
   int grid0, grid1, grid0b, grid1b;
-  const float* kc;
+  const T* kc;
 
-  __device__ __forceinline__ float F(int k) const { return fcp[k * TILE_SW]; }
+  __device__ __forceinline__ T F(int k) const { return fcp[k * TILE_SW]; }
   __device__ __forceinline__ int I(int k) const { return icp[k * TILE_SW]; }
 
-  __device__ void eta_cols(int b, float& col1, float& col2) const {
+  __device__ void eta_cols(int b, T& col1, T& col2) const {
     col1 = F(COLH2O);
     if (b == 16 || b == 18) col2 = F(COLCH4);
     else if (b == 17 || b == 19 || b == 21) col2 = F(COLCO2);
-    else if (b == 22) col2 = O2ADJ * F(COLO2);
+    else if (b == 22) col2 = o2adj<T>() * F(COLO2);
     else if (b == 24) col2 = F(COLO2);
     else { col1 = F(COLO3); col2 = F(COLO2); }    // band 28
   }
@@ -110,49 +124,50 @@ struct Cell {
     int g0 = strat ? grid0b : grid0, g1 = strat ? grid1b : grid1;
     return j == 0 ? g0 : j == 1 ? g0 + 1 : j == 2 ? g1 : g1 + 1;
   }
-  __device__ float fac(int j) const { return F(FAC00 + j); }
+  __device__ T fac(int j) const { return F(FAC00 + j); }
 
-  __device__ void noeta(WarpTerms& t, int b, bool strat, float w) const {
+  __device__ void noeta(WarpTerms<T>& t, int b, bool strat, T w) const {
     int tab = strat ? ABSB(b) : ABSA(b);
     for (int j = 0; j < 4; ++j)
       t.put(tab, c_ng[b - 16], corner(j, strat), w * fac(j));
   }
   // binary-species lookup, 4 grid corners x 2 eta rows
-  __device__ void eta(WarpTerms& t, int b, bool strat) const {
-    float col1, col2;
+  __device__ void eta(WarpTerms<T>& t, int b, bool strat) const {
+    T col1, col2;
     eta_cols(b, col1, col2);
-    float sc = col1 + kc[b - 16] * col2;
-    float sp, fs;
+    T sc = col1 + kc[b - 16] * col2;
+    T sp, fs;
     int js;
-    eta_index(col1, sc, strat ? 4.0f : 8.0f, sp, js, fs);
+    eta_index(col1, sc, strat ? ECRAD_LIT(4.0) : ECRAD_LIT(8.0), sp, js, fs);
     int tab = strat ? ABSB(b) : ABSA(b);
     int ngrid = strat ? 235 : 65, neta = strat ? 5 : 9;
     for (int j = 0; j < 4; ++j) {
       int g = corner(j, strat);
-      float gw = fac(j);
+      T gw = fac(j);
       for (int eo = 0; eo < 2; ++eo) {
         int e = js + eo;
         bool ok = g >= 0 && g < ngrid && e >= 0 && e < neta;
-        t.put(tab, c_ng[b - 16], g * neta + e, sc * gw * (eo ? fs : 1.0f - fs),
-              ok);
+        t.put(tab, c_ng[b - 16], g * neta + e,
+              sc * gw * (eo ? fs : ECRAD_LIT(1.0) - fs), ok);
       }
     }
   }
-  __device__ void self_for(WarpTerms& t, int b) const {
+  __device__ void self_for(WarpTerms<T>& t, int b) const {
     bool ungated = b == 17 || b == 20 || b == 21;
     t.pair(SELF(b), c_ng[b - 16], I(INDSELF) - 1, F(TROPF) * F(SELFFAC),
            F(SELFFRAC));
     t.pair(FOR(b), c_ng[b - 16], I(INDFOR) - 1,
            ungated ? F(FORFAC) : F(FORFAC) * F(TROPF), F(FORFRAC));
   }
-  __device__ void cst(WarpTerms& t, int tab, int b, float w) const {
+  __device__ void cst(WarpTerms<T>& t, int tab, int b, T w) const {
     t.put(tab, c_ng[b - 16], 0, w);
   }
 };
 
 // Phase 1 for band b (16..29): taug terms into `tg`, taur terms into `tr_`.
-__device__ void band_terms(const Cell& c, int b, WarpTerms& tg,
-                           WarpTerms& tr_) {
+template <typename T>
+__device__ void band_terms(const Cell<T>& c, int b, WarpTerms<T>& tg,
+                           WarpTerms<T>& tr_) {
   const bool tr = c.tropo;
   switch (b) {
     case 16: case 18: case 19:
@@ -177,11 +192,13 @@ __device__ void band_terms(const Cell& c, int b, WarpTerms& tg,
       if (tr) {
         c.eta(tg, 22, false);
       } else {
-        c.noeta(tg, 22, true, O2ADJ * c.F(COLO2));
+        c.noeta(tg, 22, true, o2adj<T>() * c.F(COLO2));
         tg.zeros(4);
       }
       c.self_for(tg, 22);
-      c.cst(tg, SW22_ONES, 22, 4.35e-4f * c.F(COLO2) / (350.0f * 2.0f));
+      c.cst(tg, SW22_ONES, 22,
+            ECRAD_LIT(4.35e-4) * c.F(COLO2)
+                / (ECRAD_LIT(350.0) * ECRAD_LIT(2.0)));
       break;
     case 23:
       if (tr)
@@ -225,10 +242,10 @@ __device__ void band_terms(const Cell& c, int b, WarpTerms& tg,
   // Rayleigh: per-g coefficient x colmol; band 24 eta-interpolated in the
   // troposphere
   if (b == 24 && tr) {
-    float col1, col2, sp, fs;
+    T col1, col2, sp, fs;
     int js;
     c.eta_cols(24, col1, col2);
-    eta_index(col1, col1 + c.kc[24 - 16] * col2, 8.0f, sp, js, fs);
+    eta_index(col1, col1 + c.kc[24 - 16] * col2, ECRAD_LIT(8.0), sp, js, fs);
     tr_.pair(RAYL(24), 8, js, c.F(COLMOL), fs);
   } else {
     c.cst(tr_, b == 24 ? SW24_RAYLB : RAYL(b), b, c.F(COLMOL));
@@ -241,13 +258,13 @@ __device__ void band_terms(const Cell& c, int b, WarpTerms& tg,
 // flight at once. Each output is the sum over the slots in order of w_k
 // tab[row_k + g], taug over slots 0 .. kt - 1 and taur over kt .. kt + kr
 // - 1.
-template <int NGB>
-__device__ __forceinline__ void band_outputs(const float* __restrict__ tab,
-                                             const float2* terms, int lane,
-                                             int g0, int kt, int kr,
-                                             float (*out)[TILE_SW][NG]) {
+template <typename T, int NGB>
+__device__ __forceinline__ void band_outputs(
+    const T* __restrict__ tab, const typename TermSlot<T>::type* terms,
+    int lane, int g0, int kt, int kr, T (*out)[TILE_SW][NG]) {
+  using S = TermSlot<T>;
   int cl[NGB];
-  const float* tg[NGB];
+  const T* tg[NGB];
 #pragma unroll
   for (int it = 0; it < NGB; ++it) {
     const int p = it * TILE_SW + lane;
@@ -257,15 +274,15 @@ __device__ __forceinline__ void band_outputs(const float* __restrict__ tab,
 #pragma unroll
   for (int part = 0; part < 2; ++part) {
     const int k0 = part ? kt : 0, k1 = part ? kt + kr : kt;
-    float acc[NGB];
+    T acc[NGB];
 #pragma unroll
-    for (int it = 0; it < NGB; ++it) acc[it] = 0.0f;
+    for (int it = 0; it < NGB; ++it) acc[it] = ECRAD_LIT(0.0);
     for (int k = k0; k < k1; ++k) {
-      const float2* t = terms + k * TILE_SW;
+      const typename S::type* t = terms + k * TILE_SW;
 #pragma unroll
       for (int it = 0; it < NGB; ++it) {
-        const float2 e = t[cl[it]];
-        acc[it] += e.y * __ldg(tg[it] + __float_as_int(e.x));
+        const typename S::type e = t[cl[it]];
+        acc[it] += S::w(e) * __ldg(tg[it] + S::off(e));
       }
     }
 #pragma unroll
@@ -276,22 +293,24 @@ __device__ __forceinline__ void band_outputs(const float* __restrict__ tab,
   }
 }
 
+template <typename T>
 struct __align__(16) SharedSw {
-  float out[2][TILE_SW][NG];          // the tile's taug and taur rows
-  float2 terms[NWARP_SW][K_BAND_MAX_SW * TILE_SW];
-  float f[NF][TILE_SW];               // the tile's fields
+  T out[2][TILE_SW][NG];              // the tile's taug and taur rows
+  typename TermSlot<T>::type terms[NWARP_SW][K_BAND_MAX_SW * TILE_SW];
+  T f[NF][TILE_SW];                   // the tile's fields
   int i[NI][TILE_SW];
   int toff[NTAB], tnrows[NTAB];       // table offsets and row counts
-  float kc[NC];                       // body constants
+  T kc[NC];                           // body constants
 };
 
-__global__ void __launch_bounds__(THREADS_SW, BLOCKS_PER_SM_SW)
-taumol_sw_kernel(const float* __restrict__ fc, const int* __restrict__ ic,
-                 const float* __restrict__ tab, const int* __restrict__ meta,
-                 const float* __restrict__ kc, int n,
-                 float* __restrict__ taug, float* __restrict__ taur) {
+template <typename T>
+__global__ void __launch_bounds__(THREADS_SW, blocks_per_sm_sw<T>())
+taumol_sw_kernel(const T* __restrict__ fc, const int* __restrict__ ic,
+                 const T* __restrict__ tab, const int* __restrict__ meta,
+                 const T* __restrict__ kc, int n,
+                 T* __restrict__ taug, T* __restrict__ taur) {
   extern __shared__ __align__(16) unsigned char smem_sw[];
-  SharedSw& sh = *reinterpret_cast<SharedSw*>(smem_sw);
+  SharedSw<T>& sh = *reinterpret_cast<SharedSw<T>*>(smem_sw);
   const int warp = threadIdx.x / TILE_SW, lane = threadIdx.x % TILE_SW;
   const int pos0 = blockIdx.x * TILE_SW;
   const bool my_live = pos0 + lane < n;
@@ -303,15 +322,15 @@ taumol_sw_kernel(const float* __restrict__ fc, const int* __restrict__ ic,
   if (threadIdx.x < NC) sh.kc[threadIdx.x] = kc[threadIdx.x];
   {
     constexpr int ROUNDS = (NF + NI + NWARP_SW - 1) / NWARP_SW;
-    float v[ROUNDS];
+    T v[ROUNDS];
 #pragma unroll
     for (int r = 0; r < ROUNDS; ++r) {
       const int k = warp + r * NWARP_SW;
-      v[r] = 0.0f;
+      v[r] = ECRAD_LIT(0.0);
       if (my_live && k < NF)
         v[r] = fc[(size_t)k * n + pos0 + lane];
       else if (my_live && k < NF + NI)
-        v[r] = __int_as_float(ic[(size_t)(k - NF) * n + pos0 + lane]);
+        v[r] = int_bits(ic[(size_t)(k - NF) * n + pos0 + lane], T());
     }
 #pragma unroll
     for (int r = 0; r < ROUNDS; ++r) {
@@ -319,19 +338,19 @@ taumol_sw_kernel(const float* __restrict__ fc, const int* __restrict__ ic,
       if (k < NF)
         sh.f[k][lane] = v[r];
       else if (k < NF + NI)
-        sh.i[k - NF][lane] = __float_as_int(v[r]);
+        sh.i[k - NF][lane] = bits_int(v[r]);
     }
   }
   __syncthreads();
 
-  float2* terms = sh.terms[warp];
-  Cell c;
+  typename TermSlot<T>::type* terms = sh.terms[warp];
+  Cell<T> c;
   c.fcp = &sh.f[0][lane];
   c.icp = &sh.i[0][lane];
   c.kc = sh.kc;
   {
     const int jp = c.I(JP), jt = c.I(JT), jt1 = c.I(JT1);
-    c.tropo = c.F(TROPF) > 0.0f;
+    c.tropo = c.F(TROPF) > ECRAD_LIT(0.0);
     c.grid0 = (jp - 1) * 5 + (jt - 1);
     c.grid1 = jp * 5 + (jt1 - 1);
     c.grid0b = (jp - 13) * 5 + (jt - 1);
@@ -345,8 +364,8 @@ taumol_sw_kernel(const float* __restrict__ fc, const int* __restrict__ ic,
     const int kr = c_ktaur[bi + 1] - c_ktaur[bi];
     // phase 1: lane = cell, band b's terms (the switch is warp-uniform);
     // a lane past the last cell writes zero terms
-    WarpTerms t_g{terms + lane, 0, sh.toff, sh.tnrows};
-    WarpTerms t_r{terms + lane, kt, sh.toff, sh.tnrows};
+    WarpTerms<T> t_g{terms + lane, 0, sh.toff, sh.tnrows};
+    WarpTerms<T> t_r{terms + lane, kt, sh.toff, sh.tnrows};
     if (my_live) band_terms(c, b, t_g, t_r);
     t_g.zeros(kt - t_g.k);
     t_r.zeros(kt + kr - t_r.k);
@@ -356,7 +375,7 @@ taumol_sw_kernel(const float* __restrict__ fc, const int* __restrict__ ic,
     switch (c_ng[bi]) {
 #define ECRAD_SW_BAND_OUTPUTS(NGB)                                          \
   case NGB:                                                                 \
-    band_outputs<NGB>(tab, terms, lane, g0, kt, kr, sh.out);               \
+    band_outputs<T, NGB>(tab, terms, lane, g0, kt, kr, sh.out);            \
     break;
       ECRAD_SW_BAND_OUTPUTS(2) ECRAD_SW_BAND_OUTPUTS(6)
       ECRAD_SW_BAND_OUTPUTS(8) ECRAD_SW_BAND_OUTPUTS(10)
@@ -367,17 +386,19 @@ taumol_sw_kernel(const float* __restrict__ fc, const int* __restrict__ ic,
     __syncwarp();
   }
   // the tile's rows out: for each output one run of up to 32 x 112
-  // floats, 16 bytes a thread
+  // values, 16 bytes a thread
   __syncthreads();
-  const int live4 = (min(n - pos0, TILE_SW) * NG) / 4;
-  const float4* out4 = reinterpret_cast<const float4*>(sh.out);
-  float4* taug4 = reinterpret_cast<float4*>(taug + (size_t)pos0 * NG);
-  float4* taur4 = reinterpret_cast<float4*>(taur + (size_t)pos0 * NG);
+  using V = typename Vec16<T>::type;
+  constexpr int PER = 16 / sizeof(T);
+  const int live4 = (min(n - pos0, TILE_SW) * NG) / PER;
+  const V* out4 = reinterpret_cast<const V*>(sh.out);
+  V* taug4 = reinterpret_cast<V*>(taug + (size_t)pos0 * NG);
+  V* taur4 = reinterpret_cast<V*>(taur + (size_t)pos0 * NG);
 #pragma unroll
-  for (int q = threadIdx.x; q < TILE_SW * NG / 4; q += THREADS_SW) {
+  for (int q = threadIdx.x; q < TILE_SW * NG / PER; q += THREADS_SW) {
     if (q < live4) {
       taug4[q] = out4[q];
-      taur4[q] = out4[TILE_SW * NG / 4 + q];
+      taur4[q] = out4[TILE_SW * NG / PER + q];
     }
   }
 }
@@ -386,39 +407,67 @@ taumol_sw_kernel(const float* __restrict__ fc, const int* __restrict__ ic,
 }  // namespace ecrad
 
 // B2's dynamic shared memory, and the carveout, in percent of the SM's
-// 228 KB, that holds BLOCKS_PER_SM_SW blocks and the 1 KB each reserves
+// 228 KB, that holds blocks_per_sm_sw blocks and the 1 KB each reserves
+template <typename T>
 static cudaError_t sw_attributes() {
   using namespace ecrad::sw;
-  const int per_block = (int)sizeof(SharedSw) + 1024;
+  const int per_block = (int)sizeof(SharedSw<T>) + 1024;
   cudaError_t e = cudaFuncSetAttribute(
-      taumol_sw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sizeof(SharedSw));
+      taumol_sw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(SharedSw<T>));
   if (e != cudaSuccess) return e;
   return cudaFuncSetAttribute(
-      taumol_sw_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      (BLOCKS_PER_SM_SW * per_block * 100 + 228 * 1024 - 1) / (228 * 1024));
+      taumol_sw_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (blocks_per_sm_sw<T>() * per_block * 100 + 228 * 1024 - 1)
+          / (228 * 1024));
 }
 
-extern "C" int taumol_sw(const float* fc, const int* ic, const float* tab,
-                         const int* meta, const float* consts, int n,
-                         float* taug, float* taur, void* stream) {
+template <typename T>
+static int taumol_sw_launch(const T* fc, const int* ic, const T* tab,
+                            const int* meta, const T* consts, int n, T* taug,
+                            T* taur, void* stream) {
   using namespace ecrad;
   if (n > 0) {
-    cudaError_t e = sw_attributes();
+    cudaError_t e = sw_attributes<T>();
     if (e != cudaSuccess) return (int)e;
     const int blocks = (n + sw::TILE_SW - 1) / sw::TILE_SW;
-    sw::taumol_sw_kernel<<<blocks, sw::THREADS_SW, sizeof(sw::SharedSw),
-                           (cudaStream_t)stream>>>(fc, ic, tab, meta, consts,
-                                                   n, taug, taur);
+    sw::taumol_sw_kernel<T><<<blocks, sw::THREADS_SW, sizeof(sw::SharedSw<T>),
+                              (cudaStream_t)stream>>>(fc, ic, tab, meta,
+                                                      consts, n, taug, taur);
   }
   return (int)cudaGetLastError();
 }
 
 // B2's resources and the blocks per SM its launch gets (kernel_info.cuh)
-extern "C" int taumol_sw_info(int* info) {
+template <typename T>
+static int taumol_sw_info_of(int* info) {
   using namespace ecrad;
-  cudaError_t e = sw_attributes();
+  cudaError_t e = sw_attributes<T>();
   if (e != cudaSuccess) return (int)e;
-  return kernel_info(sw::taumol_sw_kernel, sw::THREADS_SW,
-                     sizeof(sw::SharedSw), info);
+  return kernel_info(sw::taumol_sw_kernel<T>, sw::THREADS_SW,
+                     sizeof(sw::SharedSw<T>), info);
+}
+
+extern "C" int taumol_sw(const float* fc, const int* ic, const float* tab,
+                         const int* meta, const float* consts, int n,
+                         float* taug, float* taur, void* stream) {
+  return taumol_sw_launch<float>(fc, ic, tab, meta, consts, n, taug, taur,
+                                 stream);
+}
+
+// the double form, the float64 path's: the tables, fields and outputs in
+// double
+extern "C" int taumol_sw_f64(const double* fc, const int* ic,
+                             const double* tab, const int* meta,
+                             const double* consts, int n, double* taug,
+                             double* taur, void* stream) {
+  return taumol_sw_launch<double>(fc, ic, tab, meta, consts, n, taug, taur,
+                                  stream);
+}
+
+extern "C" int taumol_sw_info(int* info) {
+  return taumol_sw_info_of<float>(info);
+}
+extern "C" int taumol_sw_info_f64(int* info) {
+  return taumol_sw_info_of<double>(info);
 }

@@ -10,6 +10,13 @@ the sources, so an edited kernel is rebuilt. Nothing here runs at import time.
 Every C entry point launches on the stream it is given, returns
 cudaGetLastError() as an int, and allocates nothing: the wrappers
 allocate outputs and scratch with torch.empty.
+
+The kernels of the McICA path (B1, B2, B3, B3' and B4's SW form) are
+templates on their scalar type with a float and a double entry point,
+the double one's name ending in `_f64`: `launch(name, ..., dtype=)`
+picks the entry of the operands' dtype (`scalar` checks it) and counts
+`launch.<name>.f32` or `.f64` (hooks.count; ops/random_fields.py counts
+the threefry kernel, which takes its dtype as a flag, the same way).
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import subprocess
 from typing import Optional
 
 import torch
+
+from ..utils import hooks
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -58,12 +67,23 @@ _SIGS = {
     "gather_sections": "pipipiiip",
     "threefry_fields": "piuuiiiipppp",
 }
+#: the kernels with a double form: its entry point, name + "_f64", takes
+#: the same arguments with double in place of float
+F64_FORMS = ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat",
+             "lw_adding", "mcica_sw_optics")
+_SIGS.update({name + "_f64": _SIGS[name] for name in F64_FORMS})
+#: the scalar types of those kernels: entry point suffix and counter tag
+_DTYPES = {torch.float32: ("", "f32"), torch.float64: ("_f64", "f64")}
 
 # queries of a kernel's compiled resources (no stream): the leading int
 # arguments, then an int[len(INFO_FIELDS)] that receives them
 _INFO_SIGS = {"level_sweep_info": "ii",
+              "level_sweep_info_f64": "ii",
               "taumol_lw_info": "",
+              "taumol_lw_info_f64": "",
               "taumol_sw_info": "",
+              "taumol_sw_info_f64": "",
+              "mcica_optics_info": "i",
               "tc_sweeps_info": "iii",
               "spartacus_sw_adding_info": "i",
               "spartacus_sw_reftrans_info": "ii",
@@ -190,9 +210,34 @@ def check(t: torch.Tensor, dtype, shape, name: str) -> None:
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
-def launch(name: str, *args) -> None:
+def scalar(t: torch.Tensor, name: str) -> torch.dtype:
+    """The dtype of t, a kernel's leading operand: raise unless t is a
+    CUDA tensor of float32 or float64, the dtypes of the kernels with a
+    double form (F64_FORMS). The call's other operands are then checked
+    against it."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"{name}: the kernel takes float32 or float64, got "
+                        f"{t.dtype}")
+    return t.dtype
+
+
+def tag(dtype: torch.dtype) -> str:
+    """The counter tag of a kernel's scalar type: "f32" or "f64"."""
+    return _DTYPES[dtype][1]
+
+
+def launch(name: str, *args, dtype: Optional[torch.dtype] = None) -> None:
     """Call C entry point `name` on the current stream; raise if the
-    launch was refused (cudaGetLastError() != 0)."""
+    launch was refused (cudaGetLastError() != 0). With `dtype`, `name` is
+    one of F64_FORMS: the entry point of that dtype is called and the
+    launch counted as `launch.<name>.<f32|f64>`."""
+    if dtype is not None:
+        if name not in F64_FORMS or dtype not in _DTYPES:
+            raise TypeError(f"{name} has no {dtype} form")
+        kernel = name
+        name += _DTYPES[dtype][0]
     fn = getattr(library(), name)
     sig = _SIGS[name]
     if len(args) != len(sig):
@@ -206,6 +251,9 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+    # the counter's name is built only while the hooks count
+    if dtype is not None and hooks.LHOOK:
+        hooks.count(f"launch.{kernel}.{tag(dtype)}")
 
 
 def kernel_info(name: str, *args: int) -> dict:

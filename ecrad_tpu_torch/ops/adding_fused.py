@@ -20,6 +20,11 @@ per level, the albedo and source below it on chip for the descent: SW
 moves 12 profiles (from 18), LW 9 (from 13). Up to SW_ONCHIP_LEVELS /
 LW_ONCHIP_LEVELS levels' values sit in shared memory; the levels above
 them go to the scratch the wrappers allocate here.
+
+B3 and B3' take float32 or float64 operands, each call in one dtype: a
+float64 call launches the kernels' double forms (csrc/level_sweep.cu
+*_f64), whose windows are F64_ONCHIP_LEVELS. Any other dtype, a CPU
+tensor, a strided one or operands of mixed dtypes raise.
 """
 from __future__ import annotations
 
@@ -35,12 +40,24 @@ launches = {"sw_adding": 0, "lw_noscat": 0, "lw_adding": 0,
 #: values of the levels above them go to a device-memory scratch of (2,
 #: nlev - onchip, ng, ncol) floats
 SW_ONCHIP_LEVELS, LW_ONCHIP_LEVELS = 256, 160
+#: the double forms' windows (csrc/level_sweep.cu F64_SW_ONCHIP_LEVELS,
+#: F64_LW_ONCHIP_LEVELS), (SW, LW): a double level takes twice a float
+#: one's shared memory; SW keeps every level up to 256 on chip, LW 96 (at
+#: 137 levels the top 41 go to the scratch)
+F64_ONCHIP_LEVELS = (256, 96)
 
 
-def _spill(nlev, ng, ncol, onchip, device):
+def _spill(nlev, ng, ncol, onchip, device, dtype=torch.float32):
     """An adding kernel's scratch for the levels it keeps off chip."""
     return torch.empty((2, max(nlev - onchip, 0), ng, ncol),
-                       dtype=torch.float32, device=device)
+                       dtype=dtype, device=device)
+
+
+def _window(dtype, lw: bool) -> int:
+    """The on-chip window of the adding kernel of dtype."""
+    if dtype == torch.float64:
+        return F64_ONCHIP_LEVELS[int(lw)]
+    return LW_ONCHIP_LEVELS if lw else SW_ONCHIP_LEVELS
 
 
 def adding_sw_fused(ref, trans, ref_dir, trans_dir_diff, trans_dir_dir,
@@ -49,24 +66,24 @@ def adding_sw_fused(ref, trans, ref_dir, trans_dir_diff, trans_dir_dir,
     direct descent, albedo/source ascent, diffuse descent. Layer inputs
     (nlev, ng, ncol), incoming/albedos (ng, ncol), cos_sza (ncol,).
     Returns (flux_up, flux_dn_diffuse, flux_dn_direct), (nlev+1, ng,
-    ncol)."""
+    ncol), in the operands' dtype, float32 or float64."""
     nlev, ng, ncol = ref.shape
-    f32 = torch.float32
+    dt = _cuda.scalar(ref, "ref")
     for name, x in (("ref", ref), ("trans", trans), ("ref_dir", ref_dir),
                     ("trans_dir_diff", trans_dir_diff),
                     ("trans_dir_dir", trans_dir_dir)):
-        _cuda.check(x, f32, (nlev, ng, ncol), name)
+        _cuda.check(x, dt, (nlev, ng, ncol), name)
     for name, x in (("incoming_toa", incoming_toa),
                     ("albedo_diffuse", albedo_diffuse),
                     ("albedo_direct", albedo_direct)):
-        _cuda.check(x, f32, (ng, ncol), name)
-    _cuda.check(cos_sza, f32, (ncol,), "cos_sza")
-    out = torch.empty((3, nlev + 1, ng, ncol), dtype=f32, device=ref.device)
+        _cuda.check(x, dt, (ng, ncol), name)
+    _cuda.check(cos_sza, dt, (ncol,), "cos_sza")
+    out = torch.empty((3, nlev + 1, ng, ncol), dtype=dt, device=ref.device)
     _cuda.launch("sw_adding", ref, trans, ref_dir, trans_dir_diff,
                  trans_dir_dir, incoming_toa, albedo_diffuse, albedo_direct,
                  cos_sza, nlev, ng, ncol,
-                 _spill(nlev, ng, ncol, SW_ONCHIP_LEVELS, ref.device),
-                 out[0], out[1], out[2])
+                 _spill(nlev, ng, ncol, _window(dt, False), ref.device, dt),
+                 out[0], out[1], out[2], dtype=dt)
     launches["sw_adding"] += 1
     return out[0], out[1], out[2]
 
@@ -76,18 +93,18 @@ def lw_noscat_fused(trans, source_up, source_dn, emission_surf,
     """LW no-scattering fluxes (radiation_adding_ica_lw.F90:272-324) in
     one kernel: fd[l+1] = T fd[l] + Sd, fu[nlev] = emission + albedo
     fd[nlev], fu[l] = T fu[l+1] + Su. Returns (flux_up, flux_dn),
-    (nlev+1, ng, ncol)."""
+    (nlev+1, ng, ncol), in the operands' dtype, float32 or float64."""
     nlev, ng, ncol = trans.shape
-    f32 = torch.float32
+    dt = _cuda.scalar(trans, "trans")
     for name, x in (("trans", trans), ("source_up", source_up),
                     ("source_dn", source_dn)):
-        _cuda.check(x, f32, (nlev, ng, ncol), name)
-    _cuda.check(emission_surf, f32, (ng, ncol), "emission_surf")
-    _cuda.check(albedo_surf, f32, (ng, ncol), "albedo_surf")
-    out = torch.empty((2, nlev + 1, ng, ncol), dtype=f32,
+        _cuda.check(x, dt, (nlev, ng, ncol), name)
+    _cuda.check(emission_surf, dt, (ng, ncol), "emission_surf")
+    _cuda.check(albedo_surf, dt, (ng, ncol), "albedo_surf")
+    out = torch.empty((2, nlev + 1, ng, ncol), dtype=dt,
                       device=trans.device)
     _cuda.launch("lw_noscat", trans, source_up, source_dn, emission_surf,
-                 albedo_surf, nlev, ng, ncol, out[0], out[1])
+                 albedo_surf, nlev, ng, ncol, out[0], out[1], dtype=dt)
     launches["lw_noscat"] += 1
     return out[0], out[1]
 
@@ -98,19 +115,20 @@ def adding_lw_fused(ref, trans, source_up, source_dn, emission_surf,
     (radiation_adding_ica_lw.F90:32-131) in one kernel: albedo/source
     ascent, kept on chip for the flux descent. Layer
     inputs (nlev, ng, ncol), emission/albedo (ng, ncol). Returns
-    (flux_up, flux_dn), (nlev+1, ng, ncol)."""
+    (flux_up, flux_dn), (nlev+1, ng, ncol), in the operands' dtype,
+    float32 or float64."""
     nlev, ng, ncol = ref.shape
-    f32 = torch.float32
+    dt = _cuda.scalar(ref, "ref")
     for name, x in (("ref", ref), ("trans", trans),
                     ("source_up", source_up), ("source_dn", source_dn)):
-        _cuda.check(x, f32, (nlev, ng, ncol), name)
-    _cuda.check(emission_surf, f32, (ng, ncol), "emission_surf")
-    _cuda.check(albedo_surf, f32, (ng, ncol), "albedo_surf")
-    out = torch.empty((2, nlev + 1, ng, ncol), dtype=f32, device=ref.device)
+        _cuda.check(x, dt, (nlev, ng, ncol), name)
+    _cuda.check(emission_surf, dt, (ng, ncol), "emission_surf")
+    _cuda.check(albedo_surf, dt, (ng, ncol), "albedo_surf")
+    out = torch.empty((2, nlev + 1, ng, ncol), dtype=dt, device=ref.device)
     _cuda.launch("lw_adding", ref, trans, source_up, source_dn,
                  emission_surf, albedo_surf, nlev, ng, ncol,
-                 _spill(nlev, ng, ncol, LW_ONCHIP_LEVELS, ref.device),
-                 out[0], out[1])
+                 _spill(nlev, ng, ncol, _window(dt, True), ref.device, dt),
+                 out[0], out[1], dtype=dt)
     launches["lw_adding"] += 1
     return out[0], out[1]
 

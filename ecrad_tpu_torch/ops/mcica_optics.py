@@ -16,7 +16,9 @@ the adding sweeps read it.
 The plain versions are the JAX package's `use_pallas=False` branches
 (:88-99, :211-224). `sw_clear_total_reftrans` and
 `lw_clear_total_noscat` run them on CPU tensors and the kernels on any
-other (which raises unless it is CUDA float32).
+other. The SW kernel takes CUDA float32 or float64 operands (a float64
+call launches its double form, mcica_sw_optics_f64); the LW kernel
+takes CUDA float32 only. Anything else raises.
 
 The kernels read each input once and write each output once. On the
 TPU the band->g expansion was a one-hot MXU product and the clear chain
@@ -101,34 +103,35 @@ def _bands(band_from_g, device):
 def mcica_sw_optics_fused(od, ssa, g, od_cloud, ssa_cloud, g_cloud,
                           band_from_g, od_scaling, frac_mask, mu0,
                           delta_all):
-    """Kernel B4 (SW); arguments and results as
-    sw_clear_total_reftrans_plain."""
+    """Kernel B4 (SW) on CUDA float32 or float64 operands; arguments
+    and results as sw_clear_total_reftrans_plain."""
     ncol, nlev, ng = od.shape
     nb = od_cloud.shape[-1]
-    f32 = torch.float32
+    dt = _cuda.scalar(od, "od")
     for name, x in (("od", od), ("ssa", ssa), ("g", g),
                     ("od_scaling", od_scaling)):
-        _cuda.check(x, f32, (ncol, nlev, ng), name)
+        _cuda.check(x, dt, (ncol, nlev, ng), name)
     for name, x in (("od_cloud", od_cloud), ("ssa_cloud", ssa_cloud),
                     ("g_cloud", g_cloud)):
-        _cuda.check(x, f32, (ncol, nlev, nb), name)
+        _cuda.check(x, dt, (ncol, nlev, nb), name)
     _cuda.check(frac_mask, torch.bool, (ncol, nlev), "frac_mask")
-    _cuda.check(mu0, f32, (ncol,), "mu0")
+    _cuda.check(mu0, dt, (ncol,), "mu0")
     if len(band_from_g) != ng:
         raise ValueError(f"band_from_g has {len(band_from_g)} entries for "
                          f"{ng} g-points")
-    out = torch.empty((10, nlev, ng, ncol), dtype=f32, device=od.device)
+    out = torch.empty((10, nlev, ng, ncol), dtype=dt, device=od.device)
     _cuda.launch("mcica_sw_optics", od, ssa, g, od_scaling, od_cloud,
                  ssa_cloud, g_cloud, frac_mask, mu0,
                  _bands(band_from_g, od.device), ncol, nlev, ng, nb,
-                 int(bool(delta_all)), out)
+                 int(bool(delta_all)), out, dtype=dt)
     launches["mcica_sw_optics"] += 1
     return tuple(out)
 
 
 def mcica_lw_optics_fused(od, od_cloud, band_from_g, od_scaling, frac_mask,
                           planck_hl):
-    """Kernel B4 (LW, no scattering); arguments and results as
+    """Kernel B4 (LW, no scattering) on CUDA float32 operands (it has
+    no double form); arguments and results as
     lw_clear_total_noscat_plain."""
     ncol, nlev, ng = od.shape
     nb = od_cloud.shape[-1]

@@ -79,6 +79,8 @@ def random_fields_kernel(iseed, ng: int, nlev: int, dtype,
                  int(dtype == torch.float64), top, *rest)
     launches += 1
     hooks.count("threefry.kernel")
+    if hooks.LHOOK:
+        hooks.count(f"launch.threefry_fields.{_cuda.tag(dtype)}")
     return (top, *rest)
 
 

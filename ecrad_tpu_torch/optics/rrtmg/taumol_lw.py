@@ -13,7 +13,8 @@ Semantics are the JAX fused body's, restated as the row gathers of
 taumol_common (phase 1: per-band terms; phase 2: gather-sum), so the
 kernel csrc/taumol_lw.cu and `taumol_lw_plain` compute the same terms
 in the same order. On a CPU tensor `taumol_lw` runs the plain version;
-on a CUDA tensor it launches the kernel (float32 only) or raises.
+on a CUDA tensor it launches the kernel, in float32 or, through its
+double form, float64; any other dtype raises.
 
 On the H100 the kernel's floor is its 2 x 140 float stores per cell. A
 block takes a tile of 32 cells; each of its 4 warps builds the terms of
@@ -381,28 +382,31 @@ def taumol_lw_plain(fc: torch.Tensor, ic: torch.Tensor,
 def taumol_lw_kernel(fc: torch.Tensor, ic: torch.Tensor,
                      tables: DeviceTables
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B1 (csrc/taumol_lw.cu) on CUDA float32 tensors."""
+    """Kernel B1 (csrc/taumol_lw.cu) on CUDA float32 tensors, or its
+    double form on CUDA float64 ones (the fields, tables and constants in
+    one dtype)."""
     global launches
     from ...ops import _cuda
     n = fc.shape[1]
-    _cuda.check(fc, torch.float32, (len(F_FIELDS), n), "fc")
+    dt = _cuda.scalar(fc, "fc")
+    _cuda.check(fc, dt, (len(F_FIELDS), n), "fc")
     _cuda.check(ic, torch.int32, (len(I_FIELDS), n), "ic")
-    _cuda.check(tables.tab, torch.float32, None, "tab")
+    _cuda.check(tables.tab, dt, None, "tab")
     _cuda.check(tables.meta, torch.int32, (2, len(tables.flat.names)),
                 "meta")
-    _cuda.check(tables.consts, torch.float32, (len(ft.LW_CONSTS),),
-                "consts")
-    tau = torch.empty((n, NG_LW), dtype=torch.float32, device=fc.device)
+    _cuda.check(tables.consts, dt, (len(ft.LW_CONSTS),), "consts")
+    tau = torch.empty((n, NG_LW), dtype=dt, device=fc.device)
     pfrac = torch.empty_like(tau)
     _cuda.launch("taumol_lw", fc, ic, tables.tab, tables.meta,
-                 tables.consts, n, tau, pfrac)
+                 tables.consts, n, tau, pfrac, dtype=dt)
     launches += 1
     return tau, pfrac
 
 
 def taumol_lw(fc, ic, tables: DeviceTables):
     """(tau, pfrac), each (N, 140): the plain version on a CPU tensor,
-    kernel B1 on any other (which raises unless it is CUDA float32)."""
+    kernel B1 on any other (CUDA float32 or float64; any other dtype
+    raises)."""
     if fc.device.type == "cpu":
         return taumol_lw_plain(fc, ic, tables)
     return taumol_lw_kernel(fc, ic, tables)

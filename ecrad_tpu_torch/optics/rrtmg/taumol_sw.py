@@ -197,28 +197,31 @@ def taumol_sw_plain(fc: torch.Tensor, ic: torch.Tensor,
 def taumol_sw_kernel(fc: torch.Tensor, ic: torch.Tensor,
                      tables: DeviceTables
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B2 (csrc/taumol_sw.cu) on CUDA float32 tensors."""
+    """Kernel B2 (csrc/taumol_sw.cu) on CUDA float32 tensors, or its
+    double form on CUDA float64 ones (the fields, tables and constants in
+    one dtype)."""
     global launches
     from ...ops import _cuda
     n = fc.shape[1]
-    _cuda.check(fc, torch.float32, (len(F_FIELDS), n), "fc")
+    dt = _cuda.scalar(fc, "fc")
+    _cuda.check(fc, dt, (len(F_FIELDS), n), "fc")
     _cuda.check(ic, torch.int32, (len(I_FIELDS), n), "ic")
-    _cuda.check(tables.tab, torch.float32, None, "tab")
+    _cuda.check(tables.tab, dt, None, "tab")
     _cuda.check(tables.meta, torch.int32, (2, len(tables.flat.names)),
                 "meta")
-    _cuda.check(tables.consts, torch.float32, (len(ft.SW_CONSTS),),
-                "consts")
-    taug = torch.empty((n, NG_SW), dtype=torch.float32, device=fc.device)
+    _cuda.check(tables.consts, dt, (len(ft.SW_CONSTS),), "consts")
+    taug = torch.empty((n, NG_SW), dtype=dt, device=fc.device)
     taur = torch.empty_like(taug)
     _cuda.launch("taumol_sw", fc, ic, tables.tab, tables.meta,
-                 tables.consts, n, taug, taur)
+                 tables.consts, n, taug, taur, dtype=dt)
     launches += 1
     return taug, taur
 
 
 def taumol_sw(fc, ic, tables: DeviceTables):
     """(taug, taur), each (N, 112): the plain version on a CPU tensor,
-    kernel B2 on any other (which raises unless it is CUDA float32)."""
+    kernel B2 on any other (CUDA float32 or float64; any other dtype
+    raises)."""
     if fc.device.type == "cpu":
         return taumol_sw_plain(fc, ic, tables)
     return taumol_sw_kernel(fc, ic, tables)

@@ -6,7 +6,7 @@ Port of the sequential forms of ecrad_tpu/solvers/adding.py:165-387
 ncol), boundary values (ng, ncol), fluxes (nlev+1, ng, ncol), TOA first.
 `adding_sw`, `lw_no_scattering_fluxes` and `adding_lw` run the plain
 loops on CPU tensors and kernels B3/B3' (ops/adding_fused.py) on CUDA
-tensors.
+tensors, float32 or float64.
 """
 from __future__ import annotations
 
@@ -90,7 +90,7 @@ def adding_lw_plain(ref, trans, source_up, source_dn, emission_surf,
 @hooks.hooked("ecrad.sweeps")
 def adding_sw(*args):
     """SW adding: the plain loops on CPU tensors, kernel B3 on any
-    other (which raises unless it is CUDA float32)."""
+    other (CUDA float32 or float64; any other dtype raises)."""
     if args[0].device.type == "cpu":
         return adding_sw_plain(*args)
     return adding_fused.adding_sw_fused(*args)
@@ -99,7 +99,7 @@ def adding_sw(*args):
 @hooks.hooked("ecrad.sweeps")
 def lw_no_scattering_fluxes(*args):
     """LW no-scattering fluxes: the plain loops on CPU tensors, kernel
-    B3 on any other (which raises unless it is CUDA float32)."""
+    B3 on any other (CUDA float32 or float64; any other dtype raises)."""
     if args[0].device.type == "cpu":
         return lw_no_scattering_fluxes_plain(*args)
     return adding_fused.lw_noscat_fused(*args)
@@ -108,7 +108,8 @@ def lw_no_scattering_fluxes(*args):
 @hooks.hooked("ecrad.sweeps")
 def adding_lw(*args):
     """LW adding with scattering: the plain loops on CPU tensors, kernel
-    B3' on any other (which raises unless it is CUDA float32)."""
+    B3' on any other (CUDA float32 or float64; any other dtype
+    raises)."""
     if args[0].device.type == "cpu":
         return adding_lw_plain(*args)
     return adding_fused.adding_lw_fused(*args)

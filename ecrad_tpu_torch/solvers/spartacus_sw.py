@@ -27,6 +27,7 @@ from ..config import PdfShape, RadiationConfig
 from ..ops.spartacus_adding import (pack_cols, sw_adding_sweeps,
                                     sw_adding_sweeps_plain)
 from ..ops.spartacus_reftrans import _diag_g, sw_reftrans_levels
+from ..utils import hooks
 from . import two_stream as ts
 from .adding import adding_sw
 from .cloudless import SwFluxes, _gf
@@ -225,6 +226,8 @@ def solver_spartacus_sw(cfg: RadiationConfig, band_from_g, cos_sza, thermo,
     extras = {}
     if cfg.do_print_entrapment_data:
         g0 = slice(0, 1)
+        if hist.device.type != "cpu":
+            hooks.plain_on_device("spartacus_entrapment_dump")
         dump = sw_adding_sweeps_plain(cfg, hist[:, :, g0], cols,
                                       init_up[:, g0], direct0[:, g0],
                                       dump=True)[3]

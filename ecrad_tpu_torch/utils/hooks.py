@@ -26,7 +26,11 @@ blocks the host on the device runs through `sync(site, fn, ...)`: a
 scope `ecrad.sync.<site>` and, while LHOOK is on, the counter
 `sync.<site>`. `count(name)` adds to a counter while LHOOK is on;
 `counters()` reads them, `reset_profile()` clears them with the
-accounting.
+accounting. The kernels of the McICA path count each launch by dtype,
+`launch.<kernel>.f32` / `.f64` (ops/_cuda.py), and a layer that runs its
+plain PyTorch version in place of its kernel on a tensor off the CPU
+says so through `plain_on_device(site)`: the counter
+`plain_on_device.<site>`.
 
 The accounted times are host wall and CPU time around asynchronous
 kernel launches: a scope ends when its launches are queued, not when the
@@ -148,6 +152,15 @@ def count(name: str, n: int = 1) -> None:
     """Add n to the counter `name` while LHOOK is on."""
     if LHOOK:
         _counters[name] += n
+
+
+def plain_on_device(site: str) -> None:
+    """A layer at `site` runs its plain PyTorch version in place of its
+    kernel on a tensor that is not on the CPU: counted as
+    `plain_on_device.<site>` while LHOOK is on. Callers call it through
+    the module (hooks.plain_on_device), so that a wrapper put in its
+    place sees every call."""
+    count("plain_on_device." + site)
 
 
 def counters() -> Dict[str, int]:

@@ -149,3 +149,31 @@ def test_onchip_windows_and_shared_memory_budget():
         assert tuple(adding_fused._spill(onchip + 7, 3, 5, onchip,
                                          "cpu").shape) == (kept, 7, 3, 5)
         assert adding_fused._spill(137, 3, 5, onchip, "cpu").numel() == 0
+
+
+def test_double_windows_and_shared_memory_budget():
+    """The double forms' windows (csrc/level_sweep.cu F64_SW_ONCHIP_LEVELS,
+    F64_LW_ONCHIP_LEVELS) as ops/adding_fused.py has them: SW keeps every
+    level of 137 on chip, 2 blocks per SM of 228 KB; LW keeps 96, the top
+    41 of 137 in the scratch, 3 blocks per SM; a block at the largest
+    window still fits an SM's 227 KB (8-byte values, the ring in doubles
+    too)."""
+    s = _cu()
+    windows = (_const(s, "F64_SW_ONCHIP_LEVELS"),
+               _const(s, "F64_LW_ONCHIP_LEVELS"))
+    assert windows == adding_fused.F64_ONCHIP_LEVELS == (256, 96)
+    kept, threads = _const(s, "KEPT"), _const(s, "ADD_THREADS")
+    ring = _const(s, "RING_GROUP") * _const(s, "RING_GROUPS")
+
+    def block(nlev, onchip):
+        return (kept * min(nlev, onchip) + ring) * threads * 8
+
+    assert 2 * (block(137, windows[0]) + 1024) <= 228 * 1024
+    assert 3 * (block(137, windows[1]) + 1024) <= 228 * 1024
+    assert block(windows[0], windows[0]) <= 227 * 1024
+    # the wrappers' float64 scratch holds the levels above the window
+    spill = adding_fused._spill(137, 3, 5, windows[1], "cpu", torch.float64)
+    assert spill.dtype == torch.float64
+    assert tuple(spill.shape) == (kept, 137 - windows[1], 3, 5)
+    assert adding_fused._spill(137, 3, 5, windows[0], "cpu",
+                               torch.float64).numel() == 0

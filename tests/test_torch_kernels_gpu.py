@@ -19,14 +19,22 @@ LW 1e-4 of the range), B6-B9 its SPARTACUS kernel-vs-fallback bound (2e-5
 of the plain output's largest value, tools/check_kernel_equivalence.py),
 B10 its gather-interp bound (5e-6 of the largest value, the same tool).
 The kernels build with -fmad=false, so only summation order separates
-them from the plain versions.
+them from the plain versions. The double forms of B1-B4 (the float64
+path's) against their plain versions in float64 on the path's operands
+at 2048 x 137: B1 and B2 within 1e-13 of each output's largest value
+(their sums run in slot order, the plain versions' in PyTorch's: up to
+21 double terms reassociated; measured 4.8e-16 and 2.7e-16), B3, B3' and
+B4's SW form bit for bit (the same operations in the same order, with
+CUDA's double exp, sqrt and division on both sides); the whole float64
+McICA call within 1e-9 of each field's largest value of the plain path
+on the CPU (measured below 1e-12 against the float64 reference).
 """
 import numpy as np
 import pytest
 import torch
 
-from ecrad_tpu_torch.config import (Entrapment, GasModel, Overlap,
-                                    PdfShape, Solver,
+from ecrad_tpu_torch.config import (TRIPLECLOUDS_AEROSOL_MAP, Entrapment,
+                                    GasModel, Overlap, PdfShape, Solver,
                                     cloudless_slice_config,
                                     mcica_slice_config,
                                     spartacus_slice_config,
@@ -250,11 +258,11 @@ def test_b1_b3_resources(cuda):
         assert _cuda.kernel_info("level_sweep_info", which,
                                  300)["blocks_per_sm"] >= 1
     report = _cuda.ptxas_report()
-    hits = [v for k, v in report.items() if "taumol_lw_kernel" in k]
+    hits = [v for k, v in report.items() if "taumol_lw_kernelIf" in k]
     assert len(hits) == 1
     assert hits[0]["spill_stores"] <= 32 and hits[0]["spill_loads"] <= 64
-    for kernel in ("sw_adding_kernelILb0E", "sw_adding_kernelILb1E",
-                   "lw_adding_kernelILb0E", "lw_adding_kernelILb1E"):
+    for kernel in ("sw_adding_kernelIfLb0E", "sw_adding_kernelIfLb1E",
+                   "lw_adding_kernelIfLb0E", "lw_adding_kernelIfLb1E"):
         hits = [v for k, v in report.items() if kernel in k]
         assert len(hits) == 1, kernel
         assert hits[0]["spill_stores"] == 0, kernel
@@ -309,29 +317,53 @@ def test_b4_lw_kernel_matches_plain(cuda, shape):
 
 
 def test_new_kernels_refuse_float64_and_strided_tensors(cuda):
+    """B3' and B4's SW form take float64 (their double forms) and still
+    refuse strided tensors, half tensors and operands of mixed dtypes;
+    B4's LW form has no double form and refuses float64."""
     a = _b4_args(cuda, 5, 4, 12, 3, 8)
     x = torch.rand(3, 4, 10, device=cuda)
     e = torch.rand(4, 10, device=cuda)
     strided = x.transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         adding_fused.adding_lw_fused(x, x, x, strided, e, e)
+    with pytest.raises(ValueError, match="contiguous"):
+        adding_fused.adding_lw_fused(*(t.double() for t in (x, x, x,
+                                                            strided, e, e)))
+    for half in (torch.float16, torch.bfloat16):
+        with pytest.raises(TypeError):
+            adding_fused.adding_lw_fused(*(t.to(half) for t in (x, x, x, x,
+                                                                e, e)))
     with pytest.raises(TypeError):
-        adding_fused.adding_lw_fused(*(t.double() for t in (x, x, x, x, e,
-                                                            e)))
+        adding_fused.adding_lw_fused(x.double(), x, x, x, e, e)
+    up, dn = adding_fused.adding_lw_fused(*(t.double() for t in (x, x, x, x,
+                                                                 e, e)))
+    assert up.dtype == dn.dtype == torch.float64
     sw = lambda **kw: mcica_optics.mcica_sw_optics_fused(
         *(kw.get(k, a[k]) for k in ("od", "ssa", "g", "odc", "ssac", "gc")),
-        a["band"], a["osc"], a["mask"], a["mu0"], False)
+        a["band"], a["osc"], a["mask"], kw.get("mu0", a["mu0"]), False)
     lw = lambda **kw: mcica_optics.mcica_lw_optics_fused(
         kw.get("od", a["od"]), a["odc"], a["band"], a["osc"], a["mask"],
         kw.get("planck", a["planck"]))
     od_strided = a["od"].transpose(0, 1).contiguous().transpose(0, 1)
     for fn in (sw, lw):
         with pytest.raises(TypeError):
-            fn(od=a["od"].double())
+            fn(od=a["od"].half())
+        with pytest.raises(TypeError):
+            fn(od=a["od"].double())        # the other operands float32
         with pytest.raises(ValueError, match="contiguous"):
             fn(od=od_strided)
     with pytest.raises(TypeError):
         lw(planck=a["planck"].double())
+    d = {k: a[k].double() for k in ("od", "ssa", "g", "odc", "ssac", "gc",
+                                     "osc", "mu0")}
+    out = mcica_optics.mcica_sw_optics_fused(
+        d["od"], d["ssa"], d["g"], d["odc"], d["ssac"], d["gc"], a["band"],
+        d["osc"], a["mask"], d["mu0"], False)
+    assert all(t.dtype == torch.float64 for t in out)
+    with pytest.raises(TypeError):
+        mcica_optics.mcica_lw_optics_fused(d["od"], d["odc"], a["band"],
+                                           d["osc"], a["mask"],
+                                           a["planck"].double())
 
 
 FIELDS = ("rand_top", "rand_cloud", "u1", "u2")
@@ -386,8 +418,8 @@ def test_threefry_kernel_edge_seeds(cuda, offset, seed_dtype, dtype):
 
 def test_threefry_kernel_makes_no_sync(cuda, monkeypatch):
     """The generator's random stage on the card: one launch, counted as
-    `threefry.kernel`, and no statement that blocks the host (no upload
-    of the key)."""
+    `threefry.kernel` and, by dtype, `launch.threefry_fields.f32`, and no
+    statement that blocks the host (no upload of the key)."""
     from ecrad_tpu_torch.solvers.cloud_generator import random_fields
     iseed = torch.arange(64, dtype=torch.int32, device=cuda)
     torch.cuda.synchronize()
@@ -401,7 +433,8 @@ def test_threefry_kernel_makes_no_sync(cuda, monkeypatch):
     counts = hooks.counters()
     hooks.reset_profile()
     torch.cuda.synchronize()
-    assert counts == {"threefry.kernel": 1}, counts
+    assert counts == {"threefry.kernel": 1,
+                      "launch.threefry_fields.f32": 1}, counts
 
 
 def test_threefry_kernel_refuses_what_it_does_not_take(cuda):
@@ -419,18 +452,33 @@ def test_threefry_kernel_refuses_what_it_does_not_take(cuda):
 
 
 def test_kernels_refuse_float64_and_strided_tensors(cuda, slice_state):
+    """B1 and B3 take float64 (their double forms) and still refuse half
+    tensors, strided tensors and a float64 field block over float32
+    tables; B3 lw_noscat likewise."""
     setup, _, c = slice_state
     fc, ic = taumol_lw.pack_coeffs(c, setup.tables["chi_mls"])
+    for dtype in (torch.float16, torch.bfloat16):
+        with pytest.raises(TypeError):
+            taumol_lw.taumol_lw_kernel(fc.to(dtype), ic, setup.gas.lw)
     with pytest.raises(TypeError):
         taumol_lw.taumol_lw_kernel(fc.double(), ic, setup.gas.lw)
+    with pytest.raises(ValueError, match="contiguous"):
+        taumol_lw.taumol_lw_kernel(fc.t().contiguous().t(), ic,
+                                   setup.gas.lw)
     x = torch.rand(3, 4, 10, device=cuda)
     e = torch.rand(4, 10, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         adding_fused.lw_noscat_fused(x, x, x.transpose(1, 2).contiguous()
                                      .transpose(1, 2), e, e)
+    with pytest.raises(ValueError, match="contiguous"):
+        adding_fused.lw_noscat_fused(
+            *(t.double() for t in (x, x, x.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), e, e)))
     with pytest.raises(TypeError):
-        adding_fused.lw_noscat_fused(x.double(), x.double(), x.double(),
-                                     e.double(), e.double())
+        adding_fused.lw_noscat_fused(*(t.half() for t in (x, x, x, e, e)))
+    up, dn = adding_fused.lw_noscat_fused(x.double(), x.double(), x.double(),
+                                          e.double(), e.double())
+    assert up.dtype == dn.dtype == torch.float64
 
 
 def _reset_counts():
@@ -628,7 +676,7 @@ def test_b2_b5_resources(cuda):
         assert _cuda.kernel_info("tc_sweeps_info", which, 2,
                                  137)["local_bytes"] <= 32
     report = _cuda.ptxas_report()
-    for kernel, spills in (("taumol_sw_kernel", 32),
+    for kernel, spills in (("taumol_sw_kernelIf", 32),
                            ("tc_sw_kernelILi3ELb1E", 0),
                            ("tc_lw_kernelILi3ELb1E", 0),
                            ("tc_sw_kernelILi3ELb0E", 0),
@@ -1496,3 +1544,205 @@ def test_traced_call_holds_its_kernels_in_its_span(cuda, tmp_path,
         assert len(ks) == 1, name
         t = launch[ks[0]["args"]["correlation"]]
         assert span[0] <= t <= span[1] and gas[0] <= t <= gas[1], name
+
+
+# ---- the float64 path: the double forms of B1-B4 ----
+
+# the cells' CY47R1 McICA in float64: LW aerosol scattering on and cloud
+# scattering off, so the clear sky takes B3' and the total sky B3 lw_noscat
+MCICA_F64 = dict(dtype="float64", do_lw_cloud_scattering=False,
+                 use_aerosols=True,
+                 n_aerosol_types=len(TRIPLECLOUDS_AEROSOL_MAP),
+                 i_aerosol_type_map=TRIPLECLOUDS_AEROSOL_MAP,
+                 do_lw_derivatives=True)
+# label: (module, wrapper, plain version, bit for bit, launches a call)
+F64_KERNELS = {
+    "B1 taumol_lw": (taumol_lw, "taumol_lw_kernel",
+                     taumol_lw.taumol_lw_plain, False, 1),
+    "B2 taumol_sw": (taumol_sw, "taumol_sw_kernel",
+                     taumol_sw.taumol_sw_plain, False, 1),
+    "B3 sw_adding": (adding_fused, "adding_sw_fused",
+                     adding.adding_sw_plain, True, 2),
+    "B3 lw_noscat": (adding_fused, "lw_noscat_fused",
+                     adding.lw_no_scattering_fluxes_plain, True, 1),
+    "B3' lw_adding": (adding_fused, "adding_lw_fused",
+                      adding.adding_lw_plain, True, 1),
+    "B4 mcica_sw_optics": (mcica_optics, "mcica_sw_optics_fused",
+                           mcica_optics.sw_clear_total_reftrans_plain,
+                           True, 1),
+}
+
+
+@pytest.fixture(scope="module")
+def f64_path(cuda, tmp_path_factory):
+    """The operands each double form is handed in one float64 McICA call
+    on 2048 x 137 columns, by kernel."""
+    tmp = str(tmp_path_factory.mktemp("f64_luts"))
+    setup = setup_radiation(
+        mcica_slice_config(**write_synthetic_luts(tmp), **MCICA_F64),
+        device=cuda)
+    inputs = columns_to_inputs(
+        make_aerosols(make_clouds(make_columns(2048, 137, 1), 1), 1),
+        device=cuda)
+    calls = {}
+    patch = pytest.MonkeyPatch()
+    for label, (module, name, _, _, _) in F64_KERNELS.items():
+        def record(*args, _real=getattr(module, name), _label=label):
+            calls.setdefault(_label, []).append(args)
+            return _real(*args)
+        patch.setattr(module, name, record)
+    try:
+        radiation(setup, *inputs)
+        torch.cuda.synchronize()
+    finally:
+        patch.undo()
+    return calls
+
+
+@pytest.mark.parametrize("label", list(F64_KERNELS))
+def test_double_forms_match_plain_on_the_path(f64_path, label):
+    module, name, plain, exact, n = F64_KERNELS[label]
+    assert len(f64_path[label]) == n
+    for args in f64_path[label]:
+        got = getattr(module, name)(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        assert len(got) == len(want)
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype == torch.float64
+            if exact:
+                assert torch.equal(x, y), label
+            else:
+                assert float((x - y).abs().max()) <= \
+                    1e-13 * float(y.abs().max()), label
+
+
+@pytest.mark.parametrize("nlev", [1, 2, 96, 97, 137, 300])
+@pytest.mark.parametrize("kind", ["sw", "lw"])
+def test_b3_double_forms_ragged_levels_bit_identical(cuda, kind, nlev):
+    """The double forms of B3 sw_adding and B3' lw_adding on 15 g x 133
+    columns with 1 to 300 levels: up to their windows
+    (adding_fused.F64_ONCHIP_LEVELS, 256 and 96) every level's values on
+    chip, above them the top levels' in the device-memory scratch (LW from
+    97 levels, SW at 300). Equal bit for bit to the plain versions in
+    float64."""
+    assert adding_fused.F64_ONCHIP_LEVELS == (256, 96)
+    gen = torch.Generator(device=cuda).manual_seed(nlev + 1000)
+    r = lambda *s, lo=0.0, hi=1.0: _rand(gen, *s, lo=lo, hi=hi,
+                                         device=cuda).double()
+    ng, ncol = 15, 133
+    if kind == "sw":
+        args = (r(nlev, ng, ncol, hi=0.4), r(nlev, ng, ncol, lo=0.3, hi=0.6),
+                r(nlev, ng, ncol, hi=0.3), r(nlev, ng, ncol, hi=0.4),
+                r(nlev, ng, ncol, lo=0.2, hi=0.9), r(ng, ncol, hi=1300.0),
+                r(ng, ncol, hi=0.8), r(ng, ncol, hi=0.8), r(ncol, lo=0.05))
+        kern, plain = adding_fused.adding_sw_fused, adding.adding_sw_plain
+    else:
+        args = (r(nlev, ng, ncol, hi=0.3), r(nlev, ng, ncol, lo=0.2, hi=0.7),
+                r(nlev, ng, ncol, hi=50.0), r(nlev, ng, ncol, hi=50.0),
+                r(ng, ncol, hi=400.0), r(ng, ncol, hi=0.2))
+        kern, plain = adding_fused.adding_lw_fused, adding.adding_lw_plain
+    got = kern(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    assert len(got) == len(ref)
+    for x, y in zip(got, ref):
+        assert x.dtype == torch.float64 and torch.equal(x, y)
+
+
+def test_double_forms_resources(cuda):
+    """The double forms' launches (kernel_info): B1 one block (4 warps)
+    per SM, B2 two (8 warps), B3 sw_adding 2 and B3' lw_adding 3 blocks
+    per SM at 137 levels, B3 lw_noscat 8 (64 warps), B4's SW form 2 (16
+    warps); B1, B2 and the sweeps without spills (the compiler's
+    report)."""
+    from ecrad_tpu_torch.ops import _cuda
+    blocks = lambda *a: _cuda.kernel_info(*a)["blocks_per_sm"]
+    assert blocks("taumol_lw_info_f64") >= 1
+    assert blocks("taumol_sw_info_f64") >= 2
+    assert blocks("level_sweep_info_f64", 0, 137) >= 2
+    assert blocks("level_sweep_info_f64", 1, 137) >= 3
+    assert blocks("level_sweep_info_f64", 2, 137) >= 8
+    assert blocks("mcica_optics_info", 2) >= 2
+    assert blocks("mcica_optics_info", 0) >= 4
+    report = _cuda.ptxas_report()
+    for frag in ("taumol_lw_kernelId", "taumol_sw_kernelId",
+                 "sw_adding_kernelIdLb0E", "lw_adding_kernelIdLb1E",
+                 "lw_noscat_kernelId"):
+        hits = [v for k, v in report.items() if frag in k]
+        assert len(hits) == 1, frag
+        assert hits[0]["spill_stores"] == 0, frag
+        assert hits[0]["spill_loads"] == 0, frag
+
+
+def test_float64_mcica_call_on_the_card(cuda, tmp_path, monkeypatch):
+    """The whole float64 McICA call (the cells' configuration) on 96 x 137
+    columns: B1, B2, B3 (SW twice, LW once), B3', B4's SW form and the
+    generator's random fields (twice) each launched in its double form and
+    nothing in float (the hooks' launch.<kernel>.<dtype> counters), no
+    layer plain on the card, every
+    output float64 and within 1e-9 of each field's largest value of the
+    plain path on the CPU."""
+    cfg = mcica_slice_config(**write_synthetic_luts(str(tmp_path)),
+                             **MCICA_F64)
+    cols = make_aerosols(make_clouds(make_columns(96, 137, 2), 2), 2)
+    setup = setup_radiation(cfg, device=cuda)
+    inputs = columns_to_inputs(cols, device=cuda)
+    monkeypatch.setattr(hooks, "LHOOK", True)
+    hooks.reset_profile()
+    flux = radiation(setup, *inputs)
+    torch.cuda.synchronize()
+    counts = hooks.counters()
+    hooks.reset_profile()
+    monkeypatch.setattr(hooks, "LHOOK", False)
+    assert {k: v for k, v in counts.items() if k.startswith("launch.")} == {
+        "launch.taumol_lw.f64": 1, "launch.taumol_sw.f64": 1,
+        "launch.sw_adding.f64": 2, "launch.lw_noscat.f64": 1,
+        "launch.lw_adding.f64": 1, "launch.mcica_sw_optics.f64": 1,
+        "launch.threefry_fields.f64": 2}
+    assert not [k for k in counts if k.startswith("plain_on_device.")]
+    cpu = radiation(setup_radiation(cfg, device="cpu"),
+                    *columns_to_inputs(cols, device="cpu"))
+    for k, v in flux.fields():
+        ref = getattr(cpu, k)
+        assert v.dtype == ref.dtype == torch.float64, k
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((v.cpu() - ref).abs().max()) <= 1e-9 * scale, k
+
+
+@pytest.mark.parametrize("variant", ["cloudless", "homogeneous"])
+def test_float64_cloudless_and_homogeneous_on_the_card(cuda, tmp_path,
+                                                        variant):
+    """The other paths whose kernels all have double forms, in float64 on
+    96 x 137 columns: Cloudless (B1, B2, B3 SW and LW) and Homogeneous
+    with aerosols (B1, B2, B3 SW twice, B3 LW, B3'); every kernel in its
+    double form, every output float64 and within 1e-9 of each field's
+    largest value of the plain path on the CPU."""
+    if variant == "cloudless":
+        cfg = cloudless_slice_config(dtype="float64")
+        cols = make_columns(96, 137, 0)
+    else:
+        cfg = tripleclouds_slice_config(
+            **write_synthetic_luts(str(tmp_path), ice="fu"),
+            **TC_VARIANTS["homogeneous"][0], dtype="float64")
+        cols = make_aerosols(make_clouds(make_columns(96, 137, 0)))
+    setup = setup_radiation(cfg, device=cuda)
+    inputs = columns_to_inputs(cols, device=cuda)
+    hooks.enable(True)
+    hooks.reset_profile()
+    try:
+        flux = radiation(setup, *inputs)
+        torch.cuda.synchronize()
+        counts = hooks.counters()
+    finally:
+        hooks.enable(False)
+        hooks.reset_profile()
+    launched = {k for k in counts if k.startswith("launch.")}
+    assert launched and all(k.endswith(".f64") for k in launched), counts
+    cpu = radiation(setup_radiation(cfg, device="cpu"),
+                    *columns_to_inputs(cols, device="cpu"))
+    for k, v in flux.fields():
+        ref = getattr(cpu, k)
+        assert v.dtype == ref.dtype == torch.float64, k
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((v.cpu() - ref).abs().max()) <= 1e-9 * scale, k

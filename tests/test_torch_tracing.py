@@ -211,3 +211,93 @@ def test_every_sync_of_a_call_is_counted(kind, tmp_path):
     counts = hooks.counters()
     assert counts.get("threefry.kernel", 0) == (2 if kind == "mcica" else 0)
     assert "sync.upload.threefry" not in counts
+
+
+def test_plain_on_device_counts_only_while_the_hooks_are_on():
+    """hooks.plain_on_device(site) counts `plain_on_device.<site>` through
+    hooks.count while LHOOK is on, and nothing while it is off."""
+    hooks.plain_on_device("probe")
+    assert hooks.counters() == {}
+    hooks.enable(True)
+    hooks.plain_on_device("probe")
+    hooks.plain_on_device("probe")
+    hooks.plain_on_device("other")
+    assert hooks.counters() == {"plain_on_device.probe": 2,
+                                "plain_on_device.other": 1}
+    hooks.enable(False)
+    hooks.plain_on_device("probe")
+    assert hooks.counters()["plain_on_device.probe"] == 2
+
+
+def test_a_float64_mcica_call_on_the_cpu_runs_nothing_plain_on_a_device(
+        tmp_path, monkeypatch):
+    """A float64 call of the McICA path (the cells' aerosols and LW
+    derivatives) on the CPU with LHOOK on: every layer takes its plain
+    version on CPU tensors, which is no plain version on a device, so
+    hooks.plain_on_device is called zero times; no kernel is launched, so
+    no launch is counted; every output is float64."""
+    seen = []
+    real = hooks.plain_on_device
+    monkeypatch.setattr(hooks, "plain_on_device",
+                        lambda site: (seen.append(site), real(site)))
+    config = mcica_slice_config(**write_synthetic_luts(str(tmp_path), 0),
+                                **MCICA_EXTRA, dtype="float64")
+    setup = setup_radiation(config, device="cpu")
+    cols = make_aerosols(make_clouds(make_columns(4, 16, 3), 3), 3)
+    hooks.enable(True)
+    flux = radiation(setup, *columns_to_inputs(cols, device="cpu"))
+    counts = hooks.counters()
+    hooks.enable(False)
+    assert seen == []
+    assert not [k for k in counts if k.startswith(("plain_on_device.",
+                                                   "launch."))]
+    for k, v in flux.fields():
+        assert v.dtype == torch.float64, k
+
+
+@pytest.mark.parametrize("dtype, entry, tag", [
+    (torch.float32, "sw_adding", "f32"),
+    (torch.float64, "sw_adding_f64", "f64")])
+def test_a_launch_takes_the_entry_of_its_dtype_and_counts_it(
+        monkeypatch, dtype, entry, tag):
+    """_cuda.launch(name, ..., dtype=) calls the C entry point of that
+    dtype (the double form's name ends in _f64) and counts
+    `launch.<name>.<f32|f64>` while LHOOK is on; a kernel without a double
+    form, or a dtype without a form, is refused before any call."""
+    from ecrad_tpu_torch.ops import _cuda
+    called = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: called.append(name) or 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(_cuda, "library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
+    x = torch.zeros(3, dtype=dtype)
+    args = [x] * 9 + [1, 1, 3] + [x] * 4
+    hooks.enable(True)
+    _cuda.launch("sw_adding", *args, dtype=dtype)
+    _cuda.launch("sw_adding", *args)
+    assert called == [entry, "sw_adding"]
+    assert hooks.counters() == {f"launch.sw_adding.{tag}": 1}
+    with pytest.raises(TypeError):
+        _cuda.launch("tc_sw_sweeps", *args, dtype=dtype)
+    with pytest.raises(TypeError):
+        _cuda.launch("sw_adding", *args, dtype=torch.float16)
+    hooks.enable(False)
+    assert called == [entry, "sw_adding"]
+
+
+def test_the_dtype_check_takes_float32_and_float64_only():
+    """_cuda.scalar: a kernel with a double form takes a float32 or
+    float64 leading operand; a CPU tensor or any other dtype raises."""
+    from ecrad_tpu_torch.ops import _cuda
+    with pytest.raises(ValueError, match="CUDA"):
+        _cuda.scalar(torch.zeros(2, dtype=torch.float64), "x")
+    assert set(_cuda._DTYPES) == {torch.float32, torch.float64}
+    assert {n + "_f64" for n in _cuda.F64_FORMS} <= set(_cuda._SIGS)
+    for n in _cuda.F64_FORMS:
+        assert _cuda._SIGS[n + "_f64"] == _cuda._SIGS[n]
