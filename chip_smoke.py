@@ -11,7 +11,9 @@ Phases; any failure exits non-zero and prints no result line:
      lw_noscat, B5's SW and LW kernels with 3 and 2 regions at 137 and 300
      levels, B6's and B7's two passes, B8, B9 with multilayer effects
      off and on, B4's SW form, the McICA generator's random-fields kernel
-     for float32 and float64, and the double forms of B1, B2, B3 sw_adding
+     for float32 and float64, the cloud generator kernel's float and
+     double forms at 112 and 140 g-points, and the double forms of B1, B2,
+     B3 sw_adding
      and lw_noscat, B3' lw_adding at 137 levels and B4's SW form the
      registers, spills, shared memory and the warps per SM their launches
      get; a spill in the double forms of B1-B3 fails);
@@ -22,7 +24,9 @@ Phases; any failure exits non-zero and prints no result line:
      spartacus_sw_adding, B9 spartacus_lw_adding, B10 gather_sections,
      and threefry_fields, the McICA generator's random fields, bit for
      bit in float32 and float64 at the SW and LW generator calls' 2048 x
-     137 x 112 and 140 with iseed and iseed + 997)
+     137 x 112 and 140 with iseed and iseed + 997; mcica_generator, the
+     cloud generator, on those uniforms and the McICA path's cloud under
+     GEN_CONTRACT)
      against its plain PyTorch version on the card, at the shapes the
      paths give it (B5-B9 on the operands the Tripleclouds and SPARTACUS
      paths hand them; B6 and B7 also on a random case built like
@@ -63,7 +67,8 @@ Phases; any failure exits non-zero and prints no result line:
      counter), every output float64; and on that call's operands each
      double form against its plain version in float64, B1 and B2 within
      F64_TAUMOL_REL of each output's largest value, B3 sw_adding (both
-     calls), lw_noscat, B3' lw_adding and B4's SW form bit for bit;
+     calls), lw_noscat, B3' lw_adding and B4's SW form bit for bit, the
+     cloud generator (both calls) under GEN_CONTRACT;
   3. the paths, each run once with the launch counts set to 0 just
      before it and read just after, through setup_radiation + radiation:
      a. Cloudless on 2048 x 137 columns of ecrad_tpu_torch.inputs (seed
@@ -157,7 +162,8 @@ Phases; any failure exits non-zero and prints no result line:
         read back through FortranFile's native reader; McICA at 2048 x
         137 with the hooks on (hooks.enable), the program's own `ecrad.*`
         spans inside an outer span that synchronises: 3 calls accounted
-        (each layer's and generator stage's calls, self at most total,
+        (each layer's and generator stage's calls, the generator's random
+        fields and kernel and none of its plain stages, self at most total,
         `ecrad.radiation`'s total at least its children's, the hook
         stack empty after), dump_profile read back by
         tools/merge_hook_profiles.py, one call traced with
@@ -169,7 +175,9 @@ Phases; any failure exits non-zero and prints no result line:
         output's largest value);
   4. times (information only): each kernel and its plain version with
      CUDA events (threefry_fields over both generator calls of a McICA
-     call, against its integer-operation bound; B10 per gas-optics call,
+     call, against its integer-operation bound; mcica_generator and its
+     double form likewise over both, against their bytes; B10 per
+     gas-optics call,
      its 30 launches issued from Python, beside the same launches replayed
      from a CUDA graph, the wrapper with its packing and one embedding_bag
      call per launch on the same flattened operands; B1's
@@ -256,10 +264,11 @@ TC_PATTERNS = ("all_clear", "all_cloudy", "alternating")
 PATH_KERNELS = {
     "cloudless": ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat"),
     "mcica": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
-              "mcica_sw_optics", "threefry_fields"),
+              "mcica_sw_optics", "threefry_fields",
+              "mcica_generator"),
     "mcica_noscat": ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat",
                      "mcica_sw_optics", "mcica_lw_optics",
-                     "threefry_fields"),
+                     "threefry_fields", "mcica_generator"),
     "tripleclouds": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
                      "tc_sw_sweeps", "tc_lw_sweeps"),
     "tripleclouds_2reg": ("taumol_lw", "taumol_sw", "sw_adding",
@@ -277,9 +286,11 @@ PATH_KERNELS = {
                        "spartacus_sw_adding", "spartacus_lw_adding"),
     "driver_per_band": ("gather_sections", "sw_adding", "lw_noscat"),
     "driver_mcica": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
-                     "mcica_sw_optics", "threefry_fields"),
+                     "mcica_sw_optics", "threefry_fields",
+                     "mcica_generator"),
     "ifs_entry": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
-                  "mcica_sw_optics", "threefry_fields"),
+                  "mcica_sw_optics", "threefry_fields",
+                  "mcica_generator"),
     "spartacus_gpoint": ("taumol_lw", "taumol_sw", "sw_adding",
                          "lw_adding", "spartacus_sw_reftrans",
                          "spartacus_lw_reftrans", "spartacus_sw_adding",
@@ -289,16 +300,19 @@ PATH_KERNELS = {
                         "spartacus_sw_adding", "spartacus_lw_adding"),
     "mono_homogeneous": ("sw_adding", "lw_adding", "lw_noscat"),
     "mono_mcica": ("sw_adding", "lw_noscat", "mcica_sw_optics",
-                   "mcica_lw_optics", "threefry_fields"),
+                   "mcica_lw_optics", "threefry_fields",
+                   "mcica_generator"),
     "spartacus_dump": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
                        "spartacus_sw_reftrans", "spartacus_lw_reftrans",
                        "spartacus_sw_adding", "spartacus_lw_adding"),
     "surface_cloudless": ("taumol_lw", "taumol_sw", "sw_adding",
                           "lw_noscat"),
     "surface_mcica": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
-                      "mcica_sw_optics", "threefry_fields"),
+                      "mcica_sw_optics", "threefry_fields",
+                      "mcica_generator"),
     "hooks_mcica": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
-                    "mcica_sw_optics", "threefry_fields"),
+                    "mcica_sw_optics", "threefry_fields",
+                    "mcica_generator"),
 }
 # the band and g-point profiles, each summed over its last axis, against
 # the broadband profile: of each field's largest value
@@ -370,14 +384,18 @@ NCOL_NOSCAT = 256
 # G_TILE, LW_G_TILE)
 B8_G_TILE, B9_G_TILE = 8, 4
 # phase r: the program's spans a McICA radiation() call enters (the cloud
-# generator's once for SW and once for LW) inside the outer HOOK_OUTER,
+# generator's, its random fields' and its kernel's once for SW and once
+# for LW; on the card no plain stage) inside the outer HOOK_OUTER,
 # and those directly inside `ecrad.radiation`
 HOOK_OUTER = "smoke_call"
 HOOK_CALLS = {HOOK_OUTER: 1, "ecrad.radiation": 1, "ecrad.gas_optics": 1,
               "ecrad.cloud_optics": 1, "ecrad.solver_lw": 1,
               "ecrad.solver_sw": 1, "ecrad.cloud_generator": 2,
               **{f"ecrad.cloud_generator.{stage}": 2 for stage in (
-                  "cover", "random", "walk", "sample")}}
+                  "random", "kernel")}}
+# the generator's plain stages, which the card never enters
+PLAIN_STAGES = tuple(f"ecrad.cloud_generator.{stage}"
+                     for stage in ("cover", "walk", "sample"))
 HOOK_CHILDREN = ("ecrad.gas_optics", "ecrad.cloud_optics", "ecrad.solver_lw",
                  "ecrad.solver_sw")
 HOOK_REPS = 3
@@ -419,14 +437,25 @@ SPARTACUS_OPS = {"spartacus_sw_reftrans": (180, 3900, 650),
 # calls of a McICA radiation call, (g-points, seed shift): SW and LW
 THREEFRY_INT_OPS, INT32_OPS_PER_S = 75, 132 * 64 * 1.98e9
 GENERATOR_CALLS = ((112, 0), (140, 997))
+# the cloud generator kernel (csrc/mcica_generator.cu) against its plain
+# version on one generator call, by dtype: od_scaling relative on the
+# cells cloudy in both, the total cover absolute; a cloudy mask may
+# differ in at most GEN_MASK_SHARE of the cells (the two covers'
+# cumulative sums run in another order); its floating-point operations:
+# the walk's per (level, g, column) and the sample's per cloudy cell
+# (ndtri, two degree-16 Clenshaw sums, two exps, the blend)
+GEN_CONTRACT = {torch.float32: (1e-5, 2e-6), torch.float64: (1e-12, 1e-13)}
+GEN_MASK_SHARE = 1e-6
+GEN_OPS_CELL, GEN_OPS_CLOUDY = 15, 170
 # phase 2's float64 path: the launches of each kernel in one float64
 # McICA call, all in their double forms (the hooks' launch.<kernel>.f64
 # counters): B3 sw_adding for the clear and the total sky, B3' lw_adding
 # for the clear sky (LW aerosol scattering), B3 lw_noscat for the total
-# sky (no LW cloud scattering), the generator's fields for SW and LW
+# sky (no LW cloud scattering), the generator's fields and the generator
+# for SW and LW
 F64_LAUNCHES = {"taumol_lw": 1, "taumol_sw": 1, "sw_adding": 2,
                 "lw_noscat": 1, "lw_adding": 1, "mcica_sw_optics": 1,
-                "threefry_fields": 2}
+                "threefry_fields": 2, "mcica_generator": 2}
 # the double forms against their plain versions in float64: B1 and B2
 # within F64_TAUMOL_REL of each output's largest value (their sums run in
 # slot order, the plain versions' in PyTorch's: up to 21 double terms
@@ -636,22 +665,57 @@ def rel_to_max(a, b):
 
 
 def reset_counts(counters):
-    for m in counters[:3]:
+    for m in counters[:4]:
         m.launches = 0
-    for d in counters[3:]:
+    for d in counters[4:]:
         for k in d:
             d[k] = 0
 
 
 def read_counts(counters):
-    """Launches by kernel: counters are the taumol_lw, taumol_sw and
-    random_fields modules, then the other wrappers' dicts."""
+    """Launches by kernel: counters are the taumol_lw, taumol_sw,
+    random_fields and mcica_generator modules, then the other wrappers'
+    dicts."""
     out = {"taumol_lw": counters[0].launches,
            "taumol_sw": counters[1].launches,
-           "threefry_fields": counters[2].launches}
-    for d in counters[3:]:
+           "threefry_fields": counters[2].launches,
+           "mcica_generator": counters[3].launches}
+    for d in counters[4:]:
         out.update(d)
     return out
+
+
+def check_generator(calls, ops_per_s):
+    """The cloud generator kernel against its plain version on each
+    call's arguments (GEN_CONTRACT): the worst |od_scaling difference|
+    on cells cloudy in both and least_time of all the calls."""
+    from ecrad_tpu_torch.ops import mcica_generator as mg
+    from ecrad_tpu_torch.solvers.cloud_generator import cloud_generator_plain
+    worst, ops, outs = 0.0, 0, []
+    for args in calls:
+        od, tcc = got = mg.generator_kernel(*args)
+        torch.cuda.synchronize()
+        od_ref, tcc_ref = cloud_generator_plain(*args)
+        rel_bound, tcc_bound = GEN_CONTRACT[od.dtype]
+        differ = int(((od > 0) != (od_ref > 0)).sum())
+        both = (od > 0) & (od_ref > 0)
+        diff = (od - od_ref).abs()[both]
+        rel = float((diff / od_ref[both].abs()).max())
+        tcc_err = float((tcc - tcc_ref).abs().max())
+        log(f"mcica_generator, {od.dtype}: {tuple(od.shape)} cloudy masks "
+            f"differ in {differ} cells (bound {GEN_MASK_SHARE} of "
+            f"{od.numel()}), od_scaling worst rel {rel:.3e} (bound "
+            f"{rel_bound}) on {int(both.sum())} cells cloudy in both, total "
+            f"cover worst abs {tcc_err:.3e} (bound {tcc_bound})")
+        if not (differ <= GEN_MASK_SHARE * od.numel() and rel <= rel_bound
+                and tcc_err <= tcc_bound):
+            raise AssertionError("mcica_generator disagrees with its plain "
+                                 "version")
+        worst = max(worst, float(diff.max()))
+        ops += od.numel() * GEN_OPS_CELL + int((od > 0).sum()) * GEN_OPS_CLOUDY
+        outs.append(got)
+    return worst, least_time("mcica_generator", calls, outs, ops=ops,
+                             ops_per_s=ops_per_s)
 
 
 def doubling_ops(name, counts):
@@ -1045,6 +1109,7 @@ def main():
     from ecrad_tpu_torch.io.output import save_fluxes, save_inputs
     from ecrad_tpu_torch.ops import _cuda, adding_fused, mcica_optics
     from ecrad_tpu_torch.ops import gather_interp as gi
+    from ecrad_tpu_torch.ops import mcica_generator as mg
     from ecrad_tpu_torch.ops import random_fields as rf
     from ecrad_tpu_torch.ops import spartacus_adding as sa
     from ecrad_tpu_torch.ops import spartacus_reftrans as sr
@@ -1055,7 +1120,8 @@ def main():
     from ecrad_tpu_torch.solvers import (adding, cloudless, spartacus_lw,
                                          spartacus_sw, tripleclouds)
     from ecrad_tpu_torch.solvers import two_stream as ts
-    from ecrad_tpu_torch.solvers.cloud_generator import cloud_generator
+    from ecrad_tpu_torch.solvers.cloud_generator import (
+        cloud_generator, cloud_generator_plain)
 
     dev = torch.device("cuda", 0)
     gpu = card()
@@ -1142,6 +1208,11 @@ def main():
              "threefry_fields_kernelIfi"),
             ("threefry_fields, float64", "threefry_fields_info", (1,),
              "threefry_fields_kernelIdi"),
+            *((f"mcica_generator, {t}, {ng} g-points",
+               "mcica_generator_info", (f64, NLEV, ng),
+               f"mcica_generator_kernelI{c}E")
+              for t, f64, c in (("float32", 0, "f"), ("float64", 1, "d"))
+              for ng, _ in GENERATOR_CALLS),
             *((f"B5 tc_{k}_sweeps, {nreg} regions, {nlev} levels",
                "tc_sweeps_info", (int(k == "lw"), nreg, nlev),
                f"tc_{k}_kernelILi{nreg}ELb1E")
@@ -1159,8 +1230,10 @@ def main():
             f"{k['blocks_per_sm']} blocks = {warps} warps per SM of 64")
         if k["blocks_per_sm"] < 1:
             raise AssertionError(f"{what} cannot be resident on an SM")
-        # the double forms of B1-B3 keep every value in registers
-        if ", float64" in what and not what.startswith("B4") and (
+        # the double forms of B1-B3 and the random fields keep every value
+        # in registers
+        if ", float64" in what and what.startswith(("B1", "B2", "B3",
+                                                     "threefry")) and (
                 rep.get("spill_stores") != 0 or rep.get("spill_loads") != 0):
             raise AssertionError(f"{what} spills")
 
@@ -1810,6 +1883,19 @@ def main():
     bounds["threefry_fields"] = (
         max(t_i, t_b) * 1e3, "integer operations" if t_i >= t_b else "bytes",
         rf_bytes, rf_values * THREEFRY_INT_OPS)
+    # the cloud generator kernel at the cells' shapes on the McICA path's
+    # cloud, the SW and LW calls of a radiation call on the random-fields
+    # kernel's uniforms, against its plain version on the card (float32)
+    gen_args = [
+        (cfg_m.i_overlap_scheme, cfg_m.cloud_fraction_threshold,
+         cloud_m.fraction.contiguous(), cloud_m.overlap_param.contiguous(),
+         cfg_m.cloud_inhom_decorr_scaling,
+         cloud_m.fractional_std.contiguous(), setup_m.pdf_sampler,
+         cfg_m.use_beta_overlap, setup_m.pdf_cheb,
+         *rf.random_fields_kernel(iseed, ng, NLEV, torch.float32))
+        for (ng, _), iseed in zip(GENERATOR_CALLS, rf_seeds)]
+    errs["mcica_generator"], bounds["mcica_generator"] = check_generator(
+        gen_args, F32_OPS_PER_S)
 
     # the double forms on the float64 path's operands: one float64 McICA
     # call (the configuration of the benchmark's float64 cell) on the 2048
@@ -1848,6 +1934,10 @@ def main():
                for mod, attr, _, _ in f64_kernels.values()]
     for name, (mod, attr, fn) in zip(f64_kernels, f64_fns):
         setattr(mod, attr, kept(name, fn))
+    # and the cloud generator's, held to their own contract below
+    f64_args["mcica_generator"] = []
+    f64_fns.append((mg, "generator_kernel", mg.generator_kernel))
+    mg.generator_kernel = kept("mcica_generator", mg.generator_kernel)
     hooks.enable(True)
     hooks.reset_profile()
     try:
@@ -1905,9 +1995,18 @@ def main():
                                  f"plain version")
         # phase 4 times the first call
         del calls[1:], got, want, outs
+    gen_calls = f64_args.pop("mcica_generator")
+    if len(gen_calls) != F64_LAUNCHES["mcica_generator"]:
+        raise AssertionError(f"mcica_generator: {len(gen_calls)} calls on "
+                             f"the float64 path")
+    if any(a[2].dtype != torch.float64 for a in gen_calls):
+        raise AssertionError("mcica_generator: not float64 on the float64 "
+                             "path")
+    errs["mcica_generator_f64"], bounds["mcica_generator_f64"] = \
+        check_generator(gen_calls, F64_OPS_PER_S)
 
     # ---- 3. the paths, counted ----
-    counters = (taumol_lw, taumol_sw, rf, adding_fused.launches,
+    counters = (taumol_lw, taumol_sw, rf, mg, adding_fused.launches,
                 mcica_optics.launches, sr.launches, sa.launches, gi.launches)
     launches = {}
 
@@ -2462,11 +2561,12 @@ def main():
         worse = [k for k, (_, tw, sw, _, _) in rows.items() if sw > tw]
         kids = sum(rows[k][1] for k in HOOK_CHILDREN)
         depth = hook_lib.ecr_hook_stack_depth()
+        plain_stages = [k for k in calls if k in PLAIN_STAGES]
         log(f"hooks: calls {calls}; self above total in {worse}; "
             f"ecrad.radiation total {rows['ecrad.radiation'][1]:.6f} s, its "
             f"children's {kids:.6f} s; hooks.counters {hooks.counters()}; "
-            f"stack depth {depth}")
-        if ({k: calls.get(k) for k in want} != want or worse
+            f"stack depth {depth}; plain generator stages {plain_stages}")
+        if ({k: calls.get(k) for k in want} != want or worse or plain_stages
                 or rows["ecrad.radiation"][1] < kids or depth
                 or rows[HOOK_OUTER][1] < rows["ecrad.radiation"][1]):
             raise AssertionError("the hook accounting is wrong")
@@ -2564,6 +2664,14 @@ def main():
                      for (ng, _), iseed in zip(GENERATOR_CALLS, rf_seeds)],
             lambda: [rf.random_fields_plain(iseed, ng, NLEV, torch.float32)
                      for (ng, _), iseed in zip(GENERATOR_CALLS, rf_seeds)]),
+        # the cloud generator: both calls of a McICA radiation call on the
+        # path's cloud, float32 and float64 (the float64 path's calls)
+        "mcica_generator": (
+            lambda: [mg.generator_kernel(*a) for a in gen_args],
+            lambda: [cloud_generator_plain(*a) for a in gen_args]),
+        "mcica_generator_f64": (
+            lambda: [mg.generator_kernel(*a) for a in gen_calls],
+            lambda: [cloud_generator_plain(*a) for a in gen_calls]),
         "tc_sw_sweeps": (
             lambda: adding_fused.tc_sw_sweeps_fused(
                 *path_args["tc_sw_sweeps"]),
@@ -2925,10 +3033,14 @@ def main():
                                "ecrad_tpu/ops/gather_interp.py:267"),
            "threefry_fields": ("ecrad_tpu_torch/csrc/threefry.cu",
                                "none: jax.random in ecrad_tpu/solvers/"
-                               "cloud_generator.py:73-85")}
+                               "cloud_generator.py:73-85"),
+           "mcica_generator": ("ecrad_tpu_torch/csrc/mcica_generator.cu",
+                               "none: lax.scan and while_loop in ecrad_tpu/"
+                               "solvers/cloud_generator.py, cloud_cover.py")}
     # the double forms (name_f64) come from the float forms' sources
-    src.update({n + "_f64": src[n] for n in f64_kernels})
-    launches["mcica_f64"] = {f"{n}_f64": F64_LAUNCHES[n] for n in f64_kernels}
+    f64_names = [*f64_kernels, "mcica_generator"]
+    src.update({n + "_f64": src[n] for n in f64_names})
+    launches["mcica_f64"] = {f"{n}_f64": F64_LAUNCHES[n] for n in f64_names}
     # launches: the sum over the counted path runs (per path above, the
     # double forms' on the float64 path); no single PyTorch call computes
     # B1-B9's functions (library_ms null); B10's is embedding_bag

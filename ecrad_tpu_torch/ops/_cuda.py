@@ -11,10 +11,11 @@ Every C entry point launches on the stream it is given, returns
 cudaGetLastError() as an int, and allocates nothing: the wrappers
 allocate outputs and scratch with torch.empty.
 
-The kernels of the McICA path (B1, B2, B3, B3' and B4's SW form) are
-templates on their scalar type with a float and a double entry point,
-the double one's name ending in `_f64`: `launch(name, ..., dtype=)`
-picks the entry of the operands' dtype (`scalar` checks it) and counts
+The kernels of the McICA path (B1, B2, B3, B3', B4's SW form and the
+cloud generator) are templates on their scalar type with a float and a
+double entry point, the double one's name ending in `_f64`:
+`launch(name, ..., dtype=)` picks the entry of the operands' dtype
+(`scalar` checks it) and counts
 `launch.<name>.f32` or `.f64` (hooks.count; ops/random_fields.py counts
 the threefry kernel, which takes its dtype as a flag, the same way).
 """
@@ -45,9 +46,9 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
 # C signatures: p = device pointer, i = int, u = unsigned 32-bit int,
-# f = float; the stream is appended
+# f = float, d = double; the stream is appended
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint32,
-           "f": ctypes.c_float}
+           "f": ctypes.c_float, "d": ctypes.c_double}
 _SIGS = {
     "taumol_lw": "pppppipp",
     "taumol_sw": "pppppipp",
@@ -66,11 +67,12 @@ _SIGS = {
     "spartacus_lw_adding": "pppiiiiiippp",
     "gather_sections": "pipipiiip",
     "threefry_fields": "piuuiiiipppp",
+    "mcica_generator": "ppppppppp" "iiiiiii" "dddddd" "pp",
 }
 #: the kernels with a double form: its entry point, name + "_f64", takes
 #: the same arguments with double in place of float
 F64_FORMS = ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat",
-             "lw_adding", "mcica_sw_optics")
+             "lw_adding", "mcica_sw_optics", "mcica_generator")
 _SIGS.update({name + "_f64": _SIGS[name] for name in F64_FORMS})
 #: the scalar types of those kernels: entry point suffix and counter tag
 _DTYPES = {torch.float32: ("", "f32"), torch.float64: ("_f64", "f64")}
@@ -90,7 +92,8 @@ _INFO_SIGS = {"level_sweep_info": "ii",
               "spartacus_lw_reftrans_info": "ii",
               "spartacus_lw_adding_info": "ii",
               "gather_sections_info": "iiii",
-              "threefry_fields_info": "i"}
+              "threefry_fields_info": "i",
+              "mcica_generator_info": "iii"}
 INFO_FIELDS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
                "threads", "blocks_per_sm", "sms")
 

@@ -11,15 +11,19 @@ Exp-Exp over the whole trigger..base span).
 The random numbers are the JAX package's own: ops/random_fields.py gives
 the bits of its jax.random chain, so both programs draw the same
 subcolumns (one CUDA kernel a generator call on the card, the int64
-passes of utils/threefry.py on the CPU). Its two level scans
-(`_level_walk`) are Python loops over levels of (ncol, ng) tensors here:
-about 22 launches a level, 3,051 a generator call at 137 levels (6,102 in
-a McICA radiation() call, whose two generator calls launch about 14,460
-in all: the Exp-Exp cover about 8,000, as many as its merge passes make,
-the random fields 2, the PDF sample 326; 2048 x 137 on an H100).
+passes of utils/threefry.py on the CPU). From those uniforms the card
+runs the cover, the walk and the sample in one more kernel a generator
+call (ops/mcica_generator.py, scope `ecrad.cloud_generator.kernel`).
+On the CPU they run as `cloud_generator_plain`, the kernel's plain
+version: its two level scans (`_level_walk`) are Python loops over
+levels of (ncol, ng) tensors, about 22 launches a level, 3,051 a
+generator call at 137 levels, and the Exp-Exp cover about 4,000 more,
+as many as its merge passes make, with a host sync before each pass;
+the PDF sample 163 (2048 x 137 on an H100).
 
-Each stage runs in its own scope (utils/hooks.py):
-`ecrad.cloud_generator.cover`, `.random`, `.walk` and `.sample`.
+The plain stages run in their own scopes (utils/hooks.py):
+`ecrad.cloud_generator.cover`, `.walk` and `.sample`; the random fields
+in `.random` on either device.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from typing import Tuple
 import torch
 
 from ..config import Overlap
+from ..ops import mcica_generator
 from ..ops import random_fields as fields
 from ..utils import hooks
 from .cloud_cover import (cum_cloud_cover_exp_exp, cum_cloud_cover_exp_ran,
@@ -116,8 +121,33 @@ def cloud_generator(ng: int, iseed, overlap_scheme: Overlap,
     """od_scaling (ncol, nlev, ng) and total_cloud_cover (ncol,).
     frac (ncol, nlev); overlap_param (ncol, nlev-1); iseed (ncol,)
     integer; `cheb` optionally the sampler's Chebyshev table on the
-    device."""
-    ncol, nlev = frac.shape
+    device. The plain stages for CPU tensors, the kernel for any other."""
+    uniforms = random_fields(iseed, ng, frac.shape[1], frac.dtype,
+                             seed_offset)
+    if frac.device.type == "cpu":
+        return cloud_generator_plain(
+            overlap_scheme, frac_threshold, frac, overlap_param,
+            decorrelation_scaling, fractional_std, pdf_sampler,
+            is_beta_overlap, cheb, *uniforms)
+    with hooks.hook("ecrad.cloud_generator.kernel"):
+        return mcica_generator.generator_kernel(
+            overlap_scheme, frac_threshold, frac.contiguous(),
+            overlap_param.contiguous(), decorrelation_scaling,
+            fractional_std.contiguous(), pdf_sampler, is_beta_overlap, cheb,
+            *uniforms)
+
+
+def cloud_generator_plain(overlap_scheme: Overlap, frac_threshold: float,
+                          frac, overlap_param, decorrelation_scaling: float,
+                          fractional_std, pdf_sampler: PdfSampler,
+                          is_beta_overlap: bool, cheb, rand_top, rand_cloud,
+                          u1, u2) -> Tuple:
+    """od_scaling and total_cloud_cover from the generator's uniforms
+    (rand_top (ncol, ng), rand_cloud, u1, u2 (ncol, nlev, ng)): the
+    cover, the walk and the PDF sample as tensor passes; the plain
+    version of ops/mcica_generator.generator_kernel, with its
+    arguments."""
+    ng = rand_top.shape[-1]
     dtype, dev = frac.dtype, frac.device
     with hooks.hook("ecrad.cloud_generator.cover"):
         if overlap_scheme == Overlap.EXPONENTIAL_RANDOM:
@@ -134,8 +164,6 @@ def cloud_generator(ng: int, iseed, overlap_scheme: Overlap,
     zero = torch.zeros((), dtype=dtype, device=dev)
     total_cloud_cover = torch.where(has_cloud, total_cloud_cover, zero)
 
-    rand_top, rand_cloud, u1, u2 = random_fields(iseed, ng, nlev, dtype,
-                                                 seed_offset)
     is_cloudy, rand_inhom = _level_walk(
         frac, overlap_param, decorrelation_scaling, cum_cc, pcc,
         total_cloud_cover, rand_top, rand_cloud, u1, u2,

@@ -21,7 +21,7 @@ _DECL = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
 
 
 def _c_signatures():
-    """name -> the 'p'/'i'/'u'/'f' letters of its parameters."""
+    """name -> the 'p'/'i'/'u'/'f'/'d' letters of its parameters."""
     out = {}
     for path in glob.glob(os.path.join(_cuda.CSRC, "*.cu")):
         with open(path) as f:
@@ -37,6 +37,8 @@ def _c_signatures():
                         letters += "u"
                     elif p.startswith("float "):
                         letters += "f"
+                    elif p.startswith("double "):
+                        letters += "d"
                     else:
                         raise AssertionError(f"{name}: parameter {p!r}")
                 out[name] = letters

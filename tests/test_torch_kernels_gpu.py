@@ -45,13 +45,17 @@ from ecrad_tpu_torch.inputs import (add_effective_sizes, make_aerosols,
                                     write_synthetic_luts)
 from ecrad_tpu_torch.interface import (_cloud_stage, radiation,
                                        setup_radiation)
-from ecrad_tpu_torch.ops import (adding_fused, gather_interp, mcica_optics,
+from ecrad_tpu_torch.ops import (adding_fused, gather_interp,
+                                 mcica_generator, mcica_optics,
                                  spartacus_adding, spartacus_reftrans)
 from ecrad_tpu_torch.ops import random_fields as fields
 from ecrad_tpu_torch.optics.rrtmg import taumol_lw, taumol_sw
 from ecrad_tpu_torch.optics.rrtmg.setcoef import prepare_gases, setcoef
 from ecrad_tpu_torch.solvers import adding, tripleclouds
+from ecrad_tpu_torch.solvers.cloud_generator import cloud_generator_plain
 from ecrad_tpu_torch.utils import hooks
+
+import test_torch_mcica_generator as gen_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -451,6 +455,132 @@ def test_threefry_kernel_refuses_what_it_does_not_take(cuda):
     assert fields.launches == n0
 
 
+def _on(dev, args):
+    return [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+
+
+@pytest.fixture(scope="module")
+def gen_luts(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("gen_luts"))
+    write_synthetic_luts(d, 0)
+    return d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(gen_cases.CASES))
+def test_generator_kernel_matches_plain(cuda, gen_luts, case, dtype):
+    """The cloud generator kernel against its plain version on the same
+    uniforms, on the card and on the CPU: the three overlap schemes and
+    beta overlap, both sample forms, ng 1, 112 and 140, 24 and 137
+    levels, on make_clouds' columns (7) and the edge columns (5; a
+    ragged count)."""
+    args_cpu = gen_cases.case_args(gen_luts, case, dtype)
+    args = _on(cuda, args_cpu)
+    n0 = mcica_generator.launches
+    got = mcica_generator.generator_kernel(*args)
+    torch.cuda.synchronize()
+    assert mcica_generator.launches == n0 + 1
+    assert all(t.is_cuda and t.is_contiguous() for t in got)
+    got = tuple(t.cpu() for t in got)
+    for plain_args in (args, args_cpu):
+        want = tuple(t.cpu() for t in cloud_generator_plain(*plain_args))
+        gen_cases.assert_generator_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_generator_kernel_at_the_cells_size(cuda, gen_luts, dtype):
+    """Both generator calls of a McICA radiation call at 2048 x 137 (SW:
+    iseed, 112 g-points; LW: iseed + 997, 140) on the path's cloud: the
+    kernel against the plain path on the same uniforms. A cloudy mask
+    may differ only in a column whose cover the card's plain path (its
+    cumulative sums scanned in float) gives otherwise than the CPU's
+    (summed in order in double, as the kernel sums), in at most 1 of
+    10**6 cells; od_scaling elsewhere and the total cover within the
+    contract's bounds."""
+    from ecrad_tpu_torch.solvers import cloud_cover
+    cfg = mcica_slice_config(**write_synthetic_luts(gen_luts, 0))
+    setup = setup_radiation(cfg, device=cuda)
+    sl, th, _, cloud = columns_to_inputs(
+        make_clouds(make_columns(2048, 137, 0), 0), device=cuda)
+    cloud, _ = _cloud_stage(setup, th, cloud, lambda x: x)
+    frac, op, fsd = (x.to(dtype).contiguous() for x in (
+        cloud.fraction, cloud.overlap_param, cloud.fractional_std))
+    cover = {Overlap.EXPONENTIAL_EXPONENTIAL:
+             cloud_cover.cum_cloud_cover_exp_exp,
+             Overlap.EXPONENTIAL_RANDOM: cloud_cover.cum_cloud_cover_exp_ran,
+             }[cfg.i_overlap_scheme]
+    rel, tcc_abs = gen_cases.BOUNDS[dtype]
+    for ng, shift in ((112, 0), (140, 997)):
+        uniforms = fields.random_fields(sl.iseed + shift, ng, 137, dtype)
+        args = (cfg.i_overlap_scheme, cfg.cloud_fraction_threshold, frac,
+                op, cfg.cloud_inhom_decorr_scaling, fsd, setup.pdf_sampler,
+                cfg.use_beta_overlap, setup.pdf_cheb, *uniforms)
+        od, tcc = mcica_generator.generator_kernel(*args)
+        od_ref, tcc_ref = cloud_generator_plain(*args)
+        torch.cuda.synchronize()
+        assert float((tcc - tcc_ref).abs().max()) <= tcc_abs
+        differ = (od > 0) != (od_ref > 0)
+        n = int(differ.sum())
+        assert n <= 1e-6 * differ.numel(), n
+        if n:
+            cols = differ.flatten(1).any(1).cpu()
+            card = cover(frac, op, cfg.use_beta_overlap)[0].cpu()
+            host = cover(frac.cpu(), op.cpu(), cfg.use_beta_overlap)[0]
+            assert bool((card != host)[cols].any(1).all()), n
+        both = (od > 0) & (od_ref > 0)
+        err = ((od - od_ref).abs() / od_ref.abs().clamp(min=1e-30))[both]
+        assert float(err.max()) <= rel
+
+
+def test_generator_kernel_makes_no_sync(cuda, gen_luts, monkeypatch):
+    """A generator call on the card: the random fields and the generator,
+    one launch each, counted by dtype, and no statement that blocks the
+    host (the plain path's cover syncs before each merge pass)."""
+    from ecrad_tpu_torch.solvers.cloud_generator import cloud_generator
+    args = _on(cuda, gen_cases.case_args(gen_luts, "exp_exp_fast_lw_137",
+                                         torch.float32))
+    overlap, threshold, frac, op, decorr, fsd, sampler = args[:7]
+    cheb = torch.as_tensor(sampler.cheb, device=cuda)
+    iseed = torch.arange(frac.shape[0], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(hooks, "LHOOK", True)
+    hooks.reset_profile()
+    n0 = mcica_generator.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cloud_generator(140, iseed, overlap, threshold, frac, op, decorr,
+                        fsd, sampler, cheb=cheb)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = hooks.counters()
+    hooks.reset_profile()
+    torch.cuda.synchronize()
+    assert mcica_generator.launches == n0 + 1
+    assert counts == {"threefry.kernel": 1,
+                      "launch.threefry_fields.f32": 1,
+                      "launch.mcica_generator.f32": 1}, counts
+
+
+def test_generator_kernel_refuses_what_it_does_not_take(cuda, gen_luts):
+    args = _on(cuda, gen_cases.case_args(gen_luts, "exp_exp_fast_sw",
+                                         torch.float32))
+    n0 = mcica_generator.launches
+    for dtype in (torch.float16, torch.bfloat16):
+        with pytest.raises(TypeError):
+            mcica_generator.generator_kernel(
+                *[a.to(dtype) if isinstance(a, torch.Tensor) else a
+                  for a in args])
+    strided = list(args)
+    strided[10] = strided[10].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        mcica_generator.generator_kernel(*strided)
+    with pytest.raises(TypeError, match="cheb"):
+        mcica_generator.generator_kernel(
+            *args[:8], torch.as_tensor(args[6].cheb, device=cuda).double(),
+            *args[9:])
+    assert mcica_generator.launches == n0
+
+
 def test_kernels_refuse_float64_and_strided_tensors(cuda, slice_state):
     """B1 and B3 take float64 (their double forms) and still refuse half
     tensors, strided tensors and a float64 field block over float32
@@ -483,6 +613,7 @@ def test_kernels_refuse_float64_and_strided_tensors(cuda, slice_state):
 
 def _reset_counts():
     taumol_lw.launches = taumol_sw.launches = fields.launches = 0
+    mcica_generator.launches = 0
     for d in (adding_fused.launches, mcica_optics.launches,
               spartacus_reftrans.launches, spartacus_adding.launches,
               gather_interp.launches, gather_interp.copies):
@@ -564,8 +695,8 @@ def test_mcica_path_launches_its_kernels(cuda, tmp_path, variant):
                                          "tc_lw_sweeps": 0}
         assert mcica_optics.launches == {"mcica_sw_optics": 1,
                                          "mcica_lw_optics": 1}
-    # the random fields of the SW and the LW generator call
-    assert fields.launches == 2
+    # the random fields and the generator of the SW and the LW call
+    assert fields.launches == 2 and mcica_generator.launches == 2
     for k, v in flux.fields():
         assert bool(torch.isfinite(v).all()), k
     setup_cpu = setup_radiation(cfg, device="cpu")
@@ -1677,8 +1808,9 @@ def test_double_forms_resources(cuda):
 
 def test_float64_mcica_call_on_the_card(cuda, tmp_path, monkeypatch):
     """The whole float64 McICA call (the cells' configuration) on 96 x 137
-    columns: B1, B2, B3 (SW twice, LW once), B3', B4's SW form and the
-    generator's random fields (twice) each launched in its double form and
+    columns: B1, B2, B3 (SW twice, LW once), B3', B4's SW form, the
+    generator's random fields and the generator (twice each) each
+    launched in its double form and
     nothing in float (the hooks' launch.<kernel>.<dtype> counters), no
     layer plain on the card, every
     output float64 and within 1e-9 of each field's largest value of the
@@ -1699,7 +1831,7 @@ def test_float64_mcica_call_on_the_card(cuda, tmp_path, monkeypatch):
         "launch.taumol_lw.f64": 1, "launch.taumol_sw.f64": 1,
         "launch.sw_adding.f64": 2, "launch.lw_noscat.f64": 1,
         "launch.lw_adding.f64": 1, "launch.mcica_sw_optics.f64": 1,
-        "launch.threefry_fields.f64": 2}
+        "launch.threefry_fields.f64": 2, "launch.mcica_generator.f64": 2}
     assert not [k for k in counts if k.startswith("plain_on_device.")]
     cpu = radiation(setup_radiation(cfg, device="cpu"),
                     *columns_to_inputs(cols, device="cpu"))

@@ -10,7 +10,8 @@ fluxes are the same bits with the hooks on and off.
 The test marked `gpu` runs one call of each on the card under
 torch.cuda.set_sync_debug_mode("warn"): every synchronising operation
 of the call goes through hooks.sync, so the warnings equal the sync
-counters; McICA's random fields are two kernel launches and no sync. The file imports no jax; on the card:
+counters; McICA's random fields and generator are two kernel launches
+each and no sync. The file imports no jax; on the card:
 
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_tracing.py
 """
@@ -207,10 +208,15 @@ def test_every_sync_of_a_call_is_counted(kind, tmp_path):
         len(warned), hooks.counters(),
         sorted({f"{w.filename}:{w.lineno}" for w in warned}))
     # McICA's two generator calls draw in one kernel launch each, with no
-    # upload of the key
+    # upload of the key, and run the generator in one more each, with no
+    # sync of the cover's merge loop
     counts = hooks.counters()
-    assert counts.get("threefry.kernel", 0) == (2 if kind == "mcica" else 0)
+    calls = 2 if kind == "mcica" else 0
+    assert counts.get("threefry.kernel", 0) == calls
+    assert counts.get("launch.mcica_generator.f32", 0) == calls
     assert "sync.upload.threefry" not in counts
+    assert "sync.cover_merge" not in counts
+    assert "cloud_cover.merge_passes" not in counts
 
 
 def test_plain_on_device_counts_only_while_the_hooks_are_on():
