@@ -1261,9 +1261,9 @@ def main():
                        *[gas.get(n) for n in ("h2o", "co2", "ch4", "n2o",
                                               "cfc11", "cfc12", "hcfc22",
                                               "ccl4", "o3")])
-    c_sf = setcoef(gc, t["preflog"], t["tref"], t["chi_mls"])
+    c_sf = setcoef(gc, setup.gas.preflog, setup.gas.tref, setup.gas.chi_mls)
     c = c_sf.flip_levels()
-    fc_lw, ic_lw = taumol_lw.pack_coeffs(c, t["chi_mls"])
+    fc_lw, ic_lw = taumol_lw.pack_coeffs(c, setup.gas.chi_mls)
     fc_sw, ic_sw = taumol_sw.pack_coeffs(c)
     errs, bounds = {}, {}
 
@@ -1340,7 +1340,7 @@ def main():
     # and for McICA the cloud stage and the cloud generator
     sw_d, sw_dir, lw_alb = get_albedos(setup, sl)
     go = gas_optics(phl, thl, gas.mixing_ratio, sl.skin_temperature,
-                    sl.cos_sza, sl.solar_irradiance, setup.spec, setup.gas,
+                    sl.cos_sza, sl.solar_irradiance, setup.maps, setup.gas,
                     lw_albedo=lw_alb)
     planck = cloudless._gf(go.planck_hl)
     lw_args = ts.lw_no_scattering_transmittance(
@@ -1363,22 +1363,22 @@ def main():
             cfg_m.cloud_fraction_threshold, cloud_m.fraction,
             cloud_m.overlap_param, cfg_m.cloud_inhom_decorr_scaling,
             cloud_m.fractional_std, setup_m.pdf_sampler,
-            cheb=setup_m.pdf_cheb)[0]
+            table=setup_m.pdf_table)[0]
 
     frac_mask = cloud_m.fraction >= cfg_m.cloud_fraction_threshold
     zeros_sw = torch.zeros_like(go.od_sw)
     b4_sw_args = (go.od_sw.contiguous(), go.ssa_sw.contiguous(), zeros_sw,
-                  *props[3:], setup.spec.band_from_g_sw, od_scaling(112, 0),
+                  *props[3:], setup.maps.band_sw32, od_scaling(112, 0),
                   frac_mask, sl.cos_sza, False)
     osc_lw = od_scaling(140, 997)
     b4_lw_args = (go.od_lw.contiguous(), props[0],
-                  setup.spec.band_from_g_lw, osc_lw, frac_mask,
+                  setup.maps.band_lw32, osc_lw, frac_mask,
                   go.planck_hl.contiguous())
     # B3' on the McICA total sky's layers: clear values outside clouds
     from ecrad_tpu_torch.optics.combine import combine_cloud_gas_lw
     zeros_lw = torch.zeros_like(go.od_lw)
     od_t, ssa_t, g_t = combine_cloud_gas_lw(
-        go.od_lw, zeros_lw, zeros_lw, *props[:3], setup.spec.band_from_g_lw,
+        go.od_lw, zeros_lw, zeros_lw, *props[:3], setup.maps.band_lw,
         True, od_scaling=osc_lw, cloud_mask=frac_mask[..., None])
     lwadd_args = ts.lw_reftrans(
         cloudless._gf(od_t), *ts.lw_gammas(cloudless._gf(ssa_t),
@@ -1765,7 +1765,8 @@ def main():
     for mod in (taumol_lw_sections, taumol_sw_sections):
         mod.eval_sections = keep_sections
     pb_lw = taumol_lw_sections.taumol_lw_sections(c_sf, t, toa_first=True)
-    pb_sw = taumol_sw_sections.taumol_sw_sections(c_sf, t, toa_first=True)
+    pb_sw = taumol_sw_sections.taumol_sw_sections(c_sf, setup.gas,
+                                                  toa_first=True)
     for mod in (taumol_lw_sections, taumol_sw_sections):
         mod.eval_sections = gi.eval_sections
     if len(b10_calls) != B10_PER_CALL:
@@ -1834,8 +1835,8 @@ def main():
                                       float((a - b).abs().max()))
     # the per-band optical depths (B10) against the all-band kernels' (B1,
     # B2), at the JAX package's fused-vs-per-band bound
-    fu_lw = taumol_lw.taumol_lw_cells(c_sf, t["chi_mls"], setup.gas.lw)
-    fu_sw = taumol_sw.taumol_sw_cells(c_sf, t, setup.gas.sw)
+    fu_lw = taumol_lw.taumol_lw_cells(c_sf, setup.gas.chi_mls, setup.gas.lw)
+    fu_sw = taumol_sw.taumol_sw_cells(c_sf, setup.gas)
     for name, x, y in (("tau", pb_lw[0], fu_lw[0]),
                        ("pfrac", pb_lw[1], fu_lw[1]),
                        ("taug", pb_sw[0], fu_sw[0]),
@@ -1891,7 +1892,7 @@ def main():
          cloud_m.fraction.contiguous(), cloud_m.overlap_param.contiguous(),
          cfg_m.cloud_inhom_decorr_scaling,
          cloud_m.fractional_std.contiguous(), setup_m.pdf_sampler,
-         cfg_m.use_beta_overlap, setup_m.pdf_cheb,
+         cfg_m.use_beta_overlap, setup_m.pdf_table,
          *rf.random_fields_kernel(iseed, ng, NLEV, torch.float32))
         for (ng, _), iseed in zip(GENERATOR_CALLS, rf_seeds)]
     errs["mcica_generator"], bounds["mcica_generator"] = check_generator(

@@ -634,12 +634,10 @@ def spartacus_slice_config(**overrides) -> RadiationConfig:
         "min_cloud_effective_size": 100.0, **overrides})
 
 
-def _unsupported(cfg: RadiationConfig):
-    """(setting, ROADMAP Queue A item that brings it) for each setting of
-    `cfg` the port lacks: none, since every setting the JAX package's
-    setup_radiation accepts is ported (a tiled-surface input is the
-    driver's to refuse). Raises ValueError for a region count or dtype
-    that no solver takes."""
+def check_supported(cfg: RadiationConfig) -> None:
+    """Raise ValueError for a region count or dtype that no solver takes.
+    Every other setting the JAX package's setup_radiation accepts is
+    ported (a tiled-surface input is the driver's to refuse)."""
     solvers = (cfg.i_solver_sw, cfg.i_solver_lw)
     for solver in (Solver.TRIPLECLOUDS, Solver.SPARTACUS):
         if solver in solvers and cfg.nregions not in (2, 3):
@@ -648,13 +646,3 @@ def _unsupported(cfg: RadiationConfig):
     if cfg.dtype not in ("float32", "float64"):
         raise ValueError(f"dtype must be float32 or float64, not "
                          f"{cfg.dtype!r}")
-    yield from ()
-
-
-def check_supported(cfg: RadiationConfig) -> None:
-    """Raise NotImplementedError for a setting the port lacks, rather
-    than silently computing something else, and ValueError for one no
-    solver takes."""
-    for what, where in _unsupported(cfg):
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP.md Queue A, item {where})")

@@ -19,7 +19,8 @@ import numpy as np
 import torch
 
 from .constants import ACCEL_DUE_TO_GRAVITY
-from .interface import RadiationSetup, _band_sum, radiation
+from .interface import (RadiationSetup, _group_index, _indexed_sum,
+                        radiation)
 from .optics.rrtmg.gas_optics import WAVENUM1_SW, WAVENUM2_SW
 from .types import Aerosol, Cloud, GasConcs, SingleLevel, Thermodynamics
 
@@ -169,7 +170,7 @@ def unpack_host_outputs(setup: RadiationSetup, flux, *, cos_sza,
     surface SW per albedo band of the approximate SW update
     (LAPPROXSWUPDATE; each SW band summed into its albedo band, the
     nearest one or with overlap weights the one of largest weight, by the
-    gather-and-sum of interface._band_sum)."""
+    gather-and-sum of interface._indexed_sum)."""
     like = flux.sw_dn
     t = lambda x: torch.as_tensor(x, dtype=like.dtype, device=like.device)
     net_lw = flux.lw_dn - flux.lw_up
@@ -197,12 +198,11 @@ def unpack_host_outputs(setup: RadiationSetup, flux, *, cos_sza,
                          if setup.sw_albedo_map is not None
                          else np.argmax(np.asarray(setup.sw_albedo_weights),
                                         axis=0))
-        n_alb = int(alb_from_band.max()) + 1
-        sw_diffuse_band = _band_sum(
-            flux.sw_dn_surf_band - flux.sw_dn_direct_surf_band,
-            alb_from_band, n_alb)
-        sw_direct_band = _band_sum(flux.sw_dn_direct_surf_band,
-                                   alb_from_band, n_alb)
+        idx = _group_index(alb_from_band, int(alb_from_band.max()) + 1,
+                           like.device)
+        sw_diffuse_band = _indexed_sum(
+            flux.sw_dn_surf_band - flux.sw_dn_direct_surf_band, idx, 1)
+        sw_direct_band = _indexed_sum(flux.sw_dn_direct_surf_band, idx, 1)
     return HostOutputs(
         flux_sw=flux.sw_dn - flux.sw_up, flux_lw=net_lw,
         flux_sw_clear=flux.sw_dn_clear - flux.sw_up_clear,

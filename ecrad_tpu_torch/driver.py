@@ -73,7 +73,7 @@ def _lowest_level_extinction(setup, single_level, thermo, gas):
     go = gas_optics(
         thermo.pressure_hl, thermo.temperature_hl, gas.mixing_ratio,
         single_level.skin_temperature, single_level.cos_sza,
-        single_level.solar_irradiance, setup.spec, setup.gas,
+        single_level.solar_irradiance, setup.maps, setup.gas,
         lw_albedo=get_albedos(setup, single_level)[2],
         min_gas_od_lw=cfg.min_gas_od_lw, min_gas_od_sw=cfg.min_gas_od_sw)
     r_over_g = 287.058 / ACCEL_DUE_TO_GRAVITY

@@ -39,14 +39,14 @@ from .optics.cloud import (CloudOpticsTables, cloud_optics,
 from .optics.monochromatic import cloud_optics_mono, gas_optics_mono
 from .optics.rrtmg.gas_optics import (
     WAVENUM1_LW, WAVENUM1_SW, WAVENUM2_LW, WAVENUM2_SW, GasOpticsSpec,
-    GasTables, gas_optics, gas_tables, make_spec)
+    GasTables, SpecTensors, gas_optics, gas_tables, make_spec, spec_tensors)
 from .optics.rrtmg.tables import load_tables
 from .optics.spectral_mapping import (expand_to_g, interval_mapping,
                                       single_g_mapping)
 from .solvers.cloudless import solver_cloudless_lw, solver_cloudless_sw
 from .solvers.dispatch import solve_lw, solve_sw
 from .solvers.lw_derivatives import lw_derivatives_ica
-from .solvers.pdf_sampler import PdfSampler, setup_pdf_sampler
+from .solvers.pdf_sampler import PdfSampler, pdf_table, setup_pdf_sampler
 from .types import (AEROSOL_FIELDS, LEVEL_FLUX_FIELDS, Aerosol, Cloud,
                     Flux, GasConcs, SingleLevel, Thermodynamics)
 from .utils import hooks
@@ -56,7 +56,9 @@ DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 @dataclass
 class RadiationSetup:
-    """Static data for one configuration on one device."""
+    """Static data for one configuration on one device. make_setup puts
+    every array a radiation() call reads on the device, once, in the
+    dtype its reader takes; the numpy fields are for host code."""
     config: RadiationConfig
     tables: dict                       # RRTMG coefficient tables (numpy)
     spec: GasOpticsSpec
@@ -68,10 +70,14 @@ class RadiationSetup:
     device: torch.device
     dtype: torch.dtype
     gas: Optional[GasTables]           # tables on the device (RRTMG only)
+    maps: SpecTensors                  # spec on the device
+    # "sw"/"lw": (interval map, weights) on the device, as the numpy pair
+    intervals: dict
+    sums: dict                         # _indexed_sum's index per flux map
     cloud_optics: Optional[CloudOpticsTables] = None   # numpy, as read
     pdf_sampler: Optional[PdfSampler] = None
     cloud_coeffs: Optional[dict] = None   # cloud_optics on the device
-    pdf_cheb: Optional[torch.Tensor] = None   # pdf_sampler.cheb, device
+    pdf_table: Optional[torch.Tensor] = None  # the sampler's, on the device
     aerosol_optics: Optional[AerosolOpticsTables] = None   # numpy, as read
     aerosol_coeffs: Optional[dict] = None     # aerosol_tensors, device
 
@@ -128,19 +134,41 @@ def setup_radiation(config: RadiationConfig,
 def make_setup(config, tables, spec, sw_map, sw_weights, lw_map,
                lw_weights, device, cloud_optics=None, pdf_sampler=None,
                aerosol_optics=None) -> RadiationSetup:
+    """The setup from its numpy parts: the one place where the static
+    arrays of a radiation() call go to the device."""
     device = resolve_device(device)
     dtype = DTYPES[config.dtype]
+    opt = lambda x, dt=None: (None if x is None else torch.as_tensor(
+        np.asarray(x), dtype=dt, device=device))
+    sums = {}
+    for r, nb, imap, weights in (("lw", 16, lw_map, lw_weights),
+                                 ("sw", 14, sw_map, sw_weights)):
+        band = getattr(spec, f"band_from_reordered_g_{r}")
+        canopy = (band if imap is None else np.asarray(imap)[band],
+                  int(np.max(band if imap is None else imap)) + 1)
+        if config.do_save_gpoint_flux:
+            g = getattr(spec, f"g_from_reordered_g_{r}")
+            spectral = (g, len(g))
+        else:       # (one band for the monochromatic model)
+            spectral = (band, nb if len(band) > 1 else 1)
+        for name, (group_of, ngroups) in (("band", (band, nb)),
+                                          ("canopy", canopy),
+                                          ("spectral", spectral)):
+            sums[f"{name}_{r}"] = _group_index(group_of, ngroups, device)
     return RadiationSetup(
         config=config, tables=tables, spec=spec,
         sw_albedo_map=sw_map, sw_albedo_weights=sw_weights,
         lw_emiss_map=lw_map, lw_emiss_weights=lw_weights,
         device=device, dtype=dtype,
         gas=gas_tables(tables, dtype, device) if tables else None,
-        cloud_optics=cloud_optics, pdf_sampler=pdf_sampler,
+        maps=spec_tensors(spec, device),
+        intervals={"sw": (opt(sw_map, torch.int64), opt(sw_weights, dtype)),
+                   "lw": (opt(lw_map, torch.int64), opt(lw_weights, dtype))},
+        sums=sums, cloud_optics=cloud_optics, pdf_sampler=pdf_sampler,
         cloud_coeffs=(None if cloud_optics is None
                       else coefficient_tensors(cloud_optics, device)),
-        pdf_cheb=(None if pdf_sampler is None or pdf_sampler.cheb is None
-                  else torch.as_tensor(pdf_sampler.cheb, device=device)),
+        pdf_table=(None if pdf_sampler is None
+                   else pdf_table(pdf_sampler, dtype, device)),
         aerosol_optics=aerosol_optics,
         aerosol_coeffs=(None if aerosol_optics is None
                         else aerosol_tensors(aerosol_optics, dtype, device)))
@@ -152,85 +180,71 @@ def get_albedos(setup: RadiationSetup, single_level: SingleLevel):
     With use_canopy_full_spectrum_* an albedo or emissivity given per g
     (in the spec's g order) passes through unchanged (:240-248)."""
     cfg = setup.config
-    band_sw = setup.spec.band_from_reordered_g_sw
-    band_lw = setup.spec.band_from_reordered_g_lw
+    band_sw, band_lw = setup.maps.band_sw, setup.maps.band_lw
 
     def sw(values):
         if cfg.use_canopy_full_spectrum_sw and \
                 values.shape[-1] == len(band_sw):
             return values
-        return expand_to_g(values, setup.sw_albedo_map,
-                           setup.sw_albedo_weights, band_sw)
+        return expand_to_g(values, *setup.intervals["sw"], band_sw)
     sw_diffuse = sw(single_level.sw_albedo)
     sw_direct = (sw_diffuse if single_level.sw_albedo_direct is None
                  else sw(single_level.sw_albedo_direct))
     emissivity = single_level.lw_emissivity
     if not (cfg.use_canopy_full_spectrum_lw
             and emissivity.shape[-1] == len(band_lw)):
-        emissivity = expand_to_g(emissivity, setup.lw_emiss_map,
-                                 setup.lw_emiss_weights, band_lw)
+        emissivity = expand_to_g(emissivity, *setup.intervals["lw"],
+                                 band_lw)
     return sw_diffuse, sw_direct, 1.0 - emissivity
 
 
-def _indexed_sum(x, group_of, ngroups, dim):
-    """x summed over its axis `dim` in groups, member k going to group
-    group_of[k]: that axis becomes ngroups long. Each group's members are
-    gathered into a row padded with zeros to the widest group, then
-    summed; groups of one member each are a plain gather. No atomics (an
-    index_add_ on the GPU adds in a different order on every run), so a
-    run repeats bit for bit; no matmul, so TF32 never rounds a flux."""
+def _group_index(group_of, ngroups, device):
+    """_indexed_sum's index for summing an axis in groups, member k going
+    to group group_of[k] (numpy, at setup): (ngroups,) where each group
+    has one member, else (ngroups, width) padded with len(group_of) (the
+    zero row) to the widest group."""
     group_of = np.asarray(group_of)
     members = [np.flatnonzero(group_of == b) for b in range(ngroups)]
-    n = x.shape[dim]
-    width = max(len(m) for m in members)
-    idx = np.full((ngroups, width), n)
+    idx = np.full((ngroups, max(len(m) for m in members)), len(group_of))
     for b, m in enumerate(members):
         idx[b, :len(m)] = m
-    idx = hooks.upload("interface", idx, x.device)
     if all(len(m) == 1 for m in members):
-        return x.index_select(dim, idx[:, 0])
+        idx = idx[:, 0]
+    return torch.as_tensor(idx, device=device)
+
+
+def _indexed_sum(x, idx, dim):
+    """x summed over its axis `dim` in the groups of `idx` (_group_index):
+    that axis becomes ngroups long. Each group's members are gathered
+    into a row padded with zeros to the widest group, then summed; groups
+    of one member each are a plain gather. No atomics (an index_add_ on
+    the GPU adds in a different order on every run), so a run repeats bit
+    for bit; no matmul, so TF32 never rounds a flux."""
+    if idx.dim() == 1:
+        return x.index_select(dim, idx)
     pad = list(x.shape)
     pad[dim] = 1
     padded = torch.cat([x, x.new_zeros(pad)], dim)
     return padded.index_select(dim, idx.flatten()).unflatten(
-        dim, (ngroups, width)).sum(dim + 1)
+        dim, tuple(idx.shape)).sum(dim + 1)
 
 
-def _band_sum(flux_g, band_from_g, nbands):
-    """(ncol, ng) -> (ncol, nbands)."""
-    return _indexed_sum(flux_g, band_from_g, nbands, 1)
-
-
-def _canopy_sum(flux_g, band_from_g, imap, weights):
+def _canopy_sum(setup, flux_g, region):
     """Surface per-g flux (ncol, ng) -> canopy intervals (ncol, nint)
     (radiation_flux.F90:377-450): the nearest interval's sum, or the band
     sums weighted by the intervals' overlap (nint, nbands), an explicit
     multiply-add (no TF32)."""
-    if imap is not None:
-        imap = np.asarray(imap)
-        return _band_sum(flux_g, imap[band_from_g], int(imap.max()) + 1)
-    bands = _band_sum(flux_g, band_from_g, int(np.max(band_from_g)) + 1)
-    w = hooks.upload("interface", weights, flux_g.device, flux_g.dtype)
-    return (bands[:, None, :] * w[None]).sum(-1)
+    sums = _indexed_sum(flux_g, setup.sums["canopy_" + region], 1)
+    w = setup.intervals[region][1]
+    return sums if w is None else (sums[:, None, :] * w[None]).sum(-1)
 
 
-def _profiles(x, spec_map, nspec):
-    """g-first (nlev+1, ng, ncol) -> (ncol, nlev+1, nspec), summed by
-    spec_map (a band map, or g_from_reordered_g: a permutation back to
-    the original g order)."""
-    return _indexed_sum(x, spec_map, nspec, 1).permute(2, 0, 1)
-
-
-def _spectral_map(setup, region, nbands):
-    """(map, length) of the do_save_spectral_flux profiles of a region:
-    per g in the original order with do_save_gpoint_flux, else per band
-    (one band for the monochromatic model)."""
-    spec = setup.spec
-    if setup.config.do_save_gpoint_flux:
-        g = getattr(spec, f"g_from_reordered_g_{region}")
-        return g, len(g)
-    band = getattr(spec, f"band_from_reordered_g_{region}")
-    return band, nbands if len(band) > 1 else 1
+def _profiles(setup, x, region):
+    """g-first (nlev+1, ng, ncol) -> (ncol, nlev+1, nspec), summed by the
+    region's spectral map (a band map, or g_from_reordered_g: a
+    permutation back to the original g order)."""
+    return _indexed_sum(x, setup.sums["spectral_" + region], 1).permute(
+        2, 0, 1)
 
 
 def _gsum(x):
@@ -343,7 +357,7 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
                 thermodynamics.pressure_hl, thermodynamics.temperature_hl,
                 gas.mixing_ratio, single_level.skin_temperature,
                 single_level.cos_sza, single_level.solar_irradiance,
-                setup.spec, setup.gas, lw_albedo=lw_albedo,
+                setup.maps, setup.gas, lw_albedo=lw_albedo,
                 min_gas_od_lw=cfg.min_gas_od_lw,
                 min_gas_od_sw=cfg.min_gas_od_sw,
                 spectral_solar_scaling=(single_level.spectral_solar_scaling
@@ -356,11 +370,8 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
         # (radiation_ifs_rrtm.F90:436-443)
         emission = single_level.lw_emission
         if emission.shape[-1] != go.od_lw.shape[-1]:
-            band_g = setup.spec.band_from_reordered_g_lw
-            idx = (setup.lw_emiss_map[band_g]
-                   if setup.lw_emiss_map is not None else band_g)
-            emission = emission[:, hooks.upload("interface", idx,
-                                                emission.device)]
+            band_g, imap = setup.maps.band_lw, setup.intervals["lw"][0]
+            emission = emission[:, band_g if imap is None else imap[band_g]]
 
     # the aerosol stage: the clear sky includes the aerosols
     zeros_lw = torch.zeros_like(go.od_lw)
@@ -373,9 +384,8 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
                                      for f in AEROSOL_FIELDS})
         with hooks.hook("ecrad.aerosol"):
             od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw = add_aerosol_optics(
-                cfg, setup.aerosol_coeffs,
-                setup.spec.band_from_reordered_g_sw,
-                setup.spec.band_from_reordered_g_lw, thermodynamics, gas,
+                cfg, setup.aerosol_coeffs, setup.maps.band_sw,
+                setup.maps.band_lw, thermodynamics, gas,
                 aerosol, od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw)
 
     cloud_props = None
@@ -426,40 +436,37 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
 
 def _lw_fields(setup, lw, lw_clear, do_clear) -> dict:
     cfg = setup.config
-    band_lw = setup.spec.band_from_reordered_g_lw
+    band_lw = setup.sums["band_lw"]
     up, dn, surf_g = _gsum(lw.up), _gsum(lw.dn), _surf_g(lw.dn)
     out = dict(lw_up=up, lw_dn=dn, lw_dn_surf_g=surf_g,
-               lw_dn_surf_band=_band_sum(surf_g, band_lw, 16))
+               lw_dn_surf_band=_indexed_sum(surf_g, band_lw, 1))
     if do_clear:
         if lw_clear is not lw:
             up, dn = _gsum(lw_clear.up), _gsum(lw_clear.dn)
-            out["lw_dn_surf_clear_band"] = _band_sum(_surf_g(lw_clear.dn),
-                                                     band_lw, 16)
+            out["lw_dn_surf_clear_band"] = _indexed_sum(
+                _surf_g(lw_clear.dn), band_lw, 1)
         else:
             out["lw_dn_surf_clear_band"] = out["lw_dn_surf_band"]
         out.update(lw_up_clear=up, lw_dn_clear=dn)
     if cfg.do_canopy_fluxes_lw:
         out["lw_dn_surf_canopy"] = (
-            surf_g if cfg.use_canopy_full_spectrum_lw else _canopy_sum(
-                surf_g, band_lw, setup.lw_emiss_map, setup.lw_emiss_weights))
+            surf_g if cfg.use_canopy_full_spectrum_lw
+            else _canopy_sum(setup, surf_g, "lw"))
     if cfg.do_save_spectral_flux:
-        smap, nspec = _spectral_map(setup, "lw", 16)
-        out.update(lw_up_band=_profiles(lw.up, smap, nspec),
-                   lw_dn_band=_profiles(lw.dn, smap, nspec))
+        out.update(lw_up_band=_profiles(setup, lw.up, "lw"),
+                   lw_dn_band=_profiles(setup, lw.dn, "lw"))
         if do_clear:
             out.update(
                 lw_up_band_clear=(out["lw_up_band"] if lw_clear is lw
-                                  else _profiles(lw_clear.up, smap, nspec)),
+                                  else _profiles(setup, lw_clear.up, "lw")),
                 lw_dn_band_clear=(out["lw_dn_band"] if lw_clear is lw
-                                  else _profiles(lw_clear.dn, smap, nspec)))
+                                  else _profiles(setup, lw_clear.dn, "lw")))
     return out
 
 
 def _sw_fields(setup, sw, sw_clear) -> dict:
     cfg = setup.config
-    band_sw = setup.spec.band_from_reordered_g_sw
-    if cfg.do_save_spectral_flux:
-        smap, nspec = _spectral_map(setup, "sw", 14)
+    band_sw = setup.sums["band_sw"]
 
     def fields(s):
         surf_dif, surf_dir = _surf_g(s.dn_diffuse), _surf_g(s.dn_direct)
@@ -467,14 +474,14 @@ def _sw_fields(setup, sw, sw_clear) -> dict:
         f = {"up": _gsum(s.up), "dn": _gsum(dn),
              "direct": _gsum(s.dn_direct) if cfg.do_sw_direct else None,
              "surf_dif": surf_dif, "surf_dir": surf_dir,
-             "surf_band": (_band_sum(surf_dif + surf_dir, band_sw, 14)
+             "surf_band": (_indexed_sum(surf_dif + surf_dir, band_sw, 1)
                            if cfg.do_surface_sw_spectral_flux else None),
-             "direct_band": (_band_sum(surf_dir, band_sw, 14)
+             "direct_band": (_indexed_sum(surf_dir, band_sw, 1)
                              if cfg.do_surface_sw_spectral_flux else None)}
         if cfg.do_save_spectral_flux:
-            f.update(up_band=_profiles(s.up, smap, nspec),
-                     dn_band=_profiles(dn, smap, nspec),
-                     direct_band_profile=_profiles(s.dn_direct, smap, nspec))
+            f.update(up_band=_profiles(setup, s.up, "sw"),
+                     dn_band=_profiles(setup, dn, "sw"),
+                     direct_band_profile=_profiles(setup, s.dn_direct, "sw"))
         return f
 
     tot = fields(sw)
@@ -495,8 +502,7 @@ def _sw_fields(setup, sw, sw_clear) -> dict:
                        sw_dn_direct_surf_clear_band=clr["direct_band"])
     if cfg.do_canopy_fluxes_sw:
         canopy = ((lambda x: x) if cfg.use_canopy_full_spectrum_sw else
-                  (lambda x: _canopy_sum(x, band_sw, setup.sw_albedo_map,
-                                         setup.sw_albedo_weights)))
+                  (lambda x: _canopy_sum(setup, x, "sw")))
         out.update(sw_dn_diffuse_surf_canopy=canopy(tot["surf_dif"]),
                    sw_dn_direct_surf_canopy=canopy(tot["surf_dir"]))
     if cfg.do_save_spectral_flux:

@@ -187,7 +187,7 @@ def save_radiative_properties(path: str, setup, single_level, thermo,
     go = gas_optics(thermo.pressure_hl, thermo.temperature_hl,
                     gas.mixing_ratio, single_level.skin_temperature,
                     single_level.cos_sza, single_level.solar_irradiance,
-                    setup.spec, setup.gas,
+                    setup.maps, setup.gas,
                     lw_albedo=get_albedos(setup, single_level)[2],
                     min_gas_od_lw=cfg.min_gas_od_lw,
                     min_gas_od_sw=cfg.min_gas_od_sw)

@@ -30,13 +30,13 @@ launches = 0
 def generator_kernel(overlap_scheme, frac_threshold: float, frac,
                      overlap_param, decorrelation_scaling: float,
                      fractional_std, pdf_sampler, is_beta_overlap: bool,
-                     cheb, rand_top, rand_cloud, u1, u2):
+                     table, rand_top, rand_cloud, u1, u2):
     """od_scaling (ncol, nlev, ng) and total_cloud_cover (ncol,) from
     frac, fractional_std (ncol, nlev), overlap_param (ncol, nlev-1) and
     the generator's uniforms rand_top (ncol, ng) and rand_cloud, u1, u2
-    (ncol, nlev, ng). `cheb` is the sampler's Chebyshev table on the
-    device, or None; the sample form and any upload of a table follow
-    the plain version."""
+    (ncol, nlev, ng). `table` is the sampler's pdf_table on the device:
+    its Chebyshev table where it has one, else its `val` in frac's
+    dtype; the sample form follows the plain version."""
     global launches
     dtype = frac.dtype
     if dtype not in (torch.float32, torch.float64):
@@ -68,15 +68,13 @@ def generator_kernel(overlap_scheme, frac_threshold: float, frac,
                              f"{t.device}")
     dev = frac.device
     nfsd, ncdf = pdf_sampler.nfsd, pdf_sampler.ncdf
-    val = None
+    cheb = val = None
     if pdf_sampler.cheb is not None:
-        if cheb is None:
-            cheb = torch.as_tensor(pdf_sampler.cheb, device=dev)
+        cheb = table
         _cuda.check(cheb, torch.float32, (nfsd, CHEB_DEGREE + 1), "cheb")
     else:
-        cheb = None
-        val = torch.as_tensor(pdf_sampler.val, dtype=dtype,
-                              device=dev).contiguous()
+        val = table
+        _cuda.check(val, dtype, (ncdf, nfsd), "val")
     od_scaling = torch.empty((ncol, nlev, ng), dtype=dtype, device=dev)
     total = torch.empty((ncol,), dtype=dtype, device=dev)
     _cuda.launch("mcica_generator", frac, overlap_param, fractional_std,

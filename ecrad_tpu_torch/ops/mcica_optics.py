@@ -30,9 +30,6 @@ along columns are both coalesced.
 """
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
 from ..optics.cloud import delta_eddington
@@ -81,30 +78,19 @@ def lw_clear_total_noscat_plain(od, od_cloud, band_from_g, od_scaling,
     sd)."""
     pt, pb = _gf(planck_hl[:, :-1, :]), _gf(planck_hl[:, 1:, :])
     clear = ts.lw_no_scattering_transmittance(_gf(od), pt, pb)
-    b = hooks.upload("mcica_optics", band_from_g, od.device)
     od_t = torch.where(frac_mask[..., None],
-                       od + od_cloud[:, :, b] * od_scaling, od)
+                       od + od_cloud[:, :, band_from_g] * od_scaling, od)
     tot = ts.lw_no_scattering_transmittance(_gf(od_t), pt, pb)
     mg = frac_mask.T.contiguous()[:, None, :]
     return clear + tuple(torch.where(mg, x, c) for x, c in zip(tot, clear))
 
 
-@functools.lru_cache(maxsize=16)
-def _band_index(band_bytes: bytes, device: str) -> torch.Tensor:
-    return torch.as_tensor(np.frombuffer(band_bytes, np.int32).copy(),
-                           device=device)
-
-
-def _bands(band_from_g, device):
-    return _band_index(np.asarray(band_from_g, np.int32).tobytes(),
-                       str(device))
-
-
 def mcica_sw_optics_fused(od, ssa, g, od_cloud, ssa_cloud, g_cloud,
                           band_from_g, od_scaling, frac_mask, mu0,
                           delta_all):
-    """Kernel B4 (SW) on CUDA float32 or float64 operands; arguments
-    and results as sw_clear_total_reftrans_plain."""
+    """Kernel B4 (SW) on CUDA float32 or float64 operands and an int32
+    band_from_g (SpecTensors.band_sw32); arguments and results as
+    sw_clear_total_reftrans_plain."""
     ncol, nlev, ng = od.shape
     nb = od_cloud.shape[-1]
     dt = _cuda.scalar(od, "od")
@@ -116,14 +102,11 @@ def mcica_sw_optics_fused(od, ssa, g, od_cloud, ssa_cloud, g_cloud,
         _cuda.check(x, dt, (ncol, nlev, nb), name)
     _cuda.check(frac_mask, torch.bool, (ncol, nlev), "frac_mask")
     _cuda.check(mu0, dt, (ncol,), "mu0")
-    if len(band_from_g) != ng:
-        raise ValueError(f"band_from_g has {len(band_from_g)} entries for "
-                         f"{ng} g-points")
+    _cuda.check(band_from_g, torch.int32, (ng,), "band_from_g")
     out = torch.empty((10, nlev, ng, ncol), dtype=dt, device=od.device)
     _cuda.launch("mcica_sw_optics", od, ssa, g, od_scaling, od_cloud,
-                 ssa_cloud, g_cloud, frac_mask, mu0,
-                 _bands(band_from_g, od.device), ncol, nlev, ng, nb,
-                 int(bool(delta_all)), out, dtype=dt)
+                 ssa_cloud, g_cloud, frac_mask, mu0, band_from_g, ncol,
+                 nlev, ng, nb, int(bool(delta_all)), out, dtype=dt)
     launches["mcica_sw_optics"] += 1
     return tuple(out)
 
@@ -131,7 +114,7 @@ def mcica_sw_optics_fused(od, ssa, g, od_cloud, ssa_cloud, g_cloud,
 def mcica_lw_optics_fused(od, od_cloud, band_from_g, od_scaling, frac_mask,
                           planck_hl):
     """Kernel B4 (LW, no scattering) on CUDA float32 operands (it has
-    no double form); arguments and results as
+    no double form) and an int32 band_from_g; arguments and results as
     lw_clear_total_noscat_plain."""
     ncol, nlev, ng = od.shape
     nb = od_cloud.shape[-1]
@@ -141,13 +124,10 @@ def mcica_lw_optics_fused(od, od_cloud, band_from_g, od_scaling, frac_mask,
     _cuda.check(od_cloud, f32, (ncol, nlev, nb), "od_cloud")
     _cuda.check(frac_mask, torch.bool, (ncol, nlev), "frac_mask")
     _cuda.check(planck_hl, f32, (ncol, nlev + 1, ng), "planck_hl")
-    if len(band_from_g) != ng:
-        raise ValueError(f"band_from_g has {len(band_from_g)} entries for "
-                         f"{ng} g-points")
+    _cuda.check(band_from_g, torch.int32, (ng,), "band_from_g")
     out = torch.empty((6, nlev, ng, ncol), dtype=f32, device=od.device)
     _cuda.launch("mcica_lw_optics", od, od_scaling, od_cloud, frac_mask,
-                 planck_hl, _bands(band_from_g, od.device), ncol, nlev, ng,
-                 nb, out)
+                 planck_hl, band_from_g, ncol, nlev, ng, nb, out)
     launches["mcica_lw_optics"] += 1
     return tuple(out)
 

@@ -25,7 +25,6 @@ import torch
 from ..config import RadiationConfig
 from ..constants import ACCEL_DUE_TO_GRAVITY, GAS_INDEX
 from ..io.netcdf import NetcdfFile
-from ..utils import hooks
 from .cloud import delta_eddington_extensive
 
 
@@ -113,10 +112,10 @@ def add_aerosol_optics(config: RadiationConfig, tabs: Dict[str, torch.Tensor],
                        aerosol, od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw):
     """Merge the aerosols into the per-g properties, each (ncol, nlev, ng)
     (radiation_aerosol_optics.F90:75-344). `tabs` is aerosol_tensors of
-    the setup. Returns (od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw)."""
+    the setup, the band maps int64 tensors on the device. Returns (od_lw,
+    ssa_lw, g_lw, od_sw, ssa_sw, g_sw)."""
     dev = od_sw.device
-    b_sw = hooks.upload("aerosol", band_from_g_sw, dev)
-    b_lw = hooks.upload("aerosol", band_from_g_lw, dev)
+    b_sw, b_lw = band_from_g_sw, band_from_g_lw
     if aerosol.od_sw is not None:
         return _add_direct(aerosol, b_sw, b_lw, od_lw, ssa_lw, g_lw, od_sw,
                            ssa_sw)

@@ -2,7 +2,8 @@
 
 Port of ecrad_tpu/optics/combine.py:16-70 (radiation_mcica_sw.F90:
 220-274). Cloud arrays are (ncol, nlev, nbands), gas arrays (ncol, nlev,
-ng); band_from_g maps each g-point to its band. od_scaling, when given,
+ng); band_from_g (a tensor on their device) maps each g-point to its
+band. od_scaling, when given,
 scales the cloud optical depth per (ncol, nlev, ng) (the McICA subcolumn
 scaling); cloud_mask (broadcasting against od) keeps the gas values where
 it is false.
@@ -10,8 +11,6 @@ it is false.
 from __future__ import annotations
 
 import torch
-
-from ..utils import hooks
 
 
 def _mix(od, ssa, g, odc, ssac, gc, cloud_mask):
@@ -35,7 +34,7 @@ def _mix(od, ssa, g, odc, ssac, gc, cloud_mask):
 def combine_cloud_gas_sw(od, ssa, g, od_cloud, ssa_cloud, g_cloud,
                          band_from_g, od_scaling=None, cloud_mask=None):
     """Returns (od_total, ssa_total, g_total), (ncol, nlev, ng)."""
-    b = hooks.upload("combine", band_from_g, od.device)
+    b = band_from_g
     odc = od_cloud[:, :, b]
     if od_scaling is not None:
         odc = odc * od_scaling
@@ -52,7 +51,7 @@ def combine_cloud_gas_lw(od, ssa, g, od_cloud, ssa_cloud, g_cloud,
         return combine_cloud_gas_sw(od, ssa, g, od_cloud, ssa_cloud,
                                     g_cloud, band_from_g, od_scaling,
                                     cloud_mask)
-    odc = od_cloud[:, :, hooks.upload("combine", band_from_g, od.device)]
+    odc = od_cloud[:, :, band_from_g]
     if od_scaling is not None:
         odc = odc * od_scaling
     od_total = od + odc

@@ -24,7 +24,6 @@ import numpy as np
 import torch
 
 from ...constants import GAS_INDEX
-from ...utils import hooks
 from . import fused_tables
 from .setcoef import prepare_gases, setcoef
 from .taumol_common import DeviceTables, device_tables
@@ -108,13 +107,49 @@ def spec_from_arrays(band_lw, band_sw, g_lw=None, g_sw=None
                          band_from_reordered_g_sw=band_sw[g_sw])
 
 
+class SpecTensors(NamedTuple):
+    """A GasOpticsSpec's maps on the device (built once by the setup):
+    the band maps of the spec's g order as int64 indices and as the int32
+    that kernel B4 reads, the SW band map of the original g order, and
+    the g orders, None where the order is the identity."""
+    band_lw: torch.Tensor              # band_from_reordered_g_lw
+    band_sw: torch.Tensor              # band_from_reordered_g_sw
+    band_lw32: torch.Tensor
+    band_sw32: torch.Tensor
+    band_sw_original: torch.Tensor     # band_from_g_sw
+    g_lw: Optional[torch.Tensor]       # g_from_reordered_g_lw
+    g_sw: Optional[torch.Tensor]
+
+
+def spec_tensors(spec: GasOpticsSpec, device) -> SpecTensors:
+    t = lambda x, dt=torch.int64: torch.as_tensor(np.asarray(x), dtype=dt,
+                                                  device=device)
+    order = lambda g: None if np.array_equal(g, np.arange(len(g))) else t(g)
+    return SpecTensors(
+        t(spec.band_from_reordered_g_lw), t(spec.band_from_reordered_g_sw),
+        t(spec.band_from_reordered_g_lw, torch.int32),
+        t(spec.band_from_reordered_g_sw, torch.int32),
+        t(spec.band_from_g_sw), order(spec.g_from_reordered_g_lw),
+        order(spec.g_from_reordered_g_sw))
+
+
+def reorder(x, order: Optional[torch.Tensor]):
+    """x (..., ng) in a spec's g order (SpecTensors.g_*; None: x)."""
+    return x if order is None else x[..., order]
+
+
 class GasTables(NamedTuple):
     """Everything gas optics reads, on one device in one dtype."""
-    t: dict                      # the npz tables (numpy)
+    t: dict                      # the npz tables (numpy): scalars, per-band
     lw: DeviceTables             # flat tables of kernel B1
     sw: DeviceTables             # flat tables of kernel B2
     totplnk: torch.Tensor        # (181, 16)
     delwave: torch.Tensor        # (16,)
+    preflog: torch.Tensor        # (59,) setcoef's reference profiles
+    tref: torch.Tensor           # (59,)
+    chi_mls: torch.Tensor        # (7, 59)
+    lw_fixed_pfrac: torch.Tensor  # (140,) original g order
+    sfluxref: dict               # SW band: its (neta, ng) or (ng,) rows
 
 
 def gas_tables(t: dict, dtype, device) -> GasTables:
@@ -124,7 +159,10 @@ def gas_tables(t: dict, dtype, device) -> GasTables:
         t=t,
         lw=device_tables(fused_tables.build_lw(t), dtype, device),
         sw=device_tables(fused_tables.build_sw(t), dtype, device),
-        totplnk=as_t(t["totplnk"]), delwave=as_t(t["delwave"]))
+        **{k: as_t(t[k]) for k in ("totplnk", "delwave", "preflog", "tref",
+                                  "chi_mls", "lw_fixed_pfrac")},
+        sfluxref={b: as_t(np.asarray(t[f"sw{b}_sfluxref"]).T)
+                  for b in range(16, 30)})
 
 
 def planck_store(temperature, totplnk, delwave):
@@ -153,7 +191,7 @@ class GasOptics(NamedTuple):
 
 
 def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
-               cos_sza, solar_irradiance, spec: GasOpticsSpec,
+               cos_sza, solar_irradiance, spec: SpecTensors,
                tables: GasTables, lw_albedo: Optional[torch.Tensor] = None,
                min_gas_od_lw: float = 1.0e-15,
                min_gas_od_sw: float = 0.0,
@@ -165,43 +203,32 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
     (14,) a factor per SW band on the solar source before its
     normalisation (ecrad_tpu/optics/rrtmg/gas_optics.py:195-196). All in
     the tables' dtype."""
-    t = tables.t
-    nlev = pressure_hl.shape[1] - 1
-    dev = pressure_hl.device
     p_fl = 0.5 * (pressure_hl[:, :-1] + pressure_hl[:, 1:])
     t_fl = 0.5 * (temperature_hl[:, :-1] + temperature_hl[:, 1:])
 
     def g(name):
         return gas_mmr[:, :, GAS_INDEX[name]]
 
-    def reorder(x, order):
-        """x (..., ng) in the spec's g order (no copy for the identity)."""
-        if np.array_equal(order, np.arange(len(order))):
-            return x
-        return x[..., hooks.upload("gas_optics", order, dev)]
-
     gc = prepare_gases(pressure_hl, p_fl, t_fl,
                        g("h2o"), g("co2"), g("ch4"), g("n2o"),
                        g("cfc11"), g("cfc12"), g("hcfc22"), g("ccl4"),
                        g("o3"), dtype=pressure_hl.dtype)
-    c = setcoef(gc, t["preflog"], t["tref"], t["chi_mls"])
+    c = setcoef(gc, tables.preflog, tables.tref, tables.chi_mls)
     per_band = os.environ.get("ECRAD_FUSED_TAUMOL", "1") == "0"
 
     # ---- LW ----
-    od_lw, pfrac = (taumol_lw_sections(c, t, toa_first=True) if per_band
-                    else taumol_lw_cells(c, t["chi_mls"], tables.lw))
-    od_lw = reorder(torch.clamp(od_lw, min=min_gas_od_lw),
-                    spec.g_from_reordered_g_lw)
-    pfrac = reorder(pfrac, spec.g_from_reordered_g_lw)
-    band_lw = hooks.upload("gas_optics", spec.band_from_reordered_g_lw,
-                           dev)
+    od_lw, pfrac = (taumol_lw_sections(c, tables.t, toa_first=True)
+                    if per_band else
+                    taumol_lw_cells(c, tables.chi_mls, tables.lw))
+    od_lw = reorder(torch.clamp(od_lw, min=min_gas_od_lw), spec.g_lw)
+    pfrac = reorder(pfrac, spec.g_lw)
+    band_lw = spec.band_lw
     # half level i uses the Planck fraction of TOA-first layer
-    # min(i, nlev-1): layers [0, 0, 1, ..., nlev-1]
-    lay_idx = hooks.upload("gas_optics",
-                           np.concatenate([[0], np.arange(nlev)]), dev)
+    # max(i - 1, 0): layers [0, 0, 1, ..., nlev-1]
     planck_bands = planck_store(temperature_hl, tables.totplnk,
                                 tables.delwave)         # (ncol, nlev+1, 16)
-    planck_hl = planck_bands[:, :, band_lw] * pfrac[:, lay_idx, :]
+    planck_hl = planck_bands[:, :, band_lw] * torch.cat([pfrac[:, :1],
+                                                         pfrac], 1)
     planck_surf = (planck_store(skin_temperature, tables.totplnk,
                                 tables.delwave)[:, band_lw]
                    * pfrac[:, -1, :])
@@ -209,8 +236,8 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
                    else planck_surf * (1.0 - lw_albedo))
 
     # ---- SW ----
-    taug, taur, sflux = (taumol_sw_sections(c, t, toa_first=True)
-                         if per_band else taumol_sw_cells(c, t, tables.sw))
+    taug, taur, sflux = (taumol_sw_sections(c, tables, toa_first=True)
+                         if per_band else taumol_sw_cells(c, tables))
     od_sw = taug + taur
     ssa_sw = torch.clamp(taur / torch.clamp(od_sw, min=1e-30), 0.0, 1.0)
     od_sw = torch.clamp(od_sw, min=min_gas_od_sw)
@@ -218,13 +245,13 @@ def gas_optics(pressure_hl, temperature_hl, gas_mmr, skin_temperature,
         # sflux is in the original g order on both taumol paths: the
         # un-reordered band map, before the reordering below
         sflux = sflux * spectral_solar_scaling.to(sflux)[
-            hooks.upload("gas_optics", spec.band_from_g_sw, dev)]
+            spec.band_sw_original]
     # normalise to the solar irradiance (radiation_ifs_rrtm.F90:519-526)
     total = sflux.sum(-1)
     scale = torch.where(cos_sza > 0.0,
                         solar_irradiance / torch.clamp(total, min=1e-10),
                         torch.ones_like(total))
-    g_sw = spec.g_from_reordered_g_sw
+    g_sw = spec.g_sw
     return GasOptics(od_lw=od_lw, od_sw=reorder(od_sw, g_sw),
                      ssa_sw=reorder(ssa_sw, g_sw), planck_hl=planck_hl,
                      lw_emission=lw_emission,

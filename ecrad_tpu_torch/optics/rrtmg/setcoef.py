@@ -13,10 +13,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
-
-from ...utils import hooks
 
 # Molar masses as hard-coded in rrtm_prepare_gases.F90 (DATA statements)
 _AMD = 28.970
@@ -162,14 +159,12 @@ def _floor_int(x):
     return torch.floor(x).to(torch.int32)
 
 
-def setcoef(gc: GasColumns, preflog: np.ndarray, tref: np.ndarray,
-            chi_mls: np.ndarray) -> Coeffs:
+def setcoef(gc: GasColumns, preflog: torch.Tensor, tref: torch.Tensor,
+            chi: torch.Tensor) -> Coeffs:
     """Interpolation indices and factors (rrtm_setcoef_140gp.F90:86-278).
-    preflog/tref: (59,) reference profiles; chi_mls: (7, 59)."""
-    dt, dev = gc.pavel.dtype, gc.pavel.device
-    preflog = hooks.upload("setcoef", preflog, dev, dt)
-    tref = hooks.upload("setcoef", tref, dev, dt)
-    chi = hooks.upload("setcoef", chi_mls, dev, dt)
+    preflog/tref: (59,) reference profiles; chi: chi_mls (7, 59); all on
+    gc's device in its dtype (GasTables)."""
+    dt = gc.pavel.dtype
 
     plog = torch.log(gc.pavel)
     jp = _floor_int(36.0 - 5.0 * (plog + 0.04)).clamp(1, 58)

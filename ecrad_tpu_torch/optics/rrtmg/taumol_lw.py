@@ -28,7 +28,6 @@ from typing import List, Tuple
 
 import torch
 
-from ...utils import hooks
 from . import fused_tables as ft
 from .setcoef import Coeffs, chi_rows_at
 from .taumol_common import (DeviceTables, Terms, Term, eta_index,
@@ -60,12 +59,13 @@ I_FIELDS = ["jp", "jt", "jt1", "indself", "indfor", "indminor"]
 launches = 0
 
 
-def pack_coeffs(c: Coeffs, chi_mls) -> Tuple[torch.Tensor, torch.Tensor]:
+def pack_coeffs(c: Coeffs, chi_mls: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(NF, N) float and (NI, N) int32 per-cell inputs from (ncol, nlev)
-    coefficients, cells in row-major (column, level) order."""
+    coefficients, cells in row-major (column, level) order; chi_mls
+    (7, 59) on their device in their dtype."""
     dt = c.colh2o.dtype
-    chi = hooks.upload("taumol_lw", chi_mls, c.colh2o.device, dt)
-    chiv = chi_rows_at(chi, c.jp)       # chi_mls at JP+1 per gas
+    chiv = chi_rows_at(chi_mls, c.jp)   # chi_mls at JP+1 per gas
     vals = dict(c._asdict())
     vals["tropf"] = c.tropo.to(dt)
     vals["chi_co2"], vals["chi_n2o"] = chiv[1], chiv[3]

@@ -26,10 +26,8 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
-import numpy as np
 import torch
 
-from ...utils import hooks
 from . import fused_tables as ft
 from .setcoef import Coeffs
 from .taumol_common import (DeviceTables, Terms, Term, eta_index,
@@ -258,29 +256,27 @@ def _at_layer(x, lay):
     return torch.gather(x, 1, lay[:, None].to(torch.int64))[:, 0]
 
 
-def _sflux_eta(sfluxref, js, fs, dtype, device):
-    tab = hooks.upload("taumol_sw", np.asarray(sfluxref).T, device,
-                       dtype)                            # (neta, ng)
+def _sflux_eta(tab, js, fs):
+    """tab (neta, ng) interpolated at (js, fs) per column."""
     t0 = tab[js.clamp(0, tab.shape[0] - 1)]
     t1 = tab[(js + 1).clamp(0, tab.shape[0] - 1)]
     return t0 + fs[:, None] * (t1 - t0)
 
 
-def solar_source(c2: Coeffs, t: dict) -> torch.Tensor:
-    """SFLUXZEN per g, (ncol, 112), from surface-first coefficients."""
-    dt, dev = c2.colh2o.dtype, c2.colh2o.device
+def solar_source(c2: Coeffs, tables) -> torch.Tensor:
+    """SFLUXZEN per g, (ncol, 112), from surface-first coefficients and
+    the GasTables' solar source rows."""
+    t, rows = tables.t, tables.sfluxref
     ncol = c2.colh2o.shape[0]
+
     def one_d(b, scale=1.0):
-        v = hooks.upload("taumol_sw", np.asarray(t[f"sw{b}_sfluxref"]),
-                         dev, dt)
-        return (scale * v).expand(ncol, -1)
+        return (scale * rows[b]).expand(ncol, -1)
 
     def eta_at(b, col1, col2, mult, laysolfr):
         rat = float(t[f"sw{b}_strrat"])
         _, js, fs = eta_index(col1, col1 + rat * col2, mult)
         lay = laysolfr(c2, int(t[f"sw{b}_layreffr"]))
-        return _sflux_eta(t[f"sw{b}_sfluxref"], _at_layer(js, lay),
-                          _at_layer(fs, lay), dt, dev)
+        return _sflux_eta(rows[b], _at_layer(js, lay), _at_layer(fs, lay))
 
     out = [one_d(16),
            eta_at(17, c2.colh2o, c2.colco2, 4.0, _laysolfr_strat),
@@ -298,12 +294,12 @@ def solar_source(c2: Coeffs, t: dict) -> torch.Tensor:
     return torch.cat(out, 1)
 
 
-def taumol_sw_cells(c2: Coeffs, t: dict, tables: DeviceTables):
+def taumol_sw_cells(c2: Coeffs, tables):
     """The JAX taumol_sw_fused(c2, t, toa_first=True): (taug, taur) as
     TOA-first (ncol, nlev, 112) and sfluxzen (ncol, 112), from
-    surface-first coefficients."""
+    surface-first coefficients and the GasTables."""
     ncol, nlev = c2.tropo.shape
     fc, ic = pack_coeffs(c2.flip_levels())
-    taug, taur = taumol_sw(fc, ic, tables)
+    taug, taur = taumol_sw(fc, ic, tables.sw)
     return (taug.reshape(ncol, nlev, NG_SW),
-            taur.reshape(ncol, nlev, NG_SW), solar_source(c2, t))
+            taur.reshape(ncol, nlev, NG_SW), solar_source(c2, tables))

@@ -30,10 +30,12 @@ from .taumol_sw import solar_source
 O2ADJ = 1.6
 
 
-def taumol_sw_sections(c2: Coeffs, t: dict, toa_first: bool = False):
+def taumol_sw_sections(c2: Coeffs, tables, toa_first: bool = False):
     """All 14 SW bands: (taug, taur) each (ncol, nlev, 112), levels
     surface-first, or TOA-first with toa_first, and sfluxzen (ncol, 112),
-    from surface-first coefficients and the numpy tables `t`."""
+    from surface-first coefficients and the GasTables (their numpy
+    tables `t` for the sections)."""
+    t = tables.t
     dtype, dev = c2.colh2o.dtype, c2.colh2o.device
     ncol, nlev = c2.colh2o.shape
     n = ncol * nlev
@@ -191,4 +193,4 @@ def taumol_sw_sections(c2: Coeffs, t: dict, toa_first: bool = False):
            .permute(1, 2, 0) for d in (taug, taur)]
     if toa_first:
         out = [x.flip(1) for x in out]
-    return out[0].contiguous(), out[1].contiguous(), solar_source(c2, t)
+    return out[0].contiguous(), out[1].contiguous(), solar_source(c2, tables)

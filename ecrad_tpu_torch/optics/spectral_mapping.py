@@ -13,7 +13,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils import hooks
 from .rrtmg.gas_optics import GasOpticsSpec, spec_from_arrays
 
 
@@ -78,22 +77,20 @@ def interval_mapping(wavelength_bound: Tuple[float, ...],
     return None, weights
 
 
-def expand_to_g(values: torch.Tensor, mapping: Optional[np.ndarray],
-                weights: Optional[np.ndarray],
-                band_from_g: np.ndarray) -> torch.Tensor:
+def expand_to_g(values: torch.Tensor, mapping: Optional[torch.Tensor],
+                weights: Optional[torch.Tensor],
+                band_from_g: torch.Tensor) -> torch.Tensor:
     """Map interval values (ncol, nintervals) to per-g (ncol, ng), by
     nearest interval (mapping: band -> interval) or overlap weights
-    (weights: (nvalue, nband)). The weighted sum is an explicit
-    multiply-add, not a matmul, so TF32 can never round the albedos."""
+    (weights: (nvalue, nband) in values' dtype), each on values' device.
+    The weighted sum is an explicit multiply-add, not a matmul, so TF32
+    can never round the albedos."""
     if weights is not None:
-        w = hooks.upload("spectral_mapping", weights, values.device,
-                         values.dtype)
-        band_vals = (values[:, :w.shape[0], None] * w[None]).sum(1)
+        band_vals = (values[:, :weights.shape[0], None]
+                     * weights[None]).sum(1)
     else:
-        band_vals = values[:, hooks.upload("spectral_mapping", mapping,
-                                           values.device)]
-    return band_vals[:, hooks.upload("spectral_mapping", band_from_g,
-                                     values.device)]
+        band_vals = values[:, mapping]
+    return band_vals[:, band_from_g]
 
 
 def single_g_mapping() -> Tuple[GasOpticsSpec, np.ndarray]:

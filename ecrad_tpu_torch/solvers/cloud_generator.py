@@ -117,30 +117,30 @@ def cloud_generator(ng: int, iseed, overlap_scheme: Overlap,
                     frac_threshold: float, frac, overlap_param,
                     decorrelation_scaling: float, fractional_std,
                     pdf_sampler: PdfSampler, is_beta_overlap: bool = False,
-                    seed_offset: int = 0, cheb=None) -> Tuple:
+                    seed_offset: int = 0, table=None) -> Tuple:
     """od_scaling (ncol, nlev, ng) and total_cloud_cover (ncol,).
     frac (ncol, nlev); overlap_param (ncol, nlev-1); iseed (ncol,)
-    integer; `cheb` optionally the sampler's Chebyshev table on the
-    device. The plain stages for CPU tensors, the kernel for any other."""
+    integer; `table` the sampler's pdf_table on frac's device. The plain
+    stages for CPU tensors, the kernel for any other."""
     uniforms = random_fields(iseed, ng, frac.shape[1], frac.dtype,
                              seed_offset)
     if frac.device.type == "cpu":
         return cloud_generator_plain(
             overlap_scheme, frac_threshold, frac, overlap_param,
             decorrelation_scaling, fractional_std, pdf_sampler,
-            is_beta_overlap, cheb, *uniforms)
+            is_beta_overlap, table, *uniforms)
     with hooks.hook("ecrad.cloud_generator.kernel"):
         return mcica_generator.generator_kernel(
             overlap_scheme, frac_threshold, frac.contiguous(),
             overlap_param.contiguous(), decorrelation_scaling,
-            fractional_std.contiguous(), pdf_sampler, is_beta_overlap, cheb,
+            fractional_std.contiguous(), pdf_sampler, is_beta_overlap, table,
             *uniforms)
 
 
 def cloud_generator_plain(overlap_scheme: Overlap, frac_threshold: float,
                           frac, overlap_param, decorrelation_scaling: float,
                           fractional_std, pdf_sampler: PdfSampler,
-                          is_beta_overlap: bool, cheb, rand_top, rand_cloud,
+                          is_beta_overlap: bool, table, rand_top, rand_cloud,
                           u1, u2) -> Tuple:
     """od_scaling and total_cloud_cover from the generator's uniforms
     (rand_top (ncol, ng), rand_cloud, u1, u2 (ncol, nlev, ng)): the
@@ -173,11 +173,11 @@ def cloud_generator_plain(overlap_scheme: Overlap, frac_threshold: float,
     with hooks.hook("ecrad.cloud_generator.sample"):
         if pdf_sampler.cheb is not None:
             scaling = sample_pdf_fast(pdf_sampler, fractional_std,
-                                      rand_inhom, cheb)
+                                      rand_inhom, table)
         else:
             scaling = sample_pdf(pdf_sampler, fractional_std[:, :, None]
                                  * torch.ones((1, 1, ng), dtype=dtype,
-                                              device=dev), rand_inhom)
+                                              device=dev), rand_inhom, table)
         od_scaling = torch.where(is_cloudy & has_cloud[:, None, None],
                                  scaling, zero)
     return od_scaling, total_cloud_cover

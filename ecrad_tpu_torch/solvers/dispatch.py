@@ -3,8 +3,9 @@
 Port of ecrad_tpu/solvers/dispatch.py: the McICA, Homogeneous,
 Tripleclouds and SPARTACUS branches, with the thermodynamics passed
 through (SPARTACUS takes its layer depths from them). Every band map is
-the spec's reordered one (the identity order unless the solver is
-SPARTACUS). Returns (total_fluxes, clear_fluxes, extras) with extras the
+the setup's device map of the spec's reordered one (the identity order
+unless the solver is SPARTACUS); McICA's is the int32 form kernel B4
+reads. Returns (total_fluxes, clear_fluxes, extras) with extras the
 diagnostics (cloud cover, LW derivatives).
 """
 from __future__ import annotations
@@ -28,13 +29,13 @@ def _any_cloud(config, cloud, dtype):
 def solve_lw(setup, single_level, thermodynamics, cloud, cloud_props, od,
              ssa, g, planck_hl, emission, albedo):
     cfg = setup.config
-    band = setup.spec.band_from_reordered_g_lw
+    band = setup.maps.band_lw
     args = (cloud, od, ssa, g, *cloud_props[:3], planck_hl, emission,
             albedo)
     if cfg.i_solver_lw == Solver.MCICA:
         total, clear, tcc, extras = solver_mcica_lw(
-            cfg, setup.pdf_sampler, band, single_level.iseed, *args,
-            cheb=setup.pdf_cheb)
+            cfg, setup.pdf_sampler, setup.maps.band_lw32, single_level.iseed,
+            *args, table=setup.pdf_table)
     elif cfg.i_solver_lw == Solver.HOMOGENEOUS:
         total, clear, extras = solver_homogeneous_lw(cfg, band, *args)
         tcc = _any_cloud(cfg, cloud, od.dtype)
@@ -52,15 +53,15 @@ def solve_lw(setup, single_level, thermodynamics, cloud, cloud_props, od,
 def solve_sw(setup, single_level, thermodynamics, cloud, cloud_props, od,
              ssa, g, incoming_sw, albedo_diffuse, albedo_direct):
     cfg = setup.config
-    band = setup.spec.band_from_reordered_g_sw
+    band = setup.maps.band_sw
     props = (od, ssa, g, *cloud_props[3:], incoming_sw)
     albedos = (albedo_diffuse, albedo_direct)
     cos_sza = single_level.cos_sza
     extras = {}
     if cfg.i_solver_sw == Solver.MCICA:
         total, clear, tcc = solver_mcica_sw(
-            cfg, setup.pdf_sampler, band, single_level.iseed, cos_sza, cloud,
-            *props, *albedos, cheb=setup.pdf_cheb)
+            cfg, setup.pdf_sampler, setup.maps.band_sw32, single_level.iseed,
+            cos_sza, cloud, *props, *albedos, table=setup.pdf_table)
     elif cfg.i_solver_sw == Solver.HOMOGENEOUS:
         total, clear = solver_homogeneous_sw(cfg, band, cloud, *props,
                                              cos_sza, *albedos)

@@ -30,12 +30,12 @@ from .pdf_sampler import PdfSampler
 
 
 @hooks.hooked("ecrad.cloud_generator")
-def _generate(config, pdf_sampler, ng, iseed, cloud, cheb):
+def _generate(config, pdf_sampler, ng, iseed, cloud, table):
     return cloud_generator(
         ng, iseed, config.i_overlap_scheme, config.cloud_fraction_threshold,
         cloud.fraction, cloud.overlap_param,
         config.cloud_inhom_decorr_scaling, cloud.fractional_std,
-        pdf_sampler, is_beta_overlap=config.use_beta_overlap, cheb=cheb)
+        pdf_sampler, is_beta_overlap=config.use_beta_overlap, table=table)
 
 
 def _blend(tcc, threshold, total, clear):
@@ -48,11 +48,13 @@ def _blend(tcc, threshold, total, clear):
 def solver_mcica_sw(config: RadiationConfig, pdf_sampler: PdfSampler,
                     band_from_g, iseed, cos_sza, cloud, od, ssa, g,
                     od_cloud, ssa_cloud, g_cloud, incoming_sw,
-                    albedo_diffuse, albedo_direct, cheb=None):
-    """Returns (total SwFluxes, clear SwFluxes, cloud_cover (ncol,))."""
+                    albedo_diffuse, albedo_direct, table=None):
+    """Returns (total SwFluxes, clear SwFluxes, cloud_cover (ncol,)).
+    band_from_g is the int32 map kernel B4 reads (SpecTensors.band_sw32),
+    table the sampler's pdf_table."""
     ng = od.shape[-1]
     od_scaling, tcc = _generate(config, pdf_sampler, ng, iseed, cloud,
-                                cheb)
+                                table)
     frac_mask = cloud.fraction >= config.cloud_fraction_threshold
     optics = sw_clear_total_reftrans(
         od.contiguous(), ssa.contiguous(), g.contiguous(), od_cloud,
@@ -78,9 +80,9 @@ def solver_mcica_sw(config: RadiationConfig, pdf_sampler: PdfSampler,
 def solver_mcica_lw(config: RadiationConfig, pdf_sampler: PdfSampler,
                     band_from_g, iseed, cloud, od, ssa, g, od_cloud,
                     ssa_cloud, g_cloud, planck_hl, emission, albedo,
-                    cheb=None):
+                    table=None):
     """Returns (total LwFluxes, clear LwFluxes, cloud_cover (ncol,),
-    extras)."""
+    extras); band_from_g and table as solver_mcica_sw."""
     ng = od.shape[-1]
     planck_g = _gf(planck_hl)
     planck_top, planck_bot = planck_g[:-1], planck_g[1:]
@@ -91,7 +93,7 @@ def solver_mcica_lw(config: RadiationConfig, pdf_sampler: PdfSampler,
     thr = config.cloud_fraction_threshold
 
     od_scaling, tcc = _generate(config, pdf_sampler, ng, iseed + 997,
-                                cloud, cheb)
+                                cloud, table)
     frac_mask = cloud.fraction >= thr
     if not do_clear_scat and not config.do_lw_cloud_scattering:
         t_c, su_c, sd_c, t, su, sd = lw_clear_total_noscat(

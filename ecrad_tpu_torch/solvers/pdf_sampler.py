@@ -74,10 +74,18 @@ def setup_pdf_sampler(config: RadiationConfig) -> PdfSampler:
                       cheb=cheb, z0=z0, z1=z1)
 
 
-def sample_pdf(sampler: PdfSampler, fsd, cdf):
+def pdf_table(sampler: PdfSampler, dtype, device) -> torch.Tensor:
+    """The table the sampler reads on the device: the Chebyshev table
+    (float32) where the sampler has one, else `val` in `dtype`."""
+    if sampler.cheb is not None:
+        return torch.as_tensor(sampler.cheb, device=device)
+    return torch.as_tensor(sampler.val, dtype=dtype, device=device)
+
+
+def sample_pdf(sampler: PdfSampler, fsd, cdf, val):
     """Bilinear table sample (radiation_pdf_sampler.F90:123-155); fsd and
-    cdf broadcast against each other."""
-    val = torch.as_tensor(sampler.val, dtype=fsd.dtype, device=fsd.device)
+    cdf broadcast against each other; val the pdf_table, in their
+    dtype."""
     ncdf, nfsd = sampler.val.shape
     wcdf = cdf * (ncdf - 1) + 1.0
     icdf = torch.clamp(torch.floor(wcdf).to(torch.int32), 1, ncdf - 1)
@@ -95,12 +103,10 @@ def sample_pdf(sampler: PdfSampler, fsd, cdf):
             + wcdf * wfsd * v11)
 
 
-def sample_pdf_fast(sampler: PdfSampler, fsd, cdf, cheb=None):
+def sample_pdf_fast(sampler: PdfSampler, fsd, cdf, cheb):
     """Chebyshev-in-z evaluation of the PDF quantile. fsd (ncol, nlev),
-    constant over g; cdf (ncol, nlev, ng). `cheb` may hold sampler.cheb
-    already on the device. Returns (ncol, nlev, ng)."""
-    if cheb is None:
-        cheb = torch.as_tensor(sampler.cheb, device=cdf.device)
+    constant over g; cdf (ncol, nlev, ng); cheb the pdf_table. Returns
+    (ncol, nlev, ng)."""
     cheb = cheb.to(cdf.dtype)
     nfsd = sampler.nfsd
     z = torch.special.ndtri(torch.clamp(cdf, CDF_MIN, CDF_MAX))

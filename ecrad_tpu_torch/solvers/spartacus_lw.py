@@ -10,7 +10,7 @@ downward pass (kernel B9, ops/spartacus_adding.py; the matrix form with
 3D effects or multilayer effects on, else the diagonal form), the
 matrix-form LW derivatives, and the clear sky (kernel B3' with aerosol
 scattering, B3 `lw_noscat` without). State is g-first, in the SPARTACUS g
-order (`band_from_g` is spec.band_from_reordered_g_lw).
+order (`band_from_g` is setup.maps.band_lw).
 """
 from __future__ import annotations
 
@@ -65,8 +65,8 @@ def solver_spartacus_lw(cfg: RadiationConfig, band_from_g, thermo, cloud, od,
 
     # per-region optical properties, (nlev, nreg, ng, ncol)
     od_g, ssa_g, g_g = _gf(od), _gf(ssa), _gf(g)
-    b = torch.as_tensor(band_from_g, device=od.device)
-    odc, ssac, gc = (_gf(x)[:, b, :] for x in (od_cloud, ssa_cloud, g_cloud))
+    odc, ssac, gc = (_gf(x)[:, band_from_g, :]
+                     for x in (od_cloud, ssa_cloud, g_cloud))
     sc_g = od_scaling.permute(1, 2, 0)
     cmask = cloudy.T[:, None, :]
     zero = _zeros(od)

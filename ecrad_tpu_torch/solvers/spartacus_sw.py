@@ -10,7 +10,7 @@ ops/spartacus_reftrans.py), the upward total-albedo accumulation with
 entrapment and the downward flux pass (kernel B8, ops/spartacus_adding.py),
 and the clear sky by the ICA adding (kernel B3). State is g-first, (nlev,
 [nreg,] ng, ncol); the g-points are in the SPARTACUS order
-(`band_from_g` is spec.band_from_reordered_g_sw). The per-(g, column)
+(`band_from_g` is setup.maps.band_sw). The per-(g, column)
 3D mask `use3d` stands for the reference's per-layer ng3D prefix: a cell
 takes the matrix exponential where its layer has cloud edges, its gas
 optical depth is at most max_gas_od_3d and the sun is up, and the
@@ -169,8 +169,8 @@ def solver_spartacus_sw(cfg: RadiationConfig, band_from_g, cos_sza, thermo,
 
     # per-region optical properties, (nlev, nreg, ng, ncol)
     od_g, ssa_g, g_g = _gf(od), _gf(ssa), _gf(g)
-    b = torch.as_tensor(band_from_g, device=od.device)
-    odc, ssac, gc = (_gf(x)[:, b, :] for x in (od_cloud, ssa_cloud, g_cloud))
+    odc, ssac, gc = (_gf(x)[:, band_from_g, :]
+                     for x in (od_cloud, ssa_cloud, g_cloud))
     sc_g = od_scaling.permute(1, 2, 0)
     cmask = cloudy.T[:, None, :]
     zero = _zeros(od)

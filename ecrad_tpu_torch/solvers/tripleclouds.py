@@ -349,8 +349,7 @@ def solver_tripleclouds_sw(config: RadiationConfig, band_from_g, cloud,
     Returns (total SwFluxes, clear SwFluxes, cloud_cover (ncol,))."""
     mu0 = torch.clamp(cos_sza, min=1e-10)
     reg_fracs, od_scaling, _, v, tcc = _regions(config, cloud)
-    b = hooks.upload("tripleclouds", band_from_g, od.device)
-    bandx = lambda x: _gf(x)[:, b, :]
+    bandx = lambda x: _gf(x)[:, band_from_g, :]
     cloudy = cloud.fraction > 0.0
     od_r, ssa_r, g_r = _region_props_sw_g(
         _gf(od), _gf(ssa), _gf(g), bandx(od_cloud), bandx(ssa_cloud),
@@ -388,11 +387,11 @@ def solver_tripleclouds_lw(config: RadiationConfig, band_from_g, cloud, od,
     aer_scat, cld_scat = (config.do_lw_aerosol_scattering,
                           config.do_lw_cloud_scattering)
     reg_fracs, od_scaling, u, v, tcc = _regions(config, cloud)
-    b = hooks.upload("tripleclouds", band_from_g, od.device)
     od_g, ssa_g, g_g = _gf(od), _gf(ssa), _gf(g)
     planck_g = _gf(planck_hl)
     planck_top, planck_bot = planck_g[:-1], planck_g[1:]
-    odc, ssac, gc = (_gf(x)[:, b, :] for x in (od_cloud, ssa_cloud, g_cloud))
+    odc, ssac, gc = (_gf(x)[:, band_from_g, :]
+                     for x in (od_cloud, ssa_cloud, g_cloud))
     sc_g = od_scaling.permute(1, 2, 0)                 # (nlev, nreg, ncol)
     cloudy = cloud.fraction > 0.0
     cmask = cloudy.T[:, None, :]

@@ -23,11 +23,10 @@ import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from ..constants import STEFAN_BOLTZMANN
-from ..optics.rrtmg.gas_optics import planck_store
+from ..optics.rrtmg.gas_optics import planck_store, reorder
 from ..optics.spectral_mapping import expand_to_g
 from ..solvers.two_stream import (LW_DIFFUSIVITY, lw_gammas,
                                   lw_reftrans_isothermal, sw_gammas,
@@ -76,13 +75,11 @@ class BoundaryConditions(NamedTuple):
 
 
 def _expand_sw(setup, values):
-    return expand_to_g(values, setup.sw_albedo_map, setup.sw_albedo_weights,
-                       setup.spec.band_from_reordered_g_sw)
+    return expand_to_g(values, *setup.intervals["sw"], setup.maps.band_sw)
 
 
 def _expand_lw(setup, values):
-    return expand_to_g(values, setup.lw_emiss_map, setup.lw_emiss_weights,
-                       setup.spec.band_from_reordered_g_lw)
+    return expand_to_g(values, *setup.intervals["lw"], setup.maps.band_lw)
 
 
 def _per_facet(expand, values):
@@ -121,17 +118,11 @@ def _facet_emissivity_planck_lw(setup, surface: SurfaceDescription):
                     (1, surface.ntile), dtype=skin_t.dtype,
                     device=skin_t.device))
     if setup.config.use_canopy_full_spectrum_lw:
-        t = setup.tables
-        band_g = torch.as_tensor(setup.spec.band_from_reordered_g_lw,
-                                 device=emiss.device)
-        as_t = lambda x: torch.as_tensor(                 # noqa: E731
-            np.asarray(x), dtype=emiss.dtype, device=emiss.device)
-        totplnk, delwave = as_t(t["totplnk"]), as_t(t["delwave"])
-        pfrac = as_t(np.asarray(t["lw_fixed_pfrac"])[
-            np.asarray(setup.spec.g_from_reordered_g_lw)])
-        planck_facet = planck_store(skin_t, totplnk, delwave)[
+        t, band_g = setup.gas, setup.maps.band_lw
+        pfrac = reorder(t.lw_fixed_pfrac, setup.maps.g_lw)
+        planck_facet = planck_store(skin_t, t.totplnk, t.delwave)[
             :, :, band_g] * pfrac
-        planck_canopy = planck_store(canopy_t, totplnk, delwave)[
+        planck_canopy = planck_store(canopy_t, t.totplnk, t.delwave)[
             :, :, band_g] * pfrac
         return (_per_facet(lambda x: _expand_lw(setup, x), emiss),
                 planck_facet, planck_canopy)

@@ -182,14 +182,6 @@ def sync(site: str, fn, *args, **kwargs):
     return fn(*args, **kwargs)
 
 
-def upload(site: str, array, device, dtype=None):
-    """torch.as_tensor(array, dtype, device) of a host (numpy) array: a
-    copy from pageable memory, which waits for the device's queue when the
-    device is a GPU; a sync at `upload.<site>`."""
-    return sync("upload." + site, torch.as_tensor, array, dtype=dtype,
-                device=device)
-
-
 def install_signal_handlers() -> bool:
     """Install Dr Hook-style fatal-signal handlers that dump the active
     hook stack (drhook.c signal machinery); they replace the process's

@@ -110,8 +110,9 @@ def _port(cfg, x, dtype):
     aer = Aerosol(mixing_ratio=t(x["aerosol_mmr"]),
                   **{k: t(v) for k, v in x.get("direct", {}).items()})
     out = paerosol.add_aerosol_optics(
-        setup.config, setup.aerosol_coeffs, setup.spec.band_from_g_sw,
-        setup.spec.band_from_g_lw,
+        setup.config, setup.aerosol_coeffs,
+        torch.as_tensor(setup.spec.band_from_g_sw),
+        torch.as_tensor(setup.spec.band_from_g_lw),
         Thermodynamics(pressure_hl=t(x["pressure_hl"]),
                        temperature_hl=t(x["temperature_hl"])),
         GasConcs(mixing_ratio=t(x["mixing_ratio"])), aer,

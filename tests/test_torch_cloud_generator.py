@@ -98,7 +98,8 @@ def test_cloud_generator_matches_jax(lut_dir, cloud, case):
         torch.as_tensor(cloud["fraction"]),
         torch.as_tensor(cloud["overlap_param"]), 0.5,
         torch.as_tensor(cloud["fractional_std"]), psamp,
-        is_beta_overlap=beta)
+        is_beta_overlap=beta,
+        table=ppdf.pdf_table(psamp, torch.float32, "cpu"))
     a, b = got_scaling.numpy(), np.asarray(ref_scaling)
     assert a.shape == (NCOL, NLEV, ng) and a.dtype == np.float32
     np.testing.assert_array_equal(a > 0, b > 0)

@@ -173,7 +173,7 @@ def test_combine_matches_jax(region, scaled):
     else:
         pfn, jfn = pcombine.combine_cloud_gas_lw, jcombine.combine_cloud_gas_lw
         extra = [region == "lw_scat"]
-    got = pfn(*map(torch.as_tensor, args[:-1]), args[-1], *extra,
+    got = pfn(*map(torch.as_tensor, args), *extra,
               **{k: torch.as_tensor(v) for k, v in kw.items()})
     ref = jfn(*map(jnp.asarray, args[:-1]), args[-1], *extra,
               **{k: jnp.asarray(v) for k, v in kw.items()})

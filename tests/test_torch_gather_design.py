@@ -63,12 +63,12 @@ def path_calls():
     columns of 137 levels, and the band widths of the LW calls."""
     setup = setup_radiation(cloudless_slice_config(), device="cpu")
     _, th, gas = columns_to_inputs(make_columns(2, 137, 0), device="cpu")
-    t = setup.tables
+    t = setup.gas
     phl, thl = th.pressure_hl, th.temperature_hl
     gc = prepare_gases(phl, 0.5 * (phl[:, :-1] + phl[:, 1:]),
                        0.5 * (thl[:, :-1] + thl[:, 1:]),
                        *(gas.get(g) for g in GASES))
-    c = setcoef(gc, t["preflog"], t["tref"], t["chi_mls"])
+    c = setcoef(gc, t.preflog, t.tref, t.chi_mls)
     calls = []
 
     def keep(secs, n):
@@ -79,7 +79,7 @@ def path_calls():
     try:
         for m in mods:
             m.eval_sections = keep
-        taumol_lw_sections.taumol_lw_sections(c, t)
+        taumol_lw_sections.taumol_lw_sections(c, t.t)
         n_lw = len(calls)
         taumol_sw_sections.taumol_sw_sections(c, t)
     finally:

@@ -110,7 +110,8 @@ def test_mcica_golden_meets_the_port_on_the_cpu(tmp_path):
                 ng, inputs[0].iseed + offset, cfg.i_overlap_scheme,
                 cfg.cloud_fraction_threshold, cloud.fraction,
                 cloud.overlap_param, cfg.cloud_inhom_decorr_scaling,
-                cloud.fractional_std, setup.pdf_sampler)
+                cloud.fractional_std, setup.pdf_sampler,
+                table=setup.pdf_table)
             ref = np.unpackbits(z[key])[:32 * 137 * ng].reshape(32, 137, ng)
             np.testing.assert_array_equal((od_scaling > 0).numpy(),
                                           ref[:2], err_msg=key)

@@ -76,11 +76,11 @@ def slice_state(cuda):
     cols = make_columns(96, 137, 0)
     sl, th, gas = columns_to_inputs(cols, device=cuda)
     phl, thl = th.pressure_hl, th.temperature_hl
-    t = setup.tables
+    t = setup.gas
     gc = prepare_gases(phl, 0.5 * (phl[:, :-1] + phl[:, 1:]),
                        0.5 * (thl[:, :-1] + thl[:, 1:]),
                        *(gas.get(g) for g in GASES))
-    c = setcoef(gc, t["preflog"], t["tref"], t["chi_mls"]).flip_levels()
+    c = setcoef(gc, t.preflog, t.tref, t.chi_mls).flip_levels()
     return setup, (sl, th, gas), c
 
 
@@ -93,7 +93,7 @@ def _tau_close(a, b):
 
 def test_b1_kernel_matches_plain(slice_state):
     setup, _, c = slice_state
-    fc, ic = taumol_lw.pack_coeffs(c, setup.tables["chi_mls"])
+    fc, ic = taumol_lw.pack_coeffs(c, setup.gas.chi_mls)
     n0 = taumol_lw.launches
     tau, pf = taumol_lw.taumol_lw_kernel(fc, ic, setup.gas.lw)
     torch.cuda.synchronize()
@@ -123,7 +123,7 @@ def test_b1_ragged_and_regime_cells(slice_state, cells):
     stratospheric cells of the slice apart: within its bound of the plain
     version."""
     setup, _, c = slice_state
-    fc, ic = taumol_lw.pack_coeffs(c, setup.tables["chi_mls"])
+    fc, ic = taumol_lw.pack_coeffs(c, setup.gas.chi_mls)
     if cells.startswith("n"):
         sel = torch.arange(int(cells[1:]), device=fc.device)
     else:
@@ -277,7 +277,9 @@ def _b4_args(cuda, ncol, nlev, ng, nb, seed):
     """Random layer optics in the ranges of tests/test_mcica_optics.py."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
     r = lambda *s, lo=0.0, hi=1.0: _rand(gen, *s, lo=lo, hi=hi, device=cuda)
-    band_from_g = np.sort(np.random.RandomState(seed).randint(0, nb, ng))
+    band_from_g = torch.as_tensor(
+        np.sort(np.random.RandomState(seed).randint(0, nb, ng)),
+        dtype=torch.int32, device=cuda)
     return dict(od=r(ncol, nlev, ng, hi=3.0), ssa=r(ncol, nlev, ng, lo=0.1,
                                                     hi=0.999),
                 g=r(ncol, nlev, ng, hi=0.9), odc=r(ncol, nlev, nb, hi=8.0),
@@ -514,7 +516,7 @@ def test_generator_kernel_at_the_cells_size(cuda, gen_luts, dtype):
         uniforms = fields.random_fields(sl.iseed + shift, ng, 137, dtype)
         args = (cfg.i_overlap_scheme, cfg.cloud_fraction_threshold, frac,
                 op, cfg.cloud_inhom_decorr_scaling, fsd, setup.pdf_sampler,
-                cfg.use_beta_overlap, setup.pdf_cheb, *uniforms)
+                cfg.use_beta_overlap, setup.pdf_table, *uniforms)
         od, tcc = mcica_generator.generator_kernel(*args)
         od_ref, tcc_ref = cloud_generator_plain(*args)
         torch.cuda.synchronize()
@@ -540,7 +542,6 @@ def test_generator_kernel_makes_no_sync(cuda, gen_luts, monkeypatch):
     args = _on(cuda, gen_cases.case_args(gen_luts, "exp_exp_fast_lw_137",
                                          torch.float32))
     overlap, threshold, frac, op, decorr, fsd, sampler = args[:7]
-    cheb = torch.as_tensor(sampler.cheb, device=cuda)
     iseed = torch.arange(frac.shape[0], dtype=torch.int32, device=cuda)
     torch.cuda.synchronize()
     monkeypatch.setattr(hooks, "LHOOK", True)
@@ -549,7 +550,7 @@ def test_generator_kernel_makes_no_sync(cuda, gen_luts, monkeypatch):
     torch.cuda.set_sync_debug_mode("error")
     try:
         cloud_generator(140, iseed, overlap, threshold, frac, op, decorr,
-                        fsd, sampler, cheb=cheb)
+                        fsd, sampler, table=args[8])
     finally:
         torch.cuda.set_sync_debug_mode(0)
     counts = hooks.counters()
@@ -586,7 +587,7 @@ def test_kernels_refuse_float64_and_strided_tensors(cuda, slice_state):
     tensors, strided tensors and a float64 field block over float32
     tables; B3 lw_noscat likewise."""
     setup, _, c = slice_state
-    fc, ic = taumol_lw.pack_coeffs(c, setup.tables["chi_mls"])
+    fc, ic = taumol_lw.pack_coeffs(c, setup.gas.chi_mls)
     for dtype in (torch.float16, torch.bfloat16):
         with pytest.raises(TypeError):
             taumol_lw.taumol_lw_kernel(fc.to(dtype), ic, setup.gas.lw)
@@ -661,7 +662,7 @@ def _masks(setup, inputs):
         ng, sl.iseed + offset, cfg.i_overlap_scheme,
         cfg.cloud_fraction_threshold, cloud.fraction, cloud.overlap_param,
         cfg.cloud_inhom_decorr_scaling, cloud.fractional_std,
-        setup.pdf_sampler, cheb=setup.pdf_cheb)[0] > 0).cpu()
+        setup.pdf_sampler, table=setup.pdf_table)[0] > 0).cpu()
         for ng, offset in ((112, 0), (140, 997))]
 
 
@@ -1368,7 +1369,7 @@ def test_per_band_gas_optics_launch_b10_only(cuda, monkeypatch):
     def run():
         return gas_optics(th.pressure_hl, th.temperature_hl,
                           gas.mixing_ratio, sl.skin_temperature, sl.cos_sza,
-                          sl.solar_irradiance, setup.spec, setup.gas,
+                          sl.solar_irradiance, setup.maps, setup.gas,
                           lw_albedo=get_albedos(setup, sl)[2])
     fused = run()
     monkeypatch.setenv("ECRAD_FUSED_TAUMOL", "0")

@@ -71,7 +71,8 @@ def test_mcica_f64_subcolumns_are_jaxs(jax64, luts):
             ng, sl.iseed + offset, cfg.i_overlap_scheme,
             cfg.cloud_fraction_threshold, cloud.fraction,
             cloud.overlap_param, cfg.cloud_inhom_decorr_scaling,
-            cloud.fractional_std, setup.pdf_sampler)
+            cloud.fractional_std, setup.pdf_sampler,
+            table=setup.pdf_table)
         np.testing.assert_array_equal((od_scaling > 0).numpy(),
                                       jax64["mcica"][f"masks/{key}"],
                                       err_msg=key)

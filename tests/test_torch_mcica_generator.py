@@ -150,19 +150,15 @@ def emulator(tmp_path_factory):
 
 def run_emulated(emu, threads, overlap_scheme, frac_threshold, frac,
                  overlap_param, decorrelation_scaling, fractional_std,
-                 pdf_sampler, is_beta_overlap, cheb, rand_top, rand_cloud,
+                 pdf_sampler, is_beta_overlap, table, rand_top, rand_cloud,
                  u1, u2):
     """The kernel's arguments as generator_kernel passes them, on CPU
     tensors."""
     ncol, nlev = frac.shape
     ng = rand_top.shape[-1]
     dtype = frac.dtype
-    if pdf_sampler.cheb is not None:
-        table = torch.as_tensor(pdf_sampler.cheb).float().contiguous()
-        val = None
-    else:
-        table = None
-        val = torch.as_tensor(pdf_sampler.val, dtype=dtype).contiguous()
+    table, val = ((table, None) if pdf_sampler.cheb is not None
+                  else (None, table))
     od = torch.empty((ncol, nlev, ng), dtype=dtype)
     tcc = torch.empty((ncol,), dtype=dtype)
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -282,8 +278,9 @@ def case_args(lut_dir, case, dtype, ncol=7, seed=3):
     # contiguous, as the card's random-fields kernel gives them
     uniforms = [u.contiguous() for u in
                 fields.random_fields_plain(iseed, ng, nlev, dtype)]
-    return (overlap, 1e-6, frac, op, 0.5, fsd, sampler(lut_dir, shape, table),
-            beta, None, *uniforms)
+    s = sampler(lut_dir, shape, table)
+    return (overlap, 1e-6, frac, op, 0.5, fsd, s, beta,
+            ppdf.pdf_table(s, dtype, "cpu"), *uniforms)
 
 
 @pytest.mark.parametrize("threads", [1, 4])
@@ -326,7 +323,7 @@ def test_cpu_generator_takes_the_plain_stages(lut_dir, monkeypatch):
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         od, tcc = gen.cloud_generator(112, torch.arange(frac.shape[0]),
                                       overlap, 1e-6, frac, op, 0.5, fsd, s,
-                                      is_beta_overlap=beta)
+                                      is_beta_overlap=beta, table=args[8])
     counts = hooks.counters()
     hooks.reset_profile()
     assert mcica_generator.launches == n0

@@ -34,6 +34,11 @@ def case():
                 frac=frac, mu0=mu0, band_from_g=band_from_g, planck=planck)
 
 
+def _band(c):
+    """The case's band map as the setup holds it for kernel B4."""
+    return torch.as_tensor(c["band_from_g"], dtype=torch.int32)
+
+
 def _cmp(got, ref, tol):
     assert len(got) == len(ref)
     for i, (a, b) in enumerate(zip(got, ref)):
@@ -49,7 +54,7 @@ def test_b4_sw_plain_matches_jax(case, delta_all, interpret):
     c = case
     keys = ("od", "ssa", "g", "odc", "ssac", "gc")
     got = pmo.sw_clear_total_reftrans(
-        *(torch.as_tensor(c[k]) for k in keys), c["band_from_g"],
+        *(torch.as_tensor(c[k]) for k in keys), _band(c),
         torch.as_tensor(c["osc"]), torch.as_tensor(c["frac"]),
         torch.as_tensor(c["mu0"]), delta_all)
     ref = jmo.sw_clear_total_reftrans(
@@ -63,7 +68,7 @@ def test_b4_lw_plain_matches_jax(case, interpret):
     c = case
     got = pmo.lw_clear_total_noscat(
         torch.as_tensor(c["od"]), torch.as_tensor(c["odc"]),
-        c["band_from_g"], torch.as_tensor(c["osc"]),
+        _band(c), torch.as_tensor(c["osc"]),
         torch.as_tensor(c["frac"]), torch.as_tensor(c["planck"]))
     ref = jmo.lw_clear_total_noscat(
         c["od"], c["odc"], c["band_from_g"], c["osc"], c["frac"],
@@ -75,7 +80,7 @@ def test_b4_total_family_reuses_clear_where_not_cloudy(case):
     c = case
     out = pmo.lw_clear_total_noscat_plain(
         torch.as_tensor(c["od"]), torch.as_tensor(c["odc"]),
-        c["band_from_g"], torch.as_tensor(c["osc"]),
+        _band(c), torch.as_tensor(c["osc"]),
         torch.as_tensor(c["frac"]), torch.as_tensor(c["planck"]))
     clear_layers = torch.as_tensor(~c["frac"]).T[:, None, :]
     for i in range(3):
@@ -93,8 +98,8 @@ def test_b4_kernel_wrappers_refuse_cpu_tensors(case, which):
         if which == "sw":
             pmo.mcica_sw_optics_fused(
                 t("od"), t("ssa"), t("g"), t("odc"), t("ssac"), t("gc"),
-                c["band_from_g"], t("osc"), t("frac"), t("mu0"), False)
+                _band(c), t("osc"), t("frac"), t("mu0"), False)
         else:
-            pmo.mcica_lw_optics_fused(t("od"), t("odc"), c["band_from_g"],
+            pmo.mcica_lw_optics_fused(t("od"), t("odc"), _band(c),
                                       t("osc"), t("frac"), t("planck"))
     assert pmo.launches == before

@@ -187,7 +187,7 @@ def test_mcica_f32_subcolumns_are_jaxs(fluxes, luts, tmp_path_factory):
             ng, sl.iseed + offset, cfg.i_overlap_scheme,
             cfg.cloud_fraction_threshold, cloud.fraction,
             cloud.overlap_param, cfg.cloud_inhom_decorr_scaling,
-            cloud.fractional_std, setup.pdf_sampler, cheb=setup.pdf_cheb)
+            cloud.fractional_std, setup.pdf_sampler, table=setup.pdf_table)
         np.testing.assert_array_equal((od_scaling > 0).numpy(),
                                       fluxes["masks"][key], err_msg=key)
 
@@ -244,7 +244,7 @@ def test_setup_from_numpy_equals_setup_radiation(luts):
                                       getattr(ref.pdf_sampler, f))
     for f in ("fsd1", "inv_fsd_interval", "z0", "z1"):
         assert getattr(got.pdf_sampler, f) == getattr(ref.pdf_sampler, f), f
-    assert torch.equal(got.pdf_cheb, ref.pdf_cheb)
+    assert torch.equal(got.pdf_table, ref.pdf_table)
 
 
 # SPARTACUS in one region beside McICA, with its entrapment dump, which the

@@ -34,7 +34,8 @@ def _both(ncol, nlev, seed):
     jc = jsc.setcoef(jgc, t["preflog"], t["tref"], t["chi_mls"])
     pgc = psc.prepare_gases(*(torch.as_tensor(f32(x)) for x in
                               (phl, pfl, tfl, *gas)))
-    pc = psc.setcoef(pgc, t["preflog"], t["tref"], t["chi_mls"])
+    pc = psc.setcoef(pgc, *(torch.as_tensor(t[k], dtype=torch.float32)
+                            for k in ("preflog", "tref", "chi_mls")))
     return jgc, jc, pgc, pc
 
 

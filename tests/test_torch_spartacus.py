@@ -319,7 +319,8 @@ def test_reordered_gas_optics_match_jax(dtype):
     tdt = getattr(torch, dtype)
     spec = pgo.make_spec(t, reorder_lw=True, reorder_sw=True)
     got = pgo.gas_optics(*(torch.as_tensor(cols[k], dtype=tdt)
-                           for k in names), cols["solar_irradiance"], spec,
+                           for k in names), cols["solar_irradiance"],
+                         pgo.spec_tensors(spec, "cpu"),
                          pgo.gas_tables(t, tdt, "cpu"),
                          lw_albedo=torch.as_tensor(lw_albedo, dtype=tdt))
     np.testing.assert_array_equal(spec.g_from_reordered_g_lw,

@@ -347,7 +347,8 @@ def test_solar_scaling_matches_jax(fluxes, monkeypatch, path, reorder,
         return pgo.gas_optics(
             a("pressure_hl"), a("temperature_hl"), a("mixing_ratio"),
             a("skin_temperature"), a("cos_sza"), cols["solar_irradiance"],
-            spec, tables, spectral_solar_scaling=scaling).incoming_sw
+            pgo.spec_tensors(spec, "cpu"), tables,
+            spectral_solar_scaling=scaling).incoming_sw
     got = incoming(a("spectral_solar_scaling")).double().numpy()
     ref = fluxes[1][dtype]["gas_optics"][str(reorder)]["incoming_sw"]
     rel = np.abs(got - ref).max() / np.abs(ref).max()

@@ -29,9 +29,9 @@ from ecrad_tpu.optics.rrtmg.taumol_sw import taumol_sw as jax_taumol_sw
 from ecrad_tpu.optics.rrtmg.taumol_sw_fused import taumol_sw_fused
 from ecrad_tpu_torch.inputs import make_columns
 from ecrad_tpu_torch.optics.rrtmg import fused_tables, taumol_lw, taumol_sw
+from ecrad_tpu_torch.optics.rrtmg.gas_optics import gas_tables
 from ecrad_tpu_torch.optics.rrtmg.setcoef import Coeffs
 from ecrad_tpu_torch.optics.rrtmg.tables import load_tables
-from ecrad_tpu_torch.optics.rrtmg.taumol_common import device_tables
 from ecrad_tpu_torch.optics.rrtmg.taumol_lw_sections import \
     taumol_lw_sections
 from ecrad_tpu_torch.optics.rrtmg.taumol_sw_sections import \
@@ -58,8 +58,9 @@ def _jax_fn(name):
 
 
 def _coeffs(seed, dtype):
-    """(JAX Coeffs, the same as torch Coeffs, tables), surface-first; at
-    float64 call it under jax.enable_x64."""
+    """(JAX Coeffs, the same as torch Coeffs, the port's GasTables on the
+    CPU at dtype), surface-first; at float64 call it under
+    jax.enable_x64."""
     cols = make_columns(6, 18, seed)
     t = load_tables()
     phl, thl = cols["pressure_hl"], cols["temperature_hl"]
@@ -72,7 +73,8 @@ def _coeffs(seed, dtype):
     jc = jsc.setcoef(gc, t["preflog"], t["tref"], t["chi_mls"])
     pc = Coeffs(**{k: torch.as_tensor(np.array(getattr(jc, k)))
                    for k in Coeffs._fields})
-    return jc, pc, t
+    return jc, pc, gas_tables(t, torch.float64 if dtype == np.float64
+                              else torch.float32, "cpu")
 
 
 @pytest.fixture(scope="module", params=[0, 1])
@@ -91,10 +93,8 @@ def _check_tau(a, b, what):
 
 
 def test_b1_plain_matches_jax_fused_body(coeffs):
-    jc, pc, t = coeffs
-    tau, pfrac = taumol_lw.taumol_lw_cells(
-        pc, t["chi_mls"],
-        device_tables(fused_tables.build_lw(t), torch.float32, "cpu"))
+    jc, pc, gt = coeffs
+    tau, pfrac = taumol_lw.taumol_lw_cells(pc, gt.chi_mls, gt.lw)
     jtau, jpf = _jax_fn("lw_fused")(jc)
     _check_tau(tau.numpy(), jtau, "tau")
     np.testing.assert_allclose(pfrac.numpy(), np.asarray(jpf), rtol=0,
@@ -102,10 +102,8 @@ def test_b1_plain_matches_jax_fused_body(coeffs):
 
 
 def test_b1_plain_matches_jax_per_band(coeffs):
-    jc, pc, t = coeffs
-    tau, pfrac = taumol_lw.taumol_lw_cells(
-        pc, t["chi_mls"],
-        device_tables(fused_tables.build_lw(t), torch.float32, "cpu"))
+    jc, pc, gt = coeffs
+    tau, pfrac = taumol_lw.taumol_lw_cells(pc, gt.chi_mls, gt.lw)
     jtau, jpf = _jax_fn("lw_bands")(jc)
     _check_tau(tau.numpy(), jtau, "tau")
     np.testing.assert_allclose(pfrac.numpy(), np.asarray(jpf), rtol=0,
@@ -113,10 +111,8 @@ def test_b1_plain_matches_jax_per_band(coeffs):
 
 
 def test_b2_plain_and_solar_source_match_jax_fused_body(coeffs):
-    jc, pc, t = coeffs
-    taug, taur, sflux = taumol_sw.taumol_sw_cells(
-        pc, t, device_tables(fused_tables.build_sw(t), torch.float32,
-                             "cpu"))
+    jc, pc, gt = coeffs
+    taug, taur, sflux = taumol_sw.taumol_sw_cells(pc, gt)
     jg, jr, js = _jax_fn("sw_fused")(jc)
     _check_tau(taug.numpy(), jg, "taug")
     _check_tau(taur.numpy(), jr, "taur")
@@ -126,10 +122,8 @@ def test_b2_plain_and_solar_source_match_jax_fused_body(coeffs):
 
 
 def test_b2_plain_matches_jax_per_band(coeffs):
-    jc, pc, t = coeffs
-    taug, taur, sflux = taumol_sw.taumol_sw_cells(
-        pc, t, device_tables(fused_tables.build_sw(t), torch.float32,
-                             "cpu"))
+    jc, pc, gt = coeffs
+    taug, taur, sflux = taumol_sw.taumol_sw_cells(pc, gt)
     jg, jr, js = _jax_fn("sw_bands")(jc)
     _check_tau(taug.numpy(), jg, "taug")
     _check_tau(taur.numpy(), jr, "taur")
@@ -139,44 +133,41 @@ def test_b2_plain_matches_jax_per_band(coeffs):
 
 
 def test_lw_per_band_matches_jax_per_band_and_fused(coeffs):
-    jc, pc, t = coeffs
-    tau, pfrac = taumol_lw_sections(pc, t, toa_first=True)
+    jc, pc, gt = coeffs
+    tau, pfrac = taumol_lw_sections(pc, gt.t, toa_first=True)
     assert tau.dtype == torch.float32 and tau.shape == (6, 18, 140)
     jtau, jpf = _jax_fn("lw_bands")(jc)
     _check_tau(tau.numpy(), jtau, "tau")
     np.testing.assert_allclose(pfrac.numpy(), np.asarray(jpf), rtol=0,
                                atol=1e-6)
-    ftau, fpf = taumol_lw.taumol_lw_cells(
-        pc, t["chi_mls"],
-        device_tables(fused_tables.build_lw(t), torch.float32, "cpu"))
+    ftau, fpf = taumol_lw.taumol_lw_cells(pc, gt.chi_mls, gt.lw)
     _check_tau(tau.numpy(), ftau.numpy(), "tau vs fused")
     np.testing.assert_allclose(pfrac.numpy(), fpf.numpy(), rtol=0,
                                atol=1e-6)
 
 
 def test_sw_per_band_matches_jax_per_band_and_fused(coeffs):
-    jc, pc, t = coeffs
-    taug, taur, sflux = taumol_sw_sections(pc, t, toa_first=True)
+    jc, pc, gt = coeffs
+    taug, taur, sflux = taumol_sw_sections(pc, gt, toa_first=True)
     assert taug.shape == taur.shape == (6, 18, 112)
     jg, jr, js = _jax_fn("sw_bands")(jc)
     _check_tau(taug.numpy(), jg, "taug")
     _check_tau(taur.numpy(), jr, "taur")
     js = np.asarray(js)
     assert np.abs(sflux.numpy() - js).max() / np.abs(js).max() <= 1e-6
-    fg, fr, _ = taumol_sw.taumol_sw_cells(
-        pc, t, device_tables(fused_tables.build_sw(t), torch.float32,
-                             "cpu"))
+    fg, fr, _ = taumol_sw.taumol_sw_cells(pc, gt)
     _check_tau(taug.numpy(), fg.numpy(), "taug vs fused")
     _check_tau(taur.numpy(), fr.numpy(), "taur vs fused")
 
 
 def test_per_band_matches_jax_per_band_at_float64():
     with jax.enable_x64(True):
-        jc, pc, t = _coeffs(0, np.float64)
+        jc, pc, gt = _coeffs(0, np.float64)
+        t = gt.t
         jlw = [np.asarray(x) for x in jax_taumol_lw(jc, t, toa_first=True)]
         jsw = [np.asarray(x) for x in jax_taumol_sw(jc, t, toa_first=True)]
     got = [x.numpy() for x in taumol_lw_sections(pc, t, toa_first=True)
-           + taumol_sw_sections(pc, t, toa_first=True)]
+           + taumol_sw_sections(pc, gt, toa_first=True)]
     for name, a, b in zip(("tau", "pfrac", "taug", "taur", "sflux"), got,
                           jlw + jsw):
         assert a.dtype == b.dtype == np.float64, name
@@ -205,7 +196,7 @@ def test_gas_optics_honours_ecrad_fused_taumol(monkeypatch):
         return pgo.gas_optics(
             th.pressure_hl, th.temperature_hl, gas.mixing_ratio,
             sl.skin_temperature, sl.cos_sza, sl.solar_irradiance,
-            setup.spec, setup.gas, lw_albedo=get_albedos(setup, sl)[2])
+            setup.maps, setup.gas, lw_albedo=get_albedos(setup, sl)[2])
     fused = run()
     assert not calls
     monkeypatch.setenv("ECRAD_FUSED_TAUMOL", "0")
@@ -217,18 +208,17 @@ def test_gas_optics_honours_ecrad_fused_taumol(monkeypatch):
                                fused.planck_hl.numpy(), rtol=1e-5)
 
 
-@pytest.mark.parametrize("kernel, pack, build", [
+@pytest.mark.parametrize("kernel, pack, region", [
     (taumol_lw.taumol_lw_kernel,
-     lambda c, t: taumol_lw.pack_coeffs(c, t["chi_mls"]),
-     fused_tables.build_lw),
-    (taumol_sw.taumol_sw_kernel, lambda c, t: taumol_sw.pack_coeffs(c),
-     fused_tables.build_sw)])
-def test_kernel_wrappers_refuse_cpu_tensors(coeffs, kernel, pack, build):
+     lambda c, gt: taumol_lw.pack_coeffs(c, gt.chi_mls), "lw"),
+    (taumol_sw.taumol_sw_kernel, lambda c, gt: taumol_sw.pack_coeffs(c),
+     "sw")])
+def test_kernel_wrappers_refuse_cpu_tensors(coeffs, kernel, pack, region):
     """The kernel wrappers take CUDA float32 tensors only and check that
     before they build or launch anything."""
-    _, pc, t = coeffs
-    fc, ic = pack(pc, t)
-    tables = device_tables(build(t), torch.float32, "cpu")
+    _, pc, gt = coeffs
+    fc, ic = pack(pc, gt)
+    tables = getattr(gt, region)
     before = taumol_lw.launches + taumol_sw.launches
     with pytest.raises(ValueError, match="CUDA"):
         kernel(fc, ic, tables)
@@ -238,9 +228,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(coeffs, kernel, pack, build):
 def test_pack_coeffs_layout(coeffs):
     """Cells are row-major (column, level) in both packers, TOA first
     after flip_levels, with the fields in the kernels' order."""
-    _, pc, t = coeffs
+    _, pc, gt = coeffs
     c = pc.flip_levels()
-    fc, ic = taumol_lw.pack_coeffs(c, t["chi_mls"])
+    fc, ic = taumol_lw.pack_coeffs(c, gt.chi_mls)
     n = c.jp.numel()
     assert fc.shape == (len(taumol_lw.F_FIELDS), n) and fc.is_contiguous()
     assert ic.shape == (len(taumol_lw.I_FIELDS), n) and ic.dtype == torch.int32

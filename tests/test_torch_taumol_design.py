@@ -121,13 +121,13 @@ def test_slots_and_phase2_instantiations_cover_every_band():
 def cells():
     setup = setup_radiation(cloudless_slice_config(), device="cpu")
     sl, th, gas = columns_to_inputs(make_columns(4, 137, 0), device="cpu")
-    t = setup.tables
+    t = setup.gas
     phl, thl = th.pressure_hl, th.temperature_hl
     gc = prepare_gases(phl, 0.5 * (phl[:, :-1] + phl[:, 1:]),
                        0.5 * (thl[:, :-1] + thl[:, 1:]),
                        *(gas.get(g) for g in GASES))
-    c = setcoef(gc, t["preflog"], t["tref"], t["chi_mls"]).flip_levels()
-    fc, ic = taumol_lw.pack_coeffs(c, t["chi_mls"])
+    c = setcoef(gc, t.preflog, t.tref, t.chi_mls).flip_levels()
+    fc, ic = taumol_lw.pack_coeffs(c, t.chi_mls)
     fc_sw, ic_sw = taumol_sw.pack_coeffs(c)
     return fc.float(), ic, setup.gas.lw, fc_sw.float(), ic_sw, setup.gas.sw
 

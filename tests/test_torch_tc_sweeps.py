@@ -266,6 +266,7 @@ def _solve_jax(cfg, c, band, x, dtype):
 def _solve_port(cfg, c, band, x, dtype):
     t = lambda v: torch.as_tensor(v, dtype=getattr(torch, dtype))
     cloud = SimpleNamespace(**{k: t(v) for k, v in c.items()})
+    band = torch.as_tensor(band)
     sw, sw_c, tcc_sw = ptc.solver_tripleclouds_sw(
         cfg, band, cloud, t(x["cos_sza"]),
         *(t(x[k]) for k in ("od", "ssa", "g", "odc", "ssac", "gc",

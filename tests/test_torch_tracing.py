@@ -7,24 +7,35 @@ call with LHOOK on, under torch.profiler: the `ecrad.*` spans nest as the
 layers do, the merge passes and the host syncs are counted, and the
 fluxes are the same bits with the hooks on and off.
 
-The test marked `gpu` runs one call of each on the card under
-torch.cuda.set_sync_debug_mode("warn"): every synchronising operation
-of the call goes through hooks.sync, so the warnings equal the sync
-counters; McICA's random fields and generator are two kernel launches
-each and no sync. The file imports no jax; on the card:
+A call on the CPU of each solver with torch.as_tensor, torch.tensor and
+torch.from_numpy refusing numpy arrays: setup_radiation put every static
+array on the device, so the call turns no host array into a tensor and
+counts no upload but the McICA generator's key (`sync.upload.threefry`).
+
+The test marked `gpu` runs one call of McICA, Tripleclouds and SPARTACUS
+on the card under torch.cuda.set_sync_debug_mode("warn"): every
+synchronising operation of the call goes through hooks.sync, so the
+warnings equal the sync counters, and the sites left are the level
+orientation and float32 SW layer optics' resonance window; McICA's
+random fields and generator are two kernel launches each and no sync.
+The file imports no jax; on the card:
 
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_tracing.py
 """
 import warnings
 
+import numpy as np
 import pytest
 import torch
 
-from ecrad_tpu_torch.config import (TRIPLECLOUDS_AEROSOL_MAP,
+from ecrad_tpu_torch.config import (TRIPLECLOUDS_AEROSOL_MAP, Solver,
+                                    cloudless_slice_config,
                                     mcica_slice_config,
+                                    spartacus_slice_config,
                                     tripleclouds_slice_config)
 from ecrad_tpu_torch.convert import columns_to_inputs
-from ecrad_tpu_torch.inputs import (make_aerosols, make_clouds, make_columns,
+from ecrad_tpu_torch.inputs import (add_effective_sizes, make_aerosols,
+                                    make_clouds, make_columns,
                                     write_synthetic_luts)
 from ecrad_tpu_torch.interface import radiation, setup_radiation
 from ecrad_tpu_torch.utils import hooks
@@ -65,8 +76,17 @@ NESTING = {
         "ecrad.regions": SOLVERS,
         "ecrad.layer_optics": SOLVERS,
         "ecrad.sweeps": SOLVERS,
-        "ecrad.lw_derivatives": ("ecrad.solver_lw",),
-        "ecrad.sync.upload.tripleclouds": SOLVERS},
+        "ecrad.lw_derivatives": ("ecrad.solver_lw",)},
+}
+
+# the sync sites of one call on the card, with how often each runs: the
+# level orientation, and the resonance window of each float32 SW layer
+# optics pass outside kernel B4 (Tripleclouds' total and clear sky,
+# SPARTACUS's clear sky)
+CARD_SYNCS = {
+    "mcica": {"sync.orientation": 1},
+    "tripleclouds": {"sync.orientation": 1, "sync.resonance": 2},
+    "spartacus": {"sync.orientation": 1, "sync.resonance": 1},
 }
 
 
@@ -81,14 +101,21 @@ def _hooks_restored(monkeypatch):
 
 
 def _state(kind, device, ncol=5, nlev=24, tmp=None):
-    if kind == "mcica":
+    if kind == "cloudless":
+        config = cloudless_slice_config()
+    elif kind in ("mcica", "homogeneous"):
+        solver = {"mcica": {}, "homogeneous": dict(
+            i_solver_sw=Solver.HOMOGENEOUS, i_solver_lw=Solver.HOMOGENEOUS)}
         config = mcica_slice_config(**write_synthetic_luts(tmp, 0),
-                                    **MCICA_EXTRA)
+                                    **MCICA_EXTRA, **solver[kind])
     else:
-        config = tripleclouds_slice_config(**write_synthetic_luts(
-            tmp, 0, ice="fu"))
+        make = {"tripleclouds": tripleclouds_slice_config,
+                "spartacus": spartacus_slice_config}[kind]
+        config = make(**write_synthetic_luts(tmp, 0, ice="fu"))
     setup = setup_radiation(config, device=device)
     cols = make_aerosols(make_clouds(make_columns(ncol, nlev, 3), 3), 3)
+    if kind == "spartacus":
+        cols = add_effective_sizes(cols)
     return setup, columns_to_inputs(cols, device=device)
 
 
@@ -123,9 +150,8 @@ def test_enable_count_sync_and_reset():
     hooks.count("passes")
     hooks.count("passes", 4)
     assert hooks.sync("site", sum, [1, 2]) == 3
-    assert hooks.upload("table", [1.0, 2.0], "cpu").tolist() == [1.0, 2.0]
     snap = hooks.counters()
-    assert snap == {"passes": 5, "sync.site": 1, "sync.upload.table": 1}
+    assert snap == {"passes": 5, "sync.site": 1}
     snap["passes"] = 0
     assert hooks.counters()["passes"] == 5
     hooks.reset_profile()
@@ -179,11 +205,39 @@ def test_a_call_holds_its_spans_and_counts(kind, tmp_path):
         assert "ecrad.cloud_generator" not in spans
 
 
+@pytest.mark.parametrize("kind", ["cloudless", "homogeneous", "mcica",
+                                  "tripleclouds", "spartacus"])
+def test_a_call_turns_no_host_array_into_a_tensor(kind, tmp_path,
+                                                  monkeypatch):
+    """One call on the CPU with torch.as_tensor, torch.tensor and
+    torch.from_numpy refusing numpy arrays, the hooks on: every static
+    array a call reads is on the device from setup_radiation, so nothing
+    is converted and no upload is counted but the generator's key."""
+    setup, inputs = _state(kind, "cpu", tmp=str(tmp_path))
+
+    def refusing(fn):
+        def guarded(data, *args, **kwargs):
+            if isinstance(data, (np.ndarray, np.generic)):
+                raise AssertionError(f"{fn.__name__} of a numpy array")
+            return fn(data, *args, **kwargs)
+        return guarded
+    for name in ("as_tensor", "tensor", "from_numpy"):
+        monkeypatch.setattr(torch, name, refusing(getattr(torch, name)))
+    hooks.enable(True)
+    radiation(setup, *inputs)
+    counts = hooks.counters()
+    hooks.enable(False)
+    uploads = {k for k in counts if k.startswith("sync.upload.")}
+    assert uploads <= {"sync.upload.threefry"}, uploads
+    assert ("sync.upload.threefry" in uploads) == (kind == "mcica")
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["mcica", "tripleclouds"])
+@pytest.mark.parametrize("kind", ["mcica", "tripleclouds", "spartacus"])
 def test_every_sync_of_a_call_is_counted(kind, tmp_path):
     """One call on the card under set_sync_debug_mode("warn"): as many
-    synchronising operations as the sync counters hold."""
+    synchronising operations as the sync counters hold, at the sites of
+    CARD_SYNCS alone."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     setup, inputs = _state(kind, "cuda", ncol=256, nlev=137,
@@ -211,6 +265,8 @@ def test_every_sync_of_a_call_is_counted(kind, tmp_path):
     # upload of the key, and run the generator in one more each, with no
     # sync of the cover's merge loop
     counts = hooks.counters()
+    assert {k: v for k, v in counts.items() if k.startswith("sync.")} \
+        == CARD_SYNCS[kind]
     calls = 2 if kind == "mcica" else 0
     assert counts.get("threefry.kernel", 0) == calls
     assert counts.get("launch.mcica_generator.f32", 0) == calls

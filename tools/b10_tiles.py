@@ -75,7 +75,7 @@ def main():
     gc = prepare_gases(phl, 0.5 * (phl[:, :-1] + phl[:, 1:]),
                        0.5 * (thl[:, :-1] + thl[:, 1:]),
                        *(gas.get(g) for g in GASES))
-    c = setcoef(gc, t["preflog"], t["tref"], t["chi_mls"])
+    c = setcoef(gc, setup.gas.preflog, setup.gas.tref, setup.gas.chi_mls)
     calls = []
 
     def keep(secs, n):
@@ -84,7 +84,7 @@ def main():
     for mod in (taumol_lw_sections, taumol_sw_sections):
         mod.eval_sections = keep
     taumol_lw_sections.taumol_lw_sections(c, t, toa_first=True)
-    taumol_sw_sections.taumol_sw_sections(c, t, toa_first=True)
+    taumol_sw_sections.taumol_sw_sections(c, setup.gas, toa_first=True)
 
     sums = {"best": 0.0, "plan": 0.0, 64: 0.0, 128: 0.0}
     for i, (secs, n) in enumerate(calls):
