@@ -10,7 +10,7 @@ Phases; any failure exits non-zero and prints no result line:
      B1, B2, B3 sw_adding and B3' lw_adding at 137 and 300 levels, B3
      lw_noscat, B5's SW and LW kernels with 3 and 2 regions at 137 and 300
      levels, B6's and B7's two passes, B8, B9 with multilayer effects
-     off and on, B4's SW form, the McICA generator's random-fields kernel
+     off and on, B4's SW form, B11, the McICA generator's random-fields kernel
      for float32 and float64, the cloud generator kernel's float and
      double forms at 112 and 140 g-points, and the double forms of B1, B2,
      B3 sw_adding
@@ -19,7 +19,8 @@ Phases; any failure exits non-zero and prints no result line:
      get; a spill in the double forms of B1-B3 fails);
   2. every kernel of the paths (B1 taumol_lw, B2 taumol_sw, B3 sw_adding
      and lw_noscat, B3' lw_adding, B4 mcica_sw_optics and
-     mcica_lw_optics, B5 tc_sw_sweeps and tc_lw_sweeps, B6
+     mcica_lw_optics, B5 tc_sw_sweeps and tc_lw_sweeps, B11 tc_sw_optics
+     (both families bit for bit), B6
      spartacus_sw_reftrans, B7 spartacus_lw_reftrans, B8
      spartacus_sw_adding, B9 spartacus_lw_adding, B10 gather_sections,
      and threefry_fields, the McICA generator's random fields, bit for
@@ -270,9 +271,10 @@ PATH_KERNELS = {
                      "mcica_sw_optics", "mcica_lw_optics",
                      "threefry_fields", "mcica_generator"),
     "tripleclouds": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
-                     "tc_sw_sweeps", "tc_lw_sweeps"),
+                     "tc_sw_optics", "tc_sw_sweeps", "tc_lw_sweeps"),
     "tripleclouds_2reg": ("taumol_lw", "taumol_sw", "sw_adding",
-                          "lw_noscat", "tc_sw_sweeps", "tc_lw_sweeps"),
+                          "lw_noscat", "tc_sw_optics", "tc_sw_sweeps",
+                          "tc_lw_sweeps"),
     "homogeneous": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding"),
     "spartacus": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
                   "spartacus_sw_reftrans", "spartacus_lw_reftrans",
@@ -418,7 +420,7 @@ F64_OPS_PER_S = 34e12
 OPS_PER_VALUE = {"taumol_lw": 60, "taumol_sw": 30, "sw_adding": 40,
                  "lw_noscat": 6, "lw_adding": 25, "mcica_sw_optics": 120,
                  "mcica_lw_optics": 40, "tc_sw_sweeps": 60,
-                 "tc_lw_sweeps": 45}
+                 "tc_lw_sweeps": 45, "tc_sw_optics": 60}
 # the SPARTACUS kernels' work depends on the data; operations counted
 # from csrc/spartacus_reftrans.cu and spartacus_adding.cu for 3 regions
 # (a matrix product M x K x N counts M N (2K - 1)): B6/B7 per fallback
@@ -734,6 +736,17 @@ def sweep_ops(name, cols, ng, clear_rows):
     nlev, _, ncol = cols.shape
     mixed = ~((cols[:, clear_rows[0]] > 0.5) & (cols[:, clear_rows[1]] > 0.5))
     return ng * (nlev * ncol * per_cell + int(mixed.sum()) * per_mix)
+
+
+def tc_optics_ops(args):
+    """B11's operations on its arguments: OPS_PER_VALUE's 60 a cell of
+    each family (the clear sky and every region: B4's 120 over its two)
+    and 12 more a cloudy region cell (the mix with the cloud)."""
+    od, od_scaling, cloudy = args[0], args[7], args[8]
+    cells, nreg = od.numel(), od_scaling.shape[-1]
+    cloudy_cells = int(cloudy.sum()) * od.shape[-1] * (nreg - 1)
+    return (OPS_PER_VALUE["tc_sw_optics"] * cells * (nreg + 1)
+            + 12 * cloudy_cells)
 
 
 def tc_moved_bytes(kind, args):
@@ -1113,6 +1126,7 @@ def main():
     from ecrad_tpu_torch.ops import random_fields as rf
     from ecrad_tpu_torch.ops import spartacus_adding as sa
     from ecrad_tpu_torch.ops import spartacus_reftrans as sr
+    from ecrad_tpu_torch.ops import tc_optics
     from ecrad_tpu_torch.optics.rrtmg import (taumol_lw, taumol_lw_sections,
                                               taumol_sw, taumol_sw_sections)
     from ecrad_tpu_torch.optics.rrtmg.gas_optics import gas_optics
@@ -1191,6 +1205,8 @@ def main():
             ("B2 taumol_sw", "taumol_sw_info", (), "taumol_sw_kernelIf"),
             ("B4 mcica_sw_optics", "mcica_optics_info", (0,),
              "mcica_sw_optics_kernelIf"),
+            ("B11 tc_sw_optics", "tc_sw_optics_info", (),
+             "tc_sw_optics_kernel"),
             # the double forms: B3' lw_adding's window is under 137 levels
             ("B1 taumol_lw, float64", "taumol_lw_info_f64", (),
              "taumol_lw_kernelId"),
@@ -1395,11 +1411,14 @@ def main():
             path_args[name] = args
             return fn(*args)
         return wrapped
-    sweeps = tripleclouds.tc_sw_sweeps, tripleclouds.tc_lw_sweeps
+    sweeps = (tripleclouds.tc_sw_sweeps, tripleclouds.tc_lw_sweeps,
+              tripleclouds._region_props_sw_g)
     tripleclouds.tc_sw_sweeps = keep("tc_sw_sweeps", sweeps[0])
     tripleclouds.tc_lw_sweeps = keep("tc_lw_sweeps", sweeps[1])
+    tripleclouds._region_props_sw_g = keep("tc_sw_optics", sweeps[2])
     radiation(setup_t, *inputs_t)
-    tripleclouds.tc_sw_sweeps, tripleclouds.tc_lw_sweeps = sweeps
+    (tripleclouds.tc_sw_sweeps, tripleclouds.tc_lw_sweeps,
+     tripleclouds._region_props_sw_g) = sweeps
     sp_fns = [(mod, name, getattr(mod, name)) for mod, name in (
         (spartacus_sw, "sw_reftrans_levels"),
         (spartacus_sw, "sw_adding_sweeps"),
@@ -1445,6 +1464,24 @@ def main():
         # the adding sweeps keep their plain versions' operation order
         if name in ADDING and errs[name] != 0.0:
             raise AssertionError(f"{name} differs from its plain version")
+    # B11 on the operands the Tripleclouds path hands it: both families
+    # (5 region and 5 clear-sky outputs) bit for bit, the resonance
+    # window's cells included
+    b11_args = path_args["tc_sw_optics"]
+    a = tc_optics.tc_sw_optics_fused(*b11_args)
+    torch.cuda.synchronize()
+    b = tc_optics.tc_sw_optics_plain(*b11_args)
+    a, b = (*a[0], *a[1]), (*b[0], *b[1])
+    errs["tc_sw_optics"] = max(float((x - y).abs().max())
+                               for x, y in zip(a, b))
+    bounds["tc_sw_optics"] = least_time(
+        "tc_sw_optics", b11_args, a, ops=tc_optics_ops(b11_args))
+    log(f"tc_sw_optics: shapes {tuple(a[0].shape)} and {tuple(a[5].shape)},"
+        f" worst abs {errs['tc_sw_optics']:.3e}, cells differing "
+        f"{sum(int((x != y).sum()) for x, y in zip(a, b))}")
+    if errs["tc_sw_optics"] != 0.0:
+        raise AssertionError("tc_sw_optics differs from its plain version")
+    del a, b
     # B3 sw_adding and B3' lw_adding with 1, 2, 137 and ADD_SPILL_NLEV
     # levels on 15 g x 133 columns (no multiple of their 32-thread
     # blocks): equal to their plain versions bit for bit
@@ -2008,7 +2045,8 @@ def main():
 
     # ---- 3. the paths, counted ----
     counters = (taumol_lw, taumol_sw, rf, mg, adding_fused.launches,
-                mcica_optics.launches, sr.launches, sa.launches, gi.launches)
+                mcica_optics.launches, sr.launches, sa.launches, gi.launches,
+                tc_optics.launches)
     launches = {}
 
     def count(name, fn):
@@ -2673,6 +2711,10 @@ def main():
         "mcica_generator_f64": (
             lambda: [mg.generator_kernel(*a) for a in gen_calls],
             lambda: [cloud_generator_plain(*a) for a in gen_calls]),
+        "tc_sw_optics": (
+            lambda: tc_optics.tc_sw_optics_fused(*path_args["tc_sw_optics"]),
+            lambda: tc_optics.tc_sw_optics_plain(
+                *path_args["tc_sw_optics"])),
         "tc_sw_sweeps": (
             lambda: adding_fused.tc_sw_sweeps_fused(
                 *path_args["tc_sw_sweeps"]),
@@ -3024,6 +3066,9 @@ def main():
                                "ecrad_tpu/ops/mcica_optics.py:181"),
            "mcica_lw_optics": ("ecrad_tpu_torch/csrc/mcica_optics.cu",
                                "ecrad_tpu/ops/mcica_optics.py:269"),
+           "tc_sw_optics": ("ecrad_tpu_torch/csrc/tc_optics.cu",
+                            "none: XLA elementwise passes in ecrad_tpu/"
+                            "solvers/tripleclouds.py:156-225"),
            "tc_sw_sweeps": (tc_sweeps, "ecrad_tpu/ops/adding_fused.py:290"),
            "tc_lw_sweeps": (tc_sweeps, "ecrad_tpu/ops/adding_fused.py:361"),
            "spartacus_sw_reftrans": (sp_rt, f"{jrt}:350"),

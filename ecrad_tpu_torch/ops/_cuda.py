@@ -18,6 +18,8 @@ double entry point, the double one's name ending in `_f64`:
 (`scalar` checks it) and counts
 `launch.<name>.f32` or `.f64` (hooks.count; ops/random_fields.py counts
 the threefry kernel, which takes its dtype as a flag, the same way).
+Kernel B11, float only, is launched with dtype=float32 so that it is
+counted too (F32_FORMS).
 """
 from __future__ import annotations
 
@@ -68,12 +70,16 @@ _SIGS = {
     "gather_sections": "pipipiiip",
     "threefry_fields": "piuuiiiipppp",
     "mcica_generator": "ppppppppp" "iiiiiii" "dddddd" "pp",
+    "tc_sw_optics": "pppppppppp" "iiiiii" "pp",
 }
 #: the kernels with a double form: its entry point, name + "_f64", takes
 #: the same arguments with double in place of float
 F64_FORMS = ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat",
              "lw_adding", "mcica_sw_optics", "mcica_generator")
 _SIGS.update({name + "_f64": _SIGS[name] for name in F64_FORMS})
+#: kernels with a float form only that are launched with dtype= all the
+#: same, so that their launches are counted
+F32_FORMS = ("tc_sw_optics",)
 #: the scalar types of those kernels: entry point suffix and counter tag
 _DTYPES = {torch.float32: ("", "f32"), torch.float64: ("_f64", "f64")}
 
@@ -93,7 +99,8 @@ _INFO_SIGS = {"level_sweep_info": "ii",
               "spartacus_lw_adding_info": "ii",
               "gather_sections_info": "iiii",
               "threefry_fields_info": "i",
-              "mcica_generator_info": "iii"}
+              "mcica_generator_info": "iii",
+              "tc_sw_optics_info": ""}
 INFO_FIELDS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
                "threads", "blocks_per_sm", "sms")
 
@@ -234,10 +241,13 @@ def tag(dtype: torch.dtype) -> str:
 def launch(name: str, *args, dtype: Optional[torch.dtype] = None) -> None:
     """Call C entry point `name` on the current stream; raise if the
     launch was refused (cudaGetLastError() != 0). With `dtype`, `name` is
-    one of F64_FORMS: the entry point of that dtype is called and the
-    launch counted as `launch.<name>.<f32|f64>`."""
+    one of F64_FORMS, or with float32 one of F32_FORMS: the entry point of
+    that dtype is called and the launch counted as
+    `launch.<name>.<f32|f64>`."""
     if dtype is not None:
-        if name not in F64_FORMS or dtype not in _DTYPES:
+        forms = (_DTYPES if name in F64_FORMS else (torch.float32,)
+                 if name in F32_FORMS else ())
+        if dtype not in forms:
             raise TypeError(f"{name} has no {dtype} form")
         kernel = name
         name += _DTYPES[dtype][0]

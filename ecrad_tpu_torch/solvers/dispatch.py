@@ -4,9 +4,10 @@ Port of ecrad_tpu/solvers/dispatch.py: the McICA, Homogeneous,
 Tripleclouds and SPARTACUS branches, with the thermodynamics passed
 through (SPARTACUS takes its layer depths from them). Every band map is
 the setup's device map of the spec's reordered one (the identity order
-unless the solver is SPARTACUS); McICA's is the int32 form kernel B4
-reads. Returns (total_fluxes, clear_fluxes, extras) with extras the
-diagnostics (cloud cover, LW derivatives).
+unless the solver is SPARTACUS); McICA's and Tripleclouds' SW one are
+the int32 form kernels B4 and B11 read. Returns (total_fluxes,
+clear_fluxes, extras) with extras the diagnostics (cloud cover, LW
+derivatives).
 """
 from __future__ import annotations
 
@@ -67,8 +68,8 @@ def solve_sw(setup, single_level, thermodynamics, cloud, cloud_props, od,
                                              cos_sza, *albedos)
         tcc = _any_cloud(cfg, cloud, od.dtype)
     elif cfg.i_solver_sw == Solver.TRIPLECLOUDS:
-        total, clear, tcc = solver_tripleclouds_sw(cfg, band, cloud, cos_sza,
-                                                   *props, *albedos)
+        total, clear, tcc = solver_tripleclouds_sw(
+            cfg, setup.maps.band_sw32, cloud, cos_sza, *props, *albedos)
     elif cfg.i_solver_sw == Solver.SPARTACUS:
         total, clear, tcc, extras = solver_spartacus_sw(
             cfg, band, cos_sza, thermodynamics, cloud, *props, *albedos)

@@ -12,8 +12,11 @@ Port of ecrad_tpu/solvers/tripleclouds.py:47-576:
     where a layer and its neighbour are both clear. The clear sky is the
     ICA adding on gas and aerosols.
 
-State layout: region-leading g-first, (nlev, nreg, ng, ncol). The two
-sweeps are kernel B5 (ops/adding_fused.py `tc_sw_sweeps_fused`,
+State layout: region-leading g-first, (nlev, nreg, ng, ncol). The SW
+layer optics of the regions and of the clear sky are kernel B11
+(ops/tc_optics.py, csrc/tc_optics.cu) on CUDA tensors and its plain
+version on CPU tensors (`_region_props_sw_g`). The two sweeps are kernel
+B5 (ops/adding_fused.py `tc_sw_sweeps_fused`,
 `tc_lw_sweeps_fused`, csrc/tc_sweeps.cu) on CUDA tensors and their plain
 versions `tc_sw_sweeps_plain`/`tc_lw_sweeps_plain` here on CPU tensors.
 Both return the region-summed profiles the solver needs, summed in region
@@ -29,8 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..config import PdfShape, RadiationConfig
-from ..ops import adding_fused
-from ..optics.cloud import delta_eddington
+from ..ops import adding_fused, tc_optics
 from ..utils import hooks
 from . import two_stream as ts
 from .adding import adding_lw, adding_sw, lw_no_scattering_fluxes
@@ -145,26 +147,28 @@ def calc_overlap_matrices(reg_fracs, overlap_param, decorr_scaling,
 
 
 @hooks.hooked("ecrad.layer_optics")
-def _region_props_sw_g(od_g, ssa_g, g_g, odc_g, ssac_g, gc_g, sc_g,
-                       cmask_g):
-    """Per-region SW optical properties, g-first: inputs (nlev, ng, ncol)
-    (cloud fields band-expanded), sc_g (nlev, nreg, ncol), cmask_g (nlev,
-    1, ncol). Returns (od, ssa, g), each (nlev, nreg, ng, ncol)
-    (ecrad_tpu/solvers/tripleclouds.py:156-185)."""
-    zero = torch.zeros((), dtype=od_g.dtype, device=od_g.device)
-    outs = [[od_g], [ssa_g], [g_g]]
-    for r in range(1, sc_g.shape[1]):
-        odc_r = odc_g * sc_g[:, r][:, None, :]
-        od_t = od_g + odc_r
-        scat = ssa_g * od_g + ssac_g * odc_r
-        ssa_t = torch.where(od_t > 0, scat / torch.clamp(od_t, min=1e-30),
-                            zero)
-        g_t = torch.where(scat > 0,
-                          (g_g * ssa_g * od_g + gc_g * ssac_g * odc_r)
-                          / torch.clamp(scat, min=1e-30), zero)
-        for out, x, base in zip(outs, (od_t, ssa_t, g_t), (od_g, ssa_g, g_g)):
-            out.append(torch.where(cmask_g, x, base))
-    return tuple(torch.stack(o, 1) for o in outs)
+def _region_props_sw_g(od, ssa, g, od_cloud, ssa_cloud, g_cloud,
+                       band_from_g, od_scaling, cloudy, mu0, delta_all):
+    """The SW layer optics of every region and of the clear sky
+    (ecrad_tpu/solvers/tripleclouds.py:156-225): the per-region optical
+    properties (region 0 the gas; each cloudy region the gas and the
+    cloud, band-expanded and scaled by its od_scaling, mixed where the
+    layer is cloudy), delta-Eddington where delta_all, then sw_gammas and
+    sw_reftrans; the clear sky the same chain on the gas alone, never
+    delta scaled. od/ssa/g (ncol, nlev, ng); *_cloud (ncol, nlev, nb);
+    band_from_g the int32 SW map (SpecTensors.band_sw32); od_scaling
+    (ncol, nlev, nreg); cloudy (ncol, nlev) bool; mu0 (ncol,) clamped.
+    Returns (region, clear): (ref, trans, ref_dir, trans_dir_diff,
+    trans_dir_dir), each (nlev, nreg, ng, ncol), and the same five, each
+    (nlev, ng, ncol). The plain version on CPU tensors, kernel B11 on any
+    other (which raises unless it is CUDA float32)."""
+    if od.device.type == "cpu":
+        return tc_optics.tc_sw_optics_plain(
+            od, ssa, g, od_cloud, ssa_cloud, g_cloud, band_from_g,
+            od_scaling, cloudy, mu0, delta_all)
+    return tc_optics.tc_sw_optics_fused(
+        od, ssa, g, od_cloud, ssa_cloud, g_cloud, band_from_g, od_scaling,
+        cloudy, mu0, delta_all)
 
 
 # ---- the region sweeps (kernel B5's plain versions) ----
@@ -345,32 +349,23 @@ def _gfirst_matrix(m):
 def solver_tripleclouds_sw(config: RadiationConfig, band_from_g, cloud,
                            cos_sza, od, ssa, g, od_cloud, ssa_cloud, g_cloud,
                            incoming_sw, albedo_diffuse, albedo_direct):
-    """od/ssa/g (ncol, nlev, ng); cloud properties (ncol, nlev, nbands).
+    """od/ssa/g (ncol, nlev, ng); cloud properties (ncol, nlev, nbands);
+    band_from_g the int32 map kernel B11 reads (SpecTensors.band_sw32).
     Returns (total SwFluxes, clear SwFluxes, cloud_cover (ncol,))."""
     mu0 = torch.clamp(cos_sza, min=1e-10)
     reg_fracs, od_scaling, _, v, tcc = _regions(config, cloud)
-    bandx = lambda x: _gf(x)[:, band_from_g, :]
     cloudy = cloud.fraction > 0.0
-    od_r, ssa_r, g_r = _region_props_sw_g(
-        _gf(od), _gf(ssa), _gf(g), bandx(od_cloud), bandx(ssa_cloud),
-        bandx(g_cloud), od_scaling.permute(1, 2, 0), cloudy.T[:, None, :])
-    if config.do_sw_delta_scaling_with_gases:
-        od_r, ssa_r, g_r = delta_eddington(od_r, ssa_r, g_r)
-    mu0_b = mu0[None, None, None, :]
-    optics = (x.contiguous() for x in ts.sw_reftrans(
-        mu0_b, od_r, ssa_r, *ts.sw_gammas(mu0_b, ssa_r, g_r)))
+    optics, clear_optics = _region_props_sw_g(
+        od.contiguous(), ssa.contiguous(), g.contiguous(), od_cloud,
+        ssa_cloud, g_cloud, band_from_g, od_scaling, cloudy, mu0,
+        config.do_sw_delta_scaling_with_gases)
     bound = (albedo_diffuse.T.contiguous(), albedo_direct.T.contiguous(),
              mu0.contiguous())
+    incoming = incoming_sw.T.contiguous()
     total = tc_sw_sweeps(*optics, _gfirst_matrix(v), (~cloudy).T.contiguous(),
-                         *bound, incoming_sw.T.contiguous(),
-                         reg_fracs[:, 0, :].T.contiguous())
-
+                         *bound, incoming, reg_fracs[:, 0, :].T.contiguous())
     # clear sky: the ICA adding on gas and aerosols
-    od_g, ssa_g = _gf(od), _gf(ssa)
-    mu0_c = mu0[None, :]
-    clear = adding_sw(*ts.sw_reftrans(mu0_c, od_g, ssa_g,
-                                      *ts.sw_gammas(mu0_c, ssa_g, _gf(g))),
-                      incoming_sw.T.contiguous(), *bound)
+    clear = adding_sw(*clear_optics, incoming, *bound)
     # night columns: the reference leaves cloud_cover_sw at its -1
     tcc = torch.where(cos_sza > 0.0, tcc, torch.full_like(tcc, -1.0))
     return (daylight(cos_sza, SwFluxes(*total)),

@@ -47,7 +47,8 @@ from ecrad_tpu_torch.interface import (_cloud_stage, radiation,
                                        setup_radiation)
 from ecrad_tpu_torch.ops import (adding_fused, gather_interp,
                                  mcica_generator, mcica_optics,
-                                 spartacus_adding, spartacus_reftrans)
+                                 spartacus_adding, spartacus_reftrans,
+                                 tc_optics)
 from ecrad_tpu_torch.ops import random_fields as fields
 from ecrad_tpu_torch.optics.rrtmg import taumol_lw, taumol_sw
 from ecrad_tpu_torch.optics.rrtmg.setcoef import prepare_gases, setcoef
@@ -56,6 +57,7 @@ from ecrad_tpu_torch.solvers.cloud_generator import cloud_generator_plain
 from ecrad_tpu_torch.utils import hooks
 
 import test_torch_mcica_generator as gen_cases
+import test_torch_tc_optics as tc_cases
 
 pytestmark = pytest.mark.gpu
 
@@ -617,7 +619,8 @@ def _reset_counts():
     mcica_generator.launches = 0
     for d in (adding_fused.launches, mcica_optics.launches,
               spartacus_reftrans.launches, spartacus_adding.launches,
-              gather_interp.launches, gather_interp.copies):
+              gather_interp.launches, gather_interp.copies,
+              tc_optics.launches):
         for k in d:
             d[k] = 0
 
@@ -832,6 +835,74 @@ def test_b5_refuses_what_it_does_not_take(cuda):
         adding_fused.tc_sw_sweeps_fused(*sw4)
 
 
+# ---- B11: Tripleclouds' SW layer optics ----
+
+@pytest.mark.parametrize("ncol, nlev, ng", [(2048, 137, 112), (133, 7, 15)])
+@pytest.mark.parametrize("delta_all", [False, True])
+@pytest.mark.parametrize("nreg, gamma", [(3, True), (2, False)])
+def test_b11_kernel_matches_plain(cuda, nreg, gamma, delta_all, ncol, nlev,
+                                  ng):
+    """B11 against its plain version on the card, on test_torch_tc_optics'
+    case at the cells' 2048 x 137 x 112 and at 133 columns x 7 levels x
+    15 g-points (neither a multiple of its 32 x 32 tiles): layers cloudy,
+    clear and below the threshold, a night column and cells within the
+    resonance window and its 1e-6 nudge, in the clear sky and a cloudy
+    region. Every output of both families bit for bit: the same float
+    operations in the same order (-fmad=false), CUDA's exp, sqrt and
+    division on both sides, the window's cells in double on both."""
+    args = tc_cases.case(nreg, gamma, delta_all, ncol=ncol, nlev=nlev,
+                         ng=ng, nb=14, seed=ncol + nreg, device=cuda)
+    n_window = tc_cases.near_cells(args, 0.03)
+    n_nudge = tc_cases.near_cells(args, 1e-6)
+    assert min(n_window) >= 1 and min(n_nudge) >= 1
+    n0 = tc_optics.launches["tc_sw_optics"]
+    got = tripleclouds._region_props_sw_g(*args)   # dispatches to B11
+    torch.cuda.synchronize()
+    assert tc_optics.launches["tc_sw_optics"] == n0 + 1
+    ref = tc_optics.tc_sw_optics_plain(*args)
+    for fam, (a_fam, b_fam) in zip(("region", "clear"), zip(got, ref)):
+        assert len(a_fam) == len(b_fam) == 5
+        for i, (a, b) in enumerate(zip(a_fam, b_fam)):
+            assert a.shape == b.shape and a.is_contiguous(), (fam, i)
+            assert torch.equal(a, b), (
+                fam, i, int((a != b).sum()),
+                float(((a - b).abs() / b.abs().clamp(min=1e-30)).max()))
+
+
+def test_b11_resources(cuda):
+    """B11's launch: 256 threads, its 21 KB tile, at least 3 blocks (24
+    warps) per SM, no spills (the compiler's report)."""
+    from ecrad_tpu_torch.ops import _cuda
+    k = _cuda.kernel_info("tc_sw_optics_info")
+    assert k["threads"] == 256 and k["static_smem"] == 5 * 32 * 33 * 4
+    assert k["blocks_per_sm"] >= 3, k
+    hits = [v for name, v in _cuda.ptxas_report().items()
+            if "tc_sw_optics_kernel" in name]
+    assert len(hits) == 1
+    assert hits[0]["spill_stores"] == 0 and hits[0]["spill_loads"] == 0
+
+
+def test_b11_refuses_what_it_does_not_take(cuda):
+    args = list(tc_cases.case(3, True, False, ncol=5, nlev=6, ng=7, nb=3,
+                              device=cuda))
+    strided = args[0].transpose(0, 1).contiguous().transpose(0, 1)
+    for at, bad, err in (
+            (0, strided, ValueError),                  # strided
+            (0, args[0].double(), TypeError),          # float64
+            (6, args[6].long(), TypeError),            # an int64 map
+            (8, args[8].float(), TypeError),           # a float mask
+            (4, args[4][..., :2].contiguous(), ValueError),  # a band short
+            (0, args[0].cpu(), ValueError)):           # a CPU operand
+        call = list(args)
+        call[at] = bad
+        with pytest.raises(err):
+            tc_optics.tc_sw_optics_fused(*call)
+    with pytest.raises(TypeError):
+        tripleclouds._region_props_sw_g(*(
+            a.double() if isinstance(a, torch.Tensor) and a.is_floating_point()
+            else a for a in args))
+
+
 TC_VARIANTS = {
     # (config overrides, B3 sw_adding, lw_noscat, lw_adding, B5 per call)
     "tripleclouds": ({}, 1, 0, 1, 1),
@@ -848,8 +919,8 @@ TC_VARIANTS = {
 @pytest.mark.parametrize("variant", list(TC_VARIANTS))
 def test_tripleclouds_and_homogeneous_paths_launch_their_kernels(
         cuda, tmp_path, variant):
-    """The Tripleclouds path on the card (B1, B2, B3 SW, B3' and both B5
-    kernels), its two-region variant (B5 at NREG=2, B3 LW) and
+    """The Tripleclouds path on the card (B1, B2, B3 SW, B3', B11 and both
+    B5 kernels), its two-region variant (B5 at NREG=2, B3 LW) and
     Homogeneous with aerosols (B3 SW and LW, B3'); their fluxes against the
     plain path on the CPU within the float32 contracts (clear sky lw 0.01,
     sw 0.2; total sky lw 0.02, sw 0.3; cloud covers and derivatives
@@ -867,6 +938,8 @@ def test_tripleclouds_and_homogeneous_paths_launch_their_kernels(
     assert adding_fused.launches == {
         "sw_adding": n_sw, "lw_noscat": n_noscat, "lw_adding": n_lw,
         "tc_sw_sweeps": n_tc, "tc_lw_sweeps": n_tc}
+    # Tripleclouds' SW layer optics, regions and clear sky: one B11 launch
+    assert tc_optics.launches == {"tc_sw_optics": n_tc}
     cpu = radiation(setup_radiation(cfg, device="cpu"), *_to_cpu(inputs))
     for k, v in flux.fields():
         assert bool(torch.isfinite(v).all()), k

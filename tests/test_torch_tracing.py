@@ -16,8 +16,10 @@ The test marked `gpu` runs one call of McICA, Tripleclouds and SPARTACUS
 on the card under torch.cuda.set_sync_debug_mode("warn"): every
 synchronising operation of the call goes through hooks.sync, so the
 warnings equal the sync counters, and the sites left are the level
-orientation and float32 SW layer optics' resonance window; McICA's
-random fields and generator are two kernel launches each and no sync.
+orientation and float32 SW layer optics' resonance window outside
+kernels B4 and B11; McICA's random fields and generator are two kernel
+launches each and no sync, and Tripleclouds' SW layer optics one launch
+of B11.
 The file imports no jax; on the card:
 
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_tracing.py
@@ -81,11 +83,11 @@ NESTING = {
 
 # the sync sites of one call on the card, with how often each runs: the
 # level orientation, and the resonance window of each float32 SW layer
-# optics pass outside kernel B4 (Tripleclouds' total and clear sky,
-# SPARTACUS's clear sky)
+# optics pass outside kernels B4 and B11 (SPARTACUS's clear sky), which
+# evaluate the window in double themselves
 CARD_SYNCS = {
     "mcica": {"sync.orientation": 1},
-    "tripleclouds": {"sync.orientation": 1, "sync.resonance": 2},
+    "tripleclouds": {"sync.orientation": 1},
     "spartacus": {"sync.orientation": 1, "sync.resonance": 1},
 }
 
@@ -270,6 +272,8 @@ def test_every_sync_of_a_call_is_counted(kind, tmp_path):
     calls = 2 if kind == "mcica" else 0
     assert counts.get("threefry.kernel", 0) == calls
     assert counts.get("launch.mcica_generator.f32", 0) == calls
+    assert counts.get("launch.tc_sw_optics.f32", 0) == int(
+        kind == "tripleclouds")
     assert "sync.upload.threefry" not in counts
     assert "sync.cover_merge" not in counts
     assert "cloud_cover.merge_passes" not in counts
@@ -351,6 +355,36 @@ def test_a_launch_takes_the_entry_of_its_dtype_and_counts_it(
         _cuda.launch("sw_adding", *args, dtype=torch.float16)
     hooks.enable(False)
     assert called == [entry, "sw_adding"]
+
+
+def test_a_float_only_kernel_is_launched_and_counted_in_float32_only(
+        monkeypatch):
+    """Kernel B11 (tc_sw_optics) has a float form only (F32_FORMS):
+    _cuda.launch(..., dtype=torch.float32) calls its one entry point and
+    counts `launch.tc_sw_optics.f32` while LHOOK is on; float64 is
+    refused before any call."""
+    from ecrad_tpu_torch.ops import _cuda
+    called = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: called.append(name) or 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(_cuda, "library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: Stream())
+    x = torch.zeros(3)
+    args = [x] * 10 + [1] * 6 + [x] * 2
+    hooks.enable(True)
+    _cuda.launch("tc_sw_optics", *args, dtype=torch.float32)
+    with pytest.raises(TypeError):
+        _cuda.launch("tc_sw_optics", *args, dtype=torch.float64)
+    hooks.enable(False)
+    assert called == ["tc_sw_optics"]
+    assert hooks.counters() == {"launch.tc_sw_optics.f32": 1}
+    assert "tc_sw_optics_f64" not in _cuda._SIGS
 
 
 def test_the_dtype_check_takes_float32_and_float64_only():
