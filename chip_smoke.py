@@ -465,6 +465,17 @@ F64_LAUNCHES = {"taumol_lw": 1, "taumol_sw": 1, "sw_adding": 2,
 # (the same operations in the same order, CUDA's double exp, sqrt and
 # division on both sides)
 F64_TAUMOL_REL = 1e-13
+# the launches of one float64 SPARTACUS call, all in their double forms:
+# B1, B2, B3 sw_adding and B3' lw_adding for the clear sky (LW aerosol
+# scattering), both passes of B6 and B7, B8 and B9; each double form of
+# B6-B9 within F64_TAUMOL_REL of each output's largest value of its plain
+# version (the same operations in the same order; CUDA's double exp,
+# sqrt, pow and division on both sides)
+SPARTACUS_F64_LAUNCHES = {
+    "taumol_lw": 1, "taumol_sw": 1, "sw_adding": 1, "lw_adding": 1,
+    "spartacus_sw_reftrans_3d": 1, "spartacus_sw_reftrans_fallback": 1,
+    "spartacus_lw_reftrans_3d": 1, "spartacus_lw_reftrans_fallback": 1,
+    "spartacus_sw_adding": 1, "spartacus_lw_adding": 1}
 
 
 def log(msg=""):
@@ -1155,8 +1166,13 @@ def main():
             log("  " + line.strip())
     report = _cuda.ptxas_report()
     # (what, info query and its arguments before nreg, the kernel's
-    # mangled name)
-    for what, name, args, kernel in (
+    # mangled name), the float forms and the double ones (the scalar type
+    # the templates' last argument, f or d)
+    for what, name, args, kernel in ((what + t, name + q, args, kernel + c)
+                                     for t, q, c in (("", "", "fE"),
+                                                     (", float64", "_f64",
+                                                      "dE"))
+                                     for what, name, args, kernel in (
             ("B6 pass 1, 3D cells", "spartacus_sw_reftrans_info", (1,),
              "sw_3d_kernelILi{}E"),
             ("B6 pass 2, every cell", "spartacus_sw_reftrans_info", (0,),
@@ -1169,7 +1185,7 @@ def main():
             ("B9, multilayer off", "spartacus_lw_adding_info", (0,),
              "lw_adding_kernelILi{}ELb0E"),
             ("B9, multilayer on", "spartacus_lw_adding_info", (1,),
-             "lw_adding_kernelILi{}ELb1E")):
+             "lw_adding_kernelILi{}ELb1E"))):
         for nreg in (3, 2):
             k = _cuda.kernel_info(name, *args, nreg)
             rep = [v for f, v in report.items() if kernel.format(nreg) in f]
@@ -2993,6 +3009,117 @@ def main():
     del go, planck, props, cloud_m, osc_lw, od_t, ssa_t, g_t, zeros_sw
     del zeros_lw, frac_mask, fc_lw, ic_lw, fc_sw, ic_sw, c, c_sf, gc, args
     del rc, b10_calls, packed, b10_out, b10_graph, secs, a, b
+    del f64_args, gen_calls
+    torch.cuda.empty_cache()
+
+    # B6-B9's double forms on the float64 SPARTACUS path's operands, once
+    # the other kernels' operands are freed (the float64 call and its
+    # kept operands take some 50 GB): one float64 SPARTACUS call (the
+    # configuration of the benchmark's float64 SPARTACUS cell) on the
+    # SPARTACUS path's 2048 x 137 columns, the hooks' counters reset just
+    # before it and read just after, each double form's operands kept;
+    # each against its plain version in float64 and timed
+    setup_sp64 = setup_radiation(spartacus_slice_config(
+        **luts_fu, dtype="float64"), device=dev)
+    # name: (module, wrapper, plain version, the sweeps' clear rows)
+    sp64_kernels = {
+        "spartacus_sw_reftrans": (sr, "sw_reftrans_levels_fused",
+                                  sr.sw_reftrans_levels_plain, None),
+        "spartacus_lw_reftrans": (sr, "lw_reftrans_levels_fused",
+                                  sr.lw_reftrans_levels_plain, None),
+        "spartacus_sw_adding": (sa, "sw_adding_sweeps_fused",
+                                sa.sw_adding_sweeps_plain,
+                                (sa._CLEAR, sa._CLEARP)),
+        "spartacus_lw_adding": (sa, "lw_adding_sweeps_fused",
+                                sa.lw_adding_sweeps_plain,
+                                (sa._LCLEAR, sa._LCLEARP))}
+    sp64_fns = [(mod, attr, getattr(mod, attr))
+                for mod, attr, _, _ in sp64_kernels.values()]
+    sp64_args = {name: [] for name in sp64_kernels}
+
+    def kept64(name, fn):
+        def wrapped(*args):
+            sp64_args[name].append(args)
+            return fn(*args)
+        return wrapped
+    for name, (mod, attr, fn) in zip(sp64_kernels, sp64_fns):
+        setattr(mod, attr, kept64(name, fn))
+    hooks.enable(True)
+    hooks.reset_profile()
+    try:
+        flux_sp64 = radiation(setup_sp64, *inputs_sp)
+        torch.cuda.synchronize()
+        counts_sp64 = hooks.counters()
+    finally:
+        for mod, attr, fn in sp64_fns:
+            setattr(mod, attr, fn)
+        hooks.reset_profile()
+        hooks.enable(False)
+    launched = {k: v for k, v in counts_sp64.items()
+                if k.startswith(("launch.", "plain_on_device."))}
+    not_f64 = [k for k, v in flux_sp64.fields()
+               if v.dtype != torch.float64]
+    log(f"path spartacus_f64: launch and plain-on-device counters "
+        f"{launched}; output fields not float64: {not_f64}")
+    if launched != {f"launch.{k}.f64": n
+                    for k, n in SPARTACUS_F64_LAUNCHES.items()}:
+        raise AssertionError("the float64 SPARTACUS call did not launch "
+                             "each kernel of its path in its double form "
+                             "alone")
+    if not_f64:
+        raise AssertionError(f"float64 SPARTACUS call: {not_f64} not "
+                             f"float64")
+    del flux_sp64
+    for name, (mod, attr, plain, clear_rows) in sp64_kernels.items():
+        torch.cuda.empty_cache()
+        kern, calls = getattr(mod, attr), sp64_args[name]
+        if len(calls) != 1:
+            raise AssertionError(f"{name}: {len(calls)} calls on the "
+                                 f"float64 SPARTACUS path")
+        args = calls[0]
+        if clear_rows is None:
+            # B6/B7 with their doubling counts, for their operations
+            use3d = args[7] if name == "spartacus_sw_reftrans" else args[10]
+            counts = torch.empty(use3d.shape, dtype=torch.int8, device=dev)
+            got = (kern(*args, counts=counts),)
+            ops = doubling_ops(name, counts)
+        else:
+            got = kern(*args)
+            hist = args[1] if name == "spartacus_sw_adding" else args[2]
+            ops = sweep_ops(name, args[-3 if name == "spartacus_sw_adding"
+                                       else -2], hist.shape[2], clear_rows)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        want = (want,) if isinstance(want, torch.Tensor) else want
+        if any(x.dtype != torch.float64 for x in got):
+            raise AssertionError(f"{name} in float64 returned another dtype")
+        # the gaps level by level: a whole output's difference would not
+        # fit beside the kept operands
+        gaps = [max(float((a - b).abs().max()) for a, b in zip(x, y))
+                for x, y in zip(got, want)]
+        rel = max(g / max(float(y.abs().max()), 1e-30)
+                  for g, y in zip(gaps, want))
+        errs[name + "_f64"] = max(gaps)
+        bounds[name + "_f64"] = least_time(name, args, got, ops=ops,
+                                           ops_per_s=F64_OPS_PER_S)
+        log(f"{name} float64: shape {tuple(got[0].shape)} worst "
+            f"|diff|/max|plain| {rel:.3e} (bound {F64_TAUMOL_REL}), worst "
+            f"abs {errs[name + '_f64']:.3e}")
+        if not rel <= F64_TAUMOL_REL:
+            raise AssertionError(f"{name} in float64 disagrees with its "
+                                 f"plain version")
+        del got, want
+        # the kernel's wrapper, and its plain version once (seconds a call)
+        n64 = name + "_f64"
+        ms[n64] = (time_ms(lambda: kern(*args), 10),
+                   time_ms(lambda: plain(*args), 1))
+        b_ms, b_by, nbytes, ops = bounds[n64]
+        log(f"time {n64}: kernel {ms[n64][0]:.4f} ms, plain "
+            f"{ms[n64][1]:.4f} ms, least time {b_ms:.4f} ms by {b_by} "
+            f"({nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} Gop at the FP64 rate; "
+            f"{b_ms / ms[n64][0]:.1%} of it reached) [{gpu}]")
+        del calls[:], args
+    del sp64_args, setup_sp64
     torch.cuda.empty_cache()
 
     def per_band(run):
@@ -3087,6 +3214,8 @@ def main():
     f64_names = [*f64_kernels, "mcica_generator"]
     src.update({n + "_f64": src[n] for n in f64_names})
     launches["mcica_f64"] = {f"{n}_f64": F64_LAUNCHES[n] for n in f64_names}
+    src.update({n + "_f64": src[n] for n in sp64_kernels})
+    launches["spartacus_f64"] = {f"{n}_f64": 1 for n in sp64_kernels}
     # launches: the sum over the counted path runs (per path above, the
     # double forms' on the float64 path); no single PyTorch call computes
     # B1-B9's functions (library_ms null); B10's is embedding_bag

@@ -65,18 +65,33 @@
 // whole. Cells are fewer than 2^31, so a cell's level and column come
 // from 32-bit divisions.
 //
+// Every kernel is a template on its scalar type T: the float forms are
+// the float32 path's, the double forms (entry points *_f64) the float64
+// path's, the same expressions with each constant spelt at T's precision
+// (ECRAD_LIT). A double form takes each SW fallback cell in double
+// throughout, so the float form's resonance window has nothing to do
+// there. Doubles take twice the registers; of the bounds timed at 2048 x
+// 137 on the float64 path's operands the fastest are: for the 3D
+// pipelines, which spill in double whatever the bound (the SW one's 6 x 6
+// blocks alone fill 255 registers), the registers they can take (B7's
+// its own bound, F64_LW_3D_MIN_BLOCKS); for the passes over every cell
+// the float forms' 6 blocks per SM.
+// The warp queues hold cell indices, the same in either form, and the
+// staged share stays a quarter of the cells (twice the bytes in double).
+//
 // Semantics: ops/spartacus_reftrans.py sw_reftrans_levels_plain and
 // lw_reftrans_levels_plain, expression for expression (built with
 // -fmad=false, exact expf/sqrtf): products add their terms left to right
 // as solvers/matrix.py mm_gu does, the elimination is solve_g's, and the
 // doubling count comes from the same compare chain (not a log2, which
-// flips the count on borderline norms). SW fallback cells within
-// RESONANCE_WINDOW (0.03) of k mu0 = 1 take the Meador-Weaver terms in
-// double, as two_stream.sw_reftrans does.
+// flips the count on borderline norms). SW fallback cells of the float
+// form within RESONANCE_WINDOW (0.03) of k mu0 = 1 take the Meador-Weaver
+// terms in double, as two_stream.sw_reftrans does.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kernel_info.cuh"
+#include "scalar.cuh"
 
 namespace ecrad {
 namespace spartacus {
@@ -90,36 +105,62 @@ constexpr int LEAN_THREADS = 128, LEAN_MIN_BLOCKS = 6;
 // B7 6.2005 ms; 3 blocks, no spills, 5.4151 ms; 4 blocks, 88 B spilled,
 // 5.5751 ms (PERF.md, PR 7).
 constexpr int LW_3D_MIN_BLOCKS = 3;
-constexpr float THETA_DBL = 1.8f;
+// The double forms' bounds, timed on an H100 at 2048 x 137, 3 regions,
+// on the float64 path's operands (tools/spartacus_f64_designs.py,
+// PERF.md). The passes over every cell keep LEAN_MIN_BLOCKS: B6's 6.234
+// ms at 6 blocks (80 registers, 8 B spilled), 6.297 at 4 (122), 6.76 at 3
+// and 2 (148); B7's at 64 registers and 8 blocks whatever the bound.
+// B7's 3D pass takes F64_LW_3D_MIN_BLOCKS: 2.383 ms at 1 block (255
+// registers, 88 B spilled, 2 blocks resident), the same code at 2, 2.941
+// at 3 (168 registers, 520 B spilled). B6's 3D pass spills 1.4 KB a
+// thread at any bound (9.2 ms).
+constexpr int F64_LW_3D_MIN_BLOCKS = 1;
 constexpr int MAX_DOUBLINGS = 12;
-constexpr float MAX_OD_OVER_MU0_3D = 60.0f;
-constexpr float LW_DIFFUSIVITY = 1.66f;
 constexpr float RESONANCE_WINDOW = 0.03f;
-// Pade-5 coefficients
-constexpr float C0 = 30240.0f, C1 = 15120.0f, C2 = 3360.0f, C3 = 420.0f,
-                C4 = 30.0f, C5 = 1.0f;
+
+
+// the constants of the plain versions at precision T: the doubling
+// threshold theta (solvers/matrix.py _THETA_DBL), the cap on od / mu0 in
+// the SW Gamma's direct block, the LW diffusivity and the Pade-5
+// coefficients c0 .. c5
+template <typename T>
+struct Consts {
+  static __device__ __forceinline__ T theta() { return ECRAD_LIT(1.8); }
+  static __device__ __forceinline__ T max_od_over_mu0() {
+    return ECRAD_LIT(60.0);
+  }
+  static __device__ __forceinline__ T diffusivity() {
+    return ECRAD_LIT(1.66);
+  }
+  static __device__ __forceinline__ T c0() { return ECRAD_LIT(30240.0); }
+  static __device__ __forceinline__ T c1() { return ECRAD_LIT(15120.0); }
+  static __device__ __forceinline__ T c2() { return ECRAD_LIT(3360.0); }
+  static __device__ __forceinline__ T c3() { return ECRAD_LIT(420.0); }
+  static __device__ __forceinline__ T c4() { return ECRAD_LIT(30.0); }
+  static __device__ __forceinline__ T c5() { return ECRAD_LIT(1.0); }
+};
 
 // o = a b, each o[i][j] summed over k left to right
-template <int M, int K, int N>
-__device__ __forceinline__ void mm(const float (&a)[M][K],
-                                   const float (&b)[K][N], float (&o)[M][N]) {
+template <int M, int K, int N, typename T>
+__device__ __forceinline__ void mm(const T (&a)[M][K], const T (&b)[K][N],
+                                   T (&o)[M][N]) {
 #pragma unroll
   for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      float s = a[i][0] * b[0][j];
+      T s = a[i][0] * b[0][j];
 #pragma unroll
       for (int k = 1; k < K; ++k) s = s + a[i][k] * b[k][j];
       o[i][j] = s;
     }
 }
 
-template <int M, int K>
-__device__ __forceinline__ void mv(const float (&a)[M][K], const float (&x)[K],
-                                   float (&o)[M]) {
+template <int M, int K, typename T>
+__device__ __forceinline__ void mv(const T (&a)[M][K], const T (&x)[K],
+                                   T (&o)[M]) {
 #pragma unroll
   for (int i = 0; i < M; ++i) {
-    float s = a[i][0] * x[0];
+    T s = a[i][0] * x[0];
 #pragma unroll
     for (int k = 1; k < K; ++k) s = s + a[i][k] * x[k];
     o[i] = s;
@@ -128,18 +169,18 @@ __device__ __forceinline__ void mv(const float (&a)[M][K], const float (&x)[K],
 
 // solve a x = b in place (b <- x), unpivoted elimination in the order of
 // solvers/matrix.py solve_g; a is overwritten
-template <int M, int N>
-__device__ __forceinline__ void solve(float (&a)[M][M], float (&b)[M][N]) {
+template <int M, int N, typename T>
+__device__ __forceinline__ void solve(T (&a)[M][M], T (&b)[M][N]) {
 #pragma unroll
   for (int col = 0; col < M; ++col) {
-    const float inv = 1.0f / a[col][col];
+    const T inv = T(1) / a[col][col];
 #pragma unroll
     for (int j = col + 1; j < M; ++j) a[col][j] = a[col][j] * inv;
 #pragma unroll
     for (int j = 0; j < N; ++j) b[col][j] = b[col][j] * inv;
 #pragma unroll
     for (int row = col + 1; row < M; ++row) {
-      const float f = a[row][col];
+      const T f = a[row][col];
 #pragma unroll
       for (int j = col + 1; j < M; ++j) a[row][j] = a[row][j] - f * a[col][j];
 #pragma unroll
@@ -150,21 +191,22 @@ __device__ __forceinline__ void solve(float (&a)[M][M], float (&b)[M][N]) {
   for (int col = M - 1; col >= 0; --col)
 #pragma unroll
     for (int row = 0; row < col; ++row) {
-      const float f = a[row][col];
+      const T f = a[row][col];
 #pragma unroll
       for (int j = 0; j < N; ++j) b[row][j] = b[row][j] - f * b[col][j];
     }
 }
 
 // the doubling count and 2^-count (solvers/matrix.py _squaring_count)
-__device__ __forceinline__ int doubling_count(float norm1, float* scale) {
+template <typename T>
+__device__ __forceinline__ int doubling_count(T norm1, T* scale) {
   int expo = 0;
-  float s = 1.0f;
+  T s = T(1);
 #pragma unroll
   for (int k = 0; k < MAX_DOUBLINGS; ++k) {
-    if (norm1 > THETA_DBL * (float)(1 << k)) {
+    if (norm1 > Consts<T>::theta() * (T)(1 << k)) {
       ++expo;
-      s = s * 0.5f;
+      s = s * ECRAD_LIT(0.5);
     }
   }
   *scale = s;
@@ -172,28 +214,29 @@ __device__ __forceinline__ int doubling_count(float norm1, float* scale) {
 }
 
 // d = I - r r (solvers/matrix.py add_eye_g(-mm_gu(r, r), 1))
-template <int N>
-__device__ __forceinline__ void one_minus_sq(const float (&r)[N][N],
-                                             float (&d)[N][N]) {
+template <int N, typename T>
+__device__ __forceinline__ void one_minus_sq(const T (&r)[N][N],
+                                             T (&d)[N][N]) {
   mm<N, N, N>(r, r, d);
 #pragma unroll
   for (int i = 0; i < N; ++i) {
 #pragma unroll
     for (int j = 0; j < N; ++j) d[i][j] = -d[i][j];
-    d[i][i] = d[i][i] + 1.0f;
+    d[i][i] = d[i][i] + T(1);
   }
 }
 
 // ---- SW ----
 
+template <typename O>
 struct Mw {
-  float r, t, rd, td, tdd;
+  O r, t, rd, td, tdd;
 };
 
-// two_stream.py _sw_reftrans at precision T, rounded to float
-template <typename T>
-__device__ __forceinline__ Mw sw_mw(T mu0, T od, T ssa, T gamma1, T gamma2,
-                                    T gamma3) {
+// two_stream.py _sw_reftrans at precision T, rounded to O
+template <typename T, typename O>
+__device__ __forceinline__ Mw<O> sw_mw(T mu0, T od, T ssa, T gamma1,
+                                       T gamma2, T gamma3) {
   const T one = T(1.0);
   const T od_over_mu0 = fmax(od / mu0, T(0.0));
   const T gamma4 = one - gamma3;
@@ -209,48 +252,54 @@ __device__ __forceinline__ Mw sw_mw(T mu0, T od, T ssa, T gamma1, T gamma2,
   const T expo2 = expo * expo;
   const T k2e = T(2.0) * k * expo;
   const T rt = one / (k + gamma1 + (k - gamma1) * expo2);
-  Mw o;
-  o.r = (float)(gamma2 * (one - expo2) * rt);
-  o.t = (float)(k2e * rt);
+  Mw<O> o;
+  o.r = (O)(gamma2 * (one - expo2) * rt);
+  o.t = (O)(k2e * rt);
   const T rt_dir = mu0 * ssa * rt / (one - k_mu0 * k_mu0);
-  o.rd = (float)(rt_dir * ((one - k_mu0) * (alpha2 + k_gamma3)
-                           - (one + k_mu0) * (alpha2 - k_gamma3) * expo2
-                           - k2e * (gamma3 - alpha2 * mu0) * e0));
-  o.td = (float)(rt_dir * (k2e * (gamma4 + alpha1 * mu0)
-                           - e0 * ((one + k_mu0) * (alpha1 + k_gamma4)
-                                   - (one - k_mu0) * (alpha1 - k_gamma4)
-                                   * expo2)));
-  o.tdd = (float)e0;
+  o.rd = (O)(rt_dir * ((one - k_mu0) * (alpha2 + k_gamma3)
+                       - (one + k_mu0) * (alpha2 - k_gamma3) * expo2
+                       - k2e * (gamma3 - alpha2 * mu0) * e0));
+  o.td = (O)(rt_dir * (k2e * (gamma4 + alpha1 * mu0)
+                       - e0 * ((one + k_mu0) * (alpha1 + k_gamma4)
+                               - (one - k_mu0) * (alpha1 - k_gamma4)
+                               * expo2)));
+  o.tdd = (O)e0;
   return o;
 }
 
-__device__ __forceinline__ void sw_gammas(float mu0, float ssa, float g,
-                                          float* g1, float* g2, float* g3) {
-  const float factor = 0.75f * g;
-  *g1 = 2.0f - ssa * (1.25f + factor);
-  *g2 = ssa * (0.75f - factor);
-  *g3 = 0.5f - mu0 * factor;
+template <typename T>
+__device__ __forceinline__ void sw_gammas(T mu0, T ssa, T g, T* g1, T* g2,
+                                          T* g3) {
+  const T factor = ECRAD_LIT(0.75) * g;
+  *g1 = ECRAD_LIT(2.0) - ssa * (ECRAD_LIT(1.25) + factor);
+  *g2 = ssa * (ECRAD_LIT(0.75) - factor);
+  *g3 = ECRAD_LIT(0.5) - mu0 * factor;
 }
 
-__device__ __forceinline__ Mw sw_fallback(float mu0, float od, float ssa,
-                                          float g) {
-  float g1, g2, g3;
+// the Meador-Weaver terms of a fallback cell: in the float form, in
+// double within RESONANCE_WINDOW of k mu0 = 1; in the double form, in
+// double everywhere
+template <typename T>
+__device__ __forceinline__ Mw<T> sw_fallback(T mu0, T od, T ssa, T g) {
+  T g1, g2, g3;
   sw_gammas(mu0, ssa, g, &g1, &g2, &g3);
-  const float k = sqrtf(fmaxf((g1 - g2) * (g1 + g2), 1.0e-4f));
-  if (fabsf(k * mu0 - 1.0f) < RESONANCE_WINDOW)
-    return sw_mw<double>(mu0, od, ssa, g1, g2, g3);
-  return sw_mw<float>(mu0, od, ssa, g1, g2, g3);
+  if constexpr (sizeof(T) == 4) {
+    const float k = sqrtf(fmaxf((g1 - g2) * (g1 + g2), 1.0e-4f));
+    if (fabsf(k * mu0 - 1.0f) < RESONANCE_WINDOW)
+      return sw_mw<double, float>(mu0, od, ssa, g1, g2, g3);
+  }
+  return sw_mw<T, T>(mu0, od, ssa, g1, g2, g3);
 }
 
 // block product of [[a0, a1], [0, a2]] and [[b0, b1], [0, b2]]
-template <int N>
+template <int N, typename T>
 __device__ __forceinline__ void bprod(
-    const float (&a0)[2 * N][2 * N], const float (&a1)[2 * N][N],
-    const float (&a2)[N][N], const float (&b0)[2 * N][2 * N],
-    const float (&b1)[2 * N][N], const float (&b2)[N][N],
-    float (&o0)[2 * N][2 * N], float (&o1)[2 * N][N], float (&o2)[N][N]) {
+    const T (&a0)[2 * N][2 * N], const T (&a1)[2 * N][N],
+    const T (&a2)[N][N], const T (&b0)[2 * N][2 * N],
+    const T (&b1)[2 * N][N], const T (&b2)[N][N], T (&o0)[2 * N][2 * N],
+    T (&o1)[2 * N][N], T (&o2)[N][N]) {
   mm<2 * N, 2 * N, 2 * N>(a0, b0, o0);
-  float t[2 * N][N];
+  T t[2 * N][N];
   mm<2 * N, 2 * N, N>(a0, b1, o1);
   mm<2 * N, N, N>(a1, b2, t);
 #pragma unroll
@@ -261,11 +310,10 @@ __device__ __forceinline__ void bprod(
 }
 
 // p = c4 A4 + c2 A2 (+ c0 on the diagonal blocks' diagonals)
-template <int R, int C>
-__device__ __forceinline__ void pade_sum(const float (&a4)[R][C],
-                                         const float (&a2)[R][C], float c4,
-                                         float c2, float c0, bool eye,
-                                         float (&p)[R][C]) {
+template <int R, int C, typename T>
+__device__ __forceinline__ void pade_sum(const T (&a4)[R][C],
+                                         const T (&a2)[R][C], T c4, T c2,
+                                         T c0, bool eye, T (&p)[R][C]) {
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
@@ -277,36 +325,36 @@ __device__ __forceinline__ void pade_sum(const float (&a4)[R][C],
 
 // (R, T, Rdir, Tdir, Tdd) of [[M, C], [0, D]] (solvers/matrix.py
 // expm_reftrans_sw_g); returns the doubling count
-template <int N>
-__device__ int expm_reftrans_sw(const float (&M)[2 * N][2 * N],
-                                const float (&C)[2 * N][N],
-                                const float (&D)[N][N], float (&R)[N][N],
-                                float (&T)[N][N], float (&Rdir)[N][N],
-                                float (&Tdir)[N][N], float (&Tdd)[N][N]) {
+template <int N, typename T>
+__device__ int expm_reftrans_sw(const T (&M)[2 * N][2 * N],
+                                const T (&C)[2 * N][N], const T (&D)[N][N],
+                                T (&R)[N][N], T (&Tr)[N][N], T (&Rdir)[N][N],
+                                T (&Tdir)[N][N], T (&Tdd)[N][N]) {
   constexpr int N2 = 2 * N;
-  float norm1 = 0.0f;
+  using Kt = Consts<T>;
+  T norm1 = T(0);
 #pragma unroll
   for (int j = 0; j < N2; ++j) {
-    float s = fabsf(M[0][j]);
+    T s = fabs(M[0][j]);
 #pragma unroll
-    for (int i = 1; i < N2; ++i) s = s + fabsf(M[i][j]);
-    norm1 = j == 0 ? s : fmaxf(norm1, s);
+    for (int i = 1; i < N2; ++i) s = s + fabs(M[i][j]);
+    norm1 = j == 0 ? s : fmax(norm1, s);
   }
-  float right = 0.0f;
+  T right = T(0);
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    float s = fabsf(C[0][j]);
+    T s = fabs(C[0][j]);
 #pragma unroll
-    for (int i = 1; i < N2; ++i) s = s + fabsf(C[i][j]);
+    for (int i = 1; i < N2; ++i) s = s + fabs(C[i][j]);
 #pragma unroll
-    for (int i = 0; i < N; ++i) s = s + fabsf(D[i][j]);
-    right = j == 0 ? s : fmaxf(right, s);
+    for (int i = 0; i < N; ++i) s = s + fabs(D[i][j]);
+    right = j == 0 ? s : fmax(right, s);
   }
-  norm1 = fmaxf(norm1, right);
-  float scale;
+  norm1 = fmax(norm1, right);
+  T scale;
   const int expo = doubling_count(norm1, &scale);
 
-  float As0[N2][N2], As1[N2][N], As2[N][N];
+  T As0[N2][N2], As1[N2][N], As2[N][N];
 #pragma unroll
   for (int i = 0; i < N2; ++i) {
 #pragma unroll
@@ -319,56 +367,57 @@ __device__ int expm_reftrans_sw(const float (&M)[2 * N][2 * N],
 #pragma unroll
     for (int j = 0; j < N; ++j) As2[i][j] = D[i][j] * scale;
 
-  float A20[N2][N2], A21[N2][N], A22[N][N];
-  float A40[N2][N2], A41[N2][N], A42[N][N];
+  T A20[N2][N2], A21[N2][N], A22[N][N];
+  T A40[N2][N2], A41[N2][N], A42[N][N];
   bprod<N>(As0, As1, As2, As0, As1, As2, A20, A21, A22);
   bprod<N>(A20, A21, A22, A20, A21, A22, A40, A41, A42);
-  float V0[N2][N2], V1[N2][N], V2[N][N];
-  pade_sum<N2, N2>(A40, A20, C5, C3, C1, true, V0);
-  pade_sum<N2, N>(A41, A21, C5, C3, C1, false, V1);
-  pade_sum<N, N>(A42, A22, C5, C3, C1, true, V2);
-  float U0[N2][N2], U1[N2][N], U2[N][N];
+  T V0[N2][N2], V1[N2][N], V2[N][N];
+  pade_sum<N2, N2>(A40, A20, Kt::c5(), Kt::c3(), Kt::c1(), true, V0);
+  pade_sum<N2, N>(A41, A21, Kt::c5(), Kt::c3(), Kt::c1(), false, V1);
+  pade_sum<N, N>(A42, A22, Kt::c5(), Kt::c3(), Kt::c1(), true, V2);
+  T U0[N2][N2], U1[N2][N], U2[N][N];
   bprod<N>(As0, As1, As2, V0, V1, V2, U0, U1, U2);
-  pade_sum<N2, N2>(A40, A20, C4, C2, C0, true, V0);
-  pade_sum<N2, N>(A41, A21, C4, C2, C0, false, V1);
-  pade_sum<N, N>(A42, A22, C4, C2, C0, true, V2);
+  pade_sum<N2, N2>(A40, A20, Kt::c4(), Kt::c2(), Kt::c0(), true, V0);
+  pade_sum<N2, N>(A41, A21, Kt::c4(), Kt::c2(), Kt::c0(), false, V1);
+  pade_sum<N, N>(A42, A22, Kt::c4(), Kt::c2(), Kt::c0(), true, V2);
   // P = V - U; Xd = Pd^-1 2 Ud; [Xm | Xc] = Pm^-1 [2 Um | 2 Uc - Pc Xd]
-  float Pd[N][N], Xd[N][N];
+  T Pd[N][N], Xd[N][N];
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       Pd[i][j] = V2[i][j] - U2[i][j];
-      Xd[i][j] = 2.0f * U2[i][j];
+      Xd[i][j] = ECRAD_LIT(2.0) * U2[i][j];
     }
   solve<N, N>(Pd, Xd);
-  float Pc[N2][N], PcXd[N2][N];
+  T Pc[N2][N], PcXd[N2][N];
 #pragma unroll
   for (int i = 0; i < N2; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j) Pc[i][j] = V1[i][j] - U1[i][j];
   mm<N2, N, N>(Pc, Xd, PcXd);
-  float Pm[N2][N2], X[N2][N2 + N];
+  T Pm[N2][N2], X[N2][N2 + N];
 #pragma unroll
   for (int i = 0; i < N2; ++i) {
 #pragma unroll
     for (int j = 0; j < N2; ++j) {
       Pm[i][j] = V0[i][j] - U0[i][j];
-      X[i][j] = 2.0f * U0[i][j];
+      X[i][j] = ECRAD_LIT(2.0) * U0[i][j];
     }
 #pragma unroll
-    for (int j = 0; j < N; ++j) X[i][N2 + j] = 2.0f * U1[i][j] - PcXd[i][j];
+    for (int j = 0; j < N; ++j)
+      X[i][N2 + j] = ECRAD_LIT(2.0) * U1[i][j] - PcXd[i][j];
   }
   solve<N2, N2 + N>(Pm, X);
   // Em = Xm + I, Ec = Xc, Tdd = Xd + I
 #pragma unroll
-  for (int i = 0; i < N2; ++i) X[i][i] = X[i][i] + 1.0f;
+  for (int i = 0; i < N2; ++i) X[i][i] = X[i][i] + T(1);
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int j = 0; j < N; ++j) Tdd[i][j] = Xd[i][j] + (i == j ? 1.0f : 0.0f);
+    for (int j = 0; j < N; ++j) Tdd[i][j] = Xd[i][j] + (i == j ? T(1) : T(0));
   // thin-layer extraction: [R | Rdir] = -Em[:n,:n]^-1 [Em[:n,n:] | Ec[:n]]
-  float A[N][N], RR[N][2 * N];
+  T A[N][N], RR[N][2 * N];
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
@@ -378,7 +427,7 @@ __device__ int expm_reftrans_sw(const float (&M)[2 * N][2 * N],
       RR[i][N + j] = X[i][N2 + j];
     }
   solve<N, 2 * N>(A, RR);
-  float E21[N][N];
+  T E21[N][N];
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
@@ -387,20 +436,20 @@ __device__ int expm_reftrans_sw(const float (&M)[2 * N][2 * N],
       Rdir[i][j] = -RR[i][N + j];
       E21[i][j] = X[N + i][j];
     }
-  float t1[N][N], t2[N][N];
+  T t1[N][N], t2[N][N];
   mm<N, N, N>(E21, R, t1);
   mm<N, N, N>(E21, Rdir, t2);
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      T[i][j] = X[N + i][N + j] + t1[i][j];
+      Tr[i][j] = X[N + i][N + j] + t1[i][j];
       Tdir[i][j] = X[N + i][N2 + j] + t2[i][j];
     }
 
   // adding-doubling steps
   for (int k = 0; k < expo; ++k) {
-    float RdTdd[N][N], RRdTdd[N][N], den[N][N], WD[N][2 * N];
+    T RdTdd[N][N], RRdTdd[N][N], den[N][N], WD[N][2 * N];
     mm<N, N, N>(Rdir, Tdd, RdTdd);
     mm<N, N, N>(R, RdTdd, RRdTdd);
     one_minus_sq<N>(R, den);
@@ -408,11 +457,11 @@ __device__ int expm_reftrans_sw(const float (&M)[2 * N][2 * N],
     for (int i = 0; i < N; ++i)
 #pragma unroll
       for (int j = 0; j < N; ++j) {
-        WD[i][j] = T[i][j];
+        WD[i][j] = Tr[i][j];
         WD[i][N + j] = Tdir[i][j] + RRdTdd[i][j];
       }
     solve<N, 2 * N>(den, WD);
-    float W[N][N], di[N][N], TR[N][N], a[N][N], b[N][N], c[N][N];
+    T W[N][N], di[N][N], TR[N][N], a[N][N], b[N][N], c[N][N];
 #pragma unroll
     for (int i = 0; i < N; ++i)
 #pragma unroll
@@ -421,7 +470,7 @@ __device__ int expm_reftrans_sw(const float (&M)[2 * N][2 * N],
         di[i][j] = WD[i][N + j];
       }
     // R <- R + (T R) W
-    mm<N, N, N>(T, R, TR);
+    mm<N, N, N>(Tr, R, TR);
     mm<N, N, N>(TR, W, a);
     // Rdir <- Rdir + T (Rdir Tdd + R d)
     mm<N, N, N>(R, di, b);
@@ -429,12 +478,12 @@ __device__ int expm_reftrans_sw(const float (&M)[2 * N][2 * N],
     for (int i = 0; i < N; ++i)
 #pragma unroll
       for (int j = 0; j < N; ++j) b[i][j] = RdTdd[i][j] + b[i][j];
-    mm<N, N, N>(T, b, c);
+    mm<N, N, N>(Tr, b, c);
     // Tdir <- T d + Tdir Tdd
-    float Td[N][N], TdTdd[N][N], Tn[N][N], Tddn[N][N];
-    mm<N, N, N>(T, di, Td);
+    T Td[N][N], TdTdd[N][N], Tn[N][N], Tddn[N][N];
+    mm<N, N, N>(Tr, di, Td);
     mm<N, N, N>(Tdir, Tdd, TdTdd);
-    mm<N, N, N>(T, W, Tn);
+    mm<N, N, N>(Tr, W, Tn);
     mm<N, N, N>(Tdd, Tdd, Tddn);
 #pragma unroll
     for (int i = 0; i < N; ++i)
@@ -443,7 +492,7 @@ __device__ int expm_reftrans_sw(const float (&M)[2 * N][2 * N],
         R[i][j] = R[i][j] + a[i][j];
         Rdir[i][j] = Rdir[i][j] + c[i][j];
         Tdir[i][j] = Td[i][j] + TdTdd[i][j];
-        T[i][j] = Tn[i][j];
+        Tr[i][j] = Tn[i][j];
         Tdd[i][j] = Tddn[i][j];
       }
   }
@@ -453,14 +502,14 @@ __device__ int expm_reftrans_sw(const float (&M)[2 * N][2 * N],
 // B6's 3D pass: one cell's rows. Gamma, its Pade-5 exponential and the
 // doubling, then the clipping; o[q] is [R | T | RD | TD | TDD][q]. Returns
 // the doubling count.
-template <int N>
+template <int N, typename T>
 __device__ __forceinline__ int sw_3d_cell(
-    const float* __restrict__ od_in, const float* __restrict__ ssa_in,
-    const float* __restrict__ g_in, const float* __restrict__ trd_in,
-    const float* __restrict__ trf_in, float mu0, int l, size_t i, size_t c,
-    size_t m, int ncol, float max_gas_od_3d, float (&o)[5][N][N]) {
+    const T* __restrict__ od_in, const T* __restrict__ ssa_in,
+    const T* __restrict__ g_in, const T* __restrict__ trd_in,
+    const T* __restrict__ trf_in, T mu0, int l, size_t i, size_t c,
+    size_t m, int ncol, T max_gas_od_3d, T (&o)[5][N][N]) {
   constexpr int NN = N * N;
-  float od[N], ssa[N], gg[N];
+  T od[N], ssa[N], gg[N];
 #pragma unroll
   for (int r = 0; r < N; ++r) {
     const size_t j = ((size_t)l * N + r) * m + i;
@@ -471,24 +520,23 @@ __device__ __forceinline__ int sw_3d_cell(
   // Gamma = [[M, C], [0, D]], assembled in the order of the plain
   // version (ops/spartacus_reftrans.py sw_gamma_expm)
   constexpr int N3 = 3 * N;
-  float G[N3][N3];
+  T G[N3][N3];
 #pragma unroll
   for (int a = 0; a < N3; ++a)
 #pragma unroll
-    for (int b = 0; b < N3; ++b) G[a][b] = 0.0f;
-  const float one_over_mu0 = 1.0f / mu0;
+    for (int b = 0; b < N3; ++b) G[a][b] = T(0);
+  const T one_over_mu0 = T(1) / mu0;
 #pragma unroll
   for (int r = 0; r < N; ++r) {
-    const float odr = r == 0 ? fminf(od[0], max_gas_od_3d) : od[r];
-    float g1, g2, g3;
+    const T odr = r == 0 ? fmin(od[0], max_gas_od_3d) : od[r];
+    T g1, g2, g3;
     sw_gammas(mu0, ssa[r], gg[r], &g1, &g2, &g3);
     G[r][r] = G[r][r] + odr * g1;
     G[N + r][r] = G[N + r][r] + odr * g2;
     G[r][2 * N + r] = G[r][2 * N + r] + -odr * ssa[r] * g3;
-    G[N + r][2 * N + r] =
-        G[N + r][2 * N + r] + odr * ssa[r] * (1.0f - g3);
+    G[N + r][2 * N + r] = G[N + r][2 * N + r] + odr * ssa[r] * (T(1) - g3);
     G[2 * N + r][2 * N + r] = G[2 * N + r][2 * N + r]
-        + -fminf(odr * one_over_mu0, MAX_OD_OVER_MU0_3D);
+        + -fmin(odr * one_over_mu0, Consts<T>::max_od_over_mu0());
   }
   const size_t tc = (size_t)l * NN * ncol + c;
   auto trd = [&](int a, int b) {
@@ -511,7 +559,7 @@ __device__ __forceinline__ int sw_3d_cell(
     G[2 * N + b][2 * N + a] = G[2 * N + b][2 * N + a] + trd(a, b);
     G[2 * N + a][2 * N + b] = G[2 * N + a][2 * N + b] + trd(b, a);
   }
-  float M[2 * N][2 * N], Cm[2 * N][N], D[N][N];
+  T M[2 * N][2 * N], Cm[2 * N][N], D[N][N];
 #pragma unroll
   for (int a = 0; a < N; ++a)
 #pragma unroll
@@ -536,11 +584,11 @@ __device__ __forceinline__ int sw_3d_cell(
   for (int a = 0; a < N; ++a)
 #pragma unroll
     for (int b = 0; b < N; ++b) {
-      o[0][a][b] = fminf(fmaxf(o[0][a][b], 0.0f), 1.0f);
-      o[1][a][b] = fminf(fmaxf(o[1][a][b], 0.0f), 1.0f);
-      o[2][a][b] = fminf(fmaxf(o[2][a][b], 0.0f), mu0);
-      o[3][a][b] = fminf(fmaxf(o[3][a][b], 0.0f), mu0);
-      o[4][a][b] = fminf(fmaxf(o[4][a][b], 0.0f), 1.0f);
+      o[0][a][b] = fmin(fmax(o[0][a][b], T(0)), T(1));
+      o[1][a][b] = fmin(fmax(o[1][a][b], T(0)), T(1));
+      o[2][a][b] = fmin(fmax(o[2][a][b], T(0)), mu0);
+      o[3][a][b] = fmin(fmax(o[3][a][b], T(0)), mu0);
+      o[4][a][b] = fmin(fmax(o[4][a][b], T(0)), T(1));
     }
   return count;
 }
@@ -554,18 +602,15 @@ __device__ __forceinline__ int sw_3d_cell(
 // past cap slots a cell is written to `out` in place and its slot is -1.
 // Each cell's rows depend on that cell alone, so the order of the slots
 // changes no value.
-template <int NREG>
+template <int NREG, typename T>
 __global__ void __launch_bounds__(THREADS)
-sw_3d_kernel(const float* __restrict__ od_in,
-             const float* __restrict__ ssa_in,
-             const float* __restrict__ g_in,
-             const float* __restrict__ trd_in,
-             const float* __restrict__ trf_in,
-             const float* __restrict__ mu0_in,
+sw_3d_kernel(const T* __restrict__ od_in, const T* __restrict__ ssa_in,
+             const T* __restrict__ g_in, const T* __restrict__ trd_in,
+             const T* __restrict__ trf_in, const T* __restrict__ mu0_in,
              const uint8_t* __restrict__ use3d_in,
              const uint8_t* __restrict__ clear_in, int nlev, int ng,
-             int ncol, int cap, float max_gas_od_3d, float* __restrict__ out,
-             int8_t* __restrict__ counts, float* __restrict__ packed,
+             int ncol, int cap, T max_gas_od_3d, T* __restrict__ out,
+             int8_t* __restrict__ counts, T* __restrict__ packed,
              int* __restrict__ slot_of, int* __restrict__ n3d) {
   constexpr int N = NREG, NN = NREG * NREG, WARPS = THREADS / 32;
   constexpr unsigned ALL = 0xffffffffu;
@@ -601,15 +646,15 @@ sw_3d_kernel(const float* __restrict__ od_in,
         const size_t idx = (size_t)cell;
         const int l = (int)(idx / m);
         const size_t i = idx % m, c = i % ncol;
-        const float mu0 = mu0_in[c];
-        float o[5][N][N];
+        const T mu0 = mu0_in[c];
+        T o[5][N][N];
         const int count = sw_3d_cell<N>(od_in, ssa_in, g_in, trd_in, trf_in,
                                         mu0, l, i, c, m, ncol, max_gas_od_3d,
                                         o);
         const bool clear = clear_in[(size_t)l * ncol + c] != 0;
         const int slot = base + lane;
         const bool staged = slot < cap;
-        float* dst = staged ? packed + slot : out + (size_t)l * 5 * NN * m + i;
+        T* dst = staged ? packed + slot : out + (size_t)l * 5 * NN * m + i;
         const size_t step = staged ? (size_t)cap : m;
 #pragma unroll
         for (int k = 0; k < 5; ++k)
@@ -618,7 +663,7 @@ sw_3d_kernel(const float* __restrict__ od_in,
 #pragma unroll
             for (int b = 0; b < N; ++b)
               dst[(size_t)(k * NN + a * N + b) * step] =
-                  (clear && (a > 0 || b > 0)) ? 0.0f : o[k][a][b];
+                  (clear && (a > 0 || b > 0)) ? T(0) : o[k][a][b];
         slot_of[idx] = staged ? slot : -1;
         if (counts) counts[idx] = (int8_t)count;
       }
@@ -634,17 +679,15 @@ sw_3d_kernel(const float* __restrict__ od_in,
 // Both kinds go through the same 5 NREG^2 stores, each a full row of the
 // warp's 32 columns. Compiled apart from pass 1, so it keeps few registers
 // and many warps for what is a streaming write.
-template <int NREG>
+template <int NREG, typename T>
 __global__ void __launch_bounds__(LEAN_THREADS, LEAN_MIN_BLOCKS)
-sw_fallback_kernel(const float* __restrict__ od_in,
-                   const float* __restrict__ ssa_in,
-                   const float* __restrict__ g_in,
-                   const float* __restrict__ mu0_in,
+sw_fallback_kernel(const T* __restrict__ od_in, const T* __restrict__ ssa_in,
+                   const T* __restrict__ g_in, const T* __restrict__ mu0_in,
                    const uint8_t* __restrict__ use3d_in,
                    const uint8_t* __restrict__ clear_in,
-                   const float* __restrict__ packed,
+                   const T* __restrict__ packed,
                    const int* __restrict__ slot_of, int nlev, int ng,
-                   int ncol, int cap, float* __restrict__ out,
+                   int ncol, int cap, T* __restrict__ out,
                    int8_t* __restrict__ counts) {
   constexpr int N = NREG, NN = NREG * NREG;
   const size_t m = (size_t)ng * ncol;
@@ -657,25 +700,25 @@ sw_fallback_kernel(const float* __restrict__ od_in,
   const int slot = is3d ? slot_of[idx] : 0;
   // a 3D cell past the staged share was written by pass 1
   if (slot < 0) return;
-  float w[5][N];
+  T w[5][N];
   if (!is3d) {
-    const float mu0 = mu0_in[c];
+    const T mu0 = mu0_in[c];
     const bool clear = clear_in[(size_t)l * ncol + c] != 0;
 #pragma unroll
     for (int r = 0; r < N; ++r) {
       const size_t j = ((size_t)l * N + r) * m + i;
-      const Mw v = sw_fallback(mu0, od_in[j], ssa_in[j], g_in[j]);
+      const Mw<T> v = sw_fallback(mu0, od_in[j], ssa_in[j], g_in[j]);
       const bool z = clear && r > 0;
-      w[0][r] = z ? 0.0f : v.r;
-      w[1][r] = z ? 0.0f : v.t;
-      w[2][r] = z ? 0.0f : v.rd;
-      w[3][r] = z ? 0.0f : v.td;
-      w[4][r] = z ? 0.0f : v.tdd;
+      w[0][r] = z ? T(0) : v.r;
+      w[1][r] = z ? T(0) : v.t;
+      w[2][r] = z ? T(0) : v.rd;
+      w[3][r] = z ? T(0) : v.td;
+      w[4][r] = z ? T(0) : v.tdd;
     }
     if (counts) counts[idx] = -1;
   }
-  const float* p = packed + slot;
-  float* o = out + (size_t)l * 5 * NN * m + i;
+  const T* p = packed + slot;
+  T* o = out + (size_t)l * 5 * NN * m + i;
 #pragma unroll
   for (int q = 0; q < 5; ++q)
 #pragma unroll
@@ -684,7 +727,7 @@ sw_fallback_kernel(const float* __restrict__ od_in,
       for (int b = 0; b < N; ++b) {
         const int k = q * NN + a * N + b;
         o[(size_t)k * m] = is3d ? p[(size_t)k * cap]
-                                : (a == b ? w[q][a] : 0.0f);
+                                : (a == b ? w[q][a] : T(0));
       }
 }
 
@@ -693,8 +736,9 @@ sw_fallback_kernel(const float* __restrict__ od_in,
 // B7's operands, passed by value to both of its passes: od/ssa/g (nlev,
 // NREG, ng, ncol), tr (nlev, NREG, NREG, ncol), se/pt/pb (nlev, ng,
 // ncol), fr (nlev, NREG, ncol), use3d (nlev, ng, ncol), clear (nlev, ncol)
+template <typename T>
 struct LwArgs {
-  const float *od, *ssa, *g, *tr, *se, *pt, *pb, *fr;
+  const T *od, *ssa, *g, *tr, *se, *pt, *pb, *fr;
   const uint8_t *use3d, *clear;
   int nlev, ng, ncol;
 };
@@ -705,7 +749,8 @@ struct CellAt {
   int l;
   size_t i, c;
 };
-__device__ __forceinline__ CellAt cell_at(size_t idx, const LwArgs& p) {
+template <typename T>
+__device__ __forceinline__ CellAt cell_at(size_t idx, const LwArgs<T>& p) {
   const unsigned m = (unsigned)p.ng * (unsigned)p.ncol, x = (unsigned)idx;
   const unsigned l = x / m, i = x - l * m;
   return {(int)l, (size_t)i, (size_t)(i % (unsigned)p.ncol)};
@@ -715,49 +760,50 @@ __device__ __forceinline__ CellAt cell_at(size_t idx, const LwArgs& p) {
 // returns the doubling count. Both Pade sums are formed before U = G V,
 // the second in A4's place, so that A2 dies early; each value is the
 // plain version's expression.
-template <int N>
-__device__ int expm_reftrans_lw(const float (&A)[N][N], const float (&B)[N][N],
-                                float (&R)[N][N], float (&T)[N][N]) {
+template <int N, typename T>
+__device__ int expm_reftrans_lw(const T (&A)[N][N], const T (&B)[N][N],
+                                T (&R)[N][N], T (&Tr)[N][N]) {
   constexpr int N2 = 2 * N;
-  float norm1 = 0.0f;
+  using Kt = Consts<T>;
+  T norm1 = T(0);
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    float s = fabsf(A[0][j]) + fabsf(B[0][j]);
+    T s = fabs(A[0][j]) + fabs(B[0][j]);
 #pragma unroll
-    for (int i = 1; i < N; ++i) s = s + fabsf(A[i][j]) + fabsf(B[i][j]);
-    norm1 = j == 0 ? s : fmaxf(norm1, s);
+    for (int i = 1; i < N; ++i) s = s + fabs(A[i][j]) + fabs(B[i][j]);
+    norm1 = j == 0 ? s : fmax(norm1, s);
   }
-  float scale;
+  T scale;
   const int expo = doubling_count(norm1, &scale);
-  float G[N2][N2];
+  T G[N2][N2];
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < N; ++j) {
-      const float x = A[i][j] * scale, y = B[i][j] * scale;
+      const T x = A[i][j] * scale, y = B[i][j] * scale;
       G[i][j] = x;
       G[i][N + j] = -y;
       G[N + i][j] = y;
       G[N + i][N + j] = -x;
     }
-  float A2[N2][N2], A4[N2][N2], V[N2][N2], U[N2][N2];
+  T A2[N2][N2], A4[N2][N2], V[N2][N2], U[N2][N2];
   mm<N2, N2, N2>(G, G, A2);
   mm<N2, N2, N2>(A2, A2, A4);
-  pade_sum<N2, N2>(A4, A2, C5, C3, C1, true, V);
-  pade_sum<N2, N2>(A4, A2, C4, C2, C0, true, A4);
+  pade_sum<N2, N2>(A4, A2, Kt::c5(), Kt::c3(), Kt::c1(), true, V);
+  pade_sum<N2, N2>(A4, A2, Kt::c4(), Kt::c2(), Kt::c0(), true, A4);
   mm<N2, N2, N2>(G, V, U);
-  float E[N2][N2];
+  T E[N2][N2];
 #pragma unroll
   for (int i = 0; i < N2; ++i)
 #pragma unroll
     for (int j = 0; j < N2; ++j) {
       A4[i][j] = A4[i][j] - U[i][j];
-      E[i][j] = 2.0f * U[i][j];
+      E[i][j] = ECRAD_LIT(2.0) * U[i][j];
     }
   solve<N2, N2>(A4, E);
 #pragma unroll
-  for (int i = 0; i < N2; ++i) E[i][i] = E[i][i] + 1.0f;
-  float a[N][N], rr[N][N], e21[N][N], t1[N][N];
+  for (int i = 0; i < N2; ++i) E[i][i] = E[i][i] + T(1);
+  T a[N][N], rr[N][N], e21[N][N], t1[N][N];
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
@@ -775,24 +821,24 @@ __device__ int expm_reftrans_lw(const float (&A)[N][N], const float (&B)[N][N],
 #pragma unroll
   for (int i = 0; i < N; ++i)
 #pragma unroll
-    for (int j = 0; j < N; ++j) T[i][j] = E[N + i][N + j] + t1[i][j];
+    for (int j = 0; j < N; ++j) Tr[i][j] = E[N + i][N + j] + t1[i][j];
   for (int k = 0; k < expo; ++k) {
-    float den[N][N], W[N][N], TR[N][N], dR[N][N], Tn[N][N];
+    T den[N][N], W[N][N], TR[N][N], dR[N][N], Tn[N][N];
     one_minus_sq<N>(R, den);
 #pragma unroll
     for (int i = 0; i < N; ++i)
 #pragma unroll
-      for (int j = 0; j < N; ++j) W[i][j] = T[i][j];
+      for (int j = 0; j < N; ++j) W[i][j] = Tr[i][j];
     solve<N, N>(den, W);
-    mm<N, N, N>(T, R, TR);
+    mm<N, N, N>(Tr, R, TR);
     mm<N, N, N>(TR, W, dR);
-    mm<N, N, N>(T, W, Tn);
+    mm<N, N, N>(Tr, W, Tn);
 #pragma unroll
     for (int i = 0; i < N; ++i)
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         R[i][j] = R[i][j] + dR[i][j];
-        T[i][j] = Tn[i][j];
+        Tr[i][j] = Tn[i][j];
       }
   }
   return expo;
@@ -803,41 +849,42 @@ __device__ int expm_reftrans_lw(const float (&A)[N][N], const float (&B)[N][N],
 // particular solution in the sum/difference basis, the Pade-5
 // exponential and the doubling, then the sources. Returns the doubling
 // count.
-template <int N>
-__device__ __forceinline__ int lw_3d_cell(const LwArgs& p,
-                                          float max_gas_od_3d, int l,
+template <int N, typename T>
+__device__ __forceinline__ int lw_3d_cell(const LwArgs<T>& p,
+                                          T max_gas_od_3d, int l,
                                           size_t idx, size_t i, size_t c,
-                                          size_t m, float (&R)[N][N],
-                                          float (&T)[N][N], float (&su)[N],
-                                          float (&sd)[N]) {
+                                          size_t m, T (&R)[N][N],
+                                          T (&Tr)[N][N], T (&su)[N],
+                                          T (&sd)[N]) {
   constexpr int NN = N * N;
-  const float pt = p.pt[idx], pb = p.pb[idx];
-  float od[N], ssa[N], g1[N], g2[N], fr[N];
+  const T diffusivity = Consts<T>::diffusivity();
+  const T pt = p.pt[idx], pb = p.pb[idx];
+  T od[N], ssa[N], g1[N], g2[N], fr[N];
 #pragma unroll
   for (int r = 0; r < N; ++r) {
     const size_t j = ((size_t)l * N + r) * m + i;
     od[r] = p.od[j];
     ssa[r] = p.ssa[j];
     // two_stream.py lw_gammas
-    const float factor = (LW_DIFFUSIVITY * 0.5f) * ssa[r];
-    const float gv = p.g[j];
-    g1[r] = LW_DIFFUSIVITY - factor * (1.0f + gv);
-    g2[r] = factor * (1.0f - gv);
+    const T factor = (diffusivity * ECRAD_LIT(0.5)) * ssa[r];
+    const T gv = p.g[j];
+    g1[r] = diffusivity - factor * (T(1) + gv);
+    g2[r] = factor * (T(1) - gv);
     fr[r] = p.fr[((size_t)l * N + r) * p.ncol + c];
   }
-  const float se = p.se[idx];
+  const T se = p.se[idx];
   const size_t tc = (size_t)l * NN * p.ncol + c;
   auto tr = [&](int a, int b) {
     return p.tr[tc + (size_t)(a * N + b) * p.ncol];
   };
-  float A[N][N], B[N][N], odc[N];
+  T A[N][N], B[N][N], odc[N];
 #pragma unroll
   for (int a = 0; a < N; ++a)
 #pragma unroll
-    for (int b = 0; b < N; ++b) A[a][b] = B[a][b] = 0.0f;
+    for (int b = 0; b < N; ++b) A[a][b] = B[a][b] = T(0);
 #pragma unroll
   for (int r = 0; r < N; ++r) {
-    odc[r] = r == 0 ? fminf(od[0], max_gas_od_3d) : od[r];
+    odc[r] = r == 0 ? fmin(od[0], max_gas_od_3d) : od[r];
     A[r][r] = A[r][r] + odc[r] * g1[r];
     B[r][r] = B[r][r] + odc[r] * g2[r];
   }
@@ -860,10 +907,10 @@ __device__ __forceinline__ int lw_3d_cell(const LwArgs& p,
     A[0][N - 1] = A[0][N - 1] + -se * tr(2, 0);
   }
   // the particular solution in the sum/difference basis
-  float F[N][N], E[N][N], vw[N][2], u[N][1];
+  T F[N][N], E[N][N], vw[N][2], u[N][1];
 #pragma unroll
   for (int r = 0; r < N; ++r) {
-    const float emis = odc[r] * (1.0f - ssa[r]) * fr[r] * LW_DIFFUSIVITY;
+    const T emis = odc[r] * (T(1) - ssa[r]) * fr[r] * diffusivity;
     vw[r][0] = emis * (pb - pt);
     vw[r][1] = emis * pt;
 #pragma unroll
@@ -871,14 +918,14 @@ __device__ __forceinline__ int lw_3d_cell(const LwArgs& p,
       E[r][b] = A[r][b] + B[r][b];
       F[r][b] = A[r][b] - B[r][b];
     }
-    E[r][r] = E[r][r] + 1e-12f;
-    F[r][r] = F[r][r] + 1e-12f;
+    E[r][r] = E[r][r] + ECRAD_LIT(1e-12);
+    F[r][r] = F[r][r] + ECRAD_LIT(1e-12);
   }
   solve<N, 2>(F, vw);
 #pragma unroll
   for (int r = 0; r < N; ++r) u[r][0] = vw[r][0];
   solve<N, 1>(E, u);
-  float up[N], dn[N], pu_b[N], uu[N];
+  T up[N], dn[N], pu_b[N], uu[N];
 #pragma unroll
   for (int r = 0; r < N; ++r) {
     uu[r] = vw[r][0];
@@ -886,11 +933,11 @@ __device__ __forceinline__ int lw_3d_cell(const LwArgs& p,
     dn[r] = vw[r][1] - u[r][0];
     pu_b[r] = up[r] + uu[r];
   }
-  const int count = expm_reftrans_lw<N>(A, B, R, T);
-  float a1[N], a2[N], b1[N], b2[N];
+  const int count = expm_reftrans_lw<N>(A, B, R, Tr);
+  T a1[N], a2[N], b1[N], b2[N];
   mv<N, N>(R, dn, a1);
-  mv<N, N>(T, pu_b, a2);
-  mv<N, N>(T, dn, b1);
+  mv<N, N>(Tr, pu_b, a2);
+  mv<N, N>(Tr, dn, b1);
   mv<N, N>(R, pu_b, b2);
 #pragma unroll
   for (int r = 0; r < N; ++r) {
@@ -899,6 +946,41 @@ __device__ __forceinline__ int lw_3d_cell(const LwArgs& p,
   }
   return count;
 }
+
+// 16-byte runs of a slot of B7's staging: four floats or two doubles
+template <typename T>
+struct Run16;
+template <>
+struct Run16<float> {
+  static constexpr int n = 4;
+  static __device__ __forceinline__ void put(float* d, int h,
+                                             const float* v) {
+    reinterpret_cast<float4*>(d)[h] =
+        make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+  }
+  static __device__ __forceinline__ void get(const float* s, int h,
+                                             float* v) {
+    const float4 t = reinterpret_cast<const float4*>(s)[h];
+    v[4 * h] = t.x;
+    v[4 * h + 1] = t.y;
+    v[4 * h + 2] = t.z;
+    v[4 * h + 3] = t.w;
+  }
+};
+template <>
+struct Run16<double> {
+  static constexpr int n = 2;
+  static __device__ __forceinline__ void put(double* d, int h,
+                                             const double* v) {
+    reinterpret_cast<double2*>(d)[h] = make_double2(v[2 * h], v[2 * h + 1]);
+  }
+  static __device__ __forceinline__ void get(const double* s, int h,
+                                             double* v) {
+    const double2 t = reinterpret_cast<const double2*>(s)[h];
+    v[2 * h] = t.x;
+    v[2 * h + 1] = t.y;
+  }
+};
 
 // pass 1 of B7, over the 3D cells only: a persistent grid whose warps
 // stride over groups of 32 cells. A warp reads `use3d` for BATCH of its
@@ -909,16 +991,16 @@ __device__ __forceinline__ int lw_3d_cell(const LwArgs& p,
 // records the slot; past cap slots a cell is written to `out` in place
 // and its slot is -1. Each cell's rows depend on that cell alone, so the
 // order of the slots changes no value.
-template <int NREG>
-__global__ void __launch_bounds__(THREADS, LW_3D_MIN_BLOCKS)
-lw_3d_kernel(LwArgs p, int cap, float max_gas_od_3d,
-             float* __restrict__ out, int8_t* __restrict__ counts,
-             float* __restrict__ packed, int* __restrict__ slot_of,
-             int* __restrict__ n3d) {
+template <int NREG, typename T>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? LW_3D_MIN_BLOCKS
+                                                  : F64_LW_3D_MIN_BLOCKS)
+lw_3d_kernel(LwArgs<T> p, int cap, T max_gas_od_3d, T* __restrict__ out,
+             int8_t* __restrict__ counts, T* __restrict__ packed,
+             int* __restrict__ slot_of, int* __restrict__ n3d) {
   constexpr int N = NREG, NN = NREG * NREG, NR = 2 * N * (N + 1),
-                WARPS = THREADS / 32, BATCH = 16;
+                WARPS = THREADS / 32, BATCH = 16, RUN = Run16<T>::n;
   constexpr unsigned ALL = 0xffffffffu;
-  static_assert(NR % 4 == 0, "a slot is whole float4s");
+  static_assert(NR % RUN == 0, "a slot is whole 16-byte runs");
   // a warp's listed cells: fewer than a round, then a batch's
   __shared__ int listed[WARPS][(BATCH + 1) * 32];
   const int lane = threadIdx.x % 32;
@@ -966,35 +1048,33 @@ lw_3d_kernel(LwArgs p, int cap, float max_gas_od_3d,
     if (cell >= 0) {
       const size_t idx = (size_t)cell;
       const CellAt at = cell_at(idx, p);
-      float R[N][N], T[N][N], su[N], sd[N];
+      T R[N][N], Tr[N][N], su[N], sd[N];
       const int count = lw_3d_cell<N>(p, max_gas_od_3d, at.l, idx, at.i,
-                                      at.c, m, R, T, su, sd);
+                                      at.c, m, R, Tr, su, sd);
       const bool clear = p.clear[(size_t)at.l * p.ncol + at.c] != 0;
-      float v[NR];
+      T v[NR];
 #pragma unroll
       for (int a = 0; a < N; ++a)
 #pragma unroll
         for (int b = 0; b < N; ++b) {
           const bool z = clear && (a > 0 || b > 0);
-          v[a * N + b] = z ? 0.0f : R[a][b];
-          v[NN + a * N + b] = z ? 0.0f : T[a][b];
+          v[a * N + b] = z ? T(0) : R[a][b];
+          v[NN + a * N + b] = z ? T(0) : Tr[a][b];
         }
 #pragma unroll
       for (int r = 0; r < N; ++r) {
         const bool z = clear && r > 0;
-        v[2 * NN + r] = z ? 0.0f : su[r];
-        v[2 * NN + N + r] = z ? 0.0f : sd[r];
+        v[2 * NN + r] = z ? T(0) : su[r];
+        v[2 * NN + N + r] = z ? T(0) : sd[r];
       }
       const int slot = base + lane;
       if (slot < cap) {
-        float4* d = reinterpret_cast<float4*>(packed + (size_t)slot * NR);
+        T* d = packed + (size_t)slot * NR;
 #pragma unroll
-        for (int h = 0; h < NR / 4; ++h)
-          d[h] = make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2],
-                             v[4 * h + 3]);
+        for (int h = 0; h < NR / RUN; ++h) Run16<T>::put(d, h, v);
         slot_of[idx] = slot;
       } else {
-        float* o = out + (size_t)at.l * NR * m + at.i;
+        T* o = out + (size_t)at.l * NR * m + at.i;
 #pragma unroll
         for (int h = 0; h < NR; ++h) o[(size_t)h * m] = v[h];
         slot_of[idx] = -1;
@@ -1011,13 +1091,15 @@ lw_3d_kernel(LwArgs p, int cap, float max_gas_od_3d,
 // pass 1 staged in its slot, read whole (nothing where pass 1 wrote it in
 // place). Every row goes out in one store for all of a warp's lanes, so
 // each 32-byte sector is written whole, once.
-template <int NREG>
+template <int NREG, typename T>
 __global__ void __launch_bounds__(LEAN_THREADS, LEAN_MIN_BLOCKS)
-lw_fallback_kernel(LwArgs p, int cloud_scattering,
-                   const float* __restrict__ packed,
+lw_fallback_kernel(LwArgs<T> p, int cloud_scattering,
+                   const T* __restrict__ packed,
                    const int* __restrict__ slot_of, int cap,
-                   float* __restrict__ out, int8_t* __restrict__ counts) {
-  constexpr int N = NREG, NN = NREG * NREG, NR = 2 * N * (N + 1);
+                   T* __restrict__ out, int8_t* __restrict__ counts) {
+  constexpr int N = NREG, NN = NREG * NREG, NR = 2 * N * (N + 1),
+                RUN = Run16<T>::n;
+  const T diffusivity = Consts<T>::diffusivity();
   const size_t m = (size_t)p.ng * p.ncol;
   const size_t idx = (size_t)blockIdx.x * LEAN_THREADS + threadIdx.x;
   if (idx >= (size_t)p.nlev * m) return;
@@ -1029,73 +1111,67 @@ lw_fallback_kernel(LwArgs p, int cloud_scattering,
   // a 3D cell past the staged share was written by pass 1
   if (slot < 0) return;
   // [R | T | SU | SD] of each region: the diagonals and the sources
-  float w[4][N];
+  T w[4][N];
   if (!is3d) {
-    const float pt = p.pt[idx], pb = p.pb[idx];
+    const T pt = p.pt[idx], pb = p.pb[idx];
     const bool clear = p.clear[(size_t)l * p.ncol + c] != 0;
 #pragma unroll
     for (int r = 0; r < N; ++r) {
       const size_t j = ((size_t)l * N + r) * m + i;
-      const float od = p.od[j];
-      float rr, tt, u, d;
+      const T od = p.od[j];
+      T rr, tt, u, d;
       if (cloud_scattering) {
         // two_stream.py lw_gammas and lw_reftrans
-        const float factor = (LW_DIFFUSIVITY * 0.5f) * p.ssa[j];
-        const float gv = p.g[j];
-        const float g1 = LW_DIFFUSIVITY - factor * (1.0f + gv);
-        const float g2 = factor * (1.0f - gv);
-        const float k = sqrtf(fmaxf((g1 - g2) * (g1 + g2), 1.0e-4f));
-        const float expo = expf(-k * od);
-        const float expo2 = expo * expo;
-        const float rt = 1.0f / (k + g1 + (k - g1) * expo2);
-        if (od <= 1.0e-3f) {
+        const T factor = (diffusivity * ECRAD_LIT(0.5)) * p.ssa[j];
+        const T gv = p.g[j];
+        const T g1 = diffusivity - factor * (T(1) + gv);
+        const T g2 = factor * (T(1) - gv);
+        const T k = sqrt(fmax((g1 - g2) * (g1 + g2), ECRAD_LIT(1.0e-4)));
+        const T expo = exp(-k * od);
+        const T expo2 = expo * expo;
+        const T rt = T(1) / (k + g1 + (k - g1) * expo2);
+        if (od <= ECRAD_LIT(1.0e-3)) {
           rr = g2 * od;
-          tt = (1.0f - k * od) / (1.0f + od * (g1 - k));
-          u = d = (1.0f - rr - tt) * 0.5f * (pt + pb);
+          tt = (T(1) - k * od) / (T(1) + od * (g1 - k));
+          u = d = (T(1) - rr - tt) * ECRAD_LIT(0.5) * (pt + pb);
         } else {
-          rr = g2 * (1.0f - expo2) * rt;
-          tt = 2.0f * k * expo * rt;
-          const float coeff = (pb - pt) / fmaxf(od * (g1 + g2), 1.0e-30f);
+          rr = g2 * (T(1) - expo2) * rt;
+          tt = ECRAD_LIT(2.0) * k * expo * rt;
+          const T coeff =
+              (pb - pt) / fmax(od * (g1 + g2), ECRAD_LIT(1.0e-30));
           u = (coeff + pt) - rr * (-coeff + pt) - tt * (coeff + pb);
           d = (-coeff + pb) - rr * (coeff + pb) - tt * (-coeff + pt);
         }
       } else {
         // two_stream.py lw_no_scattering_transmittance
-        const float coeff0 = LW_DIFFUSIVITY * od;
-        const float trans = expf(-coeff0);
-        const float coeff = (pb - pt) / fmaxf(coeff0, 1.0e-30f);
-        rr = 0.0f;
-        if (od <= 1.0e-3f) {
-          tt = 1.0f - coeff0;
-          u = d = coeff0 * 0.5f * (pt + pb);
+        const T coeff0 = diffusivity * od;
+        const T trans = exp(-coeff0);
+        const T coeff = (pb - pt) / fmax(coeff0, ECRAD_LIT(1.0e-30));
+        rr = T(0);
+        if (od <= ECRAD_LIT(1.0e-3)) {
+          tt = T(1) - coeff0;
+          u = d = coeff0 * ECRAD_LIT(0.5) * (pt + pb);
         } else {
           tt = trans;
           u = (coeff + pt) - trans * (coeff + pb);
           d = (-coeff + pb) - trans * (-coeff + pt);
         }
       }
-      const float fr = p.fr[((size_t)l * N + r) * p.ncol + c];
+      const T fr = p.fr[((size_t)l * N + r) * p.ncol + c];
       const bool z = clear && r > 0;
-      w[0][r] = z ? 0.0f : rr;
-      w[1][r] = z ? 0.0f : tt;
-      w[2][r] = z ? 0.0f : u * fr;
-      w[3][r] = z ? 0.0f : d * fr;
+      w[0][r] = z ? T(0) : rr;
+      w[1][r] = z ? T(0) : tt;
+      w[2][r] = z ? T(0) : u * fr;
+      w[3][r] = z ? T(0) : d * fr;
     }
     if (counts) counts[idx] = -1;
   }
-  float v[NR];
+  T v[NR];
   if (is3d) {
     // the slot's rows, in a row
-    const float4* q =
-        reinterpret_cast<const float4*>(packed + (size_t)slot * NR);
+    const T* q = packed + (size_t)slot * NR;
 #pragma unroll
-    for (int h = 0; h < NR / 4; ++h) {
-      const float4 t = q[h];
-      v[4 * h] = t.x;
-      v[4 * h + 1] = t.y;
-      v[4 * h + 2] = t.z;
-      v[4 * h + 3] = t.w;
-    }
+    for (int h = 0; h < NR / RUN; ++h) Run16<T>::get(q, h, v);
   } else {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -1103,14 +1179,14 @@ lw_fallback_kernel(LwArgs p, int cloud_scattering,
       for (int a = 0; a < N; ++a)
 #pragma unroll
         for (int b = 0; b < N; ++b)
-          v[h * NN + a * N + b] = a == b ? w[h][a] : 0.0f;
+          v[h * NN + a * N + b] = a == b ? w[h][a] : T(0);
 #pragma unroll
     for (int r = 0; r < N; ++r) {
       v[2 * NN + r] = w[2][r];
       v[2 * NN + N + r] = w[3][r];
     }
   }
-  float* o = out + (size_t)l * NR * m + i;
+  T* o = out + (size_t)l * NR * m + i;
 #pragma unroll
   for (int h = 0; h < NR; ++h) o[(size_t)h * m] = v[h];
 }
@@ -1131,19 +1207,13 @@ cudaError_t grid_3d(Kernel kernel, size_t cells, unsigned* blocks) {
   *blocks = (unsigned)(need < most ? need : most);
   return e;
 }
-}  // namespace spartacus
-}  // namespace ecrad
 
-// B6, pass 1, over the 3D cells of the nlev x ng x ncol cells: `packed`
-// holds (5 nreg^2, cap) floats, slot_of one int per cell, and *n3d must
-// be 0 on entry
-extern "C" int spartacus_sw_reftrans_3d(
-    const float* od, const float* ssa, const float* g, const float* trd,
-    const float* trf, const float* mu0, const uint8_t* use3d,
-    const uint8_t* clear, float* out, int8_t* counts, float* packed,
-    int* slot_of, int* n3d, int nreg, int nlev, int ng, int ncol, int cap,
-    float max_gas_od_3d, void* stream) {
-  namespace sp = ecrad::spartacus;
+template <typename T>
+int sw_3d_launch(const T* od, const T* ssa, const T* g, const T* trd,
+                 const T* trf, const T* mu0, const uint8_t* use3d,
+                 const uint8_t* clear, T* out, int8_t* counts, T* packed,
+                 int* slot_of, int* n3d, int nreg, int nlev, int ng,
+                 int ncol, int cap, T max_gas_od_3d, void* stream) {
   const size_t n = (size_t)nlev * ng * ncol;
   if (n == 0) return (int)cudaGetLastError();
   if (n > (size_t)INT32_MAX) return (int)cudaErrorInvalidValue;
@@ -1151,21 +1221,156 @@ extern "C" int spartacus_sw_reftrans_3d(
   unsigned blocks = 0;
   cudaError_t e;
   if (nreg == 3) {
-    if ((e = sp::grid_3d(sp::sw_3d_kernel<3>, n, &blocks)) != cudaSuccess)
+    if ((e = grid_3d(sw_3d_kernel<3, T>, n, &blocks)) != cudaSuccess)
       return (int)e;
-    sp::sw_3d_kernel<3><<<blocks, sp::THREADS, 0, s>>>(
+    sw_3d_kernel<3, T><<<blocks, THREADS, 0, s>>>(
         od, ssa, g, trd, trf, mu0, use3d, clear, nlev, ng, ncol, cap,
         max_gas_od_3d, out, counts, packed, slot_of, n3d);
   } else if (nreg == 2) {
-    if ((e = sp::grid_3d(sp::sw_3d_kernel<2>, n, &blocks)) != cudaSuccess)
+    if ((e = grid_3d(sw_3d_kernel<2, T>, n, &blocks)) != cudaSuccess)
       return (int)e;
-    sp::sw_3d_kernel<2><<<blocks, sp::THREADS, 0, s>>>(
+    sw_3d_kernel<2, T><<<blocks, THREADS, 0, s>>>(
         od, ssa, g, trd, trf, mu0, use3d, clear, nlev, ng, ncol, cap,
         max_gas_od_3d, out, counts, packed, slot_of, n3d);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int sw_fallback_launch(const T* od, const T* ssa, const T* g, const T* mu0,
+                       const uint8_t* use3d, const uint8_t* clear,
+                       const T* packed, const int* slot_of, T* out,
+                       int8_t* counts, int nreg, int nlev, int ng, int ncol,
+                       int cap, void* stream) {
+  const size_t n = (size_t)nlev * ng * ncol;
+  if (n == 0) return (int)cudaGetLastError();
+  if (n > (size_t)INT32_MAX) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((n + LEAN_THREADS - 1) / LEAN_THREADS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nreg == 3) {
+    sw_fallback_kernel<3, T><<<blocks, LEAN_THREADS, 0, s>>>(
+        od, ssa, g, mu0, use3d, clear, packed, slot_of, nlev, ng, ncol, cap,
+        out, counts);
+  } else if (nreg == 2) {
+    sw_fallback_kernel<2, T><<<blocks, LEAN_THREADS, 0, s>>>(
+        od, ssa, g, mu0, use3d, clear, packed, slot_of, nlev, ng, ncol, cap,
+        out, counts);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int sw_info(int pass, int nreg, int* info) {
+  if (pass == 0 && nreg == 3)
+    return kernel_info(sw_fallback_kernel<3, T>, LEAN_THREADS, 0, info);
+  if (pass == 0 && nreg == 2)
+    return kernel_info(sw_fallback_kernel<2, T>, LEAN_THREADS, 0, info);
+  if (pass == 1 && nreg == 3)
+    return kernel_info(sw_3d_kernel<3, T>, THREADS, 0, info);
+  if (pass == 1 && nreg == 2)
+    return kernel_info(sw_3d_kernel<2, T>, THREADS, 0, info);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int lw_3d_launch(const T* od, const T* ssa, const T* g, const T* tr,
+                 const T* se, const T* pt, const T* pb, const T* fr,
+                 const uint8_t* use3d, const uint8_t* clear, T* out,
+                 int8_t* counts, T* packed, int* slot_of, int* n3d, int nreg,
+                 int nlev, int ng, int ncol, int cap, T max_gas_od_3d,
+                 void* stream) {
+  const size_t n = (size_t)nlev * ng * ncol;
+  if (n == 0) return (int)cudaGetLastError();
+  if (n > (size_t)INT32_MAX) return (int)cudaErrorInvalidValue;
+  const LwArgs<T> p{od, ssa, g, tr, se, pt, pb, fr, use3d, clear,
+                    nlev, ng, ncol};
+  cudaStream_t s = (cudaStream_t)stream;
+  unsigned blocks = 0;
+  cudaError_t e;
+  if (nreg == 3) {
+    if ((e = grid_3d(lw_3d_kernel<3, T>, n, &blocks)) != cudaSuccess)
+      return (int)e;
+    lw_3d_kernel<3, T><<<blocks, THREADS, 0, s>>>(
+        p, cap, max_gas_od_3d, out, counts, packed, slot_of, n3d);
+  } else if (nreg == 2) {
+    if ((e = grid_3d(lw_3d_kernel<2, T>, n, &blocks)) != cudaSuccess)
+      return (int)e;
+    lw_3d_kernel<2, T><<<blocks, THREADS, 0, s>>>(
+        p, cap, max_gas_od_3d, out, counts, packed, slot_of, n3d);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int lw_fallback_launch(const T* od, const T* ssa, const T* g, const T* pt,
+                       const T* pb, const T* fr, const uint8_t* use3d,
+                       const uint8_t* clear, const T* packed,
+                       const int* slot_of, T* out, int8_t* counts, int nreg,
+                       int nlev, int ng, int ncol, int cap,
+                       int cloud_scattering, void* stream) {
+  const size_t n = (size_t)nlev * ng * ncol;
+  if (n == 0) return (int)cudaGetLastError();
+  if (n > (size_t)INT32_MAX) return (int)cudaErrorInvalidValue;
+  const LwArgs<T> p{od, ssa, g, nullptr, nullptr, pt, pb, fr, use3d,
+                    clear, nlev, ng, ncol};
+  const unsigned blocks = (unsigned)((n + LEAN_THREADS - 1) / LEAN_THREADS);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nreg == 3) {
+    lw_fallback_kernel<3, T><<<blocks, LEAN_THREADS, 0, s>>>(
+        p, cloud_scattering, packed, slot_of, cap, out, counts);
+  } else if (nreg == 2) {
+    lw_fallback_kernel<2, T><<<blocks, LEAN_THREADS, 0, s>>>(
+        p, cloud_scattering, packed, slot_of, cap, out, counts);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int lw_info(int pass, int nreg, int* info) {
+  if (pass == 0 && nreg == 3)
+    return kernel_info(lw_fallback_kernel<3, T>, LEAN_THREADS, 0, info);
+  if (pass == 0 && nreg == 2)
+    return kernel_info(lw_fallback_kernel<2, T>, LEAN_THREADS, 0, info);
+  if (pass == 1 && nreg == 3)
+    return kernel_info(lw_3d_kernel<3, T>, THREADS, 0, info);
+  if (pass == 1 && nreg == 2)
+    return kernel_info(lw_3d_kernel<2, T>, THREADS, 0, info);
+  return (int)cudaErrorInvalidValue;
+}
+}  // namespace spartacus
+}  // namespace ecrad
+
+// B6, pass 1, over the 3D cells of the nlev x ng x ncol cells: `packed`
+// holds (5 nreg^2, cap) values, slot_of one int per cell, and *n3d must
+// be 0 on entry
+extern "C" int spartacus_sw_reftrans_3d(
+    const float* od, const float* ssa, const float* g, const float* trd,
+    const float* trf, const float* mu0, const uint8_t* use3d,
+    const uint8_t* clear, float* out, int8_t* counts, float* packed,
+    int* slot_of, int* n3d, int nreg, int nlev, int ng, int ncol, int cap,
+    float max_gas_od_3d, void* stream) {
+  return ecrad::spartacus::sw_3d_launch<float>(
+      od, ssa, g, trd, trf, mu0, use3d, clear, out, counts, packed, slot_of,
+      n3d, nreg, nlev, ng, ncol, cap, max_gas_od_3d, stream);
+}
+
+extern "C" int spartacus_sw_reftrans_3d_f64(
+    const double* od, const double* ssa, const double* g, const double* trd,
+    const double* trf, const double* mu0, const uint8_t* use3d,
+    const uint8_t* clear, double* out, int8_t* counts, double* packed,
+    int* slot_of, int* n3d, int nreg, int nlev, int ng, int ncol, int cap,
+    double max_gas_od_3d, void* stream) {
+  return ecrad::spartacus::sw_3d_launch<double>(
+      od, ssa, g, trd, trf, mu0, use3d, clear, out, counts, packed, slot_of,
+      n3d, nreg, nlev, ng, ncol, cap, max_gas_od_3d, stream);
 }
 
 // B6, pass 2, over every cell, after pass 1 on the same stream
@@ -1174,75 +1379,54 @@ extern "C" int spartacus_sw_reftrans_fallback(
     const uint8_t* use3d, const uint8_t* clear, const float* packed,
     const int* slot_of, float* out, int8_t* counts, int nreg, int nlev,
     int ng, int ncol, int cap, void* stream) {
-  namespace sp = ecrad::spartacus;
-  const size_t n = (size_t)nlev * ng * ncol;
-  if (n == 0) return (int)cudaGetLastError();
-  if (n > (size_t)INT32_MAX) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((n + sp::LEAN_THREADS - 1)
-                                     / sp::LEAN_THREADS);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (nreg == 3) {
-    sp::sw_fallback_kernel<3><<<blocks, sp::LEAN_THREADS, 0, s>>>(
-        od, ssa, g, mu0, use3d, clear, packed, slot_of, nlev, ng, ncol, cap,
-        out, counts);
-  } else if (nreg == 2) {
-    sp::sw_fallback_kernel<2><<<blocks, sp::LEAN_THREADS, 0, s>>>(
-        od, ssa, g, mu0, use3d, clear, packed, slot_of, nlev, ng, ncol, cap,
-        out, counts);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return ecrad::spartacus::sw_fallback_launch<float>(
+      od, ssa, g, mu0, use3d, clear, packed, slot_of, out, counts, nreg,
+      nlev, ng, ncol, cap, stream);
+}
+
+extern "C" int spartacus_sw_reftrans_fallback_f64(
+    const double* od, const double* ssa, const double* g, const double* mu0,
+    const uint8_t* use3d, const uint8_t* clear, const double* packed,
+    const int* slot_of, double* out, int8_t* counts, int nreg, int nlev,
+    int ng, int ncol, int cap, void* stream) {
+  return ecrad::spartacus::sw_fallback_launch<double>(
+      od, ssa, g, mu0, use3d, clear, packed, slot_of, out, counts, nreg,
+      nlev, ng, ncol, cap, stream);
 }
 
 // B6's compiled resources and occupancy (kernel_info.cuh): pass 0 is the
 // lean pass (2), pass 1 the 3D pass (1)
 extern "C" int spartacus_sw_reftrans_info(int pass, int nreg, int* info) {
-  namespace sp = ecrad::spartacus;
-  if (pass == 0 && nreg == 3)
-    return ecrad::kernel_info(sp::sw_fallback_kernel<3>, sp::LEAN_THREADS,
-                              0, info);
-  if (pass == 0 && nreg == 2)
-    return ecrad::kernel_info(sp::sw_fallback_kernel<2>, sp::LEAN_THREADS,
-                              0, info);
-  if (pass == 1 && nreg == 3)
-    return ecrad::kernel_info(sp::sw_3d_kernel<3>, sp::THREADS, 0, info);
-  if (pass == 1 && nreg == 2)
-    return ecrad::kernel_info(sp::sw_3d_kernel<2>, sp::THREADS, 0, info);
-  return (int)cudaErrorInvalidValue;
+  return ecrad::spartacus::sw_info<float>(pass, nreg, info);
+}
+
+extern "C" int spartacus_sw_reftrans_info_f64(int pass, int nreg,
+                                              int* info) {
+  return ecrad::spartacus::sw_info<double>(pass, nreg, info);
 }
 
 // B7, pass 1, over the 3D cells: `packed` holds cap slots of 2 nreg (nreg
-// + 1) floats, slot_of one int per cell, and *n3d must be 0 on entry
+// + 1) values, slot_of one int per cell, and *n3d must be 0 on entry
 extern "C" int spartacus_lw_reftrans_3d(
     const float* od, const float* ssa, const float* g, const float* tr,
     const float* se, const float* pt, const float* pb, const float* fr,
     const uint8_t* use3d, const uint8_t* clear, float* out, int8_t* counts,
     float* packed, int* slot_of, int* n3d, int nreg, int nlev, int ng,
     int ncol, int cap, float max_gas_od_3d, void* stream) {
-  namespace sp = ecrad::spartacus;
-  const size_t n = (size_t)nlev * ng * ncol;
-  if (n == 0) return (int)cudaGetLastError();
-  if (n > (size_t)INT32_MAX) return (int)cudaErrorInvalidValue;
-  const sp::LwArgs p{od, ssa, g, tr, se, pt, pb, fr, use3d, clear,
-                     nlev, ng, ncol};
-  cudaStream_t s = (cudaStream_t)stream;
-  unsigned blocks = 0;
-  cudaError_t e;
-  if (nreg == 3) {
-    if ((e = sp::grid_3d(sp::lw_3d_kernel<3>, n, &blocks)) != cudaSuccess)
-      return (int)e;
-    sp::lw_3d_kernel<3><<<blocks, sp::THREADS, 0, s>>>(
-        p, cap, max_gas_od_3d, out, counts, packed, slot_of, n3d);
-  } else if (nreg == 2) {
-    if ((e = sp::grid_3d(sp::lw_3d_kernel<2>, n, &blocks)) != cudaSuccess)
-      return (int)e;
-    sp::lw_3d_kernel<2><<<blocks, sp::THREADS, 0, s>>>(
-        p, cap, max_gas_od_3d, out, counts, packed, slot_of, n3d);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return ecrad::spartacus::lw_3d_launch<float>(
+      od, ssa, g, tr, se, pt, pb, fr, use3d, clear, out, counts, packed,
+      slot_of, n3d, nreg, nlev, ng, ncol, cap, max_gas_od_3d, stream);
+}
+
+extern "C" int spartacus_lw_reftrans_3d_f64(
+    const double* od, const double* ssa, const double* g, const double* tr,
+    const double* se, const double* pt, const double* pb, const double* fr,
+    const uint8_t* use3d, const uint8_t* clear, double* out, int8_t* counts,
+    double* packed, int* slot_of, int* n3d, int nreg, int nlev, int ng,
+    int ncol, int cap, double max_gas_od_3d, void* stream) {
+  return ecrad::spartacus::lw_3d_launch<double>(
+      od, ssa, g, tr, se, pt, pb, fr, use3d, clear, out, counts, packed,
+      slot_of, n3d, nreg, nlev, ng, ncol, cap, max_gas_od_3d, stream);
 }
 
 // B7, pass 2, over every cell, after pass 1 on the same stream
@@ -1252,40 +1436,29 @@ extern "C" int spartacus_lw_reftrans_fallback(
     const uint8_t* clear, const float* packed, const int* slot_of,
     float* out, int8_t* counts, int nreg, int nlev, int ng, int ncol,
     int cap, int cloud_scattering, void* stream) {
-  namespace sp = ecrad::spartacus;
-  const size_t n = (size_t)nlev * ng * ncol;
-  if (n == 0) return (int)cudaGetLastError();
-  if (n > (size_t)INT32_MAX) return (int)cudaErrorInvalidValue;
-  const sp::LwArgs p{od, ssa, g, nullptr, nullptr, pt, pb, fr, use3d,
-                     clear, nlev, ng, ncol};
-  const unsigned blocks = (unsigned)((n + sp::LEAN_THREADS - 1)
-                                     / sp::LEAN_THREADS);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (nreg == 3) {
-    sp::lw_fallback_kernel<3><<<blocks, sp::LEAN_THREADS, 0, s>>>(
-        p, cloud_scattering, packed, slot_of, cap, out, counts);
-  } else if (nreg == 2) {
-    sp::lw_fallback_kernel<2><<<blocks, sp::LEAN_THREADS, 0, s>>>(
-        p, cloud_scattering, packed, slot_of, cap, out, counts);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return ecrad::spartacus::lw_fallback_launch<float>(
+      od, ssa, g, pt, pb, fr, use3d, clear, packed, slot_of, out, counts,
+      nreg, nlev, ng, ncol, cap, cloud_scattering, stream);
+}
+
+extern "C" int spartacus_lw_reftrans_fallback_f64(
+    const double* od, const double* ssa, const double* g, const double* pt,
+    const double* pb, const double* fr, const uint8_t* use3d,
+    const uint8_t* clear, const double* packed, const int* slot_of,
+    double* out, int8_t* counts, int nreg, int nlev, int ng, int ncol,
+    int cap, int cloud_scattering, void* stream) {
+  return ecrad::spartacus::lw_fallback_launch<double>(
+      od, ssa, g, pt, pb, fr, use3d, clear, packed, slot_of, out, counts,
+      nreg, nlev, ng, ncol, cap, cloud_scattering, stream);
 }
 
 // B7's compiled resources and occupancy (kernel_info.cuh): pass 0 is the
 // pass over every cell (2), pass 1 the 3D pass (1)
 extern "C" int spartacus_lw_reftrans_info(int pass, int nreg, int* info) {
-  namespace sp = ecrad::spartacus;
-  if (pass == 0 && nreg == 3)
-    return ecrad::kernel_info(sp::lw_fallback_kernel<3>, sp::LEAN_THREADS,
-                              0, info);
-  if (pass == 0 && nreg == 2)
-    return ecrad::kernel_info(sp::lw_fallback_kernel<2>, sp::LEAN_THREADS,
-                              0, info);
-  if (pass == 1 && nreg == 3)
-    return ecrad::kernel_info(sp::lw_3d_kernel<3>, sp::THREADS, 0, info);
-  if (pass == 1 && nreg == 2)
-    return ecrad::kernel_info(sp::lw_3d_kernel<2>, sp::THREADS, 0, info);
-  return (int)cudaErrorInvalidValue;
+  return ecrad::spartacus::lw_info<float>(pass, nreg, info);
+}
+
+extern "C" int spartacus_lw_reftrans_info_f64(int pass, int nreg,
+                                              int* info) {
+  return ecrad::spartacus::lw_info<double>(pass, nreg, info);
 }

@@ -12,8 +12,9 @@ cudaGetLastError() as an int, and allocates nothing: the wrappers
 allocate outputs and scratch with torch.empty.
 
 The kernels of the McICA path (B1, B2, B3, B3', B4's SW form and the
-cloud generator) are templates on their scalar type with a float and a
-double entry point, the double one's name ending in `_f64`:
+cloud generator) and of the SPARTACUS path (B6-B9) are templates on
+their scalar type with a float and a double entry point, the double
+one's name ending in `_f64`:
 `launch(name, ..., dtype=)` picks the entry of the operands' dtype
 (`scalar` checks it) and counts
 `launch.<name>.f32` or `.f64` (hooks.count; ops/random_fields.py counts
@@ -73,10 +74,15 @@ _SIGS = {
     "tc_sw_optics": "pppppppppp" "iiiiii" "pp",
 }
 #: the kernels with a double form: its entry point, name + "_f64", takes
-#: the same arguments with double in place of float
+#: the same arguments with double in place of float (its scalar
+#: arguments too: "f" becomes "d")
 F64_FORMS = ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat",
-             "lw_adding", "mcica_sw_optics", "mcica_generator")
-_SIGS.update({name + "_f64": _SIGS[name] for name in F64_FORMS})
+             "lw_adding", "mcica_sw_optics", "mcica_generator",
+             "spartacus_sw_reftrans_3d", "spartacus_sw_reftrans_fallback",
+             "spartacus_lw_reftrans_3d", "spartacus_lw_reftrans_fallback",
+             "spartacus_sw_adding", "spartacus_lw_adding")
+_SIGS.update({name + "_f64": _SIGS[name].replace("f", "d")
+              for name in F64_FORMS})
 #: kernels with a float form only that are launched with dtype= all the
 #: same, so that their launches are counted
 F32_FORMS = ("tc_sw_optics",)
@@ -94,9 +100,13 @@ _INFO_SIGS = {"level_sweep_info": "ii",
               "mcica_optics_info": "i",
               "tc_sweeps_info": "iii",
               "spartacus_sw_adding_info": "i",
+              "spartacus_sw_adding_info_f64": "i",
               "spartacus_sw_reftrans_info": "ii",
+              "spartacus_sw_reftrans_info_f64": "ii",
               "spartacus_lw_reftrans_info": "ii",
+              "spartacus_lw_reftrans_info_f64": "ii",
               "spartacus_lw_adding_info": "ii",
+              "spartacus_lw_adding_info_f64": "ii",
               "gather_sections_info": "iiii",
               "threefry_fields_info": "i",
               "mcica_generator_info": "iii",

@@ -13,8 +13,11 @@ reftrans histories of ops/spartacus_reftrans.py and per-column rows
 matrix padded to 3 x 3, so that two and three regions share them).
 
 `sw_adding_sweeps` / `lw_adding_sweeps` run the plain level loops on CPU
-tensors and the kernels on CUDA tensors (float32, contiguous, or they
-raise). The plain steps are the JAX package's kernel-form steps
+tensors and the kernels on CUDA tensors of float32 or float64, each call
+in one dtype (a float64 call launches the double forms,
+csrc/spartacus_adding.cu *_f64) and contiguous; any other dtype (half
+precision included), operands of mixed dtypes or a strided tensor
+raise. The plain steps are the JAX package's kernel-form steps
 (:115-327, :487-564), for any number of regions (2 or 3), in the same
 order of operations (solvers/matrix.py `mm_gu`, `solve_g`).
 """
@@ -26,6 +29,7 @@ from ..config import Entrapment
 from ..solvers.matrix import (add_eye_g, fast_expm_exchange_2_g,
                               fast_expm_exchange_3_g, mm_gu, mv_gu, solve_g,
                               solve_vec_g)
+from ..utils import hooks
 from . import _cuda
 from .spartacus_reftrans import _diag_g, _zero_cloudy_vec, _zero_offdiag_clear
 
@@ -332,34 +336,37 @@ def sw_adding_sweeps_plain(cfg, hist, cols, init_up, direct0,
 
 
 def sw_adding_sweeps_fused(cfg, hist, cols, init_up, direct0):
-    """Kernel B8, same arguments and result as the plain version."""
+    """Kernel B8, same arguments and result as the plain version, on
+    CUDA operands of one dtype, float32 or float64 (the result in it)."""
     nlev, nrows, ng, ncol = hist.shape
     n = direct0.shape[0]
     if n not in (2, 3) or nrows != 5 * n * n:
         raise ValueError(f"SPARTACUS takes 2 or 3 regions (hist rows "
                          f"{nrows}, {n} regions)")
-    f32 = torch.float32
-    _cuda.check(hist, f32, (nlev, 5 * n * n, ng, ncol), "hist")
-    _cuda.check(cols, f32, (nlev, NCOLROWS, ncol), "cols")
-    _cuda.check(init_up, f32, (2 * n * n, ng, ncol), "init_up")
-    _cuda.check(direct0, f32, (n, ng, ncol), "direct0")
+    dt = _cuda.scalar(hist, "hist")
+    _cuda.check(hist, dt, (nlev, 5 * n * n, ng, ncol), "hist")
+    _cuda.check(cols, dt, (nlev, NCOLROWS, ncol), "cols")
+    _cuda.check(init_up, dt, (2 * n * n, ng, ncol), "init_up")
+    _cuda.check(direct0, dt, (n, ng, ncol), "direct0")
     dev = hist.device
-    scratch = torch.empty((nlev, 2 * n * n, ng, ncol), dtype=f32, device=dev)
-    top = torch.empty((2, n, n, ng, ncol), dtype=f32, device=dev)
-    out = torch.empty((nlev, 3 * n, ng, ncol), dtype=f32, device=dev)
+    scratch = torch.empty((nlev, 2 * n * n, ng, ncol), dtype=dt, device=dev)
+    top = torch.empty((2, n, n, ng, ncol), dtype=dt, device=dev)
+    out = torch.empty((nlev, 3 * n, ng, ncol), dtype=dt, device=dev)
     _cuda.launch("spartacus_sw_adding", hist, cols, init_up, direct0, n,
                  nlev, ng, ncol, int(cfg.i_3d_sw_entrapment),
                  int(bool(cfg.do_3d_effects)), cfg.max_cloud_od,
                  1.0 / cfg.min_cloud_effective_size,
                  1.0 - cfg.overhang_factor, cfg.cloud_fraction_threshold,
-                 scratch, top[0], top[1], out)
+                 scratch, top[0], top[1], out, dtype=dt)
     launches["spartacus_sw_adding"] += 1
     return top[0], top[1], out
 
 
+@hooks.hooked("ecrad.sweeps")
 def sw_adding_sweeps(cfg, hist, *args):
     """The SW adding sweeps: the plain loops on CPU tensors, kernel B8 on
-    any other (which raises unless it is CUDA float32)."""
+    any other (which raises unless its operands are CUDA float32 or CUDA
+    float64, all of one dtype, and contiguous)."""
     if hist.device.type == "cpu":
         return sw_adding_sweeps_plain(cfg, hist, *args)
     return sw_adding_sweeps_fused(cfg, hist, *args)
@@ -466,35 +473,38 @@ def lw_adding_sweeps_plain(cfg, use_matrix, hist, cols, init_up):
 
 
 def lw_adding_sweeps_fused(cfg, use_matrix, hist, cols, init_up):
-    """Kernel B9, same arguments and result as the plain version."""
+    """Kernel B9, same arguments and result as the plain version, on
+    CUDA operands of one dtype, float32 or float64 (the result in it)."""
     nlev, nrows, ng, ncol = hist.shape
     n = {12: 2, 24: 3}.get(nrows)
     if n is None:
         raise ValueError(f"SPARTACUS takes 2 or 3 regions (hist rows "
                          f"{nrows})")
-    f32 = torch.float32
-    _cuda.check(hist, f32, (nlev, nrows, ng, ncol), "hist")
-    _cuda.check(cols, f32, (nlev, LW_NCOLROWS, ncol), "cols")
-    _cuda.check(init_up, f32, (n * n + n, ng, ncol), "init_up")
+    dt = _cuda.scalar(hist, "hist")
+    _cuda.check(hist, dt, (nlev, nrows, ng, ncol), "hist")
+    _cuda.check(cols, dt, (nlev, LW_NCOLROWS, ncol), "cols")
+    _cuda.check(init_up, dt, (n * n + n, ng, ncol), "init_up")
     dev = hist.device
     # the carry entering each level going up: the albedo matrix and the
     # source with multilayer effects; without them every carry an up step
     # makes is diagonal (lw_up_step), so its diagonal and the source
     multilayer = bool(cfg.do_3d_lw_multilayer_effects)
     rows = n * n + n if multilayer else 2 * n
-    scratch = torch.empty((nlev, rows, ng, ncol), dtype=f32, device=dev)
-    src_top = torch.empty((n, ng, ncol), dtype=f32, device=dev)
-    out = torch.empty((nlev, 2 * n, ng, ncol), dtype=f32, device=dev)
+    scratch = torch.empty((nlev, rows, ng, ncol), dtype=dt, device=dev)
+    src_top = torch.empty((n, ng, ncol), dtype=dt, device=dev)
+    out = torch.empty((nlev, 2 * n, ng, ncol), dtype=dt, device=dev)
     _cuda.launch("spartacus_lw_adding", hist, cols, init_up, n, nlev, ng,
                  ncol, int(bool(use_matrix)), int(multilayer), scratch,
-                 src_top, out)
+                 src_top, out, dtype=dt)
     launches["spartacus_lw_adding"] += 1
     return src_top, out
 
 
+@hooks.hooked("ecrad.sweeps")
 def lw_adding_sweeps(cfg, use_matrix, hist, *args):
     """The LW adding sweeps: the plain loops on CPU tensors, kernel B9 on
-    any other (which raises unless it is CUDA float32)."""
+    any other (which raises unless its operands are CUDA float32 or CUDA
+    float64, all of one dtype, and contiguous)."""
     if hist.device.type == "cpu":
         return lw_adding_sweeps_plain(cfg, use_matrix, hist, *args)
     return lw_adding_sweeps_fused(cfg, use_matrix, hist, *args)

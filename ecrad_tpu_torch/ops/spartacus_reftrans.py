@@ -16,8 +16,11 @@ in row-major order.
 
 `sw_reftrans_levels` / `lw_reftrans_levels` run the plain versions (one
 level at a time, as the JAX package's CPU scan does) on CPU tensors and
-the kernels on CUDA tensors; a float64 or non-contiguous CUDA tensor, or
-a failed build or launch, raises. B6 and B7 are two launches each on the
+the kernels on CUDA tensors of float32 or float64, each call in one
+dtype: a float64 call launches the kernels' double forms
+(csrc/spartacus_reftrans.cu *_f64). Any other dtype (half precision
+included), operands of mixed dtypes, a non-contiguous tensor, or a
+failed build or launch raises. B6 and B7 are two launches each on the
 current stream: a 3D pass that finds the 3D cells and stages their rows
 in a compact buffer, then a pass over every cell that writes the
 fallback cells and copies the staged ones, so that each sector of the
@@ -28,8 +31,9 @@ took the fallback.
 The plain versions mirror ecrad_tpu/ops/spartacus_reftrans.py:115-248
 (SW) and :416-548 (LW) expression for expression. The SW Meador-Weaver
 fallback is the port's two_stream.sw_reftrans, whose float32 cells within
-RESONANCE_WINDOW of k mu0 = 1 are computed in float64 (the kernel does
-the same per cell).
+RESONANCE_WINDOW of k mu0 = 1 are computed in float64 (the kernel's float
+form does the same per cell; its double form computes every cell in
+float64, as the plain version does on float64 operands).
 """
 from __future__ import annotations
 
@@ -215,15 +219,17 @@ def sw_reftrans_levels_plain(max_gas_od_3d, od, ssa, g, trd, trf, mu0,
 
 def sw_reftrans_levels_fused(max_gas_od_3d, od, ssa, g, trd, trf, mu0,
                              use3d, clear, counts=None):
-    """Kernel B6, same arguments and result as the plain version."""
+    """Kernel B6, same arguments and result as the plain version, on
+    CUDA operands of one dtype, float32 or float64 (the result in it)."""
     nlev, nreg, ng, ncol = od.shape
     if nreg not in (2, 3):
         raise ValueError(f"SPARTACUS takes 2 or 3 regions, not {nreg}")
+    dt = _cuda.scalar(od, "od")
     for name, x in (("od", od), ("ssa", ssa), ("g", g)):
-        _cuda.check(x, torch.float32, (nlev, nreg, ng, ncol), name)
+        _cuda.check(x, dt, (nlev, nreg, ng, ncol), name)
     for name, x in (("trd", trd), ("trf", trf)):
-        _cuda.check(x, torch.float32, (nlev, nreg, nreg, ncol), name)
-    _cuda.check(mu0, torch.float32, (ncol,), "mu0")
+        _cuda.check(x, dt, (nlev, nreg, nreg, ncol), name)
+    _cuda.check(mu0, dt, (ncol,), "mu0")
     _cuda.check(use3d, torch.bool, (nlev, ng, ncol), "use3d")
     _cuda.check(clear, torch.bool, (nlev, ncol), "clear")
     if counts is not None:
@@ -234,21 +240,20 @@ def sw_reftrans_levels_fused(max_gas_od_3d, od, ssa, g, trd, trf, mu0,
                          f"int32 (at most {_MAX_CELLS})")
     dev = od.device
     rows = 5 * nreg * nreg
-    out = torch.empty((nlev, rows, ng, ncol), dtype=torch.float32,
-                      device=dev)
+    out = torch.empty((nlev, rows, ng, ncol), dtype=dt, device=dev)
     # the 3D pass stages its cells' rows in `packed` and their slots in
     # slot_of (the count of staged cells stays on the device); the second
     # pass writes every cell of `out`
     cap = -(-cells // _STAGED_SHARE)
-    packed = torch.empty((rows, cap), dtype=torch.float32, device=dev)
+    packed = torch.empty((rows, cap), dtype=dt, device=dev)
     slot_of = torch.empty(cells, dtype=torch.int32, device=dev)
     n3d = torch.zeros(1, dtype=torch.int32, device=dev)
     _cuda.launch("spartacus_sw_reftrans_3d", od, ssa, g, trd, trf, mu0,
                  use3d, clear, out, counts, packed, slot_of, n3d, nreg, nlev,
-                 ng, ncol, cap, max_gas_od_3d)
+                 ng, ncol, cap, max_gas_od_3d, dtype=dt)
     _cuda.launch("spartacus_sw_reftrans_fallback", od, ssa, g, mu0, use3d,
                  clear, packed, slot_of, out, counts, nreg, nlev, ng, ncol,
-                 cap)
+                 cap, dtype=dt)
     launches["spartacus_sw_reftrans"] += 1
     return out
 
@@ -256,7 +261,8 @@ def sw_reftrans_levels_fused(max_gas_od_3d, od, ssa, g, trd, trf, mu0,
 @hooks.hooked("ecrad.layer_optics")
 def sw_reftrans_levels(*args, **kw):
     """SW reftrans histories: the plain version on CPU tensors, kernel B6
-    on any other (which raises unless it is CUDA float32)."""
+    on any other (which raises unless its operands are CUDA float32 or
+    CUDA float64, all of one dtype, and contiguous)."""
     if args[1].device.type == "cpu":
         return sw_reftrans_levels_plain(*args, **kw)
     return sw_reftrans_levels_fused(*args, **kw)
@@ -362,16 +368,18 @@ def lw_reftrans_levels_plain(max_gas_od_3d, cloud_scattering, od, ssa, g,
 
 def lw_reftrans_levels_fused(max_gas_od_3d, cloud_scattering, od, ssa, g,
                              tr, se, pt, pb, fr, use3d, clear, counts=None):
-    """Kernel B7, same arguments and result as the plain version."""
+    """Kernel B7, same arguments and result as the plain version, on
+    CUDA operands of one dtype, float32 or float64 (the result in it)."""
     nlev, nreg, ng, ncol = od.shape
     if nreg not in (2, 3):
         raise ValueError(f"SPARTACUS takes 2 or 3 regions, not {nreg}")
+    dt = _cuda.scalar(od, "od")
     for name, x in (("od", od), ("ssa", ssa), ("g", g)):
-        _cuda.check(x, torch.float32, (nlev, nreg, ng, ncol), name)
-    _cuda.check(tr, torch.float32, (nlev, nreg, nreg, ncol), "tr")
+        _cuda.check(x, dt, (nlev, nreg, ng, ncol), name)
+    _cuda.check(tr, dt, (nlev, nreg, nreg, ncol), "tr")
     for name, x in (("se", se), ("pt", pt), ("pb", pb)):
-        _cuda.check(x, torch.float32, (nlev, ng, ncol), name)
-    _cuda.check(fr, torch.float32, (nlev, nreg, ncol), "fr")
+        _cuda.check(x, dt, (nlev, ng, ncol), name)
+    _cuda.check(fr, dt, (nlev, nreg, ncol), "fr")
     _cuda.check(use3d, torch.bool, (nlev, ng, ncol), "use3d")
     _cuda.check(clear, torch.bool, (nlev, ncol), "clear")
     if counts is not None:
@@ -382,20 +390,19 @@ def lw_reftrans_levels_fused(max_gas_od_3d, cloud_scattering, od, ssa, g,
                          f"int32 (at most {_MAX_CELLS})")
     dev = od.device
     rows = 2 * nreg * (nreg + 1)
-    out = torch.empty((nlev, rows, ng, ncol), dtype=torch.float32,
-                      device=dev)
+    out = torch.empty((nlev, rows, ng, ncol), dtype=dt, device=dev)
     # as B6: the 3D pass stages its cells' rows, each cell's in a row,
     # the second pass writes every cell of `out`
     cap = -(-cells // _STAGED_SHARE)
-    packed = torch.empty((cap, rows), dtype=torch.float32, device=dev)
+    packed = torch.empty((cap, rows), dtype=dt, device=dev)
     slot_of = torch.empty(cells, dtype=torch.int32, device=dev)
     n3d = torch.zeros(1, dtype=torch.int32, device=dev)
     _cuda.launch("spartacus_lw_reftrans_3d", od, ssa, g, tr, se, pt, pb, fr,
                  use3d, clear, out, counts, packed, slot_of, n3d, nreg, nlev,
-                 ng, ncol, cap, max_gas_od_3d)
+                 ng, ncol, cap, max_gas_od_3d, dtype=dt)
     _cuda.launch("spartacus_lw_reftrans_fallback", od, ssa, g, pt, pb, fr,
                  use3d, clear, packed, slot_of, out, counts, nreg, nlev, ng,
-                 ncol, cap, int(bool(cloud_scattering)))
+                 ncol, cap, int(bool(cloud_scattering)), dtype=dt)
     launches["spartacus_lw_reftrans"] += 1
     return out
 
@@ -403,7 +410,8 @@ def lw_reftrans_levels_fused(max_gas_od_3d, cloud_scattering, od, ssa, g,
 @hooks.hooked("ecrad.layer_optics")
 def lw_reftrans_levels(*args, **kw):
     """LW reftrans histories: the plain version on CPU tensors, kernel B7
-    on any other (which raises unless it is CUDA float32)."""
+    on any other (which raises unless its operands are CUDA float32 or
+    CUDA float64, all of one dtype, and contiguous)."""
     if args[2].device.type == "cpu":
         return lw_reftrans_levels_plain(*args, **kw)
     return lw_reftrans_levels_fused(*args, **kw)

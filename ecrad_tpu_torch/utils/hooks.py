@@ -26,10 +26,10 @@ blocks the host on the device runs through `sync(site, fn, ...)`: a
 scope `ecrad.sync.<site>` and, while LHOOK is on, the counter
 `sync.<site>`. `count(name)` adds to a counter while LHOOK is on;
 `counters()` reads them, `reset_profile()` clears them with the
-accounting. The kernels of the McICA path count each launch by dtype,
-`launch.<kernel>.f32` / `.f64` (ops/_cuda.py), and a layer that runs its
-plain PyTorch version in place of its kernel on a tensor off the CPU
-says so through `plain_on_device(site)`: the counter
+accounting. The kernels of the McICA and SPARTACUS paths count each
+launch by dtype, `launch.<kernel>.f32` / `.f64` (ops/_cuda.py), and a
+layer that runs its plain PyTorch version in place of its kernel on a
+tensor off the CPU says so through `plain_on_device(site)`: the counter
 `plain_on_device.<site>`.
 
 The accounted times are host wall and CPU time around asynchronous

@@ -955,20 +955,21 @@ def test_tripleclouds_and_homogeneous_paths_launch_their_kernels(
 # ---- SPARTACUS: B6, B7, B8, B9 ----
 
 def _spartacus_case(cuda, nreg, nlev=7, ng=16, ncol=133, seed=7,
-                    share3d=None):
+                    share3d=None, dtype=np.float32):
     """Inputs as tools/check_kernel_equivalence.py:143-163 builds them:
     mu0 at the 1e-10 clamp in every 17th column, clear layers, and a level
     with no 3D cell, or else each cell 3D with probability share3d; and
-    random per-column rows for the sweeps."""
+    random per-column rows for the sweeps; in float32, or in float64 for
+    the double forms."""
     rng = np.random.RandomState(seed)
     r = lambda *s, lo=0.0, hi=1.0: torch.as_tensor(
-        (lo + (hi - lo) * rng.rand(*s)).astype(np.float32), device=cuda)
+        (lo + (hi - lo) * rng.rand(*s)).astype(dtype), device=cuda)
     c = dict(od=r(nlev, nreg, ng, ncol, hi=6.0),
              ssa=r(nlev, nreg, ng, ncol, lo=0.05, hi=0.999),
              g=r(nlev, nreg, ng, ncol, hi=0.8),
              trd=r(nlev, nreg, nreg, ncol, hi=0.5),
              trf=r(nlev, nreg, nreg, ncol, hi=0.5))
-    mu0 = (0.05 + 0.95 * rng.rand(ncol)).astype(np.float32)
+    mu0 = (0.05 + 0.95 * rng.rand(ncol)).astype(dtype)
     mu0[::17] = 1e-10
     c["mu0"] = torch.as_tensor(mu0, device=cuda)
     u = rng.rand(nlev, ng, ncol)
@@ -1069,9 +1070,11 @@ def test_b6_b8_resources(cuda, nreg):
     assert full["blocks_per_sm"] >= 1
     assert b8["dynamic_smem"] <= 227 * 1024
     report = _cuda.ptxas_report()
+    # the float forms (T = float, the template's last argument)
     for kernel, spill in (("sw_fallback_kernel", 0), ("sw_3d_kernel", 0),
                           ("sw_adding_kernel", 8)):
-        hits = [v for k, v in report.items() if f"{kernel}ILi{nreg}E" in k]
+        hits = [v for k, v in report.items()
+                if f"{kernel}ILi{nreg}EfE" in k]
         assert len(hits) == 1, kernel
         assert hits[0]["spill_stores"] <= spill, kernel
         assert hits[0]["spill_loads"] <= spill, kernel
@@ -1117,9 +1120,11 @@ def test_b7_b9_resources(cuda, nreg):
         assert b9["dynamic_smem"] <= 227 * 1024
         assert b9["blocks_per_sm"] >= 4
     report = _cuda.ptxas_report()
-    for kernel in (f"lw_fallback_kernelILi{nreg}E", f"lw_3d_kernelILi{nreg}E",
-                   f"lw_adding_kernelILi{nreg}ELb0E",
-                   f"lw_adding_kernelILi{nreg}ELb1E"):
+    # the float forms (T = float, the template's last argument)
+    for kernel in (f"lw_fallback_kernelILi{nreg}EfE",
+                   f"lw_3d_kernelILi{nreg}EfE",
+                   f"lw_adding_kernelILi{nreg}ELb0EfE",
+                   f"lw_adding_kernelILi{nreg}ELb1EfE"):
         hits = [v for k, v in report.items() if kernel in k]
         assert len(hits) == 1, kernel
         assert hits[0]["spill_stores"] == 0, kernel
@@ -1200,6 +1205,10 @@ def test_b9_kernel_matches_plain(cuda, nreg, use_matrix, multilayer):
 
 
 def test_spartacus_kernels_refuse_float64_and_strided_tensors(cuda):
+    """B6-B9 take float32 or float64 since their double forms: each still
+    refuses a strided operand, a half-precision one, operands of mixed
+    dtypes (a float64 operand among float32 ones, and the other way) and,
+    called directly, a CPU tensor."""
     c = _spartacus_case(cuda, 3, nlev=3, ng=4, ncol=10)
     sw = [c[k] for k in SW_RT]
     strided = sw[0].transpose(2, 3).contiguous().transpose(2, 3)
@@ -1208,24 +1217,199 @@ def test_spartacus_kernels_refuse_float64_and_strided_tensors(cuda):
         fused(8.0, strided, *sw[1:])
     with pytest.raises(TypeError):
         fused(8.0, sw[0].double(), *sw[1:])
+    with pytest.raises(TypeError):
+        fused(8.0, sw[0].half(), *sw[1:])
+    with pytest.raises(TypeError):
+        fused(8.0, *[x.double() if x.is_floating_point() else x
+                     for x in sw[:5]], sw[5], *sw[6:])
+    with pytest.raises(ValueError, match="CUDA"):
+        fused(8.0, *[x.cpu() for x in sw])
     lw = [c[k] for k in LW_RT]
     with pytest.raises(TypeError):
         spartacus_reftrans.lw_reftrans_levels_fused(8.0, True, *lw[:4],
                                                     lw[4].double(), *lw[5:])
+    with pytest.raises(TypeError):
+        spartacus_reftrans.lw_reftrans_levels_fused(8.0, True,
+                                                    lw[0].bfloat16(),
+                                                    *lw[1:])
     hist = spartacus_reftrans.sw_reftrans_levels(8.0, *sw)
     cfg = spartacus_slice_config()
     with pytest.raises(TypeError):
         spartacus_adding.sw_adding_sweeps_fused(cfg, hist.double(), c["cols"],
                                                 c["init"], c["d0"])
+    with pytest.raises(TypeError):
+        spartacus_adding.sw_adding_sweeps_fused(cfg, hist.half(), c["cols"],
+                                                c["init"], c["d0"])
     with pytest.raises(ValueError, match="contiguous"):
         spartacus_adding.sw_adding_sweeps_fused(
             cfg, hist, c["cols"].transpose(1, 2).contiguous().transpose(1, 2),
             c["init"], c["d0"])
+    with pytest.raises(ValueError, match="CUDA"):
+        spartacus_adding.sw_adding_sweeps_fused(cfg, hist.cpu(), c["cols"],
+                                                c["init"], c["d0"])
     lhist = spartacus_reftrans.lw_reftrans_levels(8.0, True, *lw)
     with pytest.raises(TypeError):
         spartacus_adding.lw_adding_sweeps_fused(cfg, True, lhist,
                                                 c["lcols"].double(),
                                                 c["linit"])
+    with pytest.raises(TypeError):
+        spartacus_adding.lw_adding_sweeps_fused(cfg, True, lhist.double(),
+                                                c["lcols"], c["linit"])
+    with pytest.raises(ValueError, match="contiguous"):
+        spartacus_adding.lw_adding_sweeps_fused(
+            cfg, True, lhist.transpose(2, 3).contiguous().transpose(2, 3),
+            c["lcols"], c["linit"])
+
+
+def _f64_within(got, want, label):
+    """Each output of a double form within 1e-13 of the largest value of
+    its plain version's (the summation-order allowance of B1's and B2's
+    double forms)."""
+    assert len(got) == len(want), label
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype == torch.float64, label
+        scale = float(y.abs().max())
+        assert float((x - y).abs().max()) <= 1e-13 * scale, label
+
+
+@pytest.mark.parametrize("share3d", [None, 0.0, 1.0, 0.14])
+@pytest.mark.parametrize("nreg", [3, 2])
+def test_b6_b7_double_forms_match_plain_float64(cuda, nreg, share3d):
+    """B6's and B7's double forms (cloud scattering on and off) on float64
+    operands: no 3D cell, every cell 3D (past the staged share the 3D
+    passes write in place), the path's share and the mixed case; each
+    within 1e-13 of its plain version's largest value, counts < 0 exactly
+    where use3d is false, one `.f64` launch of each pass a call."""
+    c = _spartacus_case(cuda, nreg, share3d=share3d, dtype=np.float64)
+    counts = torch.empty(c["use3d"].shape, dtype=torch.int8, device=cuda)
+    hooks.enable(True)
+    hooks.reset_profile()
+    try:
+        got = spartacus_reftrans.sw_reftrans_levels(
+            8.0, *(c[k] for k in SW_RT), counts=counts)
+        lw = {s: spartacus_reftrans.lw_reftrans_levels(
+            8.0, s, *(c[k] for k in LW_RT)) for s in (True, False)}
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in hooks.counters().items()
+                    if k.startswith("launch.")}
+    finally:
+        hooks.enable(False)
+        hooks.reset_profile()
+    assert launched == {f"launch.spartacus_{b}_reftrans_{p}.f64": n
+                        for b, n in (("sw", 1), ("lw", 2))
+                        for p in ("3d", "fallback")}
+    _f64_within([got], [spartacus_reftrans.sw_reftrans_levels_plain(
+        8.0, *(c[k] for k in SW_RT))], "B6")
+    assert bool(((counts < 0) == ~c["use3d"]).all())
+    for s, x in lw.items():
+        _f64_within([x], [spartacus_reftrans.lw_reftrans_levels_plain(
+            8.0, s, *(c[k] for k in LW_RT))], f"B7 scattering={s}")
+
+
+@pytest.mark.parametrize("nlev, ng", [(7, 16), (1, 15), (2, 15)])
+@pytest.mark.parametrize("do_3d", [True, False])
+@pytest.mark.parametrize("entrap", list(Entrapment), ids=lambda e: e.name)
+@pytest.mark.parametrize("nreg", [3, 2])
+def test_b8_double_form_matches_plain_float64(cuda, nreg, entrap, do_3d,
+                                              nlev, ng):
+    """B8's double form under each entrapment treatment, 3D effects on and
+    off, and with fewer levels than its ring, 15 g-points and 133 columns
+    (no multiple of its tiles): each output within 1e-13 of its plain
+    version's largest value."""
+    c = _spartacus_case(cuda, nreg, nlev=nlev, ng=ng, dtype=np.float64)
+    hist = spartacus_reftrans.sw_reftrans_levels(8.0, *(c[k] for k in SW_RT))
+    cfg = spartacus_slice_config(i_3d_sw_entrapment=entrap,
+                                 do_3d_effects=do_3d)
+    args = (hist, c["cols"], c["init"], c["d0"])
+    got = spartacus_adding.sw_adding_sweeps(cfg, *args)
+    torch.cuda.synchronize()
+    _f64_within(got, spartacus_adding.sw_adding_sweeps_plain(cfg, *args),
+                f"B8 {entrap.name}")
+
+
+@pytest.mark.parametrize("nlev, ng", [(7, 16), (1, 15), (2, 15)])
+@pytest.mark.parametrize("use_matrix, multilayer", [
+    (True, False), (True, True), (False, False)])
+@pytest.mark.parametrize("nreg", [3, 2])
+def test_b9_double_form_matches_plain_float64(cuda, nreg, use_matrix,
+                                              multilayer, nlev, ng):
+    """B9's double form, multilayer effects on and off, the matrix and the
+    diagonal forms, a full albedo matrix at the surface, and ragged
+    shapes: each output within 1e-13 of its plain version's largest
+    value."""
+    c = _spartacus_case(cuda, nreg, nlev=nlev, ng=ng, dtype=np.float64)
+    hist = spartacus_reftrans.lw_reftrans_levels(8.0, True,
+                                                 *(c[k] for k in LW_RT))
+    cfg = spartacus_slice_config(do_3d_lw_multilayer_effects=multilayer)
+    args = (hist, c["lcols"], c["linit"])
+    got = spartacus_adding.lw_adding_sweeps(cfg, use_matrix, *args)
+    torch.cuda.synchronize()
+    _f64_within(got, spartacus_adding.lw_adding_sweeps_plain(
+        cfg, use_matrix, *args), "B9")
+
+
+@pytest.mark.parametrize("nreg", [3, 2])
+def test_spartacus_double_forms_resources(cuda, nreg):
+    """The double forms' launches (kernel_info): B6's and B7's passes over
+    every cell at least LEAN_MIN_BLOCKS (6) blocks per SM, their 3D passes
+    resident; B8's stages within 227 KB and F64_SW_MIN_BLOCKS blocks per
+    SM, B9's F64_LW_MIN_BLOCKS, multilayer effects on and off (the bounds
+    of csrc/spartacus_reftrans.cu and spartacus_adding.cu)."""
+    from ecrad_tpu_torch.ops import _cuda
+    info = _cuda.kernel_info
+    for name in ("spartacus_sw_reftrans_info_f64",
+                 "spartacus_lw_reftrans_info_f64"):
+        assert info(name, 0, nreg)["blocks_per_sm"] >= 6, name
+        assert info(name, 1, nreg)["blocks_per_sm"] >= 1, name
+    b8 = info("spartacus_sw_adding_info_f64", nreg)
+    assert b8["dynamic_smem"] <= 227 * 1024 and b8["blocks_per_sm"] >= 2
+    for ml in (0, 1):
+        b9 = info("spartacus_lw_adding_info_f64", ml, nreg)
+        assert b9["dynamic_smem"] <= 227 * 1024
+        assert b9["blocks_per_sm"] >= 3
+
+
+# the float64 SPARTACUS call's launches: B1, B2, B3 sw_adding and B3'
+# lw_adding for the clear sky, both passes of B6 and B7, B8 and B9, once
+# each and all in their double forms
+SPARTACUS_F64_LAUNCHES = {
+    f"launch.{k}.f64": 1 for k in (
+        "taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
+        "spartacus_sw_reftrans_3d", "spartacus_sw_reftrans_fallback",
+        "spartacus_lw_reftrans_3d", "spartacus_lw_reftrans_fallback",
+        "spartacus_sw_adding", "spartacus_lw_adding")}
+
+
+def test_float64_spartacus_call_on_the_card(cuda, tmp_path, monkeypatch):
+    """The whole float64 SPARTACUS call (the cell's configuration: 3
+    regions, Explicit entrapment, aerosols, LW derivatives) on 96 x 137
+    columns with effective cloud sizes: exactly the expected `.f64`
+    launches and none in float, no layer plain on the card, every output
+    float64 and within 1e-9 of each field's largest value of the plain
+    path on the CPU."""
+    cfg = spartacus_slice_config(
+        **write_synthetic_luts(str(tmp_path), ice="fu"), dtype="float64")
+    cols = add_effective_sizes(make_aerosols(make_clouds(make_columns(
+        96, 137, 4), 4), 4))
+    setup = setup_radiation(cfg, device=cuda)
+    inputs = columns_to_inputs(cols, device=cuda)
+    monkeypatch.setattr(hooks, "LHOOK", True)
+    hooks.reset_profile()
+    flux = radiation(setup, *inputs)
+    torch.cuda.synchronize()
+    counts = hooks.counters()
+    hooks.reset_profile()
+    monkeypatch.setattr(hooks, "LHOOK", False)
+    assert {k: v for k, v in counts.items()
+            if k.startswith("launch.")} == SPARTACUS_F64_LAUNCHES
+    assert not [k for k in counts if k.startswith("plain_on_device.")]
+    cpu = radiation(setup_radiation(cfg, device="cpu"),
+                    *columns_to_inputs(cols, device="cpu"))
+    for k, v in flux.fields():
+        ref = getattr(cpu, k)
+        assert v.dtype == ref.dtype == torch.float64, k
+        scale = max(float(ref.abs().max()), 1.0)
+        assert float((v.cpu() - ref).abs().max()) <= 1e-9 * scale, k
 
 
 SPARTACUS_VARIANTS = {

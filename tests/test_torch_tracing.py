@@ -18,8 +18,9 @@ synchronising operation of the call goes through hooks.sync, so the
 warnings equal the sync counters, and the sites left are the level
 orientation and float32 SW layer optics' resonance window outside
 kernels B4 and B11; McICA's random fields and generator are two kernel
-launches each and no sync, and Tripleclouds' SW layer optics one launch
-of B11.
+launches each and no sync, Tripleclouds' SW layer optics one launch
+of B11, and SPARTACUS's adding sweeps (B8, B9) two `ecrad.sweeps` spans
+beside the clear sky's.
 The file imports no jax; on the card:
 
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_tracing.py
@@ -277,6 +278,12 @@ def test_every_sync_of_a_call_is_counted(kind, tmp_path):
     assert "sync.upload.threefry" not in counts
     assert "sync.cover_merge" not in counts
     assert "cloud_cover.merge_passes" not in counts
+    if kind == "spartacus":
+        # B8 and B9 (sw/lw_adding_sweeps) each in an `ecrad.sweeps` span
+        # of its own, beside the clear sky's two sweeps
+        _, spans = _profiled(lambda: radiation(setup, *inputs))
+        torch.cuda.synchronize()
+        assert len(spans["ecrad.sweeps"]) == 4
 
 
 def test_plain_on_device_counts_only_while_the_hooks_are_on():
@@ -389,11 +396,14 @@ def test_a_float_only_kernel_is_launched_and_counted_in_float32_only(
 
 def test_the_dtype_check_takes_float32_and_float64_only():
     """_cuda.scalar: a kernel with a double form takes a float32 or
-    float64 leading operand; a CPU tensor or any other dtype raises."""
+    float64 leading operand; a CPU tensor or any other dtype raises. The
+    double form takes the float form's arguments with double in place of
+    float, its scalar arguments too."""
     from ecrad_tpu_torch.ops import _cuda
     with pytest.raises(ValueError, match="CUDA"):
         _cuda.scalar(torch.zeros(2, dtype=torch.float64), "x")
     assert set(_cuda._DTYPES) == {torch.float32, torch.float64}
     assert {n + "_f64" for n in _cuda.F64_FORMS} <= set(_cuda._SIGS)
     for n in _cuda.F64_FORMS:
-        assert _cuda._SIGS[n + "_f64"] == _cuda._SIGS[n]
+        assert _cuda._SIGS[n + "_f64"] == _cuda._SIGS[n].replace("f", "d")
+        assert "f" not in _cuda._SIGS[n + "_f64"]
