@@ -271,14 +271,17 @@ PATH_KERNELS = {
                      "mcica_sw_optics", "mcica_lw_optics",
                      "threefry_fields", "mcica_generator"),
     "tripleclouds": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
-                     "tc_sw_optics", "tc_sw_sweeps", "tc_lw_sweeps"),
+                     "tc_sw_optics", "tc_sw_sweeps", "tc_lw_sweeps",
+                     "aerosol_optics"),
     "tripleclouds_2reg": ("taumol_lw", "taumol_sw", "sw_adding",
                           "lw_noscat", "tc_sw_optics", "tc_sw_sweeps",
                           "tc_lw_sweeps"),
-    "homogeneous": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding"),
+    "homogeneous": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
+                    "aerosol_optics"),
     "spartacus": ("taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
                   "spartacus_sw_reftrans", "spartacus_lw_reftrans",
-                  "spartacus_sw_adding", "spartacus_lw_adding"),
+                  "spartacus_sw_adding", "spartacus_lw_adding",
+                  "aerosol_optics"),
     "spartacus_maxentr": ("taumol_lw", "taumol_sw", "sw_adding",
                           "lw_adding", "spartacus_sw_reftrans",
                           "spartacus_lw_reftrans", "spartacus_sw_adding",
@@ -413,6 +416,10 @@ HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 # the double forms' least time takes the FP64 rate outside the tensor
 # cores (published H100 SXM peak)
 F64_OPS_PER_S = 34e12
+# B12's operations per (row, g) output value: the merge's ~7 (SW) and ~4
+# (LW) a value, and the rows' type sums, ~2 x 12 types x 90 band values,
+# shared among 252 g-points (~9 a value)
+AEROSOL_OPS = 15
 # floating-point operations per output value, counted from each kernel's
 # source (exp, sqrt and division count one each): per (cell, g) for the
 # taumol and McICA-optics kernels, per (level, g, column) for the adding
@@ -420,7 +427,8 @@ F64_OPS_PER_S = 34e12
 OPS_PER_VALUE = {"taumol_lw": 60, "taumol_sw": 30, "sw_adding": 40,
                  "lw_noscat": 6, "lw_adding": 25, "mcica_sw_optics": 120,
                  "mcica_lw_optics": 40, "tc_sw_sweeps": 60,
-                 "tc_lw_sweeps": 45, "tc_sw_optics": 60}
+                 "tc_lw_sweeps": 45, "tc_sw_optics": 60,
+                 "aerosol_optics": AEROSOL_OPS}
 # the SPARTACUS kernels' work depends on the data; operations counted
 # from csrc/spartacus_reftrans.cu and spartacus_adding.cu for 3 regions
 # (a matrix product M x K x N counts M N (2K - 1)): B6/B7 per fallback
@@ -454,10 +462,12 @@ GEN_OPS_CELL, GEN_OPS_CLOUDY = 15, 170
 # counters): B3 sw_adding for the clear and the total sky, B3' lw_adding
 # for the clear sky (LW aerosol scattering), B3 lw_noscat for the total
 # sky (no LW cloud scattering), the generator's fields and the generator
-# for SW and LW
+# for SW and LW, and B12 (the aerosol optics, held to its plain version
+# bit for bit)
 F64_LAUNCHES = {"taumol_lw": 1, "taumol_sw": 1, "sw_adding": 2,
                 "lw_noscat": 1, "lw_adding": 1, "mcica_sw_optics": 1,
-                "threefry_fields": 2, "mcica_generator": 2}
+                "threefry_fields": 2, "mcica_generator": 2,
+                "aerosol_optics": 1}
 # the double forms against their plain versions in float64: B1 and B2
 # within F64_TAUMOL_REL of each output's largest value (their sums run in
 # slot order, the plain versions' in PyTorch's: up to 21 double terms
@@ -467,15 +477,16 @@ F64_LAUNCHES = {"taumol_lw": 1, "taumol_sw": 1, "sw_adding": 2,
 F64_TAUMOL_REL = 1e-13
 # the launches of one float64 SPARTACUS call, all in their double forms:
 # B1, B2, B3 sw_adding and B3' lw_adding for the clear sky (LW aerosol
-# scattering), both passes of B6 and B7, B8 and B9; each double form of
-# B6-B9 within F64_TAUMOL_REL of each output's largest value of its plain
-# version (the same operations in the same order; CUDA's double exp,
-# sqrt, pow and division on both sides)
+# scattering), both passes of B6 and B7, B8 and B9, and B12; each double
+# form of B6-B9 within F64_TAUMOL_REL of each output's largest value of
+# its plain version (the same operations in the same order; CUDA's double
+# exp, sqrt, pow and division on both sides)
 SPARTACUS_F64_LAUNCHES = {
     "taumol_lw": 1, "taumol_sw": 1, "sw_adding": 1, "lw_adding": 1,
     "spartacus_sw_reftrans_3d": 1, "spartacus_sw_reftrans_fallback": 1,
     "spartacus_lw_reftrans_3d": 1, "spartacus_lw_reftrans_fallback": 1,
-    "spartacus_sw_adding": 1, "spartacus_lw_adding": 1}
+    "spartacus_sw_adding": 1, "spartacus_lw_adding": 1,
+    "aerosol_optics": 1}
 
 
 def log(msg=""):
@@ -758,6 +769,27 @@ def tc_optics_ops(args):
     cloudy_cells = int(cloudy.sum()) * od.shape[-1] * (nreg - 1)
     return (OPS_PER_VALUE["tc_sw_optics"] * cells * (nreg + 1)
             + 12 * cloudy_cells)
+
+
+def check_aerosol(args, errs, bounds, name, ops_per_s=F32_OPS_PER_S):
+    """B12 (add_aerosol_optics on CUDA operands) against its plain version
+    on one call's arguments: every output bit for bit; its errs and bounds
+    entries under name (output values: the (row, g) values of both
+    spectra)."""
+    from ecrad_tpu_torch.optics import aerosol as aerosol_module
+    got = aerosol_module.add_aerosol_optics(*args)
+    torch.cuda.synchronize()
+    want = aerosol_module.add_aerosol_optics_plain(*args)
+    differ = sum(int((a != b).sum()) for a, b in zip(got, want))
+    errs[name] = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    bounds[name] = least_time("aerosol_optics", args, got,
+                              got[0].numel() + got[3].numel(),
+                              ops_per_s=ops_per_s)
+    log(f"{name}: shapes {tuple(got[3].shape)} and {tuple(got[0].shape)}, "
+        f"{got[0].dtype}, worst abs {errs[name]:.3e}, values differing "
+        f"{differ}")
+    if differ:
+        raise AssertionError(f"{name} differs from its plain version")
 
 
 def tc_moved_bytes(kind, args):
@@ -1127,6 +1159,7 @@ def main():
     from ecrad_tpu_torch.inputs import (add_effective_sizes, make_aerosols,
                                         make_clouds, make_columns,
                                         slice_columns, write_synthetic_luts)
+    from ecrad_tpu_torch import interface
     from ecrad_tpu_torch.interface import (_cloud_stage, get_albedos,
                                            radiation, setup_radiation)
     from ecrad_tpu_torch.io.input_reader import read_input
@@ -1137,7 +1170,8 @@ def main():
     from ecrad_tpu_torch.ops import random_fields as rf
     from ecrad_tpu_torch.ops import spartacus_adding as sa
     from ecrad_tpu_torch.ops import spartacus_reftrans as sr
-    from ecrad_tpu_torch.ops import tc_optics
+    from ecrad_tpu_torch.ops import aerosol_optics, tc_optics
+    from ecrad_tpu_torch.optics import aerosol as aerosol_module
     from ecrad_tpu_torch.optics.rrtmg import (taumol_lw, taumol_lw_sections,
                                               taumol_sw, taumol_sw_sections)
     from ecrad_tpu_torch.optics.rrtmg.gas_optics import gas_optics
@@ -1223,6 +1257,10 @@ def main():
              "mcica_sw_optics_kernelIf"),
             ("B11 tc_sw_optics", "tc_sw_optics_info", (),
              "tc_sw_optics_kernel"),
+            ("B12 aerosol_optics", "aerosol_optics_info", (0,),
+             "aerosol_optics_kernelIfLi4E"),
+            ("B12 aerosol_optics, float64", "aerosol_optics_info", (1,),
+             "aerosol_optics_kernelIdLi2E"),
             # the double forms: B3' lw_adding's window is under 137 levels
             ("B1 taumol_lw, float64", "taumol_lw_info_f64", (),
              "taumol_lw_kernelId"),
@@ -1432,9 +1470,12 @@ def main():
     tripleclouds.tc_sw_sweeps = keep("tc_sw_sweeps", sweeps[0])
     tripleclouds.tc_lw_sweeps = keep("tc_lw_sweeps", sweeps[1])
     tripleclouds._region_props_sw_g = keep("tc_sw_optics", sweeps[2])
+    add_aerosol = interface.add_aerosol_optics
+    interface.add_aerosol_optics = keep("aerosol_optics", add_aerosol)
     radiation(setup_t, *inputs_t)
     (tripleclouds.tc_sw_sweeps, tripleclouds.tc_lw_sweeps,
      tripleclouds._region_props_sw_g) = sweeps
+    interface.add_aerosol_optics = add_aerosol
     sp_fns = [(mod, name, getattr(mod, name)) for mod, name in (
         (spartacus_sw, "sw_reftrans_levels"),
         (spartacus_sw, "sw_adding_sweeps"),
@@ -1498,6 +1539,10 @@ def main():
     if errs["tc_sw_optics"] != 0.0:
         raise AssertionError("tc_sw_optics differs from its plain version")
     del a, b
+    # B12 on the operands the Tripleclouds path hands add_aerosol_optics
+    # (2048 x 137, 12 types, the saturation computed): its six outputs
+    # bit for bit
+    check_aerosol(path_args["aerosol_optics"], errs, bounds, "aerosol_optics")
     # B3 sw_adding and B3' lw_adding with 1, 2, 137 and ADD_SPILL_NLEV
     # levels on 15 g x 133 columns (no multiple of their 32-thread
     # blocks): equal to their plain versions bit for bit
@@ -1976,7 +2021,9 @@ def main():
         "lw_adding": (adding_fused, "adding_lw_fused",
                       adding.adding_lw_plain, 0.0),
         "mcica_sw_optics": (mcica_optics, "mcica_sw_optics_fused",
-                            mcica_optics.sw_clear_total_reftrans_plain, 0.0)}
+                            mcica_optics.sw_clear_total_reftrans_plain, 0.0),
+        "aerosol_optics": (interface, "add_aerosol_optics",
+                           aerosol_module.add_aerosol_optics_plain, 0.0)}
     f64_args = {name: [] for name in f64_kernels}
 
     def kept(name, fn):
@@ -2019,6 +2066,10 @@ def main():
         if len(calls) != F64_LAUNCHES[name]:
             raise AssertionError(f"{name}: {len(calls)} calls on the "
                                  f"float64 path")
+        if name == "aerosol_optics":
+            check_aerosol(calls[0], errs, bounds, name + "_f64",
+                          F64_OPS_PER_S)
+            continue
         rel = err = 0.0
         for i, args in enumerate(calls):
             got = kern(*args)
@@ -2062,7 +2113,7 @@ def main():
     # ---- 3. the paths, counted ----
     counters = (taumol_lw, taumol_sw, rf, mg, adding_fused.launches,
                 mcica_optics.launches, sr.launches, sa.launches, gi.launches,
-                tc_optics.launches)
+                tc_optics.launches, aerosol_optics.launches)
     launches = {}
 
     def count(name, fn):
@@ -2731,6 +2782,11 @@ def main():
             lambda: tc_optics.tc_sw_optics_fused(*path_args["tc_sw_optics"]),
             lambda: tc_optics.tc_sw_optics_plain(
                 *path_args["tc_sw_optics"])),
+        "aerosol_optics": (
+            lambda: interface.add_aerosol_optics(
+                *path_args["aerosol_optics"]),
+            lambda: aerosol_module.add_aerosol_optics_plain(
+                *path_args["aerosol_optics"])),
         "tc_sw_sweeps": (
             lambda: adding_fused.tc_sw_sweeps_fused(
                 *path_args["tc_sw_sweeps"]),
@@ -3196,6 +3252,9 @@ def main():
            "tc_sw_optics": ("ecrad_tpu_torch/csrc/tc_optics.cu",
                             "none: XLA elementwise passes in ecrad_tpu/"
                             "solvers/tripleclouds.py:156-225"),
+           "aerosol_optics": ("ecrad_tpu_torch/csrc/aerosol_optics.cu",
+                              "none: XLA matrix products and elementwise "
+                              "passes in ecrad_tpu/optics/aerosol.py"),
            "tc_sw_sweeps": (tc_sweeps, "ecrad_tpu/ops/adding_fused.py:290"),
            "tc_lw_sweeps": (tc_sweeps, "ecrad_tpu/ops/adding_fused.py:361"),
            "spartacus_sw_reftrans": (sp_rt, f"{jrt}:350"),

@@ -26,5 +26,11 @@ __device__ __forceinline__ float mmax(float a, float b) {
 __device__ __forceinline__ double mmax(double a, double b) {
   return fmax(a, b);
 }
+__device__ __forceinline__ float mmin(float a, float b) {
+  return fminf(a, b);
+}
+__device__ __forceinline__ double mmin(double a, double b) {
+  return fmin(a, b);
+}
 
 }  // namespace ecrad

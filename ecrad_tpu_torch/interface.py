@@ -384,8 +384,8 @@ def _radiation_oriented(setup: RadiationSetup, single_level: SingleLevel,
                                      for f in AEROSOL_FIELDS})
         with hooks.hook("ecrad.aerosol"):
             od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw = add_aerosol_optics(
-                cfg, setup.aerosol_coeffs, setup.maps.band_sw,
-                setup.maps.band_lw, thermodynamics, gas,
+                cfg, setup.aerosol_coeffs, setup.maps.band_sw32,
+                setup.maps.band_lw32, thermodynamics, gas,
                 aerosol, od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw)
 
     cloud_props = None

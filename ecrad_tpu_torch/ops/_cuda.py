@@ -12,9 +12,9 @@ cudaGetLastError() as an int, and allocates nothing: the wrappers
 allocate outputs and scratch with torch.empty.
 
 The kernels of the McICA path (B1, B2, B3, B3', B4's SW form and the
-cloud generator) and of the SPARTACUS path (B6-B9) are templates on
-their scalar type with a float and a double entry point, the double
-one's name ending in `_f64`:
+cloud generator), of the SPARTACUS path (B6-B9) and the aerosol optics
+(B12) are templates on their scalar type with a float and a double entry
+point, the double one's name ending in `_f64`:
 `launch(name, ..., dtype=)` picks the entry of the operands' dtype
 (`scalar` checks it) and counts
 `launch.<name>.f32` or `.f64` (hooks.count; ops/random_fields.py counts
@@ -72,6 +72,7 @@ _SIGS = {
     "threefry_fields": "piuuiiiipppp",
     "mcica_generator": "ppppppppp" "iiiiiii" "dddddd" "pp",
     "tc_sw_optics": "pppppppppp" "iiiiii" "pp",
+    "aerosol_optics": "p" * 22 + "i" * 13,
 }
 #: the kernels with a double form: its entry point, name + "_f64", takes
 #: the same arguments with double in place of float (its scalar
@@ -80,7 +81,8 @@ F64_FORMS = ("taumol_lw", "taumol_sw", "sw_adding", "lw_noscat",
              "lw_adding", "mcica_sw_optics", "mcica_generator",
              "spartacus_sw_reftrans_3d", "spartacus_sw_reftrans_fallback",
              "spartacus_lw_reftrans_3d", "spartacus_lw_reftrans_fallback",
-             "spartacus_sw_adding", "spartacus_lw_adding")
+             "spartacus_sw_adding", "spartacus_lw_adding",
+             "aerosol_optics")
 _SIGS.update({name + "_f64": _SIGS[name].replace("f", "d")
               for name in F64_FORMS})
 #: kernels with a float form only that are launched with dtype= all the
@@ -110,7 +112,8 @@ _INFO_SIGS = {"level_sweep_info": "ii",
               "gather_sections_info": "iiii",
               "threefry_fields_info": "i",
               "mcica_generator_info": "iii",
-              "tc_sw_optics_info": ""}
+              "tc_sw_optics_info": "",
+              "aerosol_optics_info": "i"}
 INFO_FIELDS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
                "threads", "blocks_per_sm", "sms")
 

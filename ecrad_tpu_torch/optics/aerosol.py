@@ -12,7 +12,9 @@ The JAX package sums over the types with one masked matrix product per
 humidity bin (an MXU form). Here each cell gathers its humidity bin's row
 of every type and the types are summed in order, as elementwise products:
 no matrix product, so TF32 cannot reach these sums whatever a caller set
-(a bf16 product here was a 1.2 W/m2 clear-sky SW error on the TPU).
+(a bf16 product here was a 1.2 W/m2 clear-sky SW error on the TPU). On
+the card kernel B12 (csrc/aerosol_optics.cu) does the whole LUT path in
+one launch, in the plain version's operation order.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 from ..config import RadiationConfig
 from ..constants import ACCEL_DUE_TO_GRAVITY, GAS_INDEX
 from ..io.netcdf import NetcdfFile
+from ..ops import aerosol_optics
 from .cloud import delta_eddington_extensive
 
 
@@ -112,8 +115,28 @@ def add_aerosol_optics(config: RadiationConfig, tabs: Dict[str, torch.Tensor],
                        aerosol, od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw):
     """Merge the aerosols into the per-g properties, each (ncol, nlev, ng)
     (radiation_aerosol_optics.F90:75-344). `tabs` is aerosol_tensors of
-    the setup, the band maps int64 tensors on the device. Returns (od_lw,
-    ssa_lw, g_lw, od_sw, ssa_sw, g_sw)."""
+    the setup, the band maps int tensors on the device (int32 on the
+    card: SpecTensors.band_sw32, band_lw32). Returns (od_lw, ssa_lw, g_lw,
+    od_sw, ssa_sw, g_sw). On the CPU, and for optics given per band, the
+    plain version; on the card the LUT path is kernel B12
+    (ops/aerosol_optics.py), which raises on what it does not take."""
+    if aerosol.od_sw is None and od_sw.device.type != "cpu":
+        return aerosol_optics.aerosol_optics_fused(
+            config, tabs, band_from_g_sw, band_from_g_lw, thermodynamics,
+            gas, aerosol, od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw)
+    return add_aerosol_optics_plain(
+        config, tabs, band_from_g_sw, band_from_g_lw, thermodynamics, gas,
+        aerosol, od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw)
+
+
+def add_aerosol_optics_plain(config: RadiationConfig,
+                             tabs: Dict[str, torch.Tensor], band_from_g_sw,
+                             band_from_g_lw, thermodynamics, gas, aerosol,
+                             od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw):
+    """add_aerosol_optics in PyTorch operations, on any device: the
+    saturation, humidity bin and layer mass, the type sums (_type_sum),
+    delta-Eddington and the merge into the per-g arrays, as kernel B12
+    computes them."""
     dev = od_sw.device
     b_sw, b_lw = band_from_g_sw, band_from_g_lw
     if aerosol.od_sw is not None:

@@ -110,7 +110,7 @@ def spec_from_arrays(band_lw, band_sw, g_lw=None, g_sw=None
 class SpecTensors(NamedTuple):
     """A GasOpticsSpec's maps on the device (built once by the setup):
     the band maps of the spec's g order as int64 indices and as the int32
-    that kernel B4 reads, the SW band map of the original g order, and
+    that kernels B4, B11 and B12 read, the SW band map of the original g order, and
     the g orders, None where the order is the identity."""
     band_lw: torch.Tensor              # band_from_reordered_g_lw
     band_sw: torch.Tensor              # band_from_reordered_g_sw

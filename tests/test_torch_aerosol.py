@@ -2,10 +2,13 @@
 
 optics/aerosol.py's setup (the LUT rows gathered per configured type) and
 add_aerosol_optics on the synthetic aerosol table of
-inputs.write_synthetic_luts and the aerosols of inputs.make_aerosols:
-both LW branches (scattering, and the absorption-only co-albedo form),
-SW with and without delta scaling of the aerosol alone, fewer and more
-types supplied than configured, and the direct per-band bypass. Bounds:
+inputs.write_synthetic_luts and the aerosols of inputs.make_aerosols, on
+the cases of aerosol_cases.py (each branch kernel B12 takes on the card:
+both LW branches, SW delta scaling of the aerosol alone or with the
+gases, fewer and more types supplied than configured, rows without
+aerosol, the saturation given or computed, humidities on the bins' edges,
+one level; and the direct per-band bypass). On CPU tensors
+add_aerosol_optics is its plain version and launches nothing. Bounds:
 float64 1e-12 of each field's range; float32 1e-5 of it (the JAX package
 sums over the types in a matrix product, the port in order).
 """
@@ -23,24 +26,19 @@ from ecrad_tpu.types import Aerosol as JAerosol
 from ecrad_tpu.types import GasConcs as JGasConcs
 from ecrad_tpu.types import Thermodynamics as JThermodynamics
 from ecrad_tpu_torch import config as pconfig
+from ecrad_tpu_torch.constants import GAS_INDEX
 from ecrad_tpu_torch.convert import setup_from_numpy
-from ecrad_tpu_torch.inputs import (make_aerosols, make_columns,
-                                    write_synthetic_luts)
+from ecrad_tpu_torch.inputs import make_columns, write_synthetic_luts
 from ecrad_tpu_torch.interface import setup_radiation
+from ecrad_tpu_torch.ops import _cuda
+from ecrad_tpu_torch.ops import aerosol_optics
 from ecrad_tpu_torch.optics import aerosol as paerosol
-from ecrad_tpu_torch.types import Aerosol, GasConcs, Thermodynamics
+from ecrad_tpu_torch.types import Thermodynamics
 
+import aerosol_cases as cases
 from test_torch_slice import _golden_tool
 
-NCOL, NLEV = 5, 16
-CASES = {
-    "lw_scattering": {},
-    "lw_absorption": dict(do_lw_aerosol_scattering=False),
-    "sw_delta_with_gases": dict(do_sw_delta_scaling_with_gases=True),
-    "ten_types_supplied": dict(ntypes=10),
-    "fourteen_types_supplied": dict(ntypes=14),
-    "direct": dict(direct=True),
-}
+NCOL, NLEV = cases.NCOL, cases.NLEV
 
 
 @pytest.fixture(scope="module")
@@ -48,36 +46,11 @@ def luts(tmp_path_factory):
     return write_synthetic_luts(str(tmp_path_factory.mktemp("luts")), 0)
 
 
-def _config(luts, **kw):
-    return pconfig.cloudless_slice_config(
-        **luts, use_aerosols=True,
-        n_aerosol_types=len(pconfig.TRIPLECLOUDS_AEROSOL_MAP),
-        i_aerosol_type_map=pconfig.TRIPLECLOUDS_AEROSOL_MAP, **kw)
-
-
-def _inputs(ntypes=12, direct=False):
-    rng = np.random.RandomState(3)
-    cols = make_aerosols(make_columns(NCOL, NLEV, 2), 2)
-    mmr = cols["aerosol_mmr"]
-    if ntypes > mmr.shape[-1]:
-        mmr = np.concatenate([mmr, mmr[..., :ntypes - mmr.shape[-1]]], -1)
-    x = dict(pressure_hl=cols["pressure_hl"],
-             temperature_hl=cols["temperature_hl"],
-             mixing_ratio=cols["mixing_ratio"], aerosol_mmr=mmr[..., :ntypes],
-             od_lw=rng.uniform(0, 3, (NCOL, NLEV, 140)),
-             ssa_lw=rng.uniform(0, 0.3, (NCOL, NLEV, 140)),
-             g_lw=rng.uniform(0, 0.5, (NCOL, NLEV, 140)),
-             od_sw=rng.uniform(0, 3, (NCOL, NLEV, 112)),
-             ssa_sw=rng.uniform(0.2, 1, (NCOL, NLEV, 112)),
-             g_sw=np.zeros((NCOL, NLEV, 112)))
-    x["od_sw"][0, :4] = 0.0               # layers without gas extinction
-    if direct:
-        x["direct"] = dict(od_sw=rng.uniform(0, 0.2, (NCOL, NLEV, 14)),
-                           ssa_sw=rng.uniform(0.8, 1, (NCOL, NLEV, 14)),
-                           g_sw=rng.uniform(0.5, 0.8, (NCOL, NLEV, 14)),
-                           od_lw=rng.uniform(0, 0.05, (NCOL, NLEV, 16)),
-                           ssa_lw=rng.uniform(0.1, 0.6, (NCOL, NLEV, 16)))
-    return x
+def _case(luts, case):
+    """(configuration, numpy inputs) of cases.CASES[case]."""
+    overrides, kw = cases.split(case)
+    return (cases.config(luts, **overrides),
+            cases.inputs(**kw, rh_lower=cases.rh_edges(luts)))
 
 
 def _jax(cfg, x, dtype):
@@ -94,45 +67,30 @@ def _jax(cfg, x, dtype):
         aer = JAerosol(mixing_ratio=j("aerosol_mmr"),
                        **{k: jnp.asarray(v, dtype)
                           for k, v in x.get("direct", {}).items()})
+        sat = j("h2o_sat_liq") if "h2o_sat_liq" in x else None
         out = jaerosol.add_aerosol_optics(
             setup, JThermodynamics(pressure_hl=j("pressure_hl"),
-                                   temperature_hl=j("temperature_hl")),
+                                   temperature_hl=j("temperature_hl"),
+                                   h2o_sat_liq=sat),
             JGasConcs(mixing_ratio=j("mixing_ratio")), aer,
-            *(j(k) for k in ("od_lw", "ssa_lw", "g_lw", "od_sw", "ssa_sw",
-                             "g_sw")))
+            *(j(k) for k in cases.FIELDS))
         return [np.asarray(v) for v in out]
 
 
 def _port(cfg, x, dtype):
-    setup = setup_radiation(dataclasses.replace(cfg, dtype=dtype),
-                            device="cpu")
-    t = lambda v: torch.as_tensor(v, dtype=getattr(torch, dtype))
-    aer = Aerosol(mixing_ratio=t(x["aerosol_mmr"]),
-                  **{k: t(v) for k, v in x.get("direct", {}).items()})
-    out = paerosol.add_aerosol_optics(
-        setup.config, setup.aerosol_coeffs,
-        torch.as_tensor(setup.spec.band_from_g_sw),
-        torch.as_tensor(setup.spec.band_from_g_lw),
-        Thermodynamics(pressure_hl=t(x["pressure_hl"]),
-                       temperature_hl=t(x["temperature_hl"])),
-        GasConcs(mixing_ratio=t(x["mixing_ratio"])), aer,
-        *(t(x[k]) for k in ("od_lw", "ssa_lw", "g_lw", "od_sw", "ssa_sw",
-                            "g_sw")))
-    return [v.numpy() for v in out]
+    _, args = cases.port_args(cfg, x, dtype, "cpu")
+    return [v.numpy() for v in paerosol.add_aerosol_optics(*args)]
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(cases.CASES))
 def test_add_aerosol_optics_matches_jax(luts, case, dtype):
-    kw = dict(CASES[case])
-    x = _inputs(kw.pop("ntypes", 12), kw.pop("direct", False))
-    cfg = _config(luts, **kw)
+    cfg, x = _case(luts, case)
     ref = _jax(cfg, x, dtype)
     got = _port(cfg, x, dtype)
     tol = 1e-12 if dtype == "float64" else 1e-5
-    names = ("od_lw", "ssa_lw", "g_lw", "od_sw", "ssa_sw", "g_sw")
     bad = {}
-    for name, a, b in zip(names, got, ref):
+    for name, a, b in zip(cases.FIELDS, got, ref):
         assert a.dtype == np.dtype(dtype) and a.shape == b.shape, name
         rel = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
         if rel > tol:
@@ -140,12 +98,55 @@ def test_add_aerosol_optics_matches_jax(luts, case, dtype):
     assert not bad, bad
 
 
+@pytest.mark.parametrize("case", ["rows_without_aerosol",
+                                  "humidity_bin_edges"])
+def test_the_cases_reach_their_branches(luts, case):
+    """rows_without_aerosol leaves its clean rows' SW and LW properties
+    as they came (has_aer false); humidity_bin_edges puts cells in every
+    humidity bin, a value on each edge staying below it."""
+    cfg, x = _case(luts, case)
+    od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw = _port(cfg, x, "float64")
+    if case == "rows_without_aerosol":
+        for got, name in zip((od_lw, ssa_lw, g_lw, od_sw, ssa_sw, g_sw),
+                             cases.FIELDS):
+            np.testing.assert_array_equal(got[0, :3], x[name][0, :3])
+            np.testing.assert_array_equal(got[-1, -1], x[name][-1, -1])
+        assert (od_sw[1] != x["od_sw"][1]).all()
+    else:
+        rh = x["mixing_ratio"][:, :, GAS_INDEX["h2o"]].ravel()
+        edges = cases.rh_edges(luts)
+        irh = (rh[:, None] > edges[1:]).sum(-1)
+        assert set(irh) == set(range(len(edges)))
+        on_edge = np.isin(rh, edges)
+        assert on_edge.sum() >= len(edges)
+        # a value on edge k > 0 stays in bin k - 1
+        np.testing.assert_array_equal(irh[on_edge], np.maximum(
+            np.searchsorted(edges, rh[on_edge]) - 1, 0))
+
+
+def test_on_cpu_tensors_nothing_is_launched(luts, monkeypatch):
+    """add_aerosol_optics on CPU tensors takes the plain version: kernel
+    B12 is not launched and its count does not move; the kernel's wrapper
+    itself refuses CPU tensors."""
+    def refuse(*args, **kw):
+        raise AssertionError("launched")
+    monkeypatch.setattr(_cuda, "launch", refuse)
+    n0 = aerosol_optics.launches["aerosol_optics"]
+    cfg, x = _case(luts, "lw_scattering")
+    _, args = cases.port_args(cfg, x, "float32", "cpu", int32=True)
+    got = paerosol.add_aerosol_optics(*args)
+    want = paerosol.add_aerosol_optics_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert aerosol_optics.launches["aerosol_optics"] == n0
+    with pytest.raises(ValueError, match="CUDA"):
+        aerosol_optics.aerosol_optics_fused(*args)
+
+
 def test_aerosols_add_optical_depth(luts):
     """The aerosols add extinction to every g-point of the cells that
     hold them, of order 0.1 in the mid-visible summed over a column, and
     scatter in the SW more than in the LW."""
-    x = _inputs()
-    cfg = _config(luts)
+    cfg, x = _case(luts, "lw_scattering")
     od_lw, ssa_lw, _, od_sw, ssa_sw, g_sw = _port(cfg, x, "float64")
     d_sw = od_sw - x["od_sw"]
     assert (d_sw > 0).all() and (od_lw - x["od_lw"] > 0).all()
@@ -172,7 +173,7 @@ def test_saturation_matches_jax():
 def test_setup_carries_the_jax_aerosol_tables(luts):
     """The aerosol setup reads the table as the JAX package does, and a
     JAX setup's tables cross over through setup_from_numpy."""
-    cfg = _config(luts)
+    cfg = cases.config(luts)
     js = _golden_tool().jax_config(cfg, "float32").consolidated()
     jtab = jaerosol.setup_aerosol_optics(js)
     ours = setup_radiation(cfg, device="cpu")

@@ -17,7 +17,8 @@ tau > 1e-6, pfrac atol 1e-6), B3/B3'/B5 its fused-sweep bound (2e-6 of
 the range), B4 its McICA-optics bounds (tests/test_mcica_optics.py: SW 2e-3,
 LW 1e-4 of the range), B6-B9 its SPARTACUS kernel-vs-fallback bound (2e-5
 of the plain output's largest value, tools/check_kernel_equivalence.py),
-B10 its gather-interp bound (5e-6 of the largest value, the same tool).
+B10 its gather-interp bound (5e-6 of the largest value, the same tool),
+B12 (the aerosol optics) bit for bit in float32 and float64.
 The kernels build with -fmad=false, so only summation order separates
 them from the plain versions. The double forms of B1-B4 (the float64
 path's) against their plain versions in float64 on the path's operands
@@ -45,17 +46,19 @@ from ecrad_tpu_torch.inputs import (add_effective_sizes, make_aerosols,
                                     write_synthetic_luts)
 from ecrad_tpu_torch.interface import (_cloud_stage, radiation,
                                        setup_radiation)
-from ecrad_tpu_torch.ops import (adding_fused, gather_interp,
-                                 mcica_generator, mcica_optics,
-                                 spartacus_adding, spartacus_reftrans,
-                                 tc_optics)
+from ecrad_tpu_torch.ops import (adding_fused, aerosol_optics,
+                                 gather_interp, mcica_generator,
+                                 mcica_optics, spartacus_adding,
+                                 spartacus_reftrans, tc_optics)
 from ecrad_tpu_torch.ops import random_fields as fields
+from ecrad_tpu_torch.optics import aerosol as aerosol_module
 from ecrad_tpu_torch.optics.rrtmg import taumol_lw, taumol_sw
 from ecrad_tpu_torch.optics.rrtmg.setcoef import prepare_gases, setcoef
 from ecrad_tpu_torch.solvers import adding, tripleclouds
 from ecrad_tpu_torch.solvers.cloud_generator import cloud_generator_plain
 from ecrad_tpu_torch.utils import hooks
 
+import aerosol_cases as aer_cases
 import test_torch_mcica_generator as gen_cases
 import test_torch_tc_optics as tc_cases
 
@@ -620,7 +623,7 @@ def _reset_counts():
     for d in (adding_fused.launches, mcica_optics.launches,
               spartacus_reftrans.launches, spartacus_adding.launches,
               gather_interp.launches, gather_interp.copies,
-              tc_optics.launches):
+              tc_optics.launches, aerosol_optics.launches):
         for k in d:
             d[k] = 0
 
@@ -643,6 +646,7 @@ def test_slice_launches_every_kernel(slice_state):
                                      "tc_lw_sweeps": 0}
     assert mcica_optics.launches == {"mcica_sw_optics": 0,
                                      "mcica_lw_optics": 0}
+    assert aerosol_optics.launches == {"aerosol_optics": 0}
     for k, v in flux.fields():
         assert bool(torch.isfinite(v).all()), k
     # the same columns through the plain path on the CPU
@@ -699,8 +703,10 @@ def test_mcica_path_launches_its_kernels(cuda, tmp_path, variant):
                                          "tc_lw_sweeps": 0}
         assert mcica_optics.launches == {"mcica_sw_optics": 1,
                                          "mcica_lw_optics": 1}
-    # the random fields and the generator of the SW and the LW call
+    # the random fields and the generator of the SW and the LW call; no
+    # aerosols in these columns
     assert fields.launches == 2 and mcica_generator.launches == 2
+    assert aerosol_optics.launches == {"aerosol_optics": 0}
     for k, v in flux.fields():
         assert bool(torch.isfinite(v).all()), k
     setup_cpu = setup_radiation(cfg, device="cpu")
@@ -940,6 +946,9 @@ def test_tripleclouds_and_homogeneous_paths_launch_their_kernels(
         "tc_sw_sweeps": n_tc, "tc_lw_sweeps": n_tc}
     # Tripleclouds' SW layer optics, regions and clear sky: one B11 launch
     assert tc_optics.launches == {"tc_sw_optics": n_tc}
+    # the aerosol optics, both spectra: one B12 launch where configured
+    assert aerosol_optics.launches == {"aerosol_optics": int(
+        cfg.use_aerosols)}
     cpu = radiation(setup_radiation(cfg, device="cpu"), *_to_cpu(inputs))
     for k, v in flux.fields():
         assert bool(torch.isfinite(v).all()), k
@@ -950,6 +959,147 @@ def test_tripleclouds_and_homogeneous_paths_launch_their_kernels(
                      (False, True): 0.02, (False, False): 0.3}[
                 ("clear" in k, k.startswith("lw"))]
         assert float((v.cpu() - getattr(cpu, k)).abs().max()) <= bound, k
+
+
+# ---- B12: the aerosol optics ----
+
+@pytest.fixture(scope="module")
+def aer_luts(tmp_path_factory):
+    return write_synthetic_luts(str(tmp_path_factory.mktemp("aer_luts")), 0)
+
+
+def _b12_args(luts, case, dtype, device, **kw):
+    """add_aerosol_optics' arguments on aerosol_cases' case, with the
+    card's int32 band maps; kw overrides the case's inputs (ncol, nlev,
+    ng_sw, ng_lw, seed)."""
+    overrides, inputs_kw = aer_cases.split(case)
+    inputs_kw = {**inputs_kw, **kw}
+    x = aer_cases.inputs(**inputs_kw, rh_lower=aer_cases.rh_edges(luts))
+    cfg = aer_cases.config(luts, **overrides)
+    return list(aer_cases.port_args(cfg, x, dtype, device, int32=True)[1])
+
+
+def _b12_equal(args):
+    """B12 through add_aerosol_optics, one launch, against the plain
+    version on the same arguments: every output bit for bit, fresh and
+    contiguous where the kernel writes it."""
+    n0 = aerosol_optics.launches["aerosol_optics"]
+    got = aerosol_module.add_aerosol_optics(*args)
+    torch.cuda.synchronize()
+    assert aerosol_optics.launches["aerosol_optics"] == n0 + 1
+    want = aerosol_module.add_aerosol_optics_plain(*args)
+    for name, a, b in zip(aer_cases.FIELDS, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert a.is_contiguous(), name
+        assert torch.equal(a, b), (
+            name, int((a != b).sum()),
+            float(((a - b).abs() / b.abs().clamp(min=1e-30)).max()))
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", [c for c in aer_cases.CASES
+                                  if c != "direct"])
+def test_b12_kernel_matches_plain(cuda, aer_luts, case, dtype):
+    """B12 against its plain version on the card on every aerosol_cases
+    branch (LW scattering on and off, SW delta scaling of the aerosol
+    alone or with the gases, 10 and 14 types for 12 configured, rows
+    without aerosol, the saturation given, humidities on the bins' edges,
+    one level) at 37 columns, no multiple of its 32-row blocks: bit for
+    bit (-fmad=false; CUDA's exp and division on both sides)."""
+    _b12_equal(_b12_args(aer_luts, case, dtype, cuda, ncol=37))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", ["lw_scattering", "saturation_given"])
+def test_b12_at_the_cells_size(cuda, aer_luts, case, dtype):
+    """2048 x 137, the cells' shape, with the saturation computed (as the
+    cells run it) and given."""
+    _b12_equal(_b12_args(aer_luts, case, dtype, cuda, ncol=2048, nlev=137))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("layout", ["odd_g", "unaligned", "band_clear"])
+def test_b12_other_layouts(cuda, aer_luts, layout, dtype):
+    """The kernel's branches the cells do not take: g counts that are no
+    multiple of a 16-byte run (15 SW, 17 LW g-points, random band maps)
+    and per-g operands 4 or 8 bytes past a 16-byte boundary (one value a
+    thread), and an LW band whose table holds no aerosol (per g, some
+    runs mixed), each bit for bit against the plain version."""
+    if layout == "odd_g":
+        args = _b12_args(aer_luts, "lw_scattering", dtype, cuda, ncol=37,
+                         ng_sw=15, ng_lw=17)
+        gen = torch.Generator().manual_seed(5)
+        args[2] = torch.randint(0, 14, (15,), generator=gen,
+                                dtype=torch.int32).to(cuda)
+        args[3] = torch.randint(0, 16, (17,), generator=gen,
+                                dtype=torch.int32).to(cuda)
+    else:
+        args = _b12_args(aer_luts, "lw_scattering", dtype, cuda, ncol=37)
+    if layout == "unaligned":
+        for i in range(7, 13):
+            x = args[i]
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+            args[i] = buf[1:].view(x.shape).copy_(x)
+            assert args[i].data_ptr() % 16 != 0
+    if layout == "band_clear":
+        tabs = dict(args[1])
+        lw = tabs["lw"].clone()
+        lw[..., 3::16] = 0.0                     # band 3's three columns
+        tabs["lw"] = lw
+        args[1] = tabs
+    _b12_equal(args)
+
+
+def test_b12_resources(cuda):
+    """B12's launches at the cells' shapes: 256 threads, the rows' band
+    values and the band maps in dynamic shared memory (about 12 KB in
+    float, 24 KB in double), the blocks per SM its launch bounds ask for
+    (6 in float, 4 in double), and no spills in its 16-byte forms (the
+    compiler's report)."""
+    from ecrad_tpu_torch.ops import _cuda
+    for f64, size, blocks in ((0, 4, 6), (1, 8, 4)):
+        k = _cuda.kernel_info("aerosol_optics_info", f64)
+        assert k["threads"] == 256, k
+        assert k["dynamic_smem"] == (size * 32 * (3 * 14 + 3 * 16 + 1)
+                                     + 4 * (32 + 112 + 140)), k
+        assert k["blocks_per_sm"] >= blocks, k
+    hits = [v for name, v in _cuda.ptxas_report().items()
+            if "aerosol_optics_kernel" in name
+            and ("IfLi4E" in name or "IdLi2E" in name)]
+    assert len(hits) == 2
+    assert all(h["spill_stores"] == 0 and h["spill_loads"] == 0
+               for h in hits), hits
+
+
+def test_b12_refuses_what_it_does_not_take(cuda, aer_luts):
+    """The wrapper refuses CPU operands, half precision, mixed dtypes,
+    a wrong shape, a strided operand and an int64 band map, before any
+    launch; optics given per band stay with the plain version (no
+    launch)."""
+    args = _b12_args(aer_luts, "lw_scattering", "float32", cuda, ncol=5,
+                     nlev=6)
+    th, gas = args[4], args[5]
+    strided = args[10].transpose(0, 1).contiguous().transpose(0, 1)
+    n0 = aerosol_optics.launches["aerosol_optics"]
+    for at, bad, err in (
+            (10, args[10].cpu(), ValueError),             # a CPU operand
+            (10, args[10].half(), TypeError),             # half precision
+            (11, args[11].double(), TypeError),           # mixed dtypes
+            (7, args[7][:, :, :139].contiguous(), ValueError),   # shape
+            (10, strided, ValueError),                    # strided
+            (2, args[2].long(), TypeError),               # int64 map
+            (4, th.replace(pressure_hl=th.pressure_hl[:, :-1]), ValueError),
+            (5, gas.replace(mixing_ratio=gas.mixing_ratio.transpose(
+                0, 1).contiguous().transpose(0, 1)), ValueError)):
+        call = list(args)
+        call[at] = bad
+        with pytest.raises(err):
+            aerosol_optics.aerosol_optics_fused(*call)
+    assert aerosol_optics.launches["aerosol_optics"] == n0
+    direct = _b12_args(aer_luts, "direct", "float32", cuda, ncol=5)
+    aerosol_module.add_aerosol_optics(*direct)
+    assert aerosol_optics.launches["aerosol_optics"] == n0
 
 
 # ---- SPARTACUS: B6, B7, B8, B9 ----
@@ -1370,14 +1520,14 @@ def test_spartacus_double_forms_resources(cuda, nreg):
 
 
 # the float64 SPARTACUS call's launches: B1, B2, B3 sw_adding and B3'
-# lw_adding for the clear sky, both passes of B6 and B7, B8 and B9, once
-# each and all in their double forms
+# lw_adding for the clear sky, both passes of B6 and B7, B8 and B9, and
+# B12 (the aerosol optics), once each and all in their double forms
 SPARTACUS_F64_LAUNCHES = {
     f"launch.{k}.f64": 1 for k in (
         "taumol_lw", "taumol_sw", "sw_adding", "lw_adding",
         "spartacus_sw_reftrans_3d", "spartacus_sw_reftrans_fallback",
         "spartacus_lw_reftrans_3d", "spartacus_lw_reftrans_fallback",
-        "spartacus_sw_adding", "spartacus_lw_adding")}
+        "spartacus_sw_adding", "spartacus_lw_adding", "aerosol_optics")}
 
 
 def test_float64_spartacus_call_on_the_card(cuda, tmp_path, monkeypatch):
@@ -1449,6 +1599,8 @@ def test_spartacus_path_launches_its_kernels(cuda, tmp_path, variant):
                                            "spartacus_lw_reftrans": 1}
     assert spartacus_adding.launches == {"spartacus_sw_adding": 1,
                                          "spartacus_lw_adding": 1}
+    assert aerosol_optics.launches == {"aerosol_optics": int(
+        cfg.use_aerosols)}
     cpu = radiation(setup_radiation(cfg, device="cpu"), *_to_cpu(inputs))
     for k, v in flux.fields():
         assert bool(torch.isfinite(v).all()), k
@@ -2067,8 +2219,8 @@ def test_double_forms_resources(cuda):
 def test_float64_mcica_call_on_the_card(cuda, tmp_path, monkeypatch):
     """The whole float64 McICA call (the cells' configuration) on 96 x 137
     columns: B1, B2, B3 (SW twice, LW once), B3', B4's SW form, the
-    generator's random fields and the generator (twice each) each
-    launched in its double form and
+    generator's random fields and the generator (twice each) and B12 (the
+    aerosol optics) each launched in its double form and
     nothing in float (the hooks' launch.<kernel>.<dtype> counters), no
     layer plain on the card, every
     output float64 and within 1e-9 of each field's largest value of the
@@ -2089,7 +2241,8 @@ def test_float64_mcica_call_on_the_card(cuda, tmp_path, monkeypatch):
         "launch.taumol_lw.f64": 1, "launch.taumol_sw.f64": 1,
         "launch.sw_adding.f64": 2, "launch.lw_noscat.f64": 1,
         "launch.lw_adding.f64": 1, "launch.mcica_sw_optics.f64": 1,
-        "launch.threefry_fields.f64": 2, "launch.mcica_generator.f64": 2}
+        "launch.threefry_fields.f64": 2, "launch.mcica_generator.f64": 2,
+        "launch.aerosol_optics.f64": 1}
     assert not [k for k in counts if k.startswith("plain_on_device.")]
     cpu = radiation(setup_radiation(cfg, device="cpu"),
                     *columns_to_inputs(cols, device="cpu"))

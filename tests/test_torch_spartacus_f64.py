@@ -2,8 +2,10 @@
 SPARTACUS path's), checked on the CPU without a card.
 
 - `_cuda.launch(name, ..., dtype=torch.float64)` takes each new `_f64`
-  entry point, its scalar arguments as doubles, and counts
-  `launch.<name>.f64`; float32 takes the float entry and counts `.f32`.
+  entry point (B6-B9's, and B12's, the aerosol optics, which the float64
+  SPARTACUS call launches too), its scalar arguments as doubles, and
+  counts `launch.<name>.f64`; float32 takes the float entry and counts
+  `.f32`. B12's wrapper launches the form of its operands' dtype.
 - Each wrapper of B6-B9 (ops/spartacus_reftrans.py, spartacus_adding.py)
   handed float64 operands launches its passes' double forms alone and
   allocates its outputs, staging and scratch in float64; float32 ones the
@@ -34,9 +36,12 @@ from ecrad_tpu_torch.inputs import (add_effective_sizes, make_aerosols,
                                     write_synthetic_luts)
 from ecrad_tpu_torch.interface import radiation, setup_radiation
 from ecrad_tpu_torch.ops import _cuda
+from ecrad_tpu_torch.ops import aerosol_optics as ao
 from ecrad_tpu_torch.ops import spartacus_adding as sa
 from ecrad_tpu_torch.ops import spartacus_reftrans as sr
 from ecrad_tpu_torch.utils import hooks
+
+import aerosol_cases as aer_cases
 
 NEW = ("spartacus_sw_reftrans_3d", "spartacus_sw_reftrans_fallback",
        "spartacus_lw_reftrans_3d", "spartacus_lw_reftrans_fallback",
@@ -72,7 +77,7 @@ def library(monkeypatch):
 
 @pytest.mark.parametrize("dtype, suffix, tag", [
     (torch.float32, "", "f32"), (torch.float64, "_f64", "f64")])
-@pytest.mark.parametrize("name", NEW)
+@pytest.mark.parametrize("name", NEW + ("aerosol_optics",))
 def test_launch_takes_each_double_entry_and_counts_it(library, name, dtype,
                                                       suffix, tag):
     sig = _cuda._SIGS[name]
@@ -160,6 +165,29 @@ def test_the_wrappers_launch_the_form_of_their_dtype(library, monkeypatch,
         floats = [a for a in args if isinstance(a, torch.Tensor)
                   and a.is_floating_point()]
         assert floats and all(a.dtype == want for a in floats)
+
+
+@pytest.mark.parametrize("dtype, tag", [("float32", "f32"),
+                                        ("float64", "f64")])
+def test_the_aerosol_kernel_launches_the_form_of_its_dtype(
+        library, tmp_path, dtype, tag):
+    """Kernel B12's wrapper (ops/aerosol_optics.py), handed one float
+    dtype, calls that dtype's entry point once, counts
+    `launch.aerosol_optics.<f32|f64>`, and returns its six outputs in that
+    dtype: so a float64 SPARTACUS or McICA call on the card launches B12
+    in its double form, one `.f64` launch more than its solver's."""
+    luts = write_synthetic_luts(str(tmp_path), 0)
+    x = aer_cases.inputs(ncol=3, nlev=4)
+    _, args = aer_cases.port_args(aer_cases.config(luts), x, dtype, "cpu",
+                                  int32=True)
+    hooks.enable(True)
+    out = ao.aerosol_optics_fused(*args)
+    hooks.enable(False)
+    suffix = "_f64" if tag == "f64" else ""
+    assert [n for n, _ in library] == ["aerosol_optics" + suffix]
+    assert hooks.counters() == {f"launch.aerosol_optics.{tag}": 1}
+    assert len(out) == 6
+    assert all(o.dtype == getattr(torch, dtype) for o in out)
 
 
 @pytest.mark.parametrize("kernel", ["B6", "B7", "B8", "B9"])

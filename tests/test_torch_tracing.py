@@ -19,8 +19,8 @@ warnings equal the sync counters, and the sites left are the level
 orientation and float32 SW layer optics' resonance window outside
 kernels B4 and B11; McICA's random fields and generator are two kernel
 launches each and no sync, Tripleclouds' SW layer optics one launch
-of B11, and SPARTACUS's adding sweeps (B8, B9) two `ecrad.sweeps` spans
-beside the clear sky's.
+of B11, every kind's aerosol optics one launch of B12, and SPARTACUS's
+adding sweeps (B8, B9) two `ecrad.sweeps` spans beside the clear sky's.
 The file imports no jax; on the card:
 
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_tracing.py
@@ -275,6 +275,9 @@ def test_every_sync_of_a_call_is_counted(kind, tmp_path):
     assert counts.get("launch.mcica_generator.f32", 0) == calls
     assert counts.get("launch.tc_sw_optics.f32", 0) == int(
         kind == "tripleclouds")
+    # the aerosol optics of both spectra: one launch of B12 a call, in
+    # every solver kind
+    assert counts.get("launch.aerosol_optics.f32", 0) == 1
     assert "sync.upload.threefry" not in counts
     assert "sync.cover_merge" not in counts
     assert "cloud_cover.merge_passes" not in counts
@@ -404,6 +407,9 @@ def test_the_dtype_check_takes_float32_and_float64_only():
         _cuda.scalar(torch.zeros(2, dtype=torch.float64), "x")
     assert set(_cuda._DTYPES) == {torch.float32, torch.float64}
     assert {n + "_f64" for n in _cuda.F64_FORMS} <= set(_cuda._SIGS)
+    # B12, the aerosol optics, has both forms; B11 the float form alone
+    assert "aerosol_optics" in _cuda.F64_FORMS
+    assert "tc_sw_optics" not in _cuda.F64_FORMS
     for n in _cuda.F64_FORMS:
         assert _cuda._SIGS[n + "_f64"] == _cuda._SIGS[n].replace("f", "d")
         assert "f" not in _cuda._SIGS[n + "_f64"]
